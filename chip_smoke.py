@@ -1,0 +1,386 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (hyperspace_tpu_torch).
+
+Run from the root of a checkout, on a machine with one NVIDIA GPU and the
+CUDA toolkit:
+
+    python3 chip_smoke.py [--rows N]
+
+Phases, each of which raises (and so exits non-zero) on any failed check:
+
+1. device facts: the card's name, and its name and power limit from
+   nvidia-smi;
+2. kernel build: nvcc compiles every CUDA source of hyperspace_tpu_torch/ops/
+   csrc/ into build/kernels/, in parallel;
+3. kernel phase: each CUDA kernel against its plain PyTorch version on the
+   card, over several sizes, group counts and measure counts: counts exact,
+   sums within relative 1e-4, two launches bit-identical; then each
+   kernel's time at the main path's padded size, beside its bound and the
+   plain version's time;
+4. end-to-end phase: TPC-H lineitem at SF10 (60M rows, seed 42) written as
+   parquet, the covering index li_shipdate built over it, and the queries
+   q6, q6_count, q6_sum, q1 and q1_sums run through the normal API with
+   Hyperspace enabled. Each must read the index, run on the device tier,
+   launch its kernel where it has one, match the host executor over the raw
+   source with Hyperspace and the device tier off, and upload nothing on a
+   warm run.
+
+The last lines are the kernels line, the card's name and power limit, and
+the result. Details go to chiprun_out/chip_smoke.json. The data lives in
+build/chip_smoke/ and is removed at the end.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+SF10_ROWS = 60_000_000  # TPC-H SF10: 6M lineitem rows per scale factor
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published HBM3 rate
+F32_OPS_PER_S = 67e12  # H100 SXM, published f32 rate outside the tensor cores
+REL_TOL = 1e-4  # f32 sums, as tests/test_pallas_and_dist.py holds the reference
+SEED = 42  # bench.py's TPC-H seed
+WARM_RUNS = 5
+KERNEL_REPS = 25
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+DATA_DIR = os.path.join(ROOT, "build", "chip_smoke")
+
+# which kernel each query's fragment must launch on the main path
+EXPECTED_KERNEL = {
+    "q6": None,
+    "q6_count": "filter_weighted_sum",
+    "q6_sum": "filter_sum",
+    "q1": None,
+    "q1_sums": "filter_grouped_multi_sum",
+}
+KERNEL_ROWS = {
+    "filter_weighted_sum": ("hyperspace_tpu_torch/ops/csrc/filter_reduce.cu",
+                            "hyperspace_tpu/ops/pallas_kernels.py:83"),
+    "filter_sum": ("hyperspace_tpu_torch/ops/csrc/filter_reduce.cu",
+                   "hyperspace_tpu/ops/pallas_kernels.py:119"),
+    "filter_grouped_multi_sum": ("hyperspace_tpu_torch/ops/csrc/grouped_sum.cu",
+                                 "hyperspace_tpu/ops/pallas_kernels.py:198"),
+}
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def rel_err(got: float, want: float) -> float:
+    return 0.0 if got == want else abs(got - want) / max(abs(want), 1e-30)
+
+
+def log(obj) -> None:
+    print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+
+
+def time_ms(torch, fn, reps: int = KERNEL_REPS, warmup: int = 3) -> float:
+    """Median of per-call CUDA-event times after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# kernel phase
+# ---------------------------------------------------------------------------
+
+def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str) -> dict:
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    results = {name: {"max_abs_err": 0.0, "checks": 0} for name in KERNEL_ROWS}
+
+    def inputs(n: int, k: int, seed: int):
+        gen.manual_seed(seed)
+        pred = torch.rand(n, generator=gen, device=dev) < 0.3
+        xs = [torch.rand(n, generator=gen, device=dev) * 1000 for _ in range(k)]
+        gids = torch.randint(0, K.MAX_GROUPS, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        return pred, xs, gids
+
+    def compare(name, got, again, want, what):
+        (gs, gc), (as_, ac), (ws, wc) = got, again, want
+        for a, b in zip(gs, as_):
+            require(torch.equal(a, b), f"{name} {what}: repeat launch differs")
+        require(torch.equal(gc, ac), f"{name} {what}: repeat launch counts differ")
+        require(torch.equal(gc.cpu(), wc.cpu()), f"{name} {what}: counts differ from plain")
+        for a, b in zip(gs, ws):
+            for x, y in zip(a.reshape(-1).tolist(), b.reshape(-1).tolist()):
+                require(math.isfinite(x), f"{name} {what}: non-finite sum")
+                require(rel_err(x, y) <= REL_TOL,
+                        f"{name} {what}: sum {x} vs plain {y}")
+                r = results[name]
+                r["max_abs_err"] = max(r["max_abs_err"], abs(x - y))
+        results[name]["checks"] += 1
+
+    for n in sizes:
+        pred, (x, y), _g = inputs(n, 2, n)
+        for name, args in (("filter_weighted_sum", (pred, x, y)), ("filter_sum", (pred, x))):
+            got = getattr(K, name)(*args)
+            again = getattr(K, name)(*args)
+            want = getattr(R, name)(*args)
+            compare(name, ((got[0],), got[1]), ((again[0],), again[1]),
+                    ((want[0],), want[1]), f"n={n}")
+        for groups in (1, 4, 16):
+            for k in (0, 1, 3):
+                pred, xs, gids = inputs(n, k, 1000 * n + 10 * groups + k)
+                got = K.filter_grouped_multi_sum(pred, gids, xs, groups)
+                again = K.filter_grouped_multi_sum(pred, gids, xs, groups)
+                want = R.filter_grouped_multi_sum(pred, gids, xs, groups)
+                compare("filter_grouped_multi_sum", got, again, want,
+                        f"n={n} G={groups} k={k}")
+    torch.cuda.synchronize()
+
+    # times at the main path's padded size; the grouped kernel at q1_sums'
+    # shape (3 float sums over 16 group slots)
+    n = timed_n
+    pred, xs, gids = inputs(n, 3, 7)
+    cases = {
+        "filter_weighted_sum": (lambda: K.filter_weighted_sum(pred, xs[0], xs[1]),
+                                lambda: R.filter_weighted_sum(pred, xs[0], xs[1]),
+                                n * (1 + 4 + 4), 3 * n),
+        "filter_sum": (lambda: K.filter_sum(pred, xs[0]),
+                       lambda: R.filter_sum(pred, xs[0]),
+                       n * (1 + 4), 2 * n),
+        "filter_grouped_multi_sum": (
+            lambda: K.filter_grouped_multi_sum(pred, gids, xs, 16),
+            lambda: R.filter_grouped_multi_sum(pred, gids, xs, 16),
+            n * (1 + 4 + 4 * 3), n * 16 * (1 + 3)),
+    }
+    for name, (kern, plain, nbytes, ops) in cases.items():
+        r = results[name]
+        r["ms"] = time_ms(torch, kern)
+        r["plain_ms"] = time_ms(torch, plain)
+        r["bytes"] = nbytes
+        r["ops"] = ops
+        r["timed_n"] = n
+        # the larger of: inputs read once over the HBM rate, and the f32
+        # operations (multiplies, selects, adds) over the f32 peak
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        r["bound_ms"] = max(bytes_ms, ops_ms)
+        r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        # no single PyTorch call computes (masked sum, count) from (pred, x)
+        r["library_ms"] = None
+        log({"kernel": name, "card": card, "n": n, "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "plain": f"hyperspace_tpu_torch/ops/reference.py:{name}",
+             "bytes": nbytes, "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "checks": r["checks"], "max_abs_err": r["max_abs_err"]})
+    return results
+
+
+# ---------------------------------------------------------------------------
+# end-to-end phase
+# ---------------------------------------------------------------------------
+
+def compare_batches(q: str, got: dict, want: dict) -> None:
+    require(list(got) == list(want), f"{q}: columns {list(got)} vs {list(want)}")
+    for name in want:
+        g, w = list(got[name]), list(want[name])
+        require(len(g) == len(w), f"{q}.{name}: {len(g)} rows vs {len(w)}")
+        for a, b in zip(g, w):
+            if isinstance(b, float):
+                require(a is not None and math.isfinite(a), f"{q}.{name}: {a}")
+                require(rel_err(float(a), b) <= REL_TOL, f"{q}.{name}: {a} vs {b}")
+            else:  # counts and group keys: exact, in the same row order
+                require(a == b, f"{q}.{name}: {a!r} vs {b!r}")
+
+
+def _floats(d: dict) -> dict:
+    return {k: [v.item() if hasattr(v, "item") else v for v in vals] for k, vals in d.items()}
+
+
+def profile_warm_run(torch, run, label: str) -> dict:
+    """One warm run under torch.profiler: wall time, the card's kernel time,
+    and their ratio (the device's busy share of the query)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device activity (kernels, copies, memsets) on the one stream the
+    # device tier uses, so the intervals do not overlap
+    device_us = sum(
+        e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA
+    )
+    with open(os.path.join(OUT_DIR, f"profile_{label}.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+    return {"wall_ms": wall_ms, "device_ms": device_us / 1e3,
+            "device_busy_share": (device_us / 1e3) / wall_ms if device_us else None}
+
+
+def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> dict:
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    lake = os.path.join(DATA_DIR, "lake")
+    warehouse = os.path.join(DATA_DIR, "warehouse")
+    out: dict = {"rows": rows}
+
+    t0 = time.perf_counter()
+    tpch.generate_tpch(lake, rows_lineitem=rows, seed=SEED)
+    out["generate_s"] = time.perf_counter() - t0
+
+    session = HyperspaceSession(warehouse)  # device=None: the card
+    name, indexed, included = tpch.LI_SHIPDATE
+    t0 = time.perf_counter()
+    Hyperspace(session).create_index(
+        session.read.parquet(os.path.join(lake, "lineitem")),
+        CoveringIndexConfig(name, indexed, included),
+    )
+    out["index_build_s"] = time.perf_counter() - t0
+    log({"phase": "data", "card": card, "rows": rows, "generate_s": out["generate_s"],
+         "index_build_s": out["index_build_s"]})
+
+    # the plain end-to-end reference: the host executor over the raw source
+    host = HyperspaceSession(warehouse, conf={C.EXEC_TPU_ENABLED: False})
+    want = {}
+    for q, fn in tpch.QUERIES.items():
+        t0 = time.perf_counter()
+        want[q] = _floats(fn(host, lake).to_pydict())
+        out.setdefault("host_s", {})[q] = time.perf_counter() - t0
+
+    session.enable_hyperspace()
+    queries = {}
+    K.reset_counts()  # the main path's launches start here
+    for q, fn in tpch.QUERIES.items():
+        plan = fn(session, lake).optimized_plan()
+        used = [n.index_info.index_name for n in plan.preorder()
+                if getattr(n, "index_info", None) is not None]
+        require(used == [name], f"{q}: plan reads {used}, expected the index {name}")
+        session.device_stats = DeviceTierStats()
+        before = dict(K.LAUNCHES)
+        up0 = session.device_cache.uploaded_bytes
+        t0 = time.perf_counter()
+        got = _floats(fn(session, lake).to_pydict())
+        cold_s = time.perf_counter() - t0
+        up1 = session.device_cache.uploaded_bytes
+        warm = []
+        uploads_warm = []
+        for _ in range(WARM_RUNS):
+            u = session.device_cache.uploaded_bytes
+            t0 = time.perf_counter()
+            again = _floats(fn(session, lake).to_pydict())
+            warm.append(time.perf_counter() - t0)
+            uploads_warm.append(session.device_cache.uploaded_bytes - u)
+            compare_batches(q, again, got)
+        launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        stats = session.device_stats
+        require(stats.device_fragments == 1 + WARM_RUNS and not stats.declines,
+                f"{q}: device fragments {stats.device_fragments}, declines {stats.declines}")
+        expected = EXPECTED_KERNEL[q]
+        for k, c in launched.items():
+            if k == expected:
+                require(c > 0, f"{q}: {k} never launched")
+            else:
+                require(c == 0, f"{q}: unexpected launches of {k}")
+        require(all(u == 0 for u in uploads_warm), f"{q}: warm runs uploaded {uploads_warm}")
+        compare_batches(q, got, want[q])
+        queries[q] = {"first_run_s": cold_s, "warm_median_s": statistics.median(warm),
+                      "upload_bytes_first": up1 - up0, "upload_bytes_second": uploads_warm[0],
+                      "launches": launched, "host_reference_s": out["host_s"][q],
+                      "matches_host": True}
+        log({"query": q, "card": card, **queries[q]})
+    out["main_path_launches"] = dict(K.LAUNCHES)
+    out["queries"] = queries
+    if profile:
+        for q, fn in tpch.QUERIES.items():
+            queries[q]["profile"] = profile_warm_run(
+                torch, lambda: fn(session, lake).collect(), q
+            )
+            log({"query": q, "card": card, "profile": queries[q]["profile"]})
+    out["device_resident_bytes"] = session.device_cache.resident_bytes
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rows", type=int, default=SF10_ROWS,
+                    help="lineitem rows (default: TPC-H SF10)")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one warm run of each query (device busy share)")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this test needs the card",
+              file=sys.stderr)
+        return 1
+    from hyperspace_tpu_torch.ops import cuda_kernels as K
+    from hyperspace_tpu_torch.ops import reference as R
+    from hyperspace_tpu_torch.plan.gpu_exec import _pad_pow2
+
+    t_start = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log({"phase": "device", "kind": kind, "nvidia_smi": smi, "count": torch.cuda.device_count(),
+         "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    build_s = K.build_kernels()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
+        for src, text in K.BUILD_LOG.items():
+            f.write(f"== {src}\n{text}\n")
+    log({"phase": "build", "card": smi, "seconds": build_s, "sources": list(K.SOURCES)})
+
+    timed_n = _pad_pow2(args.rows)
+    sizes = sorted({0, 1, 1023, 1025, 1_000_003, 1 << 26, timed_n})
+    kernels = kernel_phase(torch, K, R, sizes, timed_n, smi)
+    e2e = end_to_end_phase(torch, K, args.rows, smi, args.profile)
+
+    line = []
+    for name, (source, replaces) in KERNEL_ROWS.items():
+        r = kernels[name]
+        line.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": e2e["main_path_launches"][name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "status": f"built, {r['checks']} checks against the plain version passed",
+        })
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump({"device": {"kind": kind, "nvidia_smi": smi}, "build_s": build_s,
+                   "kernels": kernels, "end_to_end": e2e,
+                   "total_s": time.perf_counter() - t_start}, f, indent=1)
+    log({"kernels": line})
+    log(smi)
+    log({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,185 @@
+"""TPC-H data and the covering-index query path's queries (counterpart of
+hyperspace_tpu/benchmark/tpch.py: ``generate_tpch``, ``q1`` and ``q6`` are
+copies, so the same seed writes the same tables).
+
+``q6`` and ``q1`` as written reach no hand-written kernel: ``q6`` has one
+Sum and no Count, and ``q1`` has an Avg. Their kernel-shaped forms do:
+
+- ``q6_count``: Q6's predicate, sum(l_extendedprice*l_discount) and
+  count(1), with no projection: filter_weighted_sum;
+- ``q6_sum``: Q6's predicate, sum(l_extendedprice) and count(1):
+  filter_sum;
+- ``q1_sums``: Q1 without avg_qty, three float sums and a count over six
+  groups: filter_grouped_multi_sum.
+
+Scale: ``rows_lineitem`` drives everything (SF1 ~ 6M lineitem rows).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ..plan.expr import Avg, Count, Sum, col, lit
+
+
+def generate_tpch(root: str, rows_lineitem: int = 600_000, seed: int = 0) -> dict:
+    """Write lineitem/orders/part parquet dirs under `root`; returns sizes."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    n_orders = max(1, rows_lineitem // 4)
+    n_parts = max(1, rows_lineitem // 30)
+
+    sizes = {}
+    li_dir = os.path.join(root, "lineitem")
+    os.makedirs(li_dir, exist_ok=True)
+    n_files = max(1, rows_lineitem // 500_000)
+    per = rows_lineitem // n_files
+    total = 0
+    for i in range(n_files):
+        t = pa.table(
+            {
+                "l_orderkey": rng.integers(0, n_orders, per),
+                "l_partkey": rng.integers(0, n_parts, per),
+                "l_suppkey": rng.integers(0, max(1, n_parts // 4), per),
+                "l_quantity": rng.integers(1, 51, per).astype(np.float64),
+                "l_extendedprice": rng.uniform(900, 105_000, per),
+                "l_discount": np.round(rng.uniform(0.0, 0.1, per), 2),
+                "l_tax": np.round(rng.uniform(0.0, 0.08, per), 2),
+                "l_returnflag": rng.choice(["A", "N", "R"], per),
+                "l_linestatus": rng.choice(["O", "F"], per),
+                "l_shipdate": rng.integers(8035, 10590, per).astype(np.int32),
+            }
+        )
+        f = os.path.join(li_dir, f"part-{i:04d}.parquet")
+        pq.write_table(t, f)
+        total += os.path.getsize(f)
+    sizes["lineitem"] = total
+
+    od_dir = os.path.join(root, "orders")
+    os.makedirs(od_dir, exist_ok=True)
+    t = pa.table(
+        {
+            "o_orderkey": np.arange(n_orders),
+            "o_custkey": rng.integers(0, max(1, n_orders // 10), n_orders),
+            "o_orderdate": rng.integers(8035, 10590, n_orders).astype(np.int32),
+            "o_shippriority": rng.integers(0, 5, n_orders),
+        }
+    )
+    f = os.path.join(od_dir, "part-0.parquet")
+    pq.write_table(t, f)
+    sizes["orders"] = os.path.getsize(f)
+
+    pt_dir = os.path.join(root, "part")
+    os.makedirs(pt_dir, exist_ok=True)
+    t = pa.table(
+        {
+            "p_partkey": np.arange(n_parts),
+            "p_brand": rng.choice([f"Brand#{i}" for i in range(1, 6)], n_parts),
+            "p_container": rng.choice(["JUMBO PKG", "MED BOX", "SM CASE"], n_parts),
+        }
+    )
+    f = os.path.join(pt_dir, "part-0.parquet")
+    pq.write_table(t, f)
+    sizes["part"] = os.path.getsize(f)
+    return sizes
+
+
+def _lineitem(session, root: str):
+    return session.read.parquet(os.path.join(root, "lineitem"))
+
+
+def _q6_predicate():
+    return (
+        (col("l_shipdate") >= 8766)
+        & (col("l_shipdate") < 9131)
+        & (col("l_discount") >= 0.05)
+        & (col("l_discount") <= 0.07)
+        & (col("l_quantity") < 24)
+    )
+
+
+def q1(session, root: str):
+    """Pricing summary report: grouped aggregates over a shipdate bound."""
+    return (
+        _lineitem(session, root)
+        .filter(col("l_shipdate") <= 10470)
+        .select(
+            "l_returnflag",
+            "l_linestatus",
+            "l_quantity",
+            "l_extendedprice",
+            "l_discount",
+        )
+        .group_by("l_returnflag", "l_linestatus")
+        .agg(
+            Sum(col("l_quantity")).alias("sum_qty"),
+            Sum(col("l_extendedprice")).alias("sum_base_price"),
+            Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount"))).alias("sum_disc_price"),
+            Avg(col("l_quantity")).alias("avg_qty"),
+            Count(lit(1)).alias("count_order"),
+        )
+        .sort("l_returnflag", "l_linestatus")
+    )
+
+
+def q1_sums(session, root: str):
+    """Q1 without avg_qty: sums and a count only (the grouped kernel's shape)."""
+    return (
+        _lineitem(session, root)
+        .filter(col("l_shipdate") <= 10470)
+        .select(
+            "l_returnflag",
+            "l_linestatus",
+            "l_quantity",
+            "l_extendedprice",
+            "l_discount",
+        )
+        .group_by("l_returnflag", "l_linestatus")
+        .agg(
+            Sum(col("l_quantity")).alias("sum_qty"),
+            Sum(col("l_extendedprice")).alias("sum_base_price"),
+            Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount"))).alias("sum_disc_price"),
+            Count(lit(1)).alias("count_order"),
+        )
+        .sort("l_returnflag", "l_linestatus")
+    )
+
+
+def q6(session, root: str):
+    """Forecasting revenue change: tight range filter + global aggregate."""
+    return (
+        _lineitem(session, root)
+        .filter(_q6_predicate())
+        .select("l_shipdate", "l_extendedprice", "l_discount", "l_quantity")
+        .agg(Sum(col("l_extendedprice") * col("l_discount")).alias("revenue"))
+    )
+
+
+def q6_count(session, root: str):
+    """Q6 as filter -> sum(a*b) + count (the weighted-sum kernel's shape)."""
+    return _lineitem(session, root).filter(_q6_predicate()).agg(
+        Sum(col("l_extendedprice") * col("l_discount")).alias("revenue"),
+        Count(lit(1)).alias("count"),
+    )
+
+
+def q6_sum(session, root: str):
+    """Q6 as filter -> sum(a) + count (the single-measure kernel's shape)."""
+    return _lineitem(session, root).filter(_q6_predicate()).agg(
+        Sum(col("l_extendedprice")).alias("sum_price"),
+        Count(lit(1)).alias("count"),
+    )
+
+
+QUERIES = {"q6": q6, "q6_count": q6_count, "q6_sum": q6_sum, "q1": q1, "q1_sums": q1_sums}
+
+# the covering index the slice's queries read
+LI_SHIPDATE = (
+    "li_shipdate",
+    ["l_shipdate"],
+    ["l_quantity", "l_extendedprice", "l_discount", "l_returnflag", "l_linestatus"],
+)

@@ -1,0 +1,141 @@
+"""The port's kernel wrappers (hyperspace_tpu_torch/ops/cuda_kernels.py)
+held against the JAX package's Pallas kernels on the same inputs.
+
+On the CPU the wrappers run their plain PyTorch versions (ops/reference.py)
+and the Pallas kernels run in interpret mode, as tests/test_pallas_and_dist.py
+runs them. Counts must be exact; f32 sums agree within relative 1e-4, the
+reference's own tolerance (the two sum in different orders). The CUDA
+kernels themselves run only on the card: the test marked ``cuda`` holds them
+against the plain versions there and skips without one.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hyperspace_tpu.ops import pallas_kernels as PK
+from hyperspace_tpu_torch.ops import cuda_kernels as K
+from hyperspace_tpu_torch.ops import reference as R
+
+REL = 1e-4
+SIZES = [0, 1, 1023, 1024, 1025, 5000]
+
+
+def _inputs(n: int, k: int, seed: int):
+    rng = np.random.default_rng(seed)
+    pred = rng.random(n) < 0.3
+    xs = [rng.uniform(1, 1000, n).astype(np.float32) for _ in range(k)]
+    gids = rng.integers(0, K.MAX_GROUPS, n).astype(np.int32)
+    return pred, xs, gids
+
+
+def _assert_sums_close(got, want):
+    got = np.asarray(got, dtype=np.float64).reshape(-1)
+    want = np.asarray(want, dtype=np.float64).reshape(-1)
+    assert got.shape == want.shape
+    for g, w in zip(got, want):
+        assert g == w or abs(g - w) <= REL * abs(w), (g, w)
+
+
+def _plain_call_delta(name, fn):
+    before = dict(K.PLAIN_CALLS)
+    launches = dict(K.LAUNCHES)
+    out = fn()
+    assert K.LAUNCHES == launches  # CPU tensors never launch a kernel
+    assert K.PLAIN_CALLS[name] == before[name] + 1
+    return out
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_filter_weighted_sum_matches_pallas(n):
+    pred, (x, y), _ = _inputs(n, 2, n)
+    rev, cnt = PK.filter_weighted_sum(jnp.asarray(pred), jnp.asarray(x), jnp.asarray(y))
+    s, c = _plain_call_delta(
+        "filter_weighted_sum",
+        lambda: K.filter_weighted_sum(
+            torch.from_numpy(pred), torch.from_numpy(x), torch.from_numpy(y)
+        ),
+    )
+    assert s.dtype == torch.float32 and c.dtype == torch.int32
+    assert s.shape == () and c.shape == ()
+    assert int(c) == int(cnt) == int(pred.sum())
+    _assert_sums_close(float(s), float(rev))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_filter_sum_matches_pallas(n):
+    pred, (x,), _ = _inputs(n, 1, n + 7)
+    total, cnt = PK.filter_sum(jnp.asarray(pred), jnp.asarray(x))
+    s, c = _plain_call_delta(
+        "filter_sum", lambda: K.filter_sum(torch.from_numpy(pred), torch.from_numpy(x))
+    )
+    assert int(c) == int(cnt) == int(pred.sum())
+    _assert_sums_close(float(s), float(total))
+
+
+_GROUPED_CASES = [(n, 4, 1) for n in SIZES] + [
+    (5000, groups, k) for groups in (1, 4, 16) for k in (0, 1, 3)
+]
+
+
+@pytest.mark.parametrize("n,groups,k", _GROUPED_CASES)
+def test_filter_grouped_multi_sum_matches_pallas(n, groups, k):
+    pred, xs, gids = _inputs(n, k, 31 * n + 7 * groups + k)
+    sums, counts = PK.filter_grouped_multi_sum(
+        jnp.asarray(pred), jnp.asarray(gids), [jnp.asarray(x) for x in xs], groups
+    )
+    p_sums, p_counts = _plain_call_delta(
+        "filter_grouped_multi_sum",
+        lambda: K.filter_grouped_multi_sum(
+            torch.from_numpy(pred), torch.from_numpy(gids),
+            [torch.from_numpy(x) for x in xs], groups,
+        ),
+    )
+    assert p_counts.dtype == torch.int32 and p_counts.shape == (groups,)
+    np.testing.assert_array_equal(p_counts.numpy(), np.asarray(counts))
+    assert len(p_sums) == len(sums) == k
+    for got, want in zip(p_sums, sums):
+        assert got.dtype == torch.float32 and got.shape == (groups,)
+        _assert_sums_close(got.numpy(), np.asarray(want))
+
+
+def test_grouped_rejects_more_than_sixteen_groups():
+    from hyperspace_tpu_torch.exceptions import KernelError
+
+    pred, _, gids = _inputs(10, 0, 1)
+    with pytest.raises(KernelError):
+        K.filter_grouped_multi_sum(torch.from_numpy(pred), torch.from_numpy(gids), [], 17)
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels run only on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1025, 1_000_003])
+def test_cuda_kernels_match_plain(cuda_device, n):
+    pred, xs, gids = _inputs(n, 5, n)
+    pred_d = torch.from_numpy(pred).to(cuda_device)
+    xs_d = [torch.from_numpy(x).to(cuda_device) for x in xs]
+    gids_d = torch.from_numpy(gids).to(cuda_device)
+    for name, args in (("filter_weighted_sum", (pred_d, xs_d[0], xs_d[1])),
+                       ("filter_sum", (pred_d, xs_d[0]))):
+        before = K.LAUNCHES[name]
+        s, c = getattr(K, name)(*args)
+        s2, c2 = getattr(K, name)(*args)
+        ps, pc = getattr(R, name)(*args)
+        assert K.LAUNCHES[name] == before + 2
+        assert torch.equal(s, s2) and torch.equal(c, c2)
+        assert int(c) == int(pc)
+        _assert_sums_close(float(s), float(ps))
+    # five measures run as two passes of the grouped kernel
+    sums, counts = K.filter_grouped_multi_sum(pred_d, gids_d, xs_d, 16)
+    p_sums, p_counts = R.filter_grouped_multi_sum(pred_d, gids_d, xs_d, 16)
+    assert torch.equal(counts.cpu(), p_counts.cpu())
+    for got, want in zip(sums, p_sums):
+        _assert_sums_close(got.cpu().numpy(), want.cpu().numpy())
