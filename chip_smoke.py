@@ -14,16 +14,24 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    csrc/ into build/kernels/, in parallel;
 3. kernel phase: each CUDA kernel against its plain PyTorch version on the
    card, over several sizes, group counts and measure counts: counts exact,
-   sums within relative 1e-4, two launches bit-identical; then each
-   kernel's time at the main path's padded size, beside its bound and the
-   plain version's time;
-4. end-to-end phase: TPC-H lineitem at SF10 (60M rows, seed 42) written as
-   parquet, the covering index li_shipdate built over it, and the queries
-   q6, q6_count, q6_sum, q1 and q1_sums run through the normal API with
-   Hyperspace enabled. Each must read the index, run on the device tier,
-   launch its kernel where it has one, match the host executor over the raw
-   source with Hyperspace and the device tier off, and upload nothing on a
-   warm run.
+   sums within relative 1e-4, min and max exact (NaN, all-invalid and empty
+   inputs included), two launches bit-identical; then each kernel's time at
+   the main path's padded size, beside its bound and the plain version's
+   time;
+4. end-to-end phase: TPC-H lineitem at SF10 (60M rows, seed 42) and orders
+   (15M rows) written as parquet, the covering indexes li_shipdate,
+   li_orderkey and od_orderkey built over them, then
+   - the filter-aggregate queries q6, q6_count, q6_sum, q1 and q1_sums run
+     through the normal API with Hyperspace enabled. Each must read
+     li_shipdate, run on the device tier, launch its kernel where it has
+     one, match the host executor over the raw source with Hyperspace and
+     the device tier off, and upload nothing on a warm run;
+   - the join queries q3_agg and q3 (TPC-H Q3 through JoinIndexRule). Each
+     must read li_orderkey and od_orderkey, run the fused device join on
+     every run with no decline, upload nothing and repeat bit for bit on
+     warm runs, and match the host executor.
+   masked_min_max is on no path of the system (the JAX package calls it
+   from its tests only), so it launches no time in this phase.
 
 The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
@@ -61,6 +69,9 @@ EXPECTED_KERNEL = {
     "q6_sum": "filter_sum",
     "q1": None,
     "q1_sums": "filter_grouped_multi_sum",
+    # the fused join+aggregate body is torch code (the reference's is XLA)
+    "q3_agg": None,
+    "q3": None,
 }
 KERNEL_ROWS = {
     "filter_weighted_sum": ("hyperspace_tpu_torch/ops/csrc/filter_reduce.cu",
@@ -69,7 +80,11 @@ KERNEL_ROWS = {
                    "hyperspace_tpu/ops/pallas_kernels.py:119"),
     "filter_grouped_multi_sum": ("hyperspace_tpu_torch/ops/csrc/grouped_sum.cu",
                                  "hyperspace_tpu/ops/pallas_kernels.py:198"),
+    "masked_min_max": ("hyperspace_tpu_torch/ops/csrc/minmax.cu",
+                       "hyperspace_tpu/ops/pallas_kernels.py:236"),
 }
+ON_PATH = {"filter_weighted_sum", "filter_sum", "filter_grouped_multi_sum"}
+MINMAX_CASES = ("random", "all_invalid", "nan_valid", "nan_invalid", "int")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -134,6 +149,33 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str) -> dict
                 r["max_abs_err"] = max(r["max_abs_err"], abs(x - y))
         results[name]["checks"] += 1
 
+    def minmax_inputs(n: int, case: str, seed: int):
+        gen.manual_seed(seed)
+        x = (torch.rand(n, generator=gen, device=dev) - 0.5) * 2000
+        valid = torch.rand(n, generator=gen, device=dev) < 0.5
+        if case == "all_invalid":
+            valid[:] = False
+        elif case == "int":
+            x = torch.randint(-(2**20), 2**20, (n,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        elif case in ("nan_valid", "nan_invalid") and n:
+            x[n // 2] = float("nan")
+            valid[n // 2] = case == "nan_valid"
+        return x, valid
+
+    def check_minmax(got, again, want, what):
+        name = "masked_min_max"
+        for g, a, w, side in zip(got, again, want, ("min", "max")):
+            require(torch.equal(g.view(torch.int32), a.view(torch.int32)),
+                    f"{name} {what}: repeat launch differs ({side})")
+            gv, wv = float(g), float(w)
+            same = (math.isnan(gv) and math.isnan(wv)) or gv == wv
+            require(same, f"{name} {what}: {side} {gv} vs plain {wv}")
+        if what.endswith("nan_valid") and not what.startswith("n=0 "):
+            require(all(math.isnan(float(v)) for v in got), f"{name} {what}: NaN dropped")
+        r = results[name]
+        r["checks"] += 1
+
     for n in sizes:
         pred, (x, y), _g = inputs(n, 2, n)
         for name, args in (("filter_weighted_sum", (pred, x, y)), ("filter_sum", (pred, x))):
@@ -150,6 +192,12 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str) -> dict
                 want = R.filter_grouped_multi_sum(pred, gids, xs, groups)
                 compare("filter_grouped_multi_sum", got, again, want,
                         f"n={n} G={groups} k={k}")
+        for case in MINMAX_CASES:
+            x, valid = minmax_inputs(n, case, 7 * n + len(case))
+            got = K.masked_min_max(x, valid)
+            again = K.masked_min_max(x, valid)
+            want = R.masked_min_max(x, valid)
+            check_minmax(got, again, want, f"n={n} {case}")
     torch.cuda.synchronize()
 
     # times at the main path's padded size; the grouped kernel at q1_sums'
@@ -168,6 +216,10 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str) -> dict
             lambda: R.filter_grouped_multi_sum(pred, gids, xs, 16),
             n * (1 + 4 + 4 * 3), n * 16 * (1 + 3)),
     }
+    mm_x, mm_valid = minmax_inputs(n, "random", 11)
+    cases["masked_min_max"] = (lambda: K.masked_min_max(mm_x, mm_valid),
+                               lambda: R.masked_min_max(mm_x, mm_valid),
+                               n * (4 + 1), 2 * n)
     for name, (kern, plain, nbytes, ops) in cases.items():
         r = results[name]
         r["ms"] = time_ms(torch, kern)
@@ -181,9 +233,14 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str) -> dict
         ops_ms = ops / F32_OPS_PER_S * 1e3
         r["bound_ms"] = max(bytes_ms, ops_ms)
         r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-        # no single PyTorch call computes (masked sum, count) from (pred, x)
+        # no single PyTorch call computes (masked sum, count) from (pred, x),
+        # nor (masked min, masked max) from (x, valid)
         r["library_ms"] = None
+        r["library_note"] = ("no single PyTorch call computes a masked min and max"
+                             if name == "masked_min_max" else
+                             "no single PyTorch call computes a masked sum and count")
         log({"kernel": name, "card": card, "n": n, "ms": r["ms"],
+             "library_ms": None, "library_note": r["library_note"],
              "plain_ms": r["plain_ms"], "plain": f"hyperspace_tpu_torch/ops/reference.py:{name}",
              "bytes": nbytes, "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "checks": r["checks"], "max_abs_err": r["max_abs_err"]})
@@ -213,7 +270,8 @@ def _floats(d: dict) -> dict:
 
 def profile_warm_run(torch, run, label: str) -> dict:
     """One warm run under torch.profiler: wall time, the card's kernel time,
-    and their ratio (the device's busy share of the query)."""
+    and their ratio (the device's busy share of the query); then the host's
+    Python functions over another warm run (cProfile)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -230,8 +288,55 @@ def profile_warm_run(torch, run, label: str) -> dict:
     )
     with open(os.path.join(OUT_DIR, f"profile_{label}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+    # where the host's share goes: Python functions of another warm run
+    import cProfile
+    import pstats
+
+    host_prof = cProfile.Profile()
+    host_prof.runcall(run)
+    torch.cuda.synchronize()
+    with open(os.path.join(OUT_DIR, f"hostprofile_{label}.txt"), "w") as f:
+        pstats.Stats(host_prof, stream=f).sort_stats("tottime").print_stats(25)
     return {"wall_ms": wall_ms, "device_ms": device_us / 1e3,
             "device_busy_share": (device_us / 1e3) / wall_ms if device_us else None}
+
+
+def compare_join(q: str, got: dict, want: dict) -> None:
+    """q3_agg: the same (l_orderkey, o_orderdate) groups, revenue within
+    REL_TOL (row order differs between the bucketed and the host path, so
+    both sort by key). q3: the top revenues within REL_TOL in order, and the
+    keys equal except where the host's neighbouring revenues tie within
+    REL_TOL."""
+    import numpy as np
+
+    require(list(got) == list(want), f"{q}: columns {list(got)} vs {list(want)}")
+    keys = ("l_orderkey", "o_orderdate")
+    n = len(want["revenue"])
+    require(len(got["revenue"]) == n and n > 0, f"{q}: {len(got['revenue'])} rows vs {n}")
+    if q == "q3_agg":
+        g_order = np.lexsort([got[k] for k in reversed(keys)])
+        w_order = np.lexsort([want[k] for k in reversed(keys)])
+        got = {k: np.asarray(v)[g_order] for k, v in got.items()}
+        want = {k: np.asarray(v)[w_order] for k, v in want.items()}
+    g_rev = np.asarray(got["revenue"], dtype=np.float64)
+    w_rev = np.asarray(want["revenue"], dtype=np.float64)
+    require(bool(np.isfinite(g_rev).all()), f"{q}: non-finite revenue")
+    err = np.abs(g_rev - w_rev) / np.maximum(np.abs(w_rev), 1e-30)
+    require(float(err.max()) <= REL_TOL, f"{q}: revenue off by relative {float(err.max())}")
+    tied = np.zeros(n, dtype=bool)
+    if q == "q3":
+        near = np.abs(np.diff(w_rev)) <= REL_TOL * np.abs(w_rev[1:])
+        tied[1:] |= near
+        tied[:-1] |= near
+    for k in keys:
+        same = np.asarray(got[k]) == np.asarray(want[k])
+        require(bool((same | tied).all()), f"{q}: {k} differs from the host")
+
+
+def _columns(batch) -> dict:
+    """A result batch as numpy arrays by column (no Python lists: q3_agg
+    returns millions of groups at SF10)."""
+    return {n: c.decode() for n, c in batch.columns.items()}
 
 
 def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> dict:
@@ -250,37 +355,56 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
     out["generate_s"] = time.perf_counter() - t0
 
     session = HyperspaceSession(warehouse)  # device=None: the card
-    name, indexed, included = tpch.LI_SHIPDATE
-    t0 = time.perf_counter()
-    Hyperspace(session).create_index(
-        session.read.parquet(os.path.join(lake, "lineitem")),
-        CoveringIndexConfig(name, indexed, included),
-    )
-    out["index_build_s"] = time.perf_counter() - t0
+    hs = Hyperspace(session)
+    builds = (("lineitem", tpch.LI_SHIPDATE), ("lineitem", tpch.LI_ORDERKEY),
+              ("orders", tpch.OD_ORDERKEY))
+    out["index_build_s"] = {}
+    for table, (name, indexed, included) in builds:
+        t0 = time.perf_counter()
+        hs.create_index(session.read.parquet(os.path.join(lake, table)),
+                        CoveringIndexConfig(name, indexed, included))
+        out["index_build_s"][name] = time.perf_counter() - t0
     log({"phase": "data", "card": card, "rows": rows, "generate_s": out["generate_s"],
          "index_build_s": out["index_build_s"]})
 
     # the plain end-to-end reference: the host executor over the raw source
     host = HyperspaceSession(warehouse, conf={C.EXEC_TPU_ENABLED: False})
+    all_queries = {**tpch.QUERIES, **tpch.JOIN_QUERIES}
+    def result(q: str, df) -> dict:
+        if q in tpch.JOIN_QUERIES:
+            return _columns(df.collect())
+        return _floats(df.to_pydict())
+
+    def same_bits(a: dict, b: dict) -> bool:
+        import numpy as np
+
+        return list(a) == list(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
     want = {}
-    for q, fn in tpch.QUERIES.items():
+    for q, fn in all_queries.items():
         t0 = time.perf_counter()
-        want[q] = _floats(fn(host, lake).to_pydict())
+        want[q] = result(q, fn(host, lake))
         out.setdefault("host_s", {})[q] = time.perf_counter() - t0
+    del host
 
     session.enable_hyperspace()
     queries = {}
+    expected_indexes = {q: [tpch.LI_SHIPDATE[0]] for q in tpch.QUERIES}
+    expected_indexes.update({q: [tpch.LI_ORDERKEY[0], tpch.OD_ORDERKEY[0]]
+                             for q in tpch.JOIN_QUERIES})
     K.reset_counts()  # the main path's launches start here
-    for q, fn in tpch.QUERIES.items():
+    for q, fn in all_queries.items():
+        join = q in tpch.JOIN_QUERIES
         plan = fn(session, lake).optimized_plan()
         used = [n.index_info.index_name for n in plan.preorder()
                 if getattr(n, "index_info", None) is not None]
-        require(used == [name], f"{q}: plan reads {used}, expected the index {name}")
+        require(used == expected_indexes[q],
+                f"{q}: plan reads {used}, expected {expected_indexes[q]}")
         session.device_stats = DeviceTierStats()
         before = dict(K.LAUNCHES)
         up0 = session.device_cache.uploaded_bytes
         t0 = time.perf_counter()
-        got = _floats(fn(session, lake).to_pydict())
+        got = result(q, fn(session, lake))
         cold_s = time.perf_counter() - t0
         up1 = session.device_cache.uploaded_bytes
         warm = []
@@ -288,14 +412,19 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
         for _ in range(WARM_RUNS):
             u = session.device_cache.uploaded_bytes
             t0 = time.perf_counter()
-            again = _floats(fn(session, lake).to_pydict())
+            again = result(q, fn(session, lake))
             warm.append(time.perf_counter() - t0)
             uploads_warm.append(session.device_cache.uploaded_bytes - u)
-            compare_batches(q, again, got)
+            if join:  # the fused join is deterministic: the same bits
+                require(same_bits(again, got), f"{q}: a warm run differs from the first run")
+            else:
+                compare_batches(q, again, got)
         launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
         stats = session.device_stats
-        require(stats.device_fragments == 1 + WARM_RUNS and not stats.declines,
-                f"{q}: device fragments {stats.device_fragments}, declines {stats.declines}")
+        ran = stats.device_join_fragments if join else stats.device_fragments
+        require(ran == 1 + WARM_RUNS and not stats.declines,
+                f"{q}: device fragments {stats.device_fragments}, join fragments "
+                f"{stats.device_join_fragments}, declines {stats.declines}")
         expected = EXPECTED_KERNEL[q]
         for k, c in launched.items():
             if k == expected:
@@ -303,16 +432,21 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
             else:
                 require(c == 0, f"{q}: unexpected launches of {k}")
         require(all(u == 0 for u in uploads_warm), f"{q}: warm runs uploaded {uploads_warm}")
-        compare_batches(q, got, want[q])
+        if join:
+            compare_join(q, got, want[q])
+        else:
+            compare_batches(q, got, want[q])
         queries[q] = {"first_run_s": cold_s, "warm_median_s": statistics.median(warm),
                       "upload_bytes_first": up1 - up0, "upload_bytes_second": uploads_warm[0],
                       "launches": launched, "host_reference_s": out["host_s"][q],
-                      "matches_host": True}
+                      "rows_out": len(next(iter(got.values()))), "matches_host": True}
+        if join:
+            queries[q]["device_join_fragments"] = stats.device_join_fragments
         log({"query": q, "card": card, **queries[q]})
     out["main_path_launches"] = dict(K.LAUNCHES)
     out["queries"] = queries
     if profile:
-        for q, fn in tpch.QUERIES.items():
+        for q, fn in all_queries.items():
             queries[q]["profile"] = profile_warm_run(
                 torch, lambda: fn(session, lake).collect(), q
             )
@@ -369,12 +503,14 @@ def main() -> int:
             "launches": e2e["main_path_launches"][name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "on_path": name in ON_PATH,
             "status": f"built, {r['checks']} checks against the plain version passed",
         })
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": {"kind": kind, "nvidia_smi": smi}, "build_s": build_s,
                    "kernels": kernels, "end_to_end": e2e,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
+    log({"phase": "done", "card": smi, "total_s": time.perf_counter() - t_start})
     log({"kernels": line})
     log(smi)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
 """TPC-H data and the covering-index query path's queries (counterpart of
-hyperspace_tpu/benchmark/tpch.py: ``generate_tpch``, ``q1`` and ``q6`` are
-copies, so the same seed writes the same tables).
+hyperspace_tpu/benchmark/tpch.py: ``generate_tpch``, ``q1``, ``q3`` and
+``q6`` are copies, so the same seed writes the same tables).
 
 ``q6`` and ``q1`` as written reach no hand-written kernel: ``q6`` has one
 Sum and no Count, and ``q1`` has an Avg. Their kernel-shaped forms do:
@@ -11,6 +11,11 @@ Sum and no Count, and ``q1`` has an Avg. Their kernel-shaped forms do:
   filter_sum;
 - ``q1_sums``: Q1 without avg_qty, three float sums and a count over six
   groups: filter_grouped_multi_sum.
+
+The join form (``JOIN_QUERIES``) reads two co-bucketed covering indexes,
+``li_orderkey`` and ``od_orderkey``, through JoinIndexRule: ``q3`` as the
+reference writes it (top 10 orders by revenue), and ``q3_agg``, the same
+query without the sort and limit, so every group is compared.
 
 Scale: ``rows_lineitem`` drives everything (SF1 ~ 6M lineitem rows).
 """
@@ -175,11 +180,46 @@ def q6_sum(session, root: str):
     )
 
 
-QUERIES = {"q6": q6, "q6_count": q6_count, "q6_sum": q6_sum, "q1": q1, "q1_sums": q1_sums}
+def _q3_grouped(session, root: str):
+    li = _lineitem(session, root)
+    od = session.read.parquet(os.path.join(root, "orders"))
+    return (
+        li.select("l_orderkey", "l_extendedprice", "l_discount")
+        .join(
+            od.select("o_orderkey", "o_orderdate"),
+            col("l_orderkey") == col("o_orderkey"),
+        )
+        .filter(col("o_orderdate") < 9500)
+        .group_by("l_orderkey", "o_orderdate")
+        .agg(Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount"))).alias("revenue"))
+    )
 
-# the covering index the slice's queries read
+
+def q3(session, root: str):
+    """Shipping priority: join lineitem to orders, revenue per order."""
+    return _q3_grouped(session, root).sort("revenue", ascending=False).limit(10)
+
+
+def q3_agg(session, root: str):
+    """Q3 without the sort and limit: revenue of every qualifying order."""
+    return _q3_grouped(session, root)
+
+
+QUERIES = {"q6": q6, "q6_count": q6_count, "q6_sum": q6_sum, "q1": q1, "q1_sums": q1_sums}
+JOIN_QUERIES = {"q3_agg": q3_agg, "q3": q3}
+
+# the covering index the filter-aggregate queries read
 LI_SHIPDATE = (
     "li_shipdate",
     ["l_shipdate"],
     ["l_quantity", "l_extendedprice", "l_discount", "l_returnflag", "l_linestatus"],
 )
+# the co-bucketed join indexes the Q3 forms read (the reference's
+# tpch_indexes names and columns)
+LI_ORDERKEY = (
+    "li_orderkey",
+    ["l_orderkey"],
+    ["l_extendedprice", "l_discount", "l_returnflag", "l_quantity"],
+)
+OD_ORDERKEY = ("od_orderkey", ["o_orderkey"], ["o_orderdate", "o_custkey"])
+JOIN_INDEXES = {"lineitem": LI_ORDERKEY, "orders": OD_ORDERKEY}

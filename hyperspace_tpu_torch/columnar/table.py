@@ -286,5 +286,42 @@ class ColumnBatch:
     def take(self, indices: np.ndarray) -> "ColumnBatch":
         return ColumnBatch({n: c.take(indices) for n, c in self.columns.items()})
 
+    @staticmethod
+    def concat(batches: Sequence["ColumnBatch"]) -> "ColumnBatch":
+        """Row-wise concatenation of batches with the same columns; string
+        columns merge their dictionaries (sorted union, codes remapped)."""
+        batches = [b for b in batches if b is not None]
+        if not batches:
+            return ColumnBatch({})
+        out: dict[str, Column] = {}
+        for n in batches[0].schema.names:
+            cols = [b.column(n) for b in batches]
+            dtype = cols[0].dtype
+            mismatched = {c.dtype for c in cols} - {dtype}
+            if mismatched:
+                raise HyperspaceError(
+                    f"Cannot concat column {n!r}: dtype {dtype} vs {sorted(mismatched)}"
+                )
+            dictionary = None
+            if dtype == STRING:
+                vocabs = [c.dictionary if c.dictionary else [""] for c in cols]
+                dictionary = sorted(set().union(*vocabs))
+                lut = {s: i for i, s in enumerate(dictionary)}
+                data = np.concatenate([
+                    np.fromiter((lut[s] for s in vocab), dtype=np.int32,
+                                count=len(vocab))[c.data]
+                    for c, vocab in zip(cols, vocabs)
+                ])
+            else:
+                data = np.concatenate([c.data for c in cols])
+            validity = None
+            if any(c.validity is not None for c in cols):
+                validity = np.concatenate([
+                    c.validity if c.validity is not None else np.ones(len(c), dtype=bool)
+                    for c in cols
+                ])
+            out[n] = Column(data, dtype, validity, dictionary)
+        return ColumnBatch(out)
+
     def __repr__(self):
         return f"ColumnBatch({self.num_rows} rows, {self.schema})"

@@ -14,8 +14,9 @@ lineage column.
 from __future__ import annotations
 
 import os
+import re
 from concurrent.futures import ThreadPoolExecutor
-from typing import TYPE_CHECKING, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
 
@@ -41,6 +42,16 @@ def index_row_group_size(n_rows: int) -> int:
 def bucket_file_name(version: int, bucket: int, seq=None, ext: str = ".parquet") -> str:
     suffix = f"-{seq}" if seq is not None else ""
     return f"part-{version}-b{bucket:05d}{suffix}{ext}"
+
+
+# the names bucket_file_name writes, with the JAX package's run suffixes
+_BUCKET_FILE_RE = re.compile(r"^part-(\d+)-b(\d{5})(?:-\d+(?:s\d+)?)?\.(?:parquet|arrow)$")
+
+
+def bucket_id_from_filename(name: str) -> Optional[int]:
+    """Bucket id of an index data file, None for another name."""
+    m = _BUCKET_FILE_RE.match(os.path.basename(name))
+    return int(m.group(2)) if m else None
 
 
 def resolve_columns(schema: Schema, names: Sequence[str]) -> list[str]:

@@ -6,6 +6,7 @@ ctypes: the counterpart of hyperspace_tpu/ops/pallas_kernels.py.
 | filter_weighted_sum        | csrc/filter_reduce.cu   | pallas_kernels.filter_weighted_sum        |
 | filter_sum                 | csrc/filter_reduce.cu   | pallas_kernels.filter_sum                 |
 | filter_grouped_multi_sum   | csrc/grouped_sum.cu     | pallas_kernels.filter_grouped_multi_sum   |
+| masked_min_max             | csrc/minmax.cu          | pallas_kernels.masked_min_max             |
 
 Each wrapper takes tensors on one device. For CPU tensors it runs the plain
 PyTorch version in ops/reference.py and counts a plain call. For CUDA tensors
@@ -40,7 +41,7 @@ MAX_GROUPS = 16  # _MAX_PALLAS_GROUPS: the grouped kernel's group slots
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("filter_reduce.cu", "grouped_sum.cu")
+SOURCES = ("filter_reduce.cu", "grouped_sum.cu", "minmax.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -53,7 +54,8 @@ NVCC_FLAGS = (
 
 # launches of each CUDA kernel, and calls served by the plain version for
 # CPU tensors; reset_counts() zeroes both
-LAUNCHES = {"filter_weighted_sum": 0, "filter_sum": 0, "filter_grouped_multi_sum": 0}
+LAUNCHES = {"filter_weighted_sum": 0, "filter_sum": 0, "filter_grouped_multi_sum": 0,
+            "masked_min_max": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 # nvcc's output per source from the last build (ptxas register/spill report)
@@ -92,7 +94,8 @@ def _lib_path(source: str) -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     for name in ("hs_filter_partial_slots", "hs_grouped_partial_blocks",
-                 "hs_grouped_max_measures", "hs_grouped_slots"):
+                 "hs_grouped_max_measures", "hs_grouped_slots",
+                 "hs_minmax_partial_slots"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = _I
@@ -106,6 +109,9 @@ def _declare(lib: ctypes.CDLL) -> None:
             _I, _P, _P, ctypes.POINTER(_P), _I, _LL, _P, _P, _P, _P, _P,
         ]
         lib.hs_filter_grouped_multi_sum.restype = _I
+    if hasattr(lib, "hs_masked_min_max"):
+        lib.hs_masked_min_max.argtypes = [_I, _P, _P, _LL, _P, _P, _P, _P]
+        lib.hs_masked_min_max.restype = _I
 
 
 def build_kernels() -> float:
@@ -270,3 +276,33 @@ def filter_grouped_multi_sum(
             counts = out_c[:num_groups]
         sums.extend(out_s[: k * slots].view(k, slots)[:, :num_groups].unbind(0))
     return tuple(sums), counts
+
+
+def masked_min_max(x: torch.Tensor, valid: torch.Tensor):
+    """(min, max) of x over the rows where valid, as 0-d f32 tensors on x's
+    device; (+inf, -inf) when no row is valid. x is any numeric dtype and is
+    cast to f32 first, as the Pallas kernel casts it. A NaN in a valid row
+    makes the result NaN (jnp.minimum/jnp.maximum semantics)."""
+    if x.device.type == "cpu":
+        PLAIN_CALLS["masked_min_max"] += 1
+        return reference.masked_min_max(x, valid)
+    dev = x.device
+    n = x.shape[0] if x.dim() == 1 else -1
+    xf = x.to(torch.float32).contiguous()
+    _check("masked_min_max.x", xf, torch.float32, n, dev)
+    _check("masked_min_max.valid", valid, torch.bool, n, dev)
+    if n == 0:
+        return (torch.full((), float("inf"), dtype=torch.float32, device=dev),
+                torch.full((), float("-inf"), dtype=torch.float32, device=dev))
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    lib = _lib("minmax.cu")
+    slots = lib.hs_minmax_partial_slots()
+    part_mn = torch.empty(slots, dtype=torch.float32, device=dev)
+    part_mx = torch.empty(slots, dtype=torch.float32, device=dev)
+    rc = lib.hs_masked_min_max(
+        dev.index, xf.data_ptr(), valid.data_ptr(), n, part_mn.data_ptr(),
+        part_mx.data_ptr(), out.data_ptr(), _stream(dev),
+    )
+    _raise_on("masked_min_max", rc)
+    LAUNCHES["masked_min_max"] += 1
+    return out[0], out[1]

@@ -41,3 +41,17 @@ def filter_grouped_multi_sum(
         for x in xs
     )
     return sums, counts
+
+
+def masked_min_max(x: torch.Tensor, valid: torch.Tensor):
+    """(min, max) of x as f32 over the rows where valid, 0-d tensors;
+    (+inf, -inf) when no row is valid. A NaN in a valid row propagates
+    (amin/amax propagate NaN, as jnp.minimum/jnp.maximum do); invalid rows
+    are replaced before the reduction, NaN or not."""
+    xf = x.to(torch.float32)
+    if xf.shape[0] == 0:
+        return (torch.tensor(float("inf"), device=x.device),
+                torch.tensor(float("-inf"), device=x.device))
+    mn = torch.where(valid, xf, float("inf")).amin()
+    mx = torch.where(valid, xf, float("-inf")).amax()
+    return mn, mx

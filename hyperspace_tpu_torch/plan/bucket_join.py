@@ -1,0 +1,395 @@
+"""Co-partitioned bucketed merge join execution (counterpart of
+hyperspace_tpu/plan/bucket_join.py, single device).
+
+The payoff of JoinIndexRule's rewrite: both sides arrive hash-bucketed on
+the join keys with the same bucket count, so bucket b joins only bucket b,
+with no shuffle and no global hash table.
+
+An Aggregate grouped by the join key over such a join runs the fused
+join+aggregate on the device for every bucket pair at once
+(plan/device_join.try_stacked_join_agg): buckets load RAW, side filters run
+in the body over the stable index-chunk buffers, and the whole query pays
+one fetch. When it declines (by shape or data), each bucket runs on the
+host: the numpy twin of the fused body, or a sorted merge join followed by
+the aggregate.
+
+Not ported in this slice: the band scheduler and the device-memory ledger
+(plan/join_memory.py), the mesh paths, read-ahead pipelining of bucket
+pairs, hybrid-scan appended rows, the device plain-join kernels, the
+bucketed scan aggregate and adaptive re-planning.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+
+from .expr import Alias, Col, Expr, expr_output_name
+from .nodes import BucketSpec, FileScan, Filter, Join, LogicalPlan, Project
+from ..columnar.table import Column, ColumnBatch, STRING, numpy_dtype
+from ..exceptions import HyperspaceError
+from ..models.covering import bucket_id_from_filename
+from ..ops.join import host_merge_join_indices
+
+@dataclass
+class BucketedSide:
+    """One join side decomposed into bucket-addressable pieces. ``ops`` are
+    the Filter/Project nodes between the scan and the join, bottom-up
+    (nearest the scan first), so per-bucket execution replays them exactly."""
+
+    scan: FileScan  # the bucketed index scan
+    spec: BucketSpec
+    ops: list[LogicalPlan]  # Filter/Project nodes, bottom-up
+
+    @property
+    def filters(self) -> list[Expr]:
+        return [op.condition for op in self.ops if isinstance(op, Filter)]
+
+    @property
+    def project(self) -> Optional[Project]:
+        for op in self.ops:
+            if isinstance(op, Project):
+                return op
+        return None
+
+    def __post_init__(self):
+        self._files_by_bucket: dict[int, list] = {}
+        for f in self.scan.files:
+            self._files_by_bucket.setdefault(bucket_id_from_filename(f.name), []).append(f)
+
+    def files_for_bucket(self, b: int) -> list:
+        return self._files_by_bucket.get(b, [])
+
+    def key_is_identity(self, name: str) -> bool:
+        """True iff output column ``name`` is the scan column ``name``
+        unchanged (a derived projection would decouple the join values from
+        the on-disk hash placement)."""
+        if self.project is None:
+            return True
+        for e in self.project.exprs:
+            if expr_output_name(e) == name:
+                inner = e.child if isinstance(e, Alias) else e
+                return isinstance(inner, Col) and inner.name == name
+        return False
+
+
+def _decompose_side(plan: LogicalPlan) -> Optional[BucketedSide]:
+    """Match a stack of Filter/Project (at most one Project) over a
+    bucketed FileScan whose every file carries a bucket id."""
+    node = plan
+    ops_topdown: list[LogicalPlan] = []
+    n_projects = 0
+    while isinstance(node, (Project, Filter)):
+        if isinstance(node, Project):
+            n_projects += 1
+            if n_projects > 1:
+                return None
+        ops_topdown.append(node)
+        node = node.child
+    if not isinstance(node, FileScan) or node.bucket_spec is None:
+        return None
+    if any(bucket_id_from_filename(f.name) is None for f in node.files):
+        return None
+    return BucketedSide(node, node.bucket_spec, list(reversed(ops_topdown)))
+
+
+def try_bucketed_join_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
+    """Aggregate(group_by covering the join key)(Join(co-bucketed sides)):
+    groups are disjoint across buckets, so each bucket joins AND aggregates
+    locally and the results concatenate; the join output never
+    materializes (TPC-H Q3's shape)."""
+    from .executor import extract_equi_keys
+
+    child = agg_plan.child
+    if not isinstance(child, Join) or not agg_plan.group_exprs:
+        return None
+    group_cols = []
+    for e in agg_plan.group_exprs:
+        if not isinstance(e, Col):
+            return None
+        group_cols.append(e.name)
+    lkeys, rkeys, _res = extract_equi_keys(
+        child.condition, child.left.schema, child.right.schema
+    ) if child.condition is not None else ([], [], [])
+    # buckets hash the whole key tuple: a group is bucket-local only when
+    # the grouping names every key component (either side of each pair)
+    group_set = {c.lower() for c in group_cols}
+    if not lkeys or not all(
+        lk.lower() in group_set or rk.lower() in group_set for lk, rk in zip(lkeys, rkeys)
+    ):
+        return None
+
+    def per_bucket(batch: ColumnBatch) -> ColumnBatch:
+        from .executor import _exec_aggregate
+        from .nodes import Aggregate, InMemoryScan
+
+        sub = Aggregate(agg_plan.group_exprs, agg_plan.agg_exprs, InMemoryScan(batch))
+        return _exec_aggregate(sub, session)
+
+    return try_bucketed_merge_join(child, session, per_bucket=per_bucket, agg_plan=agg_plan)
+
+
+def try_bucketed_merge_join(
+    plan: Join, session, per_bucket=None, agg_plan=None
+) -> Optional[ColumnBatch]:
+    """Execute an equi-join of two co-bucketed sides; None when the plan
+    does not have that shape. ``per_bucket`` post-processes each bucket's
+    joined rows (the fused aggregate); with ``agg_plan`` too and the device
+    tier on, the fused join+aggregate runs on the device over every bucket
+    pair, and the per-bucket host flow is its fallback."""
+    from .executor import extract_equi_keys
+
+    if plan.how != "inner" or plan.condition is None:
+        return None
+    left = _decompose_side(plan.left)
+    right = _decompose_side(plan.right)
+    if left is None or right is None:
+        return None
+    if left.spec.num_buckets != right.spec.num_buckets:
+        return None
+    lkeys, rkeys, residual = extract_equi_keys(
+        plan.condition, plan.left.schema, plan.right.schema
+    )
+    # join keys must be the scan columns unchanged, and exactly the bucket
+    # columns, pairwise aligned
+    if not all(left.key_is_identity(k) for k in lkeys):
+        return None
+    if not all(right.key_is_identity(k) for k in rkeys):
+        return None
+    pairs = list(zip(lkeys, rkeys))
+    if list(left.spec.bucket_columns) != lkeys or list(right.spec.bucket_columns) != rkeys:
+        if len(left.spec.bucket_columns) != len(lkeys):
+            return None
+        lmap = {a.lower(): b.lower() for a, b in pairs}
+        for a, b in zip(left.spec.bucket_columns, right.spec.bucket_columns):
+            if lmap.get(a.lower()) != b.lower():
+                return None
+    plan.schema  # ambiguity check before doing any work
+
+    n = left.spec.num_buckets
+    preloaded = None
+    if (agg_plan is not None and per_bucket is not None and session is not None
+            and session.conf.exec_device_enabled):
+        if _fused_device_possible(left, right, lkeys, rkeys) and _stacked_plan_screen(
+            session, agg_plan, left, right, lkeys, rkeys, residual
+        ):
+            from .device_join import try_stacked_join_agg
+
+            raw_loaded: list = [None] * n
+            gen = _iter_bucket_pairs(left, right, session)
+
+            def raw_pairs():
+                for b, lb, rb, ls, rs in gen:
+                    raw_loaded[b] = (lb, rb, ls, rs)
+                    yield b, lb, rb, ls, rs
+
+            dev_out = try_stacked_join_agg(
+                raw_pairs(), lkeys, rkeys, residual, session, agg_plan,
+                lfilters=tuple(left.filters), rfilters=tuple(right.filters),
+                lcols_avail=set(plan.left.schema.names),
+                rcols_avail=set(plan.right.schema.names),
+            )
+            if dev_out is not None:
+                return dev_out
+            for b, lb, rb, ls, rs in gen:  # the fallback reuses every pair
+                raw_loaded[b] = (lb, rb, ls, rs)
+            preloaded = [
+                None if t is None else (
+                    None if t[0] is None else _apply_side_ops(left, t[0]),
+                    None if t[1] is None else _apply_side_ops(right, t[1]),
+                    t[2], t[3],
+                )
+                for t in raw_loaded
+            ]
+        else:
+            from .gpu_exec import _decline
+
+            _decline(session, "join_plan_screen")
+
+    def join_bucket(b: int) -> Optional[ColumnBatch]:
+        # a bucket loaded from ONE index file keeps its on-disk sort by the
+        # bucket columns; filters and projections preserve row order
+        if preloaded is not None and preloaded[b] is not None:
+            lb, rb, l_sorted, r_sorted = preloaded[b]
+        else:
+            l_sorted = len(left.files_for_bucket(b)) <= 1
+            r_sorted = len(right.files_for_bucket(b)) <= 1
+            lb = _load_side_bucket(left, b, session)
+            rb = _load_side_bucket(right, b, session)
+        if lb is None or rb is None or lb.num_rows == 0 or rb.num_rows == 0:
+            return None
+        if agg_plan is not None:
+            from .device_join import try_host_join_agg
+
+            fused = try_host_join_agg(agg_plan, lb, rb, lkeys, rkeys, residual, session,
+                                      r_sorted)
+            if fused is not None:
+                return fused
+        joined = _merge_join_batches(lb, rb, lkeys, rkeys, l_sorted, r_sorted)
+        for r in residual:
+            joined = joined.filter(np.asarray(r.eval(joined).data, dtype=bool))
+        if per_bucket is not None:
+            joined = per_bucket(joined)
+        return joined
+
+    with ThreadPoolExecutor(max_workers=max(1, min(8, n))) as pool:
+        parts = [p for p in pool.map(join_bucket, range(n)) if p is not None]
+    if not parts:
+        empty = _empty_like(plan)
+        return per_bucket(empty) if per_bucket is not None else empty
+    return ColumnBatch.concat(parts)
+
+
+class _SchemaCols:
+    """Stand-in for a ColumnBatch in plan-level screens: ``.columns``
+    membership and ``.column(name).dtype`` from a scan schema, so
+    structural checks run without loading a byte."""
+
+    def __init__(self, schema):
+        self.columns = {f.name: f for f in schema}
+
+    def column(self, name):
+        return self.columns[name]
+
+
+def _no_derived_rebinding(side: BucketedSide, names) -> bool:
+    """True iff no referenced name is a derived projection output on this
+    side: the device path reads raw scan columns by name, so a Project that
+    derives an expression under an existing raw column name would bind the
+    raw column instead of the derivation."""
+    project = side.project
+    if project is None:
+        return True
+    for e in project.exprs:
+        out = expr_output_name(e)
+        if out in names:
+            inner = e.child if isinstance(e, Alias) else e
+            if not (isinstance(inner, Col) and inner.name == out):
+                return False
+    return True
+
+
+def _stacked_plan_screen(session, agg_plan, left, right, lkeys, rkeys, residual) -> bool:
+    """Structural (data-independent) eligibility for the fused
+    join+aggregate, before any bucket loads."""
+    from .device_join import _stacked_eligibility
+
+    try:
+        elig = _stacked_eligibility(
+            agg_plan, _SchemaCols(left.scan.full_schema), _SchemaCols(right.scan.full_schema),
+            lkeys, rkeys, residual, tuple(left.filters), tuple(right.filters),
+            set(agg_plan.child.left.schema.names), set(agg_plan.child.right.schema.names),
+            exact_f64=session.conf.exec_exact_f64_aggregates,
+        )
+    except HyperspaceError:
+        return False
+    if elig is None:
+        return False
+    # every column the body touches must reach the raw scan unchanged
+    refs: set[str] = set(lkeys) | set(rkeys)
+    for g in agg_plan.group_exprs:
+        if isinstance(g, Col):
+            refs.add(g.name)
+    for e in list(agg_plan.agg_exprs) + list(residual):
+        refs |= e.references()
+    for f in list(left.filters) + list(right.filters):
+        refs |= f.references()
+    return _no_derived_rebinding(left, refs) and _no_derived_rebinding(right, refs)
+
+
+def _fused_device_possible(left, right, lkeys, rkeys) -> bool:
+    """Plan-level key eligibility, knowable from the schema: one key
+    column, neither string nor f64 (f64 keys never ship: a lossy downcast
+    could fabricate matches)."""
+    if len(lkeys) != 1:
+        return False
+    for side, key in ((left, lkeys[0]), (right, rkeys[0])):
+        if key not in side.scan.full_schema:
+            return False
+        if side.scan.full_schema.field(key).dtype in (STRING, "float64"):
+            return False
+    return True
+
+
+def _iter_bucket_pairs(left, right, session):
+    """``(bucket, lb, rb, l_sorted, r_sorted)`` in bucket order, each pair
+    loaded RAW when it is asked for (no op replay: the device body runs the
+    side filters over the stable index-chunk buffers)."""
+    for b in range(left.spec.num_buckets):
+        l_sorted = len(left.files_for_bucket(b)) <= 1
+        r_sorted = len(right.files_for_bucket(b)) <= 1
+        lb = _load_side_bucket(left, b, session, raw=True)
+        rb = _load_side_bucket(right, b, session, raw=True)
+        yield b, lb, rb, l_sorted, r_sorted
+
+
+def _apply_side_ops(side: BucketedSide, batch: ColumnBatch) -> ColumnBatch:
+    """Replay a side's Filter/Project ops on a raw-loaded bucket, bottom-up."""
+    for op in side.ops:
+        if isinstance(op, Filter):
+            batch = batch.filter(np.asarray(op.condition.eval(batch).data, dtype=bool))
+        else:
+            batch = ColumnBatch({expr_output_name(e): e.eval(batch) for e in op.exprs})
+    return batch
+
+
+def _load_side_bucket(side: BucketedSide, b: int, session, raw: bool = False
+                      ) -> Optional[ColumnBatch]:
+    from .executor import execute_plan
+
+    batch = execute_plan(side.scan.copy(files=side.files_for_bucket(b)), session)
+    return batch if raw else _apply_side_ops(side, batch)
+
+
+def _merge_join_batches(
+    lb: ColumnBatch,
+    rb: ColumnBatch,
+    lkeys: Sequence[str],
+    rkeys: Sequence[str],
+    l_sorted: bool = False,
+    r_sorted: bool = False,
+) -> ColumnBatch:
+    from .executor import join_indices
+
+    if len(lkeys) == 1:
+        lcol = lb.column(lkeys[0])
+        rcol = rb.column(rkeys[0])
+        if (lcol.dtype != STRING and rcol.dtype != STRING
+                and lcol.validity is None and rcol.validity is None):
+            # single numeric key: searchsorted merge on the on-disk sort
+            # order; only unsorted sides pay an argsort
+            if l_sorted:
+                lsorted_keys, lorder = lcol.data, None
+            else:
+                lorder = np.argsort(lcol.data, kind="stable")
+                lsorted_keys = lcol.data[lorder]
+            if r_sorted:
+                rsorted_keys, rorder = rcol.data, None
+            else:
+                rorder = np.argsort(rcol.data, kind="stable")
+                rsorted_keys = rcol.data[rorder]
+            li, ri = host_merge_join_indices(lsorted_keys, rsorted_keys)
+            if lorder is not None:
+                li = lorder[li]
+            if rorder is not None:
+                ri = rorder[ri]
+            out = {n: c.take(li) for n, c in lb.columns.items()}
+            out.update({n: c.take(ri) for n, c in rb.columns.items()})
+            return ColumnBatch(out)
+    li, ri = join_indices(lb, rb, list(lkeys), list(rkeys))
+    out = {n: c.take(li) for n, c in lb.columns.items()}
+    out.update({n: c.take(ri) for n, c in rb.columns.items()})
+    return ColumnBatch(out)
+
+
+def _empty_like(plan: Join) -> ColumnBatch:
+    cols = {}
+    for f in plan.schema:
+        if f.dtype == STRING:
+            cols[f.name] = Column(np.empty(0, np.int32), STRING, None, [""])
+        else:
+            cols[f.name] = Column(np.empty(0, numpy_dtype(f.dtype)), f.dtype)
+    return ColumnBatch(cols)

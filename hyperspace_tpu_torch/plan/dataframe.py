@@ -1,8 +1,9 @@
 """Lazy DataFrame frontend (counterpart of hyperspace_tpu/plan/dataframe.py).
 
-Every DataFrame op builds logical nodes lazily; collect() runs column
-pruning, the session's extra optimizations (the Hyperspace rewrite when
-enabled) and pruning again, then hands the plan to the executor.
+Every DataFrame op builds logical nodes lazily; collect() runs filter
+pushdown through joins and column pruning, the session's extra
+optimizations (the Hyperspace rewrite when enabled) and pruning again, then
+hands the plan to the executor.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import os
 from typing import Sequence
 
 from .expr import Expr, Lit, col
-from .nodes import Aggregate, FileScan, Filter, LogicalPlan, Project, Sort
+from .nodes import Aggregate, FileScan, Filter, Join, Limit, LogicalPlan, Project, Sort
 from .executor import execute_plan
 from ..columnar import io as cio
 from ..columnar.table import ColumnBatch, Schema
@@ -40,6 +41,9 @@ class DataFrame:
     def select(self, *cols) -> "DataFrame":
         return DataFrame(self.session, Project([_to_expr(c) for c in cols], self.plan))
 
+    def join(self, other: "DataFrame", condition: Expr, how: str = "inner") -> "DataFrame":
+        return DataFrame(self.session, Join(self.plan, other.plan, condition, how))
+
     def group_by(self, *cols) -> "GroupedData":
         return GroupedData(self, [_to_expr(c) for c in cols])
 
@@ -54,14 +58,17 @@ class DataFrame:
             orders = list(zip(exprs, ascending))
         return DataFrame(self.session, Sort(orders, self.plan))
 
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self.session, Limit(n, self.plan))
+
     @property
     def schema(self) -> Schema:
         return self.plan.schema
 
     def optimized_plan(self) -> LogicalPlan:
-        from .passes import prune_columns
+        from .passes import pre_rewrite_plan, prune_columns
 
-        plan = prune_columns(self.plan)
+        plan = pre_rewrite_plan(self.plan)
         for rule in self.session.extra_optimizations:
             plan = rule(plan)
         return prune_columns(plan)

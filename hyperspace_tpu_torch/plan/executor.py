@@ -1,19 +1,33 @@
 """Plan execution on the host (counterpart of hyperspace_tpu/plan/executor.py,
-reduced to scan, filter, project, aggregate and sort).
+reduced to scan, filter, project, join, aggregate, sort and limit).
 
 This is the always-correct reference path for every node, and the port's
 plain end-to-end reference. When the session's device tier is on, an
 Aggregate first goes to plan/gpu_exec.py, where the JAX executor calls
-try_execute_tpu.
+try_execute_tpu; an Aggregate over a Join of two co-bucketed index scans
+goes to plan/bucket_join.py, whose fused join+aggregate runs on the device
+(plan/device_join.py).
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 
 from . import expr as X
-from .expr import AggExpr, Alias, Expr, expr_output_name
-from .nodes import Aggregate, FileScan, Filter, InMemoryScan, LogicalPlan, Project, Sort
+from .expr import AggExpr, Alias, Expr, expr_output_name, split_conjunction
+from .nodes import (
+    Aggregate,
+    FileScan,
+    Filter,
+    InMemoryScan,
+    Join,
+    Limit,
+    LogicalPlan,
+    Project,
+    Sort,
+)
 from ..columnar import io as cio
 from ..columnar.table import Column, ColumnBatch, STRING, sort_key_values
 from ..exceptions import HyperspaceError
@@ -41,10 +55,23 @@ def execute_plan(plan: LogicalPlan, session=None) -> ColumnBatch:
         plan.schema  # raises on duplicate output names
         child = execute_plan(plan.child, session)
         return ColumnBatch({expr_output_name(e): e.eval(child) for e in plan.exprs})
+    if isinstance(plan, Join):
+        return _exec_join(plan, session)
     if isinstance(plan, Aggregate):
         return _exec_aggregate(plan, session)
     if isinstance(plan, Sort):
         return _exec_sort(plan, execute_plan(plan.child, session))
+    if isinstance(plan, Limit):
+        if isinstance(plan.child, Sort):
+            sort_plan = plan.child
+            child = execute_plan(sort_plan.child, session)
+            topk = _try_topk_batch(sort_plan, plan.n, child)
+            if topk is not None:
+                return topk
+            full = _exec_sort(sort_plan, child)
+            return full.take(np.arange(min(plan.n, full.num_rows)))
+        child = execute_plan(plan.child, session)
+        return child.take(np.arange(min(plan.n, child.num_rows)))
     raise HyperspaceError(f"Cannot execute node {plan.kind}")
 
 
@@ -72,6 +99,161 @@ def _exec_file_scan(scan: FileScan, session=None) -> ColumnBatch:
         else None
     )
     return cio.read_parquet([f.name for f in scan.files], want, cache)
+
+
+# ---------------------------------------------------------------------------
+# join
+# ---------------------------------------------------------------------------
+
+def extract_equi_keys(
+    condition: Expr, left_schema, right_schema
+) -> tuple[list[str], list[str], list[Expr]]:
+    """Split a join condition into equi column pairs and residual
+    predicates (conjuncts of Col = Col across the two sides)."""
+    left_keys: list[str] = []
+    right_keys: list[str] = []
+    residual: list[Expr] = []
+    for conj in split_conjunction(condition):
+        if isinstance(conj, X.Eq) and isinstance(conj.left, X.Col) and isinstance(
+            conj.right, X.Col
+        ):
+            a, b = conj.left.name, conj.right.name
+            if a in left_schema and b in right_schema:
+                left_keys.append(a)
+                right_keys.append(b)
+                continue
+            if b in left_schema and a in right_schema:
+                left_keys.append(b)
+                right_keys.append(a)
+                continue
+        residual.append(conj)
+    return left_keys, right_keys, residual
+
+
+def _join_comparable_values(c: Column) -> np.ndarray:
+    """Order-correct raw values for factorization (strings decoded; NULLs
+    get a placeholder, callers mask them through the validity)."""
+    if c.dtype == STRING:
+        vals = np.asarray(c.decode(), dtype=object)
+        if c.validity is not None:
+            vals = vals.copy()
+            vals[~c.validity] = ""
+        return vals.astype(str)
+    return c.data
+
+
+def _factorize_pair(a: Column, b: Column) -> tuple[np.ndarray, np.ndarray]:
+    """Joint factorization of two key columns into comparable int codes."""
+    if (a.dtype == STRING) != (b.dtype == STRING):
+        raise HyperspaceError(
+            f"Cannot join string key with non-string key ({a.dtype} vs {b.dtype})"
+        )
+    av = _join_comparable_values(a)
+    bv = _join_comparable_values(b)
+    _, codes = np.unique(np.concatenate([av, bv]), return_inverse=True)
+    return codes[: len(av)], codes[len(av):]
+
+
+def _combine_codes(code_list: list[np.ndarray], other_list: list[np.ndarray]):
+    combined_a = code_list[0].astype(np.int64)
+    combined_b = other_list[0].astype(np.int64)
+    for ca, cb in zip(code_list[1:], other_list[1:]):
+        n = int(max(ca.max(initial=0), cb.max(initial=0))) + 1
+        combined_a = combined_a * n + ca
+        combined_b = combined_b * n + cb
+    return combined_a, combined_b
+
+
+def _any_null_mask(batch: ColumnBatch, keys: Sequence[str]) -> np.ndarray | None:
+    masks = [batch.column(k).validity for k in keys]
+    if all(m is None for m in masks):
+        return None
+    invalid = np.zeros(batch.num_rows, dtype=bool)
+    for m in masks:
+        if m is not None:
+            invalid |= ~m
+    return invalid
+
+
+def join_indices(
+    left: ColumnBatch,
+    right: ColumnBatch,
+    left_keys: Sequence[str],
+    right_keys: Sequence[str],
+) -> tuple[np.ndarray, np.ndarray]:
+    """Inner-join row indices via sort + searchsorted on factorized keys,
+    left-major with ascending right rows within a key. A NULL key never
+    matches anything, another NULL included."""
+    from ..ops.join import expand_runs
+
+    la, lb = [], []
+    for lk, rk in zip(left_keys, right_keys):
+        ca, cb = _factorize_pair(left.column(lk), right.column(rk))
+        la.append(ca)
+        lb.append(cb)
+    lcodes, rcodes = _combine_codes(la, lb)
+    lnull = _any_null_mask(left, left_keys)
+    rnull = _any_null_mask(right, right_keys)
+    if lnull is not None:
+        lcodes = np.where(lnull, np.int64(-1), lcodes)
+    if rnull is not None:
+        rcodes = np.where(rnull, np.int64(-2), rcodes)
+    order = np.argsort(rcodes, kind="stable")
+    starts, counts = _match_runs(lcodes, rcodes, order)
+    li = np.repeat(np.arange(len(lcodes)), counts)
+    ri = order[expand_runs(starts, counts)]
+    return li, ri
+
+
+def _match_runs(lcodes: np.ndarray, rcodes: np.ndarray, order: np.ndarray):
+    """For each left code: where its run of equal right codes starts in the
+    sorted right codes (``rcodes[order]``), and how long it is. Negative
+    (NULL) codes never match. Codes from one factorization are dense, so a
+    count per code and a prefix sum give the same runs as a binary search
+    per row, without its random memory access (tens of times faster at
+    tens of millions of rows); combined multi-key codes can be sparse and
+    take the binary search."""
+    hi = int(max(lcodes.max(initial=-1), rcodes.max(initial=-1))) + 1
+    if hi > 4 * (len(lcodes) + len(rcodes)) + 1024:
+        sorted_r = rcodes[order]
+        starts = np.searchsorted(sorted_r, lcodes, side="left")
+        return starts, np.searchsorted(sorted_r, lcodes, side="right") - starts
+    valid_r = rcodes >= 0
+    per_code = np.bincount(rcodes[valid_r], minlength=hi)
+    # the NULL right codes sort before every real code
+    first = np.cumsum(per_code) - per_code + (len(rcodes) - int(valid_r.sum()))
+    valid_l = lcodes >= 0
+    lc = np.where(valid_l, lcodes, 0)
+    return first[lc], np.where(valid_l, per_code[lc], 0)
+
+
+def _exec_join(plan: Join, session) -> ColumnBatch:
+    if plan.how != "inner":
+        raise HyperspaceError(f"Join type not yet supported: {plan.how}")
+    # co-partitioned path: both sides bucketed on the join keys (the shape
+    # JoinIndexRule produces) join bucket by bucket with no global hash table
+    from .bucket_join import try_bucketed_merge_join
+
+    bucketed = try_bucketed_merge_join(plan, session)
+    if bucketed is not None:
+        return bucketed
+    plan.schema  # raises on ambiguous output columns before any work runs
+    if plan.condition is None:
+        raise HyperspaceError("Cross join not supported")
+    left = execute_plan(plan.left, session)
+    right = execute_plan(plan.right, session)
+    lk, rk, residual = extract_equi_keys(
+        plan.condition, plan.left.schema, plan.right.schema
+    )
+    if not lk:
+        raise HyperspaceError(f"No equi keys in join condition: {plan.condition!r}")
+    li, ri = join_indices(left, right, lk, rk)
+    out_cols = {n: c.take(li) for n, c in left.columns.items()}
+    out_cols.update({n: c.take(ri) for n, c in right.columns.items()})
+    out = ColumnBatch(out_cols)
+    for r in residual:
+        out = out.filter(np.asarray(r.eval(out).data, dtype=bool))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +288,12 @@ def _agg_values(agg: AggExpr, batch: ColumnBatch):
 
 
 def _exec_aggregate(plan: Aggregate, session) -> ColumnBatch:
+    if isinstance(plan.child, Join):
+        from .bucket_join import try_bucketed_join_aggregate
+
+        fused = try_bucketed_join_aggregate(plan, session)
+        if fused is not None:
+            return fused
     child = execute_plan(plan.child, session)
     if not plan.group_exprs:
         out = {}
@@ -245,6 +433,29 @@ def _grouped_agg(agg, vals, valid, src, group_ids, num_groups) -> Column:
             return Column(out.astype(np.int32), STRING, group_validity, src.dictionary)
         return Column(out, str(out.dtype), group_validity)
     raise HyperspaceError(f"Unknown aggregate {agg!r}")
+
+
+def _try_topk_batch(sort_plan: Sort, k: int, child: ColumnBatch) -> ColumnBatch | None:
+    """Limit(Sort) -> argpartition top-k and a small final sort instead of a
+    full sort (the ORDER BY ... LIMIT shape of Q3). None: use the full
+    sort (small inputs, non-numeric primary keys, heavy boundary ties)."""
+    n = child.num_rows
+    if n <= max(k * 4, 1024) or not sort_plan.orders:
+        return None
+    keys = [sort_key_values(e.eval(child), asc) for e, asc in reversed(sort_plan.orders)]
+    primary = keys[-1]  # lexsort's last key is the primary
+    if primary.dtype.kind not in ("i", "u", "f"):
+        return None
+    # over-select 4k candidates on the primary key; exact unless more than
+    # the buffer's worth of rows tie at the boundary value
+    cand_size = min(n, max(4 * k, 64))
+    cand = np.argpartition(primary, cand_size - 1)[:cand_size]
+    boundary = primary[cand].max()
+    if (primary <= boundary).sum() > cand_size:
+        return None
+    sub = child.take(cand)
+    order = np.lexsort([kk[cand] for kk in keys])[:k]
+    return sub.take(order)
 
 
 def _exec_sort(plan: Sort, child: ColumnBatch) -> ColumnBatch:

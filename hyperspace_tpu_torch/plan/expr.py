@@ -434,3 +434,10 @@ def expr_output_name(e: Expr) -> str:
     if isinstance(e, Col):
         return e.name
     return repr(e)
+
+
+def split_conjunction(e: Expr) -> list[Expr]:
+    """Flatten a conjunction into its conjuncts."""
+    if isinstance(e, And):
+        return split_conjunction(e.left) + split_conjunction(e.right)
+    return [e]

@@ -52,10 +52,12 @@ from ..ops.intsum import _INT_SUM_ROW_CAP, combine_int_chunks, int_chunk_sums
 
 @dataclass
 class DeviceTierStats:
-    """What the device tier did, per session: fragments it ran, and how
-    often each reason declined a fragment that matched."""
+    """What the device tier did, per session: filter-aggregate fragments
+    it ran, fused join+aggregate queries it ran (plan/device_join.py), and
+    how often each reason declined a fragment that matched."""
 
     device_fragments: int = 0
+    device_join_fragments: int = 0
     declines: dict = field(default_factory=dict)
 
 

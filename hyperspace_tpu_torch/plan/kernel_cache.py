@@ -65,3 +65,18 @@ def grouped_fingerprint(route: str, seg_pad: int, pred_expr, proj_exprs, agg_lis
         tuple((k, repr(c)) for k, c in agg_list),
         dtype_signature(dev_cols),
     )
+
+
+def join_fingerprint(route: str, key_dtype: str, agg_list, residual, lfilters, rfilters,
+                     col_sig: tuple) -> tuple:
+    """Fused join+aggregate body of plan/device_join.py."""
+    return (
+        "join_agg",
+        route,
+        key_dtype,
+        tuple((k, repr(c)) for k, c in agg_list),
+        tuple(repr(r) for r in residual),
+        tuple(repr(f) for f in lfilters),
+        tuple(repr(f) for f in rfilters),
+        col_sig,
+    )

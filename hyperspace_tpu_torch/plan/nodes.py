@@ -1,6 +1,6 @@
 """Logical plan IR (counterpart of hyperspace_tpu/plan/nodes.py, reduced to
-the nodes of the covering-index filter-aggregate path: scans, Filter,
-Project, Aggregate, Sort).
+the nodes of the covering-index filter-aggregate and join paths: scans,
+Filter, Project, Join, Aggregate, Sort, Limit).
 
 DataFrame ops build these nodes lazily; at collect the session's extra
 optimizations (the Hyperspace rewrite when enabled) run, then the executor
@@ -20,6 +20,16 @@ from ..exceptions import HyperspaceError
 from ..meta.entry import FileInfo
 
 _plan_ids = itertools.count()
+
+
+@dataclass(frozen=True)
+class BucketSpec:
+    """Hash-bucket layout of a file set: what the join rule's rewrite
+    carries so the executor can join bucket b with bucket b."""
+
+    num_buckets: int
+    bucket_columns: tuple[str, ...]
+    sort_columns: tuple[str, ...] = ()
 
 
 @dataclass
@@ -94,6 +104,7 @@ class _Unary(LogicalPlan):
 
 class FileScan(LogicalPlan):
     """Leaf scan over a file-based relation: the resolved file list,
+    ``bucket_spec`` when it reads bucketed index data for a join,
     ``index_info`` when it reads index data, and the pruned column set."""
 
     def __init__(
@@ -103,6 +114,7 @@ class FileScan(LogicalPlan):
         schema: Schema,
         files: Sequence[FileInfo],
         options: dict[str, str] | None = None,
+        bucket_spec: Optional[BucketSpec] = None,
         index_info: Optional[IndexScanInfo] = None,
         required_columns: Optional[Sequence[str]] = None,
     ):
@@ -112,6 +124,7 @@ class FileScan(LogicalPlan):
         self._schema = schema
         self.files = list(files)
         self.options = dict(options or {})
+        self.bucket_spec = bucket_spec
         self.index_info = index_info
         self.required_columns = list(required_columns) if required_columns else None
 
@@ -127,6 +140,7 @@ class FileScan(LogicalPlan):
             schema=self._schema,
             files=self.files,
             options=self.options,
+            bucket_spec=self.bucket_spec,
             index_info=self.index_info,
             required_columns=self.required_columns,
         )
@@ -151,6 +165,8 @@ class FileScan(LogicalPlan):
                 f"Name: {self.index_info.index_name}, "
                 f"LogVersion: {self.index_info.log_version})"
             )
+        if self.bucket_spec:
+            extra += f" buckets={self.bucket_spec.num_buckets}"
         return (
             f"FileScan {self.fmt} [{', '.join(self.schema.names)}] "
             f"({len(self.files)} files){extra}"
@@ -210,6 +226,40 @@ class Project(_Unary):
         return f"Project [{', '.join(expr_output_name(e) for e in self.exprs)}]"
 
 
+class Join(LogicalPlan):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 condition: Optional[Expr], how: str = "inner"):
+        super().__init__([left, right])
+        self.condition = condition
+        self.how = how
+
+    @property
+    def left(self) -> LogicalPlan:
+        return self.children_nodes[0]
+
+    @property
+    def right(self) -> LogicalPlan:
+        return self.children_nodes[1]
+
+    def with_new_children(self, children):
+        return Join(children[0], children[1], self.condition, self.how)
+
+    @property
+    def schema(self) -> Schema:
+        fields = list(self.left.schema.fields)
+        seen = {f.name for f in fields}
+        for f in self.right.schema.fields:
+            if f.name in seen:
+                raise HyperspaceError(
+                    f"Ambiguous column {f.name!r} in join output; alias before joining"
+                )
+            fields.append(f)
+        return Schema(fields)
+
+    def describe(self) -> str:
+        return f"Join {self.how} ({self.condition!r})"
+
+
 class Aggregate(_Unary):
     def __init__(
         self,
@@ -257,6 +307,22 @@ class Sort(_Unary):
         return "Sort [" + ", ".join(
             f"{e!r} {'ASC' if asc else 'DESC'}" for e, asc in self.orders
         ) + "]"
+
+
+class Limit(_Unary):
+    def __init__(self, n: int, child: LogicalPlan):
+        super().__init__(child)
+        self.n = n
+
+    def with_new_children(self, children):
+        return Limit(self.n, children[0])
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def describe(self) -> str:
+        return f"Limit {self.n}"
 
 
 # ---------------------------------------------------------------------------

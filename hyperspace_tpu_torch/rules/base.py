@@ -1,5 +1,7 @@
 """Rule framework: filter chain, ranker, rule base (counterpart of
-hyperspace_tpu/rules/base.py, without the whyNot reason tagging).
+hyperspace_tpu/rules/base.py, without the whyNot reason tagging: a filter
+states why it drops a candidate with a typed reason, which the port does
+not record).
 
 Candidates flow through a rule's filters as {scan plan_id: [entries]}; each
 filter narrows them, the ranker picks one entry per scan, and the rule
@@ -8,7 +10,8 @@ returns the rewritten plan with a score.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Optional
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, Callable, Optional
 
 from ..meta.entry import IndexLogEntry
 from ..plan.nodes import LogicalPlan
@@ -17,10 +20,36 @@ if TYPE_CHECKING:
     from ..session import HyperspaceSession
 
 
-class QueryPlanIndexFilter:
+@dataclass(frozen=True)
+class FilterReason:
+    code: str
+    args: tuple[tuple[str, str], ...] = ()
+    verbose: str = ""
+
+
+def reason(code: str, verbose: str = "", **args) -> FilterReason:
+    return FilterReason(code, tuple((k, str(v)) for k, v in args.items()), verbose)
+
+
+# reason codes of the join rule's filters (the reference's FilterReason names)
+MISSING_REQUIRED_COL = "MISSING_REQUIRED_COL"
+NOT_ELIGIBLE_JOIN = "NOT_ELIGIBLE_JOIN"
+NO_AVAIL_JOIN_INDEX_PAIR = "NO_AVAIL_JOIN_INDEX_PAIR"
+NOT_ALL_JOIN_COL_INDEXED = "NOT_ALL_JOIN_COL_INDEXED"
+
+
+class IndexFilter:
     def __init__(self, session: "HyperspaceSession"):
         self.session = session
 
+    def tag_reason_if(self, condition: bool, plan: LogicalPlan, entries,
+                      r: FilterReason) -> bool:
+        """Returns ``condition``; the reference also records ``r`` for whyNot
+        when it is false."""
+        return condition
+
+
+class QueryPlanIndexFilter(IndexFilter):
     def apply(
         self, plan: LogicalPlan, candidates: dict[int, list[IndexLogEntry]]
     ) -> dict[int, list[IndexLogEntry]]:
@@ -30,6 +59,13 @@ class QueryPlanIndexFilter:
 class IndexRankFilter(QueryPlanIndexFilter):
     def apply(self, plan, candidates) -> dict[int, IndexLogEntry]:
         raise NotImplementedError
+
+
+def index_type_filter(kind: str) -> Callable[[list[IndexLogEntry]], list[IndexLogEntry]]:
+    def f(entries: list[IndexLogEntry]) -> list[IndexLogEntry]:
+        return [e for e in entries if e.derived_dataset.kind == kind]
+
+    return f
 
 
 class HyperspaceRule:

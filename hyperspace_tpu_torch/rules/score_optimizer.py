@@ -1,5 +1,6 @@
 """Score-based plan optimizer (counterpart of
-hyperspace_tpu/rules/score_optimizer.py, with FilterIndexRule only).
+hyperspace_tpu/rules/score_optimizer.py, with FilterIndexRule and
+JoinIndexRule).
 
 A memoized recursive search keeps, per plan node, the transformation with
 the highest total score: a rule's rewrite of the whole subtree, or the
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 from .base import NoOpRule
 from .filter_rule import FilterIndexRule
+from .join_rule import JoinIndexRule
 from ..meta.entry import IndexLogEntry
 from ..plan.nodes import LogicalPlan
 
@@ -17,7 +19,7 @@ from ..plan.nodes import LogicalPlan
 class ScoreBasedIndexPlanOptimizer:
     def __init__(self, session):
         self.session = session
-        self.rules = [FilterIndexRule(session), NoOpRule(session)]
+        self.rules = [FilterIndexRule(session), JoinIndexRule(session), NoOpRule(session)]
 
     def apply(self, plan: LogicalPlan, candidates: dict[int, list[IndexLogEntry]]) -> LogicalPlan:
         memo: dict[int, tuple[LogicalPlan, int]] = {}

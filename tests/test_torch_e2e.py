@@ -7,7 +7,9 @@ The JAX side runs its device tier with the Pallas route forced (interpret
 mode); the port runs its device tier on the CPU (plain kernel versions).
 Counts and group keys must be equal, in the same row order; float results
 agree within relative 1e-4. Each package also queries an index the other
-built: the on-disk format is shared.
+built: the on-disk format is shared. The same holds for the co-bucketed
+join indexes li_orderkey and od_orderkey, which both packages write bucket
+file for bucket file and query with q3_agg through the fused join path.
 """
 
 import os
@@ -202,3 +204,43 @@ def test_queries_match_across_packages(indexes, built_by, monkeypatch):
         ran = [k for k in K.PLAIN_CALLS if K.PLAIN_CALLS[k] != before[k]]
         assert ran == ([expected_kernel[q]] if q in expected_kernel else []), q
         _assert_results_match(got, jdf.to_pydict())
+
+
+@pytest.fixture(scope="module")
+def join_indexes(lakes):
+    """li_orderkey and od_orderkey, one warehouse per building package."""
+    from test_torch_join import build_join_indexes
+
+    root, jlake, _ = lakes
+    built = {"jax": str(root / "wh_jax_join"), "torch": str(root / "wh_torch_join")}
+    build_join_indexes(J, _jax_session(built["jax"]), jlake)
+    build_join_indexes(T, _torch_session(built["torch"]), jlake)
+    return jlake, built
+
+
+@pytest.mark.parametrize("name", [ttpch.LI_ORDERKEY[0], ttpch.OD_ORDERKEY[0]])
+def test_both_packages_write_the_same_join_index_data(join_indexes, name):
+    _lake, built = join_indexes
+    dirs = {k: os.path.join(v, "indexes", name, "v__=0") for k, v in built.items()}
+    files = {k: sorted(os.listdir(d)) for k, d in dirs.items()}
+    assert files["jax"] == files["torch"] and len(files["jax"]) == 8
+    for f in files["jax"]:
+        assert pq.read_table(os.path.join(dirs["jax"], f)).equals(
+            pq.read_table(os.path.join(dirs["torch"], f))
+        )
+
+
+@pytest.mark.parametrize("built_by", ["jax", "torch"])
+def test_q3_agg_reads_the_other_packages_join_indexes(join_indexes, built_by):
+    from test_torch_join import JAX_JOIN_QUERIES, assert_join_results_match, index_names
+
+    lake, built = join_indexes
+    jsession = _jax_session(built[built_by]).enable_hyperspace()
+    tsession = _torch_session(built[built_by]).enable_hyperspace()
+    jdf = JAX_JOIN_QUERIES["q3_agg"](jsession, lake)
+    tdf = ttpch.JOIN_QUERIES["q3_agg"](tsession, lake)
+    assert index_names(jdf) == index_names(tdf) == ["li_orderkey", "od_orderkey"]
+    got = tdf.to_pydict()
+    assert tsession.device_stats.device_join_fragments == 1
+    assert not tsession.device_stats.declines
+    assert_join_results_match("q3_agg", got, jdf.to_pydict())

@@ -139,3 +139,64 @@ def test_cuda_kernels_match_plain(cuda_device, n):
     assert torch.equal(counts.cpu(), p_counts.cpu())
     for got, want in zip(sums, p_sums):
         _assert_sums_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _minmax_inputs(n: int, case: str, seed: int):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1000, 1000, n).astype(np.float32)
+    valid = rng.random(n) < 0.5
+    if case == "all_invalid":
+        valid[:] = False
+    elif case == "int":
+        x = rng.integers(-(2**20), 2**20, n).astype(np.int32)
+    elif case in ("nan_valid", "nan_invalid") and n:
+        i = n // 2
+        x[i] = np.nan
+        valid[i] = case == "nan_valid"
+    return x, valid
+
+
+_MINMAX_CASES = [(n, "random") for n in SIZES] + [
+    (n, case) for n in (1, 1025, 5000)
+    for case in ("all_invalid", "nan_valid", "nan_invalid", "int")
+]
+
+
+def _same_value(a: float, b: float) -> bool:
+    return (np.isnan(a) and np.isnan(b)) or a == b
+
+
+@pytest.mark.parametrize("n,case", _MINMAX_CASES)
+def test_masked_min_max_matches_pallas(n, case):
+    x, valid = _minmax_inputs(n, case, 17 * n + len(case))
+    mn, mx = PK.masked_min_max(jnp.asarray(x), jnp.asarray(valid))
+    p_mn, p_mx = _plain_call_delta(
+        "masked_min_max",
+        lambda: K.masked_min_max(torch.from_numpy(x), torch.from_numpy(valid)),
+    )
+    assert p_mn.dtype == p_mx.dtype == torch.float32
+    assert p_mn.shape == p_mx.shape == ()
+    assert _same_value(float(p_mn), float(mn)) and _same_value(float(p_mx), float(mx))
+    if case == "nan_valid":
+        assert np.isnan(float(p_mn)) and np.isnan(float(p_mx))
+    elif case == "all_invalid" or n == 0 or not valid.any():
+        assert float(p_mn) == np.inf and float(p_mx) == -np.inf
+    else:
+        vals = x[valid].astype(np.float32)
+        assert float(p_mn) == vals.min() and float(p_mx) == vals.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,case", [(0, "random"), (1025, "nan_valid"), (1025, "nan_invalid"),
+                                    (1_000_003, "random"), (1_000_003, "int"),
+                                    (1025, "all_invalid")])
+def test_cuda_masked_min_max_matches_plain(cuda_device, n, case):
+    x, valid = _minmax_inputs(n, case, n)
+    x_d = torch.from_numpy(x).to(cuda_device)
+    v_d = torch.from_numpy(valid).to(cuda_device)
+    got = K.masked_min_max(x_d, v_d)
+    again = K.masked_min_max(x_d, v_d)
+    want = R.masked_min_max(x_d, v_d)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))  # same bits
+        assert _same_value(float(a), float(w))
