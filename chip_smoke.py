@@ -13,11 +13,18 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 2. kernel build: nvcc compiles every CUDA source of hyperspace_tpu_torch/ops/
    csrc/ into build/kernels/, in parallel;
 3. kernel phase: each CUDA kernel against its plain PyTorch version on the
-   card, over several sizes, group counts and measure counts: counts exact,
-   sums within relative 1e-4, min and max exact (NaN, all-invalid and empty
-   inputs included), two launches bit-identical; then each kernel's time at
-   the main path's padded size, beside its bound and the plain version's
-   time;
+   card, over several sizes, group counts (1, 6, 16) and measure counts (0,
+   1, 3, 4, 5; five run as two passes), on aligned inputs and on offset
+   views (pred, gids and each measure offset by different rows, which the
+   kernels take through their scalar loops), with gids that are negative,
+   in [G, 16) and >= 16: counts exact, sums within relative 1e-4, min and
+   max exact (NaN, all-invalid and empty inputs included), two launches
+   bit-identical; then each kernel's time at the main path's padded size:
+   per call with the wrapper included (CUDA events around one call, median
+   of 25) and on the device (CUDA events around 50 back-to-back launches,
+   over 50), beside its bound and the plain version's per-call time. With
+   --profile, a torch.profiler pass per kernel splits a call into its CUDA
+   kernels (chiprun_out/profile_kernel_<name>.txt);
 4. end-to-end phase: TPC-H lineitem at SF10 (60M rows, seed 42) and orders
    (15M rows) written as parquet, the covering indexes li_shipdate,
    li_orderkey and od_orderkey built over them, then
@@ -57,6 +64,13 @@ REL_TOL = 1e-4  # f32 sums, as tests/test_pallas_and_dist.py holds the reference
 SEED = 42  # bench.py's TPC-H seed
 WARM_RUNS = 5
 KERNEL_REPS = 25
+DEVICE_LAUNCHES = 50  # back-to-back launches per device-time reading
+GROUP_COUNTS = (1, 6, 16)
+MEASURE_COUNTS = (0, 1, 3, 4, 5)
+# row offsets of (pred, gids, measures) views: aligned, then misaligned by
+# different amounts, which the vector loads cannot take
+OFFSETS = ((0, 0, 0), (1, 2, 3), (3, 1, 2))
+GID_RANGE = (-2, 18)  # negative, [G, 16) and >= 16 gids count nowhere
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -117,21 +131,65 @@ def time_ms(torch, fn, reps: int = KERNEL_REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_time_ms(torch, fn, launches: int = DEVICE_LAUNCHES, warmup: int = 3) -> float:
+    """CUDA-event time of `launches` back-to-back calls, over `launches`: the
+    card's time per call once the host runs ahead of it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def profile_kernel(torch, fn, name: str, calls: int = 10) -> None:
+    """A torch.profiler pass over `calls` calls: the CUDA kernels (first
+    pass, fold, any fill) of one wrapper call, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with open(os.path.join(OUT_DIR, f"profile_kernel_{name}.txt"), "w") as f:
+        f.write(f"{calls} calls\n")
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str) -> dict:
+def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str,
+                 profile: bool = False) -> tuple[dict, dict]:
+    """The checks and times of every kernel; returns the results and, when
+    `profile`, each kernel's call at the timed size (for profile_kernel once
+    the end-to-end phase has profiled its queries)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     results = {name: {"max_abs_err": 0.0, "checks": 0} for name in KERNEL_ROWS}
 
-    def inputs(n: int, k: int, seed: int):
+    def inputs(n: int, k: int, seed: int, offsets=(0, 0, 0), gid_range=(0, K.MAX_GROUPS)):
+        """pred, k measures and gids of n rows; each a contiguous view that
+        starts `offsets` (pred, gids, measures) rows into its storage."""
         gen.manual_seed(seed)
-        pred = torch.rand(n, generator=gen, device=dev) < 0.3
-        xs = [torch.rand(n, generator=gen, device=dev) * 1000 for _ in range(k)]
-        gids = torch.randint(0, K.MAX_GROUPS, (n,), generator=gen, device=dev,
-                             dtype=torch.int32)
+        po, go, xo = offsets
+
+        def view(t, r):
+            return t[r:r + n]
+
+        pred = view(torch.rand(n + po, generator=gen, device=dev) < 0.3, po)
+        xs = [view(torch.rand(n + xo, generator=gen, device=dev) * 1000, xo)
+              for _ in range(k)]
+        gids = view(torch.randint(*gid_range, (n + go,), generator=gen, device=dev,
+                                  dtype=torch.int32), go)
         return pred, xs, gids
 
     def compare(name, got, again, want, what):
@@ -177,21 +235,23 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str) -> dict
         r["checks"] += 1
 
     for n in sizes:
-        pred, (x, y), _g = inputs(n, 2, n)
-        for name, args in (("filter_weighted_sum", (pred, x, y)), ("filter_sum", (pred, x))):
-            got = getattr(K, name)(*args)
-            again = getattr(K, name)(*args)
-            want = getattr(R, name)(*args)
-            compare(name, ((got[0],), got[1]), ((again[0],), again[1]),
-                    ((want[0],), want[1]), f"n={n}")
-        for groups in (1, 4, 16):
-            for k in (0, 1, 3):
-                pred, xs, gids = inputs(n, k, 1000 * n + 10 * groups + k)
-                got = K.filter_grouped_multi_sum(pred, gids, xs, groups)
-                again = K.filter_grouped_multi_sum(pred, gids, xs, groups)
-                want = R.filter_grouped_multi_sum(pred, gids, xs, groups)
-                compare("filter_grouped_multi_sum", got, again, want,
-                        f"n={n} G={groups} k={k}")
+        for off in OFFSETS:
+            pred, (x, y), _g = inputs(n, 2, n, off)
+            for name, args in (("filter_weighted_sum", (pred, x, y)),
+                               ("filter_sum", (pred, x))):
+                got = getattr(K, name)(*args)
+                again = getattr(K, name)(*args)
+                want = getattr(R, name)(*args)
+                compare(name, ((got[0],), got[1]), ((again[0],), again[1]),
+                        ((want[0],), want[1]), f"n={n} offsets={off}")
+            for groups in GROUP_COUNTS:
+                for k in MEASURE_COUNTS:
+                    pred, xs, gids = inputs(n, k, 1000 * n + 10 * groups + k, off, GID_RANGE)
+                    got = K.filter_grouped_multi_sum(pred, gids, xs, groups)
+                    again = K.filter_grouped_multi_sum(pred, gids, xs, groups)
+                    want = R.filter_grouped_multi_sum(pred, gids, xs, groups)
+                    compare("filter_grouped_multi_sum", got, again, want,
+                            f"n={n} G={groups} k={k} offsets={off}")
         for case in MINMAX_CASES:
             x, valid = minmax_inputs(n, case, 7 * n + len(case))
             got = K.masked_min_max(x, valid)
@@ -222,7 +282,8 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str) -> dict
                                n * (4 + 1), 2 * n)
     for name, (kern, plain, nbytes, ops) in cases.items():
         r = results[name]
-        r["ms"] = time_ms(torch, kern)
+        r["ms"] = time_ms(torch, kern)  # per call, wrapper included
+        r["device_ms"] = device_time_ms(torch, kern)
         r["plain_ms"] = time_ms(torch, plain)
         r["bytes"] = nbytes
         r["ops"] = ops
@@ -239,12 +300,13 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str) -> dict
         r["library_note"] = ("no single PyTorch call computes a masked min and max"
                              if name == "masked_min_max" else
                              "no single PyTorch call computes a masked sum and count")
-        log({"kernel": name, "card": card, "n": n, "ms": r["ms"],
-             "library_ms": None, "library_note": r["library_note"],
+        log({"kernel": name, "card": card, "n": n, "per_call_ms": r["ms"],
+             "device_ms": r["device_ms"], "library_ms": None, "library_note": r["library_note"],
              "plain_ms": r["plain_ms"], "plain": f"hyperspace_tpu_torch/ops/reference.py:{name}",
              "bytes": nbytes, "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "checks": r["checks"], "max_abs_err": r["max_abs_err"]})
-    return results
+    timed = {name: case[0] for name, case in cases.items()} if profile else {}
+    return results, timed
 
 
 # ---------------------------------------------------------------------------
@@ -427,8 +489,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
                 f"{stats.device_join_fragments}, declines {stats.declines}")
         expected = EXPECTED_KERNEL[q]
         for k, c in launched.items():
-            if k == expected:
-                require(c > 0, f"{q}: {k} never launched")
+            if k == expected:  # once per run
+                require(c == 1 + WARM_RUNS, f"{q}: {k} launched {c} times")
             else:
                 require(c == 0, f"{q}: unexpected launches of {k}")
         require(all(u == 0 for u in uploads_warm), f"{q}: warm runs uploaded {uploads_warm}")
@@ -444,6 +506,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
             queries[q]["device_join_fragments"] = stats.device_join_fragments
         log({"query": q, "card": card, **queries[q]})
     out["main_path_launches"] = dict(K.LAUNCHES)
+    require(not any(K.PLAIN_CALLS.values()),
+            f"plain versions ran on the main path: {K.PLAIN_CALLS}")
     out["queries"] = queries
     if profile:
         for q, fn in all_queries.items():
@@ -492,8 +556,12 @@ def main() -> int:
 
     timed_n = _pad_pow2(args.rows)
     sizes = sorted({0, 1, 1023, 1025, 1_000_003, 1 << 26, timed_n})
-    kernels = kernel_phase(torch, K, R, sizes, timed_n, smi)
+    kernels, timed = kernel_phase(torch, K, R, sizes, timed_n, smi, args.profile)
     e2e = end_to_end_phase(torch, K, args.rows, smi, args.profile)
+    # after the queries' profiles: a profiler session before them lost
+    # their short runs' device events
+    for name, call in timed.items():
+        profile_kernel(torch, call, name)
 
     line = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -501,7 +569,8 @@ def main() -> int:
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": e2e["main_path_launches"][name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "on_path": name in ON_PATH,
             "status": f"built, {r['checks']} checks against the plain version passed",

@@ -6,6 +6,7 @@ ctypes: the counterpart of hyperspace_tpu/ops/pallas_kernels.py.
 | filter_weighted_sum        | csrc/filter_reduce.cu   | pallas_kernels.filter_weighted_sum        |
 | filter_sum                 | csrc/filter_reduce.cu   | pallas_kernels.filter_sum                 |
 | filter_grouped_multi_sum   | csrc/grouped_sum.cu     | pallas_kernels.filter_grouped_multi_sum   |
+| filter_grouped_sum         | (the above with k = 1)  | pallas_kernels.filter_grouped_sum         |
 | masked_min_max             | csrc/minmax.cu          | pallas_kernels.masked_min_max             |
 
 Each wrapper takes tensors on one device. For CPU tensors it runs the plain
@@ -13,6 +14,19 @@ PyTorch version in ops/reference.py and counts a plain call. For CUDA tensors
 it checks device, dtype, shape and contiguity, launches the kernel on the
 current stream, raises KernelError on a non-zero CUDA status, and counts a
 launch. It never falls back from the card to the host.
+
+Outputs that a kernel writes in full are allocated with ``torch.empty``.
+Each launch is two kernels: a first pass that leaves one partial per block,
+and a fold of the partials in block order, so no float atomics are used and
+two launches on the same inputs give the same bits. The first pass's grid,
+and so the partials' size, is what the library reports for the device
+(``hs_*_partial_*``): filter_sum and filter_grouped_multi_sum run a
+persistent grid of a few blocks per SM that loads 16 rows a thread per step
+through 4- and 16-byte words, and take the kernel's own scalar loop for
+inputs that are not so aligned; filter_weighted_sum and masked_min_max
+keep a grid of up to 1024 blocks with one row per thread in flight. The
+source notes in ``csrc/`` say what bounds each kernel and why it is built
+as it is.
 
 The sources compile at first use, one nvcc per source, all started
 together, into ``build/kernels/`` beside the package (a directory git
@@ -93,11 +107,12 @@ def _lib_path(source: str) -> Path:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    for name in ("hs_filter_partial_slots", "hs_grouped_partial_blocks",
-                 "hs_grouped_max_measures", "hs_grouped_slots",
-                 "hs_minmax_partial_slots"):
+    for name, args in (("hs_filter_partial_slots", [_I]),
+                       ("hs_grouped_partial_blocks", [_I, _I]),
+                       ("hs_grouped_max_measures", []), ("hs_grouped_slots", []),
+                       ("hs_minmax_partial_slots", [])):
         if hasattr(lib, name):
-            getattr(lib, name).argtypes = []
+            getattr(lib, name).argtypes = args
             getattr(lib, name).restype = _I
     if hasattr(lib, "hs_filter_weighted_sum"):
         lib.hs_filter_weighted_sum.argtypes = [_I, _P, _P, _P, _LL, _P, _P, _P, _P, _P]
@@ -175,6 +190,14 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _partial_slots(kernel: str, slots: int) -> int:
+    """A library's partial count for a grid, or KernelError when the library
+    reported a CUDA error (negative) instead."""
+    if slots <= 0:
+        raise KernelError(f"{kernel}: sizing the partials failed with cudaError {-slots}")
+    return slots
+
+
 def filter_weighted_sum(pred: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
     """(sum of x*y over rows where pred, as f32; count(pred), as int32),
     both 0-d tensors on pred's device. pred bool[n]; x, y float32[n]."""
@@ -202,12 +225,13 @@ def filter_sum(pred: torch.Tensor, x: torch.Tensor):
 def _launch_filter(name: str, pred: torch.Tensor, xs: tuple):
     dev = pred.device
     n = pred.shape[0]
-    out_s = torch.zeros((), dtype=torch.float32, device=dev)
-    out_c = torch.zeros((), dtype=torch.int32, device=dev)
     if n == 0:
-        return out_s, out_c
+        return (torch.zeros((), dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    out_s = torch.empty((), dtype=torch.float32, device=dev)
+    out_c = torch.empty((), dtype=torch.int32, device=dev)
     lib = _lib("filter_reduce.cu")
-    slots = lib.hs_filter_partial_slots()
+    slots = _partial_slots(name, lib.hs_filter_partial_slots(dev.index))
     part_s = torch.empty(slots, dtype=torch.float32, device=dev)
     part_c = torch.empty(slots, dtype=torch.int32, device=dev)
     tail = (part_s.data_ptr(), part_c.data_ptr(), out_s.data_ptr(), out_c.data_ptr(),
@@ -252,8 +276,6 @@ def filter_grouped_multi_sum(
     lib = _lib("grouped_sum.cu")
     slots = lib.hs_grouped_slots()
     per_pass = lib.hs_grouped_max_measures()
-    blocks = lib.hs_grouped_partial_blocks()
-    part_c = torch.empty(blocks * slots, dtype=torch.int32, device=dev)
     sums: list[torch.Tensor] = []
     counts = None
     # more measures than one launch takes run as several passes; the counts
@@ -261,6 +283,9 @@ def filter_grouped_multi_sum(
     for start in range(0, max(len(xs), 1), per_pass):
         chunk = xs[start:start + per_pass]
         k = len(chunk)
+        blocks = _partial_slots("filter_grouped_multi_sum",
+                                lib.hs_grouped_partial_blocks(dev.index, k))
+        part_c = torch.empty(blocks * slots, dtype=torch.int32, device=dev)
         part_s = torch.empty(max(1, blocks * k * slots), dtype=torch.float32, device=dev)
         out_s = torch.empty(max(1, k * slots), dtype=torch.float32, device=dev)
         out_c = torch.empty(slots, dtype=torch.int32, device=dev)
@@ -276,6 +301,16 @@ def filter_grouped_multi_sum(
             counts = out_c[:num_groups]
         sums.extend(out_s[: k * slots].view(k, slots)[:, :num_groups].unbind(0))
     return tuple(sums), counts
+
+
+def filter_grouped_sum(pred: torch.Tensor, gids: torch.Tensor, x: torch.Tensor,
+                       num_groups: int):
+    """Per-group sum of x and count over rows where pred, for a group domain
+    of at most 16: (f32[num_groups], int32[num_groups]). The grouped kernel
+    with one measure, as the JAX package's filter_grouped_sum is; its
+    launches and plain calls count under filter_grouped_multi_sum."""
+    sums, counts = filter_grouped_multi_sum(pred, gids, (x,), num_groups)
+    return sums[0], counts
 
 
 def masked_min_max(x: torch.Tensor, valid: torch.Tensor):

@@ -31,6 +31,14 @@ def _inputs(n: int, k: int, seed: int):
     return pred, xs, gids
 
 
+def _edge_inputs(n: int, k: int, seed: int):
+    """As _inputs, with gids that also fall outside [0, G): negative, in
+    [G, 16) and >= 16, on rows where pred holds and where it does not."""
+    pred, xs, _ = _inputs(n, k, seed)
+    gids = np.random.default_rng(seed + 1).integers(-3, 20, n).astype(np.int32)
+    return pred, xs, gids
+
+
 def _assert_sums_close(got, want):
     got = np.asarray(got, dtype=np.float64).reshape(-1)
     want = np.asarray(want, dtype=np.float64).reshape(-1)
@@ -82,7 +90,11 @@ _GROUPED_CASES = [(n, 4, 1) for n in SIZES] + [
 
 @pytest.mark.parametrize("n,groups,k", _GROUPED_CASES)
 def test_filter_grouped_multi_sum_matches_pallas(n, groups, k):
-    pred, xs, gids = _inputs(n, k, 31 * n + 7 * groups + k)
+    _check_grouped_against_pallas(*_inputs(n, k, 31 * n + 7 * groups + k), groups)
+
+
+def _check_grouped_against_pallas(pred, xs, gids, groups):
+    k = len(xs)
     sums, counts = PK.filter_grouped_multi_sum(
         jnp.asarray(pred), jnp.asarray(gids), [jnp.asarray(x) for x in xs], groups
     )
@@ -99,6 +111,48 @@ def test_filter_grouped_multi_sum_matches_pallas(n, groups, k):
     for got, want in zip(p_sums, sums):
         assert got.dtype == torch.float32 and got.shape == (groups,)
         _assert_sums_close(got.numpy(), np.asarray(want))
+
+
+# k = 4 fills one launch of the grouped kernel; k = 5 takes two
+_GROUPED_EDGE_CASES = [
+    (5000, groups, k) for groups in (1, 6, 16) for k in (0, 4, 5)
+] + [(1025, 6, 1), (1025, 16, 3)]
+
+
+@pytest.mark.parametrize("n,groups,k", _GROUPED_EDGE_CASES)
+def test_filter_grouped_multi_sum_out_of_range_gids_match_pallas(n, groups, k):
+    pred, xs, gids = _edge_inputs(n, k, 53 * n + 7 * groups + k)
+    outside = (gids < 0) | (gids >= groups)
+    assert (pred & (gids < 0)).any() and (pred & (gids >= 16)).any()
+    assert (~pred & outside).any()
+    if groups < 16:
+        assert (pred & (gids >= groups) & (gids < 16)).any()
+    _check_grouped_against_pallas(pred, xs, gids, groups)
+    # rows outside [0, G) count nowhere
+    _, p_counts = K.filter_grouped_multi_sum(
+        torch.from_numpy(pred), torch.from_numpy(gids), [torch.from_numpy(x) for x in xs],
+        groups,
+    )
+    want = np.bincount(gids[pred & ~outside], minlength=groups)
+    np.testing.assert_array_equal(p_counts.numpy(), want)
+
+
+@pytest.mark.parametrize("n,groups", [(0, 4), (1025, 6), (5000, 16)])
+def test_filter_grouped_sum_matches_pallas(n, groups):
+    pred, (x,), gids = _edge_inputs(n, 1, 11 * n + groups)
+    sums, counts = PK.filter_grouped_sum(
+        jnp.asarray(pred), jnp.asarray(gids), jnp.asarray(x), groups
+    )
+    p_sums, p_counts = _plain_call_delta(
+        "filter_grouped_multi_sum",
+        lambda: K.filter_grouped_sum(
+            torch.from_numpy(pred), torch.from_numpy(gids), torch.from_numpy(x), groups
+        ),
+    )
+    assert p_sums.dtype == torch.float32 and p_sums.shape == (groups,)
+    assert p_counts.dtype == torch.int32 and p_counts.shape == (groups,)
+    np.testing.assert_array_equal(p_counts.numpy(), np.asarray(counts))
+    _assert_sums_close(p_sums.numpy(), np.asarray(sums))
 
 
 def test_grouped_rejects_more_than_sixteen_groups():
@@ -119,26 +173,41 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 1025, 1_000_003])
 def test_cuda_kernels_match_plain(cuda_device, n):
-    pred, xs, gids = _inputs(n, 5, n)
-    pred_d = torch.from_numpy(pred).to(cuda_device)
-    xs_d = [torch.from_numpy(x).to(cuda_device) for x in xs]
-    gids_d = torch.from_numpy(gids).to(cuda_device)
-    for name, args in (("filter_weighted_sum", (pred_d, xs_d[0], xs_d[1])),
-                       ("filter_sum", (pred_d, xs_d[0]))):
-        before = K.LAUNCHES[name]
-        s, c = getattr(K, name)(*args)
-        s2, c2 = getattr(K, name)(*args)
-        ps, pc = getattr(R, name)(*args)
-        assert K.LAUNCHES[name] == before + 2
-        assert torch.equal(s, s2) and torch.equal(c, c2)
-        assert int(c) == int(pc)
-        _assert_sums_close(float(s), float(ps))
-    # five measures run as two passes of the grouped kernel
-    sums, counts = K.filter_grouped_multi_sum(pred_d, gids_d, xs_d, 16)
-    p_sums, p_counts = R.filter_grouped_multi_sum(pred_d, gids_d, xs_d, 16)
-    assert torch.equal(counts.cpu(), p_counts.cpu())
-    for got, want in zip(sums, p_sums):
-        _assert_sums_close(got.cpu().numpy(), want.cpu().numpy())
+    """Each CUDA kernel against its plain version on the card: aligned
+    inputs, then offset views with each column misaligned by a different
+    number of rows (which the kernels take through their scalar loops);
+    gids outside [0, G); G in {1, 6, 16} and k in {0, 1, 3, 4, 5} (five
+    measures run as two passes of the grouped kernel). Two launches give
+    the same bits."""
+    for po, go, xo in ((0, 0, 0), (1, 2, 3), (3, 1, 2)):
+        pred, xs, gids = _edge_inputs(n + 3, 5, n + po)
+        pred_d = torch.from_numpy(pred).to(cuda_device)[po:po + n]
+        gids_d = torch.from_numpy(gids).to(cuda_device)[go:go + n]
+        xs_d = [torch.from_numpy(x).to(cuda_device)[xo:xo + n] for x in xs]
+        for name, args in (("filter_weighted_sum", (pred_d, xs_d[0], xs_d[1])),
+                           ("filter_sum", (pred_d, xs_d[0]))):
+            before = K.LAUNCHES[name]
+            s, c = getattr(K, name)(*args)
+            s2, c2 = getattr(K, name)(*args)
+            ps, pc = getattr(R, name)(*args)
+            assert K.LAUNCHES[name] == before + 2
+            assert torch.equal(s, s2) and torch.equal(c, c2)
+            assert int(c) == int(pc)
+            _assert_sums_close(float(s), float(ps))
+        for groups in (1, 6, 16):
+            for k in (0, 1, 3, 4, 5):
+                sums, counts = K.filter_grouped_multi_sum(pred_d, gids_d, xs_d[:k], groups)
+                sums2, counts2 = K.filter_grouped_multi_sum(pred_d, gids_d, xs_d[:k], groups)
+                p_sums, p_counts = R.filter_grouped_multi_sum(pred_d, gids_d, xs_d[:k], groups)
+                assert torch.equal(counts, counts2)
+                assert all(torch.equal(a, b) for a, b in zip(sums, sums2))
+                assert torch.equal(counts.cpu(), p_counts.cpu())
+                assert len(sums) == k
+                for got, want in zip(sums, p_sums):
+                    _assert_sums_close(got.cpu().numpy(), want.cpu().numpy())
+            one, one_counts = K.filter_grouped_sum(pred_d, gids_d, xs_d[0], groups)
+            multi, multi_counts = K.filter_grouped_multi_sum(pred_d, gids_d, xs_d[:1], groups)
+            assert torch.equal(one, multi[0]) and torch.equal(one_counts, multi_counts)
 
 
 def _minmax_inputs(n: int, case: str, seed: int):
