@@ -25,9 +25,10 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    over 50), beside its bound and the plain version's per-call time. With
    --profile, a torch.profiler pass per kernel splits a call into its CUDA
    kernels (chiprun_out/profile_kernel_<name>.txt);
-4. end-to-end phase: TPC-H lineitem at SF10 (60M rows, seed 42) and orders
-   (15M rows) written as parquet, the covering indexes li_shipdate,
-   li_orderkey and od_orderkey built over them, then
+4. end-to-end phase: TPC-H lineitem at SF10 (60M rows, seed 42), orders
+   (15M rows) and part (2M rows) written as parquet, the covering indexes
+   li_shipdate, li_orderkey, od_orderkey, li_partkey and pt_partkey built
+   over them, then
    - the filter-aggregate queries q6, q6_count, q6_sum, q1 and q1_sums run
      through the normal API with Hyperspace enabled. Each must read
      li_shipdate, run on the device tier, launch its kernel where it has
@@ -36,9 +37,25 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    - the join queries q3_agg and q3 (TPC-H Q3 through JoinIndexRule). Each
      must read li_orderkey and od_orderkey, run the fused device join on
      every run with no decline, upload nothing and repeat bit for bit on
-     warm runs, and match the host executor.
+     warm runs, and match the host executor;
+   - q10, q17 and q18, the rest of the reference's TPC-H queries. Each must
+     read the reference's indexes (q17's and q18's aggregates through
+     AggregateIndexRule), take the reference's device routes (q10 and q17
+     the batched plain join with two fetches per join, q17 and q18 the
+     grouped fragment), repeat bit for bit on warm runs, and match the host
+     executor; their warm upload bytes are printed (a filtered side of the
+     plain join is a new buffer on every run, as in the reference).
    masked_min_max is on no path of the system (the JAX package calls it
-   from its tests only), so it launches no time in this phase.
+   from its tests only), so it launches no time in this phase;
+5. order phase: the device top-k and sort against the host on one
+   2^26-row batch of lineitem columns (the generator's distributions):
+   l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
+   descending, k in {10, 100, 4096}; (l_extendedprice f64, l_orderkey
+   int64) ascending and descending. The rows must be the host's stable
+   lexsort's, row for row; a top-k's keys must also equal the host top-k's
+   (which orders ties by its partition, not by row). Each call is timed
+   beside the host's, and the device bodies alone (CUDA events), with the
+   plain join's probe and expansion at Q17's wave shape.
 
 The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
@@ -62,7 +79,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published HBM3 rate
 F32_OPS_PER_S = 67e12  # H100 SXM, published f32 rate outside the tensor cores
 REL_TOL = 1e-4  # f32 sums, as tests/test_pallas_and_dist.py holds the reference
 SEED = 42  # bench.py's TPC-H seed
-WARM_RUNS = 5
+WARM_RUNS = 3
 KERNEL_REPS = 25
 DEVICE_LAUNCHES = 50  # back-to-back launches per device-time reading
 GROUP_COUNTS = (1, 6, 16)
@@ -86,7 +103,21 @@ EXPECTED_KERNEL = {
     # the fused join+aggregate body is torch code (the reference's is XLA)
     "q3_agg": None,
     "q3": None,
+    # the plain join, the top-k and the sort are torch code too
+    "q10": None,
+    "q17": None,
+    "q18": None,
 }
+# the reference's TPC-H queries beyond Q1, Q3 and Q6: (indexes the plan
+# must read, batched plain joins per run, grouped fragments per run,
+# leading sort key for the tie rule of the comparison)
+PLAIN_QUERIES = {
+    "q10": (["li_orderkey", "od_orderkey"], 1, 0, "revenue"),
+    "q17": (["li_partkey", "pt_partkey", "li_partkey"], 1, 1, None),
+    "q18": (["li_orderkey"], 0, 1, "sum_qty"),
+}
+ORDER_ROWS = 1 << 26
+TOPK_KS = (10, 100, 4096)
 KERNEL_ROWS = {
     "filter_weighted_sum": ("hyperspace_tpu_torch/ops/csrc/filter_reduce.cu",
                             "hyperspace_tpu/ops/pallas_kernels.py:83"),
@@ -395,6 +426,36 @@ def compare_join(q: str, got: dict, want: dict) -> None:
         require(bool((same | tied).all()), f"{q}: {k} differs from the host")
 
 
+def compare_ordered(q: str, got: dict, want: dict, lead) -> None:
+    """Every column equal, floats within REL_TOL, and the `lead` sort key
+    within REL_TOL on every row. The other columns of a row may differ from
+    the host's only where the host's neighbouring `lead` values differ but
+    lie within REL_TOL (both order the same values, summed in other orders);
+    exact ties are broken by the query's next sort key, so they are held."""
+    import numpy as np
+
+    require(list(got) == list(want), f"{q}: columns {list(got)} vs {list(want)}")
+    n = len(next(iter(want.values())))
+    require(n > 0 and all(len(v) == n for v in got.values()), f"{q}: row counts differ")
+    near = np.zeros(n, dtype=bool)
+    if lead is not None:
+        w = np.asarray(want[lead], dtype=np.float64)
+        d = np.abs(np.diff(w))
+        pair = (d > 0) & (d <= REL_TOL * np.abs(w[1:]))
+        near[1:] |= pair
+        near[:-1] |= pair
+    for name in want:
+        g, w = np.asarray(got[name]), np.asarray(want[name])
+        held = np.ones(n, dtype=bool) if name == lead else ~near
+        if w.dtype.kind == "f":
+            require(bool(np.isfinite(g).all()), f"{q}.{name}: non-finite values")
+            err = np.abs(g - w) / np.maximum(np.abs(w), 1e-30)
+            require(float(err[held].max(initial=0)) <= REL_TOL,
+                    f"{q}.{name}: off by relative {float(err[held].max(initial=0))}")
+        else:
+            require(bool((g == w)[held].all()), f"{q}.{name}: differs from the host")
+
+
 def _columns(batch) -> dict:
     """A result batch as numpy arrays by column (no Python lists: q3_agg
     returns millions of groups at SF10)."""
@@ -419,7 +480,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
     session = HyperspaceSession(warehouse)  # device=None: the card
     hs = Hyperspace(session)
     builds = (("lineitem", tpch.LI_SHIPDATE), ("lineitem", tpch.LI_ORDERKEY),
-              ("orders", tpch.OD_ORDERKEY))
+              ("orders", tpch.OD_ORDERKEY), ("lineitem", tpch.LI_PARTKEY),
+              ("part", tpch.PT_PARTKEY))
     out["index_build_s"] = {}
     for table, (name, indexed, included) in builds:
         t0 = time.perf_counter()
@@ -431,9 +493,11 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
 
     # the plain end-to-end reference: the host executor over the raw source
     host = HyperspaceSession(warehouse, conf={C.EXEC_TPU_ENABLED: False})
-    all_queries = {**tpch.QUERIES, **tpch.JOIN_QUERIES}
+    all_queries = {**tpch.QUERIES, **tpch.JOIN_QUERIES,
+                   **{q: tpch.TPCH_QUERIES[q] for q in PLAIN_QUERIES}}
+
     def result(q: str, df) -> dict:
-        if q in tpch.JOIN_QUERIES:
+        if q in tpch.JOIN_QUERIES or q in PLAIN_QUERIES:
             return _columns(df.collect())
         return _floats(df.to_pydict())
 
@@ -454,9 +518,11 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
     expected_indexes = {q: [tpch.LI_SHIPDATE[0]] for q in tpch.QUERIES}
     expected_indexes.update({q: [tpch.LI_ORDERKEY[0], tpch.OD_ORDERKEY[0]]
                              for q in tpch.JOIN_QUERIES})
+    expected_indexes.update({q: spec[0] for q, spec in PLAIN_QUERIES.items()})
     K.reset_counts()  # the main path's launches start here
     for q, fn in all_queries.items():
         join = q in tpch.JOIN_QUERIES
+        plain = q in PLAIN_QUERIES
         plan = fn(session, lake).optimized_plan()
         used = [n.index_info.index_name for n in plan.preorder()
                 if getattr(n, "index_info", None) is not None]
@@ -477,25 +543,41 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
             again = result(q, fn(session, lake))
             warm.append(time.perf_counter() - t0)
             uploads_warm.append(session.device_cache.uploaded_bytes - u)
-            if join:  # the fused join is deterministic: the same bits
+            if join or plain:  # deterministic device paths: the same bits
                 require(same_bits(again, got), f"{q}: a warm run differs from the first run")
             else:
                 compare_batches(q, again, got)
         launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
         stats = session.device_stats
-        ran = stats.device_join_fragments if join else stats.device_fragments
-        require(ran == 1 + WARM_RUNS and not stats.declines,
-                f"{q}: device fragments {stats.device_fragments}, join fragments "
-                f"{stats.device_join_fragments}, declines {stats.declines}")
+        runs = 1 + WARM_RUNS
+        if plain:
+            _idx, joins, frags, _lead = PLAIN_QUERIES[q]
+            require(stats.join_paths == ({"batched": joins * runs} if joins else {})
+                    and stats.plain_join_fetches == 2 * joins * runs
+                    and stats.device_plain_probes == 0
+                    and stats.device_fragments == frags * runs and not stats.declines,
+                    f"{q}: join paths {stats.join_paths}, fetches "
+                    f"{stats.plain_join_fetches}, per-bucket probes "
+                    f"{stats.device_plain_probes}, fragments {stats.device_fragments}, "
+                    f"declines {stats.declines}")
+        else:
+            ran = stats.device_join_fragments if join else stats.device_fragments
+            require(ran == runs and not stats.declines,
+                    f"{q}: device fragments {stats.device_fragments}, join fragments "
+                    f"{stats.device_join_fragments}, declines {stats.declines}")
         expected = EXPECTED_KERNEL[q]
         for k, c in launched.items():
             if k == expected:  # once per run
                 require(c == 1 + WARM_RUNS, f"{q}: {k} launched {c} times")
             else:
                 require(c == 0, f"{q}: unexpected launches of {k}")
-        require(all(u == 0 for u in uploads_warm), f"{q}: warm runs uploaded {uploads_warm}")
+        if not plain:
+            require(all(u == 0 for u in uploads_warm),
+                    f"{q}: warm runs uploaded {uploads_warm}")
         if join:
             compare_join(q, got, want[q])
+        elif plain:
+            compare_ordered(q, got, want[q], PLAIN_QUERIES[q][3])
         else:
             compare_batches(q, got, want[q])
         queries[q] = {"first_run_s": cold_s, "warm_median_s": statistics.median(warm),
@@ -504,6 +586,14 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
                       "rows_out": len(next(iter(got.values()))), "matches_host": True}
         if join:
             queries[q]["device_join_fragments"] = stats.device_join_fragments
+        if plain:
+            queries[q].update({
+                "upload_bytes_warm": uploads_warm, "join_paths": stats.join_paths,
+                "plain_join_fetches": stats.plain_join_fetches,
+                "device_plain_probes": stats.device_plain_probes,
+                "join_spills": stats.join_spills, "device_fragments": stats.device_fragments,
+                "device_topk": stats.device_topk, "device_sort": stats.device_sort,
+                "order_declines": stats.order_declines})
         log({"query": q, "card": card, **queries[q]})
     out["main_path_launches"] = dict(K.LAUNCHES)
     require(not any(K.PLAIN_CALLS.values()),
@@ -517,6 +607,161 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
             log({"query": q, "card": card, "profile": queries[q]["profile"]})
     out["device_resident_bytes"] = session.device_cache.resident_bytes
     shutil.rmtree(DATA_DIR, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# order phase
+# ---------------------------------------------------------------------------
+
+def order_phase(torch, n: int, card: str) -> dict:
+    """The device top-k and sort against the host chain on one batch of n
+    lineitem rows (the generator's distributions, seed 42), permutations
+    equal row for row; each call timed beside the host's, and the device
+    bodies alone. Then the plain join's probe and expansion bodies at Q17's
+    wave shape at SF10 (8 left chunks of 262144 sorted keys against 50,000
+    unique right keys, a fifth of them matching)."""
+    import numpy as np
+
+    from hyperspace_tpu_torch import HyperspaceSession
+    from hyperspace_tpu_torch.columnar.table import Column, ColumnBatch
+    from hyperspace_tpu_torch.ops.join import exact_key32
+    from hyperspace_tpu_torch.plan import device_join as dj
+    from hyperspace_tpu_torch.plan import executor as ex
+    from hyperspace_tpu_torch.plan import gpu_exec as gx
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.plan.nodes import InMemoryScan, Sort
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    price = rng.uniform(900, 105_000, n)
+    cols = {
+        "row": np.arange(n, dtype=np.int64),
+        "l_shipdate": rng.integers(8035, 10590, n).astype(np.int32),
+        "l_extendedprice": price,
+        "l_price32": price.astype(np.float32),
+        "l_orderkey": rng.integers(0, SF10_ROWS // 4, n),
+    }
+    batch = ColumnBatch({k: Column(a, str(a.dtype)) for k, a in cols.items()})
+    scan = InMemoryScan(batch)
+    session = HyperspaceSession(os.path.join(DATA_DIR, "order"))  # device=None: the card
+    out: dict = {"rows": n, "topk": [], "sort": []}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    for key, asc in (("l_shipdate", True), ("l_price32", False)):
+        plan = Sort([(col(key), asc)], scan)
+        x = torch.from_numpy(exact_key32(cols[key])).to(dev)
+        # the host's stable order (ties keep their row order), sorted once:
+        # the host chain falls back to this same sort for every k
+        t0 = time.perf_counter()
+        full = ex._exec_sort(plan, batch)
+        sort_ms = (time.perf_counter() - t0) * 1e3
+        for k in TOPK_KS:
+            got, ms = timed(lambda: gx.try_device_topk(plan, k, batch, session))
+            require(got is not None, f"top-k {key} k={k}: the device declined")
+            require(np.array_equal(got.column("row").data, full.column("row").data[:k]),
+                    f"top-k {key} k={k}: rows differ from the host's stable sort")
+            # the host chain: its top-k, else the full sort (timed above)
+            t0 = time.perf_counter()
+            want = ex._try_topk_batch(plan, k, batch)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            if want is None:
+                want = full.take(np.arange(k))
+                host_ms += sort_ms
+            # the host top-k orders ties by its candidates' partition order,
+            # so only its keys are held to the device's order
+            require(np.array_equal(got.column(key).data, want.column(key).data),
+                    f"top-k {key} k={k}: keys differ from the host top-k")
+            body = gx._build_topk_kernel(k, asc)
+            r = {"key": key, "asc": asc, "k": k, "ms": ms, "host_ms": host_ms,
+                 "host_full_sort_ms": sort_ms,
+                 "device_ms": device_time_ms(torch, lambda: body(x, n), launches=10),
+                 "matches_host": True}
+            out["topk"].append(r)
+            log({"order": "topk", "card": card, **r})
+
+    for asc in (True, False):
+        plan = Sort([(col("l_extendedprice"), asc), (col("l_orderkey"), asc)], scan)
+        got, ms = timed(lambda: gx.try_device_sort(plan, batch, session))
+        require(got is not None, f"sort asc={asc}: the device declined")
+        t0 = time.perf_counter()
+        want = ex._exec_sort(plan, batch)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        require(np.array_equal(got.column("row").data, want.column("row").data),
+                f"sort asc={asc}: rows differ from the host")
+        # where the call's time goes, step by step as try_device_sort takes
+        # them: the host encoding, the upload, the device body, the fetch
+        # of the permutation, the host gather of the sorted rows
+        t0 = time.perf_counter()
+        words = []
+        for name in ("l_extendedprice", "l_orderkey"):
+            words += gx._encode_sort_words(batch.column(name), asc)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        ops, upload_ms = timed(lambda: [torch.from_numpy(w.view(np.int32)).to(dev)
+                                        for w in words])
+        body = gx._build_sort_kernel(len(words))
+        perm_d, body_ms = timed(lambda: body(*ops))
+        (pinned,), fetch_ms = timed(lambda: dj._fetch_all([perm_d]))
+        t0 = time.perf_counter()
+        perm = pinned.copy()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        batch.take(perm)
+        take_ms = (time.perf_counter() - t0) * 1e3
+        r = {"keys": ["l_extendedprice f64", "l_orderkey int64"], "asc": asc,
+             "n_words": len(words), "ms": ms, "host_ms": host_ms,
+             "encode_ms": encode_ms, "upload_ms": upload_ms, "body_ms": body_ms,
+             "fetch_ms": fetch_ms, "copy_ms": copy_ms, "take_ms": take_ms,
+             "device_ms": device_time_ms(torch, lambda: body(*ops), launches=5, warmup=1),
+             "matches_host": True}
+        if asc:
+            # the same gather reading its index array from the pinned buffer
+            t0 = time.perf_counter()
+            batch.take(pinned)
+            r["take_from_pinned_ms"] = (time.perf_counter() - t0) * 1e3
+        out["sort"].append(r)
+        log({"order": "sort", "card": card, **r})
+        del ops, got, want, perm, perm_d, pinned
+    stats = session.device_stats
+    require(stats.device_topk == 2 * len(TOPK_KS) and stats.device_sort == 2
+            and not stats.order_declines, f"order phase routes: {stats}")
+
+    # the plain join's bodies at Q17's wave shape
+    w, pad_l, n_r = 8, 1 << 18, 50_000
+    lk = np.sort(rng.integers(0, 250_000, (w, pad_l)), axis=1).astype(np.int32)
+    rk = np.full((w, dj._pow2(n_r)), np.iinfo(np.int32).max, np.int32)
+    for i in range(w):
+        rk[i, :n_r] = np.sort(rng.permutation(250_000)[:n_r])
+    lk_d, rk_d = torch.from_numpy(lk).to(dev), torch.from_numpy(rk).to(dev)
+    n_l_d = torch.full((w,), pad_l, dtype=torch.int32, device=dev)
+    n_r_d = torch.full((w,), n_r, dtype=torch.int32, device=dev)
+    probe = dj._build_stacked_probe_kernel()
+    lo, offs, totals, ok = probe(lk_d, rk_d, n_r_d, n_l_d)
+    require(bool(ok.all()), "probe body: overflow flagged")
+    out_pad = dj._pow2(int(totals.max()))
+    expand = dj._build_stacked_expand_kernel(out_pad)
+    li, ri = expand(lo, offs, totals)
+    i = int(totals.argmax())
+    t = int(totals[i])
+    from hyperspace_tpu_torch.ops.join import host_merge_join_indices
+
+    hli, hri = host_merge_join_indices(lk[i], rk[i, :n_r])
+    require(np.array_equal(li[i, :t].cpu().numpy(), hli)
+            and np.array_equal(ri[i, :t].cpu().numpy(), hri),
+            "expansion body: pairs differ from the host merge join")
+    out["plain_join_bodies"] = {
+        "items": w, "pad_l": pad_l, "n_r": n_r, "out_pad": out_pad,
+        "pairs": int(totals.sum()),
+        "probe_device_ms": device_time_ms(torch, lambda: probe(lk_d, rk_d, n_r_d, n_l_d)),
+        "expand_device_ms": device_time_ms(torch, lambda: expand(lo, offs, totals)),
+    }
+    log({"order": "plain_join_bodies", "card": card, **out["plain_join_bodies"]})
     return out
 
 
@@ -558,6 +803,8 @@ def main() -> int:
     sizes = sorted({0, 1, 1023, 1025, 1_000_003, 1 << 26, timed_n})
     kernels, timed = kernel_phase(torch, K, R, sizes, timed_n, smi, args.profile)
     e2e = end_to_end_phase(torch, K, args.rows, smi, args.profile)
+    order = order_phase(torch, ORDER_ROWS if args.rows == SF10_ROWS else _pad_pow2(args.rows),
+                        smi)
     # after the queries' profiles: a profiler session before them lost
     # their short runs' device events
     for name, call in timed.items():
@@ -577,7 +824,7 @@ def main() -> int:
         })
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": {"kind": kind, "nvidia_smi": smi}, "build_s": build_s,
-                   "kernels": kernels, "end_to_end": e2e,
+                   "kernels": kernels, "end_to_end": e2e, "order": order,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
     log({"phase": "done", "card": smi, "total_s": time.perf_counter() - t_start})
     log({"kernels": line})

@@ -17,6 +17,14 @@ The join form (``JOIN_QUERIES``) reads two co-bucketed covering indexes,
 reference writes it (top 10 orders by revenue), and ``q3_agg``, the same
 query without the sort and limit, so every group is compared.
 
+``q10``, ``q17`` and ``q18`` are copies of the reference's: the plain
+co-bucketed join (q10 over ``li_orderkey`` and ``od_orderkey``, q17 over
+``li_partkey`` and ``pt_partkey``), and grouped aggregates over a bare
+lineitem scan that AggregateIndexRule rewrites to a bucketed index (q17's
+per-part average over ``li_partkey``, q18's per-order volume over
+``li_orderkey``). ``TPCH_QUERIES`` holds the reference's six TPC-H
+queries under the reference's names.
+
 Scale: ``rows_lineitem`` drives everything (SF1 ~ 6M lineitem rows).
 """
 
@@ -205,8 +213,83 @@ def q3_agg(session, root: str):
     return _q3_grouped(session, root)
 
 
+def q17(session, root: str):
+    """Small-quantity-order revenue: per-part average quantity joined back
+    against lineitem; rows below 20% of their part's average contribute."""
+    li = _lineitem(session, root)
+    pt = session.read.parquet(os.path.join(root, "part"))
+    avg_qty = (
+        li.select("l_partkey", "l_quantity")
+        .group_by("l_partkey")
+        .agg(Avg(col("l_quantity")).alias("avg_qty"))
+        .select(col("l_partkey").alias("ap_partkey"), col("avg_qty"))
+    )
+    return (
+        li.select("l_partkey", "l_quantity", "l_extendedprice")
+        .join(
+            pt.filter(col("p_brand") == "Brand#3").select("p_partkey"),
+            col("l_partkey") == col("p_partkey"),
+        )
+        .join(avg_qty, col("l_partkey") == col("ap_partkey"))
+        .filter(col("l_quantity") < lit(0.2) * col("avg_qty"))
+        .agg(Sum(col("l_extendedprice")).alias("total"))
+        .select((col("total") / lit(7.0)).alias("avg_yearly"))
+    )
+
+
+def q10(session, root: str):
+    """Returned-item reporting: returned lineitems joined to orders in a
+    quarter, revenue per customer, top 20."""
+    li = _lineitem(session, root)
+    od = session.read.parquet(os.path.join(root, "orders"))
+    return (
+        li.filter(col("l_returnflag") == "R")
+        .select("l_orderkey", "l_extendedprice", "l_discount")
+        .join(
+            od.select("o_orderkey", "o_custkey", "o_orderdate"),
+            col("l_orderkey") == col("o_orderkey"),
+        )
+        .filter((col("o_orderdate") >= 8766) & (col("o_orderdate") < 8856))
+        .group_by("o_custkey")
+        .agg(
+            Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount"))).alias(
+                "revenue"
+            )
+        )
+        # o_custkey breaks revenue near-ties, so the top-20 cut does not
+        # depend on the engine or the execution order
+        .sort("revenue", "o_custkey", ascending=[False, True])
+        .limit(20)
+    )
+
+
+def q18(session, root: str):
+    """Large-volume customers: orders whose total quantity crosses the
+    threshold (HAVING over a per-order aggregate), joined back to orders,
+    largest first (quantity ties broken by order key)."""
+    li = _lineitem(session, root)
+    od = session.read.parquet(os.path.join(root, "orders"))
+    big = (
+        li.select("l_orderkey", "l_quantity")
+        .group_by("l_orderkey")
+        .agg(Sum(col("l_quantity")).alias("sum_qty"))
+        .filter(col("sum_qty") > 300)
+    )
+    return (
+        big.join(
+            od.select("o_orderkey", "o_custkey", "o_orderdate"),
+            col("l_orderkey") == col("o_orderkey"),
+        )
+        .select("o_custkey", "l_orderkey", "o_orderdate", "sum_qty")
+        .sort("sum_qty", "l_orderkey", ascending=[False, True])
+        .limit(100)
+    )
+
+
 QUERIES = {"q6": q6, "q6_count": q6_count, "q6_sum": q6_sum, "q1": q1, "q1_sums": q1_sums}
 JOIN_QUERIES = {"q3_agg": q3_agg, "q3": q3}
+# the reference's TPC-H query set (hyperspace_tpu/benchmark/tpch.py)
+TPCH_QUERIES = {"q1": q1, "q3": q3, "q6": q6, "q10": q10, "q17": q17, "q18": q18}
 
 # the covering index the filter-aggregate queries read
 LI_SHIPDATE = (
@@ -223,3 +306,7 @@ LI_ORDERKEY = (
 )
 OD_ORDERKEY = ("od_orderkey", ["o_orderkey"], ["o_orderdate", "o_custkey"])
 JOIN_INDEXES = {"lineitem": LI_ORDERKEY, "orders": OD_ORDERKEY}
+# Q17's co-bucketed join and per-part aggregate (the reference's names and
+# columns)
+LI_PARTKEY = ("li_partkey", ["l_partkey"], ["l_quantity", "l_extendedprice"])
+PT_PARTKEY = ("pt_partkey", ["p_partkey"], ["p_brand"])

@@ -5,18 +5,27 @@ The payoff of JoinIndexRule's rewrite: both sides arrive hash-bucketed on
 the join keys with the same bucket count, so bucket b joins only bucket b,
 with no shuffle and no global hash table.
 
-An Aggregate grouped by the join key over such a join runs the fused
-join+aggregate on the device for every bucket pair at once
-(plan/device_join.try_stacked_join_agg): buckets load RAW, side filters run
-in the body over the stable index-chunk buffers, and the whole query pays
-one fetch. When it declines (by shape or data), each bucket runs on the
-host: the numpy twin of the fused body, or a sorted merge join followed by
-the aggregate.
+Three device paths, each recorded in ``session.device_stats.join_paths``:
 
-Not ported in this slice: the band scheduler and the device-memory ledger
-(plan/join_memory.py), the mesh paths, read-ahead pipelining of bucket
-pairs, hybrid-scan appended rows, the device plain-join kernels, the
-bucketed scan aggregate and adaptive re-planning.
+- ``batched``: a plain (not aggregated) join loads every bucket pair on a
+  thread pool, applies the side filters on the host, and runs the
+  band-stacked probe and run expansion on the device with two fetches in
+  all (plan/device_join.try_batched_plain_join);
+- ``stacked_agg``: an Aggregate grouped by the join key over such a join
+  runs the fused join+aggregate on the device for every bucket pair at
+  once (plan/device_join.try_stacked_join_agg): buckets load RAW, side
+  filters run in the body over the stable index-chunk buffers, and the
+  whole query pays one fetch;
+- ``per_bucket``: when those decline (by shape or data), each bucket runs
+  alone: the numpy twin of the fused body, or a plain join whose probe
+  runs on the device (try_device_plain_join) or on the host.
+
+An Aggregate grouped by a bucketed scan's bucket columns aggregates bucket
+by bucket (``try_bucketed_scan_aggregate``; AggregateIndexRule's rewrite).
+
+Not ported: the mesh paths, read-ahead pipelining of bucket pairs (pairs
+load on a pool, then the device works), hybrid-scan appended rows, the
+per-bucket strategy plan (plan/join_memory.py) and adaptive re-planning.
 """
 
 from __future__ import annotations
@@ -96,6 +105,46 @@ def _decompose_side(plan: LogicalPlan) -> Optional[BucketedSide]:
     return BucketedSide(node, node.bucket_spec, list(reversed(ops_topdown)))
 
 
+def try_bucketed_scan_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
+    """Aggregate(group by a superset of the bucket columns)(bucketed scan
+    stack): every group lives in one bucket, so buckets aggregate on a
+    thread pool and the results concatenate (AggregateIndexRule's rewrite)."""
+    from .executor import _exec_aggregate
+    from .nodes import Aggregate, InMemoryScan
+
+    if not agg_plan.group_exprs:
+        return None
+    side = _decompose_side(agg_plan.child)
+    if side is None:
+        return None
+    group_cols = set()
+    for e in agg_plan.group_exprs:
+        if not isinstance(e, Col):
+            return None
+        group_cols.add(e.name.lower())
+    if not {c.lower() for c in side.spec.bucket_columns} <= group_cols:
+        return None  # a group could span buckets
+    if not all(side.key_is_identity(c) for c in side.spec.bucket_columns):
+        return None
+
+    def aggregate(batch: ColumnBatch) -> ColumnBatch:
+        sub = Aggregate(agg_plan.group_exprs, agg_plan.agg_exprs, InMemoryScan(batch))
+        return _exec_aggregate(sub, session)
+
+    def agg_bucket(b: int) -> Optional[ColumnBatch]:
+        batch = _load_side_bucket(side, b, session)
+        return None if batch.num_rows == 0 else aggregate(batch)
+
+    n = side.spec.num_buckets
+    with ThreadPoolExecutor(max_workers=max(1, min(8, n))) as pool:
+        parts = [p for p in pool.map(agg_bucket, range(n)) if p is not None]
+    if not parts:
+        # every bucket filtered to nothing: the empty grouped shape
+        empty = BucketedSide(side.scan.copy(files=[]), side.spec, side.ops)
+        return aggregate(_load_side_bucket(empty, 0, session))
+    return ColumnBatch.concat(parts)
+
+
 def try_bucketed_join_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
     """Aggregate(group_by covering the join key)(Join(co-bucketed sides)):
     groups are disjoint across buckets, so each bucket joins AND aggregates
@@ -136,10 +185,12 @@ def try_bucketed_merge_join(
     plan: Join, session, per_bucket=None, agg_plan=None
 ) -> Optional[ColumnBatch]:
     """Execute an equi-join of two co-bucketed sides; None when the plan
-    does not have that shape. ``per_bucket`` post-processes each bucket's
-    joined rows (the fused aggregate); with ``agg_plan`` too and the device
-    tier on, the fused join+aggregate runs on the device over every bucket
-    pair, and the per-bucket host flow is its fallback."""
+    does not have that shape. Without ``per_bucket`` and the device tier on,
+    the batched device plain join runs first. ``per_bucket`` post-processes
+    each bucket's joined rows (the fused aggregate); with ``agg_plan`` too
+    and the device tier on, the fused join+aggregate runs on the device
+    over every bucket pair. The per-bucket flow is the fallback of both,
+    and reuses the pairs they loaded."""
     from .executor import extract_equi_keys
 
     if plan.how != "inner" or plan.condition is None:
@@ -170,7 +221,19 @@ def try_bucketed_merge_join(
     plan.schema  # ambiguity check before doing any work
 
     n = left.spec.num_buckets
+
+    def done(out: ColumnBatch, path: str) -> ColumnBatch:
+        if session is not None:
+            paths = session.device_stats.join_paths
+            paths[path] = paths.get(path, 0) + 1
+        return out
+
     preloaded = None
+    if agg_plan is None and per_bucket is None:
+        dev_out, preloaded = _try_device_join_paths(left, right, lkeys, rkeys, residual,
+                                                    session)
+        if dev_out is not None:
+            return done(dev_out, "batched")
     if (agg_plan is not None and per_bucket is not None and session is not None
             and session.conf.exec_device_enabled):
         if _fused_device_possible(left, right, lkeys, rkeys) and _stacked_plan_screen(
@@ -193,7 +256,7 @@ def try_bucketed_merge_join(
                 rcols_avail=set(plan.right.schema.names),
             )
             if dev_out is not None:
-                return dev_out
+                return done(dev_out, "stacked_agg")
             for b, lb, rb, ls, rs in gen:  # the fallback reuses every pair
                 raw_loaded[b] = (lb, rb, ls, rs)
             preloaded = [
@@ -228,19 +291,30 @@ def try_bucketed_merge_join(
                                       r_sorted)
             if fused is not None:
                 return fused
-        joined = _merge_join_batches(lb, rb, lkeys, rkeys, l_sorted, r_sorted)
+        # a plain (or fused-declined) join: the probe runs on the device
+        # when the tier is on; the rows equal the host merge join's
+        from .device_join import try_device_plain_join
+
+        joined = try_device_plain_join(lb, rb, lkeys, rkeys, session, l_sorted, r_sorted)
+        if joined is None:
+            joined = _merge_join_batches(lb, rb, lkeys, rkeys, l_sorted, r_sorted)
+        else:
+            probed.append(b)
         for r in residual:
             joined = joined.filter(np.asarray(r.eval(joined).data, dtype=bool))
         if per_bucket is not None:
             joined = per_bucket(joined)
         return joined
 
+    probed: list = []  # buckets whose probe ran on the device
     with ThreadPoolExecutor(max_workers=max(1, min(8, n))) as pool:
         parts = [p for p in pool.map(join_bucket, range(n)) if p is not None]
+    if probed:
+        session.device_stats.device_plain_probes += len(probed)
     if not parts:
         empty = _empty_like(plan)
-        return per_bucket(empty) if per_bucket is not None else empty
-    return ColumnBatch.concat(parts)
+        return done(per_bucket(empty) if per_bucket is not None else empty, "per_bucket")
+    return done(ColumnBatch.concat(parts), "per_bucket")
 
 
 class _SchemaCols:
@@ -312,6 +386,114 @@ def _fused_device_possible(left, right, lkeys, rkeys) -> bool:
         if side.scan.full_schema.field(key).dtype in (STRING, "float64"):
             return False
     return True
+
+
+def _plain_join_plan_screen(left, right, lkeys, rkeys) -> bool:
+    """Plan-level eligibility of the batched device plain join, before any
+    bucket loads: one key, not a string (nulls and the int32 range are
+    checked per bucket)."""
+    if len(lkeys) != 1:
+        return False
+    for side, key in ((left, lkeys[0]), (right, rkeys[0])):
+        schema = side.scan.full_schema
+        if key in schema and schema.field(key).dtype == STRING:
+            return False
+    return True
+
+
+_INELIGIBLE = object()  # a bucket pair that can never take the device path
+
+
+def _prep_plain_work(b, lb, rb, lkeys, rkeys, l_sorted, r_sorted, session):
+    """One bucket pair as the work tuple the batched device join takes:
+    ``(b, lb, rb, lk32_sorted, rk32_sorted, lorder, rorder, lk_src,
+    rk_src)``; None for an empty pair; ``_INELIGIBLE`` for string, null or
+    inexact keys. The argsorts are cached on the source key buffers."""
+    from ..ops.join import exact_key32
+
+    if lb is None or rb is None or lb.num_rows == 0 or rb.num_rows == 0:
+        return None
+    lk_col, rk_col = lb.column(lkeys[0]), rb.column(rkeys[0])
+    if lk_col.dtype == STRING or rk_col.dtype == STRING:
+        return _INELIGIBLE
+    if lk_col.validity is not None or rk_col.validity is not None:
+        return _INELIGIBLE
+    lk32, rk32 = exact_key32(lk_col.data), exact_key32(rk_col.data)
+    if lk32 is None or rk32 is None or lk32.dtype != rk32.dtype:
+        return _INELIGIBLE
+    lorder = rorder = None
+    if not l_sorted:
+        lorder = session.host_derived_cache.get_or_put(
+            (lk_col.data,), ("jorder",), lambda a=lk32: np.argsort(a, kind="stable"))
+        lk32 = lk32[lorder]
+    if not r_sorted:
+        rorder = session.host_derived_cache.get_or_put(
+            (rk_col.data,), ("jorder",), lambda a=rk32: np.argsort(a, kind="stable"))
+        rk32 = rk32[rorder]
+    return (b, lb, rb, lk32, rk32, lorder, rorder, lk_col.data, rk_col.data)
+
+
+def _load_all_bucket_pairs(left, right, session) -> list:
+    """Every bucket pair, side ops applied, loaded on a thread pool:
+    ``[(lb, rb, l_sorted, r_sorted)]`` by bucket. A bucket loaded from one
+    index file keeps its on-disk sort by the bucket columns."""
+    n = left.spec.num_buckets
+
+    def load(b):
+        return (_load_side_bucket(left, b, session), _load_side_bucket(right, b, session),
+                len(left.files_for_bucket(b)) <= 1, len(right.files_for_bucket(b)) <= 1)
+
+    with ThreadPoolExecutor(max_workers=max(1, min(8, n))) as pool:
+        return list(pool.map(load, range(n)))
+
+
+def _collect_plain_join_work(left, right, lkeys, rkeys, session):
+    """(work, loaded): every pair loaded, and its work tuple; work is None
+    when a pair's keys are ineligible (counted as a decline)."""
+    from .gpu_exec import _decline
+
+    loaded = _load_all_bucket_pairs(left, right, session)
+    work = []
+    for b, (lb, rb, l_sorted, r_sorted) in enumerate(loaded):
+        w = _prep_plain_work(b, lb, rb, lkeys, rkeys, l_sorted, r_sorted, session)
+        if w is _INELIGIBLE:
+            return _decline(session, "plain_join_key"), loaded
+        if w is not None:
+            work.append(w)
+    return work, loaded
+
+
+def _empty_join_output(lb: ColumnBatch, rb: ColumnBatch) -> ColumnBatch:
+    """The zero-row joined batch, from any occupied bucket pair's columns:
+    disjoint keys are a result, not a reason to redo the join on the host."""
+    empty = np.empty(0, dtype=np.int64)
+    out = {nm: c.take(empty) for nm, c in lb.columns.items()}
+    out.update({nm: c.take(empty) for nm, c in rb.columns.items()})
+    return ColumnBatch(out)
+
+
+def _try_device_join_paths(left, right, lkeys, rkeys, residual, session):
+    """The batched device plain join of a whole co-partitioned join:
+    ``(result, loaded)``. A None result hands ``loaded`` (the pairs by
+    bucket, or None when the plan screen declined before loading) to the
+    per-bucket flow, so nothing is read twice."""
+    from .device_join import try_batched_plain_join
+    from .gpu_exec import _decline
+
+    if session is None or not session.conf.exec_device_enabled:
+        return None, None
+    if not _plain_join_plan_screen(left, right, lkeys, rkeys):
+        return _decline(session, "plain_join_plan_screen"), None
+    work, loaded = _collect_plain_join_work(left, right, lkeys, rkeys, session)
+    if not work:
+        return None, loaded  # ineligible keys, or no occupied pair
+    parts = try_batched_plain_join(work, residual, session)
+    if parts is None:
+        return None, loaded
+    ordered = [parts[b] for b in sorted(parts)]
+    if not ordered:
+        return _empty_join_output(work[0][1], work[0][2]), loaded
+    return ColumnBatch.concat(ordered), loaded
 
 
 def _iter_bucket_pairs(left, right, session):

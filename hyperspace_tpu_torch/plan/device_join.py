@@ -29,9 +29,17 @@ Declines are by shape or data, as in the reference: f64 or out-of-range
 keys, nullable or string columns, duplicate right keys when a right column
 is gathered. A failed launch or a CUDA error raises.
 
-Not ported in this slice: the band scheduler and device-memory ledger, the
-mesh paths, read-ahead pipelining, split buckets, the per-bucket device
-kernel, and the device plain-join kernels.
+The PLAIN (not aggregated) join runs here too (``try_batched_plain_join``):
+every bucket's sorted keys stack into power-of-2 bands, one batched
+``torch.searchsorted`` probes a whole band wave, a second pass expands the
+match runs into (left, right) row pairs, and the host gathers both sides
+in their original dtypes, so the rows equal the host merge join's, in its
+order. Waves reserve their footprint on the device ledger
+(plan/join_memory.py) and spill instead of declining when it is full.
+
+Not ported: the mesh paths, the per-bucket fused device kernel
+(``try_device_join_agg``), the per-bucket strategy plan and the native
+probe.
 """
 
 from __future__ import annotations
@@ -296,13 +304,23 @@ def stacked_join_body(agg_specs, residual, lfilters, rfilters, right_gather):
 # every bucket pair, one fetch
 # ---------------------------------------------------------------------------
 
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's elements as one run of bytes (a one-element view of a
+    wider tensor keeps its stride, which a byte view refuses)."""
+    flat = t.reshape(-1)
+    if flat.numel() and flat.stride(0) != 1:
+        flat = torch.empty_like(flat, memory_format=torch.contiguous_format).copy_(flat)
+    return flat.view(torch.uint8)
+
+
 def _fetch_all(tensors: list) -> list[np.ndarray]:
     """Every device result to the host in ONE transfer: the tensors are
     concatenated as bytes on the device, copied once (into pinned memory,
-    several times faster than pageable) and split again."""
+    several times faster than pageable) and split again, each in its own
+    dtype and shape."""
     if not tensors:
         return []
-    flat = torch.cat([t.contiguous().view(-1).view(torch.uint8) for t in tensors])
+    flat = torch.cat([_as_bytes(t) for t in tensors])
     if flat.device.type == "cuda":
         pinned = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
         host = pinned.copy_(flat).numpy()  # the views keep the buffer alive
@@ -312,7 +330,7 @@ def _fetch_all(tensors: list) -> list[np.ndarray]:
     for t in tensors:
         nbytes = t.numel() * t.element_size()
         dt = np.dtype(str(t.dtype).replace("torch.", ""))
-        out.append(host[ofs:ofs + nbytes].view(dt))
+        out.append(host[ofs:ofs + nbytes].view(dt).reshape(tuple(t.shape)))
         ofs += nbytes
     return out
 
@@ -626,3 +644,484 @@ def _host_grouped_agg(agg, env, posc, found, counts, n_r, keep):
         (np.minimum if is_min else np.maximum).at(out, seg, data)
         return Column(out[keep], str(vals.dtype), group_validity)
     return None
+
+
+# ---------------------------------------------------------------------------
+# the plain join: band-stacked probe and run expansion
+# ---------------------------------------------------------------------------
+
+_PLAIN_MIN_ROWS = 4096  # below this the host searchsorted probe is cheaper
+
+# buckets per stacked band dispatch: the default 8-bucket layout stays one
+# dispatch per band
+_JOIN_WAVE = 8
+
+
+def _pow2(n: int, floor: int = 10) -> int:
+    return 1 << max(floor, int(np.ceil(np.log2(max(1, n)))))
+
+
+# left-side row count above which a bucket splits into left-chunk probe
+# items (0 disables); the reference's default when no memory plan is active.
+# Per-left-row probe results are independent of the chunking, so chunk
+# results concatenate into exactly the unsplit bucket's.
+_JOIN_SPLIT_ROWS = 1 << 18
+
+
+def _band_pads(n_l: int, n_r: int) -> tuple:
+    """The power-of-2 size band a probe item belongs to: its stack pads."""
+    return _pow2(n_l), _pow2(n_r)
+
+
+class _JoinDeclined(Exception):
+    """The batched plain join declines by data (int32 pair-count overflow,
+    the skew readback guard); ``reason`` names it in the decline counts."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
+
+
+class _Wave:
+    """One dispatched band wave: its pads, items, device record (the probe
+    outputs), its ledger reservation, and once fetched or spilled its host
+    results in ``done``."""
+
+    __slots__ = ("pads", "items", "rec", "nbytes", "done")
+
+    def __init__(self, pads, items, rec, nbytes: int = 0):
+        self.pads = pads
+        self.items = items
+        self.rec = rec
+        self.nbytes = nbytes
+        self.done = None
+
+
+class _BandScheduler:
+    """Groups probe items into power-of-2 ``(pad_l, pad_r)`` bands and
+    dispatches a band's stacked probe as soon as ``_JOIN_WAVE`` items wait
+    (CUDA launches are asynchronous, so the card works while the host
+    stacks the next band). Before a wave dispatches, its padded footprint
+    (``estimate(pads, items)``) is reserved on the device ledger; when it
+    does not fit, the admission parks it and ``spill_one`` retires this
+    join's oldest in-flight wave (``retire(wave)`` fetches its results,
+    freeing its reservation). A ``_JoinDeclined`` from a spill's retire
+    stops the scheduler (``declined``); any other error propagates."""
+
+    def __init__(self, dispatch, ledger, estimate, retire):
+        self._dispatch = dispatch  # (pads, items) -> device record
+        self._ledger = ledger  # plan/join_memory.DeviceLedger
+        self._estimate = estimate  # (pads, items) -> wave footprint bytes
+        self._retire = retire  # (_Wave) -> host results (the spill fetch)
+        self._groups: dict = {}
+        self.records: list[_Wave] = []
+        self.declined: Optional[_JoinDeclined] = None
+        self.spills = 0
+
+    def add(self, item, n_l: int, n_r: int) -> None:
+        pads = _band_pads(n_l, n_r)
+        group = self._groups.setdefault(pads, [])
+        group.append(item)
+        if len(group) >= _JOIN_WAVE:
+            self._flush(pads, group)
+            self._groups[pads] = []
+
+    def spill_one(self) -> bool:
+        """Retire this join's oldest in-flight wave: fetch its results to
+        the host (its device buffers die with the record) and release its
+        reservation. False when every dispatched wave is already retired."""
+        for w in self.records:
+            if w.done is None:
+                w.done = self._retire(w)
+                w.rec = None
+                self.spills += 1
+                if w.nbytes:
+                    self._ledger.release(w.nbytes)
+                    w.nbytes = 0
+                return True
+        return False
+
+    def release_reservations(self) -> None:
+        """Return every outstanding reservation (after the final fetch)."""
+        for w in self.records:
+            if w.nbytes:
+                self._ledger.release(w.nbytes)
+                w.nbytes = 0
+
+    def _flush(self, pads, items) -> None:
+        if self.declined is not None or not items:
+            return
+        need = int(self._estimate(pads, items)) if self._ledger.enabled else 0
+        try:
+            # parks (spilling in-flight waves) instead of declining when the
+            # wave does not fit
+            self._ledger.admit(need, self.spill_one)
+        except _JoinDeclined as e:
+            self.declined = e
+            return
+        self.records.append(_Wave(pads, items, self._dispatch(pads, items), need))
+
+    def finish(self) -> list:
+        for pads in sorted(self._groups):
+            self._flush(pads, self._groups[pads])
+        self._groups = {}
+        return self.records
+
+
+def _build_plain_probe_kernel():
+    """Lower/upper-bound probe of the sorted right keys for every left key:
+    (starts, counts) per left row, int32. Pads in ``rk`` carry the dtype's
+    maximum, so the real keys stay a sorted prefix; probes clamp to ``n_r``
+    (a real key equal to the pad value would otherwise match pads).
+    Counterpart of device_join._build_plain_probe_kernel."""
+
+    def kernel(lk, rk, n_r: int):
+        lo = torch.clamp(torch.searchsorted(rk, lk, out_int32=True), max=n_r)
+        hi = torch.clamp(torch.searchsorted(rk, lk, right=True, out_int32=True), max=n_r)
+        return lo, hi - lo
+
+    return kernel
+
+
+def _build_stacked_probe_kernel():
+    """Per-bucket probe, exclusive pair offsets and overflow check over a
+    whole band wave at once (``torch.searchsorted`` over the batched
+    ``[items, pad]`` sorted keys replaces the reference's vmap). Returns
+    (lo int32[W, pad_l], offs int32[W, pad_l], totals int64[W], ok
+    bool[W]). ``offs[i]`` is the number of pairs before left row i; pads
+    probe to an empty range and add nothing. The reference sums in int32
+    and detects a wrap; here the sum is int64 and a bucket is ``ok`` while
+    its total stays below 2^31, the same decision. Counterpart of
+    device_join._build_stacked_probe_kernel."""
+
+    def kernel(lk, rk, n_r, n_l):
+        pad_l = lk.shape[1]
+        idx = torch.arange(pad_l, dtype=torch.int32, device=lk.device)
+        nr = n_r[:, None]
+        lo = torch.minimum(torch.searchsorted(rk, lk, out_int32=True), nr)
+        hi = torch.minimum(torch.searchsorted(rk, lk, right=True, out_int32=True), nr)
+        cnt = torch.where(idx < n_l[:, None], hi - lo, 0)
+        ends = torch.cumsum(cnt, 1, dtype=torch.int64)
+        totals = ends[:, -1]
+        return lo, (ends - cnt).to(torch.int32), totals, totals < 2**31
+
+    return kernel
+
+
+def _build_stacked_expand_kernel(out_pad: int):
+    """Per-bucket run expansion over a band wave: pair j of item i belongs
+    to left row li, the run whose ``[offs[li], offs[li] + cnt)`` holds j
+    (``searchsorted(offs, j, right) - 1``; empty runs share their start
+    with the next run, and the walk back lands on the non-empty one), and
+    to right row ``lo[li] + (j - offs[li])``. Slots at or past the item's
+    total hold 0. The fetch is then about the size of the join's output,
+    not of its probe domain. Counterpart of
+    device_join._build_stacked_expand_kernel."""
+
+    def kernel(lo, offs, totals):
+        w, pad_l = offs.shape
+        j = torch.arange(out_pad, dtype=torch.int32, device=offs.device)
+        jj = j.expand(w, out_pad).contiguous()
+        i = torch.searchsorted(offs, jj, right=True, out_int32=True) - 1
+        i = torch.clamp(i, 0, pad_l - 1).long()
+        ri = torch.gather(lo, 1, i) + (jj - torch.gather(offs, 1, i))
+        valid = j[None, :] < totals[:, None]
+        return torch.where(valid, i.to(torch.int32), 0), torch.where(valid, ri, 0)
+
+    return kernel
+
+
+class _ProbeItem:
+    """One stacked-probe band row: a whole bucket's sorted left keys, or one
+    left chunk of an oversized (split) bucket. ``lo_ofs`` is the chunk's
+    offset into the bucket's sorted left keys."""
+
+    __slots__ = ("bucket", "lb", "rb", "lk32", "rk32", "lorder", "rorder",
+                 "lk_src", "rk_src", "lo_ofs")
+
+    def __init__(self, bucket, lb, rb, lk32, rk32, lorder, rorder, lk_src,
+                 rk_src, lo_ofs=0):
+        self.bucket = bucket
+        self.lb = lb
+        self.rb = rb
+        self.lk32 = lk32
+        self.rk32 = rk32
+        self.lorder = lorder
+        self.rorder = rorder
+        self.lk_src = lk_src
+        self.rk_src = rk_src
+        self.lo_ofs = lo_ofs
+
+
+def _split_probe_items(w, split: int):
+    """One work tuple as probe items: the whole bucket, or left chunks of at
+    most ``split`` rows when the bucket exceeds it (0 never splits)."""
+    b, lb, rb, lk32, rk32, lorder, rorder, lk_src, rk_src = w
+    n_l = len(lk32)
+    if split and n_l > split:
+        for c0 in range(0, n_l, split):
+            yield _ProbeItem(b, lb, rb, lk32[c0:c0 + split], rk32, lorder, rorder,
+                             lk_src, rk_src, lo_ofs=c0)
+    else:
+        yield _ProbeItem(b, lb, rb, lk32, rk32, lorder, rorder, lk_src, rk_src)
+
+
+def _stack_band_keys(items, arr_attr: str, src_attr: str, pad: int, dt, pad_val,
+                     session, device):
+    """(keys [W, pad], lengths int32[W]) of one band wave on the device,
+    cached by the identities of the ORIGINAL key buffers and the per-item
+    derivation (chunk offset, length, sort flag): a repeat over the same
+    index buffers uploads nothing."""
+    srcs = tuple(getattr(it, src_attr) for it in items)
+    left = arr_attr == "lk32"
+    tag = (
+        "jband", arr_attr, pad, dt.str,
+        tuple(
+            (it.lo_ofs, len(getattr(it, arr_attr)),
+             (it.lorder is None) if left else (it.rorder is None))
+            for it in items
+        ),
+        str(device),
+    )
+
+    def build():
+        stack = np.full((len(items), pad), pad_val, dtype=dt)
+        for i, it in enumerate(items):
+            a = getattr(it, arr_attr)
+            stack[i, : len(a)] = a
+        lens = np.array([len(getattr(it, arr_attr)) for it in items], np.int32)
+        return torch.from_numpy(stack).to(device), torch.from_numpy(lens).to(device)
+
+    return session.device_cache.get_or_put(srcs, tag, build)
+
+
+def try_batched_plain_join(work, residual, session) -> Optional[dict]:
+    """Device plain join over MANY co-partitioned buckets: band-stacked
+    probes, then band-stacked run expansions, with exactly TWO blocking
+    fetches in all when no wave spills (the totals, then the pairs), each
+    into pinned memory. Every probe wave reserves its padded footprint on
+    the device ledger first; a wave that does not fit parks and spills
+    earlier waves (their own two fetches) instead of declining. Buckets
+    above ``_JOIN_SPLIT_ROWS`` split into left-chunk items.
+
+    ``work`` lists ``(bucket, lb, rb, lk32_sorted, rk32_sorted, lorder,
+    rorder, lk_src, rk_src)`` (bucket_join._prep_plain_work); the src
+    arrays are the ORIGINAL key buffers, whose identities key the device
+    cache. Returns {bucket: joined ColumnBatch}, rows in the host merge
+    join's order, or None when the join declines by data (counted in
+    ``session.device_stats.declines``). A CUDA error raises."""
+    from .join_memory import DeviceLedger
+
+    ledger = DeviceLedger()
+    try:
+        return _batched_plain_join_impl(work, residual, session, ledger)
+    finally:
+        ledger.close()  # a decline or an error returns every reservation
+
+
+def _batched_plain_join_impl(work, residual, session, ledger) -> Optional[dict]:
+    from .gpu_exec import _decline, kernel_route
+    from .kernel_cache import plain_join_fingerprint
+
+    work = list(work)
+    if not work:
+        return None
+    dt = work[0][3].dtype
+    if any(w[3].dtype != dt for w in work):
+        return _decline(session, "plain_join_key_dtype_varies")
+    if sum(len(w[3]) for w in work) < _PLAIN_MIN_ROWS:
+        return _decline(session, "plain_join_small")
+    device = session.device  # raises when CUDA was asked for and is absent
+    route = kernel_route(device)
+    cache = session.kernel_cache
+    stats = session.device_stats
+    pad_val = np.iinfo(dt).max if dt.kind == "i" else np.float32(np.inf)
+    probe = cache.get_or_build(plain_join_fingerprint(route, "stacked_probe"),
+                               _build_stacked_probe_kernel)
+
+    def dispatch_probe(pads, items):
+        lk_d, n_l = _stack_band_keys(items, "lk32", "lk_src", pads[0], dt, pad_val,
+                                     session, device)
+        rk_d, n_r = _stack_band_keys(items, "rk32", "rk_src", pads[1], dt, pad_val,
+                                     session, device)
+        return probe(lk_d, rk_d, n_r, n_l)
+
+    def expansion_plan(wave, totals, ok):
+        """(totals, device pairs or None) of one wave from its fetched probe
+        totals; raises _JoinDeclined on overflow or heavy skew."""
+        if not ok.all():
+            raise _JoinDeclined("plain_join_overflow")
+        totals = [int(t) for t in totals]
+        max_total = max(totals)
+        if max_total == 0:
+            return totals, None
+        out_pad = _pow2(max_total)
+        padded_bytes = len(wave.items) * out_pad * 8  # two int32 arrays
+        if padded_bytes > 32 * 2**20 and padded_bytes > 4 * sum(totals) * 8:
+            # one hot item would pad every row of the wave's readback
+            raise _JoinDeclined("plain_join_skew")
+        expand = cache.get_or_build(
+            plain_join_fingerprint(route, "expand", out_pad),
+            lambda: _build_stacked_expand_kernel(out_pad),
+        )
+        lo_d, offs_d, totals_d, _ok = wave.rec
+        return totals, expand(lo_d, offs_d, totals_d)
+
+    def est_probe(pads, items):
+        # stacked key uploads and the probe's int32 outputs per left slot
+        return len(items) * ((pads[0] + pads[1]) * dt.itemsize + 2 * pads[0] * 4)
+
+    def retire_probe(wave):
+        # the spill of one parked admission: this wave's two fetches only
+        totals, ok = _fetch_all([wave.rec[2], wave.rec[3]])
+        stats.plain_join_fetches += 1
+        totals, pairs = expansion_plan(wave, totals, ok)
+        if pairs is None:
+            return totals, None, None
+        li, ri = _fetch_all(list(pairs))
+        stats.plain_join_fetches += 1
+        return totals, li, ri
+
+    sched = _BandScheduler(dispatch_probe, ledger, est_probe, retire_probe)
+    split = _JOIN_SPLIT_ROWS
+    for w in work:
+        for item in _split_probe_items(w, split):
+            sched.add(item, len(item.lk32), len(item.rk32))
+    records = sched.finish()
+    stats.join_spills += sched.spills
+    if sched.declined is not None:
+        return _decline(session, sched.declined.reason)
+
+    try:
+        pending = [w for w in records if w.done is None]
+        if pending:
+            # fetch 1: every unspilled wave's totals and overflow flags
+            flat = _fetch_all([t for w in pending for t in (w.rec[2], w.rec[3])])
+            stats.plain_join_fetches += 1
+            plans = [expansion_plan(w, flat[2 * i], flat[2 * i + 1])
+                     for i, w in enumerate(pending)]
+            # fetch 2: every wave's (li, ri) pairs
+            pairs = _fetch_all([t for _tot, p in plans if p is not None for t in p])
+            if pairs:
+                stats.plain_join_fetches += 1
+            k = 0
+            for w, (totals, p) in zip(pending, plans):
+                if p is None:
+                    w.done = (totals, None, None)
+                else:
+                    w.done = (totals, pairs[k], pairs[k + 1])
+                    k += 2
+                w.rec = None
+    except _JoinDeclined as e:
+        return _decline(session, e.reason)
+    sched.release_reservations()
+
+    # host: gather both sides' columns per bucket, in their original dtypes
+    chunks_by_bucket: dict[int, list] = {}
+    info_by_bucket: dict[int, _ProbeItem] = {}
+    for wave in records:
+        totals, li_np, ri_np = wave.done
+        for i, it in enumerate(wave.items):
+            info_by_bucket.setdefault(it.bucket, it)
+            t = totals[i]
+            if t == 0:
+                continue
+            li = li_np[i, :t].astype(np.int64) + it.lo_ofs
+            ri = ri_np[i, :t].astype(np.int64)
+            chunks_by_bucket.setdefault(it.bucket, []).append((it.lo_ofs, li, ri))
+    parts: dict[int, ColumnBatch] = {}
+    for b, chunks in chunks_by_bucket.items():
+        it = info_by_bucket[b]
+        chunks.sort(key=lambda c: c[0])  # chunk order = sorted left order
+        li = np.concatenate([c[1] for c in chunks])
+        ri = np.concatenate([c[2] for c in chunks])
+        if it.lorder is not None:
+            li = it.lorder[li]
+        if it.rorder is not None:
+            ri = it.rorder[ri]
+        out = {nm: c.take(li) for nm, c in it.lb.columns.items()}
+        out.update({nm: c.take(ri) for nm, c in it.rb.columns.items()})
+        joined = ColumnBatch(out)
+        for r in residual:
+            joined = joined.filter(np.asarray(r.eval(joined).data, dtype=bool))
+        parts[b] = joined
+    return parts
+
+
+def try_device_plain_join(lb: ColumnBatch, rb: ColumnBatch, lkeys: Sequence[str],
+                          rkeys: Sequence[str], session, l_sorted: bool,
+                          r_sorted: bool) -> Optional[ColumnBatch]:
+    """One bucket pair's plain join with the probe on the device (the
+    per-bucket route, after the batched join declined or for a fused
+    aggregate's declined bucket): per-left-row lower bounds and counts over
+    the sorted right keys in one fetch; the host expands the runs and
+    gathers both sides in their original dtypes, so the rows equal the
+    host merge join's, order included. None when the pair is too small or
+    its keys do not ship exactly (the host merge join runs)."""
+    from ..ops.join import exact_key32
+
+    if len(lkeys) != 1 or session is None or not session.conf.exec_device_enabled:
+        return None
+    if lb.num_rows < _PLAIN_MIN_ROWS or rb.num_rows == 0:
+        return None
+    lk_col, rk_col = lb.column(lkeys[0]), rb.column(rkeys[0])
+    if lk_col.dtype == STRING or rk_col.dtype == STRING:
+        return None
+    if lk_col.validity is not None or rk_col.validity is not None:
+        return None
+    lk32, rk32 = exact_key32(lk_col.data), exact_key32(rk_col.data)
+    if lk32 is None or rk32 is None or lk32.dtype != rk32.dtype:
+        return None
+    return _device_plain_join_inner(lb, rb, lk32, rk32, lk_col.data, rk_col.data,
+                                    l_sorted, r_sorted, session)
+
+
+def _sorted_padded_keys(k32: np.ndarray, src: np.ndarray, is_sorted: bool, pad: int,
+                        session, device):
+    """(order or None, device copy of the sorted keys padded with the
+    dtype's maximum). The argsort and the upload are cached on the SOURCE
+    column's buffer identity, so a repeat skips the sort and the transfer."""
+    pad_val = np.iinfo(k32.dtype).max if k32.dtype.kind == "i" else np.float32(np.inf)
+    order = None
+    if not is_sorted:
+        # exact_key32 preserves order, so the argsort of the 32-bit keys is
+        # the source column's
+        order = session.host_derived_cache.get_or_put(
+            (src,), ("jorder",), lambda: np.argsort(k32, kind="stable"))
+
+    def build():
+        out = np.full(pad, pad_val, dtype=k32.dtype)
+        out[: len(k32)] = k32 if order is None else k32[order]
+        return torch.from_numpy(out).to(device)
+
+    keys_d = session.device_cache.get_or_put(
+        (src,), ("jkey", pad, is_sorted, str(device)), build)
+    return order, keys_d
+
+
+def _device_plain_join_inner(lb, rb, lk32, rk32, lk_src, rk_src, l_sorted: bool,
+                             r_sorted: bool, session) -> ColumnBatch:
+    from ..ops.join import expand_runs
+    from .gpu_exec import kernel_route
+    from .kernel_cache import plain_join_fingerprint
+
+    device = session.device
+    n_l, n_r = len(lk32), len(rk32)
+    # probe in left-sorted order so the pairs come out in the host merge
+    # join's order (the host sorts the left side first)
+    lorder, lk_d = _sorted_padded_keys(lk32, lk_src, l_sorted, _pow2(n_l), session, device)
+    rorder, rk_d = _sorted_padded_keys(rk32, rk_src, r_sorted, _pow2(n_r), session, device)
+    probe = session.kernel_cache.get_or_build(
+        plain_join_fingerprint(kernel_route(device), "probe"), _build_plain_probe_kernel)
+    lo, cnt = _fetch_all(list(probe(lk_d, rk_d, n_r)))
+    starts = lo[:n_l].astype(np.int64)
+    counts = cnt[:n_l].astype(np.int64)
+    li = np.repeat(np.arange(n_l, dtype=np.int64), counts)
+    ri = expand_runs(starts, counts)
+    if lorder is not None:
+        li = lorder[li]
+    if rorder is not None:
+        ri = rorder[ri]
+    out = {n: c.take(li) for n, c in lb.columns.items()}
+    out.update({n: c.take(ri) for n, c in rb.columns.items()})
+    return ColumnBatch(out)

@@ -4,9 +4,11 @@ reduced to scan, filter, project, join, aggregate, sort and limit).
 This is the always-correct reference path for every node, and the port's
 plain end-to-end reference. When the session's device tier is on, an
 Aggregate first goes to plan/gpu_exec.py, where the JAX executor calls
-try_execute_tpu; an Aggregate over a Join of two co-bucketed index scans
-goes to plan/bucket_join.py, whose fused join+aggregate runs on the device
-(plan/device_join.py).
+try_execute_tpu; a Join of two co-bucketed index scans goes to
+plan/bucket_join.py, whose plain join and fused join+aggregate run on the
+device (plan/device_join.py); Limit(Sort) tries the device top-k, then the
+host top-k, then the full sort, and a full sort tries the device sort
+first, as the reference's chains do.
 """
 
 from __future__ import annotations
@@ -60,15 +62,22 @@ def execute_plan(plan: LogicalPlan, session=None) -> ColumnBatch:
     if isinstance(plan, Aggregate):
         return _exec_aggregate(plan, session)
     if isinstance(plan, Sort):
-        return _exec_sort(plan, execute_plan(plan.child, session))
+        return _exec_sort(plan, execute_plan(plan.child, session), session)
     if isinstance(plan, Limit):
         if isinstance(plan.child, Sort):
+            # the sort's child runs once; every route below reuses it
             sort_plan = plan.child
             child = execute_plan(sort_plan.child, session)
+            if session is not None and session.conf.exec_device_enabled:
+                from .gpu_exec import try_device_topk
+
+                topk = try_device_topk(sort_plan, plan.n, child, session)
+                if topk is not None:
+                    return topk
             topk = _try_topk_batch(sort_plan, plan.n, child)
             if topk is not None:
                 return topk
-            full = _exec_sort(sort_plan, child)
+            full = _exec_sort(sort_plan, child, session)
             return full.take(np.arange(min(plan.n, full.num_rows)))
         child = execute_plan(plan.child, session)
         return child.take(np.arange(min(plan.n, child.num_rows)))
@@ -294,6 +303,12 @@ def _exec_aggregate(plan: Aggregate, session) -> ColumnBatch:
         fused = try_bucketed_join_aggregate(plan, session)
         if fused is not None:
             return fused
+    elif plan.group_exprs and not isinstance(plan.child, InMemoryScan):
+        from .bucket_join import try_bucketed_scan_aggregate
+
+        fused = try_bucketed_scan_aggregate(plan, session)
+        if fused is not None:
+            return fused
     child = execute_plan(plan.child, session)
     if not plan.group_exprs:
         out = {}
@@ -458,7 +473,15 @@ def _try_topk_batch(sort_plan: Sort, k: int, child: ColumnBatch) -> ColumnBatch 
     return sub.take(order)
 
 
-def _exec_sort(plan: Sort, child: ColumnBatch) -> ColumnBatch:
+def _exec_sort(plan: Sort, child: ColumnBatch, session=None) -> ColumnBatch:
+    """Multi-key sort; with the device tier on, the device sort serves
+    first (the same permutation as the host's stable lexsort)."""
+    if session is not None and session.conf.exec_device_enabled:
+        from .gpu_exec import try_device_sort
+
+        out = try_device_sort(plan, child, session)
+        if out is not None:
+            return out
     keys = [sort_key_values(e.eval(child), asc) for e, asc in reversed(plan.orders)]
     order = np.lexsort(keys) if keys else np.arange(child.num_rows)
     return child.take(order)

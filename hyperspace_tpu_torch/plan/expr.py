@@ -153,15 +153,21 @@ class Alias(Expr):
 # helpers for mixed-type numpy evaluation
 # ---------------------------------------------------------------------------
 
-def _decode_for_compare(a: Column, b: Column):
-    """Return comparable numpy arrays for two columns, decoding strings/dates."""
-    if a.dtype == STRING or b.dtype == STRING:
-        if a.dtype != STRING or b.dtype != STRING:
-            raise HyperspaceError("Cannot compare string with non-string")
-        av = np.asarray(a.dictionary, dtype=object)[a.data].astype(str)
-        bv = np.asarray(b.dictionary, dtype=object)[b.data].astype(str)
-        return av, bv
-    return a.data, b.data
+def _compare(op, a: Column, b: Column) -> np.ndarray:
+    """``op`` over two columns. Strings compare by their ranks in the sorted
+    union of the two dictionaries, so no row decodes to a Python string."""
+    if a.dtype != STRING and b.dtype != STRING:
+        return op(a.data, b.data)
+    if a.dtype != STRING or b.dtype != STRING:
+        raise HyperspaceError("Cannot compare string with non-string")
+    da = np.asarray(a.dictionary, dtype=object).astype(str)
+    db = np.asarray(b.dictionary, dtype=object).astype(str)
+    union = np.unique(np.concatenate([da, db]))
+    # the smallest integer type that holds a rank keeps the row gathers narrow
+    rank_t = np.min_scalar_type(len(union))
+    ra = np.searchsorted(union, da).astype(rank_t)
+    rb = np.searchsorted(union, db).astype(rank_t)
+    return op(ra[a.data], rb[b.data])
 
 
 def _combine_validity(*cols: Column):
@@ -199,8 +205,7 @@ class _Comparison(_Binary):
     def eval(self, batch: ColumnBatch) -> Column:
         a = self.left.eval(batch)
         b = self.right.eval(batch)
-        av, bv = _decode_for_compare(a, b)
-        data = np.asarray(self.op(av, bv), dtype=np.bool_)
+        data = np.asarray(_compare(self.op, a, b), dtype=np.bool_)
         validity = _combine_validity(a, b)
         if validity is not None:
             data = data & validity

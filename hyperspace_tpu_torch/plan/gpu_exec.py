@@ -27,8 +27,13 @@ Unlike the reference, nothing here catches a device failure: a kernel that
 fails to build or launch raises, and the query fails. A fragment declines
 only by shape or data (string aggregates, nullable columns, out-of-range
 literals). Not ported in this slice, and so declining to the host:
-streaming execution, the mesh, top-k/sort, full-range int64 (Wide64)
-predicates and string-predicate encoding.
+streaming execution, the mesh, full-range int64 (Wide64) predicates and
+string-predicate encoding.
+
+ORDER BY runs here too: ``try_device_topk`` (Limit over Sort, one exact
+32-bit key) and ``try_device_sort`` (any number of keys encoded into
+order-preserving 32-bit words), each returning the host's stable
+permutation exactly.
 """
 
 from __future__ import annotations
@@ -53,12 +58,23 @@ from ..ops.intsum import _INT_SUM_ROW_CAP, combine_int_chunks, int_chunk_sums
 @dataclass
 class DeviceTierStats:
     """What the device tier did, per session: filter-aggregate fragments
-    it ran, fused join+aggregate queries it ran (plan/device_join.py), and
-    how often each reason declined a fragment that matched."""
+    it ran; fused join+aggregate queries (plan/device_join.py); which
+    bucketed-join path each co-bucketed join took (``join_paths``:
+    "batched", "per_bucket" or "stacked_agg"); the plain join's blocking
+    fetches, spilled waves and per-bucket device probes; device top-k and
+    sort runs; and how often each reason declined a fragment or a join
+    that matched (``declines``) or a top-k or sort (``order_declines``)."""
 
     device_fragments: int = 0
     device_join_fragments: int = 0
     declines: dict = field(default_factory=dict)
+    join_paths: dict = field(default_factory=dict)
+    plain_join_fetches: int = 0
+    join_spills: int = 0
+    device_plain_probes: int = 0
+    device_topk: int = 0
+    device_sort: int = 0
+    order_declines: dict = field(default_factory=dict)
 
 
 # ---------------------------------------------------------------------------
@@ -794,3 +810,210 @@ def try_execute_gpu(plan: LogicalPlan, session) -> Optional[ColumnBatch]:
     if out is not None:
         session.device_stats.device_fragments += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# top-k (ORDER BY ... LIMIT) and sort (ORDER BY)
+# ---------------------------------------------------------------------------
+
+_TOPK_MIN_ROWS = 4096  # the host argpartition is cheaper below this
+_SORT_MIN_ROWS = 4096  # the host lexsort is cheaper below this
+_U32 = 0xFFFFFFFF
+
+
+def _order_decline(session, reason: str) -> None:
+    declines = session.device_stats.order_declines
+    declines[reason] = declines.get(reason, 0) + 1
+    return None
+
+
+def _build_topk_kernel(k: int, asc: bool):
+    """Top k of an order-preserving 32-bit encoding of the key (sign flip
+    for ints, sign-magnitude fold for floats, as the reference's
+    ``_build_topk_kernel`` has it; -0.0 and +0.0 stay distinct). Rows at or
+    past ``n`` encode to the minimum. ``torch.topk`` promises no order among
+    ties, so each row's key is one int64: the encoded word (top bit
+    flipped, so the signed order is the unsigned one) in the high half and
+    ``~index`` in the low half. The keys are then distinct, and the largest
+    k in order are the reference's: larger word first, lower index first
+    on ties (``lax.top_k``'s rule, which the host's stable order relies
+    on)."""
+
+    def kernel(x, n: int):
+        rows = x.shape[0]
+        if x.dtype.is_floating_point:
+            bits = x.view(torch.int32).long() & _U32
+            u = torch.where(bits >= 2**31, bits ^ _U32, bits | 2**31)
+        else:
+            u = x.to(torch.int64) + 2**31
+        e = (_U32 - u) if asc else u
+        idx = torch.arange(rows, dtype=torch.int64, device=x.device)
+        e = torch.where(idx < n, e, 0)
+        key = (e - 2**31) * 2**32 + (_U32 - idx)
+        return torch.topk(key, k).indices
+
+    return kernel
+
+
+def try_device_topk(sort_plan, k: int, batch: ColumnBatch, session) -> Optional[ColumnBatch]:
+    """Limit(Sort) on the device: the one numeric sort key ships, the top k
+    come back as row indices (one fetch), and the host gathers the k rows.
+    None (the reason counted in ``session.device_stats.order_declines``)
+    for several keys, a derived, string or nullable key, a key that has no
+    exact 32-bit form, or a small input. Counterpart of
+    tpu_exec.try_device_topk, without its fail-open breaker."""
+    from ..ops.join import exact_key32
+    from .device_join import _fetch_all
+    from .kernel_cache import order_fingerprint
+
+    if k <= 0:
+        return None
+    if len(sort_plan.orders) != 1:
+        return _order_decline(session, "topk_keys")
+    e, asc = sort_plan.orders[0]
+    if not isinstance(e, X.Col) or e.name not in batch.columns:
+        return _order_decline(session, "topk_key_expr")
+    col = batch.column(e.name)
+    if col.validity is not None or col.dtype == STRING:
+        return _order_decline(session, "topk_key_type")
+    n = batch.num_rows
+    if n < _TOPK_MIN_ROWS or k >= n:
+        return _order_decline(session, "topk_small")
+    data = exact_key32(col.data)  # sort keys decide order: no lossy downcast
+    if data is None:
+        return _order_decline(session, "topk_key_inexact")
+    device = session.device
+    x = torch.from_numpy(np.ascontiguousarray(data)).to(device)
+    session.device_cache.uploaded_bytes += data.nbytes
+    kernel = session.kernel_cache.get_or_build(
+        order_fingerprint(kernel_route(device), "topk", int(k), bool(asc), data.dtype.str),
+        lambda: _build_topk_kernel(int(k), bool(asc)),
+    )
+    (idx,) = _fetch_all([kernel(x, n)])
+    session.device_stats.device_topk += 1
+    return batch.take(idx)
+
+
+def _enc_i32_words(a: np.ndarray) -> np.ndarray:
+    """Order-preserving uint32 encoding of an int32 array (sign-bit flip)."""
+    return a.view(np.uint32) ^ np.uint32(0x80000000)
+
+
+def _enc_f32_words(a: np.ndarray) -> np.ndarray:
+    """Order-preserving uint32 encoding of a float32 array (sign-magnitude
+    fold; -0.0 canonicalizes to +0.0 so tie order matches the host)."""
+    bits = (a + np.float32(0.0)).view(np.uint32)
+    return np.where(bits >> 31 != 0, ~bits, bits | np.uint32(0x80000000))
+
+
+def _encode_sort_words(col: Column, asc: bool):
+    """One sort key column as 1-3 order-preserving uint32 words whose
+    lexicographic order is the column's exact order, or None (strings,
+    nulls, NaN, f64 that needs more than three f32 words).
+
+    - int64 splits into the encoded signed high word and the raw low word.
+    - f64 splits into three f32 words (hi = f32(x), mid = f32(x - hi),
+      lo = f32(x - hi - mid)); each residual subtraction is exact in f64,
+      rounding is monotonic, and the check hi + mid + lo == x keeps
+      distinct keys distinct, so the words' order is the f64 order.
+    - descending flips every word.
+
+    A copy of tpu_exec._encode_sort_words."""
+    if col.validity is not None or col.dtype == STRING:
+        return None
+    d = col.data
+    if d.dtype == np.int64:
+        hi = (d >> 32).astype(np.int32)
+        lo = (d & np.int64(0xFFFFFFFF)).astype(np.uint32)
+        words = [_enc_i32_words(hi), lo]
+    elif d.dtype in (np.int32, np.int16, np.int8):
+        words = [_enc_i32_words(d.astype(np.int32))]
+    elif d.dtype == np.bool_:
+        words = [_enc_i32_words(d.astype(np.int32))]
+    elif d.dtype == np.float32:
+        if np.isnan(d).any():
+            return None
+        words = [_enc_f32_words(d)]
+    elif d.dtype == np.float64:
+        if not np.isfinite(d).all():
+            return None  # inf residuals turn NaN; NaN order is the host's
+        with np.errstate(over="ignore", invalid="ignore"):
+            hi = d.astype(np.float32)
+            if not np.isfinite(hi).all():
+                return None  # beyond the f32 range
+            r = d - hi.astype(np.float64)
+            mid = r.astype(np.float32)
+            lo = (r - mid.astype(np.float64)).astype(np.float32)
+            exact = (
+                hi.astype(np.float64) + mid.astype(np.float64) + lo.astype(np.float64)
+            ) == d
+        if not exact.all():
+            return None  # this data needs more than 72 bits
+        words = [_enc_f32_words(hi), _enc_f32_words(mid), _enc_f32_words(lo)]
+    else:
+        return None
+    if not asc:
+        words = [~w for w in words]
+    return words
+
+
+def _build_sort_kernel(n_words: int):
+    """The stable multi-key sort of ``n_words`` uint32 key words (each
+    carried in an int32 tensor): the permutation that orders the rows
+    lexicographically by the words, ties by row index, as the reference's
+    ``lax.sort(num_keys=n_words + 1)`` over the words and the index does.
+    Words widen to int64 (0..2^32-1 keeps its order, which torch's
+    signed sorts need) and pack two to a key with the first's top bit
+    flipped; stable sorts from the last key to the first give the
+    lexicographic order with the index as the final tie-break."""
+
+    def kernel(*words):
+        u = [w.long() & _U32 for w in words]
+        keys = [(u[i] - 2**31) * 2**32 + u[i + 1] if i + 1 < n_words else u[i]
+                for i in range(0, n_words, 2)]
+        perm = torch.arange(u[0].shape[0], dtype=torch.int64, device=u[0].device)
+        for key in reversed(keys):
+            perm = perm[torch.sort(key[perm], stable=True).indices]
+        return perm
+
+    return kernel
+
+
+def try_device_sort(sort_plan, batch: ColumnBatch, session) -> Optional[ColumnBatch]:
+    """Full ORDER BY on the device: every key column encodes into
+    order-preserving 32-bit words (multi-key and exact f64 included), one
+    device sort returns the permutation (one fetch), and the host gathers
+    the rows in their original dtypes: the host lexsort's result, tie order
+    included. None (the reason counted in ``order_declines``) for a small
+    input or a key that cannot encode exactly. Counterpart of
+    tpu_exec.try_device_sort, without its fail-open breaker."""
+    from .device_join import _fetch_all
+    from .kernel_cache import order_fingerprint
+
+    if not sort_plan.orders:
+        return None
+    n = batch.num_rows
+    if n < _SORT_MIN_ROWS:
+        return _order_decline(session, "sort_small")
+    words: list[np.ndarray] = []
+    for e, asc in sort_plan.orders:
+        if not isinstance(e, X.Col) or e.name not in batch.columns:
+            return _order_decline(session, "sort_key_expr")
+        w = _encode_sort_words(batch.column(e.name), asc)
+        if w is None:
+            return _order_decline(session, "sort_key_type")
+        words.extend(w)
+    device = session.device
+    ops = [torch.from_numpy(np.ascontiguousarray(w).view(np.int32)).to(device)
+           for w in words]
+    session.device_cache.uploaded_bytes += sum(w.nbytes for w in words)
+    kernel = session.kernel_cache.get_or_build(
+        order_fingerprint(kernel_route(device), "sort", len(words)),
+        lambda: _build_sort_kernel(len(words)),
+    )
+    (perm,) = _fetch_all([kernel(*ops)])
+    session.device_stats.device_sort += 1
+    # gather with a copy of the permutation: on the card's host, numpy's
+    # take read its index array from the pinned fetch buffer several times
+    # slower than from ordinary memory (chip_smoke.py's order phase)
+    return batch.take(perm.copy())

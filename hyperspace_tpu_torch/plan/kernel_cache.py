@@ -80,3 +80,16 @@ def join_fingerprint(route: str, key_dtype: str, agg_list, residual, lfilters, r
         tuple(repr(f) for f in rfilters),
         col_sig,
     )
+
+
+def plain_join_fingerprint(route: str, kind: str, *shape) -> tuple:
+    """Plain-join bodies of plan/device_join.py: the per-bucket probe
+    ("probe"), the band-stacked probe ("stacked_probe") and the run
+    expansion ("expand", with its baked output pad)."""
+    return ("plain_join", kind, route) + tuple(shape)
+
+
+def order_fingerprint(route: str, kind: str, *params) -> tuple:
+    """Device top-k ("topk": k, direction, key dtype) and sort ("sort":
+    number of key words) bodies of plan/gpu_exec.py."""
+    return ("order", kind, route) + tuple(params)

@@ -31,8 +31,10 @@ def reason(code: str, verbose: str = "", **args) -> FilterReason:
     return FilterReason(code, tuple((k, str(v)) for k, v in args.items()), verbose)
 
 
-# reason codes of the join rule's filters (the reference's FilterReason names)
+# reason codes of the join and aggregate rules' filters (the reference's
+# FilterReason names)
 MISSING_REQUIRED_COL = "MISSING_REQUIRED_COL"
+MISSING_INDEXED_COL = "MISSING_INDEXED_COL"
 NOT_ELIGIBLE_JOIN = "NOT_ELIGIBLE_JOIN"
 NO_AVAIL_JOIN_INDEX_PAIR = "NO_AVAIL_JOIN_INDEX_PAIR"
 NOT_ALL_JOIN_COL_INDEXED = "NOT_ALL_JOIN_COL_INDEXED"

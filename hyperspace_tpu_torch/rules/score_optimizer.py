@@ -1,6 +1,6 @@
 """Score-based plan optimizer (counterpart of
-hyperspace_tpu/rules/score_optimizer.py, with FilterIndexRule and
-JoinIndexRule).
+hyperspace_tpu/rules/score_optimizer.py, with FilterIndexRule,
+JoinIndexRule and AggregateIndexRule).
 
 A memoized recursive search keeps, per plan node, the transformation with
 the highest total score: a rule's rewrite of the whole subtree, or the
@@ -9,6 +9,7 @@ children's best rewrites.
 
 from __future__ import annotations
 
+from .agg_rule import AggregateIndexRule
 from .base import NoOpRule
 from .filter_rule import FilterIndexRule
 from .join_rule import JoinIndexRule
@@ -19,7 +20,12 @@ from ..plan.nodes import LogicalPlan
 class ScoreBasedIndexPlanOptimizer:
     def __init__(self, session):
         self.session = session
-        self.rules = [FilterIndexRule(session), JoinIndexRule(session), NoOpRule(session)]
+        self.rules = [
+            FilterIndexRule(session),
+            JoinIndexRule(session),
+            AggregateIndexRule(session),
+            NoOpRule(session),
+        ]
 
     def apply(self, plan: LogicalPlan, candidates: dict[int, list[IndexLogEntry]]) -> LogicalPlan:
         memo: dict[int, tuple[LogicalPlan, int]] = {}
