@@ -26,14 +26,24 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    --profile, a torch.profiler pass per kernel splits a call into its CUDA
    kernels (chiprun_out/profile_kernel_<name>.txt);
 4. end-to-end phase: TPC-H lineitem at SF10 (60M rows, seed 42), orders
-   (15M rows) and part (2M rows) written as parquet, the covering indexes
-   li_shipdate, li_orderkey, od_orderkey, li_partkey and pt_partkey built
-   over them, then
+   (15M rows) and part (2M rows) written as parquet, the reference's index
+   set built over them (tpch_indexes: the z-order index li_shipdate_z, the
+   covering indexes li_orderkey, li_partkey, li_flagstatus, od_orderkey and
+   pt_partkey), then
    - the filter-aggregate queries q6, q6_count, q6_sum, q1 and q1_sums run
-     through the normal API with Hyperspace enabled. Each must read
-     li_shipdate, run on the device tier, launch its kernel where it has
-     one, match the host executor over the raw source with Hyperspace and
-     the device tier off, and upload nothing on a warm run;
+     through the normal API with Hyperspace enabled. The q6 forms must read
+     li_shipdate_z and the q1 forms li_flagstatus (through
+     AggregateIndexRule); each must run on the device tier, launch its
+     kernel where it has one, match the host executor over the raw source
+     with Hyperspace and the device tier off, and upload nothing on a warm
+     run;
+   - the lookups on li_orderkey's key: lookup_count (a present key),
+     lookup_absent (a key no row holds) and range_sum. Each plan must show
+     the pruning the CPU tests pin (tpch.LOOKUP_PRUNING), and the kept
+     files and row groups are printed; lookup_count and range_sum launch
+     their kernels, lookup_absent is pruned to nothing and declines to the
+     host, as in the JAX package; each matches the host executor and
+     uploads nothing on a warm run;
    - the join queries q3_agg and q3 (TPC-H Q3 through JoinIndexRule). Each
      must read li_orderkey and od_orderkey, run the fused device join on
      every run with no decline, upload nothing and repeat bit for bit on
@@ -93,13 +103,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 DATA_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
-# which kernel each query's fragment must launch on the main path
+# which kernel each query's fragment must launch on the main path (where
+# the JAX package's route has one)
 EXPECTED_KERNEL = {
     "q6": None,
     "q6_count": "filter_weighted_sum",
     "q6_sum": "filter_sum",
     "q1": None,
     "q1_sums": "filter_grouped_multi_sum",
+    "lookup_count": "filter_weighted_sum",
+    # pruned to nothing: the device tier declines the empty scan, as the
+    # JAX package's does, and the host answers
+    "lookup_absent": None,
+    "range_sum": "filter_sum",
     # the fused join+aggregate body is torch code (the reference's is XLA)
     "q3_agg": None,
     "q3": None,
@@ -463,9 +479,10 @@ def _columns(batch) -> dict:
 
 
 def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> dict:
-    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
     from hyperspace_tpu_torch import constants as C
     from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.plan.executor import resolve_scan_pruning
     from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
 
     shutil.rmtree(DATA_DIR, ignore_errors=True)
@@ -474,26 +491,22 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
     out: dict = {"rows": rows}
 
     t0 = time.perf_counter()
-    tpch.generate_tpch(lake, rows_lineitem=rows, seed=SEED)
+    out["source_bytes"] = tpch.generate_tpch(lake, rows_lineitem=rows, seed=SEED)
     out["generate_s"] = time.perf_counter() - t0
 
     session = HyperspaceSession(warehouse)  # device=None: the card
     hs = Hyperspace(session)
-    builds = (("lineitem", tpch.LI_SHIPDATE), ("lineitem", tpch.LI_ORDERKEY),
-              ("orders", tpch.OD_ORDERKEY), ("lineitem", tpch.LI_PARTKEY),
-              ("part", tpch.PT_PARTKEY))
     out["index_build_s"] = {}
-    for table, (name, indexed, included) in builds:
+    for table, zordered, spec in tpch.TPCH_INDEXES:  # tpch.tpch_indexes, timed
         t0 = time.perf_counter()
-        hs.create_index(session.read.parquet(os.path.join(lake, table)),
-                        CoveringIndexConfig(name, indexed, included))
-        out["index_build_s"][name] = time.perf_counter() - t0
+        tpch.build_index(session, hs, lake, table, zordered, spec)
+        out["index_build_s"][spec[0]] = time.perf_counter() - t0
     log({"phase": "data", "card": card, "rows": rows, "generate_s": out["generate_s"],
-         "index_build_s": out["index_build_s"]})
+         "source_bytes": out["source_bytes"], "index_build_s": out["index_build_s"]})
 
     # the plain end-to-end reference: the host executor over the raw source
     host = HyperspaceSession(warehouse, conf={C.EXEC_TPU_ENABLED: False})
-    all_queries = {**tpch.QUERIES, **tpch.JOIN_QUERIES,
+    all_queries = {**tpch.QUERIES, **tpch.LOOKUP_QUERIES, **tpch.JOIN_QUERIES,
                    **{q: tpch.TPCH_QUERIES[q] for q in PLAIN_QUERIES}}
 
     def result(q: str, df) -> dict:
@@ -515,7 +528,9 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
 
     session.enable_hyperspace()
     queries = {}
-    expected_indexes = {q: [tpch.LI_SHIPDATE[0]] for q in tpch.QUERIES}
+    expected_indexes = {q: [tpch.LI_SHIPDATE_Z[0] if q.startswith("q6")
+                            else tpch.LI_FLAGSTATUS[0]] for q in tpch.QUERIES}
+    expected_indexes.update({q: [tpch.LI_ORDERKEY[0]] for q in tpch.LOOKUP_QUERIES})
     expected_indexes.update({q: [tpch.LI_ORDERKEY[0], tpch.OD_ORDERKEY[0]]
                              for q in tpch.JOIN_QUERIES})
     expected_indexes.update({q: spec[0] for q, spec in PLAIN_QUERIES.items()})
@@ -528,6 +543,18 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
                 if getattr(n, "index_info", None) is not None]
         require(used == expected_indexes[q],
                 f"{q}: plan reads {used}, expected {expected_indexes[q]}")
+        pruned = [n for n in plan.preorder()
+                  if getattr(n, "prune_spec", None) is not None and n.prune_spec.active]
+        require([n.prune_spec.describe() for n in pruned]
+                == ([tpch.LOOKUP_PRUNING[q]] if q in tpch.LOOKUP_PRUNING else []),
+                f"{q}: pruning {[n.prune_spec.describe() for n in pruned]}")
+        for n in pruned:  # the files and row groups the scan reads
+            row_groups, kept = resolve_scan_pruning(n)
+            log({"query": q, "card": card, "index": n.index_info.index_name,
+                 "pruned": n.prune_spec.describe(), "files_in_plan": len(n.files),
+                 "kept_files": [os.path.basename(f.name) for f in kept],
+                 "row_groups": {os.path.basename(p): list(g)
+                                for p, g in (row_groups or {}).items()}})
         session.device_stats = DeviceTierStats()
         before = dict(K.LAUNCHES)
         up0 = session.device_cache.uploaded_bytes
@@ -559,6 +586,10 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
                     f"{q}: join paths {stats.join_paths}, fetches "
                     f"{stats.plain_join_fetches}, per-bucket probes "
                     f"{stats.device_plain_probes}, fragments {stats.device_fragments}, "
+                    f"declines {stats.declines}")
+        elif q == "lookup_absent":  # every run's scan is empty
+            require(stats.device_fragments == 0 and stats.declines == {"empty": runs},
+                    f"{q}: device fragments {stats.device_fragments}, "
                     f"declines {stats.declines}")
         else:
             ran = stats.device_join_fragments if join else stats.device_fragments
@@ -813,9 +844,13 @@ def main() -> int:
     line = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         r = kernels[name]
+        by_query = {q: v["launches"][name] for q, v in e2e["queries"].items()
+                    if v["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": e2e["main_path_launches"][name], "max_abs_err": r["max_abs_err"],
+            "launches": e2e["main_path_launches"][name],
+            "launches_by_query": by_query, "runs_per_query": 1 + WARM_RUNS,
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -12,6 +12,13 @@ Sum and no Count, and ``q1`` has an Avg. Their kernel-shaped forms do:
 - ``q1_sums``: Q1 without avg_qty, three float sums and a count over six
   groups: filter_grouped_multi_sum.
 
+The lookups (``LOOKUP_QUERIES``) are port-only kernel-shaped forms over
+``li_orderkey``, which predicate pruning narrows: ``lookup_count`` (a
+point lookup, q6_count's shape), ``lookup_absent`` (the same with a key
+no row holds) and ``range_sum`` (a key range, q6_sum's shape).
+``tpch_indexes`` builds the reference's index set: q6's forms read the
+z-order index ``li_shipdate_z``, q1's the covering index
+``li_flagstatus`` through AggregateIndexRule.
 The join form (``JOIN_QUERIES``) reads two co-bucketed covering indexes,
 ``li_orderkey`` and ``od_orderkey``, through JoinIndexRule: ``q3`` as the
 reference writes it (top 10 orders by revenue), and ``q3_agg``, the same
@@ -30,6 +37,7 @@ Scale: ``rows_lineitem`` drives everything (SF1 ~ 6M lineitem rows).
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -286,27 +294,101 @@ def q18(session, root: str):
     )
 
 
+def first_orderkey(root: str) -> int:
+    """The l_orderkey of the lake's first lineitem row, read once per
+    version of the file (so building a lookup costs no read of the lake)."""
+    path = os.path.join(root, "lineitem", "part-0000.parquet")
+    return _first_value(path, "l_orderkey", os.stat(path).st_mtime_ns)
+
+
+@functools.lru_cache(maxsize=16)
+def _first_value(path: str, column: str, _mtime_ns: int) -> int:
+    import pyarrow.parquet as pq
+
+    return int(pq.ParquetFile(path).read_row_group(0, columns=[column])[0][0].as_py())
+
+
+def lookup_count(session, root: str, key: int | None = None):
+    """Order-status lookup: one order's lines, sum(l_extendedprice *
+    l_discount) and count(1) (q6_count's shape). The key defaults to the
+    first lineitem row's, so it is present; bucket pruning keeps one bucket
+    and row-group skipping the groups that can hold it."""
+    k = first_orderkey(root) if key is None else key
+    return _lineitem(session, root).filter(col("l_orderkey") == k).agg(
+        Sum(col("l_extendedprice") * col("l_discount")).alias("revenue"),
+        Count(lit(1)).alias("count"),
+    )
+
+
+def lookup_absent(session, root: str):
+    """lookup_count of a key no order has (keys start at 0): every row
+    group is skipped and the count is 0."""
+    return lookup_count(session, root, key=-1)
+
+
+def range_sum(session, root: str, start: int | None = None, width: int = 200_000):
+    """Order-range report: sum(l_extendedprice) and count(1) over
+    ``width`` order keys from ``start`` (the first row's key by default;
+    q6_sum's shape). Every bucket is kept; row groups are skipped by their
+    l_orderkey min and max."""
+    a = first_orderkey(root) if start is None else start
+    return _lineitem(session, root).filter(
+        (col("l_orderkey") >= a) & (col("l_orderkey") < a + width)
+    ).agg(Sum(col("l_extendedprice")).alias("sum_price"), Count(lit(1)).alias("count"))
+
+
 QUERIES = {"q6": q6, "q6_count": q6_count, "q6_sum": q6_sum, "q1": q1, "q1_sums": q1_sums}
 JOIN_QUERIES = {"q3_agg": q3_agg, "q3": q3}
+# point and range lookups on li_orderkey's key (port-only forms)
+LOOKUP_QUERIES = {"lookup_count": lookup_count, "lookup_absent": lookup_absent,
+                  "range_sum": range_sum}
+# the pruning each lookup's li_orderkey scan renders (8 buckets), as
+# FileScan.describe shows it in pruned[...]
+LOOKUP_PRUNING = {"lookup_count": "buckets=1/8,rowgroup_conjuncts=1",
+                  "lookup_absent": "buckets=1/8,rowgroup_conjuncts=1",
+                  "range_sum": "rowgroup_conjuncts=2"}
 # the reference's TPC-H query set (hyperspace_tpu/benchmark/tpch.py)
 TPCH_QUERIES = {"q1": q1, "q3": q3, "q6": q6, "q10": q10, "q17": q17, "q18": q18}
 
-# the covering index the filter-aggregate queries read
-LI_SHIPDATE = (
-    "li_shipdate",
-    ["l_shipdate"],
-    ["l_quantity", "l_extendedprice", "l_discount", "l_returnflag", "l_linestatus"],
-)
-# the co-bucketed join indexes the Q3 forms read (the reference's
-# tpch_indexes names and columns)
+# the reference's tpch_indexes set as (name, indexed, included)
+LI_SHIPDATE_Z = ("li_shipdate_z", ["l_shipdate"],
+                 ["l_extendedprice", "l_discount", "l_quantity"])
 LI_ORDERKEY = (
     "li_orderkey",
     ["l_orderkey"],
     ["l_extendedprice", "l_discount", "l_returnflag", "l_quantity"],
 )
-OD_ORDERKEY = ("od_orderkey", ["o_orderkey"], ["o_orderdate", "o_custkey"])
-JOIN_INDEXES = {"lineitem": LI_ORDERKEY, "orders": OD_ORDERKEY}
-# Q17's co-bucketed join and per-part aggregate (the reference's names and
-# columns)
 LI_PARTKEY = ("li_partkey", ["l_partkey"], ["l_quantity", "l_extendedprice"])
+LI_FLAGSTATUS = ("li_flagstatus", ["l_returnflag", "l_linestatus"],
+                 ["l_shipdate", "l_quantity", "l_extendedprice", "l_discount"])
+OD_ORDERKEY = ("od_orderkey", ["o_orderkey"], ["o_orderdate", "o_custkey"])
 PT_PARTKEY = ("pt_partkey", ["p_partkey"], ["p_brand"])
+# the co-bucketed join indexes the Q3 forms read
+JOIN_INDEXES = {"lineitem": LI_ORDERKEY, "orders": OD_ORDERKEY}
+# (table, z-ordered, index) in the reference's build order
+TPCH_INDEXES = (
+    ("lineitem", True, LI_SHIPDATE_Z),
+    ("lineitem", False, LI_ORDERKEY),
+    ("lineitem", False, LI_PARTKEY),
+    ("lineitem", False, LI_FLAGSTATUS),
+    ("orders", False, OD_ORDERKEY),
+    ("part", False, PT_PARTKEY),
+)
+
+
+def build_index(session, hs, root: str, table: str, zordered: bool, spec) -> None:
+    """Create one index of TPCH_INDEXES over ``table`` of the lake."""
+    from ..models.covering import CoveringIndexConfig
+    from ..models.zorder import ZOrderCoveringIndexConfig
+
+    config = ZOrderCoveringIndexConfig if zordered else CoveringIndexConfig
+    hs.create_index(session.read.parquet(os.path.join(root, table)), config(*spec))
+
+
+def tpch_indexes(session, hs, root: str) -> None:
+    """The JAX package's tpch_indexes set: z-order on Q6's range column,
+    covering indexes on the join keys and on Q1's group keys. Its
+    li_shipdate_mm, a data-skipping index, is left out: that kind is not
+    ported."""
+    for table, zordered, spec in TPCH_INDEXES:
+        build_index(session, hs, root, table, zordered, spec)

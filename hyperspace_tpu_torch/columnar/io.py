@@ -1,7 +1,7 @@
 """Parquet <-> ColumnBatch via pyarrow (counterpart of
 hyperspace_tpu/columnar/io.py, reduced to what the covering-index query
-path needs: whole-file reads, index-file writes, and the decoded index-chunk
-cache).
+path needs: whole-file and row-group-selected reads, footer-only row-group
+statistics, index-file writes, and the decoded index-chunk cache).
 
 The chunk cache matters to the device tier: it hands repeated index scans
 the SAME numpy buffers, and the device-resident column cache
@@ -11,6 +11,7 @@ nothing. Raw source scans never use it.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 from collections import OrderedDict
@@ -169,7 +170,9 @@ class IndexChunkCache:
         return batch
 
 
-def _read_one_table(path: str, cols) -> pa.Table:
+def _read_one_table(path: str, cols, row_group_sel=None) -> pa.Table:
+    if row_group_sel is not None:
+        return pq.ParquetFile(path).read_row_groups(list(row_group_sel), columns=cols)
     # partitioning=None: index data lives under v__=<n>/ and pyarrow's hive
     # inference would otherwise graft a v__ column onto the schema
     return pq.read_table(path, columns=cols, partitioning=None)
@@ -203,16 +206,22 @@ def read_parquet(
     paths: Sequence[str],
     columns: Sequence[str] | None = None,
     cache: IndexChunkCache | None = None,
+    row_groups: dict[str, Sequence[int]] | None = None,
 ) -> ColumnBatch:
-    """Read ``paths`` in order into one ColumnBatch. With ``cache`` (index
-    files only), repeats return the cached batch's Column objects."""
+    """Read ``paths`` in order into one ColumnBatch. ``row_groups`` maps a
+    path to the only row groups to read from it (other paths are read
+    whole). With ``cache`` (index files only), repeats return the cached
+    batch's Column objects; the selection is part of the key, so a pruned
+    read and a full read of the same files never share an entry."""
     cols = list(columns) if columns else None
+    row_groups = row_groups or {}
 
     def decode() -> ColumnBatch:
         if not paths:
             return ColumnBatch({})
         with ThreadPoolExecutor(max_workers=min(8, len(paths))) as pool:
-            tables = list(pool.map(lambda p: _read_one_table(p, cols), paths))
+            tables = list(pool.map(
+                lambda p: _read_one_table(p, cols, row_groups.get(p)), paths))
         if len(tables) > 1:
             tables = _unify_string_encoding(tables)
         table = pa.concat_tables(tables, promote_options="permissive")
@@ -227,7 +236,10 @@ def read_parquet(
         (p, s.st_mtime_ns, s.st_ino, s.st_size)
         for p, s in ((p, os.stat(p)) for p in paths)
     )
-    stored = cache.get_or_put((stats, tuple(cols) if cols else None), decode)
+    selection = tuple((p, tuple(row_groups[p])) for p in paths if p in row_groups)
+    stored = cache.get_or_put(
+        (stats, tuple(cols) if cols else None, selection or None), decode
+    )
     # shallow copy: callers may rebind columns; Column objects are shared
     return ColumnBatch(stored.columns)
 
@@ -239,6 +251,46 @@ def read_parquet_schema(path: str) -> Schema:
 def file_num_rows(path: str) -> int:
     """Row count from file metadata only (no data pages)."""
     return pq.ParquetFile(path).metadata.num_rows
+
+
+def read_rowgroup_stats(path: str, columns: Sequence[str]) -> list[dict] | None:
+    """Per-row-group footer statistics of ``columns``, with each group's row
+    and byte counts: ``[{"num_rows", "nbytes", "cols": {col: (min, max,
+    null_count) or None}}]``. Reads the footer only, and caches it by the
+    file's (mtime_ns, inode, size), so a rewrite invalidates it: point
+    lookups consult the same footers on every query. None when the footer
+    cannot be read (the caller keeps the file); that is not cached."""
+    try:
+        st = os.stat(path)
+        return _footer_stats(path, (st.st_mtime_ns, st.st_ino, st.st_size),
+                             tuple(sorted(set(columns))))
+    except Exception:
+        return None
+
+
+@functools.lru_cache(maxsize=16384)
+def _footer_stats(path: str, _version: tuple, columns: tuple[str, ...]) -> list[dict]:
+    md = pq.ParquetFile(path).metadata
+    out = []
+    for g in range(md.num_row_groups):
+        rg = md.row_group(g)
+        entry: dict = {"num_rows": rg.num_rows, "nbytes": rg.total_byte_size, "cols": {}}
+        for j in range(rg.num_columns):
+            cmeta = rg.column(j)
+            name = cmeta.path_in_schema
+            if name not in columns:
+                continue
+            try:
+                stats = cmeta.statistics if cmeta.is_stats_set else None
+                if stats is not None and stats.has_min_max:
+                    nulls = stats.null_count if stats.has_null_count else None
+                    entry["cols"][name] = (stats.min, stats.max, nulls)
+                else:
+                    entry["cols"][name] = None
+            except Exception:  # undecodable statistics count as absent
+                entry["cols"][name] = None
+        out.append(entry)
+    return out
 
 
 # --- writers -----------------------------------------------------------------

@@ -198,6 +198,15 @@ class Column:
             self.dictionary,
         )
 
+    def slice(self, start: int, stop: int) -> "Column":
+        """Contiguous row range as a view of this column's buffers."""
+        return Column(
+            self.data[start:stop],
+            self.dtype,
+            self.validity[start:stop] if self.validity is not None else None,
+            self.dictionary,
+        )
+
     def filter(self, mask: np.ndarray) -> "Column":
         return Column(
             self.data[mask],
@@ -285,6 +294,9 @@ class ColumnBatch:
 
     def take(self, indices: np.ndarray) -> "ColumnBatch":
         return ColumnBatch({n: c.take(indices) for n, c in self.columns.items()})
+
+    def slice(self, start: int, stop: int) -> "ColumnBatch":
+        return ColumnBatch({n: c.slice(start, stop) for n, c in self.columns.items()})
 
     @staticmethod
     def concat(batches: Sequence["ColumnBatch"]) -> "ColumnBatch":

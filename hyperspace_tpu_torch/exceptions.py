@@ -15,6 +15,15 @@ class ConcurrentWriteError(HyperspaceError):
     target log id."""
 
 
+class UnknownIndexKindError(HyperspaceError):
+    """A log entry names an index kind this package does not load (the JAX
+    package's data-skipping kind, for one)."""
+
+    def __init__(self, kind):
+        super().__init__(f"Unknown index kind: {kind!r}")
+        self.kind = kind
+
+
 class DeviceUnavailableError(HyperspaceError):
     """The session asked for the CUDA device tier (the default) on a machine
     where ``torch.cuda.is_available()`` is false. Pass ``device="cpu"`` to

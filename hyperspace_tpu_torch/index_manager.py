@@ -1,19 +1,22 @@
 """Index collection manager (counterpart of hyperspace_tpu/index_manager.py:
 create and list; delete, refresh, optimize and recovery are not ported).
 
-Enumerates the per-index logs under the system path; the read path caches
-the entry list for ``hyperspace.index.cache.expiryDurationInSeconds`` and a
-create clears it.
+Enumerates the per-index logs under the system path, skipping, with a
+warning, an index of a kind this package does not load; the read path
+caches the entry list for ``hyperspace.index.cache.expiryDurationInSeconds``
+and a create clears it.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import TYPE_CHECKING, Optional
 
 from .actions import states as S
 from .actions.create import CreateAction
+from .exceptions import UnknownIndexKindError
 from .meta.data_manager import IndexDataManager
 from .meta.entry import IndexLogEntry
 from .meta.log_manager import IndexLogManager
@@ -23,6 +26,8 @@ if TYPE_CHECKING:
     from .models.base import IndexConfig
     from .plan.dataframe import DataFrame
     from .session import HyperspaceSession
+
+logger = logging.getLogger(__name__)
 
 
 class IndexCollectionManager:
@@ -55,13 +60,21 @@ class IndexCollectionManager:
             if not os.path.isdir(path):
                 continue
             lm = IndexLogManager(path)
-            entry = lm.get_latest_log()
-            if entry is not None and (
-                not isinstance(entry, IndexLogEntry) or entry.state not in S.STABLE_STATES
-            ):
-                # another writer's transaction is in flight: serve the last
-                # stable entry
-                entry = lm.get_latest_stable_log()
+            try:
+                entry = lm.get_latest_log()
+                if entry is not None and (
+                    not isinstance(entry, IndexLogEntry)
+                    or entry.state not in S.STABLE_STATES
+                ):
+                    # another writer's transaction is in flight: serve the
+                    # last stable entry
+                    entry = lm.get_latest_stable_log()
+            except UnknownIndexKindError as e:
+                # a kind this package does not load (the JAX package's data
+                # skipping): skip it, so the other indexes still serve
+                logger.warning("Skipping index %r of kind %r, which this package "
+                               "cannot load", name, e.kind)
+                continue
             if isinstance(entry, IndexLogEntry):
                 out.append(entry)
         return out

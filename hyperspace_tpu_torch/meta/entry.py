@@ -25,7 +25,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Optional
 
-from ..exceptions import HyperspaceError
+from ..exceptions import HyperspaceError, UnknownIndexKindError
 
 LOG_VERSION = "0.1"
 
@@ -453,7 +453,7 @@ class IndexLogEntry(LogEntry):
         dd = d["derivedDataset"]
         kind = dd.get("kind")
         if kind not in INDEX_KIND_REGISTRY:
-            raise HyperspaceError(f"Unknown index kind: {kind!r}")
+            raise UnknownIndexKindError(kind)
         derived = INDEX_KIND_REGISTRY[kind](dd)
         return IndexLogEntry(
             d["name"],

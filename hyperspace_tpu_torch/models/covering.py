@@ -54,6 +54,17 @@ def bucket_id_from_filename(name: str) -> Optional[int]:
     return int(m.group(2)) if m else None
 
 
+def index_write_opts(session, clustered_columns) -> dict:
+    """Index file write options from the session conf: row-group statistics
+    on the clustered (sort or z-order) columns only, the only ones whose
+    min/max prune, and the index codec."""
+    if session is None:
+        return {}
+    conf = session.conf
+    stats = list(clustered_columns) if conf.index_stats_columns == "clustered" else None
+    return {"stats_columns": stats, "compression": conf.index_compression}
+
+
 def resolve_columns(schema: Schema, names: Sequence[str]) -> list[str]:
     """Case-insensitive column resolution."""
     by_lower = {f.name.lower(): f.name for f in schema}
@@ -139,12 +150,7 @@ def write_bucketed(
     bucket stably by the bucket columns, and write one file per non-empty
     bucket with the bucket id in its name."""
     keys = [sort_key_values(batch.column(c), True) for c in reversed(bucket_columns)]
-    stats_columns = None
-    compression = "lz4"
-    if session is not None:
-        if session.conf.index_stats_columns == "clustered":
-            stats_columns = list(bucket_columns)
-        compression = session.conf.index_compression
+    write_opts = index_write_opts(session, bucket_columns)
 
     def write_bucket(item) -> str:
         bucket, rows = item
@@ -156,8 +162,7 @@ def write_bucketed(
         fname = bucket_file_name(version, bucket)
         cio.write_index_file(
             part, os.path.join(path, fname),
-            row_group_size=index_row_group_size(part.num_rows),
-            stats_columns=stats_columns, compression=compression,
+            row_group_size=index_row_group_size(part.num_rows), **write_opts,
         )
         return fname
 

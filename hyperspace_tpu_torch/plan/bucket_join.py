@@ -31,7 +31,7 @@ per-bucket strategy plan (plan/join_memory.py) and adaptive re-planning.
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -71,6 +71,16 @@ class BucketedSide:
 
     def files_for_bucket(self, b: int) -> list:
         return self._files_by_bucket.get(b, [])
+
+    def scan_for_bucket(self, b: int) -> FileScan:
+        """The side's scan narrowed to bucket ``b``. Verify mode's file list
+        from before pruning narrows to the same bucket, so it holds this
+        bucket's pruned read against this bucket's full files."""
+        spec = self.scan.prune_spec
+        if spec is not None and spec.verify_files:
+            spec = replace(spec, verify_files=tuple(
+                f for f in spec.verify_files if bucket_id_from_filename(f.name) == b))
+        return self.scan.copy(files=self.files_for_bucket(b), prune_spec=spec)
 
     def key_is_identity(self, name: str) -> bool:
         """True iff output column ``name`` is the scan column ``name``
@@ -139,8 +149,12 @@ def try_bucketed_scan_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
     with ThreadPoolExecutor(max_workers=max(1, min(8, n))) as pool:
         parts = [p for p in pool.map(agg_bucket, range(n)) if p is not None]
     if not parts:
-        # every bucket filtered to nothing: the empty grouped shape
-        empty = BucketedSide(side.scan.copy(files=[]), side.spec, side.ops)
+        # every bucket filtered to nothing: the empty grouped shape (read
+        # from no file, so verify mode has nothing to hold it against)
+        spec = side.scan.prune_spec
+        if spec is not None:
+            spec = replace(spec, verify_files=())
+        empty = BucketedSide(side.scan.copy(files=[], prune_spec=spec), side.spec, side.ops)
         return aggregate(_load_side_bucket(empty, 0, session))
     return ColumnBatch.concat(parts)
 
@@ -522,7 +536,7 @@ def _load_side_bucket(side: BucketedSide, b: int, session, raw: bool = False
                       ) -> Optional[ColumnBatch]:
     from .executor import execute_plan
 
-    batch = execute_plan(side.scan.copy(files=side.files_for_bucket(b)), session)
+    batch = execute_plan(side.scan_for_bucket(b), session)
     return batch if raw else _apply_side_ops(side, batch)
 
 

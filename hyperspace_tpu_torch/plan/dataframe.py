@@ -2,8 +2,9 @@
 
 Every DataFrame op builds logical nodes lazily; collect() runs filter
 pushdown through joins and column pruning, the session's extra
-optimizations (the Hyperspace rewrite when enabled) and pruning again, then
-hands the plan to the executor.
+optimizations (the Hyperspace rewrite when enabled), predicate pushdown
+into scans, column pruning again and index pruning, then hands the plan to
+the executor.
 """
 
 from __future__ import annotations
@@ -66,12 +67,15 @@ class DataFrame:
         return self.plan.schema
 
     def optimized_plan(self) -> LogicalPlan:
-        from .passes import pre_rewrite_plan, prune_columns
+        from .passes import pre_rewrite_plan, prune_columns, push_predicates
+        from .pruning import apply_pruning
 
         plan = pre_rewrite_plan(self.plan)
         for rule in self.session.extra_optimizations:
             plan = rule(plan)
-        return prune_columns(plan)
+        # scan-level passes after the rewrite, so index scans get them too;
+        # index pruning last: it reads the filters pushed just before
+        return apply_pruning(prune_columns(push_predicates(plan)))
 
     def collect(self) -> ColumnBatch:
         return execute_plan(self.optimized_plan(), self.session)

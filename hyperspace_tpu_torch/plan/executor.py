@@ -84,30 +84,60 @@ def execute_plan(plan: LogicalPlan, session=None) -> ColumnBatch:
     raise HyperspaceError(f"Cannot execute node {plan.kind}")
 
 
+def _empty_scan_batch(scan: FileScan, want: list[str]) -> ColumnBatch:
+    return ColumnBatch(
+        {
+            f.name: Column(
+                np.empty(0, dtype=np.int32 if f.dtype in (STRING, "date32")
+                         else np.dtype(f.dtype)),
+                f.dtype, None, [""] if f.dtype == STRING else None,
+            )
+            for f in scan.full_schema.select(want)
+        }
+    )
+
+
+def resolve_scan_pruning(scan: FileScan):
+    """(row groups by path, kept files) of the scan's row-group pruning;
+    (None, scan.files) when its prune spec has no row-group conjuncts."""
+    if scan.prune_spec is None or not scan.prune_spec.rowgroup_conjuncts:
+        return None, list(scan.files)
+    from .pruning import rowgroup_selection
+
+    return rowgroup_selection(scan)
+
+
+def _maybe_verify_pruning(scan: FileScan, out: ColumnBatch, session) -> ColumnBatch:
+    """Verify mode: hold the pruned read against the full one (pruned-to-
+    empty reads included: a wrong bucket hash shows as a wrongly empty
+    scan)."""
+    if scan.prune_spec is not None:
+        from . import pruning
+
+        if pruning.is_verify(scan):
+            pruning.verify_against_full(scan, out, session)
+    return out
+
+
 def _exec_file_scan(scan: FileScan, session=None) -> ColumnBatch:
-    """Read the scan's columns. Index files go through the session's chunk
-    cache (stable buffers for the device-resident column cache); raw source
-    scans never cache."""
+    """Read the scan's columns: only the files and row groups its pruning
+    keeps. Index files go through the session's chunk cache (stable buffers
+    for the device-resident column cache); raw source scans never cache.
+    The pushed filter is not applied here: the Filter above the scan does
+    that, and an unfiltered read keeps the cached buffers stable."""
     want = list(scan.required_columns or scan.full_schema.names)
     if scan.fmt != "parquet":
         raise HyperspaceError(f"Unsupported format: {scan.fmt}")
-    if not scan.files:
-        return ColumnBatch(
-            {
-                f.name: Column(
-                    np.empty(0, dtype=np.int32 if f.dtype in (STRING, "date32")
-                             else np.dtype(f.dtype)),
-                    f.dtype, None, [""] if f.dtype == STRING else None,
-                )
-                for f in scan.full_schema.select(want)
-            }
-        )
+    row_groups, files = resolve_scan_pruning(scan)
+    if not files:
+        return _maybe_verify_pruning(scan, _empty_scan_batch(scan, want), session)
     cache = (
         session.index_chunk_cache
         if session is not None and scan.index_info is not None
         else None
     )
-    return cio.read_parquet([f.name for f in scan.files], want, cache)
+    out = cio.read_parquet([f.name for f in files], want, cache, row_groups)
+    return _maybe_verify_pruning(scan, out, session)
 
 
 # ---------------------------------------------------------------------------

@@ -781,7 +781,10 @@ def try_execute_gpu(plan: LogicalPlan, session) -> Optional[ColumnBatch]:
     """Run a supported fragment on the session's device; None when the
     plan's shape or data is unsupported (the host executor takes over).
     Counterpart of tpu_exec.try_execute_tpu, without its fail-open breaker:
-    a device or kernel failure raises."""
+    a device or kernel failure raises. The scan reads the files and row
+    groups its pruning keeps, unfiltered (the fragment applies the whole
+    predicate), so a repeat gets the chunk cache's buffers and uploads
+    nothing; a scan pruned to nothing declines, as the reference's does."""
     from .executor import _exec_file_scan
 
     frag = _match_fragment(plan)

@@ -105,7 +105,11 @@ class _Unary(LogicalPlan):
 class FileScan(LogicalPlan):
     """Leaf scan over a file-based relation: the resolved file list,
     ``bucket_spec`` when it reads bucketed index data for a join,
-    ``index_info`` when it reads index data, and the pruned column set."""
+    ``index_info`` when it reads index data, and the pruned column set.
+    ``pushed_filter`` mirrors the condition of a Filter right above the
+    scan (that Filter still applies it); ``prune_spec`` is the layout
+    contract of a bucketed index scan (plan/pruning.PruneSpec), from which
+    the pushed filter derives the buckets and row groups to read."""
 
     def __init__(
         self,
@@ -117,6 +121,8 @@ class FileScan(LogicalPlan):
         bucket_spec: Optional[BucketSpec] = None,
         index_info: Optional[IndexScanInfo] = None,
         required_columns: Optional[Sequence[str]] = None,
+        pushed_filter: Optional[Expr] = None,
+        prune_spec=None,
     ):
         super().__init__([])
         self.root_paths = list(root_paths)
@@ -127,6 +133,8 @@ class FileScan(LogicalPlan):
         self.bucket_spec = bucket_spec
         self.index_info = index_info
         self.required_columns = list(required_columns) if required_columns else None
+        self.pushed_filter = pushed_filter
+        self.prune_spec = prune_spec
 
     def with_new_children(self, children):
         if children:
@@ -143,6 +151,8 @@ class FileScan(LogicalPlan):
             bucket_spec=self.bucket_spec,
             index_info=self.index_info,
             required_columns=self.required_columns,
+            pushed_filter=self.pushed_filter,
+            prune_spec=self.prune_spec,
         )
         args.update(kw)
         return FileScan(**args)
@@ -167,6 +177,8 @@ class FileScan(LogicalPlan):
             )
         if self.bucket_spec:
             extra += f" buckets={self.bucket_spec.num_buckets}"
+        if self.prune_spec is not None and self.prune_spec.active:
+            extra += f" pruned[{self.prune_spec.describe()}]"
         return (
             f"FileScan {self.fmt} [{', '.join(self.schema.names)}] "
             f"({len(self.files)} files){extra}"

@@ -1,5 +1,7 @@
-"""Column pruning and filter pushdown through joins (counterpart of
-hyperspace_tpu/plan/passes.py, without scan-level predicate pushdown).
+"""Column pruning, filter pushdown through joins and predicate pushdown
+into scans (counterpart of hyperspace_tpu/plan/passes.py; the pushed
+filter feeds index pruning only, it is not turned into a parquet reader
+filter).
 
 Pruning runs before the Hyperspace rewrite, so the rules see each scan's
 real column needs (a Filter -> Scan with no projection otherwise "requires"
@@ -61,6 +63,20 @@ def _prune(plan: LogicalPlan, required: set[str]) -> LogicalPlan:
     if plan.children():  # Limit
         return plan.with_new_children([_prune(c, set(required)) for c in plan.children()])
     return plan
+
+
+def push_predicates(plan: LogicalPlan) -> LogicalPlan:
+    """Attach the condition of a Filter directly above a FileScan to the
+    scan as its pushed filter (the Filter stays and applies it)."""
+
+    def visit(node: LogicalPlan) -> LogicalPlan:
+        if isinstance(node, Filter) and isinstance(node.child, FileScan):
+            scan = node.child
+            if scan.fmt == "parquet" and scan.pushed_filter is None:
+                return Filter(node.condition, scan.copy(pushed_filter=node.condition))
+        return node
+
+    return plan.transform_up(visit)
 
 
 def push_filters_through_joins(plan: LogicalPlan) -> LogicalPlan:

@@ -2,9 +2,13 @@
 scan (counterpart of hyperspace_tpu/rules/filter_rule.py).
 
 An index qualifies when its first indexed column appears in the filter
-condition and it covers every column the subtree needs; among those the
-smallest index wins (name breaks ties). Score = 50 * covered-bytes ratio,
-which is 1 without hybrid scan.
+condition and it covers every column the subtree needs. Among those the
+ranker takes the least expected read: index bytes times the fraction
+bucket pruning keeps for the condition (plan/pruning.estimate_scan_
+fraction), name breaking ties. Score = 50 * covered-bytes ratio (1 without
+hybrid scan) plus up to 10 for that pruning, which keeps the rule above
+AggregateIndexRule's 40 and lets a bucket-prunable rewrite win a tie
+against a z-order one.
 """
 
 from __future__ import annotations
@@ -12,8 +16,14 @@ from __future__ import annotations
 from typing import Optional
 
 from .base import HyperspaceRule, IndexRankFilter, QueryPlanIndexFilter
-from .rule_utils import subtree_required_columns, transform_plan_to_use_index
+from .rule_utils import (
+    common_bytes_ratio,
+    find_scan_by_id,
+    subtree_required_columns,
+    transform_plan_to_use_index,
+)
 from ..plan.nodes import FileScan, Filter, LogicalPlan, Project
+from ..plan.pruning import estimate_scan_fraction
 
 
 def match_filter_pattern(plan: LogicalPlan) -> Optional[tuple[Filter, FileScan]]:
@@ -53,10 +63,17 @@ class FilterColumnFilter(QueryPlanIndexFilter):
         return {scan.plan_id: out} if out else {}
 
 
+def _filter_condition(plan):
+    m = match_filter_pattern(plan)
+    return m[0].condition if m is not None else None
+
+
 class FilterIndexRanker(IndexRankFilter):
     def apply(self, plan, candidates):
+        cond = _filter_condition(plan)
         return {
-            leaf_id: min(entries, key=lambda e: (e.index_data_size_in_bytes(), e.name))
+            leaf_id: min(entries, key=lambda e: (
+                e.index_data_size_in_bytes() * estimate_scan_fraction(cond, e), e.name))
             for leaf_id, entries in candidates.items()
             if entries
         }
@@ -78,4 +95,9 @@ class FilterIndexRule(HyperspaceRule):
         return out
 
     def score(self, plan, chosen):
-        return 50 * len(chosen)
+        cond = _filter_condition(plan)
+        total = 0.0
+        for leaf_id, entry in chosen.items():
+            total += 50 * common_bytes_ratio(entry, find_scan_by_id(plan, leaf_id))
+            total += 10 * (1.0 - estimate_scan_fraction(cond, entry))
+        return int(total)

@@ -12,6 +12,7 @@ from ..columnar.table import Schema
 from ..exceptions import HyperspaceError
 from ..meta.entry import IndexLogEntry
 from ..plan.nodes import BucketSpec, FileScan, Filter, IndexScanInfo, LogicalPlan, Project
+from ..plan.pruning import prune_spec_for
 
 
 def find_scan_by_id(plan: LogicalPlan, plan_id: int) -> Optional[FileScan]:
@@ -60,7 +61,8 @@ def index_visible_schema(entry: IndexLogEntry) -> Schema:
 def index_scan(entry: IndexLogEntry, use_bucket_spec: bool = False) -> FileScan:
     """A scan over the index's data files, marked as an index scan; with
     ``use_bucket_spec`` it carries the index's bucket layout (the join
-    rule's rewrite, which the bucketed join executes)."""
+    rule's rewrite, which the bucketed join executes). A scan of a bucketed
+    index also carries its PruneSpec."""
     dd = entry.derived_dataset
     files = entry.content.file_infos()
     root = os.path.commonpath([f.name for f in files]) if files else ""
@@ -77,6 +79,9 @@ def index_scan(entry: IndexLogEntry, use_bucket_spec: bool = False) -> FileScan:
         bucket_spec=bucket_spec,
         index_info=IndexScanInfo(entry.name, dd.kind_abbr, entry.id),
         required_columns=index_visible_schema(entry).names,
+        # the layout contract pruning reads: it holds whether or not the
+        # scan executes as a bucketed join
+        prune_spec=prune_spec_for(entry),
     )
 
 

@@ -1,6 +1,7 @@
 """Score-based plan optimizer (counterpart of
-hyperspace_tpu/rules/score_optimizer.py, with FilterIndexRule,
-JoinIndexRule and AggregateIndexRule).
+hyperspace_tpu/rules/score_optimizer.py): FilterIndexRule, JoinIndexRule
+and AggregateIndexRule, then the rules index kinds register at import
+(ZOrderFilterIndexRule), then NoOpRule. Ties go to the later rule.
 
 A memoized recursive search keeps, per plan node, the transformation with
 the highest total score: a rule's rewrite of the whole subtree, or the
@@ -17,6 +18,15 @@ from ..meta.entry import IndexLogEntry
 from ..plan.nodes import LogicalPlan
 
 
+# rule classes that index kinds register when their package is imported
+_EXTRA_RULES: list = []
+
+
+def register_rule(rule_cls) -> None:
+    if rule_cls not in _EXTRA_RULES:
+        _EXTRA_RULES.append(rule_cls)
+
+
 class ScoreBasedIndexPlanOptimizer:
     def __init__(self, session):
         self.session = session
@@ -24,6 +34,7 @@ class ScoreBasedIndexPlanOptimizer:
             FilterIndexRule(session),
             JoinIndexRule(session),
             AggregateIndexRule(session),
+            *(extra(session) for extra in _EXTRA_RULES),
             NoOpRule(session),
         ]
 

@@ -39,8 +39,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     )
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    assert "hyperspace_tpu_torch.plan.gpu_exec" in out["loaded"]
-    assert "hyperspace_tpu_torch.ops.cuda_kernels" in out["loaded"]
+    for module in ("plan.gpu_exec", "ops.cuda_kernels", "ops.zorder", "plan.pruning",
+                   "models.zorder.fields", "models.zorder.index", "models.zorder.rule",
+                   "models.dataskipping.sketches"):
+        assert f"hyperspace_tpu_torch.{module}" in out["loaded"], module
 
 
 def test_session_without_device_raises_instead_of_running_on_cpu(tmp_path, monkeypatch):
