@@ -57,8 +57,38 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      plain join is a new buffer on every run, as in the reference).
    masked_min_max is on no path of the system (the JAX package calls it
    from its tests only), so it launches no time in this phase;
-5. order phase: the device top-k and sort against the host on one
-   2^26-row batch of lineitem columns (the generator's distributions):
+5. lifecycle phase: a second lake whose lineitem and orders hard-link the
+   SF10 files, with its own warehouse, lineage on, and three indexes over
+   it: lc_shipdate_z (li_shipdate_z's config), lc_orderkey (li_orderkey's)
+   and od_orderkey. Stages, each running q6_count, q6_sum, lookup_count,
+   range_sum and q3_agg through the normal API (first run and warm runs,
+   each compared with the host executor over the lake's current files):
+   1. build;
+   2. 6 of the 120 lineitem files deleted, hybrid scan off: no lc_ index
+      may serve lineitem;
+   3. hybrid scan on: the lineitem scans drop the deleted files' rows by
+      lineage, filter_weighted_sum and filter_sum launch on them and the
+      join runs on the card; then refresh_index(mode="incremental") of
+      both indexes takes the deletes in (each bucket rewritten);
+   4. 12 files appended (generate_tpch's lineitem at 6M rows, seed 43,
+      renamed): the filter queries read a Union on the host, as in the
+      reference, and q3_agg a BucketUnion through the fused join on the
+      card;
+   5. refresh_index(mode="incremental") of both: the appended rows become
+      a second run in every bucket, and the queries run on the card with
+      no hybrid scan (lookups read pruned buckets of two runs);
+   6. optimize_index (quick) of lc_orderkey compacts them to one file per
+      bucket (files per bucket printed before and after), queries on the
+      card;
+   7. vacuum_outdated_index of both, then delete_index and restore_index
+      of lc_shipdate_z, each followed by a plan check, and a final
+      delete_index and vacuum_index of every index.
+   The plan's index and hybrid form, files per bucket, warm ms, first-run
+   and warm upload bytes, kernel launches and each action's seconds are
+   printed. Any mismatch, a kernel of the stage's path launched no time,
+   or a plain-version call fails the run;
+6. order phase: the device top-k and sort against the host on one
+   2^25-row batch of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
    descending, k in {10, 100, 4096}; (l_extendedprice f64, l_orderkey
    int64) ascending and descending. The rows must be the host's stable
@@ -69,7 +99,9 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 
 The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
-build/chip_smoke/ and is removed at the end.
+build/chip_smoke/ and is removed at the end. The kernels line's launches
+add up the end-to-end and lifecycle phases' counts, each read on its own
+(``launches_by_phase``).
 """
 
 from __future__ import annotations
@@ -89,7 +121,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published HBM3 rate
 F32_OPS_PER_S = 67e12  # H100 SXM, published f32 rate outside the tensor cores
 REL_TOL = 1e-4  # f32 sums, as tests/test_pallas_and_dist.py holds the reference
 SEED = 42  # bench.py's TPC-H seed
-WARM_RUNS = 3
+WARM_RUNS = 2
 KERNEL_REPS = 25
 DEVICE_LAUNCHES = 50  # back-to-back launches per device-time reading
 GROUP_COUNTS = (1, 6, 16)
@@ -132,7 +164,11 @@ PLAIN_QUERIES = {
     "q17": (["li_partkey", "pt_partkey", "li_partkey"], 1, 1, None),
     "q18": (["li_orderkey"], 0, 1, "sum_qty"),
 }
-ORDER_ROWS = 1 << 26
+# host references read off another query's host result by the host
+# executor's own code, instead of a second pass over the 60M-row source:
+# q3 is q3_agg's groups through Limit(Sort), q1_sums is q1 less avg_qty
+DERIVED_REFERENCES = {"q3": "q3_agg", "q1_sums": "q1"}
+ORDER_ROWS = 1 << 25
 TOPK_KS = (10, 100, 4096)
 KERNEL_ROWS = {
     "filter_weighted_sum": ("hyperspace_tpu_torch/ops/csrc/filter_reduce.cu",
@@ -145,6 +181,15 @@ KERNEL_ROWS = {
                        "hyperspace_tpu/ops/pallas_kernels.py:236"),
 }
 ON_PATH = {"filter_weighted_sum", "filter_sum", "filter_grouped_multi_sum"}
+# the lifecycle phase's queries, their kernel, and its indexes (the
+# reference's configs under other names, so the main phase's indexes are
+# never candidates over the second lake)
+LIFECYCLE_QUERIES = {"q6_count": "filter_weighted_sum", "q6_sum": "filter_sum",
+                     "lookup_count": "filter_weighted_sum", "range_sum": "filter_sum",
+                     "q3_agg": None}
+LC_FILTER_QUERIES = ("q6_count", "q6_sum", "lookup_count", "range_sum")
+LIFECYCLE_WARM_RUNS = 1
+APPEND_SEED = 43
 MINMAX_CASES = ("random", "all_invalid", "nan_valid", "nan_invalid", "int")
 
 
@@ -478,10 +523,27 @@ def _columns(batch) -> dict:
     return {n: c.decode() for n, c in batch.columns.items()}
 
 
+def derived_reference(q: str, batch):
+    """The host executor's result of ``q`` from the host result of the
+    query DERIVED_REFERENCES names: q3's top 10 by revenue over q3_agg's
+    groups (the same Limit(Sort) the executor runs over the same
+    Aggregate output), q1_sums as q1's columns less avg_qty."""
+    from hyperspace_tpu_torch.plan.executor import execute_plan
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.plan.nodes import InMemoryScan, Limit, Sort
+
+    if q == "q3":
+        return execute_plan(Limit(10, Sort([(col("revenue"), False)], InMemoryScan(batch))))
+    if q == "q1_sums":
+        return batch.select([n for n in batch.schema.names if n != "avg_qty"])
+    raise ValueError(q)
+
+
 def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> dict:
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
     from hyperspace_tpu_torch import constants as C
     from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.columnar.table import ColumnBatch
     from hyperspace_tpu_torch.plan.executor import resolve_scan_pruning
     from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
 
@@ -510,21 +572,29 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
                    **{q: tpch.TPCH_QUERIES[q] for q in PLAIN_QUERIES}}
 
     def result(q: str, df) -> dict:
+        """A query's result (a DataFrame, or a host batch) as comparable
+        columns."""
+        batch = df if isinstance(df, ColumnBatch) else df.collect()
         if q in tpch.JOIN_QUERIES or q in PLAIN_QUERIES:
-            return _columns(df.collect())
-        return _floats(df.to_pydict())
+            return _columns(batch)
+        return _floats(batch.to_pydict())
 
     def same_bits(a: dict, b: dict) -> bool:
         import numpy as np
 
         return list(a) == list(b) and all(np.array_equal(a[k], b[k]) for k in a)
 
-    want = {}
+    want, batches = {}, {}
     for q, fn in all_queries.items():
+        if q in DERIVED_REFERENCES:
+            continue
         t0 = time.perf_counter()
-        want[q] = result(q, fn(host, lake))
+        batches[q] = fn(host, lake).collect()
+        want[q] = result(q, batches[q])
         out.setdefault("host_s", {})[q] = time.perf_counter() - t0
-    del host
+    for q, src in DERIVED_REFERENCES.items():
+        want[q] = result(q, derived_reference(q, batches[src]))
+    del host, batches
 
     session.enable_hyperspace()
     queries = {}
@@ -613,7 +683,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
             compare_batches(q, got, want[q])
         queries[q] = {"first_run_s": cold_s, "warm_median_s": statistics.median(warm),
                       "upload_bytes_first": up1 - up0, "upload_bytes_second": uploads_warm[0],
-                      "launches": launched, "host_reference_s": out["host_s"][q],
+                      "launches": launched, "host_reference_s": out["host_s"].get(q),
+                      "host_reference_from": DERIVED_REFERENCES.get(q),
                       "rows_out": len(next(iter(got.values()))), "matches_host": True}
         if join:
             queries[q]["device_join_fragments"] = stats.device_join_fragments
@@ -637,7 +708,265 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
             )
             log({"query": q, "card": card, "profile": queries[q]["profile"]})
     out["device_resident_bytes"] = session.device_cache.resident_bytes
-    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    # the lifecycle phase reuses the lake and these references
+    out["lake"] = lake
+    out["want"] = {q: want[q] for q in LIFECYCLE_QUERIES}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lifecycle phase
+# ---------------------------------------------------------------------------
+
+def _plan_form(plan) -> dict:
+    """What a plan reads: its index scans (name, files, lineage ids) and
+    whether it unions appended files (Union, BucketUnion)."""
+    scans = [n for n in plan.preorder() if getattr(n, "index_info", None) is not None]
+    kinds = {n.kind for n in plan.preorder()}
+    return {"indexes": [n.index_info.index_name for n in scans],
+            "lineage_ids": [n.lineage_filter_ids for n in scans],
+            "files": [len(n.files) for n in scans],
+            "union": "Union" in kinds, "bucket_union": "BucketUnion" in kinds}
+
+
+def _files_per_bucket(hs, name: str) -> dict:
+    from hyperspace_tpu_torch.models.covering import bucket_id_from_filename
+
+    per: dict = {}
+    for f in hs.get_index(name).content.files():
+        b = bucket_id_from_filename(f)
+        per[b] = per.get(b, 0) + 1
+    return {"files": sum(per.values()), "min": min(per.values()), "max": max(per.values())}
+
+
+def _hard_link_tree(src: str, dst: str) -> None:
+    os.makedirs(dst)
+    for f in sorted(os.listdir(src)):
+        os.link(os.path.join(src, f), os.path.join(dst, f))
+
+
+def lifecycle_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = False) -> dict:
+    """The index lifecycle and hybrid scan over a second lake (the module
+    docstring lists the stages). Returns what each stage measured; with
+    ``profile``, each query of stages 3-6 is profiled once more."""
+    from hyperspace_tpu_torch import (CoveringIndexConfig, Hyperspace, HyperspaceSession,
+                                      ZOrderCoveringIndexConfig)
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
+
+    t_phase = time.perf_counter()
+    lake = os.path.join(DATA_DIR, "lake2")
+    warehouse = os.path.join(DATA_DIR, "warehouse2")
+    for table in ("lineitem", "orders"):
+        _hard_link_tree(os.path.join(e2e["lake"], table), os.path.join(lake, table))
+    n_files = len(os.listdir(os.path.join(lake, "lineitem")))
+    n_deleted = n_files // 20  # 5% of the files (6 of 120 at SF10)
+    require(n_deleted >= 1, f"lifecycle: {n_files} lineitem files, too few to delete 5%")
+    deleted = [f"part-{10 + 20 * i:04d}.parquet" for i in range(n_deleted)]
+    indexes = {"lc_shipdate_z": ("lineitem", ZOrderCoveringIndexConfig,
+                                 tpch.LI_SHIPDATE_Z[1:]),
+               "lc_orderkey": ("lineitem", CoveringIndexConfig, tpch.LI_ORDERKEY[1:]),
+               "od_orderkey": ("orders", CoveringIndexConfig, tpch.OD_ORDERKEY[1:])}
+    expected = {"q6_count": ["lc_shipdate_z"], "q6_sum": ["lc_shipdate_z"],
+                "lookup_count": ["lc_orderkey"], "range_sum": ["lc_orderkey"],
+                "q3_agg": ["lc_orderkey", "od_orderkey"]}
+    queries = {q: ({**tpch.LOOKUP_QUERIES, **tpch.QUERIES, **tpch.JOIN_QUERIES})[q]
+               for q in LIFECYCLE_QUERIES}
+    session = HyperspaceSession(warehouse, conf={C.INDEX_LINEAGE_ENABLED: True})
+    hs = Hyperspace(session)
+    out: dict = {"deleted_files": deleted, "actions_s": {}, "stages": {}}
+
+    def action(label: str, fn) -> None:
+        t0 = time.perf_counter()
+        fn()
+        out["actions_s"][label] = time.perf_counter() - t0
+        log({"lifecycle_action": label, "card": card, "seconds": out["actions_s"][label]})
+
+    for name, (table, config, spec) in indexes.items():
+        action(f"create {name}", lambda: hs.create_index(
+            session.read.parquet(os.path.join(lake, table)), config(name, *spec)))
+    session.enable_hyperspace()
+
+    def result(q: str, df) -> dict:
+        return _columns(df.collect()) if q == "q3_agg" else _floats(df.to_pydict())
+
+    def host_reference() -> dict:
+        host = HyperspaceSession(warehouse, conf={C.EXEC_TPU_ENABLED: False})
+        t0 = time.perf_counter()
+        want = {q: result(q, fn(host, lake)) for q, fn in queries.items()}
+        out.setdefault("host_reference_s", []).append(time.perf_counter() - t0)
+        return want
+
+    def check(q: str, got: dict, want: dict) -> None:
+        if q == "q3_agg":
+            compare_join(q, got, want)
+        else:
+            compare_batches(q, got, want)
+
+    def stage(label: str, want: dict, hybrid: bool, on_card: set, indexed: bool = True,
+              bucket_union: bool = False, lineage: bool = False,
+              warm_runs: int = LIFECYCLE_WARM_RUNS, plan_only: frozenset = frozenset()) -> None:
+        """Run every query (first run, then warm runs), hold each to the
+        host reference, check its plan and its route: ``on_card`` are the
+        queries whose fragment or join must run on the device; of the
+        ``plan_only`` ones only the plan is checked."""
+        session.set_conf(C.HYBRID_SCAN_ENABLED, hybrid)
+        rec: dict = {"hybrid": hybrid, "queries": {},
+                     "lc_orderkey": _files_per_bucket(hs, "lc_orderkey")}
+        K.reset_counts()  # this stage's launches start here
+        for q, fn in queries.items():
+            form = _plan_form(fn(session, lake).optimized_plan())
+            if indexed:
+                require(form["indexes"] == expected[q],
+                        f"{label} {q}: plan reads {form['indexes']}, expected {expected[q]}")
+            else:
+                require(not any(i.startswith("lc_") for i in form["indexes"]),
+                        f"{label} {q}: plan reads {form['indexes']} over a changed lake")
+            li_lineage = [ids for i, ids in zip(form["indexes"], form["lineage_ids"])
+                          if i.startswith("lc_")]
+            require(all((ids is not None and len(ids) == n_deleted) == lineage
+                        for ids in li_lineage), f"{label} {q}: lineage filters {li_lineage}")
+            union = form["bucket_union"] if q == "q3_agg" else form["union"]
+            require(union == (bucket_union and indexed),
+                    f"{label} {q}: union form {form}")
+            if q in plan_only:
+                rec["queries"][q] = form
+                continue
+            session.device_stats = DeviceTierStats()
+            before = dict(K.LAUNCHES)
+            up0 = session.device_cache.uploaded_bytes
+            t0 = time.perf_counter()
+            got = result(q, fn(session, lake))
+            first_s = time.perf_counter() - t0
+            up1 = session.device_cache.uploaded_bytes
+            check(q, got, want[q])
+            warm, warm_up = [], []
+            for _ in range(warm_runs):
+                u = session.device_cache.uploaded_bytes
+                t0 = time.perf_counter()
+                again = result(q, fn(session, lake))
+                warm.append(time.perf_counter() - t0)
+                warm_up.append(session.device_cache.uploaded_bytes - u)
+                check(q, again, want[q])
+            runs = 1 + warm_runs
+            launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+            stats = session.device_stats
+            kernel = LIFECYCLE_QUERIES[q]
+            if q == "q3_agg":
+                want_paths = {"stacked_agg": runs} if q in on_card else stats.join_paths
+                require(stats.join_paths == want_paths and stats.device_join_fragments
+                        == (runs if q in on_card else 0),
+                        f"{label} {q}: join paths {stats.join_paths}, declines "
+                        f"{stats.declines}")
+            else:
+                ran = q in on_card
+                require(stats.device_fragments == (runs if ran else 0),
+                        f"{label} {q}: device fragments {stats.device_fragments}, "
+                        f"declines {stats.declines}")
+                require(launched[kernel] == (runs if ran else 0),
+                        f"{label} {q}: {kernel} launched {launched[kernel]} times")
+            require(all(c == 0 for k, c in launched.items() if k != kernel),
+                    f"{label} {q}: unexpected launches {launched}")
+            rec["queries"][q] = {
+                **form, "first_run_s": first_s,
+                "upload_bytes_first": up1 - up0, "upload_bytes_warm": warm_up,
+                "warm_median_s": statistics.median(warm) if warm else None,
+                "launches": launched, "join_paths": stats.join_paths,
+                "device_fragments": stats.device_fragments, "matches_host": True}
+            log({"lifecycle": label, "query": q, "card": card, **rec["queries"][q]})
+        require(not any(K.PLAIN_CALLS.values()),
+                f"{label}: plain versions ran on the card's path: {K.PLAIN_CALLS}")
+        rec["launches"] = dict(K.LAUNCHES)
+        for k in {LIFECYCLE_QUERIES[q] for q in on_card} - {None}:
+            require(rec["launches"][k] > 0, f"{label}: {k} never launched")
+        out["stages"][label] = rec
+        log({"lifecycle_stage": label, "card": card, "launches": rec["launches"],
+             "lc_orderkey_files_per_bucket": rec["lc_orderkey"]})
+        if profile and label[0] in "3456":  # after the stage's counts are read
+            for q, fn in queries.items():
+                rec["queries"][q]["profile"] = profile_warm_run(
+                    torch, lambda: fn(session, lake).collect(), f"lifecycle{label[0]}_{q}")
+                log({"lifecycle": label, "query": q, "card": card,
+                     "profile": rec["queries"][q]["profile"]})
+
+    every = set(LIFECYCLE_QUERIES)
+    # 1. build: the lake's data is the main phase's, so are the references
+    stage("1_build", e2e["want"], hybrid=False, on_card=every)
+    # 2. delete 5% of the lineitem files, hybrid scan off
+    for f in deleted:
+        os.unlink(os.path.join(lake, "lineitem", f))
+    want = host_reference()
+    # the raw scans still run on the device tier, as in the reference; q3_agg
+    # over raw files is the host join the reference just ran, so only its
+    # plan is checked, and the raw filter queries run once
+    stage("2_deleted", want, hybrid=False, on_card=every - {"q3_agg"}, indexed=False,
+          warm_runs=0, plan_only=frozenset({"q3_agg"}))
+    # 3. hybrid scan on: lineage-filtered index scans
+    stage("3_hybrid_deleted", want, hybrid=True, on_card=every, lineage=True)
+    for name in ("lc_shipdate_z", "lc_orderkey"):
+        action(f"refresh incremental (deletes) {name}",
+               lambda: hs.refresh_index(name, C.REFRESH_MODE_INCREMENTAL))
+    # 4. append 12 files (6M rows at SF10) of another seed, renamed
+    extra = os.path.join(DATA_DIR, "extra")
+    t0 = time.perf_counter()
+    tpch.generate_tpch(extra, rows_lineitem=rows // 10, seed=APPEND_SEED)
+    appended = sorted(os.listdir(os.path.join(extra, "lineitem")))
+    for i, f in enumerate(appended):
+        os.rename(os.path.join(extra, "lineitem", f),
+                  os.path.join(lake, "lineitem", f"part-{9000 + i:04d}.parquet"))
+    shutil.rmtree(extra)
+    out["appended_files"] = len(appended)
+    out["append_generate_s"] = time.perf_counter() - t0
+    want = host_reference()
+    stage("4_hybrid_appended", want, hybrid=True, on_card={"q3_agg"}, bucket_union=True)
+    # 5. incremental refresh of the appends: a second run in every bucket
+    for name in ("lc_shipdate_z", "lc_orderkey"):
+        action(f"refresh incremental (appends) {name}",
+               lambda: hs.refresh_index(name, C.REFRESH_MODE_INCREMENTAL))
+    stage("5_refreshed", want, hybrid=False, on_card=every)
+    require(out["stages"]["5_refreshed"]["lc_orderkey"]["min"] == 2,
+            f"refresh: {out['stages']['5_refreshed']['lc_orderkey']}")
+    # 6. optimize (quick): one file per bucket again
+    action("optimize quick lc_orderkey", lambda: hs.optimize_index("lc_orderkey"))
+    stage("6_optimized", want, hybrid=False, on_card=every)
+    out["files_per_bucket_optimize"] = {
+        "before": out["stages"]["5_refreshed"]["lc_orderkey"],
+        "after": out["stages"]["6_optimized"]["lc_orderkey"]}
+    require(out["files_per_bucket_optimize"]["after"]["max"] == 1,
+            f"optimize: {out['files_per_bucket_optimize']}")
+    log({"lifecycle": "files per bucket of lc_orderkey", "card": card,
+         **out["files_per_bucket_optimize"]})
+
+    # 7. vacuum-outdated, delete, restore, each with a plan check; then
+    # delete and vacuum every index
+    def reads(q: str) -> list:
+        return _plan_form(queries[q](session, lake).optimized_plan())["indexes"]
+
+    for name in ("lc_shipdate_z", "lc_orderkey"):
+        action(f"vacuum outdated {name}", lambda: hs.vacuum_outdated_index(name))
+    index_dirs = {n: sorted(d for d in os.listdir(os.path.join(warehouse, "indexes", n))
+                            if d.startswith("v__=")) for n in indexes}
+    require(index_dirs["lc_orderkey"] == ["v__=3"], f"vacuum outdated: {index_dirs}")
+    require(all(reads(q) == expected[q] for q in queries), "plans after vacuum outdated")
+    action("delete lc_shipdate_z", lambda: hs.delete_index("lc_shipdate_z"))
+    require(reads("q6_count") == [], f"after delete: {reads('q6_count')}")
+    action("restore lc_shipdate_z", lambda: hs.restore_index("lc_shipdate_z"))
+    require(reads("q6_count") == ["lc_shipdate_z"], "after restore")
+    compare_batches("q6_count after restore",
+                    result("q6_count", queries["q6_count"](session, lake)), want["q6_count"])
+    for name in indexes:
+        action(f"delete {name}", lambda: hs.delete_index(name))
+        action(f"vacuum {name}", lambda: hs.vacuum_index(name))
+    left = {n: sorted(os.listdir(os.path.join(warehouse, "indexes", n))) for n in indexes}
+    require(all(v == ["_hyperspace_log"] for v in left.values()), f"after vacuum: {left}")
+    require(all(reads(q) == [] for q in queries), "plans after vacuum")
+    out["index_dirs_after_vacuum_outdated"] = index_dirs
+    out["launches"] = {k: sum(st["launches"][k] for st in out["stages"].values())
+                       for k in K.LAUNCHES}
+    out["seconds"] = time.perf_counter() - t_phase
+    log({"phase": "lifecycle", "card": card, "seconds": out["seconds"],
+         "launches": out["launches"]})
     return out
 
 
@@ -834,6 +1163,11 @@ def main() -> int:
     sizes = sorted({0, 1, 1023, 1025, 1_000_003, 1 << 26, timed_n})
     kernels, timed = kernel_phase(torch, K, R, sizes, timed_n, smi, args.profile)
     e2e = end_to_end_phase(torch, K, args.rows, smi, args.profile)
+    torch.cuda.empty_cache()
+    lifecycle = lifecycle_phase(torch, K, e2e, args.rows, smi, args.profile)
+    del e2e["want"]
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
     order = order_phase(torch, ORDER_ROWS if args.rows == SF10_ROWS else _pad_pow2(args.rows),
                         smi)
     # after the queries' profiles: a profiler session before them lost
@@ -846,9 +1180,11 @@ def main() -> int:
         r = kernels[name]
         by_query = {q: v["launches"][name] for q, v in e2e["queries"].items()
                     if v["launches"][name]}
+        by_phase = {"end_to_end": e2e["main_path_launches"][name],
+                    "lifecycle": lifecycle["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": e2e["main_path_launches"][name],
+            "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
             "launches_by_query": by_query, "runs_per_query": 1 + WARM_RUNS,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
@@ -859,7 +1195,8 @@ def main() -> int:
         })
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": {"kind": kind, "nvidia_smi": smi}, "build_s": build_s,
-                   "kernels": kernels, "end_to_end": e2e, "order": order,
+                   "kernels": kernels, "end_to_end": e2e, "lifecycle": lifecycle,
+                   "order": order,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
     log({"phase": "done", "card": smi, "total_s": time.perf_counter() - t_start})
     log({"kernels": line})

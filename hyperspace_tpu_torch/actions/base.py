@@ -1,19 +1,68 @@
 """Action: the two-phase index-mutating transaction (counterpart of
-hyperspace_tpu/actions/base.py, without the conflict retry and the
-recovery registry).
+hyperspace_tpu/actions/base.py).
 
 run() = validate, begin (write the transient entry at base_id+1), op, end
 (write the final entry at base_id+2 and the latestStable pointer). A taken
-log id means another writer won the optimistic-concurrency race.
+log id means another writer won the optimistic-concurrency race: the
+transaction re-reads the log and runs again, up to ``_ACTION_RETRIES``
+attempts in all (the default of the JAX package's
+``HYPERSPACE_ACTION_RETRIES``). A NoChangesError from validate or op ends
+the action as a no-op, with no state transition. op() runs in the
+maintenance read scope (columnar/io.py), as the JAX package's does.
+
+Every running action registers its index path, so recovery can tell a live
+in-process transaction (its transient entry is healthy) from one a crash
+left behind.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import threading
+
 from . import states as S
 from .. import constants as C
-from ..exceptions import ConcurrentWriteError
+from ..columnar.io import maintenance_scope
+from ..exceptions import ConcurrentWriteError, HyperspaceError, NoChangesError
 from ..meta.entry import LogEntry
 from ..meta.log_manager import IndexLogManager
+
+logger = logging.getLogger(__name__)
+
+# attempts an action makes when it loses the optimistic-concurrency race (a
+# module constant, which tests monkeypatch)
+_ACTION_RETRIES = 3
+
+_TX_LOCK = threading.Lock()
+_ACTIVE_TX: dict[str, int] = {}  # abspath(index_path) -> nesting depth
+
+
+def _tx_key(index_path: str) -> str:
+    return os.path.abspath(index_path)
+
+
+def _tx_enter(index_path: str) -> None:
+    key = _tx_key(index_path)
+    with _TX_LOCK:
+        _ACTIVE_TX[key] = _ACTIVE_TX.get(key, 0) + 1
+
+
+def _tx_exit(index_path: str) -> None:
+    key = _tx_key(index_path)
+    with _TX_LOCK:
+        depth = _ACTIVE_TX.get(key, 0) - 1
+        if depth <= 0:
+            _ACTIVE_TX.pop(key, None)
+        else:
+            _ACTIVE_TX[key] = depth
+
+
+def action_in_progress(index_path: str) -> bool:
+    """True while an in-process action's transaction is live on this index
+    (recovery must not roll back its transient entry)."""
+    with _TX_LOCK:
+        return _ACTIVE_TX.get(_tx_key(index_path), 0) > 0
 
 
 class Action:
@@ -25,7 +74,8 @@ class Action:
         self.base_id: int = 0
 
     def validate(self) -> None:
-        """Raise HyperspaceError if the action cannot run from this state."""
+        """Raise HyperspaceError if the action cannot run from this state;
+        NoChangesError to end it as a no-op."""
 
     def op(self) -> None:
         raise NotImplementedError
@@ -33,11 +83,40 @@ class Action:
     def log_entry(self) -> LogEntry:
         raise NotImplementedError
 
+    def reset_for_retry(self) -> None:
+        """Re-read whatever the action cached from the log before a retry."""
+
     def run(self) -> None:
-        self.validate()
-        self.begin()
-        self.op()
-        self.end()
+        index_path = self.log_manager.index_path
+        _tx_enter(index_path)
+        try:
+            self._run_with_conflict_retry()
+        except NoChangesError as e:
+            logger.info("No-op action: %s", e)
+        finally:
+            _tx_exit(index_path)
+
+    def _run_with_conflict_retry(self) -> int:
+        total = max(1, _ACTION_RETRIES)
+        attempt = 1
+        while True:
+            try:
+                self.validate()
+                self.begin()
+                with maintenance_scope():
+                    self.op()
+                self.end()
+                return attempt
+            except ConcurrentWriteError as e:
+                if attempt >= total:
+                    if attempt > 1:
+                        raise type(e)(f"{e} (conflict survived {attempt} attempts)") from e
+                    raise
+                logger.info("%s lost the optimistic-concurrency race (%s); re-reading "
+                            "the log and retrying (%d/%d)", type(self).__name__, e,
+                            attempt, total)
+                attempt += 1
+                self.reset_for_retry()
 
     def begin(self) -> None:
         latest = self.log_manager.get_latest_id()
@@ -60,3 +139,33 @@ class Action:
             raise ConcurrentWriteError(f"Concurrent commit at log id {final_id}")
         if entry.state in S.STABLE_STATES:
             self.log_manager.create_latest_stable_log(final_id)
+
+
+class IndexMutationAction(Action):
+    """An action on an existing index: loads the latest entry and checks
+    the allowed prior states."""
+
+    allowed_prior_states: frozenset[str] = frozenset()
+
+    def __init__(self, log_manager: IndexLogManager):
+        super().__init__(log_manager)
+        self._prev = log_manager.get_latest_log()
+
+    @property
+    def previous_entry(self):
+        if self._prev is None:
+            raise HyperspaceError("Index does not exist")
+        return self._prev
+
+    def reset_for_retry(self) -> None:
+        self._prev = self.log_manager.get_latest_log()
+
+    def validate(self) -> None:
+        prev = self.log_manager.get_latest_log()
+        if prev is None:
+            raise HyperspaceError("Index does not exist")
+        if self.allowed_prior_states and prev.state not in self.allowed_prior_states:
+            raise HyperspaceError(
+                f"{type(self).__name__} requires state in "
+                f"{sorted(self.allowed_prior_states)}, found {prev.state}"
+            )

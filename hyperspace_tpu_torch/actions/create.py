@@ -54,6 +54,14 @@ def index_content_from_path(index_path: str) -> Content:
     )
 
 
+def content_of_version_dir(version_path: str) -> Content:
+    """Content tree of one data version's files."""
+    return Content.from_directory_path(
+        version_path, None,
+        path_filter=lambda p: not os.path.basename(p).startswith(("_", ".")),
+    )
+
+
 def relation_metadata(scan, tracker: FileIdTracker) -> Relation:
     """Serialized source relation with stable file ids."""
     infos = [
@@ -102,8 +110,9 @@ class CreateAction(Action):
         from ..rules.apply import with_hyperspace_rule_disabled
 
         ctx = IndexerContext(self.session, self.tracker, self.data_manager.stage_version(0))
+        props = {"lineage": "true"} if self.session.conf.lineage_enabled else {}
         with with_hyperspace_rule_disabled():
-            self._index, data = self.config.create_index(ctx, self.df, {})
+            self._index, data = self.config.create_index(ctx, self.df, props)
             self._index.write(ctx, data)
         self.data_manager.publish(0)
 

@@ -1,0 +1,212 @@
+"""Refresh actions: full, incremental, quick (counterpart of
+hyperspace_tpu/actions/refresh.py).
+
+Each reloads the source from the relation the entry recorded (its roots
+listed afresh); appended and deleted files are the set differences between
+that listing and the recorded files. Deleted files keep their recorded ids,
+which the lineage anti-filter needs, and the file-id tracker is seeded from
+the entry, so ids survive every refresh.
+
+- full: rebuild into a new data version;
+- incremental: index only the appended files, and drop the rows of deleted
+  ones by lineage; appends alone merge the new version with the old
+  content, deletes overwrite it;
+- quick: touch no data; record the delta and the current source's
+  fingerprint in the entry, and let hybrid scan serve the delta at query
+  time.
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+from . import states as S
+from .base import IndexMutationAction
+from .create import compute_fingerprint, content_of_version_dir, relation_metadata
+from ..columnar.table import Schema
+from ..exceptions import HyperspaceError, NoChangesError
+from ..meta.data_manager import IndexDataManager
+from ..meta.entry import (
+    Content,
+    Directory,
+    FileIdTracker,
+    FileInfo,
+    IndexLogEntry,
+    Relation,
+    Source,
+    SourcePlan,
+)
+from ..meta.log_manager import IndexLogManager
+from ..models.base import IndexerContext, UpdateMode
+from ..models.covering import _single_file_scan
+
+if TYPE_CHECKING:
+    from ..plan.dataframe import DataFrame
+    from ..session import HyperspaceSession
+
+
+def reload_relation(session: "HyperspaceSession", relation: Relation) -> "DataFrame":
+    """The recorded source relation over its current files."""
+    from ..plan.dataframe import DataFrame, relist_files
+    from ..plan.nodes import FileScan
+
+    if relation.file_format != "parquet":
+        raise HyperspaceError(f"Relation format {relation.file_format!r} is not supported")
+    scan = FileScan(relation.root_paths, relation.file_format, Schema.from_list(relation.schema),
+                    relist_files(relation.root_paths), options=dict(relation.options))
+    return DataFrame(session, scan)
+
+
+class RefreshActionBase(IndexMutationAction):
+    transient_state = S.REFRESHING
+    final_state = S.ACTIVE
+    allowed_prior_states = frozenset({S.ACTIVE})
+
+    def __init__(self, session: "HyperspaceSession", index_path: str,
+                 log_manager: IndexLogManager, data_manager: IndexDataManager):
+        super().__init__(log_manager)
+        self.session = session
+        self.index_path = index_path
+        self.data_manager = data_manager
+        prev = self.previous_entry
+        if not isinstance(prev, IndexLogEntry):
+            raise HyperspaceError("Latest log entry has no index metadata")
+        self.entry: IndexLogEntry = prev
+        self.tracker = FileIdTracker()
+        self.tracker.add_file_info(self.entry.source_file_infos())
+        self._df = None
+
+    @property
+    def df(self) -> "DataFrame":
+        """The source DataFrame over the current files."""
+        if self._df is None:
+            self._df = reload_relation(self.session, self.entry.relation)
+        return self._df
+
+    def current_files(self) -> set[FileInfo]:
+        return set(_single_file_scan(self.df).files)
+
+    def appended_files(self) -> list[FileInfo]:
+        return sorted(self.current_files() - self.entry.source_file_infos(),
+                      key=lambda f: f.name)
+
+    def deleted_files(self) -> list[FileInfo]:
+        """Deleted files, with their recorded ids."""
+        current = self.current_files()
+        return sorted((f for f in self.entry.source_file_infos() if f not in current),
+                      key=lambda f: f.name)
+
+    def new_version(self) -> int:
+        latest = self.data_manager.get_latest_version()
+        return 0 if latest is None else latest + 1
+
+    def _check_deletes_supported(self, deleted: list[FileInfo]) -> None:
+        if deleted and not self.entry.derived_dataset.can_handle_deleted_files():
+            raise HyperspaceError(
+                "Index cannot handle deleted source files (no lineage column); "
+                "use refresh mode 'full' instead"
+            )
+
+    def _refreshed_entry(self, derived_dataset, content: Content) -> IndexLogEntry:
+        rel = relation_metadata(_single_file_scan(self.df), self.tracker)
+        return IndexLogEntry(
+            name=self.entry.name,
+            derived_dataset=derived_dataset,
+            content=content,
+            source=Source(SourcePlan([rel], self.df.plan.pretty(),
+                                     compute_fingerprint(self.df.plan))),
+            properties=dict(self.entry.properties),
+        )
+
+
+class RefreshAction(RefreshActionBase):
+    """Full rebuild into a new data version."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self._new_index = None
+        self._version = None
+
+    def validate(self) -> None:
+        super().validate()
+        if not self.appended_files() and not self.deleted_files():
+            raise NoChangesError("Refresh aborted as no source data changed")
+
+    def op(self) -> None:
+        from ..rules.apply import with_hyperspace_rule_disabled
+
+        self._version = self.new_version()
+        ctx = IndexerContext(self.session, self.tracker,
+                             self.data_manager.stage_version(self._version))
+        with with_hyperspace_rule_disabled():
+            self._new_index, data = self.entry.derived_dataset.refresh_full(ctx, self.df)
+            self._new_index.write(ctx, data)
+        self.data_manager.publish(self._version)
+
+    def log_entry(self) -> IndexLogEntry:
+        return self._refreshed_entry(
+            self._new_index, content_of_version_dir(self.data_manager.version_path(self._version)))
+
+
+class RefreshIncrementalAction(RefreshActionBase):
+    """Index the appended files; drop the deleted files' rows by lineage."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self._new_index = None
+        self._mode = None
+        self._version = None
+
+    def validate(self) -> None:
+        super().validate()
+        appended, deleted = self.appended_files(), self.deleted_files()
+        if not appended and not deleted:
+            raise NoChangesError("Refresh aborted as no source data changed")
+        self._check_deletes_supported(deleted)
+
+    def op(self) -> None:
+        from ..plan.dataframe import DataFrame
+        from ..rules.apply import with_hyperspace_rule_disabled
+
+        appended, deleted = self.appended_files(), self.deleted_files()
+        self._version = self.new_version()
+        ctx = IndexerContext(self.session, self.tracker,
+                             self.data_manager.stage_version(self._version))
+        appended_df = None
+        if appended:
+            scan = _single_file_scan(self.df)
+            appended_df = DataFrame(self.session, self.df.plan.transform_up(
+                lambda n: n.copy(files=appended) if n is scan else n))
+        with with_hyperspace_rule_disabled():
+            self._new_index, self._mode = self.entry.derived_dataset.refresh_incremental(
+                ctx, appended_df, deleted, self.entry.index_data_files())
+        self.data_manager.publish(self._version)
+
+    def log_entry(self) -> IndexLogEntry:
+        content = content_of_version_dir(self.data_manager.version_path(self._version))
+        if self._mode == UpdateMode.MERGE:
+            content = Content(Directory.merge(self.entry.content.root, content.root))
+        return self._refreshed_entry(self._new_index, content)
+
+
+class RefreshQuickAction(RefreshActionBase):
+    """Record the source delta in the entry; the index data stays."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self._appended: list[FileInfo] = []
+        self._deleted: list[FileInfo] = []
+
+    def validate(self) -> None:
+        super().validate()
+        self._appended, self._deleted = self.appended_files(), self.deleted_files()
+        if not self._appended and not self._deleted:
+            raise NoChangesError("Refresh aborted as no source data changed")
+        self._check_deletes_supported(self._deleted)
+
+    def op(self) -> None:
+        pass  # the delta rides in the log entry
+
+    def log_entry(self) -> IndexLogEntry:
+        return self.entry.with_update(self._appended, self._deleted,
+                                      compute_fingerprint(self.df.plan))

@@ -7,6 +7,12 @@ The chunk cache matters to the device tier: it hands repeated index scans
 the SAME numpy buffers, and the device-resident column cache
 (utils/device_cache.py) keys on buffer identity, so a warm query uploads
 nothing. Raw source scans never use it.
+
+Inside an index action (``maintenance_scope``), a multi-file read of named
+source columns decodes file by file and concatenates the batches, as the
+JAX package's maintenance reads do: a string column then carries the
+sorted union of the files' dictionaries, so both packages write the same
+index files.
 """
 
 from __future__ import annotations
@@ -202,6 +208,36 @@ def _unify_string_encoding(tables: list[pa.Table]) -> list[pa.Table]:
     return out
 
 
+_MAINTENANCE_DEPTH = 0
+
+
+class maintenance_scope:
+    """Marks an index action's reads (reentrant; process-wide, as the JAX
+    package's source-read scope is)."""
+
+    def __enter__(self):
+        global _MAINTENANCE_DEPTH
+        _MAINTENANCE_DEPTH += 1
+        return self
+
+    def __exit__(self, *exc):
+        global _MAINTENANCE_DEPTH
+        _MAINTENANCE_DEPTH -= 1
+        return False
+
+
+def _read_per_file(paths, cols, row_groups) -> ColumnBatch | None:
+    """Maintenance read: each file decoded alone, then concatenated; None
+    when the files' dtypes differ (the arrow concat promotes them)."""
+    with ThreadPoolExecutor(max_workers=min(8, len(paths))) as pool:
+        batches = list(pool.map(
+            lambda p: table_to_batch(_read_one_table(p, cols, row_groups.get(p))), paths))
+    try:
+        return ColumnBatch.concat(batches)
+    except HyperspaceError:
+        return None
+
+
 def read_parquet(
     paths: Sequence[str],
     columns: Sequence[str] | None = None,
@@ -215,6 +251,10 @@ def read_parquet(
     read and a full read of the same files never share an entry."""
     cols = list(columns) if columns else None
     row_groups = row_groups or {}
+    if _MAINTENANCE_DEPTH > 0 and cols and cache is None and len(paths) > 1:
+        batch = _read_per_file(paths, cols, row_groups)
+        if batch is not None:
+            return batch
 
     def decode() -> ColumnBatch:
         if not paths:

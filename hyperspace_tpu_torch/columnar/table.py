@@ -289,6 +289,11 @@ class ColumnBatch:
     def select(self, names: Sequence[str]) -> "ColumnBatch":
         return ColumnBatch({n: self.column(n) for n in names})
 
+    def with_column(self, name: str, col: Column) -> "ColumnBatch":
+        cols = dict(self.columns)
+        cols[name] = col
+        return ColumnBatch(cols)
+
     def filter(self, mask: np.ndarray) -> "ColumnBatch":
         return ColumnBatch({n: c.filter(mask) for n, c in self.columns.items()})
 

@@ -1,5 +1,5 @@
 """Typed view over the session's conf dict (counterpart of
-hyperspace_tpu/config.py, reduced to the keys this slice reads)."""
+hyperspace_tpu/config.py, reduced to the keys the port reads)."""
 
 from __future__ import annotations
 
@@ -35,6 +35,35 @@ class HyperspaceConf:
         if n <= 0:
             raise HyperspaceError(f"{C.INDEX_NUM_BUCKETS} must be positive: {n}")
         return n
+
+    @property
+    def lineage_enabled(self) -> bool:
+        return _as_bool(self._conf.get(C.INDEX_LINEAGE_ENABLED, C.INDEX_LINEAGE_ENABLED_DEFAULT))
+
+    @property
+    def hybrid_scan_enabled(self) -> bool:
+        return _as_bool(self._conf.get(C.HYBRID_SCAN_ENABLED, C.HYBRID_SCAN_ENABLED_DEFAULT))
+
+    def _ratio(self, key: str, default: float) -> float:
+        v = float(self._conf.get(key, default))
+        if not 0.0 <= v <= 1.0:
+            raise HyperspaceError(f"{key} must be in [0,1]: {v}")
+        return v
+
+    @property
+    def hybrid_scan_max_appended_ratio(self) -> float:
+        return self._ratio(C.HYBRID_SCAN_MAX_APPENDED_RATIO,
+                           C.HYBRID_SCAN_MAX_APPENDED_RATIO_DEFAULT)
+
+    @property
+    def hybrid_scan_max_deleted_ratio(self) -> float:
+        return self._ratio(C.HYBRID_SCAN_MAX_DELETED_RATIO,
+                           C.HYBRID_SCAN_MAX_DELETED_RATIO_DEFAULT)
+
+    @property
+    def optimize_file_size_threshold(self) -> int:
+        return int(self._conf.get(C.OPTIMIZE_FILE_SIZE_THRESHOLD,
+                                  C.OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT))
 
     @property
     def cache_expiry_seconds(self) -> int:

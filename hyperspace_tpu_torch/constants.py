@@ -2,7 +2,7 @@
 
 Counterpart of hyperspace_tpu/constants.py: the same key strings, so a conf
 dict written for the JAX package means the same thing here. Only the keys
-this slice reads are carried over. One default differs on purpose: the
+the port reads are carried over. One default differs on purpose: the
 device tier (``hyperspace.tpu.exec.enabled``) is ON, because the port's
 device tier runs on the card by default.
 """
@@ -20,9 +20,31 @@ INDEX_NUM_BUCKETS = "hyperspace.index.numBuckets"
 INDEX_NUM_BUCKETS_LEGACY = "hyperspace.num.buckets"
 INDEX_NUM_BUCKETS_DEFAULT = 8
 
-# lineage column name: never written by this slice (lineage builds are not
-# ported), but hidden from index scans of indexes that carry it
+# lineage: with it on, an index records per row the stable id of its source
+# file in DATA_FILE_NAME_ID, so deleted source files can be dropped
+INDEX_LINEAGE_ENABLED = "hyperspace.index.lineage.enabled"
+INDEX_LINEAGE_ENABLED_DEFAULT = False
 DATA_FILE_NAME_ID = "_data_file_id"
+
+# hybrid scan: serve an index whose source gained or lost files, within
+# these byte ratios
+HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
+HYBRID_SCAN_ENABLED_DEFAULT = False
+HYBRID_SCAN_MAX_APPENDED_RATIO = "hyperspace.index.hybridscan.maxAppendedRatio"
+HYBRID_SCAN_MAX_APPENDED_RATIO_DEFAULT = 0.3
+HYBRID_SCAN_MAX_DELETED_RATIO = "hyperspace.index.hybridscan.maxDeletedRatio"
+HYBRID_SCAN_MAX_DELETED_RATIO_DEFAULT = 0.2
+
+OPTIMIZE_FILE_SIZE_THRESHOLD = "hyperspace.index.optimize.fileSizeThreshold"
+OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT = 256 * 1024 * 1024  # 256 MB
+OPTIMIZE_MODE_QUICK = "quick"
+OPTIMIZE_MODE_FULL = "full"
+OPTIMIZE_MODES = (OPTIMIZE_MODE_QUICK, OPTIMIZE_MODE_FULL)
+
+REFRESH_MODE_INCREMENTAL = "incremental"
+REFRESH_MODE_FULL = "full"
+REFRESH_MODE_QUICK = "quick"
+REFRESH_MODES = (REFRESH_MODE_INCREMENTAL, REFRESH_MODE_FULL, REFRESH_MODE_QUICK)
 
 INDEX_CACHE_EXPIRY_SECONDS = "hyperspace.index.cache.expiryDurationInSeconds"
 INDEX_CACHE_EXPIRY_SECONDS_DEFAULT = 300

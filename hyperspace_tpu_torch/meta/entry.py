@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import os
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Optional
 
@@ -128,6 +129,27 @@ class Directory:
                 FileInfo(parts[-1], f.size, f.modified_time, f.id)
             )
         return root
+
+    @staticmethod
+    def merge(a: "Directory", b: "Directory") -> "Directory":
+        """The two trees merged, identical files once (the Merge update mode
+        of incremental refresh, and optimize's untouched files)."""
+        if a.name != b.name:
+            raise HyperspaceError(
+                f"Merging directories with different names: {a.name} != {b.name}"
+            )
+        files = list(a.files)
+        seen = set(files)
+        for f in b.files:
+            if f not in seen:
+                files.append(f)
+                seen.add(f)
+        b_by_name = {d.name: d for d in b.subdirs}
+        a_names = {d.name for d in a.subdirs}
+        subdirs = [Directory.merge(d, b_by_name[d.name]) if d.name in b_by_name else d
+                   for d in a.subdirs]
+        subdirs += [d for d in b.subdirs if d.name not in a_names]
+        return Directory(a.name, files, subdirs)
 
 
 @dataclass
@@ -390,7 +412,11 @@ class LogEntry:
 
 
 class IndexLogEntry(LogEntry):
-    """Full index metadata entry (ref: IndexLogEntry.scala:408-590)."""
+    """Full index metadata entry (ref: IndexLogEntry.scala:408-590), with
+    a runtime tag map keyed by (plan id, tag name): never serialized, and
+    bounded, since entries live in the manager's cache across queries."""
+
+    _MAX_TAGS = 65536
 
     def __init__(
         self,
@@ -410,6 +436,7 @@ class IndexLogEntry(LogEntry):
         self.content = content
         self.source = source
         self.properties: dict[str, str] = dict(properties or {})
+        self._tags: OrderedDict = OrderedDict()
 
     # --- convenience accessors (ref: IndexLogEntry.scala:430-530) ---
     @property
@@ -431,8 +458,79 @@ class IndexLogEntry(LogEntry):
     def signature(self) -> LogicalPlanFingerprint:
         return self.source.plan.fingerprint
 
+    def source_file_infos(self) -> set[FileInfo]:
+        return set(self.relation.content.file_infos())
+
+    def source_files_size_in_bytes(self) -> int:
+        return self.relation.content.size_in_bytes
+
+    def source_update(self) -> Update | None:
+        return self.relation.update
+
+    def appended_files(self) -> set[FileInfo]:
+        u = self.source_update()
+        if u and u.appended_files:
+            return set(u.appended_files.file_infos())
+        return set()
+
+    def deleted_files(self) -> set[FileInfo]:
+        u = self.source_update()
+        if u and u.deleted_files:
+            return set(u.deleted_files.file_infos())
+        return set()
+
+    def index_data_files(self) -> list[FileInfo]:
+        return self.content.file_infos()
+
     def index_data_size_in_bytes(self) -> int:
         return self.content.size_in_bytes
+
+    def has_lineage_column(self) -> bool:
+        return str(self.properties.get("lineage", "false")).lower() == "true"
+
+    def index_version_dirs(self) -> list[str]:
+        """The distinct ``v__=<n>`` directories the content references."""
+        from .. import constants as C
+
+        dirs = set()
+        for f in self.content.files():
+            for p in f.split(os.sep):
+                if p.startswith(C.INDEX_VERSION_DIR_PREFIX + "="):
+                    dirs.add(p)
+        return sorted(dirs)
+
+    def with_update(self, appended: Iterable[FileInfo], deleted: Iterable[FileInfo],
+                    fingerprint: "LogicalPlanFingerprint | None" = None) -> "IndexLogEntry":
+        """A copy whose relation records the source delta (quick refresh),
+        with the fingerprint of the current source so the entry matches it
+        at query time; hybrid scan serves the delta."""
+        appended, deleted = list(appended), list(deleted)
+        rel = self.relation
+        new_rel = Relation(
+            rel.root_paths, rel.content, rel.schema, rel.file_format, dict(rel.options),
+            Update(Content.from_files(appended) if appended else None,
+                   Content.from_files(deleted) if deleted else None),
+        )
+        plan = SourcePlan(
+            [new_rel], self.source.plan.raw_plan,
+            fingerprint if fingerprint is not None else self.source.plan.fingerprint,
+        )
+        return IndexLogEntry(self.name, self.derived_dataset, self.content, Source(plan),
+                             dict(self.properties), self.state, self.id, self.timestamp,
+                             self.enabled)
+
+    # --- runtime tags ---
+    def set_tag(self, plan_key: Any, tag: str, value: Any) -> None:
+        self._tags[(plan_key, tag)] = value
+        self._tags.move_to_end((plan_key, tag))
+        while len(self._tags) > self._MAX_TAGS:
+            self._tags.popitem(last=False)
+
+    def get_tag(self, plan_key: Any, tag: str) -> Any:
+        return self._tags.get((plan_key, tag))
+
+    def unset_tag(self, plan_key: Any, tag: str) -> None:
+        self._tags.pop((plan_key, tag), None)
 
     # --- serialization ---
     def to_dict(self) -> dict:
@@ -497,9 +595,27 @@ class FileIdTracker:
     def max_id(self) -> int:
         return self._max_id
 
+    def add_file_info(self, files: Iterable[FileInfo]) -> None:
+        """Seed from an entry's recorded files, keeping their ids."""
+        for f in files:
+            if f.id == FileInfo.UNKNOWN_FILE_ID:
+                raise HyperspaceError(f"Cannot seed tracker with unknown id: {f.name}")
+            key = (f.name, f.size, f.modified_time)
+            existing = self._ids.get(key)
+            if existing is not None and existing != f.id:
+                raise HyperspaceError(f"Conflicting file id for {key}: {existing} vs {f.id}")
+            self._ids[key] = f.id
+            self._max_id = max(self._max_id, f.id)
+
     def add_file(self, path: str, size: int, mtime: int) -> int:
         key = (path, size, mtime)
         if key not in self._ids:
             self._max_id += 1
             self._ids[key] = self._max_id
         return self._ids[key]
+
+    def get_file_id(self, path: str, size: int, mtime: int) -> int | None:
+        return self._ids.get((path, size, mtime))
+
+    def file_to_id_map(self) -> dict[tuple[str, int, int], int]:
+        return dict(self._ids)

@@ -1,5 +1,5 @@
 """Index transaction log with optimistic concurrency (counterpart of
-hyperspace_tpu/meta/log_manager.py, without the crash-recovery surface).
+hyperspace_tpu/meta/log_manager.py).
 
 Layout under each index root, shared with the JAX package:
     <index>/_hyperspace_log/<id>          immutable JSON log entries
@@ -8,7 +8,8 @@ Layout under each index root, shared with the JAX package:
 A commit is "rename-if-absent": the entry is spooled to a temp file and
 hard-linked to its id, which fails if another writer committed that id
 first. Filesystems without hard links fall back to an O_CREAT|O_EXCL
-create of the target.
+create of the target. The recovery surface finds the temp spool files a
+hard kill leaves behind and a latestStable pointer that lags the log.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import errno
 import json
 import os
 import tempfile
+import time
 from typing import Optional
 
 from .. import constants as C
@@ -72,6 +74,19 @@ class IndexLogManager:
             if entry.state in _BARRIER_STATES:
                 return None
         return None
+
+    def get_index_versions(self, states: list[str] | None = None) -> list[int]:
+        """Committed log ids, newest first, optionally of the given states."""
+        if not os.path.isdir(self.log_dir):
+            return []
+        out = []
+        for n in sorted(os.listdir(self.log_dir), key=lambda s: -int(s) if s.isdigit() else 0):
+            if not n.isdigit():
+                continue
+            entry = self.get_log(int(n))
+            if entry is not None and (states is None or entry.state in states):
+                out.append(int(n))
+        return out
 
     def write_log(self, log_id: int, entry: LogEntry) -> bool:
         """Commit ``entry`` as id ``log_id``; False if the id is taken."""
@@ -132,8 +147,45 @@ class IndexLogManager:
             raise
         return True
 
+    def stable_pointer_id(self) -> Optional[int]:
+        """The log id the latestStable pointer records; None when it is
+        absent or unreadable."""
+        try:
+            with open(os.path.join(self.log_dir, C.LATEST_STABLE_LOG), encoding="utf-8") as f:
+                return int(json.load(f)["id"])
+        except (OSError, ValueError, KeyError):
+            return None
+
     def delete_latest_stable_log(self) -> None:
         try:
             os.unlink(os.path.join(self.log_dir, C.LATEST_STABLE_LOG))
         except FileNotFoundError:
             pass
+
+    def stale_temp_files(self, min_age_s: float = 0.0) -> list[str]:
+        """``.tmp-*`` spool files at least ``min_age_s`` old (a live
+        writer's spool file lives for microseconds)."""
+        if not os.path.isdir(self.log_dir):
+            return []
+        out = []
+        for n in sorted(os.listdir(self.log_dir)):
+            if not n.startswith(".tmp-"):
+                continue
+            p = os.path.join(self.log_dir, n)
+            try:
+                if time.time() - os.stat(p).st_mtime < min_age_s:
+                    continue
+            except FileNotFoundError:
+                continue  # its writer finished while we listed
+            out.append(p)
+        return out
+
+    def clear_temp_files(self, min_age_s: float = 0.0) -> int:
+        removed = 0
+        for p in self.stale_temp_files(min_age_s):
+            try:
+                os.unlink(p)
+                removed += 1
+            except FileNotFoundError:
+                pass
+        return removed

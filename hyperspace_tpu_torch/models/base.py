@@ -1,17 +1,26 @@
 """Index abstraction, the "derived dataset" contract (counterpart of
-hyperspace_tpu/models/base.py, create path only)."""
+hyperspace_tpu/models/base.py): create, write, and the maintenance
+operations refresh and optimize."""
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 from ..exceptions import HyperspaceError
-from ..meta.entry import INDEX_KIND_REGISTRY, FileIdTracker
+from ..meta.entry import INDEX_KIND_REGISTRY, FileIdTracker, FileInfo
 
 if TYPE_CHECKING:
     from ..plan.dataframe import DataFrame
     from ..session import HyperspaceSession
+
+
+class UpdateMode(enum.Enum):
+    """How incremental refresh's output relates to the old index data."""
+
+    MERGE = "merge"  # new data sits beside the old content
+    OVERWRITE = "overwrite"  # new content replaces the old
 
 
 @dataclass
@@ -37,7 +46,25 @@ class Index:
     def properties(self) -> dict[str, str]:
         return {}
 
+    def statistics(self) -> dict[str, Any]:
+        return {}
+
+    def can_handle_deleted_files(self) -> bool:
+        return False
+
     def write(self, ctx: IndexerContext, index_data) -> None:
+        raise NotImplementedError
+
+    def optimize(self, ctx: IndexerContext, files_to_optimize: list[FileInfo]) -> None:
+        raise NotImplementedError(f"{self.kind} does not support optimize")
+
+    def refresh_incremental(
+        self, ctx: IndexerContext, appended_df: "DataFrame | None",
+        deleted_files: list[FileInfo], index_content_files: list[FileInfo],
+    ) -> tuple["Index", UpdateMode]:
+        raise NotImplementedError(f"{self.kind} does not support incremental refresh")
+
+    def refresh_full(self, ctx: IndexerContext, df: "DataFrame") -> tuple["Index", Any]:
         raise NotImplementedError
 
     def to_dict(self) -> dict:

@@ -1,14 +1,23 @@
-"""CoveringIndex, kind "CI" (counterpart of hyperspace_tpu/models/covering.py,
-create path).
+"""CoveringIndex, kind "CI" (counterpart of hyperspace_tpu/models/covering.py).
 
 A covering index is a vertical slice of the source (indexed + included
 columns), hash-bucketed by the indexed columns (ops/hashing.py, the same
 hash as the JAX package) and sorted by them within each bucket, written as
 one parquet file per non-empty bucket whose name carries the bucket id.
 The layout, file names and log-entry JSON equal the JAX package's, so
-either package reads an index the other built. This slice builds in memory
-(the JAX package's out-of-core streaming build is not ported) and writes no
-lineage column.
+either package reads an index the other built. With lineage on, each row
+also carries the stable id of its source file (``_data_file_id``), which
+lets incremental refresh and hybrid scan drop the rows of deleted source
+files.
+
+Maintenance: incremental refresh writes the appended rows as a new run per
+bucket beside the old data (Merge), or, when source files were deleted,
+rewrites every bucket without their rows (Overwrite); full refresh
+rebuilds; optimize compacts each bucket's files into one sorted file,
+bucket by bucket, with no re-hash. The port builds and refreshes in
+memory: the JAX package streams above ``hyperspace.tpu.build.maxBytesInMemory``
+(2 GB by default), writing several runs per bucket, so above that size the
+two packages' files differ (their rows do not).
 """
 
 from __future__ import annotations
@@ -20,12 +29,21 @@ from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
 
-from .base import Index, IndexConfig, IndexerContext, register_index_kind, validate_column_names
+from .base import (
+    Index,
+    IndexConfig,
+    IndexerContext,
+    UpdateMode,
+    register_index_kind,
+    validate_column_names,
+)
+from .. import constants as C
 from ..columnar import io as cio
-from ..columnar.table import ColumnBatch, Schema, sort_key_values
+from ..columnar.table import Column, ColumnBatch, Schema, sort_key_values
 from ..exceptions import HyperspaceError
+from ..meta.entry import FileInfo
 from ..ops.bucketize import partition_batch
-from ..plan.nodes import FileScan
+from ..plan.nodes import FileScan, Project
 
 if TYPE_CHECKING:
     from ..plan.dataframe import DataFrame
@@ -106,11 +124,91 @@ class CoveringIndex(Index):
     def properties(self) -> dict[str, str]:
         return dict(self._properties)
 
+    def has_lineage(self) -> bool:
+        return self._properties.get("lineage", "false") == "true"
+
+    def can_handle_deleted_files(self) -> bool:
+        return self.has_lineage()
+
+    def statistics(self) -> dict:
+        """The kind's extra statistics, for Hyperspace.index(name)."""
+        return {"numBuckets": self.num_buckets, "includedColumns": ",".join(self._included)}
+
+    @staticmethod
+    def create_index_data(ctx: IndexerContext, df: "DataFrame", indexed: list[str],
+                          included: list[str], lineage: bool) -> ColumnBatch:
+        """The vertical slice; with lineage, each row carries the stable id
+        of its source file, from the context's file-id tracker."""
+        cols = indexed + [c for c in included if c not in indexed]
+        if not lineage:
+            return df.select(*cols).collect()
+        scan = _single_file_scan(df)
+        fast = _lineage_fast_path(ctx, df, scan, cols)
+        if fast is not None:
+            return fast
+        return _lineage_per_file(ctx, df, scan, cols)
+
     def write(self, ctx: IndexerContext, index_data: ColumnBatch) -> None:
         write_bucketed(
             index_data, ctx.index_data_path, self._indexed, self.num_buckets,
             session=ctx.session,
         )
+
+    def optimize(self, ctx: IndexerContext, files_to_optimize: list[FileInfo]) -> None:
+        """Compact each bucket's files into one file sorted by the indexed
+        columns; rows keep their bucket (it is in the file name), so
+        nothing is re-hashed. Files of another layout re-bucket whole."""
+        by_bucket: dict[Optional[int], list[FileInfo]] = {}
+        for f in files_to_optimize:
+            by_bucket.setdefault(bucket_id_from_filename(f.name), []).append(f)
+        if None in by_bucket:
+            batch = cio.read_parquet([f.name for f in files_to_optimize])
+            write_bucketed(batch, ctx.index_data_path, self._indexed, self.num_buckets,
+                           session=ctx.session)
+            return
+        write_opts = index_write_opts(ctx.session, self._indexed)
+
+        def compact(item):
+            b, files = item
+            batch = cio.read_parquet([f.name for f in files])
+            part = batch.take(sort_indices_within(batch, self._indexed))
+            cio.write_index_file(
+                part, os.path.join(ctx.index_data_path, bucket_file_name(0, b)),
+                row_group_size=INDEX_ROW_GROUP_SIZE, **write_opts,
+            )
+
+        with ThreadPoolExecutor(max_workers=max(1, min(len(by_bucket), 8))) as pool:
+            list(pool.map(compact, by_bucket.items()))
+
+    def refresh_incremental(self, ctx: IndexerContext, appended_df: "DataFrame | None",
+                            deleted_files: list[FileInfo],
+                            index_content_files: list[FileInfo]) -> tuple["CoveringIndex", UpdateMode]:
+        """Index the appended rows; drop the rows of deleted source files by
+        their lineage ids. Appends alone write only the new rows (Merge);
+        with deletes every bucket is rewritten (Overwrite)."""
+        if deleted_files and not self.has_lineage():
+            raise HyperspaceError(
+                "Index has no lineage column; cannot handle deleted source files"
+            )
+        new_index = CoveringIndex(self._indexed, self._included, self._schema,
+                                  self.num_buckets, self._properties)
+        parts: list[ColumnBatch] = []
+        if appended_df is not None:
+            parts.append(CoveringIndex.create_index_data(
+                ctx, appended_df, self._indexed, self._included, self.has_lineage()))
+        mode = UpdateMode.MERGE
+        if deleted_files:
+            parts.append(_drop_deleted_rows(index_content_files, deleted_files))
+            mode = UpdateMode.OVERWRITE
+        new_index.write(ctx, ColumnBatch.concat(parts))
+        return new_index, mode
+
+    def refresh_full(self, ctx: IndexerContext, df: "DataFrame") -> tuple["CoveringIndex", ColumnBatch]:
+        new_index = CoveringIndex(self._indexed, self._included, self._schema,
+                                  self.num_buckets, self._properties)
+        data = CoveringIndex.create_index_data(ctx, df, self._indexed, self._included,
+                                               self.has_lineage())
+        return new_index, data
 
     def to_dict(self) -> dict:
         return {
@@ -136,6 +234,59 @@ class CoveringIndex(Index):
 
 
 register_index_kind(CoveringIndex.kind, CoveringIndex.from_dict)
+
+
+def sort_indices_within(batch: ColumnBatch, sort_columns: list[str]) -> np.ndarray:
+    """Stable ascending order by the sort columns, with the query-time key
+    encoding (NULLs first, strings by value)."""
+    if not sort_columns:
+        return np.arange(batch.num_rows)
+    keys = [sort_key_values(batch.column(c), True) for c in reversed(sort_columns)]
+    if len(keys) == 1:
+        return np.argsort(keys[0], kind="stable")
+    return np.lexsort(keys)
+
+
+def _drop_deleted_rows(index_files: list[FileInfo], deleted_files: list[FileInfo]) -> ColumnBatch:
+    """The old index rows, less those whose lineage id is a deleted file's."""
+    deleted_ids = np.asarray([f.id for f in deleted_files], dtype=np.int64)
+    old = cio.read_parquet([f.name for f in index_files])
+    return old.filter(~np.isin(old.column(C.DATA_FILE_NAME_ID).data, deleted_ids))
+
+
+def _lineage_fast_path(ctx: IndexerContext, df: "DataFrame", scan: FileScan,
+                       cols: list[str]) -> Optional[ColumnBatch]:
+    """Lineage from one multi-file read and each file's row count (from
+    its footer), for a plan that is only projections over the scan, whose
+    rows therefore arrive in file order; None for another plan."""
+    from ..plan.dataframe import DataFrame as DF
+
+    if scan.pushed_filter is not None:
+        return None
+    if not all(isinstance(n, (FileScan, Project)) for n in df.plan.preorder()):
+        return None
+    counts = [cio.file_num_rows(f.name) for f in scan.files]
+    fids = [ctx.file_id_tracker.add_file(f.name, f.size, f.modified_time) for f in scan.files]
+    batch = DF(ctx.session, df.plan).select(*cols).collect()
+    if batch.num_rows != sum(counts):
+        return None  # the files changed underfoot: read them one by one
+    lineage = np.repeat(np.asarray(fids, dtype=np.int64), counts)
+    return batch.with_column(C.DATA_FILE_NAME_ID, Column(lineage, "int64"))
+
+
+def _lineage_per_file(ctx: IndexerContext, df: "DataFrame", scan: FileScan,
+                      cols: list[str]) -> ColumnBatch:
+    """Lineage by reading the plan once per source file."""
+    from ..plan.dataframe import DataFrame as DF
+
+    batches = []
+    for f in scan.files:
+        fid = ctx.file_id_tracker.add_file(f.name, f.size, f.modified_time)
+        sub = df.plan.transform_up(lambda n, f=f: n.copy(files=[f]) if n is scan else n)
+        b = DF(ctx.session, sub).select(*cols).collect()
+        batches.append(b.with_column(
+            C.DATA_FILE_NAME_ID, Column(np.full(b.num_rows, fid, dtype=np.int64), "int64")))
+    return ColumnBatch.concat(batches)
 
 
 def write_bucketed(
@@ -175,7 +326,9 @@ def write_bucketed(
 def _single_file_scan(df: "DataFrame") -> FileScan:
     scans = [n for n in df.plan.preorder() if isinstance(n, FileScan)]
     if len(scans) != 1:
-        raise HyperspaceError("Only plans over a single relation can be indexed")
+        raise HyperspaceError(
+            f"Index source must contain exactly one file relation, found {len(scans)}"
+        )
     return scans[0]
 
 
@@ -202,8 +355,8 @@ class CoveringIndexConfig(IndexConfig):
         indexed = resolve_columns(df.schema, self._indexed)
         included = resolve_columns(df.schema, self._included)
         _single_file_scan(df)
-        cols = indexed + [c for c in included if c not in indexed]
-        data = df.select(*cols).collect()
+        lineage = properties.get("lineage", "false") == "true"
+        data = CoveringIndex.create_index_data(ctx, df, indexed, included, lineage)
         index = CoveringIndex(
             indexed, included, data.schema.to_list(), ctx.session.conf.num_buckets,
             properties,

@@ -1,5 +1,5 @@
 """ZOrderCoveringIndex, kind "ZCI" (counterpart of
-hyperspace_tpu/models/zorder/index.py, in-memory build).
+hyperspace_tpu/models/zorder/index.py, in-memory build and maintenance).
 
 A covering index laid out along a z-order curve instead of hash buckets:
 rows are sorted by the z-address of the indexed columns (by the column
@@ -11,6 +11,14 @@ groups. File names, row order and log-entry JSON equal the JAX package's
 in-memory build. The JAX package streams the build when the source exceeds
 ``hyperspace.tpu.build.maxBytesInMemory`` (cut points from a sample); the
 port always builds in memory, so above that size its parts differ.
+
+Maintenance rewrites z-ordered parts: incremental refresh writes the
+appended rows as parts of their own (Merge), or, with deleted source
+files, rewrites the remaining and appended rows together (Overwrite);
+full refresh rebuilds, fields included; optimize re-sorts the files it is
+given into new parts (OptimizeAction picks files by the bucket id in their
+names, which z-order parts lack, so it leaves them alone, as the
+reference's does).
 """
 
 from __future__ import annotations
@@ -21,11 +29,26 @@ from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 
-from ..base import Index, IndexConfig, IndexerContext, register_index_kind, validate_column_names
-from ..covering import INDEX_ROW_GROUP_SIZE, _single_file_scan, index_write_opts, resolve_columns
+from ..base import (
+    Index,
+    IndexConfig,
+    IndexerContext,
+    UpdateMode,
+    register_index_kind,
+    validate_column_names,
+)
+from ..covering import (
+    INDEX_ROW_GROUP_SIZE,
+    CoveringIndex,
+    _drop_deleted_rows,
+    _single_file_scan,
+    index_write_opts,
+    resolve_columns,
+)
 from ...columnar import io as cio
 from ...columnar.table import ColumnBatch, Schema, sort_key_values
 from ...exceptions import HyperspaceError
+from ...meta.entry import FileInfo
 from ...ops.zorder import interleave_bits
 from .fields import ZOrderField, build_field
 
@@ -68,11 +91,55 @@ class ZOrderCoveringIndex(Index):
     def properties(self) -> dict[str, str]:
         return dict(self._properties)
 
+    def has_lineage(self) -> bool:
+        return self._properties.get("lineage", "false") == "true"
+
+    def can_handle_deleted_files(self) -> bool:
+        return self.has_lineage()
+
+    def statistics(self) -> dict:
+        """The kind's extra statistics, for Hyperspace.index(name)."""
+        return {"zOrderFields": [f.to_dict() for f in self.fields],
+                "includedColumns": ",".join(self._included)}
+
     def write(self, ctx: IndexerContext, index_data: ColumnBatch) -> None:
         write_zordered(
             index_data, ctx.index_data_path, self._indexed, self.fields,
             _TARGET_BYTES_PER_PARTITION, session=ctx.session,
         )
+
+    def optimize(self, ctx: IndexerContext, files_to_optimize: list[FileInfo]) -> None:
+        self.write(ctx, cio.read_parquet([f.name for f in files_to_optimize]))
+
+    def refresh_incremental(self, ctx: IndexerContext, appended_df: "DataFrame | None",
+                            deleted_files: list[FileInfo],
+                            index_content_files: list[FileInfo]
+                            ) -> tuple["ZOrderCoveringIndex", UpdateMode]:
+        parts: list[ColumnBatch] = []
+        if appended_df is not None:
+            parts.append(CoveringIndex.create_index_data(
+                ctx, appended_df, self._indexed, self._included, self.has_lineage()))
+        mode = UpdateMode.MERGE
+        if deleted_files:
+            if not self.has_lineage():
+                raise HyperspaceError(
+                    "Index has no lineage column; cannot handle deleted source files"
+                )
+            parts.append(_drop_deleted_rows(index_content_files, deleted_files))
+            mode = UpdateMode.OVERWRITE
+        merged = ColumnBatch.concat([p.select(parts[0].schema.names) for p in parts])
+        new_index = ZOrderCoveringIndex(self._indexed, self._included, self._schema,
+                                        self.fields, self._properties)
+        new_index.write(ctx, merged)
+        return new_index, mode
+
+    def refresh_full(self, ctx: IndexerContext, df: "DataFrame"
+                     ) -> tuple["ZOrderCoveringIndex", ColumnBatch]:
+        data = CoveringIndex.create_index_data(ctx, df, self._indexed, self._included,
+                                               self.has_lineage())
+        fields = [build_field(c, data.column(c), _QUANTILE) for c in self._indexed]
+        return (ZOrderCoveringIndex(self._indexed, self._included, self._schema, fields,
+                                    self._properties), data)
 
     def to_dict(self) -> dict:
         return {
@@ -179,7 +246,8 @@ class ZOrderCoveringIndexConfig(IndexConfig):
         indexed = resolve_columns(df.schema, self._indexed)
         included = resolve_columns(df.schema, self._included)
         _single_file_scan(df)
-        data = df.select(*(indexed + [c for c in included if c not in indexed])).collect()
+        lineage = properties.get("lineage", "false") == "true"
+        data = CoveringIndex.create_index_data(ctx, df, indexed, included, lineage)
         fields = [build_field(c, data.column(c), _QUANTILE) for c in indexed]
         index = ZOrderCoveringIndex(indexed, included, data.schema.to_list(), fields,
                                     properties)

@@ -85,7 +85,8 @@ class ZOrderFilterIndexRule(HyperspaceRule):
     def apply_index(self, plan: LogicalPlan, chosen) -> LogicalPlan:
         out = plan
         for leaf_id, entry in chosen.items():
-            out = transform_plan_to_use_index(entry, out, leaf_id)
+            # z-order data has no bucket spec
+            out = transform_plan_to_use_index(entry, out, leaf_id, False, False)
         return out
 
     def score(self, plan, chosen) -> int:

@@ -23,9 +23,17 @@ Three device paths, each recorded in ``session.device_stats.join_paths``:
 An Aggregate grouped by a bucketed scan's bucket columns aggregates bucket
 by bucket (``try_bucketed_scan_aggregate``; AggregateIndexRule's rewrite).
 
+A side may be a hybrid scan's BucketUnion: the index scan (perhaps
+lineage-filtered) beside the appended files under a RepartitionByExpr.
+The appended rows are read once and split by bucket, and each bucket
+appends its part to what it read from the index. A bucket counts as sorted
+by its key only when it has no appended part and at most one file (a
+refreshed index keeps one run per data version in a bucket): every path
+that trusts the on-disk sort reads these flags.
+
 Not ported: the mesh paths, read-ahead pipelining of bucket pairs (pairs
-load on a pool, then the device works), hybrid-scan appended rows, the
-per-bucket strategy plan (plan/join_memory.py) and adaptive re-planning.
+load on a pool, then the device works), the per-bucket strategy plan
+(plan/join_memory.py) and adaptive re-planning.
 """
 
 from __future__ import annotations
@@ -37,10 +45,20 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .expr import Alias, Col, Expr, expr_output_name
-from .nodes import BucketSpec, FileScan, Filter, Join, LogicalPlan, Project
+from .nodes import (
+    BucketSpec,
+    BucketUnion,
+    FileScan,
+    Filter,
+    Join,
+    LogicalPlan,
+    Project,
+    RepartitionByExpr,
+)
 from ..columnar.table import Column, ColumnBatch, STRING, numpy_dtype
 from ..exceptions import HyperspaceError
 from ..models.covering import bucket_id_from_filename
+from ..ops.bucketize import bucket_ids_for_batch
 from ..ops.join import host_merge_join_indices
 
 @dataclass
@@ -52,6 +70,7 @@ class BucketedSide:
     scan: FileScan  # the bucketed index scan
     spec: BucketSpec
     ops: list[LogicalPlan]  # Filter/Project nodes, bottom-up
+    appended: Optional[LogicalPlan] = None  # subplan under RepartitionByExpr
 
     @property
     def filters(self) -> list[Expr]:
@@ -97,7 +116,8 @@ class BucketedSide:
 
 def _decompose_side(plan: LogicalPlan) -> Optional[BucketedSide]:
     """Match a stack of Filter/Project (at most one Project) over a
-    bucketed FileScan whose every file carries a bucket id."""
+    bucketed FileScan whose every file carries a bucket id, or over
+    BucketUnion(that scan, RepartitionByExpr(appended subplan))."""
     node = plan
     ops_topdown: list[LogicalPlan] = []
     n_projects = 0
@@ -108,11 +128,20 @@ def _decompose_side(plan: LogicalPlan) -> Optional[BucketedSide]:
                 return None
         ops_topdown.append(node)
         node = node.child
+    appended = None
+    if isinstance(node, BucketUnion):
+        children = node.children()
+        scans = [c for c in children if isinstance(c, FileScan)]
+        reparts = [c for c in children if isinstance(c, RepartitionByExpr)]
+        if len(scans) != 1 or len(reparts) != 1 or len(children) != 2:
+            return None
+        appended = reparts[0].child
+        node = scans[0]
     if not isinstance(node, FileScan) or node.bucket_spec is None:
         return None
     if any(bucket_id_from_filename(f.name) is None for f in node.files):
         return None
-    return BucketedSide(node, node.bucket_spec, list(reversed(ops_topdown)))
+    return BucketedSide(node, node.bucket_spec, list(reversed(ops_topdown)), appended)
 
 
 def try_bucketed_scan_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
@@ -125,7 +154,7 @@ def try_bucketed_scan_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
     if not agg_plan.group_exprs:
         return None
     side = _decompose_side(agg_plan.child)
-    if side is None:
+    if side is None or side.appended is not None:
         return None
     group_cols = set()
     for e in agg_plan.group_exprs:
@@ -142,7 +171,7 @@ def try_bucketed_scan_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
         return _exec_aggregate(sub, session)
 
     def agg_bucket(b: int) -> Optional[ColumnBatch]:
-        batch = _load_side_bucket(side, b, session)
+        batch = _load_side_bucket(side, b, None, session)
         return None if batch.num_rows == 0 else aggregate(batch)
 
     n = side.spec.num_buckets
@@ -155,7 +184,7 @@ def try_bucketed_scan_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
         if spec is not None:
             spec = replace(spec, verify_files=())
         empty = BucketedSide(side.scan.copy(files=[], prune_spec=spec), side.spec, side.ops)
-        return aggregate(_load_side_bucket(empty, 0, session))
+        return aggregate(_load_side_bucket(empty, 0, None, session))
     return ColumnBatch.concat(parts)
 
 
@@ -235,6 +264,7 @@ def try_bucketed_merge_join(
     plan.schema  # ambiguity check before doing any work
 
     n = left.spec.num_buckets
+    appended = (_bucketize_appended(left, n, session), _bucketize_appended(right, n, session))
 
     def done(out: ColumnBatch, path: str) -> ColumnBatch:
         if session is not None:
@@ -245,7 +275,7 @@ def try_bucketed_merge_join(
     preloaded = None
     if agg_plan is None and per_bucket is None:
         dev_out, preloaded = _try_device_join_paths(left, right, lkeys, rkeys, residual,
-                                                    session)
+                                                    appended, session)
         if dev_out is not None:
             return done(dev_out, "batched")
     if (agg_plan is not None and per_bucket is not None and session is not None
@@ -256,7 +286,7 @@ def try_bucketed_merge_join(
             from .device_join import try_stacked_join_agg
 
             raw_loaded: list = [None] * n
-            gen = _iter_bucket_pairs(left, right, session)
+            gen = _iter_bucket_pairs(left, right, appended, session)
 
             def raw_pairs():
                 for b, lb, rb, ls, rs in gen:
@@ -287,15 +317,13 @@ def try_bucketed_merge_join(
             _decline(session, "join_plan_screen")
 
     def join_bucket(b: int) -> Optional[ColumnBatch]:
-        # a bucket loaded from ONE index file keeps its on-disk sort by the
-        # bucket columns; filters and projections preserve row order
         if preloaded is not None and preloaded[b] is not None:
             lb, rb, l_sorted, r_sorted = preloaded[b]
         else:
-            l_sorted = len(left.files_for_bucket(b)) <= 1
-            r_sorted = len(right.files_for_bucket(b)) <= 1
-            lb = _load_side_bucket(left, b, session)
-            rb = _load_side_bucket(right, b, session)
+            l_sorted = _bucket_sorted(left, b, appended[0])
+            r_sorted = _bucket_sorted(right, b, appended[1])
+            lb = _load_side_bucket(left, b, appended[0], session)
+            rb = _load_side_bucket(right, b, appended[1], session)
         if lb is None or rb is None or lb.num_rows == 0 or rb.num_rows == 0:
             return None
         if agg_plan is not None:
@@ -447,26 +475,35 @@ def _prep_plain_work(b, lb, rb, lkeys, rkeys, l_sorted, r_sorted, session):
     return (b, lb, rb, lk32, rk32, lorder, rorder, lk_col.data, rk_col.data)
 
 
-def _load_all_bucket_pairs(left, right, session) -> list:
+def _bucket_sorted(side: BucketedSide, b: int, appended) -> bool:
+    """True iff bucket ``b`` of the side arrives in its on-disk key order:
+    read from at most one index file (filters and projections keep row
+    order) and with no appended part. A refreshed index's bucket (one run
+    per data version) or a hybrid scan's appended rows make an unsorted
+    concatenation."""
+    return appended is None and len(side.files_for_bucket(b)) <= 1
+
+
+def _load_all_bucket_pairs(left, right, appended, session) -> list:
     """Every bucket pair, side ops applied, loaded on a thread pool:
-    ``[(lb, rb, l_sorted, r_sorted)]`` by bucket. A bucket loaded from one
-    index file keeps its on-disk sort by the bucket columns."""
+    ``[(lb, rb, l_sorted, r_sorted)]`` by bucket."""
     n = left.spec.num_buckets
 
     def load(b):
-        return (_load_side_bucket(left, b, session), _load_side_bucket(right, b, session),
-                len(left.files_for_bucket(b)) <= 1, len(right.files_for_bucket(b)) <= 1)
+        return (_load_side_bucket(left, b, appended[0], session),
+                _load_side_bucket(right, b, appended[1], session),
+                _bucket_sorted(left, b, appended[0]), _bucket_sorted(right, b, appended[1]))
 
     with ThreadPoolExecutor(max_workers=max(1, min(8, n))) as pool:
         return list(pool.map(load, range(n)))
 
 
-def _collect_plain_join_work(left, right, lkeys, rkeys, session):
+def _collect_plain_join_work(left, right, lkeys, rkeys, appended, session):
     """(work, loaded): every pair loaded, and its work tuple; work is None
     when a pair's keys are ineligible (counted as a decline)."""
     from .gpu_exec import _decline
 
-    loaded = _load_all_bucket_pairs(left, right, session)
+    loaded = _load_all_bucket_pairs(left, right, appended, session)
     work = []
     for b, (lb, rb, l_sorted, r_sorted) in enumerate(loaded):
         w = _prep_plain_work(b, lb, rb, lkeys, rkeys, l_sorted, r_sorted, session)
@@ -486,7 +523,7 @@ def _empty_join_output(lb: ColumnBatch, rb: ColumnBatch) -> ColumnBatch:
     return ColumnBatch(out)
 
 
-def _try_device_join_paths(left, right, lkeys, rkeys, residual, session):
+def _try_device_join_paths(left, right, lkeys, rkeys, residual, appended, session):
     """The batched device plain join of a whole co-partitioned join:
     ``(result, loaded)``. A None result hands ``loaded`` (the pairs by
     bucket, or None when the plan screen declined before loading) to the
@@ -498,7 +535,7 @@ def _try_device_join_paths(left, right, lkeys, rkeys, residual, session):
         return None, None
     if not _plain_join_plan_screen(left, right, lkeys, rkeys):
         return _decline(session, "plain_join_plan_screen"), None
-    work, loaded = _collect_plain_join_work(left, right, lkeys, rkeys, session)
+    work, loaded = _collect_plain_join_work(left, right, lkeys, rkeys, appended, session)
     if not work:
         return None, loaded  # ineligible keys, or no occupied pair
     parts = try_batched_plain_join(work, residual, session)
@@ -510,16 +547,15 @@ def _try_device_join_paths(left, right, lkeys, rkeys, residual, session):
     return ColumnBatch.concat(ordered), loaded
 
 
-def _iter_bucket_pairs(left, right, session):
+def _iter_bucket_pairs(left, right, appended, session):
     """``(bucket, lb, rb, l_sorted, r_sorted)`` in bucket order, each pair
     loaded RAW when it is asked for (no op replay: the device body runs the
     side filters over the stable index-chunk buffers)."""
     for b in range(left.spec.num_buckets):
-        l_sorted = len(left.files_for_bucket(b)) <= 1
-        r_sorted = len(right.files_for_bucket(b)) <= 1
-        lb = _load_side_bucket(left, b, session, raw=True)
-        rb = _load_side_bucket(right, b, session, raw=True)
-        yield b, lb, rb, l_sorted, r_sorted
+        lb = _load_side_bucket(left, b, appended[0], session, raw=True)
+        rb = _load_side_bucket(right, b, appended[1], session, raw=True)
+        yield (b, lb, rb, _bucket_sorted(left, b, appended[0]),
+               _bucket_sorted(right, b, appended[1]))
 
 
 def _apply_side_ops(side: BucketedSide, batch: ColumnBatch) -> ColumnBatch:
@@ -532,11 +568,28 @@ def _apply_side_ops(side: BucketedSide, batch: ColumnBatch) -> ColumnBatch:
     return batch
 
 
-def _load_side_bucket(side: BucketedSide, b: int, session, raw: bool = False
-                      ) -> Optional[ColumnBatch]:
+def _bucketize_appended(side: BucketedSide, num_buckets: int, session
+                        ) -> Optional[list[ColumnBatch]]:
+    """The appended-files subplan, read once and split by bucket: the
+    "re-bucket only the appended rows" half of hybrid scan."""
+    if side.appended is None:
+        return None
+    from .executor import execute_plan
+
+    batch = execute_plan(side.appended, session)
+    ids = bucket_ids_for_batch(batch, list(side.spec.bucket_columns), num_buckets)
+    return [batch.filter(ids == b) for b in range(num_buckets)]
+
+
+def _load_side_bucket(side: BucketedSide, b: int, appended: Optional[list[ColumnBatch]],
+                      session, raw: bool = False) -> Optional[ColumnBatch]:
+    """Bucket ``b`` of the side: its index files, then its appended part;
+    ``raw`` leaves the side's ops for the device body to run."""
     from .executor import execute_plan
 
     batch = execute_plan(side.scan_for_bucket(b), session)
+    if appended is not None and appended[b].num_rows:
+        batch = ColumnBatch.concat([batch, appended[b].select(batch.schema.names)])
     return batch if raw else _apply_side_ops(side, batch)
 
 

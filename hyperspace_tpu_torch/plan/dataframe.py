@@ -95,6 +95,34 @@ class GroupedData:
         )
 
 
+def _data_files(root: str) -> list[FileInfo]:
+    """The data files under a directory, hidden and metadata dirs and files
+    (``_*``, ``.*``, e.g. _hyperspace_log) skipped."""
+    files: list[FileInfo] = []
+    for dirpath, _dirs, names in os.walk(root):
+        parts = os.path.relpath(dirpath, root).split(os.sep)
+        if any(p.startswith(("_", ".")) for p in parts if p != "."):
+            continue
+        for fn in sorted(names):
+            if not fn.startswith(("_", ".")):
+                files.append(FileInfo.from_path(os.path.join(dirpath, fn)))
+    return files
+
+
+def relist_files(root_paths: Sequence[str]) -> list[FileInfo]:
+    """A fresh listing of a recorded relation's roots (refresh and the
+    hybrid-scan delta read the source as it is now)."""
+    files: list[FileInfo] = []
+    for root in root_paths:
+        if os.path.isfile(root):
+            files.append(FileInfo.from_path(root))
+        elif os.path.isdir(root):
+            files.extend(_data_files(root))
+        else:
+            raise HyperspaceError(f"Source path disappeared: {root}")
+    return files
+
+
 class DataFrameReader:
     """session.read.parquet(path) -> a FileScan over the resolved files."""
 
@@ -109,14 +137,7 @@ class DataFrameReader:
             if os.path.isfile(root):
                 files.append(FileInfo.from_path(root))
             elif os.path.isdir(root):
-                for dirpath, _dirs, names in os.walk(root):
-                    # skip hidden/metadata dirs (e.g. _hyperspace_log)
-                    parts = os.path.relpath(dirpath, root).split(os.sep)
-                    if any(p.startswith(("_", ".")) for p in parts if p != "."):
-                        continue
-                    for fn in sorted(names):
-                        if not fn.startswith(("_", ".")):
-                            files.append(FileInfo.from_path(os.path.join(dirpath, fn)))
+                files.extend(_data_files(root))
             else:
                 raise HyperspaceError(f"Path not found: {root}")
         if not files:

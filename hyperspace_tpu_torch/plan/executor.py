@@ -1,5 +1,6 @@
 """Plan execution on the host (counterpart of hyperspace_tpu/plan/executor.py,
-reduced to scan, filter, project, join, aggregate, sort and limit).
+reduced to scan, filter, project, join, aggregate, sort, limit and the
+hybrid-scan unions).
 
 This is the always-correct reference path for every node, and the port's
 plain end-to-end reference. When the session's device tier is on, an
@@ -21,6 +22,7 @@ from . import expr as X
 from .expr import AggExpr, Alias, Expr, expr_output_name, split_conjunction
 from .nodes import (
     Aggregate,
+    BucketUnion,
     FileScan,
     Filter,
     InMemoryScan,
@@ -28,8 +30,11 @@ from .nodes import (
     Limit,
     LogicalPlan,
     Project,
+    RepartitionByExpr,
     Sort,
+    Union,
 )
+from .. import constants as C
 from ..columnar import io as cio
 from ..columnar.table import Column, ColumnBatch, STRING, sort_key_values
 from ..exceptions import HyperspaceError
@@ -81,6 +86,12 @@ def execute_plan(plan: LogicalPlan, session=None) -> ColumnBatch:
             return full.take(np.arange(min(plan.n, full.num_rows)))
         child = execute_plan(plan.child, session)
         return child.take(np.arange(min(plan.n, child.num_rows)))
+    if isinstance(plan, (Union, BucketUnion)):
+        batches = [execute_plan(c, session) for c in plan.children()]
+        return ColumnBatch.concat([b.select(batches[0].schema.names) for b in batches])
+    if isinstance(plan, RepartitionByExpr):
+        # a marker on the host path: the bucketed join re-buckets the rows
+        return execute_plan(plan.child, session)
     raise HyperspaceError(f"Cannot execute node {plan.kind}")
 
 
@@ -124,7 +135,9 @@ def _exec_file_scan(scan: FileScan, session=None) -> ColumnBatch:
     keeps. Index files go through the session's chunk cache (stable buffers
     for the device-resident column cache); raw source scans never cache.
     The pushed filter is not applied here: the Filter above the scan does
-    that, and an unfiltered read keeps the cached buffers stable."""
+    that, and an unfiltered read keeps the cached buffers stable. A
+    lineage filter drops the rows of deleted source files, which makes new
+    buffers on every read, as in the reference."""
     want = list(scan.required_columns or scan.full_schema.names)
     if scan.fmt != "parquet":
         raise HyperspaceError(f"Unsupported format: {scan.fmt}")
@@ -136,7 +149,14 @@ def _exec_file_scan(scan: FileScan, session=None) -> ColumnBatch:
         if session is not None and scan.index_info is not None
         else None
     )
-    out = cio.read_parquet([f.name for f in files], want, cache, row_groups)
+    read_cols = list(want)
+    lineage = scan.lineage_filter_ids is not None
+    if lineage and C.DATA_FILE_NAME_ID not in read_cols:
+        read_cols.append(C.DATA_FILE_NAME_ID)
+    out = cio.read_parquet([f.name for f in files], read_cols, cache, row_groups)
+    if lineage:
+        ids = np.asarray(scan.lineage_filter_ids, dtype=np.int64)
+        out = out.filter(~np.isin(out.column(C.DATA_FILE_NAME_ID).data, ids)).select(want)
     return _maybe_verify_pruning(scan, out, session)
 
 

@@ -1,6 +1,7 @@
 """Logical plan IR (counterpart of hyperspace_tpu/plan/nodes.py, reduced to
-the nodes of the covering-index filter-aggregate and join paths: scans,
-Filter, Project, Join, Aggregate, Sort, Limit).
+the nodes of the covering-index filter-aggregate and join paths and of
+hybrid scan: scans, Filter, Project, Join, Aggregate, Sort, Limit, Union,
+BucketUnion, RepartitionByExpr).
 
 DataFrame ops build these nodes lazily; at collect the session's extra
 optimizations (the Hyperspace rewrite when enabled) run, then the executor
@@ -109,7 +110,9 @@ class FileScan(LogicalPlan):
     ``pushed_filter`` mirrors the condition of a Filter right above the
     scan (that Filter still applies it); ``prune_spec`` is the layout
     contract of a bucketed index scan (plan/pruning.PruneSpec), from which
-    the pushed filter derives the buckets and row groups to read."""
+    the pushed filter derives the buckets and row groups to read.
+    ``lineage_filter_ids`` are the ids of deleted source files whose rows
+    the scan drops by the index's lineage column (hybrid scan)."""
 
     def __init__(
         self,
@@ -120,6 +123,7 @@ class FileScan(LogicalPlan):
         options: dict[str, str] | None = None,
         bucket_spec: Optional[BucketSpec] = None,
         index_info: Optional[IndexScanInfo] = None,
+        lineage_filter_ids: Optional[Sequence[int]] = None,
         required_columns: Optional[Sequence[str]] = None,
         pushed_filter: Optional[Expr] = None,
         prune_spec=None,
@@ -132,6 +136,9 @@ class FileScan(LogicalPlan):
         self.options = dict(options or {})
         self.bucket_spec = bucket_spec
         self.index_info = index_info
+        self.lineage_filter_ids = (
+            list(lineage_filter_ids) if lineage_filter_ids is not None else None
+        )
         self.required_columns = list(required_columns) if required_columns else None
         self.pushed_filter = pushed_filter
         self.prune_spec = prune_spec
@@ -150,6 +157,7 @@ class FileScan(LogicalPlan):
             options=self.options,
             bucket_spec=self.bucket_spec,
             index_info=self.index_info,
+            lineage_filter_ids=self.lineage_filter_ids,
             required_columns=self.required_columns,
             pushed_filter=self.pushed_filter,
             prune_spec=self.prune_spec,
@@ -335,6 +343,61 @@ class Limit(_Unary):
 
     def describe(self) -> str:
         return f"Limit {self.n}"
+
+
+class Union(LogicalPlan):
+    def __init__(self, children: Sequence[LogicalPlan]):
+        super().__init__(children)
+
+    def with_new_children(self, children):
+        return Union(children)
+
+    @property
+    def schema(self) -> Schema:
+        return self.children_nodes[0].schema
+
+    def describe(self) -> str:
+        return "Union"
+
+
+class BucketUnion(LogicalPlan):
+    """A union of children that share one bucket layout: bucket i of the
+    output is bucket i of each child, with no re-shuffle."""
+
+    def __init__(self, children: Sequence[LogicalPlan], bucket_spec: BucketSpec):
+        super().__init__(children)
+        self.bucket_spec = bucket_spec
+
+    def with_new_children(self, children):
+        return BucketUnion(children, self.bucket_spec)
+
+    @property
+    def schema(self) -> Schema:
+        return self.children_nodes[0].schema
+
+    def describe(self) -> str:
+        return (f"BucketUnion buckets={self.bucket_spec.num_buckets} on "
+                f"{list(self.bucket_spec.bucket_columns)}")
+
+
+class RepartitionByExpr(_Unary):
+    """Co-partition rows by hash(exprs) % n. Hybrid scan puts one over the
+    appended-files subplan only; the index side keeps its layout."""
+
+    def __init__(self, exprs: Sequence[Expr], num_partitions: int, child: LogicalPlan):
+        super().__init__(child)
+        self.exprs = list(exprs)
+        self.num_partitions = num_partitions
+
+    def with_new_children(self, children):
+        return RepartitionByExpr(self.exprs, self.num_partitions, children[0])
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def describe(self) -> str:
+        return f"RepartitionByExpr [{', '.join(map(repr, self.exprs))}] n={self.num_partitions}"
 
 
 # ---------------------------------------------------------------------------

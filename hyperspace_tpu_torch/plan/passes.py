@@ -15,7 +15,7 @@ Filter, not a Join, and no join path fires.
 from __future__ import annotations
 
 from .expr import And, Expr, split_conjunction
-from .nodes import Aggregate, FileScan, Filter, Join, LogicalPlan, Project, Sort
+from .nodes import Aggregate, FileScan, Filter, Join, LogicalPlan, Project, RepartitionByExpr, Sort
 
 
 def prune_columns(plan: LogicalPlan) -> LogicalPlan:
@@ -60,7 +60,12 @@ def _prune(plan: LogicalPlan, required: set[str]) -> LogicalPlan:
         for e, _asc in plan.orders:
             child_req |= e.references()
         return Sort(plan.orders, _prune(plan.child, child_req))
-    if plan.children():  # Limit
+    if isinstance(plan, RepartitionByExpr):
+        child_req = set(required)
+        for e in plan.exprs:
+            child_req |= e.references()
+        return RepartitionByExpr(plan.exprs, plan.num_partitions, _prune(plan.child, child_req))
+    if plan.children():  # Limit, Union, BucketUnion
         return plan.with_new_children([_prune(c, set(required)) for c in plan.children()])
     return plan
 

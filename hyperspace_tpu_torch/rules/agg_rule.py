@@ -20,6 +20,7 @@ from .base import (
     MISSING_INDEXED_COL,
     MISSING_REQUIRED_COL,
     QueryPlanIndexFilter,
+    TAG_HYBRIDSCAN_REQUIRED,
     index_type_filter,
     reason,
 )
@@ -94,12 +95,14 @@ class AggColumnFilter(QueryPlanIndexFilter):
 
 
 class AggIndexRanker(IndexRankFilter):
-    """The smallest usable index, then the name (no hybrid scan in the port,
-    so the reference's fresh-entries-first key is always equal)."""
+    """An entry that needs no hybrid scan first (appended rows cost the
+    per-bucket path a re-bucketing), then the smallest, then the name."""
 
     def apply(self, plan, candidates):
         return {
-            leaf_id: min(entries, key=lambda e: (e.index_data_size_in_bytes(), e.name))
+            leaf_id: min(entries, key=lambda e: (
+                bool(e.get_tag(leaf_id, TAG_HYBRIDSCAN_REQUIRED)),
+                e.index_data_size_in_bytes(), e.name))
             for leaf_id, entries in candidates.items()
             if entries
         }
@@ -117,7 +120,7 @@ class AggregateIndexRule(HyperspaceRule):
     def apply_index(self, plan, chosen):
         out = plan
         for leaf_id, entry in chosen.items():
-            out = transform_plan_to_use_index(entry, out, leaf_id, use_bucket_spec=True)
+            out = transform_plan_to_use_index(entry, out, leaf_id, True, True)
         return out
 
     def score(self, plan, chosen):

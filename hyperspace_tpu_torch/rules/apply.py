@@ -56,7 +56,7 @@ class ApplyHyperspace:
         ]
         if not indexes:
             return plan
-        candidates = CandidateIndexCollector().apply(plan, indexes)
+        candidates = CandidateIndexCollector(self.session).apply(plan, indexes)
         if not candidates:
             return plan
         return ScoreBasedIndexPlanOptimizer(self.session).apply(plan, candidates)

@@ -6,7 +6,8 @@ condition and it covers every column the subtree needs. Among those the
 ranker takes the least expected read: index bytes times the fraction
 bucket pruning keeps for the condition (plan/pruning.estimate_scan_
 fraction), name breaking ties. Score = 50 * covered-bytes ratio (1 without
-hybrid scan) plus up to 10 for that pruning, which keeps the rule above
+hybrid scan; with it on, the ranker takes the candidate with the largest
+such ratio) plus up to 10 for that pruning, which keeps the rule above
 AggregateIndexRule's 40 and lets a bucket-prunable rewrite win a tie
 against a z-order one.
 """
@@ -69,14 +70,22 @@ def _filter_condition(plan):
 
 
 class FilterIndexRanker(IndexRankFilter):
+    """With hybrid scan on, the candidate covering most of the scan's
+    bytes; otherwise the least expected read."""
+
     def apply(self, plan, candidates):
         cond = _filter_condition(plan)
-        return {
-            leaf_id: min(entries, key=lambda e: (
-                e.index_data_size_in_bytes() * estimate_scan_fraction(cond, e), e.name))
-            for leaf_id, entries in candidates.items()
-            if entries
-        }
+        out = {}
+        for leaf_id, entries in candidates.items():
+            if not entries:
+                continue
+            if self.session.conf.hybrid_scan_enabled:
+                scan = find_scan_by_id(plan, leaf_id)
+                out[leaf_id] = max(entries, key=lambda e: (common_bytes_ratio(e, scan), e.name))
+            else:
+                out[leaf_id] = min(entries, key=lambda e: (
+                    e.index_data_size_in_bytes() * estimate_scan_fraction(cond, e), e.name))
+        return out
 
 
 class FilterIndexRule(HyperspaceRule):
@@ -91,7 +100,7 @@ class FilterIndexRule(HyperspaceRule):
     def apply_index(self, plan, chosen):
         out = plan
         for leaf_id, entry in chosen.items():
-            out = transform_plan_to_use_index(entry, out, leaf_id)
+            out = transform_plan_to_use_index(entry, out, leaf_id, False, False)
         return out
 
     def score(self, plan, chosen):

@@ -164,7 +164,7 @@ class JoinIndexRule(HyperspaceRule):
     def apply_index(self, plan, chosen):
         out = plan
         for leaf_id, entry in chosen.items():
-            out = transform_plan_to_use_index(entry, out, leaf_id, use_bucket_spec=True)
+            out = transform_plan_to_use_index(entry, out, leaf_id, True, True)
         return out
 
     def score(self, plan, chosen):

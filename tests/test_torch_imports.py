@@ -41,7 +41,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert out["bad"] == []
     for module in ("plan.gpu_exec", "ops.cuda_kernels", "ops.zorder", "plan.pruning",
                    "models.zorder.fields", "models.zorder.index", "models.zorder.rule",
-                   "models.dataskipping.sketches"):
+                   "models.dataskipping.sketches", "actions.refresh", "actions.optimize",
+                   "actions.lifecycle", "meta.cache", "index_manager"):
         assert f"hyperspace_tpu_torch.{module}" in out["loaded"], module
 
 
