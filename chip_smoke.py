@@ -29,7 +29,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    (15M rows) and part (2M rows) written as parquet, the reference's index
    set built over them (tpch_indexes: the z-order index li_shipdate_z, the
    covering indexes li_orderkey, li_partkey, li_flagstatus, od_orderkey and
-   pt_partkey), then
+   pt_partkey, the data-skipping index li_shipdate_mm; each build timed),
+   then
    - the filter-aggregate queries q6, q6_count, q6_sum, q1 and q1_sums run
      through the normal API with Hyperspace enabled. The q6 forms must read
      li_shipdate_z and the q1 forms li_flagstatus (through
@@ -87,7 +88,33 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    and warm upload bytes, kernel launches and each action's seconds are
    printed. Any mismatch, a kernel of the stage's path launched no time,
    or a plain-version call fails the run;
-6. order phase: the device top-k and sort against the host on one
+6. skipping phase: each query held to the host executor over the raw
+   files of its lake, its files, row groups and rows kept, first-run and
+   warm times and upload bytes printed; every kernel-shaped one must launch
+   filter_sum once per run with no decline:
+   (a) BASELINE config 3: q6_tax_sum (Q6's ship-date range, sum(l_tax),
+       count) over the SF10 lineitem, which only li_shipdate_mm can serve;
+       the rule must be consulted ("0 of 120 files pruned": the generator
+       draws l_shipdate uniformly in every file);
+   (b) BASELINE config 5: bench.py's store_sales lake (16M rows in 256
+       files of file-local item keys, seed 11): the bloom point query raw
+       and through ss_bloom, a four-file key range through ss_minmax, then
+       2 files deleted and 2 appended (seed 12), an incremental and a full
+       refresh of both, each followed by the point, range and an appended
+       key's query;
+   (c) the sidecar sketch stage: bench.py's events_sk lake (4M rows, 16
+       files, seed 23) and the covering index ev_sk_idx built with
+       HYPERSPACE_SKETCHES=1; its eq and in queries in three legs (raw,
+       sketches off, on) must agree, and the sketch stage must keep fewer
+       row groups than the index scan's footer stage; ev_point_sum (the eq
+       with sum(ev_v) and count) runs on the card over the kept groups;
+   (d) the predicate routes: flag_sum (l_returnflag = 'R') over
+       li_flagstatus through the dictionary-code rewrite, and wide64_sum
+       (w > 2^40 over a full-range int64 column, 2^22 rows) through Wide64
+       word pairs. No plain version may run. With --profile, each
+       kernel-shaped query is profiled once more after its counts are read
+       (chiprun_out/profile_skipping_<q>.txt);
+7. order phase: the device top-k and sort against the host on one
    2^25-row batch of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
    descending, k in {10, 100, 4096}; (l_extendedprice f64, l_orderkey
@@ -100,8 +127,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
-add up the end-to-end and lifecycle phases' counts, each read on its own
-(``launches_by_phase``).
+add up the end-to-end, lifecycle and skipping phases' counts, each read on
+its own (``launches_by_phase``).
 """
 
 from __future__ import annotations
@@ -190,6 +217,19 @@ LIFECYCLE_QUERIES = {"q6_count": "filter_weighted_sum", "q6_sum": "filter_sum",
 LC_FILTER_QUERIES = ("q6_count", "q6_sum", "lookup_count", "range_sum")
 LIFECYCLE_WARM_RUNS = 1
 APPEND_SEED = 43
+# the skipping phase: bench.py's store_sales lake (BASELINE config 5) at
+# SF10's row count, capped as bench.py caps it; its events_sk lake; the
+# Wide64 table of tests/test_tpu_exec.py at 2^22 rows
+SS_ROWS = 16_000_000
+SS_FILES = 256
+SS_SEED = 11
+SS_APPEND_SEED = 12
+EV_ROWS = 4_000_000
+EV_FILES = 16
+EV_SEED = 23
+WIDE_ROWS = 1 << 22
+WIDE_SEED = 6
+SKIP_WARM_RUNS = 1
 MINMAX_CASES = ("random", "all_invalid", "nan_valid", "nan_invalid", "int")
 
 
@@ -559,9 +599,9 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
     session = HyperspaceSession(warehouse)  # device=None: the card
     hs = Hyperspace(session)
     out["index_build_s"] = {}
-    for table, zordered, spec in tpch.TPCH_INDEXES:  # tpch.tpch_indexes, timed
+    for table, kind, spec in tpch.TPCH_INDEXES:  # tpch.tpch_indexes, timed
         t0 = time.perf_counter()
-        tpch.build_index(session, hs, lake, table, zordered, spec)
+        tpch.build_index(session, hs, lake, table, kind, spec)
         out["index_build_s"][spec[0]] = time.perf_counter() - t0
     log({"phase": "data", "card": card, "rows": rows, "generate_s": out["generate_s"],
          "source_bytes": out["source_bytes"], "index_build_s": out["index_build_s"]})
@@ -708,8 +748,10 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
             )
             log({"query": q, "card": card, "profile": queries[q]["profile"]})
     out["device_resident_bytes"] = session.device_cache.resident_bytes
-    # the lifecycle phase reuses the lake and these references
+    # the lifecycle and skipping phases reuse the lake (and the skipping
+    # phase the warehouse), the lifecycle phase these references
     out["lake"] = lake
+    out["warehouse"] = warehouse
     out["want"] = {q: want[q] for q in LIFECYCLE_QUERIES}
     return out
 
@@ -971,6 +1013,354 @@ def lifecycle_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = F
 
 
 # ---------------------------------------------------------------------------
+# skipping phase
+# ---------------------------------------------------------------------------
+
+def _write_columns(path: str, columns: dict) -> None:
+    """One parquet source file from numpy columns."""
+    from hyperspace_tpu_torch.columnar import io as cio
+    from hyperspace_tpu_torch.columnar.table import Column, ColumnBatch
+
+    cio.write_parquet(ColumnBatch({k: Column(a, str(a.dtype)) for k, a in columns.items()}),
+                      path)
+
+
+def _store_sales_file(rng, i: int, per: int) -> dict:
+    """bench.py's store_sales file i: item keys from the file-local range
+    [100,000 i, 100,000 (i + 1)), ss_net_paid uniform in [1, 300)."""
+    return {"ss_item_sk": rng.integers(i * 100_000, (i + 1) * 100_000, per),
+            "ss_net_paid": rng.uniform(1, 300, per)}
+
+
+def pq_column(path: str, name: str):
+    import pyarrow.parquet as pq
+
+    return pq.read_table(path, columns=[name]).column(name).to_numpy()
+
+
+def _scan_of(plan):
+    return [n for n in plan.preorder() if n.kind == "FileScan"][0]
+
+
+def _kept(scan) -> dict:
+    """What a scan reads: its files, and the row groups and rows of them.
+    An index scan reads its pruning's selection; a source scan reads the
+    groups whose footer statistics can hold a match of the pushed filter's
+    min-max-convertible conjuncts, which is what the parquet reader's
+    filter skips by."""
+    from dataclasses import replace
+
+    from hyperspace_tpu_torch.columnar import io as cio
+    from hyperspace_tpu_torch.plan import pruning
+    from hyperspace_tpu_torch.plan.executor import resolve_scan_pruning
+    from hyperspace_tpu_torch.plan.expr import split_conjunction
+
+    if scan.index_info is None or scan.index_info.index_kind_abbr == "DS":
+        cols = tuple(sorted(scan.pushed_filter.references())) if scan.pushed_filter else ()
+        spec = pruning.PruneSpec("source", 1, (), cols)
+        conjs = (pruning._rowgroup_conjuncts(split_conjunction(scan.pushed_filter), spec)
+                 if cols else ())
+        scan = scan.copy(prune_spec=replace(spec, rowgroup_conjuncts=conjs))
+    row_groups, files = resolve_scan_pruning(scan)
+    groups = rows = 0
+    for f in files:
+        stats = cio.read_rowgroup_stats(f.name, [])
+        sel = (row_groups or {}).get(f.name, range(len(stats)))
+        groups += len(sel)
+        rows += sum(stats[g]["num_rows"] for g in sel)
+    out = {"files_in_plan": len(scan.files), "files_kept": len(files),
+           "row_groups_kept": groups, "rows_kept": rows}
+    if scan.prune_spec is not None and scan.prune_spec.sketch_conjuncts:
+        # the same scan with its footer (min-max) stage alone
+        footer = _kept(scan.copy(prune_spec=replace(scan.prune_spec, sketch_conjuncts=())))
+        out["row_groups_footer_stage"] = footer["row_groups_kept"]
+        out["rows_footer_stage"] = footer["rows_kept"]
+        # the planner's NDV-model prediction of the sketch stage's kept share
+        out["sketch_fraction_predicted"] = scan.prune_spec.sketch_fraction
+    return out
+
+
+def skipping_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = False) -> dict:
+    """Data skipping, the sidecar sketch stage and the string and Wide64
+    predicate routes (the module docstring lists the parts). Every query
+    is held to the host executor over the raw files of its lake; every
+    kernel-shaped query must launch filter_sum on the card, once per run,
+    with no decline. With ``profile``, each kernel-shaped query is
+    profiled once more (its launches are left out of the phase's)."""
+    import numpy as np
+
+    from hyperspace_tpu_torch import (BloomFilterSketch, CoveringIndexConfig,
+                                      DataSkippingIndexConfig, Hyperspace, HyperspaceSession,
+                                      MinMaxSketch)
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.plan.expr import Count, Sum, col, lit
+    from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
+
+    t_phase = time.perf_counter()
+    out: dict = {"queries": {}, "actions_s": {}, "sidecar": {}}
+    K.reset_counts()  # the phase's launches start here
+    profiled = dict.fromkeys(K.LAUNCHES, 0)  # launches of the profiled runs
+
+    def action(label: str, fn) -> None:
+        t0 = time.perf_counter()
+        fn()
+        out["actions_s"][label] = time.perf_counter() - t0
+        log({"skipping_action": label, "card": card, "seconds": out["actions_s"][label]})
+
+    def host_result(label: str, warehouse: str, make) -> dict:
+        """The host executor over the raw files (no index, no device)."""
+        host = HyperspaceSession(warehouse, conf={C.EXEC_TPU_ENABLED: False})
+        t0 = time.perf_counter()
+        want = _floats(make(host).to_pydict())
+        out.setdefault("host_reference_s", {})[label] = time.perf_counter() - t0
+        return want
+
+    def run(label: str, session, make, want: dict, index, files_in_plan=None) -> dict:
+        """A kernel-shaped query on the card: its plan reads ``index`` (None:
+        the source files) over ``files_in_plan`` files where given, and the
+        first run and each warm run equal ``want`` and launch filter_sum
+        once, with no decline."""
+        scan = _scan_of(make(session).optimized_plan())
+        name = None if scan.index_info is None else scan.index_info.index_name
+        require(name == index, f"{label}: plan reads {name}, expected {index}")
+        rec = {"index": name, **_kept(scan)}
+        require(files_in_plan is None or rec["files_in_plan"] == files_in_plan,
+                f"{label}: the plan reads {rec['files_in_plan']} files, "
+                f"expected {files_in_plan}")
+        session.device_stats = DeviceTierStats()
+        before = dict(K.LAUNCHES)
+        up0 = session.device_cache.uploaded_bytes
+        t0 = time.perf_counter()
+        got = _floats(make(session).to_pydict())
+        rec["first_run_s"] = time.perf_counter() - t0
+        rec["upload_bytes_first"] = session.device_cache.uploaded_bytes - up0
+        compare_batches(label, got, want)
+        warm, warm_up = [], []
+        for _ in range(SKIP_WARM_RUNS):
+            u = session.device_cache.uploaded_bytes
+            t0 = time.perf_counter()
+            compare_batches(label, _floats(make(session).to_pydict()), want)
+            warm.append(time.perf_counter() - t0)
+            warm_up.append(session.device_cache.uploaded_bytes - u)
+        runs = 1 + SKIP_WARM_RUNS
+        launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        stats = session.device_stats
+        require(stats.device_fragments == runs and not stats.declines,
+                f"{label}: device fragments {stats.device_fragments}, "
+                f"declines {stats.declines}")
+        require(launched == {k: (runs if k == "filter_sum" else 0) for k in K.LAUNCHES},
+                f"{label}: launches {launched}")
+        rec.update({"warm_s": warm, "upload_bytes_warm": warm_up, "launches": launched,
+                    "rows_out": got.get("n", got.get("count")), "matches_host": True})
+        if profile:  # after the run's counts are read
+            before = dict(K.LAUNCHES)
+            rec["profile"] = profile_warm_run(torch, lambda: make(session).collect(),
+                                              f"skipping_{label}")
+            for k in K.LAUNCHES:
+                profiled[k] += K.LAUNCHES[k] - before[k]
+        out["queries"][label] = rec
+        log({"skipping": label, "card": card, **rec})
+        return rec
+
+    # (a) BASELINE config 3: li_shipdate_mm over the main phase's lake
+    lake, warehouse = e2e["lake"], e2e["warehouse"]
+    session = HyperspaceSession(warehouse).enable_hyperspace()  # device=None: the card
+    make = lambda s: tpch.q6_tax_sum(s, lake)
+    want = host_result("q6_tax_sum", warehouse, make)
+    run("q6_tax_sum", session, make, want, index=None)
+    last = session.dataskipping_stats.last
+    require(last.get("index") == tpch.LI_SHIPDATE_MM[0] and last.get("files_pruned") == 0
+            and last.get("files_total") == len(os.listdir(os.path.join(lake, "lineitem"))),
+            f"q6_tax_sum: the data-skipping rule was not consulted as expected: {last}")
+    out["queries"]["q6_tax_sum"]["dataskipping"] = last["message"]
+    log({"skipping": "q6_tax_sum", "card": card, "rule": last["message"]})
+
+    # (d) the string route over li_flagstatus
+    make = lambda s: tpch._lineitem(s, lake).filter(col("l_returnflag") == "R").agg(
+        Sum(col("l_extendedprice")).alias("sum_price"), Count(lit(1)).alias("count"))
+    run("flag_sum", session, make, host_result("flag_sum", warehouse, make),
+        index=tpch.LI_FLAGSTATUS[0])
+    del session
+
+    # (b) BASELINE config 5: bloom skipping over store_sales
+    n_ss = max(2_000_000, min(rows, SS_ROWS))
+    per = n_ss // SS_FILES
+    ss_root = os.path.join(DATA_DIR, "store_sales_lake")
+    ss = os.path.join(ss_root, "store_sales")
+    os.makedirs(ss)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SS_SEED)
+    for i in range(SS_FILES):
+        _write_columns(os.path.join(ss, f"part-{i:02d}.parquet"), _store_sales_file(rng, i, per))
+    key = int(rng.integers(3 * 100_000, 4 * 100_000))  # bench.py's draw
+    out["store_sales"] = {"rows": n_ss, "files": SS_FILES, "rows_per_file": per,
+                          "generate_s": time.perf_counter() - t0, "key": key}
+    if not (pq_column(os.path.join(ss, "part-03.parquet"), "ss_item_sk") == key).any():
+        # present at SF10's 62,500 rows a file; at a smaller --rows the draw
+        # may miss, and a pruned-to-nothing scan runs no kernel
+        key = int(pq_column(os.path.join(ss, "part-03.parquet"), "ss_item_sk")[0])
+        out["store_sales"]["key_present_instead"] = key
+    ss_wh = os.path.join(ss_root, "warehouse")
+    session = HyperspaceSession(ss_wh)
+    hs = Hyperspace(session)
+    action("create ss_bloom", lambda: hs.create_index(session.read.parquet(ss),
+           DataSkippingIndexConfig("ss_bloom", [BloomFilterSketch("ss_item_sk", per, 0.01)])))
+
+    def point(k):
+        return lambda s: s.read.parquet(ss).filter(col("ss_item_sk") == k).agg(
+            Sum(col("ss_net_paid")).alias("s"), Count(lit(1)).alias("n"))
+
+    lo = 100 * 100_000
+    ranged = lambda s: s.read.parquet(ss).filter(
+        (col("ss_item_sk") >= lo) & (col("ss_item_sk") < lo + 4 * 100_000)).agg(
+        Sum(col("ss_net_paid")).alias("s"), Count(lit(1)).alias("n"))
+    want = host_result("ss_point", ss_wh, point(key))
+    run("ss_point_raw", session, point(key), want, index=None, files_in_plan=SS_FILES)
+    session.enable_hyperspace()
+    rec = run("ss_point_bloom", session, point(key), want, index="ss_bloom")
+    require(0 < rec["files_in_plan"] < SS_FILES, f"ss_point_bloom: {rec}")
+    action("create ss_minmax", lambda: hs.create_index(session.read.parquet(ss),
+           DataSkippingIndexConfig("ss_minmax", [MinMaxSketch("ss_item_sk")])))
+    run("ss_range_minmax", session, ranged, host_result("ss_range", ss_wh, ranged),
+        index="ss_minmax", files_in_plan=4)
+    # the kind's lifecycle: 2 files deleted, 2 appended, then refreshes
+    for f in ("part-101.parquet", "part-200.parquet"):
+        os.unlink(os.path.join(ss, f))
+    rng = np.random.default_rng(SS_APPEND_SEED)
+    for i in (SS_FILES, SS_FILES + 1):
+        appended = _store_sales_file(rng, i, per)
+        _write_columns(os.path.join(ss, f"part-{i:02d}.parquet"), appended)
+    new_key = int(appended["ss_item_sk"][0])  # a key of the last appended file
+    # (query, the files its plan reads): the point lookups one file, the
+    # range its four files less the deleted part-101
+    changed = {"ss_point": (point(key), 1), "ss_range": (ranged, 3),
+               "ss_point_appended": (point(new_key), 1)}
+    want = {q: host_result(q, ss_wh, m) for q, (m, _n) in changed.items()}
+    for mode in ("incremental", "full"):
+        for name in ("ss_bloom", "ss_minmax"):
+            action(f"refresh {mode} {name}", lambda: hs.refresh_index(name, mode))
+        for q, (m, n_files) in changed.items():
+            # both indexes bound Eq: the ranker takes the greater name
+            run(f"{q}_{mode}", session, m, want[q], index="ss_minmax", files_in_plan=n_files)
+    # the reference's dataskipping.* counters, as the session keeps them
+    out["store_sales"]["dataskipping_stats"] = dict(vars(session.dataskipping_stats))
+    log({"skipping": "store_sales dataskipping_stats", "card": card,
+         **out["store_sales"]["dataskipping_stats"]})
+    del session, hs
+    shutil.rmtree(ss_root)
+
+    # (c) the sidecar sketch stage: bench.py's events_sk lake
+    n_ev = max(400_000, min(rows, EV_ROWS))
+    per = n_ev // EV_FILES
+    ev_root = os.path.join(DATA_DIR, "events_lake")
+    ev = os.path.join(ev_root, "events_sk")
+    os.makedirs(ev)
+    rng = np.random.default_rng(EV_SEED)
+    cat_div = max(1, n_ev // 64)
+    t0 = time.perf_counter()
+    for i in range(EV_FILES):
+        k = np.arange(per, dtype=np.int64) + i * per
+        _write_columns(os.path.join(ev, f"part-{i:02d}.parquet"), {
+            "ev_k": k, "ev_id": k + 10_000_000, "ev_cat": k // cat_div,
+            "ev_v": rng.uniform(0, 100, per)})
+    out["events"] = {"rows": n_ev, "files": EV_FILES, "generate_s": time.perf_counter() - t0}
+    ev_wh = os.path.join(ev_root, "warehouse")
+    session = HyperspaceSession(ev_wh)
+    hs = Hyperspace(session)
+    prev = os.environ.get("HYPERSPACE_SKETCHES")
+    os.environ["HYPERSPACE_SKETCHES"] = "1"
+    try:
+        action("create ev_sk_idx (sketches on)", lambda: hs.create_index(
+            session.read.parquet(ev),
+            CoveringIndexConfig("ev_sk_idx", ["ev_k"], ["ev_id", "ev_cat", "ev_v"])))
+        ev_key = int(10_000_000 + n_ev * 5 // 8 + 17)
+        cats = [3, int((n_ev - 1) // cat_div) - 1]
+        sidecar_queries = {
+            "eq": lambda s: s.read.parquet(ev).filter(col("ev_id") == ev_key)
+            .select("ev_k", "ev_id", "ev_cat").sort("ev_k"),
+            "in": lambda s: s.read.parquet(ev).filter(col("ev_cat").isin(cats))
+            .select("ev_k", "ev_cat").sort("ev_k"),
+        }
+        for q, make in sidecar_queries.items():
+            legs = {}
+            for leg, (on, sketches) in {"raw": (False, "0"), "minmax_only": (True, "0"),
+                                        "sketches": (True, "1")}.items():
+                os.environ["HYPERSPACE_SKETCHES"] = sketches
+                if on:
+                    session.enable_hyperspace()
+                else:
+                    session.disable_hyperspace()
+                scan = _scan_of(make(session).optimized_plan())
+                kept = _kept(scan)
+                t0 = time.perf_counter()
+                got = make(session).to_pydict()
+                first_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                again = make(session).to_pydict()
+                legs[leg] = {"index": None if scan.index_info is None
+                             else scan.index_info.index_name, **kept, "first_run_s": first_s,
+                             "warm_s": time.perf_counter() - t0,
+                             "rows_out": len(got["ev_k"])}
+                require(again == got, f"sidecar {q} {leg}: a warm run differs")
+                legs[leg]["result"] = got
+            results = [legs[leg].pop("result") for leg in legs]
+            require(results[0] == results[1] == results[2] and results[0]["ev_k"],
+                    f"sidecar {q}: the three legs differ")
+            # the minmax-only legs read the source files (the index does not
+            # qualify without sketches: its first column is not filtered);
+            # the sketch stage is held against the index scan's footer
+            # (min-max) stage, which cannot bound a non-sort column
+            sk = legs["sketches"]
+            require(sk["index"] == "ev_sk_idx"
+                    and sk["row_groups_kept"] < sk["row_groups_footer_stage"],
+                    f"sidecar {q}: the sketch stage skipped nothing: {legs}")
+            out["sidecar"][q] = legs
+            log({"sidecar": q, "card": card, **legs})
+        os.environ["HYPERSPACE_SKETCHES"] = "1"
+        session.enable_hyperspace()
+        make = lambda s: s.read.parquet(ev).filter(col("ev_id") == ev_key).agg(
+            Sum(col("ev_v")).alias("s"), Count(lit(1)).alias("n"))
+        rec = run("ev_point_sum", session, make, host_result("ev_point_sum", ev_wh, make),
+                  index="ev_sk_idx")
+        require(rec["row_groups_kept"] < rec["row_groups_footer_stage"],
+                f"ev_point_sum: the sketch stage skipped nothing: {rec}")
+    finally:
+        if prev is None:
+            os.environ.pop("HYPERSPACE_SKETCHES", None)
+        else:
+            os.environ["HYPERSPACE_SKETCHES"] = prev
+    del session, hs
+    shutil.rmtree(ev_root)
+
+    # (d) the Wide64 route: a full-range int64 column compared on the card
+    wide_root = os.path.join(DATA_DIR, "wide_lake")
+    wide = os.path.join(wide_root, "wide")
+    os.makedirs(wide)
+    rng = np.random.default_rng(WIDE_SEED)
+    w = rng.integers(-(2**62), 2**62, WIDE_ROWS)
+    w[0], w[1], w[2] = 2**40 + 7, -(2**40) - 7, 2**31  # tests/test_tpu_exec.py's plants
+    x = rng.uniform(0, 10, WIDE_ROWS)
+    for i, part in enumerate(np.array_split(np.arange(WIDE_ROWS), 4)):
+        _write_columns(os.path.join(wide, f"part-{i}.parquet"), {"w": w[part], "x": x[part]})
+    make = lambda s: s.read.parquet(wide).filter(col("w") > 2**40).agg(
+        Sum(col("x")).alias("s"), Count(lit(1)).alias("n"))
+    wide_wh = os.path.join(wide_root, "warehouse")
+    run("wide64_sum", HyperspaceSession(wide_wh), make,
+        host_result("wide64_sum", wide_wh, make), index=None, files_in_plan=4)
+    shutil.rmtree(wide_root)
+
+    out["launches"] = {k: K.LAUNCHES[k] - profiled[k] for k in K.LAUNCHES}
+    require(out["launches"]["filter_sum"] > 0, "skipping: filter_sum never launched")
+    require(not any(K.PLAIN_CALLS.values()),
+            f"skipping: plain versions ran on the card's path: {K.PLAIN_CALLS}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log({"phase": "skipping", "card": card, "seconds": out["seconds"],
+         "launches": out["launches"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # order phase
 # ---------------------------------------------------------------------------
 
@@ -1166,6 +1556,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lifecycle = lifecycle_phase(torch, K, e2e, args.rows, smi, args.profile)
     del e2e["want"]
+    torch.cuda.empty_cache()
+    skipping = skipping_phase(torch, K, e2e, args.rows, smi, args.profile)
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     order = order_phase(torch, ORDER_ROWS if args.rows == SF10_ROWS else _pad_pow2(args.rows),
@@ -1178,14 +1570,17 @@ def main() -> int:
     line = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         r = kernels[name]
-        by_query = {q: v["launches"][name] for q, v in e2e["queries"].items()
+        by_query = {q: v["launches"][name]
+                    for q, v in {**e2e["queries"], **skipping["queries"]}.items()
                     if v["launches"][name]}
         by_phase = {"end_to_end": e2e["main_path_launches"][name],
-                    "lifecycle": lifecycle["launches"][name]}
+                    "lifecycle": lifecycle["launches"][name],
+                    "skipping": skipping["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
             "launches_by_query": by_query, "runs_per_query": 1 + WARM_RUNS,
+            "runs_per_skipping_query": 1 + SKIP_WARM_RUNS,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
@@ -1196,7 +1591,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": {"kind": kind, "nvidia_smi": smi}, "build_s": build_s,
                    "kernels": kernels, "end_to_end": e2e, "lifecycle": lifecycle,
-                   "order": order,
+                   "skipping": skipping, "order": order,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
     log({"phase": "done", "card": smi, "total_s": time.perf_counter() - t_start})
     log({"kernels": line})

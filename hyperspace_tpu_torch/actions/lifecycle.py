@@ -21,6 +21,7 @@ from ..exceptions import HyperspaceError
 from ..meta.data_manager import IndexDataManager
 from ..meta.entry import IndexLogEntry, LogEntry
 from ..meta.log_manager import IndexLogManager
+from ..models.dataskipping.sketch_store import derived_base
 
 # the JAX package's snapshot sources record table-version history in these
 # entry properties; after vacuum-outdated only the latest version is valid
@@ -101,11 +102,18 @@ class VacuumOutdatedAction(IndexMutationAction):
             if v not in referenced_dirs:
                 self.data_manager.delete_version(v)
                 continue
+            # a referenced version directory loses its unreferenced files; a
+            # derived file (a sketch sidecar, which no content listing holds)
+            # lives as long as the data file it derives from
             for dirpath, _dirs, names in os.walk(self.data_manager.version_path(v)):
                 for fn in names:
                     full = os.path.join(dirpath, fn)
-                    if full not in referenced_files:
-                        os.unlink(full)
+                    if full in referenced_files:
+                        continue
+                    base = derived_base(fn)
+                    if base is not None and os.path.join(dirpath, base) in referenced_files:
+                        continue
+                    os.unlink(full)
 
     def log_entry(self) -> IndexLogEntry:
         e = self.entry

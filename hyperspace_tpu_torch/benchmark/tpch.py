@@ -18,7 +18,8 @@ point lookup, q6_count's shape), ``lookup_absent`` (the same with a key
 no row holds) and ``range_sum`` (a key range, q6_sum's shape).
 ``tpch_indexes`` builds the reference's index set: q6's forms read the
 z-order index ``li_shipdate_z``, q1's the covering index
-``li_flagstatus`` through AggregateIndexRule.
+``li_flagstatus`` through AggregateIndexRule. ``q6_tax_sum`` (port-only)
+is served by the data-skipping index ``li_shipdate_mm`` alone.
 The join form (``JOIN_QUERIES``) reads two co-bucketed covering indexes,
 ``li_orderkey`` and ``od_orderkey``, through JoinIndexRule: ``q3`` as the
 reference writes it (top 10 orders by revenue), and ``q3_agg``, the same
@@ -196,6 +197,15 @@ def q6_sum(session, root: str):
     )
 
 
+def q6_tax_sum(session, root: str):
+    """Q6's shipdate range, sum(l_tax) and count(1): l_tax is in no
+    covering index, so only li_shipdate_mm can serve it (filter_sum's
+    shape over the raw lineitem scan its pruning keeps)."""
+    return _lineitem(session, root).filter(
+        (col("l_shipdate") >= 8766) & (col("l_shipdate") < 9131)
+    ).agg(Sum(col("l_tax")).alias("sum_tax"), Count(lit(1)).alias("count"))
+
+
 def _q3_grouped(session, root: str):
     li = _lineitem(session, root)
     od = session.read.parquet(os.path.join(root, "orders"))
@@ -365,30 +375,39 @@ OD_ORDERKEY = ("od_orderkey", ["o_orderkey"], ["o_orderdate", "o_custkey"])
 PT_PARTKEY = ("pt_partkey", ["p_partkey"], ["p_brand"])
 # the co-bucketed join indexes the Q3 forms read
 JOIN_INDEXES = {"lineitem": LI_ORDERKEY, "orders": OD_ORDERKEY}
-# (table, z-ordered, index) in the reference's build order
+# the reference's data-skipping index on Q6's range column, as (name,
+# columns of its MinMax sketches)
+LI_SHIPDATE_MM = ("li_shipdate_mm", ["l_shipdate"])
+# (table, index kind, index) in the reference's build order: z-order
+# ("ZCI"), covering ("CI") and data-skipping ("DS") indexes
 TPCH_INDEXES = (
-    ("lineitem", True, LI_SHIPDATE_Z),
-    ("lineitem", False, LI_ORDERKEY),
-    ("lineitem", False, LI_PARTKEY),
-    ("lineitem", False, LI_FLAGSTATUS),
-    ("orders", False, OD_ORDERKEY),
-    ("part", False, PT_PARTKEY),
+    ("lineitem", "ZCI", LI_SHIPDATE_Z),
+    ("lineitem", "CI", LI_ORDERKEY),
+    ("lineitem", "CI", LI_PARTKEY),
+    ("lineitem", "CI", LI_FLAGSTATUS),
+    ("orders", "CI", OD_ORDERKEY),
+    ("part", "CI", PT_PARTKEY),
+    ("lineitem", "DS", LI_SHIPDATE_MM),
 )
 
 
-def build_index(session, hs, root: str, table: str, zordered: bool, spec) -> None:
+def build_index(session, hs, root: str, table: str, kind: str, spec) -> None:
     """Create one index of TPCH_INDEXES over ``table`` of the lake."""
     from ..models.covering import CoveringIndexConfig
+    from ..models.dataskipping import DataSkippingIndexConfig, MinMaxSketch
     from ..models.zorder import ZOrderCoveringIndexConfig
 
-    config = ZOrderCoveringIndexConfig if zordered else CoveringIndexConfig
-    hs.create_index(session.read.parquet(os.path.join(root, table)), config(*spec))
+    if kind == "DS":
+        name, columns = spec
+        config = DataSkippingIndexConfig(name, [MinMaxSketch(c) for c in columns])
+    else:
+        config = (ZOrderCoveringIndexConfig if kind == "ZCI" else CoveringIndexConfig)(*spec)
+    hs.create_index(session.read.parquet(os.path.join(root, table)), config)
 
 
 def tpch_indexes(session, hs, root: str) -> None:
     """The JAX package's tpch_indexes set: z-order on Q6's range column,
-    covering indexes on the join keys and on Q1's group keys. Its
-    li_shipdate_mm, a data-skipping index, is left out: that kind is not
-    ported."""
-    for table, zordered, spec in TPCH_INDEXES:
-        build_index(session, hs, root, table, zordered, spec)
+    covering indexes on the join keys and on Q1's group keys, and min-max
+    data skipping on Q6's range column."""
+    for table, kind, spec in TPCH_INDEXES:
+        build_index(session, hs, root, table, kind, spec)

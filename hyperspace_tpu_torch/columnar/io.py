@@ -176,12 +176,16 @@ class IndexChunkCache:
         return batch
 
 
-def _read_one_table(path: str, cols, row_group_sel=None) -> pa.Table:
+def _read_one_table(path: str, cols, row_group_sel=None, arrow_filter=None) -> pa.Table:
+    """One file. ``arrow_filter`` (a pyarrow.compute expression) skips row
+    groups by their statistics and masks rows; on a row-group selection it
+    masks the selected groups' rows."""
     if row_group_sel is not None:
-        return pq.ParquetFile(path).read_row_groups(list(row_group_sel), columns=cols)
+        table = pq.ParquetFile(path).read_row_groups(list(row_group_sel), columns=cols)
+        return table if arrow_filter is None else table.filter(arrow_filter)
     # partitioning=None: index data lives under v__=<n>/ and pyarrow's hive
     # inference would otherwise graft a v__ column onto the schema
-    return pq.read_table(path, columns=cols, partitioning=None)
+    return pq.read_table(path, columns=cols, filters=arrow_filter, partitioning=None)
 
 
 def _unify_string_encoding(tables: list[pa.Table]) -> list[pa.Table]:
@@ -243,15 +247,18 @@ def read_parquet(
     columns: Sequence[str] | None = None,
     cache: IndexChunkCache | None = None,
     row_groups: dict[str, Sequence[int]] | None = None,
+    arrow_filter=None,
 ) -> ColumnBatch:
     """Read ``paths`` in order into one ColumnBatch. ``row_groups`` maps a
     path to the only row groups to read from it (other paths are read
-    whole). With ``cache`` (index files only), repeats return the cached
-    batch's Column objects; the selection is part of the key, so a pruned
-    read and a full read of the same files never share an entry."""
+    whole); ``arrow_filter`` is the reader's row filter. With ``cache``,
+    repeats return the cached batch's Column objects; the selection and the
+    filter are part of the key, so a pruned or filtered read and a full
+    read of the same files never share an entry."""
     cols = list(columns) if columns else None
     row_groups = row_groups or {}
-    if _MAINTENANCE_DEPTH > 0 and cols and cache is None and len(paths) > 1:
+    if (_MAINTENANCE_DEPTH > 0 and cols and cache is None and len(paths) > 1
+            and arrow_filter is None):
         batch = _read_per_file(paths, cols, row_groups)
         if batch is not None:
             return batch
@@ -261,7 +268,7 @@ def read_parquet(
             return ColumnBatch({})
         with ThreadPoolExecutor(max_workers=min(8, len(paths))) as pool:
             tables = list(pool.map(
-                lambda p: _read_one_table(p, cols, row_groups.get(p)), paths))
+                lambda p: _read_one_table(p, cols, row_groups.get(p), arrow_filter), paths))
         if len(tables) > 1:
             tables = _unify_string_encoding(tables)
         table = pa.concat_tables(tables, promote_options="permissive")
@@ -278,7 +285,8 @@ def read_parquet(
     )
     selection = tuple((p, tuple(row_groups[p])) for p in paths if p in row_groups)
     stored = cache.get_or_put(
-        (stats, tuple(cols) if cols else None, selection or None), decode
+        (stats, tuple(cols) if cols else None, selection or None,
+         None if arrow_filter is None else repr(arrow_filter)), decode
     )
     # shallow copy: callers may rebind columns; Column objects are shared
     return ColumnBatch(stored.columns)

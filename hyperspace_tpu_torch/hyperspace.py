@@ -39,9 +39,10 @@ def _row(entry: IndexLogEntry, extended: bool) -> dict:
     row = {
         "name": entry.name,
         "indexedColumns": ",".join(dd.indexed_columns()),
-        "includedColumns": ",".join(dd.included_columns()),
+        # a data-skipping index has no included columns and no schema
+        "includedColumns": ",".join(getattr(dd, "included_columns", lambda: [])()),
         "numBuckets": getattr(dd, "num_buckets", 0),
-        "schema": json.dumps(dd._schema),
+        "schema": json.dumps(getattr(dd, "_schema", [])),
         "indexLocation": os.path.commonpath(files) if files else "",
         "state": entry.state,
         "kind": dd.kind,

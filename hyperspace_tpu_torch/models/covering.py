@@ -172,10 +172,12 @@ class CoveringIndex(Index):
             b, files = item
             batch = cio.read_parquet([f.name for f in files])
             part = batch.take(sort_indices_within(batch, self._indexed))
-            cio.write_index_file(
-                part, os.path.join(ctx.index_data_path, bucket_file_name(0, b)),
-                row_group_size=INDEX_ROW_GROUP_SIZE, **write_opts,
-            )
+            out_path = os.path.join(ctx.index_data_path, bucket_file_name(0, b))
+            cio.write_index_file(part, out_path, row_group_size=INDEX_ROW_GROUP_SIZE,
+                                 **write_opts)
+            # the compacted file has new row groups: its sidecar is built
+            # anew over the merged batch
+            _write_sketch_sidecar(part, out_path, INDEX_ROW_GROUP_SIZE, self._indexed)
 
         with ThreadPoolExecutor(max_workers=max(1, min(len(by_bucket), 8))) as pool:
             list(pool.map(compact, by_bucket.items()))
@@ -311,16 +313,26 @@ def write_bucketed(
             order = np.lexsort([k[rows] for k in keys])
         part = batch.take(rows[order])
         fname = bucket_file_name(version, bucket)
-        cio.write_index_file(
-            part, os.path.join(path, fname),
-            row_group_size=index_row_group_size(part.num_rows), **write_opts,
-        )
+        rgs = index_row_group_size(part.num_rows)
+        cio.write_index_file(part, os.path.join(path, fname), row_group_size=rgs,
+                             **write_opts)
+        _write_sketch_sidecar(part, os.path.join(path, fname), rgs, bucket_columns)
         return fname
 
     work = partition_batch(batch, bucket_columns, num_buckets)
     # pyarrow's encoder releases the GIL: buckets write concurrently
     with ThreadPoolExecutor(max_workers=max(1, min(len(work), os.cpu_count() or 1))) as pool:
         return list(pool.map(write_bucket, work))
+
+
+def _write_sketch_sidecar(batch: ColumnBatch, data_path: str, row_group_size: int,
+                          key_columns: Sequence[str]) -> None:
+    """The per-row-group sketch sidecar of a just-written index data file
+    (models/dataskipping/sketch_store.py); nothing with sketches off, the
+    default."""
+    from .dataskipping import sketch_store
+
+    sketch_store.maybe_write_sidecar(batch, data_path, row_group_size, key_columns)
 
 
 def _single_file_scan(df: "DataFrame") -> FileScan:

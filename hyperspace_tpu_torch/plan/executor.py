@@ -110,8 +110,10 @@ def _empty_scan_batch(scan: FileScan, want: list[str]) -> ColumnBatch:
 
 def resolve_scan_pruning(scan: FileScan):
     """(row groups by path, kept files) of the scan's row-group pruning;
-    (None, scan.files) when its prune spec has no row-group conjuncts."""
-    if scan.prune_spec is None or not scan.prune_spec.rowgroup_conjuncts:
+    (None, scan.files) when its prune spec has no row-group or sketch
+    conjuncts."""
+    spec = scan.prune_spec
+    if spec is None or not (spec.rowgroup_conjuncts or spec.sketch_conjuncts):
         return None, list(scan.files)
     from .pruning import rowgroup_selection
 
@@ -132,12 +134,16 @@ def _maybe_verify_pruning(scan: FileScan, out: ColumnBatch, session) -> ColumnBa
 
 def _exec_file_scan(scan: FileScan, session=None) -> ColumnBatch:
     """Read the scan's columns: only the files and row groups its pruning
-    keeps. Index files go through the session's chunk cache (stable buffers
-    for the device-resident column cache); raw source scans never cache.
-    The pushed filter is not applied here: the Filter above the scan does
-    that, and an unfiltered read keeps the cached buffers stable. A
-    lineage filter drops the rows of deleted source files, which makes new
-    buffers on every read, as in the reference."""
+    keeps. Index files, and source files a data-skipping index pruned, go
+    through the session's chunk cache (stable buffers for the device-
+    resident column cache); other source scans never cache. A read of
+    source files applies the pushed filter as the parquet reader's filter
+    (passes.to_arrow_filter), which skips row groups by their statistics;
+    the Filter above the scan still applies the whole condition. A covering
+    index's read stays unfiltered, so its cached buffers are the same for
+    every predicate (its PruneSpec prunes it). A lineage filter drops the
+    rows of deleted source files, which makes new buffers on every read,
+    as in the reference."""
     want = list(scan.required_columns or scan.full_schema.names)
     if scan.fmt != "parquet":
         raise HyperspaceError(f"Unsupported format: {scan.fmt}")
@@ -149,11 +155,18 @@ def _exec_file_scan(scan: FileScan, session=None) -> ColumnBatch:
         if session is not None and scan.index_info is not None
         else None
     )
+    arrow_filter = None
+    if scan.pushed_filter is not None and (
+            scan.index_info is None or scan.index_info.index_kind_abbr == "DS"):
+        from .passes import to_arrow_filter
+
+        arrow_filter = to_arrow_filter(scan.pushed_filter, scan.full_schema)
     read_cols = list(want)
     lineage = scan.lineage_filter_ids is not None
     if lineage and C.DATA_FILE_NAME_ID not in read_cols:
         read_cols.append(C.DATA_FILE_NAME_ID)
-    out = cio.read_parquet([f.name for f in files], read_cols, cache, row_groups)
+    out = cio.read_parquet([f.name for f in files], read_cols, cache, row_groups,
+                           arrow_filter)
     if lineage:
         ids = np.asarray(scan.lineage_filter_ids, dtype=np.int64)
         out = out.filter(~np.isin(out.column(C.DATA_FILE_NAME_ID).data, ids)).select(want)

@@ -446,3 +446,26 @@ def split_conjunction(e: Expr) -> list[Expr]:
     if isinstance(e, And):
         return split_conjunction(e.left) + split_conjunction(e.right)
     return [e]
+
+
+_NEGATED = {Eq: Ne, Ne: Eq, Lt: Ge, Le: Gt, Gt: Le, Ge: Lt}
+
+
+def to_nnf(e: Expr) -> Expr:
+    """Negation normal form: NOT pushed down to the leaves (the
+    data-skipping translation walks it)."""
+    if isinstance(e, Not):
+        c = e.child
+        if isinstance(c, Not):
+            return to_nnf(c.child)
+        if isinstance(c, And):
+            return Or(to_nnf(Not(c.left)), to_nnf(Not(c.right)))
+        if isinstance(c, Or):
+            return And(to_nnf(Not(c.left)), to_nnf(Not(c.right)))
+        negated = _NEGATED.get(type(c))
+        return e if negated is None else negated(c.left, c.right)
+    if isinstance(e, And):
+        return And(to_nnf(e.left), to_nnf(e.right))
+    if isinstance(e, Or):
+        return Or(to_nnf(e.left), to_nnf(e.right))
+    return e

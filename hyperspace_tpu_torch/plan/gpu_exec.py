@@ -23,12 +23,19 @@ XLA fused in the reference). Integer sums keep the exact 8-bit chunked
 accumulation (ops/intsum.py); float segment sums use a deterministic
 formulation, so two runs give identical bits on the card too.
 
+The filter predicate may also compare a string column with string
+literals (Eq, Ne, IN): for each batch it is rewritten to compare the
+column's dictionary codes, which ship as int32, with the literals' codes
+(``_encode_string_predicates``). And it may compare a full-range int64
+column with integer literals: such a column ships as two 32-bit words
+(``Wide64``), compared lexicographically on the card.
+
 Unlike the reference, nothing here catches a device failure: a kernel that
 fails to build or launch raises, and the query fails. A fragment declines
 only by shape or data (string aggregates, nullable columns, out-of-range
-literals). Not ported in this slice, and so declining to the host:
-streaming execution, the mesh, full-range int64 (Wide64) predicates and
-string-predicate encoding.
+literals, a full-range int64 column that feeds an aggregate). Not ported
+in this slice, and so declining to the host: streaming execution and the
+mesh.
 
 ORDER BY runs here too: ``try_device_topk`` (Limit over Sort, one exact
 32-bit key) and ``try_device_sort`` (any number of keys encoded into
@@ -93,6 +100,70 @@ _ARITH = {X.Add: operator.add, X.Sub: operator.sub, X.Mul: operator.mul,
           X.Div: operator.truediv}
 
 
+_SIGN_BIT = 0x80000000
+_U32 = 0xFFFFFFFF
+
+
+def _wide_words(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(high word, low word with its sign bit flipped), both int32, of
+    int64 values: the flip turns the low word's unsigned order into int32
+    order, which the card compares natively (torch's uint32 compares are
+    poorly supported on CUDA)."""
+    bits = values.astype(np.int64).view(np.uint64)
+    hi = (bits >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = ((bits & np.uint64(_U32)).astype(np.uint32) ^ np.uint32(_SIGN_BIT)).view(np.int32)
+    return hi, lo
+
+
+class Wide64:
+    """A full-range int64 column on the 32-bit device: the signed high word
+    and the sign-flipped low word. Only comparisons with integer literals
+    are defined over it (a two-word lexicographic compare)."""
+
+    def __init__(self, hi: torch.Tensor, lo: torch.Tensor):
+        self.hi = hi
+        self.lo = lo
+
+    def compare(self, kind, value: int) -> torch.Tensor:
+        hi_w, lo_w = (int(w[0]) for w in _wide_words(np.array([value], dtype=np.int64)))
+        hi_eq = self.hi == hi_w
+        if kind is X.Eq:
+            return hi_eq & (self.lo == lo_w)
+        if kind is X.Ne:
+            return ~(hi_eq & (self.lo == lo_w))
+        if kind is X.Lt:
+            return (self.hi < hi_w) | (hi_eq & (self.lo < lo_w))
+        if kind is X.Le:
+            return (self.hi < hi_w) | (hi_eq & (self.lo <= lo_w))
+        if kind is X.Gt:
+            return (self.hi > hi_w) | (hi_eq & (self.lo > lo_w))
+        if kind is X.Ge:
+            return (self.hi > hi_w) | (hi_eq & (self.lo >= lo_w))
+        raise HyperspaceError(f"Wide64 comparison unsupported: {kind}")
+
+
+_FLIPPED = {X.Lt: X.Gt, X.Le: X.Ge, X.Gt: X.Lt, X.Ge: X.Le, X.Eq: X.Eq, X.Ne: X.Ne}
+
+
+def _is_int_lit(e: Expr) -> bool:
+    return (isinstance(e, X.Lit) and isinstance(e.value, (int, np.integer))
+            and not isinstance(e.value, bool))
+
+
+def _wide_compare(e: Expr, cols: dict):
+    """The two-word compare when one side is a Wide64 column and the other
+    an integer literal; None when the pattern does not apply."""
+    for a, b, kind in ((e.left, e.right, type(e)), (e.right, e.left, _FLIPPED[type(e)])):
+        if isinstance(a, X.Col) and isinstance(cols.get(a.name), Wide64) and _is_int_lit(b):
+            return cols[a.name].compare(kind, int(b.value))
+    return None
+
+
+def _wrap_wide(cols: dict) -> dict:
+    """Uploaded (hi, lo) word pairs as Wide64 columns."""
+    return {k: Wide64(*v) if isinstance(v, tuple) else v for k, v in cols.items()}
+
+
 def compile_expr(e: Expr, cols: dict):
     """Evaluate an expression over device column tensors. Literals stay
     Python scalars, so they take the column's dtype (a f32 column compares
@@ -100,9 +171,17 @@ def compile_expr(e: Expr, cols: dict):
     if isinstance(e, Alias):
         return compile_expr(e.child, cols)
     if isinstance(e, X.Col):
-        return cols[e.name]
+        v = cols[e.name]
+        if isinstance(v, Wide64):
+            raise HyperspaceError(
+                f"Wide int64 column {e.name} only supports literal comparisons")
+        return v
     if isinstance(e, X.Lit):
         return e.value
+    if type(e) in _CMP:
+        wide = _wide_compare(e, cols)
+        if wide is not None:
+            return wide
     op = _CMP.get(type(e)) or _ARITH.get(type(e))
     if op is not None:
         return op(compile_expr(e.left, cols), compile_expr(e.right, cols))
@@ -111,7 +190,8 @@ def compile_expr(e: Expr, cols: dict):
     if isinstance(e, X.Or):
         return compile_expr(e.left, cols) | compile_expr(e.right, cols)
     if isinstance(e, X.Not):
-        return ~compile_expr(e.child, cols)
+        v = compile_expr(e.child, cols)
+        return (not v) if isinstance(v, bool) else ~v  # ~True is -2 in Python
     if isinstance(e, X.In):
         c = compile_expr(e.child, cols)
         out = torch.zeros(c.shape, dtype=torch.bool, device=c.device)
@@ -139,23 +219,78 @@ def _is_int(t: torch.Tensor) -> bool:
     return not t.dtype.is_floating_point and t.dtype != torch.bool
 
 
-def _check_expr(e: Expr) -> None:
+def _string_eq_pattern(e: Expr):
+    """(column, literal, is_eq) when ``e`` is Eq or Ne of a column and a
+    string literal, in either order; None otherwise."""
+    if isinstance(e, (X.Eq, X.Ne)):
+        for a, b in ((e.left, e.right), (e.right, e.left)):
+            if isinstance(a, X.Col) and isinstance(b, X.Lit) and isinstance(b.value, str):
+                return a.name, b.value, isinstance(e, X.Eq)
+    return None
+
+
+def _is_string_in(e: Expr, string_ok: frozenset) -> bool:
+    return (isinstance(e, X.In) and isinstance(e.child, X.Col) and e.child.name in string_ok
+            and all(isinstance(v, str) for v in e.values))
+
+
+def _check_expr(e: Expr, string_ok: frozenset = frozenset()) -> None:
+    """Raises unless ``e`` can run on the device. A comparison of a column
+    of ``string_ok`` with string literals can: it is rewritten to
+    dictionary codes at execution."""
     if isinstance(e, (X.IsNull, X.IsNotNull)):
         raise HyperspaceError("null tests need host path")
+    pat = _string_eq_pattern(e)
+    if (pat is not None and pat[0] in string_ok) or _is_string_in(e, string_ok):
+        return
     if isinstance(e, X.Lit) and isinstance(e.value, str):
         raise HyperspaceError("string literal needs host path")
     if isinstance(e, X.In) and any(isinstance(v, str) for v in e.values):
         raise HyperspaceError("string IN list needs host path")
     for c in e.children():
-        _check_expr(c)
+        _check_expr(c, string_ok)
 
 
-def _expr_device_ok(e: Expr) -> bool:
+def _expr_device_ok(e: Expr, string_ok: frozenset = frozenset()) -> bool:
     try:
-        _check_expr(e)
+        _check_expr(e, string_ok)
         return True
     except HyperspaceError:
         return False
+
+
+def _encode_string_predicates(e: Expr, batch: ColumnBatch, scols: set[str]):
+    """``e`` with its comparisons of string columns against string
+    literals rewritten to compare the batch's dictionary codes (int32,
+    shipped to the card; the strings never are). A value absent from the
+    dictionary folds to a boolean literal: False for Eq and IN, True for
+    Ne (the columns hold no NULLs). None when a string column is
+    referenced anywhere else. Codes are the batch's own, so the rewrite
+    holds for this batch only."""
+    pat = _string_eq_pattern(e)
+    if pat is not None and pat[0] in scols:
+        name, value, is_eq = pat
+        code = {s: i for i, s in enumerate(batch.column(name).dictionary or [])}.get(value)
+        if code is None:
+            return X.Lit(not is_eq)
+        return (X.Eq if is_eq else X.Ne)(X.Col(name), X.Lit(int(code)))
+    if _is_string_in(e, frozenset(scols)):
+        lut = {s: i for i, s in enumerate(batch.column(e.child.name).dictionary or [])}
+        codes = [int(lut[v]) for v in e.values if v in lut]
+        return X.In(X.Col(e.child.name), codes) if codes else X.Lit(False)
+    if isinstance(e, X.Col) and e.name in scols:
+        return None  # a bare string reference cannot ship
+    if isinstance(e, (X.And, X.Or, *_CMP, *_ARITH)):
+        left = _encode_string_predicates(e.left, batch, scols)
+        right = _encode_string_predicates(e.right, batch, scols)
+        return None if left is None or right is None else type(e)(left, right)
+    if isinstance(e, X.Not):
+        child = _encode_string_predicates(e.child, batch, scols)
+        return None if child is None else X.Not(child)
+    if isinstance(e, X.In):
+        child = _encode_string_predicates(e.child, batch, scols)
+        return None if child is None else X.In(child, e.values)
+    return e
 
 
 def _int_lit_fits(v) -> bool:
@@ -164,14 +299,19 @@ def _int_lit_fits(v) -> bool:
     return True
 
 
-def _literals_fit(e: Expr) -> bool:
+def _literals_fit(e: Expr, wide_ok: frozenset = frozenset()) -> bool:
     """False when an integer literal outside the 32-bit device range
-    appears: compared against a narrowed column it would overflow."""
+    appears, other than in a comparison with a Wide64 column of
+    ``wide_ok``: compared against a narrowed column it would overflow."""
+    if type(e) in _CMP:
+        for a, b in ((e.left, e.right), (e.right, e.left)):
+            if isinstance(a, X.Col) and a.name in wide_ok and isinstance(b, X.Lit):
+                return True  # the two-word compare takes any int64 literal
     if isinstance(e, X.Lit):
         return _int_lit_fits(e.value)
     if isinstance(e, X.In) and not all(_int_lit_fits(v) for v in e.values):
         return False
-    return all(_literals_fit(c) for c in e.children())
+    return all(_literals_fit(c, wide_ok) for c in e.children())
 
 
 # ---------------------------------------------------------------------------
@@ -261,21 +401,65 @@ def _fragment_supported(f: _Fragment) -> bool:
             if f.project is not None and not _project_identity(f.project, k):
                 return False
     exprs = _device_exprs(f)
-    if not all(_expr_device_ok(e) for e in exprs):
+    string_cols = frozenset(fld.name for fld in f.scan.schema if fld.dtype == STRING)
+    pred = f.filter.condition if f.filter is not None else None
+    # the filter predicate may compare string columns with string literals
+    # (shipped as dictionary codes); aggregates and projections may not
+    # touch strings at all
+    if not all(_expr_device_ok(e, string_cols if e is pred else frozenset()) for e in exprs):
         return False
-    # string columns may serve as group keys (factorized on the host) but
-    # never feed a device expression
-    device_refs = _device_refs(f)
-    return not any(
-        fld.dtype == STRING and fld.name in device_refs for fld in f.scan.schema
-    )
+    # string columns may serve as group keys (factorized on the host) or in
+    # the predicate's rewritable comparisons, but feed no other expression
+    other_refs: set[str] = set()
+    for e in exprs:
+        if e is not pred:
+            other_refs |= e.references()
+    return not (string_cols & other_refs)
 
 
-def _fragment_literals_fit(frag: _Fragment) -> bool:
+def _wide_pattern_ok(e: Expr, name: str) -> bool:
+    """Every reference to ``name`` in ``e`` is a direct comparison with an
+    integer literal (the only operation Wide64 defines)."""
+    if isinstance(e, X.Col):
+        return e.name != name
+    if type(e) in _CMP:
+        for a, b in ((e.left, e.right), (e.right, e.left)):
+            if isinstance(a, X.Col) and a.name == name:
+                return _is_int_lit(b)
+    return all(_wide_pattern_ok(c, name) for c in e.children())
+
+
+def _wide_candidates(frag: _Fragment, int64_cols) -> frozenset:
+    """Of ``int64_cols``, those that may ship as Wide64: referenced by the
+    filter predicate only, and there only in comparisons with integer
+    literals."""
+    pred = frag.pred
+    if pred is None:
+        return frozenset()
+    cand = set(int64_cols) & pred.references()
+    cond = frag.filter.condition
+    for e in _device_exprs(frag):
+        if e is not cond:
+            cand -= e.references()
+    return frozenset(c for c in cand if _wide_pattern_ok(pred, c))
+
+
+def _wide_predicate_cols(frag: _Fragment, batch: ColumnBatch) -> frozenset:
+    """The non-null int64 columns of ``batch`` outside the 32-bit range that
+    ship as Wide64 word pairs (a full-range column that feeds an aggregate
+    or a projection is not one: its fragment declines)."""
+    wide = [name for name in (frag.pred.references() if frag.pred is not None else ())
+            if name in batch.columns and batch.column(name).validity is None
+            and not _int64_fits(batch.column(name).data)]
+    return _wide_candidates(frag, wide)
+
+
+def _fragment_literals_fit(frag: _Fragment, wide_ok: frozenset = frozenset()) -> bool:
+    """The literal range screen over everything the body evaluates; only
+    the filter predicate may lean on Wide64 comparisons."""
     exprs = list(_device_projections(frag)) + list(frag.agg.agg_exprs)
-    if frag.pred is not None:
-        exprs.append(frag.pred)
-    return all(_literals_fit(e) for e in exprs)
+    return (all(_literals_fit(e) for e in exprs)
+            and (frag.pred is None or _literals_fit(frag.pred, wide_ok)))
 
 
 def _agg_list_names(frag: _Fragment):
@@ -374,14 +558,31 @@ def pad_to_device(data: np.ndarray, padded: int, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _upload_columns(batch: ColumnBatch, names, padded: int, session, device):
+def _upload_wide(data: np.ndarray, padded: int, device) -> tuple:
+    """Zero-padded device copies of an int64 column's Wide64 word pairs."""
+    hi, lo = _wide_words(data)
+    return pad_to_device(hi, padded, device), pad_to_device(lo, padded, device)
+
+
+def _upload_columns(batch: ColumnBatch, names, padded: int, session, device,
+                    wide_ok: frozenset = frozenset()):
     """Padded device columns by name, served from the session's device
-    cache; None when a column is nullable or exceeds the 32-bit range."""
+    cache; None when a column is nullable or exceeds the 32-bit range. A
+    column of ``wide_ok`` that exceeds it ships as a (hi, lo) word pair,
+    cached apart from a narrowed upload of the same buffer."""
     dev_cols = {}
     for name in sorted(names):
         col = batch.column(name)
-        if col.validity is not None or not _int64_fits(col.data):
+        if col.validity is not None:
             return None
+        if not _int64_fits(col.data):
+            if name not in wide_ok:
+                return None
+            dev_cols[name] = session.device_cache.get_or_put(
+                (col.data,), ("wide", padded, str(device)),
+                lambda data=col.data: _upload_wide(data, padded, device),
+            )
+            continue
         dev_cols[name] = session.device_cache.get_or_put(
             (col.data,), ("pad", padded, str(device)),
             lambda data=col.data: pad_to_device(data, padded, device),
@@ -520,11 +721,11 @@ def _assemble_global_output(plan, matched, scalar_values, agg_list_spec, names):
     return ColumnBatch(out_cols)
 
 
-def _execute_global(frag, batch, plan, session, device) -> Optional[ColumnBatch]:
+def _execute_global(frag, batch, plan, session, device, wide_ok) -> Optional[ColumnBatch]:
     n = batch.num_rows
     padded = _pad_pow2(n)
     dev_cols = _upload_columns(
-        batch, _device_refs(frag) & set(batch.columns), padded, session, device
+        batch, _device_refs(frag) & set(batch.columns), padded, session, device, wide_ok
     )
     if dev_cols is None:
         return _decline(session, "nullable_or_out_of_range")
@@ -540,7 +741,7 @@ def _execute_global(frag, batch, plan, session, device) -> Optional[ColumnBatch]
     kernel = session.kernel_cache.get_or_build(
         key, lambda: _build_kernel(pred_expr, proj_exprs, agg_list)
     )
-    matched, results = _fetch(kernel(dev_cols, mask))
+    matched, results = _fetch(kernel(_wrap_wide(dev_cols), mask))
     matched = int(matched)
     scalar_values = []
     for v, (kind, _c) in zip(results, agg_list):
@@ -702,7 +903,7 @@ def _assemble_grouped_output(plan, frag, key_cols, first_idx, counts, results,
     return ColumnBatch(out_cols)
 
 
-def _execute_grouped(frag, batch, plan, session, device) -> Optional[ColumnBatch]:
+def _execute_grouped(frag, batch, plan, session, device, wide_ok) -> Optional[ColumnBatch]:
     """Keys factorize on the host (string keys never ship); the masked
     segment reductions run on the device. The factorization and the device
     group ids are cached on the key buffers' identity, so a warm query
@@ -722,7 +923,7 @@ def _execute_grouped(frag, batch, plan, session, device) -> Optional[ColumnBatch
     seg_pad = 1 << max(4, int(np.ceil(np.log2(num_groups + 1))))
     padded = _pad_pow2(n)
     dev_cols = _upload_columns(
-        batch, _device_refs(frag) & set(batch.columns), padded, session, device
+        batch, _device_refs(frag) & set(batch.columns), padded, session, device, wide_ok
     )
     if dev_cols is None:
         return _decline(session, "nullable_or_out_of_range")
@@ -749,7 +950,7 @@ def _execute_grouped(frag, batch, plan, session, device) -> Optional[ColumnBatch
     kernel = session.kernel_cache.get_or_build(
         key, lambda: _build_grouped_kernel(pred_expr, proj_exprs, agg_list, seg_pad)
     )
-    counts_full, first_masked, results = _fetch(kernel(dev_cols, gids_d, mask))
+    counts_full, first_masked, results = _fetch(kernel(_wrap_wide(dev_cols), gids_d, mask))
     results = [
         _combine_chunks_maybe_avg(v, kind, counts_full)
         for v, (kind, _c) in zip(results, agg_list)
@@ -799,17 +1000,30 @@ def try_execute_gpu(plan: LogicalPlan, session) -> Optional[ColumnBatch]:
         est = _parquet_row_count(frag.scan)
         if est is not None and _pad_pow2(est) > _INT_SUM_ROW_CAP:
             return _decline(session, "int_sum_row_cap")
-    if not _fragment_literals_fit(frag):
+    int64_cols = [fld.name for fld in frag.scan.schema if fld.dtype == "int64"]
+    if not _fragment_literals_fit(frag, _wide_candidates(frag, int64_cols)):
         return _decline(session, "literal_out_of_range")
-    batch = _exec_file_scan(frag.scan, session)
+    # the fragment applies the whole predicate: the scan reads without its
+    # pushed filter, so a repeat gets the same cached buffers
+    batch = _exec_file_scan(frag.scan.copy(pushed_filter=None), session)
     if batch.num_rows == 0:
         return _decline(session, "empty")
     if _has_int_sum(frag, plan) and _pad_pow2(batch.num_rows) > _INT_SUM_ROW_CAP:
         return _decline(session, "int_sum_row_cap")
+    if frag.pred is not None:
+        scols = {fld.name for fld in frag.scan.schema if fld.dtype == STRING}
+        if scols & frag.pred.references():
+            # this batch's dictionary codes; never cached across batches
+            frag.pred = _encode_string_predicates(frag.pred, batch, scols)
+            if frag.pred is None:
+                return _decline(session, "string_predicate")
+    wide_ok = _wide_predicate_cols(frag, batch)
+    if not _fragment_literals_fit(frag, wide_ok):
+        return _decline(session, "literal_out_of_range")
     if frag.agg.group_exprs:
-        out = _execute_grouped(frag, batch, plan, session, device)
+        out = _execute_grouped(frag, batch, plan, session, device, wide_ok)
     else:
-        out = _execute_global(frag, batch, plan, session, device)
+        out = _execute_global(frag, batch, plan, session, device, wide_ok)
     if out is not None:
         session.device_stats.device_fragments += 1
     return out
@@ -821,7 +1035,6 @@ def try_execute_gpu(plan: LogicalPlan, session) -> Optional[ColumnBatch]:
 
 _TOPK_MIN_ROWS = 4096  # the host argpartition is cheaper below this
 _SORT_MIN_ROWS = 4096  # the host lexsort is cheaper below this
-_U32 = 0xFFFFFFFF
 
 
 def _order_decline(session, reason: str) -> None:

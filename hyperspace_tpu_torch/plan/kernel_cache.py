@@ -17,8 +17,11 @@ from typing import Callable
 
 
 def dtype_signature(dev_cols: dict) -> tuple:
-    """Canonical (name, dtype) signature of an upload dict, order-free."""
-    return tuple(sorted((n, str(a.dtype)) for n, a in dev_cols.items()))
+    """Canonical (name, dtype) signature of an upload dict, order-free; a
+    Wide64 word pair (a tuple of two tensors) is "wide64", so its kernel
+    never serves a narrowed upload of the column."""
+    return tuple(sorted((n, "wide64" if isinstance(a, tuple) else str(a.dtype))
+                        for n, a in dev_cols.items()))
 
 
 class KernelCache:

@@ -1,7 +1,7 @@
 """Column pruning, filter pushdown through joins and predicate pushdown
-into scans (counterpart of hyperspace_tpu/plan/passes.py; the pushed
-filter feeds index pruning only, it is not turned into a parquet reader
-filter).
+into scans (counterpart of hyperspace_tpu/plan/passes.py). The pushed
+filter drives index pruning, and ``to_arrow_filter`` turns it into the
+parquet reader's filter for the host's reads of source files.
 
 Pruning runs before the Hyperspace rewrite, so the rules see each scan's
 real column needs (a Filter -> Scan with no projection otherwise "requires"
@@ -14,8 +14,12 @@ Filter, not a Join, and no join path fires.
 
 from __future__ import annotations
 
+import datetime
+
+from . import expr as X
 from .expr import And, Expr, split_conjunction
 from .nodes import Aggregate, FileScan, Filter, Join, LogicalPlan, Project, RepartitionByExpr, Sort
+from ..columnar.table import DATE32, Schema
 
 
 def prune_columns(plan: LogicalPlan) -> LogicalPlan:
@@ -121,3 +125,60 @@ def push_filters_through_joins(plan: LogicalPlan) -> LogicalPlan:
         return Filter(conjoin(keep), new_join) if keep else new_join
 
     return plan.transform_up(visit)
+
+
+_ARROW_CMP = {
+    X.Eq: lambda f, v: f == v,
+    X.Ne: lambda f, v: f != v,
+    X.Lt: lambda f, v: f < v,
+    X.Le: lambda f, v: f <= v,
+    X.Gt: lambda f, v: f > v,
+    X.Ge: lambda f, v: f >= v,
+}
+_ARROW_FLIP = {X.Lt: X.Gt, X.Le: X.Ge, X.Gt: X.Lt, X.Ge: X.Le, X.Eq: X.Eq, X.Ne: X.Ne}
+
+
+def to_arrow_filter(cond: Expr, schema: Schema):
+    """The conjuncts of ``cond`` that translate, as one pyarrow.compute
+    expression (the rest are dropped: the plan's Filter applies the whole
+    condition again); None when none translates."""
+    parts = [p for c in split_conjunction(cond) if (p := _leaf_to_arrow(c, schema)) is not None]
+    if not parts:
+        return None
+    out = parts[0]
+    for p in parts[1:]:
+        out = out & p
+    return out
+
+
+def _literal_for(col_name: str, value, schema: Schema):
+    """A date column's int literal (days since the epoch) as a date32
+    scalar; any other literal as it is."""
+    import pyarrow as pa
+
+    if schema.field(col_name).dtype == DATE32 and isinstance(value, int):
+        return pa.scalar(datetime.date(1970, 1, 1) + datetime.timedelta(days=value),
+                         pa.date32())
+    return value
+
+
+def _leaf_to_arrow(e: Expr, schema: Schema):
+    import pyarrow.compute as pc
+
+    if type(e) in _ARROW_CMP:
+        for a, b, kind in ((e.left, e.right, type(e)), (e.right, e.left, _ARROW_FLIP[type(e)])):
+            if isinstance(a, X.Col) and isinstance(b, X.Lit):
+                if a.name not in schema:
+                    return None
+                return _ARROW_CMP[kind](pc.field(a.name), _literal_for(a.name, b.value, schema))
+        return None
+    if isinstance(e, X.In) and isinstance(e.child, X.Col) and e.child.name in schema:
+        return pc.field(e.child.name).isin(
+            [_literal_for(e.child.name, v, schema) for v in e.values])
+    if isinstance(e, X.Or):
+        # an Or is sound only when both sides translate
+        left, right = _leaf_to_arrow(e.left, schema), _leaf_to_arrow(e.right, schema)
+        return left | right if left is not None and right is not None else None
+    if isinstance(e, X.IsNotNull) and isinstance(e.child, X.Col) and e.child.name in schema:
+        return ~pc.field(e.child.name).is_null()
+    return None

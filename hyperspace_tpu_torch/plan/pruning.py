@@ -1,6 +1,6 @@
 """Predicate-driven pruning of covering-index scans (counterpart of
-hyperspace_tpu/plan/pruning.py, without the sidecar sketch stage, which is
-off by default there, and without its telemetry and estimator feedback).
+hyperspace_tpu/plan/pruning.py, without its telemetry and with estimator
+feedback off, its default).
 
 A covering index's layout is a promise: rows are hash-bucketed by the
 indexed columns (models/covering.write_bucketed), sorted by them within
@@ -16,7 +16,12 @@ columns. Pruning cashes it in, in two stages:
   sort columns are evaluated by the min-max sketch converters over each
   file's row-group statistics (footer-only reads, cached in columnar/io).
   A sorted bucket then reads only the runs that can match, and a file
-  whose every group is skipped is not read at all.
+  whose every group is skipped is not read at all;
+- the sketch stage, at execution, with ``HYPERSPACE_SKETCHES`` on: Eq, IN
+  and range conjuncts on the other columns are evaluated by each data
+  file's sidecar sketches (bloom, value list, z-region box;
+  models/dataskipping/sketch_store.py), and the two stages' votes
+  intersect.
 
 Soundness: pruning may only drop rows that cannot satisfy the conjuncts
 it used; the plan's own Filter still applies the whole condition, so
@@ -65,15 +70,23 @@ class PruneSpec:
     num_buckets: int
     key_columns: tuple[str, ...]  # bucket-hash columns (the indexed columns)
     sort_columns: tuple[str, ...]  # within-bucket sort order
+    # the (kind, columns) sketches the layout's sidecars may carry under the
+    # current setting (sketch_store.declared_capability); () with sketches off
+    sketch_capability: tuple = ()
     # --- filled by apply_pruning ---
     bucket_keep: Optional[frozenset] = None  # kept bucket ids (None: all)
     rowgroup_conjuncts: tuple = ()  # conjuncts bounded by row-group stats
+    sketch_conjuncts: tuple = ()  # conjuncts on other columns, for the sidecars
     pred: Optional[Expr] = None  # conjunction of every conjunct pruning used
     verify_files: tuple = ()  # the file list before pruning (verify mode)
+    # the NDV model's predicted kept fraction of row groups of the sketch
+    # stage (-1: no prediction)
+    sketch_fraction: float = -1.0
 
     @property
     def active(self) -> bool:
-        return self.bucket_keep is not None or bool(self.rowgroup_conjuncts)
+        return (self.bucket_keep is not None or bool(self.rowgroup_conjuncts)
+                or bool(self.sketch_conjuncts))
 
     def describe(self) -> str:
         parts = []
@@ -81,17 +94,23 @@ class PruneSpec:
             parts.append(f"buckets={len(self.bucket_keep)}/{self.num_buckets}")
         if self.rowgroup_conjuncts:
             parts.append(f"rowgroup_conjuncts={len(self.rowgroup_conjuncts)}")
+        if self.sketch_conjuncts:
+            parts.append(f"sketch_conjuncts={len(self.sketch_conjuncts)}")
         return ",".join(parts)
 
 
 def prune_spec_for(entry) -> Optional[PruneSpec]:
     """The layout contract of a covering index's entry: bucket-hashed and
-    sorted by its indexed columns. None for an index without buckets."""
+    sorted by its indexed columns, with the sketch capability the current
+    setting declares. None for an index without buckets."""
+    from ..models.dataskipping import sketch_store
+
     dd = entry.derived_dataset
     if not getattr(dd, "num_buckets", None):
         return None
     cols = tuple(dd.indexed_columns())
-    return PruneSpec(entry.name, dd.num_buckets, cols, cols)
+    return PruneSpec(entry.name, dd.num_buckets, cols, cols,
+                     sketch_capability=sketch_store.declared_capability(dd.schema(), cols))
 
 
 def is_verify(scan: FileScan) -> bool:
@@ -227,6 +246,24 @@ def _rowgroup_conjuncts(conjuncts: Sequence[Expr], spec: PruneSpec) -> tuple[Exp
     return tuple(out)
 
 
+def _sketch_conjuncts(conjuncts: Sequence[Expr], spec: PruneSpec) -> tuple[Expr, ...]:
+    """Conjuncts on columns other than the sort columns that a declared
+    sketch can bound (Eq and IN by bloom or value list, ranges by the
+    z-region box): the sketch stage's work. None derive without a
+    capability (sketches off)."""
+    if not spec.sketch_capability:
+        return ()
+    from ..models.dataskipping.sketch_store import capability_sketches, convertible
+
+    sketches = capability_sketches(spec.sketch_capability)
+    sort_cols = {c.lower() for c in spec.sort_columns}
+    return tuple(
+        c for c in conjuncts
+        if (refs := c.references()) and not any(r.lower() in sort_cols for r in refs)
+        and convertible(sketches, c)
+    )
+
+
 def _bucket_conjuncts(conjuncts: Sequence[Expr], spec: PruneSpec) -> list[Expr]:
     """The equality-shaped conjuncts bucket pruning used."""
     from ..models.dataskipping.sketches import _is_col_lit
@@ -273,22 +310,63 @@ def _derive_scan_pruning(scan: FileScan) -> Optional[FileScan]:
     conjuncts = split_conjunction(scan.pushed_filter)
     buckets = candidate_buckets(conjuncts, spec, scan.full_schema)
     rg_conjs = _rowgroup_conjuncts(conjuncts, spec)
-    if buckets is None and not rg_conjs:
+    sk_conjs = _sketch_conjuncts(conjuncts, spec)
+    if buckets is None and not rg_conjs and not sk_conjs:
         return None
     files = list(scan.files)
     kept = files
     if buckets is not None:
         kept = [f for f in files
                 if (b := bucket_id_from_filename(f.name)) is None or b in buckets]
-    used = ([] if buckets is None else _bucket_conjuncts(conjuncts, spec)) + list(rg_conjs)
+    used = (([] if buckets is None else _bucket_conjuncts(conjuncts, spec)) + list(rg_conjs)
+            + [c for c in sk_conjs if c not in rg_conjs])
     pred = None
     for c in used:
         pred = c if pred is None else X.And(pred, c)
     new_spec = replace(
-        spec, bucket_keep=buckets, rowgroup_conjuncts=rg_conjs, pred=pred,
-        verify_files=tuple(files) if _PRUNE_MODE == "verify" else (),
+        spec, bucket_keep=buckets, rowgroup_conjuncts=rg_conjs, sketch_conjuncts=sk_conjs,
+        pred=pred, verify_files=tuple(files) if _PRUNE_MODE == "verify" else (),
+        sketch_fraction=(_sketch_stage_fraction(sk_conjs, scan.files) if sk_conjs else -1.0),
     )
     return scan.copy(files=kept, prune_spec=new_spec)
+
+
+def _ndv_sketch_fraction(conjuncts: Sequence[Expr], stats) -> float:
+    """The NDV model's estimate of the row-group fraction the sketch stage
+    keeps for Eq and IN conjuncts: a value spread uniformly appears in a
+    group with probability about min(1, group_rows / ndv), an IN of k
+    values k times that, and conjuncts intersect (the least). Floored at
+    the bloom filter's false-positive rate. The JAX package's estimator
+    feedback, off by default there, is not ported."""
+    if stats is None:
+        return 1.0
+    ndv_map, group_rows = stats
+    low = {k.lower(): v for k, v in ndv_map.items()}
+    frac = 1.0
+    for c in conjuncts:
+        refs = sorted(c.references())
+        if len(refs) != 1 or not (n := low.get(refs[0].lower())):
+            continue
+        if isinstance(c, X.In):
+            k = len(c.values)
+        elif isinstance(c, X.Eq):
+            k = 1
+        else:
+            continue  # a range: the NDV model says nothing useful
+        frac = min(frac, min(1.0, k * group_rows / max(int(n), 1)))
+    if frac >= 1.0:
+        return 1.0
+    from ..models.dataskipping.sketch_store import BLOOM_FPP
+
+    return max(frac, BLOOM_FPP)
+
+
+def _sketch_stage_fraction(conjuncts: Sequence[Expr], files) -> float:
+    """The plan-time predicted kept fraction of the sketch stage, from the
+    first of the scan's files whose sidecar has NDV statistics."""
+    from ..models.dataskipping.sketch_store import ndv_stats
+
+    return _ndv_sketch_fraction(conjuncts, ndv_stats(files))
 
 
 # ---------------------------------------------------------------------------
@@ -303,19 +381,39 @@ def _stats_column(dtype: str, values: list) -> Column:
     return Column(np.array(values, dtype=numpy_dtype(dtype)), dtype)
 
 
+def _sketch_masks(scan: FileScan) -> dict[str, np.ndarray]:
+    """The sketch stage: each file's keep-mask over its row groups from its
+    sidecar. A file without a usable sidecar, or whose sidecar bounds no
+    conjunct, is absent (it keeps every group)."""
+    from ..models.dataskipping import sketch_store
+
+    masks = {}
+    for f in scan.files:
+        sc = sketch_store.load_sidecar(f.name)
+        mask = None if sc is None else sc.keep_mask(scan.prune_spec.sketch_conjuncts)
+        if mask is not None:
+            masks[f.name] = mask
+    return masks
+
+
 def rowgroup_selection(scan: FileScan) -> tuple[Optional[dict[str, tuple[int, ...]]], list]:
     """``(selection, kept_files)`` of a pruned scan: ``selection`` maps a
     path to the row groups to read (a path absent from it is read whole),
     and a file whose every group is skipped is left out of ``kept_files``.
-    ``(None, scan.files)`` when row-group pruning does not apply. A group
-    without usable statistics on a referenced column is kept."""
+    ``(None, scan.files)`` when row-group pruning does not apply. Two votes
+    intersect: the footer statistics' on the sort-column conjuncts and the
+    sidecar sketches' on the others. Each may only vote a definite miss: a
+    group without usable statistics on a referenced column, and a file
+    without a sidecar (or whose sidecar's group count differs from the
+    footer's), keep their groups."""
     from ..columnar import io as cio
     from ..models.dataskipping.sketches import MinMaxSketch
 
     spec = scan.prune_spec
-    if (spec is None or not spec.rowgroup_conjuncts or scan.fmt != "parquet"
-            or _PRUNE_MODE == "0"):
+    if (spec is None or not (spec.rowgroup_conjuncts or spec.sketch_conjuncts)
+            or scan.fmt != "parquet" or _PRUNE_MODE == "0"):
         return None, list(scan.files)
+    sketch_masks = _sketch_masks(scan) if spec.sketch_conjuncts else {}
     stat_cols: list[str] = []
     converters = []
     for c in spec.rowgroup_conjuncts:
@@ -342,7 +440,7 @@ def rowgroup_selection(scan: FileScan) -> tuple[Optional[dict[str, tuple[int, ..
         keep = np.ones(n, dtype=bool)
         valid_idx = [g for g in range(n)
                      if all(usable(c, stats[g]["cols"].get(c)) for c in stat_cols)]
-        if valid_idx:
+        if converters and valid_idx:
             table = {}
             for c in stat_cols:
                 table[f"{c}__min"] = _stats_column(
@@ -354,6 +452,9 @@ def rowgroup_selection(scan: FileScan) -> tuple[Optional[dict[str, tuple[int, ..
             for fn in converters:
                 mask &= np.asarray(fn(batch), dtype=bool)
             keep[np.asarray(valid_idx)] = mask
+        smask = sketch_masks.get(f.name)
+        if smask is not None and len(smask) == n:
+            keep &= smask
         kept_groups = tuple(int(g) for g in np.flatnonzero(keep))
         if len(kept_groups) == n:
             kept_files.append(f)
@@ -409,15 +510,29 @@ def verify_against_full(scan: FileScan, pruned_batch: ColumnBatch, session=None)
 
 def estimate_scan_fraction(condition: Optional[Expr], entry) -> float:
     """Estimated fraction of a covering index that ``condition`` reads after
-    bucket pruning (1.0 when none can be derived). Feeds the filter rule's
-    ranking and score, so a layout whose bucket key the predicate pins wins
-    over a slightly smaller index that must be read whole."""
+    bucket pruning and, with sketches on, the sketch stage (1.0 when none
+    can be derived). Feeds the filter rule's ranking and score, so a layout
+    whose bucket key the predicate pins, or whose sidecars will skip most
+    row groups, wins over a slightly smaller index that must be read
+    whole."""
     spec = None if condition is None else prune_spec_for(entry)
     if spec is None:
         return 1.0
+    conjuncts = split_conjunction(condition)
     try:
-        buckets = candidate_buckets(split_conjunction(condition), spec,
-                                    entry.derived_dataset.schema())
+        buckets = candidate_buckets(conjuncts, spec, entry.derived_dataset.schema())
     except Exception:
         return 1.0
-    return 1.0 if buckets is None else max(len(buckets), 1) / spec.num_buckets
+    frac = 1.0 if buckets is None else max(len(buckets), 1) / spec.num_buckets
+    return frac * _entry_sketch_fraction(conjuncts, entry, spec)
+
+
+def _entry_sketch_fraction(conjuncts: Sequence[Expr], entry, spec: PruneSpec) -> float:
+    """The sketch stage's estimated kept fraction for a candidate entry:
+    1.0 when sketches are off, nothing converts, or no sidecar is there."""
+    from ..models.dataskipping import sketch_store
+
+    sk_conjs = _sketch_conjuncts(conjuncts, spec)
+    if not sk_conjs:
+        return 1.0
+    return _ndv_sketch_fraction(sk_conjs, sketch_store.index_ndv_stats(entry))

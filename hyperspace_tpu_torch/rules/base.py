@@ -68,6 +68,7 @@ MISSING_INDEXED_COL = "MISSING_INDEXED_COL"
 NOT_ELIGIBLE_JOIN = "NOT_ELIGIBLE_JOIN"
 NO_AVAIL_JOIN_INDEX_PAIR = "NO_AVAIL_JOIN_INDEX_PAIR"
 NOT_ALL_JOIN_COL_INDEXED = "NOT_ALL_JOIN_COL_INDEXED"
+NO_CONVERTIBLE_PREDICATE = "NO_CONVERTIBLE_PREDICATE"
 
 
 class IndexFilter:

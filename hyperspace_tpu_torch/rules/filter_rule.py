@@ -2,7 +2,8 @@
 scan (counterpart of hyperspace_tpu/rules/filter_rule.py).
 
 An index qualifies when its first indexed column appears in the filter
-condition and it covers every column the subtree needs. Among those the
+condition (or, with sidecar sketches on, a declared sketch can bound a
+conjunct of it) and it covers every column the subtree needs. Among those the
 ranker takes the least expected read: index bytes times the fraction
 bucket pruning keeps for the condition (plan/pruning.estimate_scan_
 fraction), name breaking ties. Score = 50 * covered-bytes ratio (1 without
@@ -59,9 +60,21 @@ class FilterColumnFilter(QueryPlanIndexFilter):
                 continue
             indexed = [c.lower() for c in e.derived_dataset.indexed_columns()]
             covered = {c.lower() for c in e.derived_dataset.referenced_columns()}
-            if indexed[0] in filter_refs and required <= covered:
+            leading_ok = indexed[0] in filter_refs or _sketchable_condition(e, filter_node)
+            if leading_ok and required <= covered:
                 out.append(e)
         return {scan.plan_id: out} if out else {}
+
+
+def _sketchable_condition(entry, filter_node: Filter) -> bool:
+    """With sketches on, a condition a declared sidecar sketch can bound
+    admits the index too: its scan then skips row groups on a column
+    other than the first indexed one."""
+    from ..models.dataskipping import sketch_store
+
+    dd = entry.derived_dataset
+    return sketch_store.condition_sketchable(
+        filter_node.condition, dd.schema(), tuple(dd.indexed_columns()))
 
 
 def _filter_condition(plan):

@@ -39,6 +39,7 @@ class HyperspaceSession:
         device: str | torch.device | None = None,
     ):
         from .columnar.io import IndexChunkCache
+        from .models.dataskipping.rule import DataSkippingStats
         from .plan.gpu_exec import DeviceTierStats
         from .plan.kernel_cache import KernelCache
         from .utils.device_cache import DeviceColumnCache
@@ -53,6 +54,7 @@ class HyperspaceSession:
         self.host_derived_cache = DeviceColumnCache(HOST_DERIVED_CACHE_BYTES)
         self.kernel_cache = KernelCache()
         self.device_stats = DeviceTierStats()
+        self.dataskipping_stats = DataSkippingStats()
 
     @property
     def device(self) -> torch.device:

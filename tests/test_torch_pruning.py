@@ -20,10 +20,12 @@ package on the same inputs.
   without statistics keeps every row group.
 - Filter ranking: a larger index whose bucket key the filter pins beats a
   smaller one it cannot prune, in both packages.
-- An index of a kind the port does not load (the JAX package's data
-  skipping) leaves the port's rewrite to the other indexes.
+- An index of a kind neither package loads leaves the port's rewrite to
+  the other indexes; the JAX package's data-skipping index is loaded and
+  used by the port.
 """
 
+import json
 import logging
 import os
 
@@ -446,11 +448,14 @@ def test_filter_ranking_prefers_the_index_whose_bucket_key_is_pinned(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# an index kind the port does not load
+# an index kind the port does not load; the JAX package's data skipping
 # ---------------------------------------------------------------------------
 
 def test_a_data_skipping_index_leaves_the_rewrite_to_the_others(tmp_path, caplog):
-    from hyperspace_tpu.models.dataskipping import DataSkippingIndexConfig, MinMaxSketch
+    """An index of a kind neither package knows (a copy of a JAX log entry
+    whose kind is renamed) is skipped with one warning naming it, and the
+    other indexes still serve q3."""
+    import shutil
 
     root = str(tmp_path)
     jtpch.generate_tpch(root, rows_lineitem=20_000, seed=7)
@@ -459,8 +464,19 @@ def test_a_data_skipping_index_leaves_the_rewrite_to_the_others(tmp_path, caplog
     for table, (name, indexed, included) in ttpch.JOIN_INDEXES.items():
         hs.create_index(js.read.parquet(os.path.join(root, table)),
                         J.CoveringIndexConfig(name, indexed, included))
-    hs.create_index(js.read.parquet(os.path.join(root, "lineitem")),
-                    DataSkippingIndexConfig("li_ds_minmax", [MinMaxSketch("l_shipdate")]))
+    system = os.path.join(root, "indexes")
+    shutil.copytree(os.path.join(system, "od_orderkey"), os.path.join(system, "od_mystery"))
+    log_dir = os.path.join(system, "od_mystery", "_hyperspace_log")
+    for fn in os.listdir(log_dir):
+        if fn.isdigit():
+            path = os.path.join(log_dir, fn)
+            with open(path) as f:
+                entry = json.load(f)
+            entry["name"] = "od_mystery"
+            if "derivedDataset" in entry:
+                entry["derivedDataset"]["kind"] = "MYSTERY"
+            with open(path, "w") as f:
+                json.dump(entry, f)
     ts = T.HyperspaceSession(root, device="cpu").enable_hyperspace()
     with caplog.at_level(logging.WARNING):
         plan = ttpch.q3(ts, root).optimized_plan()
@@ -468,4 +484,46 @@ def test_a_data_skipping_index_leaves_the_rewrite_to_the_others(tmp_path, caplog
             if getattr(n, "index_info", None) is not None]
     assert used == ["li_orderkey", "od_orderkey"]
     skipped = [r.getMessage() for r in caplog.records if "Skipping index" in r.getMessage()]
-    assert len(skipped) == 1 and "'li_ds_minmax'" in skipped[0] and "'DS'" in skipped[0]
+    assert len(skipped) == 1 and "'od_mystery'" in skipped[0] and "'MYSTERY'" in skipped[0]
+
+
+def test_the_jax_data_skipping_index_is_loaded_and_used_by_the_port(tmp_path):
+    """The JAX package's li_ds_minmax over a lineitem split into four files
+    by ship date: the port loads it, prunes the files its sketches reject
+    (the same files as the JAX package), and returns the same result."""
+    from hyperspace_tpu.models.dataskipping import DataSkippingIndexConfig, MinMaxSketch
+
+    root = str(tmp_path)
+    jtpch.generate_tpch(root, rows_lineitem=8_000, seed=7)
+    li_dir = os.path.join(root, "lineitem")
+    table = pq.read_table(li_dir).sort_by("l_shipdate")
+    for f in os.listdir(li_dir):
+        os.unlink(os.path.join(li_dir, f))
+    for i in range(4):
+        pq.write_table(table.slice(i * 2000, 2000), os.path.join(li_dir, f"part-{i}.parquet"))
+    js = J.HyperspaceSession(root)
+    J.Hyperspace(js).create_index(
+        js.read.parquet(li_dir),
+        DataSkippingIndexConfig("li_ds_minmax", [MinMaxSketch("l_shipdate")]))
+    cut = int(pc_max(table.slice(0, 2000), "l_shipdate"))
+    results, scans = {}, {}
+    for pkg, X, s in ((J, JX, js.enable_hyperspace()),
+                      (T, TX, T.HyperspaceSession(root, device="cpu").enable_hyperspace())):
+        q = (s.read.parquet(li_dir).filter(X.col("l_shipdate") <= cut)
+             .agg(X.Sum(X.col("l_tax")).alias("t"), X.Count(X.lit(1)).alias("n")))
+        scan = [n for n in q.optimized_plan().preorder() if n.kind == "FileScan"][0]
+        scans[pkg.__name__] = (scan.index_info.index_name,
+                               sorted(os.path.basename(f.name) for f in scan.files))
+        results[pkg.__name__] = q.collect().to_pydict()
+    assert scans["hyperspace_tpu_torch"] == scans["hyperspace_tpu"]
+    assert scans["hyperspace_tpu_torch"][0] == "li_ds_minmax"
+    assert 0 < len(scans["hyperspace_tpu_torch"][1]) < 4  # files were pruned
+    got, want = results["hyperspace_tpu_torch"], results["hyperspace_tpu"]
+    assert got["n"] == want["n"]
+    assert abs(got["t"][0] - want["t"][0]) <= REL * abs(want["t"][0])
+
+
+def pc_max(table, column):
+    import pyarrow.compute as pc
+
+    return pc.max(table.column(column)).cast(pa.int32()).as_py()

@@ -18,7 +18,8 @@ against the JAX package on the same inputs.
   package's, q6 reads li_shipdate_z and q1 li_flagstatus; the port-only
   forms (q6_count, q6_sum, q1_sums and the lookups), built with each
   package's operators, render alike too, ``pruned[...]`` included. On the
-  port's own build of that set the same plans come out.
+  port's own build of its whole set (seven indexes, the data-skipping
+  ``li_shipdate_mm`` included) the same plans come out.
 
 Tolerances: counts and keys exact; f32 sums within relative 1e-4.
 """
@@ -332,7 +333,8 @@ _READS = {"q6": ["li_shipdate_z"], "q6_count": ["li_shipdate_z"],
 def golden(tmp_path_factory):
     """The golden fixture's index set (tests/test_plan_stability.py):
     the JAX package's tpch_indexes plus li_ds_minmax, 2,000 rows, seed 7;
-    and the port's tpch_indexes over the same lake."""
+    and the port's tpch_indexes over the same lake (the whole set, its
+    data-skipping li_shipdate_mm included)."""
     from hyperspace_tpu.models.dataskipping import DataSkippingIndexConfig, MinMaxSketch
 
     root = str(tmp_path_factory.mktemp("tpch_golden"))
@@ -345,6 +347,10 @@ def golden(tmp_path_factory):
     twh = os.path.join(root, "wh_torch")
     ts = T.HyperspaceSession(twh, device="cpu")
     ttpch.tpch_indexes(ts, T.Hyperspace(ts), root)
+    from hyperspace_tpu_torch.index_manager import index_manager_for
+
+    kinds = {e.name: e.derived_dataset.kind for e in index_manager_for(ts).get_indexes()}
+    assert kinds["li_shipdate_mm"] == "DS" and len(kinds) == len(ttpch.TPCH_INDEXES)
     return root, twh
 
 
@@ -374,7 +380,8 @@ def test_plans_over_the_reference_index_set_render_as_jax(golden, q):
         assert _used(tplan) == _READS[q]
     if q in ttpch.LOOKUP_PRUNING:
         assert _scan_pruning(tplan) == [ttpch.LOOKUP_PRUNING[q]]
-    # the port's own build of the set (no data-skipping index) plans alike
+    # the port's own build of the whole set (li_shipdate_mm included) plans
+    # alike: the z-order and covering rewrites beat data skipping's score 1
     own = T.HyperspaceSession(twh, device="cpu").enable_hyperspace()
     fn = ttpch.TPCH_QUERIES.get(q) or _PORT_ONLY[q]
     assert fn(own, root).optimized_plan().pretty().replace(twh, root) == tplan.pretty()
