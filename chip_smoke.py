@@ -31,13 +31,20 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    covering indexes li_orderkey, li_partkey, li_flagstatus, od_orderkey and
    pt_partkey, the data-skipping index li_shipdate_mm; each build timed),
    then
-   - the filter-aggregate queries q6, q6_count, q6_sum, q1 and q1_sums run
-     through the normal API with Hyperspace enabled. The q6 forms must read
-     li_shipdate_z and the q1 forms li_flagstatus (through
-     AggregateIndexRule); each must run on the device tier, launch its
-     kernel where it has one, match the host executor over the raw source
-     with Hyperspace and the device tier off, and upload nothing on a warm
-     run;
+   - the filter-aggregate queries q6, q6_count, q6_sum, q1 and q1_sums, and
+     the partial route's forms q6_span and q1_span (count, min and max of
+     l_shipdate), run through the normal API with Hyperspace enabled. The
+     q6 forms must read li_shipdate_z and the q1 forms li_flagstatus
+     (through AggregateIndexRule); each must run on the device tier, launch
+     its kernel where it has one, match the host executor over the raw
+     source with Hyperspace and the device tier off, and upload nothing on
+     a warm run. Each filter-aggregate query's first run prints its route:
+     an index scan of several files streams ("pipelined"; at SF10 every q6
+     and q1 form), the q6 and q1 forms and range_sum on the concat route,
+     which still launches their kernel once per run, the span forms on the
+     partial route; a scan of one file takes the monolithic "device" route.
+     Beside it, its chunks, host decode seconds (the chunks' sum) and
+     upload seconds (CUDA events around each copy, read after the query);
    - the lookups on li_orderkey's key: lookup_count (a present key),
      lookup_absent (a key no row holds) and range_sum. Each plan must show
      the pruning the CPU tests pin (tpch.LOOKUP_PRUNING), and the kept
@@ -114,7 +121,27 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
        word pairs. No plain version may run. With --profile, each
        kernel-shaped query is profiled once more after its counts are read
        (chiprun_out/profile_skipping_<q>.txt);
-7. order phase: the device top-k and sort against the host on one
+7. pipeline phase over the SF10 lake:
+   (a) the first runs of q6_count, q6_sum, q1_sums and q6_tax_sum, each on
+       a fresh session under HYPERSPACE_PIPELINE 0, serial and 1: results
+       equal bit for bit across the modes, the concat route under serial
+       and 1, the kernel launched once; wall, decode and upload seconds
+       printed per mode;
+   (b) q3_agg and q3 under 0 (the load-all barrier) and 1 (bucket-pair
+       read-ahead): the same bits;
+   (c) a third warehouse over hard links to the lake's lineitem, with
+       hyperspace.tpu.build.maxBytesInMemory at 256 MiB and lineage on:
+       st_orderkey (li_orderkey's config) and st_shipdate_z
+       (li_shipdate_z's) must build out of core, one run per file group in
+       every bucket or range, with the rows of the main phase's in-memory
+       indexes (sorted row hashes equal); q6_count, q6_span, lookup_count
+       and range_sum through them held to the host and launching their
+       kernels; then 2 source files deleted, an incremental refresh of
+       st_orderkey that must stream (each old file rewritten alone), a
+       quick optimize to one file per bucket, and the queries again (q6's
+       forms over the source, st_shipdate_z being stale). Each action's
+       seconds print beside the in-memory build's;
+8. order phase: the device top-k and sort against the host on one
    2^25-row batch of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
    descending, k in {10, 100, 4096}; (l_extendedprice f64, l_orderkey
@@ -127,8 +154,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
-add up the end-to-end, lifecycle and skipping phases' counts, each read on
-its own (``launches_by_phase``).
+add up the end-to-end, lifecycle, skipping and pipeline phases' counts,
+each read on its own (``launches_by_phase``).
 """
 
 from __future__ import annotations
@@ -170,6 +197,10 @@ EXPECTED_KERNEL = {
     "q6_sum": "filter_sum",
     "q1": None,
     "q1_sums": "filter_grouped_multi_sum",
+    # count, min and max fold exactly: the pipelined partial route, whose
+    # per-chunk bodies are torch code
+    "q6_span": None,
+    "q1_span": None,
     "lookup_count": "filter_weighted_sum",
     # pruned to nothing: the device tier declines the empty scan, as the
     # JAX package's does, and the host answers
@@ -183,6 +214,22 @@ EXPECTED_KERNEL = {
     "q17": None,
     "q18": None,
 }
+# the pipelined tier's route of each filter-aggregate query of the main
+# phase over an index scan of several files (a scan of one file takes the
+# monolithic "device" route); at SF10 the q6 and q1 forms span several
+PIPELINE_STREAM = {"q6": "concat", "q6_count": "concat", "q6_sum": "concat", "q1": "concat",
+                   "q1_sums": "concat", "q6_span": "partial", "q1_span": "partial",
+                   "lookup_count": "concat", "range_sum": "concat"}
+# the pipeline phase: the first runs of these under each HYPERSPACE_PIPELINE
+# mode, the joins under 0 and 1, and the out-of-core builds' limit
+PIPELINE_MODES = ("0", "serial", "1")
+PIPELINE_QUERIES = ("q6_count", "q6_sum", "q1_sums", "q6_tax_sum")
+PIPELINE_JOINS = ("q3_agg", "q3")
+STREAM_BUILD_LIMIT = 256 * 1024 * 1024
+# the two source files deleted before the streamed refresh, by position
+STREAM_DELETED_AT = lambda n: (1 + n // 24, n * 2 // 3)  # noqa: E731
+STREAM_QUERIES = {"q6_count": "filter_weighted_sum", "q6_span": None,
+                  "lookup_count": "filter_weighted_sum", "range_sum": "filter_sum"}
 # the reference's TPC-H queries beyond Q1, Q3 and Q6: (indexes the plan
 # must read, batched plain joins per run, grouped fragments per run,
 # leading sort key for the tie rule of the comparison)
@@ -557,6 +604,23 @@ def compare_ordered(q: str, got: dict, want: dict, lead) -> None:
             require(bool((g == w)[held].all()), f"{q}.{name}: differs from the host")
 
 
+def same_bits(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return list(a) == list(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def scan_route(timing) -> dict:
+    """A fragment's scan as the device tier recorded it (the last one the
+    session ran): its route, the stream route and chunks, the host decode
+    seconds and the upload seconds (CUDA events, read here, once)."""
+    if timing is None:
+        return {"route": None, "stream": None}
+    return {"route": timing.route, "stream": timing.stream, "chunks": timing.chunks,
+            "decode_s": timing.decode_s, "upload_s": timing.upload.seconds(),
+            "copies": timing.upload.copies}
+
+
 def _columns(batch) -> dict:
     """A result batch as numpy arrays by column (no Python lists: q3_agg
     returns millions of groups at SF10)."""
@@ -608,8 +672,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
 
     # the plain end-to-end reference: the host executor over the raw source
     host = HyperspaceSession(warehouse, conf={C.EXEC_TPU_ENABLED: False})
-    all_queries = {**tpch.QUERIES, **tpch.LOOKUP_QUERIES, **tpch.JOIN_QUERIES,
-                   **{q: tpch.TPCH_QUERIES[q] for q in PLAIN_QUERIES}}
+    all_queries = {**tpch.QUERIES, **tpch.SPAN_QUERIES, **tpch.LOOKUP_QUERIES,
+                   **tpch.JOIN_QUERIES, **{q: tpch.TPCH_QUERIES[q] for q in PLAIN_QUERIES}}
 
     def result(q: str, df) -> dict:
         """A query's result (a DataFrame, or a host batch) as comparable
@@ -618,11 +682,6 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
         if q in tpch.JOIN_QUERIES or q in PLAIN_QUERIES:
             return _columns(batch)
         return _floats(batch.to_pydict())
-
-    def same_bits(a: dict, b: dict) -> bool:
-        import numpy as np
-
-        return list(a) == list(b) and all(np.array_equal(a[k], b[k]) for k in a)
 
     want, batches = {}, {}
     for q, fn in all_queries.items():
@@ -639,7 +698,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
     session.enable_hyperspace()
     queries = {}
     expected_indexes = {q: [tpch.LI_SHIPDATE_Z[0] if q.startswith("q6")
-                            else tpch.LI_FLAGSTATUS[0]] for q in tpch.QUERIES}
+                            else tpch.LI_FLAGSTATUS[0]]
+                        for q in {**tpch.QUERIES, **tpch.SPAN_QUERIES}}
     expected_indexes.update({q: [tpch.LI_ORDERKEY[0]] for q in tpch.LOOKUP_QUERIES})
     expected_indexes.update({q: [tpch.LI_ORDERKEY[0], tpch.OD_ORDERKEY[0]]
                              for q in tpch.JOIN_QUERIES})
@@ -672,6 +732,18 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
         got = result(q, fn(session, lake))
         cold_s = time.perf_counter() - t0
         up1 = session.device_cache.uploaded_bytes
+        route = None
+        if q in PIPELINE_STREAM:  # the first run's scan: route, decode, upload
+            route = scan_route(session.device_stats.last_scan)
+            index_scans = [n for n in plan.preorder()
+                           if getattr(n, "index_info", None) is not None]
+            streams = len(index_scans[0].files) >= 2
+            want_route = ("pipelined", PIPELINE_STREAM[q]) if streams else ("device", None)
+            require((route["route"], route["stream"]) == want_route,
+                    f"{q}: route {route}, expected {want_route}")
+            require(rows < SF10_ROWS or not q.startswith(("q6", "q1")) or streams,
+                    f"{q}: at SF10 the index scan should span several files")
+            log({"query": q, "card": card, "first_run": route})
         warm = []
         uploads_warm = []
         for _ in range(WARM_RUNS):
@@ -721,7 +793,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
             compare_ordered(q, got, want[q], PLAIN_QUERIES[q][3])
         else:
             compare_batches(q, got, want[q])
-        queries[q] = {"first_run_s": cold_s, "warm_median_s": statistics.median(warm),
+        queries[q] = {"first_run_s": cold_s, "first_run_route": route,
+                      "warm_median_s": statistics.median(warm), "warm_s": warm,
                       "upload_bytes_first": up1 - up0, "upload_bytes_second": uploads_warm[0],
                       "launches": launched, "host_reference_s": out["host_s"].get(q),
                       "host_reference_from": DERIVED_REFERENCES.get(q),
@@ -752,7 +825,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
     # phase the warehouse), the lifecycle phase these references
     out["lake"] = lake
     out["warehouse"] = warehouse
-    out["want"] = {q: want[q] for q in LIFECYCLE_QUERIES}
+    out["want"] = {q: want[q] for q in {*LIFECYCLE_QUERIES, *PIPELINE_QUERIES,
+                                        *PIPELINE_JOINS, *STREAM_QUERIES} if q in want}
     return out
 
 
@@ -1361,6 +1435,243 @@ def skipping_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = Fa
 
 
 # ---------------------------------------------------------------------------
+# pipeline phase
+# ---------------------------------------------------------------------------
+
+def _row_fingerprint(paths: list, columns: list) -> tuple:
+    """An order-free fingerprint of the multiset of rows of ``paths`` over
+    ``columns``: the row count and two sums (mod 2^64) of independent
+    64-bit row hashes. Strings hash by value, so files with other
+    dictionaries fingerprint alike; a row lost, added or changed moves
+    both sums. Files are read on a thread pool."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    mults = (np.uint64(0x9E3779B97F4A7C15), np.uint64(0xC2B2AE3D27D4EB4F))
+
+    def one(p):
+        t = pq.read_table(p, columns=columns)
+        hs = [np.full(t.num_rows, i + 1, dtype=np.uint64) for i in range(2)]
+        for c in columns:
+            a = t.column(c).combine_chunks()
+            if pa.types.is_dictionary(a.type) or pa.types.is_string(a.type):
+                d = a if pa.types.is_dictionary(a.type) else a.dictionary_encode()
+                lut = np.array([zlib.crc32(str(v).encode()) for v in d.dictionary.to_pylist()],
+                               dtype=np.uint64)
+                v = lut[np.asarray(d.indices)]
+            else:
+                x = np.asarray(a)
+                v = (x.astype(np.int64) if x.dtype.itemsize < 8 else x).view(np.uint64)
+            for h, m in zip(hs, mults):
+                h ^= v
+                h *= m
+                h ^= h >> np.uint64(29)
+        return t.num_rows, [int(h.sum(dtype=np.uint64)) for h in hs]
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        parts = list(pool.map(one, paths))
+    return (sum(n for n, _ in parts),
+            *(sum(s[i] for _, s in parts) % 2**64 for i in range(2)))
+
+
+def _runs_per_range(files: list) -> dict:
+    """Runs per z-order range of a streamed z-order index
+    (``part-0-z<range>-<group>``)."""
+    per: dict = {}
+    for f in files:
+        rng = os.path.basename(f).split("-")[2]
+        per[rng] = per.get(rng, 0) + 1
+    return {"files": sum(per.values()), "ranges": len(per), "min": min(per.values()),
+            "max": max(per.values())}
+
+
+def pipeline_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
+    """The pipelined tier over the SF10 lake (the module docstring lists
+    the parts): first runs under each HYPERSPACE_PIPELINE mode, split into
+    decode and upload seconds and held bit for bit across the modes; the
+    joins under 0 and 1; then out-of-core builds and a streamed refresh
+    in a third warehouse at a 256 MiB build limit, their rows held to the
+    main phase's in-memory indexes and their queries to the host."""
+    from hyperspace_tpu_torch import (CoveringIndexConfig, Hyperspace, HyperspaceSession,
+                                      ZOrderCoveringIndexConfig)
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.models.covering import _file_groups
+
+    t_phase = time.perf_counter()
+    lake, warehouse = e2e["lake"], e2e["warehouse"]
+    want = e2e["want"]
+    out: dict = {"modes": {}, "joins": {}, "actions_s": {}, "stream_queries": {}}
+    K.reset_counts()  # the phase's launches start here
+    queries = {**tpch.QUERIES, **tpch.SPAN_QUERIES, **tpch.LOOKUP_QUERIES,
+               **tpch.JOIN_QUERIES, "q6_tax_sum": tpch.q6_tax_sum}
+    saved = os.environ.get("HYPERSPACE_PIPELINE")
+
+    def first_run(q: str, mode: str):
+        """``q``'s first run on a fresh session under ``mode``: (result,
+        wall seconds, the scan's route record, launches)."""
+        os.environ["HYPERSPACE_PIPELINE"] = mode
+        session = HyperspaceSession(warehouse).enable_hyperspace()  # the card
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        batch = queries[q](session, lake).collect()
+        wall = time.perf_counter() - t0
+        launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES if K.LAUNCHES[k] > before[k]}
+        got = _columns(batch) if q in tpch.JOIN_QUERIES else _floats(batch.to_pydict())
+        return got, wall, scan_route(session.device_stats.last_scan), launched, session
+
+    try:
+        # (a) the first run split into decode and upload, per mode
+        for q in PIPELINE_QUERIES:
+            runs = {}
+            os.environ["HYPERSPACE_PIPELINE"] = "1"
+            plan = queries[q](HyperspaceSession(warehouse).enable_hyperspace(),
+                              lake).optimized_plan()
+            streams = len(_scan_of(plan).files) >= 2  # a scan of one file does not
+            require(rows < SF10_ROWS or streams, f"pipeline {q}: one file at SF10")
+            for mode in PIPELINE_MODES:
+                got, wall, route, launched, _s = first_run(q, mode)
+                want_route = (("pipelined", "concat") if mode != "0" and streams
+                              else ("device", None))
+                require((route["route"], route["stream"]) == want_route,
+                        f"pipeline {q} under {mode}: route {route}")
+                require(launched == {EXPECTED_KERNEL.get(q, "filter_sum"): 1},
+                        f"pipeline {q} under {mode}: launches {launched}")
+                runs[mode] = got
+                rec = {"wall_s": wall, **route}
+                out["modes"].setdefault(q, {})[mode] = rec
+                log({"pipeline": q, "mode": mode, "card": card, **rec})
+            require(all(runs[m] == runs["0"] for m in PIPELINE_MODES),
+                    f"pipeline {q}: the modes' results differ")
+            if q in want:
+                compare_batches(q, runs["1"], want[q])
+        # (b) the joins: bucket-pair read-ahead against the barrier
+        for q in PIPELINE_JOINS:
+            runs = {}
+            for mode in ("0", "1"):
+                got, wall, _route, _l, session = first_run(q, mode)
+                require(session.device_stats.device_join_fragments == 1,
+                        f"pipeline {q} under {mode}: not the fused device join")
+                runs[mode] = got
+                out["joins"].setdefault(q, {})[mode] = {"wall_s": wall}
+                log({"pipeline": q, "mode": mode, "card": card, "wall_s": wall})
+            require(same_bits(runs["1"], runs["0"]), f"pipeline {q}: read-ahead differs")
+            compare_join(q, runs["1"], want[q])
+    finally:
+        if saved is None:
+            os.environ.pop("HYPERSPACE_PIPELINE", None)
+        else:
+            os.environ["HYPERSPACE_PIPELINE"] = saved
+
+    # (c) out-of-core builds at a 256 MiB limit in a third warehouse
+    st_lake = os.path.join(DATA_DIR, "lake3")
+    _hard_link_tree(os.path.join(lake, "lineitem"), os.path.join(st_lake, "lineitem"))
+    st_wh = os.path.join(DATA_DIR, "warehouse3")
+    li = os.path.join(st_lake, "lineitem")
+    # 256 MiB at SF10; a quarter of the source at a smaller --rows, so the
+    # builds still stream there
+    limit = min(STREAM_BUILD_LIMIT, e2e["source_bytes"]["lineitem"] // 4)
+    session = HyperspaceSession(st_wh, conf={C.BUILD_MAX_BYTES_IN_MEMORY: limit,
+                                             C.INDEX_LINEAGE_ENABLED: True})
+    hs = Hyperspace(session)
+    main_hs = Hyperspace(HyperspaceSession(warehouse))
+    source = session.read.parquet(li)
+    groups = len(_file_groups(_scan_of(source.plan).files, limit))
+    out.update({"build_limit_bytes": limit, "groups": groups})
+    in_memory = e2e["index_build_s"]
+
+    def action(label: str, fn, in_memory_s=None) -> None:
+        t0 = time.perf_counter()
+        fn()
+        out["actions_s"][label] = time.perf_counter() - t0
+        log({"pipeline_action": label, "card": card, "seconds": out["actions_s"][label],
+             "in_memory_build_s": in_memory_s})
+
+    specs = {"st_orderkey": (CoveringIndexConfig, tpch.LI_ORDERKEY),
+             "st_shipdate_z": (ZOrderCoveringIndexConfig, tpch.LI_SHIPDATE_Z)}
+    for name, (config, spec) in specs.items():
+        action(f"create {name}", lambda: hs.create_index(source, config(name, *spec[1:])),
+               in_memory.get(spec[0]))
+        files = hs.get_index(name).content.files()
+        layout = (_files_per_bucket(hs, name) if config is CoveringIndexConfig
+                  else _runs_per_range(files))
+        require(groups > 1 and layout["max"] == groups
+                and all(os.path.basename(f).count("-") == 3 for f in files),
+                f"{name}: not streamed in {groups} groups: {layout}")
+        columns = spec[1] + spec[2]
+        fingerprint = _row_fingerprint(files, columns)
+        require(fingerprint == _row_fingerprint(main_hs.get_index(spec[0]).content.files(),
+                                                columns),
+                f"{name}: its rows differ from {spec[0]}'s")
+        out[name] = {"layout": layout, "rows_equal": spec[0], "rows": fingerprint[0]}
+        log({"pipeline_build": name, "card": card, "groups": groups, **layout,
+             "rows_equal_to": spec[0]})
+    session.enable_hyperspace()
+    expected = {"q6_count": ["st_shipdate_z"], "q6_span": ["st_shipdate_z"],
+                "lookup_count": ["st_orderkey"], "range_sum": ["st_orderkey"]}
+
+    def stream_queries(label: str, want_now: dict, used: dict) -> None:
+        for q, kernel in STREAM_QUERIES.items():
+            plan = queries[q](session, st_lake).optimized_plan()
+            names = [n.index_info.index_name for n in plan.preorder()
+                     if getattr(n, "index_info", None) is not None]
+            require(names == used[q], f"{label} {q}: plan reads {names}, expected {used[q]}")
+            fragments = session.device_stats.device_fragments
+            before = dict(K.LAUNCHES)
+            t0 = time.perf_counter()
+            got = _floats(queries[q](session, st_lake).to_pydict())
+            wall = time.perf_counter() - t0
+            route = scan_route(session.device_stats.last_scan)
+            launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+                        if K.LAUNCHES[k] > before[k]}
+            require(session.device_stats.device_fragments == fragments + 1
+                    and launched == ({kernel: 1} if kernel else {}),
+                    f"{label} {q}: launches {launched}")
+            compare_batches(f"{label} {q}", got, want_now[q])
+            rec = {"first_run_s": wall, "indexes": names, **route}
+            out["stream_queries"].setdefault(label, {})[q] = rec
+            log({"pipeline_query": q, "stage": label, "card": card, **rec})
+
+    stream_queries("built", want, expected)
+    # two source files deleted, st_orderkey refreshed incrementally (each
+    # old file rewritten alone, a run each), then quick optimize
+    names = sorted(os.listdir(li))
+    deleted = [names[i] for i in STREAM_DELETED_AT(len(names))]
+    for f in deleted:
+        os.unlink(os.path.join(li, f))
+    out["deleted_files"] = deleted
+    n_before = len(hs.get_index("st_orderkey").content.files())
+    action("refresh incremental st_orderkey",
+           lambda: hs.refresh_index("st_orderkey", "incremental"))
+    files = hs.get_index("st_orderkey").content.files()
+    # streamed: runs only (an in-memory refresh writes one unsuffixed file
+    # per bucket), at most one per old file
+    require(len(files) <= n_before and all(os.path.basename(f).count("-") == 3 for f in files),
+            f"st_orderkey refresh: {len(files)} files after, {n_before} before")
+    out["refreshed_layout"] = _files_per_bucket(hs, "st_orderkey")
+    action("optimize quick st_orderkey", lambda: hs.optimize_index("st_orderkey", "quick"))
+    out["optimized_layout"] = _files_per_bucket(hs, "st_orderkey")
+    require(out["optimized_layout"]["max"] == 1, f"optimize: {out['optimized_layout']}")
+    log({"pipeline_layout": "st_orderkey", "card": card, "refreshed": out["refreshed_layout"],
+         "optimized": out["optimized_layout"]})
+    host = HyperspaceSession(st_wh, conf={C.EXEC_TPU_ENABLED: False})
+    t0 = time.perf_counter()
+    want_now = {q: _floats(queries[q](host, st_lake).to_pydict()) for q in STREAM_QUERIES}
+    out["host_reference_s"] = time.perf_counter() - t0
+    # st_shipdate_z is stale now (no hybrid scan): q6's forms read the source
+    stream_queries("refreshed", want_now, {**expected, "q6_count": [], "q6_span": []})
+    out["launches"] = dict(K.LAUNCHES)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log({"phase": "pipeline", "card": card, "seconds": out["phase_s"],
+         "launches": out["launches"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # order phase
 # ---------------------------------------------------------------------------
 
@@ -1555,9 +1866,11 @@ def main() -> int:
     e2e = end_to_end_phase(torch, K, args.rows, smi, args.profile)
     torch.cuda.empty_cache()
     lifecycle = lifecycle_phase(torch, K, e2e, args.rows, smi, args.profile)
-    del e2e["want"]
     torch.cuda.empty_cache()
     skipping = skipping_phase(torch, K, e2e, args.rows, smi, args.profile)
+    torch.cuda.empty_cache()
+    pipeline = pipeline_phase(torch, K, e2e, args.rows, smi)
+    del e2e["want"]
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     order = order_phase(torch, ORDER_ROWS if args.rows == SF10_ROWS else _pad_pow2(args.rows),
@@ -1575,7 +1888,8 @@ def main() -> int:
                     if v["launches"][name]}
         by_phase = {"end_to_end": e2e["main_path_launches"][name],
                     "lifecycle": lifecycle["launches"][name],
-                    "skipping": skipping["launches"][name]}
+                    "skipping": skipping["launches"][name],
+                    "pipeline": pipeline["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
@@ -1591,7 +1905,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": {"kind": kind, "nvidia_smi": smi}, "build_s": build_s,
                    "kernels": kernels, "end_to_end": e2e, "lifecycle": lifecycle,
-                   "skipping": skipping, "order": order,
+                   "skipping": skipping, "pipeline": pipeline, "order": order,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
     log({"phase": "done", "card": smi, "total_s": time.perf_counter() - t_start})
     log({"kernels": line})

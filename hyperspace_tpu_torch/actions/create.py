@@ -113,7 +113,8 @@ class CreateAction(Action):
         props = {"lineage": "true"} if self.session.conf.lineage_enabled else {}
         with with_hyperspace_rule_disabled():
             self._index, data = self.config.create_index(ctx, self.df, props)
-            self._index.write(ctx, data)
+            if data is not None:  # an out-of-core build wrote as it went
+                self._index.write(ctx, data)
         self.data_manager.publish(0)
 
     def log_entry(self) -> IndexLogEntry:

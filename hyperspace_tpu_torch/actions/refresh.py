@@ -140,7 +140,8 @@ class RefreshAction(RefreshActionBase):
                              self.data_manager.stage_version(self._version))
         with with_hyperspace_rule_disabled():
             self._new_index, data = self.entry.derived_dataset.refresh_full(ctx, self.df)
-            self._new_index.write(ctx, data)
+            if data is not None:  # an out-of-core rebuild wrote as it went
+                self._new_index.write(ctx, data)
         self.data_manager.publish(self._version)
 
     def log_entry(self) -> IndexLogEntry:

@@ -12,6 +12,12 @@ Sum and no Count, and ``q1`` has an Avg. Their kernel-shaped forms do:
 - ``q1_sums``: Q1 without avg_qty, three float sums and a count over six
   groups: filter_grouped_multi_sum.
 
+Two port-only forms take the pipelined executor's partial route (every
+aggregate folds exactly across chunks), which no TPC-H form takes, since
+each sums floats: ``q6_span`` (Q6's predicate over ``li_shipdate_z``;
+count, min and max of l_shipdate) and ``q1_span`` (Q1's predicate and
+groups over ``li_flagstatus``; the same three per group).
+
 The lookups (``LOOKUP_QUERIES``) are port-only kernel-shaped forms over
 ``li_orderkey``, which predicate pruning narrows: ``lookup_count`` (a
 point lookup, q6_count's shape), ``lookup_absent`` (the same with a key
@@ -43,7 +49,7 @@ import os
 
 import numpy as np
 
-from ..plan.expr import Avg, Count, Sum, col, lit
+from ..plan.expr import Avg, Count, Max, Min, Sum, col, lit
 
 
 def generate_tpch(root: str, rows_lineitem: int = 600_000, seed: int = 0) -> dict:
@@ -194,6 +200,32 @@ def q6_sum(session, root: str):
     return _lineitem(session, root).filter(_q6_predicate()).agg(
         Sum(col("l_extendedprice")).alias("sum_price"),
         Count(lit(1)).alias("count"),
+    )
+
+
+def q6_span(session, root: str):
+    """Q6's predicate, count(1) and the ship-date span of the passing rows:
+    exact aggregates only (the pipelined partial route)."""
+    return _lineitem(session, root).filter(_q6_predicate()).agg(
+        Count(lit(1)).alias("count"),
+        Min(col("l_shipdate")).alias("first_ship"),
+        Max(col("l_shipdate")).alias("last_ship"),
+    )
+
+
+def q1_span(session, root: str):
+    """Q1's predicate and groups, with count(1) and the ship-date span per
+    group: the grouped partial route."""
+    return (
+        _lineitem(session, root)
+        .filter(col("l_shipdate") <= 10470)
+        .group_by("l_returnflag", "l_linestatus")
+        .agg(
+            Count(lit(1)).alias("count_order"),
+            Min(col("l_shipdate")).alias("first_ship"),
+            Max(col("l_shipdate")).alias("last_ship"),
+        )
+        .sort("l_returnflag", "l_linestatus")
     )
 
 
@@ -348,6 +380,8 @@ def range_sum(session, root: str, start: int | None = None, width: int = 200_000
 
 
 QUERIES = {"q6": q6, "q6_count": q6_count, "q6_sum": q6_sum, "q1": q1, "q1_sums": q1_sums}
+# the partial route's forms (port-only)
+SPAN_QUERIES = {"q6_span": q6_span, "q1_span": q1_span}
 JOIN_QUERIES = {"q3_agg": q3_agg, "q3": q3}
 # point and range lookups on li_orderkey's key (port-only forms)
 LOOKUP_QUERIES = {"lookup_count": lookup_count, "lookup_absent": lookup_absent,

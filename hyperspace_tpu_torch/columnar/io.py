@@ -1,7 +1,8 @@
 """Parquet <-> ColumnBatch via pyarrow (counterpart of
 hyperspace_tpu/columnar/io.py, reduced to what the covering-index query
 path needs: whole-file and row-group-selected reads, footer-only row-group
-statistics, index-file writes, and the decoded index-chunk cache).
+statistics, index-file writes, the decoded index-chunk cache, and the
+ordered chunk stream the pipelined executor consumes, ``iter_chunks``).
 
 The chunk cache matters to the device tier: it hands repeated index scans
 the SAME numpy buffers, and the device-resident column cache
@@ -20,9 +21,10 @@ from __future__ import annotations
 import functools
 import os
 import threading
+import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Sequence
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import pyarrow as pa
@@ -30,6 +32,8 @@ import pyarrow.parquet as pq
 
 from .table import Column, ColumnBatch, DATE32, Field, STRING, Schema
 from ..exceptions import HyperspaceError
+from ..serve import budget as serve_budget
+from ..utils import env
 
 _ARROW_TO_LOGICAL = {
     pa.int8(): "int8",
@@ -155,6 +159,10 @@ class IndexChunkCache:
         self._bytes = 0
         self._lock = threading.Lock()
 
+    def __contains__(self, key) -> bool:
+        with self._lock:
+            return key in self._d
+
     def get_or_put(self, key, factory: Callable[[], ColumnBatch]) -> ColumnBatch:
         with self._lock:
             hit = self._d.get(key)
@@ -248,13 +256,17 @@ def read_parquet(
     cache: IndexChunkCache | None = None,
     row_groups: dict[str, Sequence[int]] | None = None,
     arrow_filter=None,
+    parallel: bool = True,
 ) -> ColumnBatch:
     """Read ``paths`` in order into one ColumnBatch. ``row_groups`` maps a
     path to the only row groups to read from it (other paths are read
     whole); ``arrow_filter`` is the reader's row filter. With ``cache``,
     repeats return the cached batch's Column objects; the selection and the
     filter are part of the key, so a pruned or filtered read and a full
-    read of the same files never share an entry."""
+    read of the same files never share an entry. ``parallel=False``
+    decodes the files one after another on the calling thread (a chunk
+    streamer's pool worker, whose pool already bounds the decode width);
+    the result is the same either way."""
     cols = list(columns) if columns else None
     row_groups = row_groups or {}
     if (_MAINTENANCE_DEPTH > 0 and cols and cache is None and len(paths) > 1
@@ -266,9 +278,15 @@ def read_parquet(
     def decode() -> ColumnBatch:
         if not paths:
             return ColumnBatch({})
-        with ThreadPoolExecutor(max_workers=min(8, len(paths))) as pool:
-            tables = list(pool.map(
-                lambda p: _read_one_table(p, cols, row_groups.get(p), arrow_filter), paths))
+
+        def one(p):
+            return _read_one_table(p, cols, row_groups.get(p), arrow_filter)
+
+        if parallel and len(paths) > 1:
+            with ThreadPoolExecutor(max_workers=min(8, len(paths))) as pool:
+                tables = list(pool.map(one, paths))
+        else:
+            tables = [one(p) for p in paths]
         if len(tables) > 1:
             tables = _unify_string_encoding(tables)
         table = pa.concat_tables(tables, promote_options="permissive")
@@ -279,17 +297,193 @@ def read_parquet(
 
     if cache is None or cache.max_bytes <= 0:
         return decode()
+    stored = cache.get_or_put(_chunk_cache_key(paths, cols, row_groups, arrow_filter), decode)
+    # shallow copy: callers may rebind columns; Column objects are shared
+    return ColumnBatch(stored.columns)
+
+
+def _chunk_cache_key(paths, cols, row_groups: dict, arrow_filter=None) -> tuple:
+    """The chunk-cache key of a read: the files' versions, the columns, the
+    row-group selection and the filter."""
     stats = tuple(
         (p, s.st_mtime_ns, s.st_ino, s.st_size)
         for p, s in ((p, os.stat(p)) for p in paths)
     )
     selection = tuple((p, tuple(row_groups[p])) for p in paths if p in row_groups)
-    stored = cache.get_or_put(
-        (stats, tuple(cols) if cols else None, selection or None,
-         None if arrow_filter is None else repr(arrow_filter)), decode
-    )
-    # shallow copy: callers may rebind columns; Column objects are shared
-    return ColumnBatch(stored.columns)
+    return (stats, tuple(cols) if cols else None, selection or None,
+            None if arrow_filter is None else repr(arrow_filter))
+
+
+def _all_cached(groups, columns, cache: IndexChunkCache | None, row_groups) -> bool:
+    """Every group's read is in ``cache`` already (a warm index scan)."""
+    if cache is None or cache.max_bytes <= 0:
+        return False
+    cols = list(columns) if columns else None
+    try:
+        return all(_chunk_cache_key(g, cols, row_groups or {}) in cache for g in groups)
+    except OSError:
+        return False
+
+
+# --- the ordered chunk stream -------------------------------------------------
+#
+# The pipelined executor (plan/gpu_exec.py) consumes a multi-file scan as an
+# ordered stream of file-group chunks: groups decode concurrently on an IO
+# pool, ahead of the consumer, under the global read-ahead ledger, and come
+# out in file order, so the concatenated chunks are the monolithic read.
+
+
+def io_threads() -> int:
+    """IO pool width: ``HYPERSPACE_IO_THREADS``, default ``min(8, nproc)``;
+    an unparseable value means serial (1)."""
+    try:
+        return int(env.read_raw("HYPERSPACE_IO_THREADS", str(min(8, os.cpu_count() or 1))))
+    except ValueError:
+        return 1
+
+
+def io_byte_budget() -> int:
+    """Decoded bytes a stream may hold undelivered
+    (``HYPERSPACE_IO_BUDGET_MB``, default 512): the legacy per-stream knob,
+    which the global ledger inherits when it is the only one set."""
+    try:
+        return int(env.env_float("HYPERSPACE_IO_BUDGET_MB") * 2**20)
+    except ValueError:
+        return 512 * 2**20
+
+
+def stream_chunk_bytes() -> int:
+    """Target file bytes per streamed chunk (``HYPERSPACE_STREAM_CHUNK_MB``,
+    default 64): consecutive small files share a chunk, a larger file is a
+    chunk of its own."""
+    try:
+        return int(env.env_float("HYPERSPACE_STREAM_CHUNK_MB") * 2**20)
+    except ValueError:
+        return 64 * 2**20
+
+
+class StreamChunk:
+    """One decoded chunk of an ordered multi-file scan: its batch, its
+    position in the stream, its files, the seconds its decode took and its
+    decoded bytes."""
+
+    __slots__ = ("batch", "index", "paths", "decode_s", "nbytes")
+
+    def __init__(self, batch: ColumnBatch, index: int, paths: list[str],
+                 decode_s: float, nbytes: int):
+        self.batch = batch
+        self.index = index
+        self.paths = paths
+        self.decode_s = decode_s
+        self.nbytes = nbytes
+
+
+def plan_chunk_groups(paths: Sequence[str], target_bytes: int | None = None) -> list[list[str]]:
+    """``paths`` cut, in order, into groups of about ``target_bytes`` file
+    bytes each (at least one file a group); a file that cannot be stat-ed
+    is a group of its own."""
+    target = target_bytes if target_bytes is not None else stream_chunk_bytes()
+    groups: list[list[str]] = []
+    cur: list[str] = []
+    cur_bytes = 0
+    for p in paths:
+        try:
+            size = os.path.getsize(p)
+        except OSError:
+            size = target
+        if cur and cur_bytes + size > target:
+            groups.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(p)
+        cur_bytes += size
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def count_chunk_groups(paths: Sequence[str], target_bytes: int | None = None) -> int:
+    """How many chunks ``iter_chunks`` streams for ``paths`` (no IO)."""
+    return len(plan_chunk_groups(paths, target_bytes))
+
+
+class ChunkReadError(HyperspaceError):
+    """A chunk's decode failed on an IO worker: a host read failure, which
+    propagates like any scan error."""
+
+
+def iter_chunks(
+    paths: Sequence[str],
+    columns: Sequence[str] | None = None,
+    cache: IndexChunkCache | None = None,
+    target_bytes: int | None = None,
+    overlap: bool = True,
+    row_groups: dict[str, Sequence[int]] | None = None,
+) -> Iterator[StreamChunk]:
+    """The chunks of a multi-file scan, in file order. Each chunk is one
+    ``read_parquet`` call over its group, with ``cache`` and the group's
+    part of the ``row_groups`` selection, so the concatenated chunks equal
+    the monolithic read column for column (a dtype that differs between
+    files is promoted there; the consumer aborts on it).
+
+    With ``overlap``, groups decode on an IO pool of ``io_threads()``
+    workers, each decoding its group's files one by one: at most width + 2
+    groups in flight, each reserving twice its file bytes through the
+    global read-ahead ledger before it is submitted (a stream that holds
+    nothing is always granted). Without it, or with one group or one
+    thread, each group decodes on the caller's thread when asked for; so
+    it does when ``cache`` holds every group already (a warm index scan:
+    nothing to decode ahead, and no pool to start)."""
+    groups = plan_chunk_groups(paths, target_bytes)
+
+    def decode(group: list[str], parallel: bool):
+        t0 = time.perf_counter()
+        try:
+            batch = read_parquet(group, columns, cache=cache, row_groups=row_groups,
+                                 parallel=parallel)
+        except Exception as e:  # noqa: BLE001 - one type for every read failure
+            raise ChunkReadError(f"chunk decode failed for {group}: {e}") from e
+        return batch, time.perf_counter() - t0
+
+    def emit(i: int, batch: ColumnBatch, dt: float) -> StreamChunk:
+        return StreamChunk(batch, i, groups[i], dt, _batch_nbytes(batch))
+
+    width = min(io_threads(), len(groups))
+    if not overlap or width <= 1 or len(groups) < 2 or _all_cached(groups, columns, cache,
+                                                                     row_groups):
+        for i, g in enumerate(groups):
+            batch, dt = decode(g, True)
+            yield emit(i, batch, dt)
+        return
+
+    ests = [max(1, sum(os.path.getsize(p) for p in g if os.path.exists(p))) * 2
+            for g in groups]
+    max_inflight = width + 2
+    pool = ThreadPoolExecutor(max_workers=width, thread_name_prefix="hs-scan-io")
+    bstream = serve_budget.global_budget().stream("scan")
+    futures: dict = {}
+    nxt = 0
+
+    def pump() -> None:
+        nonlocal nxt
+        while nxt < len(groups) and len(futures) < max_inflight \
+                and bstream.try_reserve(ests[nxt]):
+            futures[nxt] = pool.submit(decode, groups[nxt], False)
+            nxt += 1
+
+    try:
+        pump()
+        for i in range(len(groups)):
+            batch, dt = futures.pop(i).result()
+            bstream.release(ests[i])
+            pump()
+            yield emit(i, batch, dt)
+    finally:
+        try:
+            for f in futures.values():
+                f.cancel()
+            pool.shutdown(wait=False)
+        finally:
+            bstream.close()
 
 
 def read_parquet_schema(path: str) -> Schema:
@@ -297,7 +491,16 @@ def read_parquet_schema(path: str) -> Schema:
 
 
 def file_num_rows(path: str) -> int:
-    """Row count from file metadata only (no data pages)."""
+    """Row count from file metadata only (no data pages), cached by the
+    file's (mtime_ns, inode, size): the pipelined executor counts a scan's
+    rows on every query, and a footer of a few thousand row groups takes
+    milliseconds to parse."""
+    st = os.stat(path)
+    return _num_rows(path, (st.st_mtime_ns, st.st_ino, st.st_size))
+
+
+@functools.lru_cache(maxsize=16384)
+def _num_rows(path: str, _version: tuple) -> int:
     return pq.ParquetFile(path).metadata.num_rows
 
 

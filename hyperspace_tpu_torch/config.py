@@ -93,3 +93,8 @@ class HyperspaceConf:
     @property
     def index_compression(self) -> str:
         return str(self._conf.get(C.INDEX_COMPRESSION, C.INDEX_COMPRESSION_DEFAULT)).lower()
+
+    @property
+    def build_max_bytes_in_memory(self) -> int:
+        return int(self._conf.get(C.BUILD_MAX_BYTES_IN_MEMORY,
+                                  C.BUILD_MAX_BYTES_IN_MEMORY_DEFAULT))

@@ -59,6 +59,11 @@ INDEX_STATS_COLUMNS_DEFAULT = "clustered"
 INDEX_COMPRESSION = "hyperspace.tpu.index.compression"
 INDEX_COMPRESSION_DEFAULT = "lz4"
 
+# index builds and refreshes whose source exceeds this many bytes stream
+# through it in file groups of at most this size (out of core)
+BUILD_MAX_BYTES_IN_MEMORY = "hyperspace.tpu.build.maxBytesInMemory"
+BUILD_MAX_BYTES_IN_MEMORY_DEFAULT = 2 * 1024 * 1024 * 1024  # 2 GB
+
 # log id offsets of the two-phase action protocol
 LOG_ID_TRANSIENT_OFFSET = 1
 LOG_ID_FINAL_OFFSET = 2

@@ -14,10 +14,18 @@ Maintenance: incremental refresh writes the appended rows as a new run per
 bucket beside the old data (Merge), or, when source files were deleted,
 rewrites every bucket without their rows (Overwrite); full refresh
 rebuilds; optimize compacts each bucket's files into one sorted file,
-bucket by bucket, with no re-hash. The port builds and refreshes in
-memory: the JAX package streams above ``hyperspace.tpu.build.maxBytesInMemory``
-(2 GB by default), writing several runs per bucket, so above that size the
-two packages' files differ (their rows do not).
+bucket by bucket, with no re-hash.
+
+Out of core: a create or full refresh whose source exceeds
+``hyperspace.tpu.build.maxBytesInMemory`` (2 GB by default) streams the
+source in file groups of at most that many bytes (``_file_groups``); each
+group is bucketed, sorted and written as one run per bucket, named
+``part-0-b<bucket>-<seq>`` (``write_streaming_groups``). An incremental
+refresh above it streams both slices: the appended files through the same
+writer, and, with deletes, each old index file rewritten alone as a run
+after the lineage filter. The files equal the JAX package's at the same
+limit; a bucket then holds several sorted runs, which queries handle and
+optimize compacts.
 """
 
 from __future__ import annotations
@@ -187,13 +195,24 @@ class CoveringIndex(Index):
                             index_content_files: list[FileInfo]) -> tuple["CoveringIndex", UpdateMode]:
         """Index the appended rows; drop the rows of deleted source files by
         their lineage ids. Appends alone write only the new rows (Merge);
-        with deletes every bucket is rewritten (Overwrite)."""
+        with deletes every bucket is rewritten (Overwrite). Above the
+        in-memory limit both slices stream (``_refresh_incremental_streaming``)."""
         if deleted_files and not self.has_lineage():
             raise HyperspaceError(
                 "Index has no lineage column; cannot handle deleted source files"
             )
         new_index = CoveringIndex(self._indexed, self._included, self._schema,
                                   self.num_buckets, self._properties)
+        limit = ctx.session.conf.build_max_bytes_in_memory
+        appended_scan = _single_file_scan(appended_df) if appended_df is not None else None
+        appended_bytes = sum(f.size for f in appended_scan.files) if appended_scan else 0
+        old_bytes = sum(f.size for f in index_content_files) if deleted_files else 0
+        n_pieces = ((len(appended_scan.files) if appended_scan else 0)
+                    + (len(index_content_files) if deleted_files else 0))
+        if appended_bytes + old_bytes > limit and n_pieces > 1:
+            mode = self._refresh_incremental_streaming(
+                ctx, appended_df, appended_scan, deleted_files, index_content_files, limit)
+            return new_index, mode
         parts: list[ColumnBatch] = []
         if appended_df is not None:
             parts.append(CoveringIndex.create_index_data(
@@ -205,9 +224,48 @@ class CoveringIndex(Index):
         new_index.write(ctx, ColumnBatch.concat(parts))
         return new_index, mode
 
-    def refresh_full(self, ctx: IndexerContext, df: "DataFrame") -> tuple["CoveringIndex", ColumnBatch]:
+    def _refresh_incremental_streaming(self, ctx, appended_df, appended_scan, deleted_files,
+                                       index_content_files, limit) -> UpdateMode:
+        """The appended files through the file-group writer (runs ``0..``),
+        then, with deletes, each old index file rewritten alone after the
+        lineage filter as the next run (of its bucket, by its file name)."""
+        seq = 0
+        if appended_scan is not None:
+            _, seq = write_streaming_groups(
+                ctx, appended_df, appended_scan, self._indexed, self._included,
+                self.has_lineage(), self.num_buckets, limit)
+        if not deleted_files:
+            return UpdateMode.MERGE
+        deleted_ids = np.asarray([f.id for f in deleted_files], dtype=np.int64)
+        for f in index_content_files:
+            b = cio.read_parquet([f.name])
+            keep = ~np.isin(b.column(C.DATA_FILE_NAME_ID).data, deleted_ids)
+            if keep.any():
+                kept = b.filter(keep)
+                bucket = bucket_id_from_filename(f.name)
+                if bucket is None:
+                    write_bucketed(kept, ctx.index_data_path, self._indexed, self.num_buckets,
+                                   session=ctx.session, seq=seq)
+                else:
+                    out_path = os.path.join(ctx.index_data_path, bucket_file_name(0, bucket, seq))
+                    cio.write_index_file(kept, out_path, row_group_size=INDEX_ROW_GROUP_SIZE,
+                                         **index_write_opts(ctx.session, self._indexed))
+                    _write_sketch_sidecar(kept, out_path, INDEX_ROW_GROUP_SIZE, self._indexed)
+            seq += 1
+        return UpdateMode.OVERWRITE
+
+    def refresh_full(self, ctx: IndexerContext, df: "DataFrame"
+                     ) -> tuple["CoveringIndex", Optional[ColumnBatch]]:
+        """Full rebuild; a source above the in-memory limit streams through
+        the file-group writer, and the data is then already written (None)."""
         new_index = CoveringIndex(self._indexed, self._included, self._schema,
                                   self.num_buckets, self._properties)
+        scan = _single_file_scan(df)
+        limit = ctx.session.conf.build_max_bytes_in_memory
+        if sum(f.size for f in scan.files) > limit and len(scan.files) > 1:
+            write_streaming_groups(ctx, df, scan, self._indexed, self._included,
+                                   self.has_lineage(), self.num_buckets, limit)
+            return new_index, None
         data = CoveringIndex.create_index_data(ctx, df, self._indexed, self._included,
                                                self.has_lineage())
         return new_index, data
@@ -298,10 +356,11 @@ def write_bucketed(
     num_buckets: int,
     version: int = 0,
     session=None,
+    seq: int | None = None,
 ) -> list[str]:
     """Partition rows by hash(bucket_columns) % num_buckets, sort each
     bucket stably by the bucket columns, and write one file per non-empty
-    bucket with the bucket id in its name."""
+    bucket with the bucket id in its name (and the run ``seq``, if any)."""
     keys = [sort_key_values(batch.column(c), True) for c in reversed(bucket_columns)]
     write_opts = index_write_opts(session, bucket_columns)
 
@@ -312,7 +371,7 @@ def write_bucketed(
         else:
             order = np.lexsort([k[rows] for k in keys])
         part = batch.take(rows[order])
-        fname = bucket_file_name(version, bucket)
+        fname = bucket_file_name(version, bucket, seq)
         rgs = index_row_group_size(part.num_rows)
         cio.write_index_file(part, os.path.join(path, fname), row_group_size=rgs,
                              **write_opts)
@@ -323,6 +382,47 @@ def write_bucketed(
     # pyarrow's encoder releases the GIL: buckets write concurrently
     with ThreadPoolExecutor(max_workers=max(1, min(len(work), os.cpu_count() or 1))) as pool:
         return list(pool.map(write_bucket, work))
+
+
+def _file_groups(files: list[FileInfo], max_bytes: int) -> list[list[FileInfo]]:
+    """``files`` cut, in order, into groups of at most ``max_bytes`` (at
+    least one file a group)."""
+    groups: list[list[FileInfo]] = []
+    cur: list[FileInfo] = []
+    size = 0
+    for f in files:
+        if cur and size + f.size > max_bytes:
+            groups.append(cur)
+            cur, size = [], 0
+        cur.append(f)
+        size += f.size
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def write_streaming_groups(ctx: IndexerContext, df: "DataFrame", scan: FileScan,
+                           indexed: list[str], included: list[str], lineage: bool,
+                           num_buckets: int, limit: int, start_seq: int = 0
+                           ) -> tuple[Optional[list[dict]], int]:
+    """The out-of-core bucketed build: the source's files in groups of at
+    most ``limit`` bytes, each group sliced, bucketed, sorted and written
+    as one run per bucket (run ``seq`` in the file names). Returns (the
+    index schema as a list, the next free seq)."""
+    from ..plan.dataframe import DataFrame as DF
+
+    schema_list: Optional[list[dict]] = None
+    seq = start_seq
+    for group in _file_groups(scan.files, limit):
+        sub = df.plan.transform_up(lambda n, g=group: n.copy(files=g) if n is scan else n)
+        data = CoveringIndex.create_index_data(ctx, DF(ctx.session, sub), indexed, included,
+                                               lineage)
+        if schema_list is None:
+            schema_list = data.schema.to_list()
+        write_bucketed(data, ctx.index_data_path, indexed, num_buckets, session=ctx.session,
+                       seq=seq)
+        seq += 1
+    return schema_list, seq
 
 
 def _write_sketch_sidecar(batch: ColumnBatch, data_path: str, row_group_size: int,
@@ -364,13 +464,20 @@ class CoveringIndexConfig(IndexConfig):
         return self._indexed + self._included
 
     def create_index(self, ctx, df, properties):
+        """(the index, its data); above the in-memory limit the build streams
+        and writes as it goes, and the data is None (already written)."""
         indexed = resolve_columns(df.schema, self._indexed)
         included = resolve_columns(df.schema, self._included)
-        _single_file_scan(df)
+        scan = _single_file_scan(df)
         lineage = properties.get("lineage", "false") == "true"
+        num_buckets = ctx.session.conf.num_buckets
+        limit = ctx.session.conf.build_max_bytes_in_memory
+        if sum(f.size for f in scan.files) > limit and len(scan.files) > 1:
+            schema_list, _ = write_streaming_groups(ctx, df, scan, indexed, included, lineage,
+                                                    num_buckets, limit)
+            return CoveringIndex(indexed, included, schema_list or [], num_buckets,
+                                 properties), None
         data = CoveringIndex.create_index_data(ctx, df, indexed, included, lineage)
-        index = CoveringIndex(
-            indexed, included, data.schema.to_list(), ctx.session.conf.num_buckets,
-            properties,
-        )
+        index = CoveringIndex(indexed, included, data.schema.to_list(), num_buckets,
+                              properties)
         return index, data

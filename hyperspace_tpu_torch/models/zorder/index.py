@@ -1,5 +1,6 @@
 """ZOrderCoveringIndex, kind "ZCI" (counterpart of
-hyperspace_tpu/models/zorder/index.py, in-memory build and maintenance).
+hyperspace_tpu/models/zorder/index.py: the build, in memory and out of
+core, and maintenance).
 
 A covering index laid out along a z-order curve instead of hash buckets:
 rows are sorted by the z-address of the indexed columns (by the column
@@ -7,12 +8,16 @@ itself when there is one) and cut into roughly equal parts, one data file
 each, the part count being the slice's bytes over
 ``_TARGET_BYTES_PER_PARTITION``. Row-group
 statistics cover every indexed column, so a range on any of them skips
-groups. File names, row order and log-entry JSON equal the JAX package's
-in-memory build. The JAX package streams the build when the source exceeds
-``hyperspace.tpu.build.maxBytesInMemory`` (cut points from a sample); the
-port always builds in memory, so above that size its parts differ.
+groups. A create whose source exceeds ``hyperspace.tpu.build.maxBytesInMemory``
+streams in two passes over file groups of at most that size
+(``streaming_zorder_build``): the first takes each indexed column's extremes
+and a seeded sample, from which the fields and the z-range cut points come;
+the second writes each group's rows as one sorted run per range,
+``part-0-z<range>-<group>``. File names, row order and log-entry JSON
+equal the JAX package's, in memory and streamed.
 
-Maintenance rewrites z-ordered parts: incremental refresh writes the
+Maintenance rewrites z-ordered parts in memory, as the JAX package's
+does at any size: incremental refresh writes the
 appended rows as parts of their own (Merge), or, with deleted source
 files, rewrites the remaining and appended rows together (Overwrite);
 full refresh rebuilds, fields included; optimize re-sorts the files it is
@@ -41,12 +46,13 @@ from ..covering import (
     INDEX_ROW_GROUP_SIZE,
     CoveringIndex,
     _drop_deleted_rows,
+    _file_groups,
     _single_file_scan,
     index_write_opts,
     resolve_columns,
 )
 from ...columnar import io as cio
-from ...columnar.table import ColumnBatch, Schema, sort_key_values
+from ...columnar.table import STRING, Column, ColumnBatch, Schema, sort_key_values
 from ...exceptions import HyperspaceError
 from ...meta.entry import FileInfo
 from ...ops.zorder import interleave_bits
@@ -223,6 +229,110 @@ def write_zordered(
         return [f for f in pool.map(write_part, range(num_parts)) if f]
 
 
+def streaming_zorder_build(ctx: IndexerContext, df: "DataFrame", scan, indexed: list[str],
+                           included: list[str], lineage: bool, quantile_enabled: bool,
+                           target_bytes: int, limit: int, sample_rows: int = 200_000):
+    """The out-of-core z-order build, two passes over file groups of at
+    most ``limit`` bytes. Pass 1 reads the indexed columns of each group
+    and keeps each column's exact extremes and a sample of the same rows of
+    every column (``np.random.default_rng(0)``, ``sample_rows`` in all);
+    the fields build from the sample with the extremes, and the cut points
+    of ``ceil(source bytes / target_bytes)`` ranges are the sample's
+    z-address quantiles. Pass 2 reads each group whole, assigns its rows to
+    ranges and writes one run per range sorted by z-address,
+    ``part-0-z<range>-<group>``. Returns (fields, index schema list), or
+    None when an indexed column is a string (the caller builds in
+    memory)."""
+    from ...plan.dataframe import DataFrame as DF
+
+    groups = _file_groups(scan.files, limit)
+    rng = np.random.default_rng(0)
+    per_group = max(1, sample_rows // max(1, len(groups)))
+    samples: dict[str, list[np.ndarray]] = {c: [] for c in indexed}
+    validity_samples: dict[str, list[np.ndarray]] = {c: [] for c in indexed}
+    dtype_labels: dict[str, str] = {}
+
+    def group_df(group):
+        return DF(ctx.session, df.plan.transform_up(
+            lambda nd: nd.copy(files=group) if nd is scan else nd))
+
+    # pass 1: extremes and a sample, indexed columns only
+    for group in groups:
+        data = CoveringIndex.create_index_data(ctx, group_df(group), indexed, [], lineage=False)
+        if not dtype_labels:
+            if any(data.column(c).dtype == STRING for c in indexed):
+                return None
+            dtype_labels = {c: data.schema.field(c).dtype for c in indexed}
+        n = data.num_rows
+        if n == 0:
+            continue
+        # the same sampled rows of every column; nulls ride along as validity
+        take = rng.choice(n, size=min(per_group, n), replace=False)
+        for c in indexed:
+            col = data.column(c)
+            vals = col.data[take]
+            vmask = (np.ones(len(take), dtype=bool) if col.validity is None
+                     else col.validity[take])
+            valid_all = col.data if col.validity is None else col.data[col.validity]
+            if len(valid_all):  # exact extremes, so min-max scaling never clips
+                vals = np.concatenate([vals, [valid_all.min(), valid_all.max()]])
+                vmask = np.concatenate([vmask, [True, True]])
+            samples[c].append(vals)
+            validity_samples[c].append(vmask)
+
+    fields = []
+    sample_cols = {}
+    for c in indexed:
+        if samples[c]:
+            arr = np.concatenate(samples[c])
+            vmask = np.concatenate(validity_samples[c])
+        else:
+            arr, vmask = np.zeros(1, np.int64), np.ones(1, dtype=bool)
+        col = Column(arr, dtype_labels.get(c, str(arr.dtype)), None if vmask.all() else vmask)
+        sample_cols[c] = col
+        fields.append(build_field(c, col, quantile_enabled))
+
+    # range cut points from the sample's z-address quantiles
+    num_parts = max(1, int(np.ceil(sum(f.size for f in scan.files) / max(1, target_bytes))))
+    if len(indexed) == 1:
+        z_sample = fields[0].codes(sample_cols[indexed[0]]).astype(np.uint64)
+    else:
+        z_sample = compute_zaddresses(ColumnBatch(sample_cols), indexed, fields)
+    cuts = np.unique(np.quantile(
+        z_sample.astype(np.float64), [i / num_parts for i in range(1, num_parts)]
+    ).astype(np.uint64)) if num_parts > 1 else np.empty(0, np.uint64)
+
+    # pass 2: assign rows to ranges, sort, append one run per range
+    os.makedirs(ctx.index_data_path, exist_ok=True)
+    write_opts = index_write_opts(ctx.session, indexed)
+    schema_list = None
+    for seq, group in enumerate(groups):
+        data = CoveringIndex.create_index_data(ctx, group_df(group), indexed, included, lineage)
+        if schema_list is None:
+            schema_list = data.schema.to_list()
+        if data.num_rows == 0:
+            continue
+        if len(indexed) == 1:
+            z = fields[0].codes(data.column(indexed[0])).astype(np.uint64)
+        else:
+            z = compute_zaddresses(data, indexed, fields)
+        part_ids = np.searchsorted(cuts, z, side="right")
+        order = np.lexsort((z, part_ids))
+        bounds = np.searchsorted(part_ids[order], np.arange(len(cuts) + 2))
+
+        def write_run(p: int, data=data, order=order, bounds=bounds, seq=seq):
+            rows = order[bounds[p]: bounds[p + 1]]
+            if len(rows):
+                cio.write_index_file(
+                    data.take(rows),
+                    os.path.join(ctx.index_data_path, f"part-0-z{p:05d}-{seq}.parquet"),
+                    row_group_size=INDEX_ROW_GROUP_SIZE, **write_opts)
+
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            list(pool.map(write_run, range(len(cuts) + 1)))
+    return fields, schema_list or []
+
+
 class ZOrderCoveringIndexConfig(IndexConfig):
     def __init__(self, index_name: str, indexed_columns: Sequence[str],
                  included_columns: Sequence[str] = ()):
@@ -243,10 +353,21 @@ class ZOrderCoveringIndexConfig(IndexConfig):
         return self._indexed + self._included
 
     def create_index(self, ctx: IndexerContext, df: "DataFrame", properties: dict[str, str]):
+        """(the index, its data); a source above the in-memory limit builds
+        out of core (``streaming_zorder_build``) and the data is None
+        (already written), unless an indexed column is a string."""
         indexed = resolve_columns(df.schema, self._indexed)
         included = resolve_columns(df.schema, self._included)
-        _single_file_scan(df)
+        scan = _single_file_scan(df)
         lineage = properties.get("lineage", "false") == "true"
+        limit = ctx.session.conf.build_max_bytes_in_memory
+        if sum(f.size for f in scan.files) > limit and len(scan.files) > 1:
+            out = streaming_zorder_build(ctx, df, scan, indexed, included, lineage, _QUANTILE,
+                                         _TARGET_BYTES_PER_PARTITION, limit)
+            if out is not None:
+                fields, schema_list = out
+                return ZOrderCoveringIndex(indexed, included, schema_list, fields,
+                                           properties), None
         data = CoveringIndex.create_index_data(ctx, df, indexed, included, lineage)
         fields = [build_field(c, data.column(c), _QUANTILE) for c in indexed]
         index = ZOrderCoveringIndex(indexed, included, data.schema.to_list(), fields,

@@ -31,8 +31,14 @@ by its key only when it has no appended part and at most one file (a
 refreshed index keeps one run per data version in a bucket): every path
 that trusts the on-disk sort reads these flags.
 
-Not ported: the mesh paths, read-ahead pipelining of bucket pairs (pairs
-load on a pool, then the device works), the per-bucket strategy plan
+The fused join+aggregate takes its bucket pairs as a stream
+(``_iter_bucket_pairs``): pairs load ahead on an IO pool under the global
+read-ahead ledger while the device works on earlier ones, bit for bit the
+pairs the load-all barrier gives. ``HYPERSPACE_PIPELINE=0`` keeps the
+barrier; ``serial`` loads each pair on the caller's thread when asked for.
+
+Not ported: the mesh paths, the streamed and banded plain join (its
+pairs load behind the barrier), the per-bucket strategy plan
 (plan/join_memory.py) and adaptive re-planning.
 """
 
@@ -284,25 +290,34 @@ def try_bucketed_merge_join(
             session, agg_plan, left, right, lkeys, rkeys, residual
         ):
             from .device_join import try_stacked_join_agg
+            from .gpu_exec import _pipeline_enabled, _pipeline_overlap
 
             raw_loaded: list = [None] * n
-            gen = _iter_bucket_pairs(left, right, appended, session)
+            if _pipeline_enabled():
+                gen = _iter_bucket_pairs(left, right, appended, session, raw=True,
+                                         overlap=_pipeline_overlap())
+            else:  # the load-all barrier
+                gen = (t for t in [(b,) + p for b, p in enumerate(
+                    _load_all_bucket_pairs(left, right, appended, session, raw=True))])
 
             def raw_pairs():
                 for b, lb, rb, ls, rs in gen:
                     raw_loaded[b] = (lb, rb, ls, rs)
                     yield b, lb, rb, ls, rs
 
-            dev_out = try_stacked_join_agg(
-                raw_pairs(), lkeys, rkeys, residual, session, agg_plan,
-                lfilters=tuple(left.filters), rfilters=tuple(right.filters),
-                lcols_avail=set(plan.left.schema.names),
-                rcols_avail=set(plan.right.schema.names),
-            )
-            if dev_out is not None:
-                return done(dev_out, "stacked_agg")
-            for b, lb, rb, ls, rs in gen:  # the fallback reuses every pair
-                raw_loaded[b] = (lb, rb, ls, rs)
+            try:
+                dev_out = try_stacked_join_agg(
+                    raw_pairs(), lkeys, rkeys, residual, session, agg_plan,
+                    lfilters=tuple(left.filters), rfilters=tuple(right.filters),
+                    lcols_avail=set(plan.left.schema.names),
+                    rcols_avail=set(plan.right.schema.names),
+                )
+                if dev_out is not None:
+                    return done(dev_out, "stacked_agg")
+                for b, lb, rb, ls, rs in gen:  # the fallback reuses every pair
+                    raw_loaded[b] = (lb, rb, ls, rs)
+            finally:
+                gen.close()  # stops the read-ahead, whatever raised
             preloaded = [
                 None if t is None else (
                     None if t[0] is None else _apply_side_ops(left, t[0]),
@@ -484,18 +499,21 @@ def _bucket_sorted(side: BucketedSide, b: int, appended) -> bool:
     return appended is None and len(side.files_for_bucket(b)) <= 1
 
 
-def _load_all_bucket_pairs(left, right, appended, session) -> list:
-    """Every bucket pair, side ops applied, loaded on a thread pool:
-    ``[(lb, rb, l_sorted, r_sorted)]`` by bucket."""
+def _load_pair(left, right, appended, session, b: int, raw: bool) -> tuple:
+    """Bucket ``b``'s ``(lb, rb, l_sorted, r_sorted)``."""
+    return (_load_side_bucket(left, b, appended[0], session, raw=raw),
+            _load_side_bucket(right, b, appended[1], session, raw=raw),
+            _bucket_sorted(left, b, appended[0]), _bucket_sorted(right, b, appended[1]))
+
+
+def _load_all_bucket_pairs(left, right, appended, session, raw: bool = False) -> list:
+    """Every bucket pair (side ops applied unless ``raw``), loaded on a
+    thread pool before anything else runs: ``[(lb, rb, l_sorted,
+    r_sorted)]`` by bucket."""
     n = left.spec.num_buckets
-
-    def load(b):
-        return (_load_side_bucket(left, b, appended[0], session),
-                _load_side_bucket(right, b, appended[1], session),
-                _bucket_sorted(left, b, appended[0]), _bucket_sorted(right, b, appended[1]))
-
     with ThreadPoolExecutor(max_workers=max(1, min(8, n))) as pool:
-        return list(pool.map(load, range(n)))
+        return list(pool.map(
+            lambda b: _load_pair(left, right, appended, session, b, raw), range(n)))
 
 
 def _collect_plain_join_work(left, right, lkeys, rkeys, appended, session):
@@ -547,15 +565,52 @@ def _try_device_join_paths(left, right, lkeys, rkeys, residual, appended, sessio
     return ColumnBatch.concat(ordered), loaded
 
 
-def _iter_bucket_pairs(left, right, appended, session):
+def _iter_bucket_pairs(left, right, appended, session, raw: bool = False,
+                       overlap: bool = True):
     """``(bucket, lb, rb, l_sorted, r_sorted)`` in bucket order, each pair
-    loaded RAW when it is asked for (no op replay: the device body runs the
-    side filters over the stable index-chunk buffers)."""
-    for b in range(left.spec.num_buckets):
-        lb = _load_side_bucket(left, b, appended[0], session, raw=True)
-        rb = _load_side_bucket(right, b, appended[1], session, raw=True)
-        yield (b, lb, rb, _bucket_sorted(left, b, appended[0]),
-               _bucket_sorted(right, b, appended[1]))
+    made by the calls the barrier loader makes (``raw`` leaves the side ops
+    for the device body), so the stream equals ``_load_all_bucket_pairs``
+    pair for pair. With ``overlap`` the pairs load ahead on an IO pool: at
+    most width + 2 in flight, each reserving twice both sides' file bytes
+    through the global read-ahead ledger before it is submitted (a stream
+    that holds nothing is always granted). Without it, or with one bucket
+    or one thread, each pair loads on the caller's thread when asked for."""
+    from ..columnar.io import io_threads
+    from ..serve import budget as serve_budget
+
+    n = left.spec.num_buckets
+    width = max(1, min(io_threads(), n))
+    if not overlap or width <= 1 or n < 2:
+        for b in range(n):
+            yield (b,) + _load_pair(left, right, appended, session, b, raw)
+        return
+    ests = [max(1, sum(f.size for side in (left, right) for f in side.files_for_bucket(b))) * 2
+            for b in range(n)]
+    pool = ThreadPoolExecutor(max_workers=width, thread_name_prefix="hs-join-io")
+    bstream = serve_budget.global_budget().stream("join")
+    futures: dict = {}
+    nxt = 0
+
+    def pump() -> None:
+        nonlocal nxt
+        while nxt < n and len(futures) < width + 2 and bstream.try_reserve(ests[nxt]):
+            futures[nxt] = pool.submit(_load_pair, left, right, appended, session, nxt, raw)
+            nxt += 1
+
+    try:
+        pump()
+        for b in range(n):
+            out = futures.pop(b).result()
+            bstream.release(ests[b])
+            pump()
+            yield (b,) + out
+    finally:
+        try:
+            for f in futures.values():
+                f.cancel()
+            pool.shutdown(wait=False)
+        finally:
+            bstream.close()
 
 
 def _apply_side_ops(side: BucketedSide, batch: ColumnBatch) -> ColumnBatch:

@@ -1,6 +1,7 @@
 """Plan execution on the host (counterpart of hyperspace_tpu/plan/executor.py,
 reduced to scan, filter, project, join, aggregate, sort, limit and the
-hybrid-scan unions).
+hybrid-scan unions), with the streamed scan the pipelined executor
+consumes (``scan_streamable``, ``iter_scan_chunks``).
 
 This is the always-correct reference path for every node, and the port's
 plain end-to-end reference. When the session's device tier is on, an
@@ -118,6 +119,44 @@ def resolve_scan_pruning(scan: FileScan):
     from .pruning import rowgroup_selection
 
     return rowgroup_selection(scan)
+
+
+def scan_streamable(scan: FileScan) -> bool:
+    """True when the scan can run as an ordered stream of file-group chunks
+    whose concatenation is the monolithic read: parquet, at least two files
+    to overlap, no pushed filter, no lineage filter (it makes new buffers
+    per read), not in pruning's verify mode (the comparison with the full
+    read runs in ``_exec_file_scan``), and some column to read."""
+    if scan.fmt != "parquet" or len(scan.files) < 2:
+        return False
+    if scan.pushed_filter is not None or scan.lineage_filter_ids is not None:
+        return False
+    if scan.prune_spec is not None:
+        from . import pruning
+
+        if pruning.is_verify(scan):
+            return False
+    return bool(scan.required_columns or scan.full_schema.names)
+
+
+def iter_scan_chunks(scan: FileScan, session=None, overlap: bool = True, selection=None):
+    """The chunk stream of a ``scan_streamable`` scan (columnar/io.
+    iter_chunks): the columns, files and row groups ``_exec_file_scan``
+    reads, per file group. An index scan's groups go through the session's
+    chunk cache, so a repeat gets the same buffers, which the device column
+    cache keys on. ``selection`` is ``resolve_scan_pruning``'s result when
+    the caller already has it (one resolution per scan)."""
+    want = list(scan.required_columns or scan.full_schema.names)
+    if selection is None:
+        selection = resolve_scan_pruning(scan)
+    row_groups, files = selection
+    cache = (
+        session.index_chunk_cache
+        if session is not None and scan.index_info is not None
+        else None
+    )
+    return cio.iter_chunks([f.name for f in files], want, cache=cache, overlap=overlap,
+                           row_groups=row_groups)
 
 
 def _maybe_verify_pruning(scan: FileScan, out: ColumnBatch, session) -> ColumnBatch:

@@ -30,12 +30,26 @@ column's dictionary codes, which ship as int32, with the literals' codes
 column with integer literals: such a column ships as two 32-bit words
 (``Wide64``), compared lexicographically on the card.
 
+A multi-file scan streams (``HYPERSPACE_PIPELINE``, on by default, as in
+the reference): its file groups decode on an IO pool ahead of the
+consumer (columnar/io.iter_chunks) and take one of two routes
+(``_stream_route``). Fragments whose aggregates fold exactly (counts,
+min, max, integer sums and averages) take the partial route: the body
+runs per chunk and the host folds the partials, groups in the order of
+their first passing row. The others take the concat route: each chunk's
+columns upload as they decode and concatenate on the card into the
+column the monolithic upload makes, bit for bit, and the fragment's
+kernel runs once over it. A chunk whose data the stream cannot take (a
+nullable chunk, a dtype that differs between files, an int64 value
+outside 32 bits, a string predicate that cannot be rewritten) aborts the
+stream, and the monolithic path runs, as in the reference.
+
 Unlike the reference, nothing here catches a device failure: a kernel that
 fails to build or launch raises, and the query fails. A fragment declines
 only by shape or data (string aggregates, nullable columns, out-of-range
-literals, a full-range int64 column that feeds an aggregate). Not ported
-in this slice, and so declining to the host: streaming execution and the
-mesh.
+literals, a full-range int64 column that feeds an aggregate). Not ported:
+the mesh, the mesh chunk placer, and the adaptive scan monitor (which
+passes chunks through with ``HYPERSPACE_ADAPTIVE`` off, its default).
 
 ORDER BY runs here too: ``try_device_topk`` (Limit over Sort, one exact
 32-bit key) and ``try_device_sort`` (any number of keys encoded into
@@ -46,6 +60,9 @@ permutation exactly.
 from __future__ import annotations
 
 import operator
+import time
+from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -60,6 +77,52 @@ from ..columnar.table import Column, ColumnBatch, STRING
 from ..exceptions import HyperspaceError
 from ..ops import cuda_kernels as K
 from ..ops.intsum import _INT_SUM_ROW_CAP, combine_int_chunks, int_chunk_sums
+from ..utils import env
+
+
+class UploadTimer:
+    """The host-to-device copy time of one query's uploads, read after the
+    query: CUDA events around each copy on the card (read once, with no
+    synchronize per copy), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._events: list = []
+        self._host_s = 0.0
+        self.copies = 0
+
+    @contextmanager
+    def copy(self):
+        self.copies += 1
+        if self._cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self._events.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self._host_s += time.perf_counter() - t0
+
+    def seconds(self) -> float:
+        if self._events:
+            self._events[-1][1].synchronize()
+        return self._host_s + sum(a.elapsed_time(b) for a, b in self._events) / 1000.0
+
+
+@dataclass
+class ScanTiming:
+    """The last filter-aggregate fragment's scan: its route ("pipelined"
+    or "device"), the stream route ("concat" or "partial") and its chunks,
+    the host decode seconds (summed over chunks) and the upload timer."""
+
+    route: str
+    stream: Optional[str]
+    chunks: int
+    decode_s: float
+    upload: UploadTimer
 
 
 @dataclass
@@ -70,7 +133,11 @@ class DeviceTierStats:
     "batched", "per_bucket" or "stacked_agg"); the plain join's blocking
     fetches, spilled waves and per-bucket device probes; device top-k and
     sort runs; and how often each reason declined a fragment or a join
-    that matched (``declines``) or a top-k or sort (``order_declines``)."""
+    that matched (``declines``) or a top-k or sort (``order_declines``).
+    The pipelined tier counts its queries and chunks, the streams it
+    declined by route (``pipeline_declines``) and those a chunk's data
+    aborted (``pipeline_aborts``), each by reason: the reference's
+    ``pipeline.*`` counters. ``last_scan`` times the last fragment's scan."""
 
     device_fragments: int = 0
     device_join_fragments: int = 0
@@ -82,6 +149,11 @@ class DeviceTierStats:
     device_topk: int = 0
     device_sort: int = 0
     order_declines: dict = field(default_factory=dict)
+    pipelined_queries: int = 0
+    pipelined_chunks: int = 0
+    pipeline_declines: dict = field(default_factory=dict)
+    pipeline_aborts: dict = field(default_factory=dict)
+    last_scan: Optional[ScanTiming] = None
 
 
 # ---------------------------------------------------------------------------
@@ -551,21 +623,31 @@ def _int64_fits(data: np.ndarray) -> bool:
     )
 
 
-def pad_to_device(data: np.ndarray, padded: int, device) -> torch.Tensor:
+def _to_device(arr: np.ndarray, device, timer: Optional[UploadTimer]) -> torch.Tensor:
+    """One host array's copy to the device, timed by ``timer``."""
+    if timer is None:
+        return torch.from_numpy(arr).to(device)
+    with timer.copy():
+        return torch.from_numpy(arr).to(device)
+
+
+def pad_to_device(data: np.ndarray, padded: int, device,
+                  timer: Optional[UploadTimer] = None) -> torch.Tensor:
     """Zero-padded device copy of one host column with the device dtype."""
     arr = np.zeros(padded, dtype=_device_dtype(data.dtype))
     arr[: len(data)] = data.astype(arr.dtype)
-    return torch.from_numpy(arr).to(device)
+    return _to_device(arr, device, timer)
 
 
-def _upload_wide(data: np.ndarray, padded: int, device) -> tuple:
+def _upload_wide(data: np.ndarray, padded: int, device, timer=None) -> tuple:
     """Zero-padded device copies of an int64 column's Wide64 word pairs."""
     hi, lo = _wide_words(data)
-    return pad_to_device(hi, padded, device), pad_to_device(lo, padded, device)
+    return (pad_to_device(hi, padded, device, timer),
+            pad_to_device(lo, padded, device, timer))
 
 
 def _upload_columns(batch: ColumnBatch, names, padded: int, session, device,
-                    wide_ok: frozenset = frozenset()):
+                    wide_ok: frozenset = frozenset(), timer: Optional[UploadTimer] = None):
     """Padded device columns by name, served from the session's device
     cache; None when a column is nullable or exceeds the 32-bit range. A
     column of ``wide_ok`` that exceeds it ships as a (hi, lo) word pair,
@@ -580,12 +662,12 @@ def _upload_columns(batch: ColumnBatch, names, padded: int, session, device,
                 return None
             dev_cols[name] = session.device_cache.get_or_put(
                 (col.data,), ("wide", padded, str(device)),
-                lambda data=col.data: _upload_wide(data, padded, device),
+                lambda data=col.data: _upload_wide(data, padded, device, timer),
             )
             continue
         dev_cols[name] = session.device_cache.get_or_put(
             (col.data,), ("pad", padded, str(device)),
-            lambda data=col.data: pad_to_device(data, padded, device),
+            lambda data=col.data: pad_to_device(data, padded, device, timer),
         )
     return dev_cols
 
@@ -721,15 +803,22 @@ def _assemble_global_output(plan, matched, scalar_values, agg_list_spec, names):
     return ColumnBatch(out_cols)
 
 
-def _execute_global(frag, batch, plan, session, device, wide_ok) -> Optional[ColumnBatch]:
+def _execute_global(frag, batch, plan, session, device, wide_ok,
+                    timer=None) -> Optional[ColumnBatch]:
     n = batch.num_rows
     padded = _pad_pow2(n)
     dev_cols = _upload_columns(
-        batch, _device_refs(frag) & set(batch.columns), padded, session, device, wide_ok
+        batch, _device_refs(frag) & set(batch.columns), padded, session, device, wide_ok,
+        timer,
     )
     if dev_cols is None:
         return _decline(session, "nullable_or_out_of_range")
-    mask = _padded_mask(padded, n, device)
+    return _run_global(frag, plan, session, device, dev_cols, _padded_mask(padded, n, device))
+
+
+def _run_global(frag, plan, session, device, dev_cols, mask) -> ColumnBatch:
+    """The global fragment's kernel over its device columns, fetched and
+    assembled (the monolithic path and the concat route share it)."""
     pred_expr = frag.pred
     proj_exprs = (
         tuple((X.expr_output_name(e), e) for e in frag.project.exprs)
@@ -903,7 +992,43 @@ def _assemble_grouped_output(plan, frag, key_cols, first_idx, counts, results,
     return ColumnBatch(out_cols)
 
 
-def _execute_grouped(frag, batch, plan, session, device, wide_ok) -> Optional[ColumnBatch]:
+def _seg_pad(num_groups: int) -> int:
+    """Group slots of a grouped body: a power of two of at least 16, with
+    room for the dump slot ``seg_pad - 1``."""
+    return 1 << max(4, int(np.ceil(np.log2(num_groups + 1))))
+
+
+def _cached_factorization(session, key_cols: list[Column], bufs: tuple, tag: str, build,
+                          stable: bool = True):
+    """A group-key factorization, cached on the key buffers under ``tag``
+    (one tag per way of factorizing them) when no key column is nullable
+    and the buffers are ``stable`` (the chunk cache's): a warm query then
+    factorizes nothing."""
+    if stable and all(kc.validity is None for kc in key_cols):
+        return session.host_derived_cache.get_or_put(bufs, (tag,), build), True
+    return build(), False
+
+
+def _group_ids_to_device(session, device, bufs, cacheable, group_ids, n, padded,
+                         seg_pad, tag, timer):
+    """Padded device group ids (dump slot ``seg_pad - 1`` past ``n``),
+    cached on the key buffers when the factorization is."""
+
+    def build():
+        arr = np.full(padded, seg_pad - 1, dtype=np.int32)
+        arr[:n] = group_ids.astype(np.int32)
+        return _to_device(arr, device, timer)
+
+    if cacheable:
+        return session.device_cache.get_or_put(bufs, (tag, padded, seg_pad, str(device)),
+                                               build)
+    gids = build()
+    session.device_cache.uploaded_bytes += gids.numel() * 4
+    return gids
+
+
+def _execute_grouped(frag, batch, plan, session, device, wide_ok,
+                     timer=None) -> Optional[ColumnBatch]:
     """Keys factorize on the host (string keys never ship); the masked
     segment reductions run on the device. The factorization and the device
     group ids are cached on the key buffers' identity, so a warm query
@@ -913,34 +1038,28 @@ def _execute_grouped(frag, batch, plan, session, device, wide_ok) -> Optional[Co
     n = batch.num_rows
     key_cols = [batch.column(e.name) for e in frag.agg.group_exprs]
     key_bufs = tuple(kc.data for kc in key_cols)
-    cacheable = all(kc.validity is None for kc in key_cols)
-    if cacheable:
-        group_ids, num_groups, first_idx = session.host_derived_cache.get_or_put(
-            key_bufs, ("factorize",), lambda: factorize_group_keys(key_cols)
-        )
-    else:
-        group_ids, num_groups, first_idx = factorize_group_keys(key_cols)
-    seg_pad = 1 << max(4, int(np.ceil(np.log2(num_groups + 1))))
+    (group_ids, num_groups, first_idx), cacheable = _cached_factorization(
+        session, key_cols, key_bufs, "factorize", lambda: factorize_group_keys(key_cols))
+    seg_pad = _seg_pad(num_groups)
     padded = _pad_pow2(n)
     dev_cols = _upload_columns(
-        batch, _device_refs(frag) & set(batch.columns), padded, session, device, wide_ok
+        batch, _device_refs(frag) & set(batch.columns), padded, session, device, wide_ok,
+        timer,
     )
     if dev_cols is None:
         return _decline(session, "nullable_or_out_of_range")
+    gids_d = _group_ids_to_device(session, device, key_bufs, cacheable, group_ids, n, padded,
+                                  seg_pad, "gids", timer)
+    return _run_grouped(frag, plan, session, device, dev_cols, gids_d,
+                        _padded_mask(padded, n, device), key_cols, first_idx, num_groups,
+                        seg_pad)
 
-    def build_gids():
-        arr = np.full(padded, seg_pad - 1, dtype=np.int32)
-        arr[:n] = group_ids.astype(np.int32)
-        return torch.from_numpy(arr).to(device)
 
-    if cacheable:
-        gids_d = session.device_cache.get_or_put(
-            key_bufs, ("gids", padded, seg_pad, str(device)), build_gids
-        )
-    else:
-        gids_d = build_gids()
-        session.device_cache.uploaded_bytes += gids_d.numel() * 4
-    mask = _padded_mask(padded, n, device)
+def _run_grouped(frag, plan, session, device, dev_cols, gids_d, mask, key_cols, first_idx,
+                 num_groups, seg_pad) -> ColumnBatch:
+    """The grouped fragment's kernel over its device columns and group ids,
+    fetched and assembled (the monolithic path and the concat route share
+    it)."""
     pred_expr = frag.pred
     proj_exprs = tuple((X.expr_output_name(e), e) for e in _device_projections(frag))
     agg_list, names = _agg_list_names(frag)
@@ -966,6 +1085,543 @@ def _combine_chunks_maybe_avg(v, kind: str, counts_full: np.ndarray):
         return v
     s = combine_int_chunks(v)
     return s / np.maximum(counts_full, 1) if kind == "avg" else s
+
+
+# ---------------------------------------------------------------------------
+# pipelined tier: multi-file scans streamed per file-group chunk
+# ---------------------------------------------------------------------------
+
+def _pipeline_enabled() -> bool:
+    """``HYPERSPACE_PIPELINE``: any value but ``0`` streams."""
+    return env.env_str("HYPERSPACE_PIPELINE") != "0"
+
+
+def _pipeline_overlap() -> bool:
+    """``serial`` streams with every overlap removed (decode on the
+    caller's thread, each chunk's result fetched before the next)."""
+    return env.env_str("HYPERSPACE_PIPELINE") != "serial"
+
+
+def _pipeline_depth() -> int:
+    """Partial-route chunk results in flight before the consumer fetches
+    one (``HYPERSPACE_PIPELINE_DEPTH``, default 2)."""
+    try:
+        return max(1, env.env_int("HYPERSPACE_PIPELINE_DEPTH"))
+    except ValueError:
+        return 2
+
+
+def _provably_int_expr(e: Expr, frag: _Fragment) -> bool:
+    """True only when ``e`` certainly evaluates to an integer on the device
+    (the strict dual of ``_maybe_int_expr``): the partial route's exact-fold
+    screen, where a float taken for an int would break bit identity."""
+    if isinstance(e, Alias):
+        return _provably_int_expr(e.child, frag)
+    if isinstance(e, X.Div):
+        return False
+    if isinstance(e, X.Lit):
+        return isinstance(e.value, (int, np.integer)) and not isinstance(e.value, bool)
+    if isinstance(e, X.Col):
+        sch = frag.scan.schema
+        if e.name in sch.names:
+            dt = sch.field(e.name).dtype
+            return dt.startswith("int") or dt == "date32"
+        if frag.project is not None:
+            for p in frag.project.exprs:
+                if X.expr_output_name(p) == e.name:
+                    return _provably_int_expr(p, frag)
+        return False
+    children = e.children()
+    if not children or not isinstance(e, (X.Add, X.Sub, X.Mul)):
+        return False
+    return all(_provably_int_expr(c, frag) for c in children)
+
+
+def _stream_route(frag: _Fragment, plan) -> Optional[str]:
+    """"partial" when every aggregate folds exactly across chunks (count,
+    min, max, integer sum, integer average); else "concat", unless the
+    predicate reads a string column (each chunk has its own dictionary
+    codes, and the concatenated column would mix them); None (the
+    monolithic path) for a literal outside 32 bits: Wide64 never streams."""
+    from .executor import _unwrap_agg
+
+    if not _fragment_literals_fit(frag):
+        return None
+    schema = plan.schema
+    for e in frag.agg.agg_exprs:
+        nm, agg = _unwrap_agg(e)
+        if isinstance(agg, (X.Count, X.Min, X.Max)):
+            continue
+        if isinstance(agg, X.Sum) and schema.field(nm).dtype.startswith("int"):
+            continue
+        if isinstance(agg, X.Avg) and _provably_int_expr(agg.child, frag):
+            continue
+        break
+    else:
+        return "partial"
+    if frag.pred is not None:
+        scols = {f.name for f in frag.scan.schema if f.dtype == STRING}
+        if frag.pred.references() & scols:
+            return None
+    return "concat"
+
+
+def _pruned_row_count(scan: FileScan, selection) -> Optional[int]:
+    """Rows the scan reads after row-group pruning, from footers only: a
+    file read whole counts its rows, a file with a selection its kept
+    groups' rows."""
+    from ..columnar import io as cio
+
+    row_groups, files = selection
+    if scan.fmt != "parquet":
+        return None
+    try:
+        total = 0
+        for f in files:
+            sel = row_groups.get(f.name) if row_groups else None
+            if sel is None:
+                total += cio.file_num_rows(f.name)
+            else:
+                stats = cio.read_rowgroup_stats(f.name, [])
+                if stats is None:
+                    return None
+                total += sum(stats[g]["num_rows"] for g in sel)
+        return total
+    except Exception:  # an unreadable footer leaves the monolithic path to decide
+        return None
+
+
+def _count(counter: dict, reason: str) -> None:
+    counter[reason] = counter.get(reason, 0) + 1
+    return None
+
+
+def _observed(chunks, timing: ScanTiming):
+    """The chunk stream, with each chunk's decode seconds added to
+    ``timing``; closing it closes the stream (its read-ahead stops)."""
+    try:
+        for chunk in chunks:
+            timing.chunks += 1
+            timing.decode_s += chunk.decode_s
+            yield chunk
+    finally:
+        chunks.close()
+
+
+def _execute_streaming(frag: _Fragment, scan: FileScan, plan, session,
+                       device) -> Optional[ColumnBatch]:
+    """The fragment over a streamable scan, chunk by chunk; None hands the
+    query to the monolithic path (a declined route, an empty or over-cap
+    scan, or a chunk whose data aborted the stream)."""
+    from .executor import iter_scan_chunks, resolve_scan_pruning
+
+    stats = session.device_stats
+    route = _stream_route(frag, plan)
+    if route is None:
+        return _count(stats.pipeline_declines,
+                      "string_concat" if _fragment_literals_fit(frag) else "wide64")
+    # one row-group resolution for the row count and the chunk stream
+    selection = resolve_scan_pruning(scan)
+    n_total = _pruned_row_count(scan, selection)
+    if not n_total:
+        return None
+    if _has_int_sum(frag, plan) and _pad_pow2(n_total) > _INT_SUM_ROW_CAP:
+        return None
+    overlap = _pipeline_overlap()
+    timing = ScanTiming("pipelined", route, 0, 0.0, UploadTimer(device))
+    chunks = _observed(iter_scan_chunks(scan, session, overlap, selection), timing)
+    try:
+        if route == "concat":
+            out = _stream_concat(frag, plan, chunks, session, device, timing.upload,
+                                 stable=scan.index_info is not None)
+        elif frag.agg.group_exprs:
+            out = _stream_grouped_partial(frag, plan, chunks, overlap, session, device,
+                                          timing.upload)
+        else:
+            out = _stream_global_partial(frag, plan, chunks, overlap, session, device,
+                                         timing.upload)
+    finally:
+        chunks.close()
+    if out is not None:
+        stats.pipelined_queries += 1
+        stats.last_scan = timing
+    return out
+
+
+def _chunk_pred(frag: _Fragment, batch: ColumnBatch) -> tuple[Optional[Expr], bool]:
+    """(the predicate for this chunk, ok): string comparisons re-encode
+    against this chunk's dictionary codes; not ok when a string reference
+    cannot be rewritten (the stream aborts)."""
+    pred = frag.pred
+    if pred is None:
+        return None, True
+    scols = {f.name for f in frag.scan.schema if f.dtype == STRING} & pred.references()
+    if not scols:
+        return pred, True
+    rewritten = _encode_string_predicates(pred, batch, scols)
+    return rewritten, rewritten is not None
+
+
+def _chunk_dtypes_ok(batch: ColumnBatch, refs, expect: dict) -> bool:
+    """The first chunk pins each referenced column's numpy dtype; a later
+    chunk with another dtype (the monolithic read would have promoted
+    both) aborts the stream."""
+    for name in refs:
+        if name not in batch.columns:
+            continue
+        dt = batch.column(name).data.dtype
+        if expect.setdefault(name, dt) != dt:
+            return False
+    return True
+
+
+def _chunk_abort_reason(batch: ColumnBatch, refs, expect: dict) -> Optional[str]:
+    """Why this chunk's data cannot stream, or None."""
+    if not _chunk_dtypes_ok(batch, refs, expect):
+        return "dtype_drift"
+    for name in sorted(refs):
+        if name not in batch.columns:
+            continue
+        col = batch.column(name)
+        if col.validity is not None:
+            return "nullable"
+        if not _int64_fits(col.data):
+            return "int64_range"
+    return None
+
+
+def _stream_global_partial(frag, plan, chunks, overlap, session, device,
+                           timer) -> Optional[ColumnBatch]:
+    """The global body per chunk, its exact partials folded on the host:
+    counts and integer chunk sums add, min and max take theirs."""
+    stats = session.device_stats
+    agg_list, names = _agg_list_names(frag)
+    proj_exprs = (
+        tuple((X.expr_output_name(e), e) for e in frag.project.exprs)
+        if frag.project is not None
+        else ()
+    )
+    device_refs = _device_refs(frag)
+    depth = _pipeline_depth() if overlap else 0
+    pending: deque = deque()
+    matched_total = 0
+    accs: list = [None] * len(agg_list)
+
+    def fold(res) -> None:
+        nonlocal matched_total
+        matched, results = _fetch(res)
+        matched_total += int(matched)
+        for i, (v, (kind, _c)) in enumerate(zip(results, agg_list)):
+            if kind == "count":
+                continue
+            if isinstance(v, tuple):  # exact int chunk sums
+                s = combine_int_chunks(v)
+                accs[i] = s if accs[i] is None else accs[i] + s
+            elif kind == "min":
+                accs[i] = v if accs[i] is None else np.minimum(accs[i], v)
+            elif kind == "max":
+                accs[i] = v if accs[i] is None else np.maximum(accs[i], v)
+            else:  # unreachable: float sums take the concat route
+                raise HyperspaceError(f"non-foldable {kind} on the partial route")
+
+    expect: dict = {}
+    for chunk in chunks:
+        batch = chunk.batch
+        n = batch.num_rows
+        if n == 0:
+            continue
+        reason = _chunk_abort_reason(batch, device_refs, expect)
+        if reason is not None:
+            return _count(stats.pipeline_aborts, reason)
+        pred, ok = _chunk_pred(frag, batch)
+        if not ok:
+            return _count(stats.pipeline_aborts, "string_predicate")
+        padded = _pad_pow2(n)
+        dev_cols = _upload_columns(batch, device_refs & set(batch.columns), padded, session,
+                                   device, timer=timer)
+        mask = _padded_mask(padded, n, device)
+        key = fused_fingerprint(kernel_route(device), pred, proj_exprs, agg_list, dev_cols)
+        kernel = session.kernel_cache.get_or_build(
+            key, lambda: _build_kernel(pred, proj_exprs, agg_list)
+        )
+        pending.append(kernel(dev_cols, mask))
+        stats.pipelined_chunks += 1
+        while len(pending) > depth:
+            fold(pending.popleft())
+    while pending:
+        fold(pending.popleft())
+    scalar_values = []
+    for acc, (kind, _c) in zip(accs, agg_list):
+        if kind == "count":
+            scalar_values.append(np.int64(matched_total))
+        elif kind == "avg":
+            scalar_values.append(acc / max(matched_total, 1))
+        else:
+            scalar_values.append(acc if acc is not None else np.float64(0))
+    return _assemble_global_output(plan, matched_total, scalar_values, agg_list, names)
+
+
+_FIRST_SENTINEL = 2**31 - 1  # a group's first passing row when none passed
+
+
+def _key_tuple_rows(key_cols: list[Column], idxs: np.ndarray) -> list[tuple]:
+    """Hashable group-key tuples of the given rows (NULL as None): the
+    identity of a group across chunks."""
+    out = []
+    for i in idxs:
+        t = []
+        for kc in key_cols:
+            if kc.validity is not None and not kc.validity[i]:
+                t.append(None)
+            elif kc.dtype == STRING:
+                t.append(kc.dictionary[int(kc.data[i])] if kc.dictionary else "")
+            else:
+                t.append(kc.data[i].item())
+        out.append(tuple(t))
+    return out
+
+
+def _grown(arr: Optional[np.ndarray], size: int, fill, dtype) -> np.ndarray:
+    """``arr`` extended to ``size`` with ``fill`` (a new one when None)."""
+    if arr is None:
+        return np.full(size, fill, dtype=dtype)
+    if len(arr) >= size:
+        return arr
+    out = np.full(size, fill, dtype=arr.dtype)
+    out[: len(arr)] = arr
+    return out
+
+
+def _np_extreme(dtype, want_max: bool):
+    d = np.dtype(dtype)
+    if np.issubdtype(d, np.integer):
+        info = np.iinfo(d)
+        return info.max if want_max else info.min
+    return np.inf if want_max else -np.inf
+
+
+def _stream_grouped_partial(frag, plan, chunks, overlap, session, device,
+                            timer) -> Optional[ColumnBatch]:
+    """The grouped body per chunk over the chunk's own group ids, folded on
+    the host into a global group table kept in first-appearance order;
+    output rows follow each group's first passing row over the whole
+    scan, as the monolithic assembly orders them."""
+    from .executor import factorize_group_keys
+
+    stats = session.device_stats
+    agg_list, names = _agg_list_names(frag)
+    proj_exprs = tuple((X.expr_output_name(e), e) for e in _device_projections(frag))
+    key_names = [e.name for e in frag.agg.group_exprs]
+    device_refs = _device_refs(frag)
+    depth = _pipeline_depth() if overlap else 0
+    pending: deque = deque()
+    key_index: dict = {}
+    key_slices: list[ColumnBatch] = []
+    counts_g: Optional[np.ndarray] = None
+    first_g: Optional[np.ndarray] = None
+    accs: list = [None] * len(agg_list)
+
+    def fold(entry) -> None:
+        nonlocal counts_g, first_g
+        gmap, num_l, offset, res = entry
+        counts_l, first_l, results = _fetch(res)
+        size = len(key_index)
+        counts_g = _grown(counts_g, size, 0, np.int64)
+        first_g = _grown(first_g, size, np.iinfo(np.int64).max, np.int64)
+        np.add.at(counts_g, gmap, np.asarray(counts_l)[:num_l].astype(np.int64))
+        fl = np.asarray(first_l)[:num_l].astype(np.int64)
+        valid = fl < _FIRST_SENTINEL
+        if valid.any():
+            np.minimum.at(first_g, gmap[valid], fl[valid] + offset)
+        for i, (v, (kind, _c)) in enumerate(zip(results, agg_list)):
+            if kind == "count":
+                continue
+            if isinstance(v, tuple):  # exact int chunk sums per group
+                accs[i] = _grown(accs[i], size, 0, np.int64)
+                np.add.at(accs[i], gmap, combine_int_chunks(v)[:num_l])
+            else:
+                v = np.asarray(v)[:num_l]
+                if kind == "min":
+                    accs[i] = _grown(accs[i], size, _np_extreme(v.dtype, True), v.dtype)
+                    np.minimum.at(accs[i], gmap, v)
+                elif kind == "max":
+                    accs[i] = _grown(accs[i], size, _np_extreme(v.dtype, False), v.dtype)
+                    np.maximum.at(accs[i], gmap, v)
+                else:
+                    raise HyperspaceError(f"non-foldable {kind} on the partial route")
+        # groups found after this chunk dispatched: extend with identities
+        for i, (kind, _c) in enumerate(agg_list):
+            if accs[i] is not None and len(accs[i]) < size:
+                fill = (_np_extreme(accs[i].dtype, kind == "min")
+                        if kind in ("min", "max") else 0)
+                accs[i] = _grown(accs[i], size, fill, accs[i].dtype)
+
+    expect: dict = {}
+    row_offset = 0
+    for chunk in chunks:
+        batch = chunk.batch
+        n = batch.num_rows
+        if n == 0:
+            continue
+        reason = _chunk_abort_reason(batch, device_refs, expect)
+        if reason is not None:
+            return _count(stats.pipeline_aborts, reason)
+        pred, ok = _chunk_pred(frag, batch)
+        if not ok:
+            return _count(stats.pipeline_aborts, "string_predicate")
+        key_cols = [batch.column(nm) for nm in key_names]
+        bufs = tuple(kc.data for kc in key_cols)
+        (gids_l, num_l, first_idx_l), cacheable = _cached_factorization(
+            session, key_cols, bufs, "factorize", lambda: factorize_group_keys(key_cols))
+        gmap = np.empty(num_l, dtype=np.int64)
+        new_rows = []
+        for j, t in enumerate(_key_tuple_rows(key_cols, first_idx_l)):
+            g = key_index.get(t)
+            if g is None:
+                g = key_index[t] = len(key_index)
+                new_rows.append(first_idx_l[j])
+            gmap[j] = g
+        if new_rows:
+            rows = np.asarray(new_rows, dtype=np.int64)
+            key_slices.append(ColumnBatch({nm: kc.take(rows)
+                                           for nm, kc in zip(key_names, key_cols)}))
+        # each chunk's seg_pad is its own, and so is its kernel's key
+        seg_pad = _seg_pad(num_l)
+        padded = _pad_pow2(n)
+        dev_cols = _upload_columns(batch, device_refs & set(batch.columns), padded, session,
+                                   device, timer=timer)
+        gids_d = _group_ids_to_device(session, device, bufs, cacheable, gids_l, n, padded,
+                                      seg_pad, "gids", timer)
+        mask = _padded_mask(padded, n, device)
+        key = grouped_fingerprint(kernel_route(device), seg_pad, pred, proj_exprs, agg_list,
+                                  dev_cols)
+        kernel = session.kernel_cache.get_or_build(
+            key, lambda: _build_grouped_kernel(pred, proj_exprs, agg_list, seg_pad)
+        )
+        pending.append((gmap, num_l, row_offset, kernel(dev_cols, gids_d, mask)))
+        stats.pipelined_chunks += 1
+        row_offset += n
+        while len(pending) > depth:
+            fold(pending.popleft())
+    while pending:
+        fold(pending.popleft())
+    if not key_index:
+        return None  # every chunk was empty: the monolithic path decides
+
+    num_groups = len(key_index)
+    counts_g = _grown(counts_g, num_groups, 0, np.int64)
+    first_g = _grown(first_g, num_groups, np.iinfo(np.int64).max, np.int64)
+    keys_batch = ColumnBatch.concat(key_slices)
+    keep = counts_g > 0
+    idx = np.nonzero(keep)[0]
+    order = np.argsort(first_g[keep], kind="stable")
+    out_cols: dict[str, Column] = {}
+    for e, nm in zip(frag.agg.group_exprs, key_names):
+        out_cols[X.expr_output_name(e)] = keys_batch.column(nm).take(idx).take(order)
+    schema = plan.schema
+    for (name, acc), (kind, _c) in zip(zip(names, accs), agg_list):
+        f = schema.field(name)
+        if kind == "count":
+            vals = counts_g
+        elif kind == "avg":
+            vals = acc / np.maximum(counts_g, 1)
+        else:
+            fill = (_np_extreme(acc.dtype, kind == "min")
+                    if acc is not None and kind in ("min", "max") else 0)
+            vals = _grown(acc, num_groups, fill, np.int64 if acc is None else acc.dtype)
+        np_val = np.asarray(vals)[keep][order]
+        if kind == "count":
+            out_cols[name] = Column(np_val.astype(np.int64), "int64")
+        elif f.dtype in ("int64", "int32", "int16", "int8"):
+            out_cols[name] = Column(np_val.astype(np.dtype(f.dtype)), f.dtype)
+        else:
+            out_cols[name] = Column(np_val.astype(np.float64), "float64")
+    return ColumnBatch(out_cols)
+
+
+def _stream_concat(frag, plan, chunks, session, device, timer,
+                   stable: bool) -> Optional[ColumnBatch]:
+    """Each chunk's columns upload as it decodes (narrowed as
+    ``_upload_columns`` narrows them) and concatenate on the card, zero
+    padded, into the column the monolithic upload makes, bit for bit; the
+    fragment's kernel then runs once over it. When the chunk buffers are
+    ``stable`` (an index scan's, from the chunk cache), the parts are
+    cached on their buffers and the concatenated column on every chunk
+    buffer, so a warm repeat uploads nothing; a source scan's fresh
+    buffers are uploaded and dropped. Group keys stay on the host; their
+    factorization over the whole scan and the device group ids are cached
+    on every key chunk buffer alike."""
+    from .executor import factorize_group_keys
+
+    stats = session.device_stats
+    cache = session.device_cache
+    device_refs = sorted(_device_refs(frag))
+    key_names = [e.name for e in frag.agg.group_exprs]
+    dev_parts: dict[str, list] = {}
+    src_parts: dict[str, list] = {}
+    key_parts: list[ColumnBatch] = []
+    expect: dict = {}
+    n_seen = 0
+    for chunk in chunks:
+        batch = chunk.batch
+        n = batch.num_rows
+        if n == 0:
+            continue
+        reason = _chunk_abort_reason(batch, device_refs, expect)
+        if reason is not None:
+            return _count(stats.pipeline_aborts, reason)
+        for name in device_refs:
+            if name not in batch.columns:
+                continue
+            d = batch.column(name).data
+            dev_parts.setdefault(name, []).append(cache.get_or_put(
+                (d,), ("chunk", str(device)),
+                lambda data=d: _to_device(data.astype(_device_dtype(data.dtype)), device,
+                                          timer),
+                store=stable,
+            ))
+            src_parts.setdefault(name, []).append(d)
+        if key_names:
+            key_parts.append(batch.select(key_names))
+        stats.pipelined_chunks += 1
+        n_seen += n
+    if n_seen == 0:
+        return None
+    padded = _pad_pow2(n_seen)
+    dev_cols = {}
+    for name, parts in dev_parts.items():
+        def cat(parts=parts):
+            tail = padded - n_seen
+            if tail:
+                parts = parts + [torch.zeros(tail, dtype=parts[0].dtype, device=device)]
+            return torch.cat(parts)
+
+        dev_cols[name] = cache.get_or_put(tuple(src_parts[name]), ("cat", padded, str(device)),
+                                          cat, meter=False, store=stable)
+    mask = _padded_mask(padded, n_seen, device)
+    if not key_names:
+        return _run_global(frag, plan, session, device, dev_cols, mask)
+
+    def factorize():
+        """The factorization of the concatenated keys, with each group's
+        first row of them (the only key rows the output needs)."""
+        keys = ColumnBatch.concat(key_parts)
+        group_ids, num_groups, first_idx = factorize_group_keys(
+            [keys.column(nm) for nm in key_names])
+        return group_ids, num_groups, keys.take(first_idx)
+
+    part_cols = [kp.column(nm) for kp in key_parts for nm in key_names]
+    bufs = tuple(c.data for c in part_cols)
+    # the concatenation merges the chunks' dictionaries, so its ids are
+    # not the per-buffer factorization's: a tag of their own
+    (group_ids, num_groups, reps), cacheable = _cached_factorization(
+        session, part_cols, bufs, "factorize_cat", factorize, stable)
+    seg_pad = _seg_pad(num_groups)
+    gids_d = _group_ids_to_device(session, device, bufs, cacheable, group_ids, n_seen, padded,
+                                  seg_pad, "cat_gids", timer)
+    return _run_grouped(frag, plan, session, device, dev_cols, gids_d, mask,
+                        [reps.column(nm) for nm in key_names], np.arange(num_groups),
+                        num_groups, seg_pad)
 
 
 # ---------------------------------------------------------------------------
@@ -1005,7 +1661,18 @@ def try_execute_gpu(plan: LogicalPlan, session) -> Optional[ColumnBatch]:
         return _decline(session, "literal_out_of_range")
     # the fragment applies the whole predicate: the scan reads without its
     # pushed filter, so a repeat gets the same cached buffers
-    batch = _exec_file_scan(frag.scan.copy(pushed_filter=None), session)
+    scan = frag.scan.copy(pushed_filter=None)
+    if _pipeline_enabled():
+        from .executor import scan_streamable
+
+        if scan_streamable(scan):
+            out = _execute_streaming(frag, scan, plan, session, device)
+            if out is not None:
+                session.device_stats.device_fragments += 1
+                return out
+    t0 = time.perf_counter()
+    batch = _exec_file_scan(scan, session)
+    timing = ScanTiming("device", None, 0, time.perf_counter() - t0, UploadTimer(device))
     if batch.num_rows == 0:
         return _decline(session, "empty")
     if _has_int_sum(frag, plan) and _pad_pow2(batch.num_rows) > _INT_SUM_ROW_CAP:
@@ -1021,11 +1688,12 @@ def try_execute_gpu(plan: LogicalPlan, session) -> Optional[ColumnBatch]:
     if not _fragment_literals_fit(frag, wide_ok):
         return _decline(session, "literal_out_of_range")
     if frag.agg.group_exprs:
-        out = _execute_grouped(frag, batch, plan, session, device, wide_ok)
+        out = _execute_grouped(frag, batch, plan, session, device, wide_ok, timing.upload)
     else:
-        out = _execute_global(frag, batch, plan, session, device, wide_ok)
+        out = _execute_global(frag, batch, plan, session, device, wide_ok, timing.upload)
     if out is not None:
         session.device_stats.device_fragments += 1
+        session.device_stats.last_scan = timing
     return out
 
 

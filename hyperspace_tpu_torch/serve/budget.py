@@ -1,7 +1,16 @@
-"""Device-byte accountant (counterpart of the device ledger in
-hyperspace_tpu/serve/budget.py, lean: one device, no tenants, no metrics).
+"""Byte ledgers (counterpart of hyperspace_tpu/serve/budget.py, lean: no
+tenants, no queries, no metrics).
 
-The band scheduler of the plain co-bucketed join (plan/device_join.py)
+Two process-wide accountants share one class. The global read-ahead
+ledger (``global_budget()``) bounds the decoded bytes every streaming
+consumer holds undelivered: the chunk streamer of multi-file scans
+(columnar/io.iter_chunks) and the bucket-pair read-ahead of the bucketed
+join (plan/bucket_join._iter_bucket_pairs) each open a ``stream(label)``
+on it, reserve an estimate per chunk or pair before submitting its decode
+and release it on delivery. Its limit is ``HYPERSPACE_GLOBAL_BUDGET_MB``
+(default 1024), or ``HYPERSPACE_IO_BUDGET_MB`` when only that is set.
+
+The device ledger: the band scheduler of the plain co-bucketed join (plan/device_join.py)
 reserves each wave's padded device footprint through this ledger before it
 dispatches, and releases it once the wave's results are on the host. The
 limit is ``HYPERSPACE_DEVICE_BUDGET_MB`` (default 4096; 0 disables the
@@ -15,16 +24,20 @@ from __future__ import annotations
 import os
 import threading
 
+from ..utils import env
+
 DEVICE_BUDGET_MB_DEFAULT = 4096.0
 
 
 class BudgetStream:
-    """One consumer's handle on the ledger (one join execution)."""
+    """One consumer's handle on a ledger (a scan stream, a pair loader, one
+    join execution), pumped from one thread."""
 
-    __slots__ = ("_acct", "held", "_closed")
+    __slots__ = ("_acct", "label", "held", "_closed")
 
-    def __init__(self, acct: "BudgetAccountant"):
+    def __init__(self, acct: "BudgetAccountant", label: str = ""):
         self._acct = acct
+        self.label = label
         self.held = 0
         self._closed = False
 
@@ -50,8 +63,8 @@ class BudgetAccountant:
         # wakes consumers parked on a full ledger when bytes come back
         self._released = threading.Condition(threading.Lock())
 
-    def stream(self) -> BudgetStream:
-        return BudgetStream(self)
+    def stream(self, label: str = "") -> BudgetStream:
+        return BudgetStream(self, label)
 
     def _reserve(self, s: BudgetStream, nbytes: int) -> bool:
         with self._lock:
@@ -101,3 +114,36 @@ def device_budget() -> BudgetAccountant:
             _DEVICE.append(BudgetAccountant(configured_device_budget_bytes()))
         return _DEVICE[0]
 
+
+def configured_budget_bytes() -> int:
+    """``HYPERSPACE_GLOBAL_BUDGET_MB`` in bytes; when it is unset, an
+    explicitly set ``HYPERSPACE_IO_BUDGET_MB`` carries over."""
+    raw = env.read_raw("HYPERSPACE_GLOBAL_BUDGET_MB")
+    if raw is None:
+        raw = env.read_raw("HYPERSPACE_IO_BUDGET_MB")
+    try:
+        if raw is not None:
+            return int(float(raw) * 2**20)
+    except ValueError:
+        pass
+    return int(env.DEFAULTS["HYPERSPACE_GLOBAL_BUDGET_MB"] * 2**20)
+
+
+_GLOBAL: list = []  # the process-wide read-ahead accountant, made at first use
+
+
+def global_budget() -> BudgetAccountant:
+    """The read-ahead accountant every streaming consumer reserves through,
+    sized by the knob when first used."""
+    with _lock:
+        if not _GLOBAL:
+            _GLOBAL.append(BudgetAccountant(configured_budget_bytes()))
+        return _GLOBAL[0]
+
+
+def reset_global_budget() -> BudgetAccountant:
+    """Re-read the knob and install a fresh read-ahead ledger (never
+    mid-query)."""
+    with _lock:
+        _GLOBAL[:] = [BudgetAccountant(configured_budget_bytes())]
+        return _GLOBAL[0]

@@ -8,7 +8,10 @@ derivation tag. A weakref to each source buffer guards against id() reuse:
 an entry hits only while every weakref still resolves to the same object.
 Eviction is least-recently-used by device bytes. Every miss is a
 host-to-device transfer and adds its bytes to ``uploaded_bytes``, so a warm
-query that uploads nothing leaves the counter where it was. A second
+query that uploads nothing leaves the counter where it was; an entry built
+on the card from other entries (the pipelined executor's concatenated
+column, keyed on every chunk buffer under ``("cat", padded, device)``) is
+put with ``meter=False``. A second
 instance with a host budget caches host-side derivations (group-key
 factorizations) the same way.
 """
@@ -23,12 +26,18 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..columnar.table import Column, ColumnBatch
+
 
 def _nbytes(value) -> int:
     if isinstance(value, torch.Tensor):
         return value.numel() * value.element_size()
     if isinstance(value, np.ndarray):
         return value.nbytes
+    if isinstance(value, ColumnBatch):
+        return sum(_nbytes(c) for c in value.columns.values())
+    if isinstance(value, Column):
+        return _nbytes(value.data) + _nbytes(value.validity)
     if isinstance(value, (tuple, list)):
         return sum(_nbytes(v) for v in value)
     return 0
@@ -42,9 +51,19 @@ class DeviceColumnCache:
         self._lock = threading.Lock()
         self.uploaded_bytes = 0
 
-    def get_or_put(self, srcs: Sequence, tag, builder: Callable):
+    def get_or_put(self, srcs: Sequence, tag, builder: Callable, meter: bool = True,
+                   store: bool = True):
         """The device value derived from host buffers ``srcs`` under
-        ``tag``, built (and uploaded) by ``builder()`` on a miss."""
+        ``tag``, built (and uploaded) by ``builder()`` on a miss; with
+        ``meter=False`` the build uploads nothing and is not counted. With
+        ``store=False`` (buffers no later query will hand over again) it is
+        built and counted, and not kept."""
+        if not store:
+            value = builder()
+            if meter:
+                with self._lock:
+                    self.uploaded_bytes += _nbytes(value)
+            return value
         srcs = tuple(srcs)
         key = (tuple(id(s) for s in srcs), tag)
         with self._lock:
@@ -59,7 +78,8 @@ class DeviceColumnCache:
         value = builder()
         nbytes = _nbytes(value)
         with self._lock:
-            self.uploaded_bytes += nbytes
+            if meter:
+                self.uploaded_bytes += nbytes
             if nbytes > self.budget_bytes:
                 return value
             self._d[key] = (tuple(weakref.ref(s) for s in srcs), value, nbytes)

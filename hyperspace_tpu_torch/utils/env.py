@@ -1,0 +1,50 @@
+"""The ``HYPERSPACE_*`` environment knobs of the pipelined tier
+(counterpart of hyperspace_tpu/utils/env.py, lean: these knobs only).
+
+The names and defaults are the JAX package's, and every read happens at
+call time, as there, so one environment setting steers both packages:
+
+- ``HYPERSPACE_PIPELINE``: ``1`` streams multi-file scans (the default),
+  ``serial`` streams without overlap, ``0`` takes the monolithic path;
+- ``HYPERSPACE_PIPELINE_DEPTH``: chunk results in flight before the
+  consumer folds one (2);
+- ``HYPERSPACE_STREAM_CHUNK_MB``: file bytes per streamed chunk (64);
+- ``HYPERSPACE_IO_THREADS``: width of the IO pools (``min(8, nproc)``;
+  ``<= 1`` or unparseable means serial);
+- ``HYPERSPACE_IO_BUDGET_MB``: decoded bytes a stream may hold undelivered
+  (512), the fallback of ``HYPERSPACE_GLOBAL_BUDGET_MB``, the process-wide
+  read-ahead ledger (1024).
+"""
+
+from __future__ import annotations
+
+import os
+
+DEFAULTS = {
+    "HYPERSPACE_PIPELINE": "1",
+    "HYPERSPACE_PIPELINE_DEPTH": 2,
+    "HYPERSPACE_STREAM_CHUNK_MB": 64.0,
+    "HYPERSPACE_IO_THREADS": None,
+    "HYPERSPACE_IO_BUDGET_MB": 512.0,
+    "HYPERSPACE_GLOBAL_BUDGET_MB": 1024.0,
+}
+
+
+def read_raw(name: str, default: str | None = None) -> str | None:
+    """The variable's raw string, or ``default`` when it is unset."""
+    return os.environ.get(name, default)
+
+
+def env_str(name: str) -> str:
+    v = os.environ.get(name)
+    return v if v is not None else DEFAULTS[name]
+
+
+def env_int(name: str) -> int:
+    v = os.environ.get(name)
+    return int(v) if v is not None else DEFAULTS[name]
+
+
+def env_float(name: str) -> float:
+    v = os.environ.get(name)
+    return float(v) if v is not None else DEFAULTS[name]
