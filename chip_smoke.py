@@ -65,21 +65,23 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      plain join is a new buffer on every run, as in the reference).
    masked_min_max is on no path of the system (the JAX package calls it
    from its tests only), so it launches no time in this phase;
-5. lifecycle phase: a second lake whose lineitem and orders hard-link the
-   SF10 files, with its own warehouse, lineage on, and three indexes over
-   it: lc_shipdate_z (li_shipdate_z's config), lc_orderkey (li_orderkey's)
+5. lifecycle phase: a second lake whose lineitem hard-links the first
+   40 of the SF10 lake's 120 files (20M rows, a third: the phase's depth,
+   cut to keep the whole run well inside its time limit) and whose orders
+   hard-links the SF10 orders, with its own warehouse, lineage on, and
+   three indexes over it: lc_shipdate_z (li_shipdate_z's config), lc_orderkey (li_orderkey's)
    and od_orderkey. Stages, each running q6_count, q6_sum, lookup_count,
    range_sum and q3_agg through the normal API (first run and warm runs,
    each compared with the host executor over the lake's current files):
    1. build;
-   2. 6 of the 120 lineitem files deleted, hybrid scan off: no lc_ index
+   2. 2 of the 40 lineitem files deleted (5%), hybrid scan off: no lc_ index
       may serve lineitem;
    3. hybrid scan on: the lineitem scans drop the deleted files' rows by
       lineage, filter_weighted_sum and filter_sum launch on them and the
       join runs on the card; then refresh_index(mode="incremental") of
       both indexes takes the deletes in (each bucket rewritten);
-   4. 12 files appended (generate_tpch's lineitem at 6M rows, seed 43,
-      renamed): the filter queries read a Union on the host, as in the
+   4. 4 files appended (generate_tpch's lineitem at a tenth of the
+      lake's rows, 2M, seed 43, renamed): the filter queries read a Union on the host, as in the
       reference, and q3_agg a BucketUnion through the fused join on the
       card;
    5. refresh_index(mode="incremental") of both: the appended rows become
@@ -141,8 +143,36 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
        quick optimize to one file per bucket, and the queries again (q6's
        forms over the source, st_shipdate_z being stale). Each action's
        seconds print beside the in-memory build's;
-8. order phase: the device top-k and sort against the host on one
-   2^25-row batch of lineitem columns (the generator's distributions):
+8. join phase over the SF10 lake (its bucketed joins' routes):
+   (a) at the default device grant, q3, q3_agg, q3_span (port-only: Q3's
+       join and groups with count, min and max of l_quantity, which may
+       split), q10, q17 and q18 on one new session: each bucketed join's
+       strategy plan (broadcast, banded and split buckets, the derived
+       split rows), band waves, splits, spills and parks printed; no
+       spill and no decline; results the main phase's bits, q3_span's
+       groups equal to an arrow join and aggregate over the raw files;
+       q18 has no bucketed join, so no plan;
+   (b) at HYPERSPACE_DEVICE_BUDGET_MB=256, then with
+       HYPERSPACE_JOIN_SPLIT_ROWS=65536 too: q3 (a sum, which never
+       splits) and q3_span (which must split) through the stacked fused
+       join, each parking or spilling, with (a)'s bits;
+   (c) q3_agg under HYPERSPACE_PIPELINE=0 with maxBytesInMemory (1 MiB)
+       below its indexes' bytes: the per-bucket route, the fused
+       join+aggregate on the card once per occupied bucket (8), held to
+       the host executor and to the stacked route's result; first-run and
+       warm seconds beside the stacked route's;
+   (d) q3 and q10 under HYPERSPACE_PIPELINE 1 (pairs streamed) and 0
+       (the barrier), a first run each on a fresh session, then warm runs
+       in turns (1, 0, 0, 1): the same bits; wall and pair-load (decode)
+       seconds;
+   (e) the native host kernels (hyperspace_tpu_torch/native) over the
+       lake's 60M l_orderkey values against their numpy forms, outputs
+       equal, both timed: hash32, bucket_partition into 8 buckets,
+       radix_argsort, and join_i64 of l_orderkey against o_orderkey; the
+       main phase's index build seconds are printed with them;
+9. order phase: the device top-k and sort against the host on one
+   2^23-row batch (cut from 2^25 to keep the whole run well inside its
+   time limit) of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
    descending, k in {10, 100, 4096}; (l_extendedprice f64, l_orderkey
    int64) ascending and descending. The rows must be the host's stable
@@ -154,8 +184,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
-add up the end-to-end, lifecycle, skipping and pipeline phases' counts,
-each read on its own (``launches_by_phase``).
+add up the end-to-end, lifecycle, skipping, pipeline and join phases'
+counts, each read on its own (``launches_by_phase``).
 """
 
 from __future__ import annotations
@@ -242,7 +272,15 @@ PLAIN_QUERIES = {
 # executor's own code, instead of a second pass over the 60M-row source:
 # q3 is q3_agg's groups through Limit(Sort), q1_sums is q1 less avg_qty
 DERIVED_REFERENCES = {"q3": "q3_agg", "q1_sums": "q1"}
-ORDER_ROWS = 1 << 25
+# the join phase: the bucketed joins whose strategy plans it prints (q18's
+# join is not a bucketed one, so it plans none), its small grant and split
+# override, and the per-bucket route's build limit
+JOIN_PHASE_QUERIES = ("q3", "q3_agg", "q3_span", "q10", "q17", "q18")
+JOIN_SMALL_GRANT_MB = "256"
+JOIN_SPLIT_OVERRIDE = "65536"
+JOIN_PER_BUCKET_WARM_RUNS = 2
+JOIN_MODE_TURNS = ("1", "0", "0", "1")  # (d)'s warm runs, in turns
+ORDER_ROWS = 1 << 23
 TOPK_KS = (10, 100, 4096)
 KERNEL_ROWS = {
     "filter_weighted_sum": ("hyperspace_tpu_torch/ops/csrc/filter_reduce.cu",
@@ -263,6 +301,8 @@ LIFECYCLE_QUERIES = {"q6_count": "filter_weighted_sum", "q6_sum": "filter_sum",
                      "q3_agg": None}
 LC_FILTER_QUERIES = ("q6_count", "q6_sum", "lookup_count", "range_sum")
 LIFECYCLE_WARM_RUNS = 1
+# lineitem files of the lifecycle lake: the first 40 of SF10's 120
+LIFECYCLE_FILES = 40
 APPEND_SEED = 43
 # the skipping phase: bench.py's store_sales lake (BASELINE config 5) at
 # SF10's row count, capped as bench.py caps it; its events_sk lake; the
@@ -793,6 +833,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
             compare_ordered(q, got, want[q], PLAIN_QUERIES[q][3])
         else:
             compare_batches(q, got, want[q])
+        if q in JOIN_PHASE_QUERIES:
+            out.setdefault("device_results", {})[q] = got
         queries[q] = {"first_run_s": cold_s, "first_run_route": route,
                       "warm_median_s": statistics.median(warm), "warm_s": warm,
                       "upload_bytes_first": up1 - up0, "upload_bytes_second": uploads_warm[0],
@@ -826,7 +868,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
     out["lake"] = lake
     out["warehouse"] = warehouse
     out["want"] = {q: want[q] for q in {*LIFECYCLE_QUERIES, *PIPELINE_QUERIES,
-                                        *PIPELINE_JOINS, *STREAM_QUERIES} if q in want}
+                                        *PIPELINE_JOINS, *STREAM_QUERIES,
+                                        *JOIN_PHASE_QUERIES} if q in want}
     return out
 
 
@@ -855,9 +898,11 @@ def _files_per_bucket(hs, name: str) -> dict:
     return {"files": sum(per.values()), "min": min(per.values()), "max": max(per.values())}
 
 
-def _hard_link_tree(src: str, dst: str) -> None:
+def _hard_link_tree(src: str, dst: str, limit: int | None = None) -> None:
+    """Hard-link the first ``limit`` files of ``src`` (all by default)
+    into a new directory ``dst``."""
     os.makedirs(dst)
-    for f in sorted(os.listdir(src)):
+    for f in sorted(os.listdir(src))[:limit]:
         os.link(os.path.join(src, f), os.path.join(dst, f))
 
 
@@ -874,9 +919,11 @@ def lifecycle_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = F
     t_phase = time.perf_counter()
     lake = os.path.join(DATA_DIR, "lake2")
     warehouse = os.path.join(DATA_DIR, "warehouse2")
-    for table in ("lineitem", "orders"):
-        _hard_link_tree(os.path.join(e2e["lake"], table), os.path.join(lake, table))
+    for table, limit in (("lineitem", LIFECYCLE_FILES), ("orders", None)):
+        _hard_link_tree(os.path.join(e2e["lake"], table), os.path.join(lake, table), limit)
     n_files = len(os.listdir(os.path.join(lake, "lineitem")))
+    whole = n_files == len(os.listdir(os.path.join(e2e["lake"], "lineitem")))
+    lc_rows = rows * n_files // len(os.listdir(os.path.join(e2e["lake"], "lineitem")))
     n_deleted = n_files // 20  # 5% of the files (6 of 120 at SF10)
     require(n_deleted >= 1, f"lifecycle: {n_files} lineitem files, too few to delete 5%")
     deleted = [f"part-{10 + 20 * i:04d}.parquet" for i in range(n_deleted)]
@@ -891,7 +938,8 @@ def lifecycle_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = F
                for q in LIFECYCLE_QUERIES}
     session = HyperspaceSession(warehouse, conf={C.INDEX_LINEAGE_ENABLED: True})
     hs = Hyperspace(session)
-    out: dict = {"deleted_files": deleted, "actions_s": {}, "stages": {}}
+    out: dict = {"lineitem_files": n_files, "rows": lc_rows, "deleted_files": deleted,
+                 "actions_s": {}, "stages": {}}
 
     def action(label: str, fn) -> None:
         t0 = time.perf_counter()
@@ -1007,8 +1055,8 @@ def lifecycle_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = F
                      "profile": rec["queries"][q]["profile"]})
 
     every = set(LIFECYCLE_QUERIES)
-    # 1. build: the lake's data is the main phase's, so are the references
-    stage("1_build", e2e["want"], hybrid=False, on_card=every)
+    # 1. build: over the whole main lake the main phase's references hold
+    stage("1_build", e2e["want"] if whole else host_reference(), hybrid=False, on_card=every)
     # 2. delete 5% of the lineitem files, hybrid scan off
     for f in deleted:
         os.unlink(os.path.join(lake, "lineitem", f))
@@ -1023,10 +1071,11 @@ def lifecycle_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = F
     for name in ("lc_shipdate_z", "lc_orderkey"):
         action(f"refresh incremental (deletes) {name}",
                lambda: hs.refresh_index(name, C.REFRESH_MODE_INCREMENTAL))
-    # 4. append 12 files (6M rows at SF10) of another seed, renamed
+    # 4. append a tenth of the lake's rows (4 files, 2M rows at SF10) of
+    # another seed, renamed
     extra = os.path.join(DATA_DIR, "extra")
     t0 = time.perf_counter()
-    tpch.generate_tpch(extra, rows_lineitem=rows // 10, seed=APPEND_SEED)
+    tpch.generate_tpch(extra, rows_lineitem=lc_rows // 10, seed=APPEND_SEED)
     appended = sorted(os.listdir(os.path.join(extra, "lineitem")))
     for i, f in enumerate(appended):
         os.rename(os.path.join(extra, "lineitem", f),
@@ -1672,6 +1721,260 @@ def pipeline_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# join phase
+# ---------------------------------------------------------------------------
+
+def read_join_tables(lake: str) -> tuple:
+    """The raw lake's (l_orderkey, l_quantity) and (o_orderkey,
+    o_orderdate) as arrow tables."""
+    import pyarrow.parquet as pq
+
+    return (pq.read_table(os.path.join(lake, "lineitem"), columns=["l_orderkey", "l_quantity"]),
+            pq.read_table(os.path.join(lake, "orders"), columns=["o_orderkey", "o_orderdate"]))
+
+
+def q3_span_reference(li, od) -> dict:
+    """q3_span's groups by arrow's own hash join and hash aggregate over the
+    raw lake's columns (code the port does not share): the orders dated
+    before 9500 joined to lineitem on the order key, count, min and max of
+    l_quantity per (l_orderkey, o_orderdate), by l_orderkey."""
+    import pyarrow.compute as pc
+
+    od = od.filter(pc.less(od["o_orderdate"], 9500))
+    g = (li.join(od, keys="l_orderkey", right_keys="o_orderkey", join_type="inner")
+         .group_by(["l_orderkey", "o_orderdate"])
+         .aggregate([("l_quantity", "count"), ("l_quantity", "min"), ("l_quantity", "max")])
+         .sort_by("l_orderkey"))
+    return {"l_orderkey": g["l_orderkey"].to_numpy(), "o_orderdate": g["o_orderdate"].to_numpy(),
+            "lines": g["l_quantity_count"].to_numpy(), "min_qty": g["l_quantity_min"].to_numpy(),
+            "max_qty": g["l_quantity_max"].to_numpy()}
+
+
+def compare_span(q: str, got: dict, want: dict) -> None:
+    """q3_span against its arrow reference: the same groups, counts, mins
+    and maxes exactly (l_quantity is integral, so f32 holds it)."""
+    import numpy as np
+
+    order = np.argsort(np.asarray(got["l_orderkey"]), kind="stable")
+    require(len(order) == len(want["l_orderkey"]) > 0,
+            f"{q}: {len(order)} groups vs {len(want['l_orderkey'])}")
+    for k in want:
+        require(bool(np.array_equal(np.asarray(got[k])[order], want[k])),
+                f"{q}.{k}: differs from the arrow reference")
+
+
+def _join_stats(stats) -> dict:
+    return {"join_paths": dict(stats.join_paths), "plans": list(stats.join_plans),
+            "strategies": dict(stats.join_strategies), "waves": stats.join_waves,
+            "splits": stats.join_splits, "spills": stats.join_spills,
+            "parks": stats.join_parks, "declines": dict(stats.declines),
+            "device_join_fragments": stats.device_join_fragments}
+
+
+def join_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
+    """The bucketed join's routes over the SF10 lake (the module docstring
+    lists the parts): strategy plans at the default grant, a small grant
+    and a split override, the per-bucket route of an over-limit join, the
+    streamed plain join against the barrier, and the native host kernels
+    against their numpy forms."""
+    import numpy as np
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch import native
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.ops import bucketize, hashing
+    from hyperspace_tpu_torch.plan import bucket_join, executor
+    from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
+    from hyperspace_tpu_torch.serve import budget
+
+    t_phase = time.perf_counter()
+    lake, warehouse, want = e2e["lake"], e2e["warehouse"], e2e["want"]
+    main_results = e2e["device_results"]
+    queries = {**tpch.JOIN_QUERIES, **tpch.SPLIT_JOIN_QUERIES, **tpch.TPCH_QUERIES}
+    out: dict = {"default": {}, "small_grant": {}, "per_bucket": {}, "modes": {}, "native": {}}
+    K.reset_counts()
+    saved = {k: os.environ.get(k) for k in ("HYPERSPACE_PIPELINE", "HYPERSPACE_DEVICE_BUDGET_MB",
+                                            "HYPERSPACE_JOIN_SPLIT_ROWS")}
+    loads: list = []  # seconds of each bucket pair's load in the last run
+    orig_load = bucket_join._load_pair
+
+    def timed_load(*a, **kw):  # the join's pair decode, on any thread
+        t0 = time.perf_counter()
+        try:
+            return orig_load(*a, **kw)
+        finally:
+            loads.append(time.perf_counter() - t0)
+
+    def run(q: str, conf=None, session=None) -> tuple:
+        """``q``'s result, wall seconds and session: on ``session`` with its
+        counts zeroed, else on a fresh session on the card."""
+        if session is None:
+            session = HyperspaceSession(warehouse, conf=conf).enable_hyperspace()
+        session.device_stats = DeviceTierStats()
+        loads.clear()
+        t0 = time.perf_counter()
+        got = _columns(queries[q](session, lake).collect())
+        return got, time.perf_counter() - t0, session
+
+    def setenv(**kw) -> None:
+        for k, v in kw.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        budget.reset_device_budget()
+
+    parts = out["parts_s"] = {}
+    t_part = [time.perf_counter()]
+
+    def part_done(name: str) -> None:
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    li_table, od_table = read_join_tables(lake)
+    span_want = q3_span_reference(li_table, od_table)
+    part_done("reference")
+    bucket_join._load_pair = timed_load
+    try:
+        # (a) the default grant: each join's strategy mix and split rows
+        setenv(HYPERSPACE_PIPELINE="1", HYPERSPACE_DEVICE_BUDGET_MB=None,
+               HYPERSPACE_JOIN_SPLIT_ROWS=None)
+        default = {}
+        shared = HyperspaceSession(warehouse).enable_hyperspace()  # one session: (a)'s reads
+        for q in JOIN_PHASE_QUERIES:
+            got, wall, session = run(q, session=shared)
+            st = _join_stats(session.device_stats)
+            require(not st["declines"] and st["spills"] == 0,
+                    f"join {q} at the default grant: {st}")
+            if q == "q3_span":
+                compare_span(q, got, span_want)
+                require(st["join_paths"] == {"stacked_agg": 1}, f"join {q}: {st}")
+            else:
+                require(same_bits(got, main_results[q]),
+                        f"join {q}: differs from the main phase's result")
+            require((q == "q18") == (not st["plans"]), f"join {q}: plans {st['plans']}")
+            default[q] = got
+            out["default"][q] = {"wall_s": wall, **st}
+            log({"join": q, "grant": "default", "card": card, "wall_s": wall, **st})
+        part_done("a")
+        # (b) a 256 MiB grant, then with the split override too: q3 (a sum,
+        # which never splits) and q3_span (count/min/max, which splits)
+        # 256 MiB and 65536 rows at SF10; scaled with the rows at a smaller
+        # --rows, so the waves still park and the buckets still split there
+        grant_mb, split_rows = JOIN_SMALL_GRANT_MB, JOIN_SPLIT_OVERRIDE
+        if rows < SF10_ROWS:
+            grant_mb = str(max(0.25, float(JOIN_SMALL_GRANT_MB) * rows / SF10_ROWS))
+            split_rows = str(max(1024, int(JOIN_SPLIT_OVERRIDE) * rows // SF10_ROWS))
+        out.update({"small_grant_mb": float(grant_mb), "split_override": int(split_rows)})
+        for label, override in (("small", None), ("small+split", split_rows)):
+            setenv(HYPERSPACE_DEVICE_BUDGET_MB=grant_mb, HYPERSPACE_JOIN_SPLIT_ROWS=override)
+            for q in ("q3", "q3_span"):
+                got, wall, session = run(q)
+                st = _join_stats(session.device_stats)
+                require(same_bits(got, default[q]), f"join {q} at {label}: bits differ")
+                require(st["join_paths"] == {"stacked_agg": 1} and not st["declines"],
+                        f"join {q} at {label}: {st}")
+                require(st["parks"] + st["spills"] > 0, f"join {q} at {label}: never parked")
+                require((st["splits"] > 0) == (q == "q3_span"),
+                        f"join {q} at {label}: splits {st['splits']}")
+                out["small_grant"].setdefault(label, {})[q] = {"wall_s": wall, **st}
+                log({"join": q, "grant": label, "card": card, "wall_s": wall, **st})
+        part_done("b")
+        # (c) over the build limit under HYPERSPACE_PIPELINE=0: per bucket
+        setenv(HYPERSPACE_PIPELINE="0", HYPERSPACE_DEVICE_BUDGET_MB=None,
+               HYPERSPACE_JOIN_SPLIT_ROWS=None)
+        limit = 1 << 20
+        hs = Hyperspace(HyperspaceSession(warehouse))
+        idx_bytes = sum(os.path.getsize(f) for n in (tpch.LI_ORDERKEY[0], tpch.OD_ORDERKEY[0])
+                        for f in hs.get_index(n).content.files())
+        require(idx_bytes > limit, f"index bytes {idx_bytes} under the limit")
+        conf = {C.BUILD_MAX_BYTES_IN_MEMORY: limit}
+        got, first, session = run("q3_agg", conf)
+        st = _join_stats(session.device_stats)
+        require(st["join_paths"] == {"per_bucket": 1, "per_bucket_device": 8}
+                and st["declines"] == {"join_over_memory": 1},
+                f"join q3_agg per bucket: {st}")
+        compare_join("q3_agg", got, want["q3_agg"])  # the host executor's
+        # the stacked route's, row for row: both emit buckets in order, each
+        # bucket's groups in right-key order
+        compare_ordered("q3_agg", got, main_results["q3_agg"], None)
+        warm = []
+        for _ in range(JOIN_PER_BUCKET_WARM_RUNS):
+            again, wall, _s = run("q3_agg", conf)
+            require(same_bits(again, got), "join q3_agg per bucket: a repeat differs")
+            warm.append(wall)
+        stacked = e2e["queries"]["q3_agg"]
+        out["per_bucket"] = {"first_run_s": first, "warm_s": warm, "index_bytes": idx_bytes,
+                             "limit_bytes": limit, "stacked_warm_s": stacked["warm_s"],
+                             "stacked_first_run_s": stacked["first_run_s"], **st}
+        log({"join": "q3_agg", "route": "per_bucket", "card": card, **out["per_bucket"]})
+        part_done("c")
+        # (d) on fresh sessions, streamed pairs against the barrier: q3 (raw
+        # pairs, side filters in the body) and q10 (the plain join, filtered
+        # on the host as its pairs load); a first run per mode, then warm
+        # runs in turns (1, 0, 0, 1), each mode on its own session
+        for q in ("q3", "q10"):
+            runs, sessions = {}, {}
+            for mode in ("1", "0"):
+                setenv(HYPERSPACE_PIPELINE=mode)
+                runs[mode], wall, sessions[mode] = run(q)
+                out["modes"].setdefault(q, {})[mode] = {
+                    "wall_s": wall, "decode_s": sum(loads), "pairs": len(loads),
+                    "warm_s": [], "warm_decode_s": []}
+            for mode in JOIN_MODE_TURNS:
+                setenv(HYPERSPACE_PIPELINE=mode)
+                again, warm, session = run(q, session=sessions[mode])
+                require(same_bits(again, runs[mode]), f"join {q} under {mode}: a repeat differs")
+                rec = out["modes"][q][mode]
+                rec["warm_s"].append(warm)
+                rec["warm_decode_s"].append(sum(loads))
+                rec.update(_join_stats(session.device_stats))
+            for mode in ("1", "0"):
+                log({"join": q, "mode": mode, "card": card, **out["modes"][q][mode]})
+            require(same_bits(runs["1"], runs["0"]), f"join {q}: the modes' bits differ")
+        part_done("d")
+    finally:
+        bucket_join._load_pair = orig_load
+        setenv(**saved)
+
+    # (e) the native host kernels over the lake's own keys
+    lk, ok = li_table["l_orderkey"].to_numpy(), od_table["o_orderkey"].to_numpy()
+    del li_table, od_table
+    native.build()
+
+    def pair(name, fast, plain, same):
+        t0 = time.perf_counter()
+        a = fast()
+        t1 = time.perf_counter()
+        b = plain()
+        t2 = time.perf_counter()
+        require(same(a, b), f"native {name}: differs from its numpy form")
+        out["native"][name] = {"native_s": t1 - t0, "numpy_s": t2 - t1, "rows": len(lk)}
+        log({"native": name, "card": card, **out["native"][name]})
+        return a
+
+    hashes = pair("hash32", lambda: native.hash32(lk), lambda: hashing.hash32_plain([lk]),
+                  np.array_equal)
+    pair("bucket_partition", lambda: native.bucket_partition(hashes, 8)[1:],
+         lambda: bucketize.partition_plain(hashes, 8),
+         lambda a, b: all(np.array_equal(a[0][a[1][i]:a[1][i + 1]], r) for i, r in b))
+    pair("radix_argsort", lambda: native.radix_argsort(lk),
+         lambda: np.argsort(lk, kind="stable"), np.array_equal)
+    pair("join_i64", lambda: native.join_i64(lk, ok),
+         lambda: executor.join_codes_plain(lk, ok),
+         lambda a, b: np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+    part_done("e")
+    out["index_build_s"] = e2e["index_build_s"]
+    out["launches"] = dict(K.LAUNCHES)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log({"phase": "join", "card": card, "seconds": out["phase_s"], "parts_s": parts,
+         "index_build_s": out["index_build_s"], "launches": out["launches"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # order phase
 # ---------------------------------------------------------------------------
 
@@ -1862,19 +2165,26 @@ def main() -> int:
 
     timed_n = _pad_pow2(args.rows)
     sizes = sorted({0, 1, 1023, 1025, 1_000_003, 1 << 26, timed_n})
-    kernels, timed = kernel_phase(torch, K, R, sizes, timed_n, smi, args.profile)
-    e2e = end_to_end_phase(torch, K, args.rows, smi, args.profile)
-    torch.cuda.empty_cache()
-    lifecycle = lifecycle_phase(torch, K, e2e, args.rows, smi, args.profile)
-    torch.cuda.empty_cache()
-    skipping = skipping_phase(torch, K, e2e, args.rows, smi, args.profile)
-    torch.cuda.empty_cache()
-    pipeline = pipeline_phase(torch, K, e2e, args.rows, smi)
-    del e2e["want"]
+    phase_s: dict = {}  # each phase's wall seconds, in order
+
+    def phase(name: str, fn, *a):
+        t0 = time.perf_counter()
+        r = fn(*a)
+        torch.cuda.empty_cache()
+        phase_s[name] = time.perf_counter() - t0
+        log({"phase_s": name, "card": smi, "seconds": phase_s[name]})
+        return r
+
+    kernels, timed = phase("kernels", kernel_phase, torch, K, R, sizes, timed_n, smi,
+                           args.profile)
+    e2e = phase("end_to_end", end_to_end_phase, torch, K, args.rows, smi, args.profile)
+    lifecycle = phase("lifecycle", lifecycle_phase, torch, K, e2e, args.rows, smi, args.profile)
+    skipping = phase("skipping", skipping_phase, torch, K, e2e, args.rows, smi, args.profile)
+    pipeline = phase("pipeline", pipeline_phase, torch, K, e2e, args.rows, smi)
+    join = phase("join", join_phase, torch, K, e2e, args.rows, smi)
+    del e2e["want"], e2e["device_results"]
     shutil.rmtree(DATA_DIR, ignore_errors=True)
-    torch.cuda.empty_cache()
-    order = order_phase(torch, ORDER_ROWS if args.rows == SF10_ROWS else _pad_pow2(args.rows),
-                        smi)
+    order = phase("order", order_phase, torch, min(ORDER_ROWS, _pad_pow2(args.rows)), smi)
     # after the queries' profiles: a profiler session before them lost
     # their short runs' device events
     for name, call in timed.items():
@@ -1889,7 +2199,8 @@ def main() -> int:
         by_phase = {"end_to_end": e2e["main_path_launches"][name],
                     "lifecycle": lifecycle["launches"][name],
                     "skipping": skipping["launches"][name],
-                    "pipeline": pipeline["launches"][name]}
+                    "pipeline": pipeline["launches"][name],
+                    "join": join["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
@@ -1905,9 +2216,10 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": {"kind": kind, "nvidia_smi": smi}, "build_s": build_s,
                    "kernels": kernels, "end_to_end": e2e, "lifecycle": lifecycle,
-                   "skipping": skipping, "pipeline": pipeline, "order": order,
-                   "total_s": time.perf_counter() - t_start}, f, indent=1)
-    log({"phase": "done", "card": smi, "total_s": time.perf_counter() - t_start})
+                   "skipping": skipping, "pipeline": pipeline, "join": join, "order": order,
+                   "phase_s": phase_s, "total_s": time.perf_counter() - t_start}, f, indent=1)
+    log({"phase": "done", "card": smi, "phase_s": phase_s,
+         "total_s": time.perf_counter() - t_start})
     log({"kernels": line})
     log(smi)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -30,6 +30,9 @@ The join form (``JOIN_QUERIES``) reads two co-bucketed covering indexes,
 ``li_orderkey`` and ``od_orderkey``, through JoinIndexRule: ``q3`` as the
 reference writes it (top 10 orders by revenue), and ``q3_agg``, the same
 query without the sort and limit, so every group is compared.
+``q3_span`` (port-only) is q3_agg's join and groups with count, min and
+max of l_quantity, aggregates that fold exactly across left chunks, so the
+fused join splits its buckets where the strategy plan says so.
 
 ``q10``, ``q17`` and ``q18`` are copies of the reference's: the plain
 co-bucketed join (q10 over ``li_orderkey`` and ``od_orderkey``, q17 over
@@ -263,6 +266,22 @@ def q3_agg(session, root: str):
     return _q3_grouped(session, root)
 
 
+def q3_span(session, root: str):
+    """Q3's join, filter and groups with count(1), min(l_quantity) and
+    max(l_quantity) (port-only): every aggregate folds exactly across left
+    chunks, so the fused device join may split its buckets."""
+    li = _lineitem(session, root)
+    od = session.read.parquet(os.path.join(root, "orders"))
+    return (
+        li.select("l_orderkey", "l_quantity")
+        .join(od.select("o_orderkey", "o_orderdate"), col("l_orderkey") == col("o_orderkey"))
+        .filter(col("o_orderdate") < 9500)
+        .group_by("l_orderkey", "o_orderdate")
+        .agg(Count(lit(1)).alias("lines"), Min(col("l_quantity")).alias("min_qty"),
+             Max(col("l_quantity")).alias("max_qty"))
+    )
+
+
 def q17(session, root: str):
     """Small-quantity-order revenue: per-part average quantity joined back
     against lineitem; rows below 20% of their part's average contribute."""
@@ -383,6 +402,8 @@ QUERIES = {"q6": q6, "q6_count": q6_count, "q6_sum": q6_sum, "q1": q1, "q1_sums"
 # the partial route's forms (port-only)
 SPAN_QUERIES = {"q6_span": q6_span, "q1_span": q1_span}
 JOIN_QUERIES = {"q3_agg": q3_agg, "q3": q3}
+# Q3's join with aggregates that split (port-only)
+SPLIT_JOIN_QUERIES = {"q3_span": q3_span}
 # point and range lookups on li_orderkey's key (port-only forms)
 LOOKUP_QUERIES = {"lookup_count": lookup_count, "lookup_absent": lookup_absent,
                   "range_sum": range_sum}

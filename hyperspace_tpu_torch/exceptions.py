@@ -34,3 +34,9 @@ class KernelError(HyperspaceError):
     """A hand-written CUDA kernel failed to build or launch, or was handed
     tensors it does not take. Never caught by the device tier: a broken
     kernel fails the query instead of silently running on the host."""
+
+
+class NativeError(HyperspaceError):
+    """The native host library (hyperspace_tpu_torch/native) failed to build
+    or load. Never caught: the host paths that call it do not fall back to
+    their numpy forms."""

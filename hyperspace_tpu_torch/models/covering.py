@@ -50,7 +50,7 @@ from ..columnar import io as cio
 from ..columnar.table import Column, ColumnBatch, Schema, sort_key_values
 from ..exceptions import HyperspaceError
 from ..meta.entry import FileInfo
-from ..ops.bucketize import partition_batch
+from ..ops.bucketize import partition_batch, stable_argsort
 from ..plan.nodes import FileScan, Project
 
 if TYPE_CHECKING:
@@ -303,7 +303,7 @@ def sort_indices_within(batch: ColumnBatch, sort_columns: list[str]) -> np.ndarr
         return np.arange(batch.num_rows)
     keys = [sort_key_values(batch.column(c), True) for c in reversed(sort_columns)]
     if len(keys) == 1:
-        return np.argsort(keys[0], kind="stable")
+        return stable_argsort(keys[0])
     return np.lexsort(keys)
 
 
@@ -367,7 +367,7 @@ def write_bucketed(
     def write_bucket(item) -> str:
         bucket, rows = item
         if len(keys) == 1:
-            order = np.argsort(keys[0][rows], kind="stable")
+            order = stable_argsort(keys[0][rows])
         else:
             order = np.lexsort([k[rows] for k in keys])
         part = batch.take(rows[order])

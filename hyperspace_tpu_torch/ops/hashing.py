@@ -5,7 +5,9 @@ Bucket ids are part of the on-disk index contract: they must equal the JAX
 package's ``hash32_np`` bit for bit, whichever package built the index. The
 arithmetic is murmur3-style uint32 mixing over the keys' 32-bit words; an
 int64 or float64 key contributes its low then high word, a string its crc32.
-Index builds hash on the host, so numpy is the only implementation here.
+Index builds hash on the host: from 1024 rows up through the native
+library (native/hs_native.cpp, one pass), below that and in the tests
+through the numpy form ``hash32_plain``.
 """
 
 from __future__ import annotations
@@ -60,8 +62,27 @@ def _words_np(arr: np.ndarray) -> list[np.ndarray]:
     return [arr.astype(np.uint32)]
 
 
+_NATIVE_MIN_ROWS = 1024  # below this the ctypes call costs more than numpy
+
+
 def hash32_np(columns: list[np.ndarray]) -> np.ndarray:
-    """Hash rows of one or more key columns to uint32."""
+    """Hash rows of one or more key columns to uint32: the native kernel
+    from 1024 rows up (one int key hashes without splitting its words on
+    the host), the numpy form below."""
+    from .. import native
+
+    if len(columns[0]) < _NATIVE_MIN_ROWS:
+        return hash32_plain(columns)
+    if len(columns) == 1:
+        a = np.asarray(columns[0])
+        if a.dtype in (np.int64, np.int32):
+            return native.hash32(a)
+    words = [w for col in columns for w in _words_np(np.asarray(col))]
+    return native.hash32_words(words)
+
+
+def hash32_plain(columns: list[np.ndarray]) -> np.ndarray:
+    """The numpy form of ``hash32_np`` (multi-pass over the key words)."""
     h = np.full(len(columns[0]), _SEED, dtype=np.uint32)
     with np.errstate(over="ignore"):
         for col in columns:

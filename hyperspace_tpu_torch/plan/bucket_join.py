@@ -7,18 +7,26 @@ with no shuffle and no global hash table.
 
 Three device paths, each recorded in ``session.device_stats.join_paths``:
 
-- ``batched``: a plain (not aggregated) join loads every bucket pair on a
-  thread pool, applies the side filters on the host, and runs the
-  band-stacked probe and run expansion on the device with two fetches in
-  all (plan/device_join.try_batched_plain_join);
+- ``batched``: a plain (not aggregated) join streams its bucket pairs,
+  side filters applied on the host, into the band-stacked probe and run
+  expansion on the device, two fetches in all
+  (plan/device_join.try_batched_plain_join);
 - ``stacked_agg``: an Aggregate grouped by the join key over such a join
-  runs the fused join+aggregate on the device for every bucket pair at
-  once (plan/device_join.try_stacked_join_agg): buckets load RAW, side
-  filters run in the body over the stable index-chunk buffers, and the
-  whole query pays one fetch;
-- ``per_bucket``: when those decline (by shape or data), each bucket runs
-  alone: the numpy twin of the fused body, or a plain join whose probe
-  runs on the device (try_device_plain_join) or on the host.
+  runs the fused join+aggregate on the device for every bucket pair
+  (plan/device_join.try_stacked_join_agg): buckets load RAW, side filters
+  run in the body over the stable index-chunk buffers, and the whole query
+  pays one fetch;
+- ``per_bucket``: when those decline (by shape or data), or the join is
+  too large for the in-memory path (below), each bucket runs alone: the
+  fused join+aggregate on the device (try_device_join_agg; its buckets
+  count as ``per_bucket_device``), else its host twin, or a plain join
+  whose probe runs on the device (try_device_plain_join) or on the host.
+
+When the device tier is on, ``plan_join_memory`` (plan/join_memory.py)
+first classes every bucket pair as broadcast, banded or split from its
+files' footer statistics and the device grant; both device paths take
+its split row counts. With ``HYPERSPACE_DEVICE_BUDGET_MB=0`` there is no
+plan and they split at ``HYPERSPACE_JOIN_SPLIT_ROWS``.
 
 An Aggregate grouped by a bucketed scan's bucket columns aggregates bucket
 by bucket (``try_bucketed_scan_aggregate``; AggregateIndexRule's rewrite).
@@ -31,15 +39,18 @@ by its key only when it has no appended part and at most one file (a
 refreshed index keeps one run per data version in a bucket): every path
 that trusts the on-disk sort reads these flags.
 
-The fused join+aggregate takes its bucket pairs as a stream
+Both device paths take their bucket pairs as a stream
 (``_iter_bucket_pairs``): pairs load ahead on an IO pool under the global
 read-ahead ledger while the device works on earlier ones, bit for bit the
 pairs the load-all barrier gives. ``HYPERSPACE_PIPELINE=0`` keeps the
-barrier; ``serial`` loads each pair on the caller's thread when asked for.
+barrier and one global band wave; ``serial`` loads each pair on the
+caller's thread when asked for. A join whose index files exceed
+``hyperspace.tpu.build.maxBytesInMemory`` takes the fused path only when
+it can run memory-adaptively (streamed pairs and the device ledger on);
+else it takes the per-bucket flow.
 
-Not ported: the mesh paths, the streamed and banded plain join (its
-pairs load behind the barrier), the per-bucket strategy plan
-(plan/join_memory.py) and adaptive re-planning.
+Not ported: the mesh paths (ROADMAP Queue 1 item 4) and adaptive
+re-planning (item 3).
 """
 
 from __future__ import annotations
@@ -278,22 +289,32 @@ def try_bucketed_merge_join(
             paths[path] = paths.get(path, 0) + 1
         return out
 
+    device_on = session is not None and session.conf.exec_device_enabled
+    # the per-bucket-pair strategy plan from the footer statistics; None
+    # when the device ledger is off (the executors keep the fixed split)
+    strategy = None
+    if device_on:
+        from .join_memory import plan_join_memory
+
+        strategy = plan_join_memory(left, right, session)
     preloaded = None
     if agg_plan is None and per_bucket is None:
         dev_out, preloaded = _try_device_join_paths(left, right, lkeys, rkeys, residual,
-                                                    appended, session)
+                                                    appended, session, strategy)
         if dev_out is not None:
             return done(dev_out, "batched")
-    if (agg_plan is not None and per_bucket is not None and session is not None
-            and session.conf.exec_device_enabled):
-        if _fused_device_possible(left, right, lkeys, rkeys) and _stacked_plan_screen(
-            session, agg_plan, left, right, lkeys, rkeys, residual
-        ):
+    if agg_plan is not None and per_bucket is not None and device_on:
+        reason = _fused_device_decline(session, left, right, lkeys, rkeys)
+        if reason is None and not _stacked_plan_screen(session, agg_plan, left, right, lkeys,
+                                                       rkeys, residual):
+            reason = "join_plan_screen"
+        if reason is None:
             from .device_join import try_stacked_join_agg
             from .gpu_exec import _pipeline_enabled, _pipeline_overlap
 
             raw_loaded: list = [None] * n
-            if _pipeline_enabled():
+            pipelined = _pipeline_enabled()
+            if pipelined:
                 gen = _iter_bucket_pairs(left, right, appended, session, raw=True,
                                          overlap=_pipeline_overlap())
             else:  # the load-all barrier
@@ -311,6 +332,7 @@ def try_bucketed_merge_join(
                     lfilters=tuple(left.filters), rfilters=tuple(right.filters),
                     lcols_avail=set(plan.left.schema.names),
                     rcols_avail=set(plan.right.schema.names),
+                    banded=pipelined, strategy=strategy,
                 )
                 if dev_out is not None:
                     return done(dev_out, "stacked_agg")
@@ -329,7 +351,7 @@ def try_bucketed_merge_join(
         else:
             from .gpu_exec import _decline
 
-            _decline(session, "join_plan_screen")
+            _decline(session, reason)
 
     def join_bucket(b: int) -> Optional[ColumnBatch]:
         if preloaded is not None and preloaded[b] is not None:
@@ -342,8 +364,15 @@ def try_bucketed_merge_join(
         if lb is None or rb is None or lb.num_rows == 0 or rb.num_rows == 0:
             return None
         if agg_plan is not None:
-            from .device_join import try_host_join_agg
+            from .device_join import try_device_join_agg, try_host_join_agg
 
+            fused = try_device_join_agg(agg_plan, lb, rb, lkeys, rkeys, residual, session,
+                                        r_sorted, l_sorted)
+            if fused is not None:
+                on_device.append(b)
+                return fused
+            # the numpy twin of the fused body: the join output does not
+            # materialize on the host path either
             fused = try_host_join_agg(agg_plan, lb, rb, lkeys, rkeys, residual, session,
                                       r_sorted)
             if fused is not None:
@@ -364,10 +393,14 @@ def try_bucketed_merge_join(
         return joined
 
     probed: list = []  # buckets whose probe ran on the device
+    on_device: list = []  # buckets whose fused join+aggregate ran on the device
     with ThreadPoolExecutor(max_workers=max(1, min(8, n))) as pool:
         parts = [p for p in pool.map(join_bucket, range(n)) if p is not None]
     if probed:
         session.device_stats.device_plain_probes += len(probed)
+    if on_device:
+        paths = session.device_stats.join_paths
+        paths["per_bucket_device"] = paths.get("per_bucket_device", 0) + len(on_device)
     if not parts:
         empty = _empty_like(plan)
         return done(per_bucket(empty) if per_bucket is not None else empty, "per_bucket")
@@ -431,18 +464,30 @@ def _stacked_plan_screen(session, agg_plan, left, right, lkeys, rkeys, residual)
     return _no_derived_rebinding(left, refs) and _no_derived_rebinding(right, refs)
 
 
-def _fused_device_possible(left, right, lkeys, rkeys) -> bool:
-    """Plan-level key eligibility, knowable from the schema: one key
-    column, neither string nor f64 (f64 keys never ship: a lossy downcast
-    could fabricate matches)."""
+def _fused_device_decline(session, left, right, lkeys, rkeys) -> Optional[str]:
+    """Why the all-bucket fused path cannot run, from the plan alone, or
+    None when it can (the reference's ``_fused_device_possible``). It needs
+    one key column, neither string nor f64 (f64 keys never ship: a lossy
+    downcast could fabricate matches): else "join_plan_screen". A join
+    whose index files exceed ``maxBytesInMemory`` stays on it only when it
+    can run memory-adaptively, pairs streamed and the device ledger on;
+    under ``HYPERSPACE_PIPELINE=0`` or with the ledger off it takes the
+    per-bucket flow ("join_over_memory"), as in the reference."""
+    from ..serve.budget import device_budget
+    from .gpu_exec import _pipeline_enabled
+
     if len(lkeys) != 1:
-        return False
+        return "join_plan_screen"
     for side, key in ((left, lkeys[0]), (right, rkeys[0])):
         if key not in side.scan.full_schema:
-            return False
+            return "join_plan_screen"
         if side.scan.full_schema.field(key).dtype in (STRING, "float64"):
-            return False
-    return True
+            return "join_plan_screen"
+    total_bytes = sum(f.size for side in (left, right) for f in side.scan.files)
+    if total_bytes > session.conf.build_max_bytes_in_memory and not (
+            _pipeline_enabled() and device_budget().max_bytes > 0):
+        return "join_over_memory"
+    return None
 
 
 def _plain_join_plan_screen(left, right, lkeys, rkeys) -> bool:
@@ -541,28 +586,74 @@ def _empty_join_output(lb: ColumnBatch, rb: ColumnBatch) -> ColumnBatch:
     return ColumnBatch(out)
 
 
-def _try_device_join_paths(left, right, lkeys, rkeys, residual, appended, session):
+class _PlainJoinIneligible(Exception):
+    """A streamed bucket pair's keys cannot take the device (string, null
+    or inexact keys): the batched plain join declines, and the per-bucket
+    flow reuses the pairs already loaded."""
+
+
+def _try_device_join_paths(left, right, lkeys, rkeys, residual, appended, session,
+                           strategy=None):
     """The batched device plain join of a whole co-partitioned join:
     ``(result, loaded)``. A None result hands ``loaded`` (the pairs by
     bucket, or None when the plan screen declined before loading) to the
-    per-bucket flow, so nothing is read twice."""
+    per-bucket flow, so nothing is read twice. Pairs stream into the
+    band-stacked probe under ``HYPERSPACE_PIPELINE`` 1 or serial (its waves
+    dispatch while later pairs load); under 0 every pair loads behind the
+    barrier and the probe runs one global wave."""
     from .device_join import try_batched_plain_join
-    from .gpu_exec import _decline
+    from .gpu_exec import _decline, _pipeline_enabled, _pipeline_overlap
 
     if session is None or not session.conf.exec_device_enabled:
         return None, None
     if not _plain_join_plan_screen(left, right, lkeys, rkeys):
         return _decline(session, "plain_join_plan_screen"), None
-    work, loaded = _collect_plain_join_work(left, right, lkeys, rkeys, appended, session)
-    if not work:
-        return None, loaded  # ineligible keys, or no occupied pair
-    parts = try_batched_plain_join(work, residual, session)
+    if not _pipeline_enabled():
+        work, loaded = _collect_plain_join_work(left, right, lkeys, rkeys, appended, session)
+        if not work:
+            return None, loaded  # ineligible keys, or no occupied pair
+        parts = try_batched_plain_join(work, residual, session, banded=False,
+                                       strategy=strategy)
+        if parts is None:
+            return None, loaded
+        ordered = [parts[b] for b in sorted(parts)]
+        if not ordered:
+            return _empty_join_output(work[0][1], work[0][2]), loaded
+        return ColumnBatch.concat(ordered), loaded
+
+    n = left.spec.num_buckets
+    loaded: list = [None] * n
+    gen = _iter_bucket_pairs(left, right, appended, session, overlap=_pipeline_overlap())
+
+    def work_items():
+        for b, lb, rb, ls, rs in gen:
+            loaded[b] = (lb, rb, ls, rs)
+            w = _prep_plain_work(b, lb, rb, lkeys, rkeys, ls, rs, session)
+            if w is _INELIGIBLE:
+                raise _PlainJoinIneligible()
+            if w is not None:
+                yield w
+
+    try:
+        try:
+            parts = try_batched_plain_join(work_items(), residual, session, banded=True,
+                                           strategy=strategy)
+        except _PlainJoinIneligible:
+            parts = _decline(session, "plain_join_key")
+        for b, lb, rb, ls, rs in gen:  # drain: the per-bucket flow reuses every pair
+            loaded[b] = (lb, rb, ls, rs)
+    finally:
+        gen.close()  # stops the read-ahead, whatever raised
     if parts is None:
         return None, loaded
     ordered = [parts[b] for b in sorted(parts)]
-    if not ordered:
-        return _empty_join_output(work[0][1], work[0][2]), loaded
-    return ColumnBatch.concat(ordered), loaded
+    if ordered:
+        return ColumnBatch.concat(ordered), loaded
+    occupied = next((t for t in loaded if t is not None and t[0] is not None
+                     and t[1] is not None and t[0].num_rows and t[1].num_rows), None)
+    if occupied is None:
+        return None, loaded  # nothing occupied: the per-bucket empty shape
+    return _empty_join_output(occupied[0], occupied[1]), loaded
 
 
 def _iter_bucket_pairs(left, right, appended, session, raw: bool = False,

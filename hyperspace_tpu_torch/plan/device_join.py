@@ -8,16 +8,29 @@ aggregate reduces per right key. The join output never materializes; only
 vectors of one value per right key come back to the host (Q3: revenue per
 order over a lineitem x orders bucket join).
 
-The reference's body (``_build_stacked_kernel``) is jnp code that XLA fuses
-and vmaps over the bucket axis; there is no Pallas kernel in it. Here it is
-torch code on tensors (``stacked_join_body``), run bucket pair by bucket
-pair on the current stream, with ONE fetch for the whole query.
+The reference's bodies (``_build_stacked_kernel``, ``_build_kernel``) are
+jnp code that XLA fuses; there is no Pallas kernel in them. Here they are
+torch code on tensors: ``stacked_join_body`` for the all-bucket path
+(``try_stacked_join_agg``), run per band item at its exact lengths, and
+``per_bucket_join_body`` for the per-bucket flow (``try_device_join_agg``),
+over power-of-2 pads whose padding rows land in a dump segment.
 
-Side filters evaluate in the body over the raw index columns: a left row
-failing its filter weighs 0, and right filters fold into an int32 prefix
-sum, so each left row's weight is the number of matching right rows that
-pass. Uploads therefore come from the stable index-chunk buffers, and the
-session's device cache serves repeat queries with no upload.
+The all-bucket paths consume their bucket pairs lazily through a band
+scheduler (``_BandScheduler``): items group into power-of-2 size bands, a
+full band wave dispatches at once, and every wave first reserves its
+padded footprint on the device ledger (plan/join_memory.DeviceLedger),
+parking and spilling earlier waves instead of declining when the ledger is
+full. A bucket above its split row count (the strategy plan's, or
+``join_split_rows()``) probes in left chunks; the fused aggregate splits
+only when every aggregate is count, min or max. ``HYPERSPACE_PIPELINE=0``
+runs one global wave, unsplit. Results are the same bits whatever the
+banding, the splits and the spills.
+
+Side filters evaluate in the stacked body over the raw index columns: a
+left row failing its filter weighs 0, and right filters fold into an int32
+prefix sum, so each left row's weight is the number of matching right rows
+that pass. Uploads therefore come from the stable index-chunk buffers, and
+the session's device cache serves repeat queries with no upload.
 
 Float sums are deterministic on the card: rows are laid out by segment
 (found rows in probe order, then the rest) and reduced with
@@ -34,12 +47,13 @@ every bucket's sorted keys stack into power-of-2 bands, one batched
 ``torch.searchsorted`` probes a whole band wave, a second pass expands the
 match runs into (left, right) row pairs, and the host gathers both sides
 in their original dtypes, so the rows equal the host merge join's, in its
-order. Waves reserve their footprint on the device ledger
-(plan/join_memory.py) and spill instead of declining when it is full.
+order.
 
-Not ported: the mesh paths, the per-bucket fused device kernel
-(``try_device_join_agg``), the per-bucket strategy plan and the native
-probe.
+The host twin (``try_host_join_agg``) runs the numpy form of the fused
+body; its one-int64-key shape without a residual goes through the native
+fused probe (``_native_probe_agg``, native/hs_native.cpp).
+
+Not ported: the mesh paths and their placement (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -344,6 +358,25 @@ def _upload(session, device, srcs, tag, build) -> torch.Tensor:
     )
 
 
+class _AggItem:
+    """One stacked-agg band row: a whole bucket pair, or one left chunk of a
+    split bucket (the right side repeats per chunk; the chunks' results
+    fold exactly on the host, since a bucket splits only when every
+    aggregate is count, min or max). ``lo``/``hi`` bound the chunk in the
+    bucket's left rows."""
+
+    __slots__ = ("bucket", "lb", "rb", "rorder", "probe_sorted", "lo", "hi")
+
+    def __init__(self, bucket, lb, rb, rorder, probe_sorted, lo, hi):
+        self.bucket = bucket
+        self.lb = lb
+        self.rb = rb
+        self.rorder = rorder
+        self.probe_sorted = probe_sorted
+        self.lo = lo
+        self.hi = hi
+
+
 def try_stacked_join_agg(
     pairs,
     lkeys,
@@ -355,27 +388,102 @@ def try_stacked_join_agg(
     rfilters=(),
     lcols_avail=None,
     rcols_avail=None,
+    banded=True,
+    strategy=None,
 ) -> Optional[ColumnBatch]:
     """Fused join+aggregate over every bucket pair on the session's device,
-    with one fetch for the whole query. ``pairs`` yields ``(bucket, lb, rb,
-    l_sorted, r_sorted)`` with RAW batches (side filters not applied;
-    ``lfilters``/``rfilters`` carry them and run in the body). Engages only
-    when every occupied pair is eligible; otherwise None (the reason is
-    counted in ``session.device_stats.declines``) and the caller's
-    per-bucket flow takes over with the pairs it already loaded."""
+    with one fetch for the whole query when no wave spills. ``pairs``
+    yields ``(bucket, lb, rb, l_sorted, r_sorted)`` with RAW batches (side
+    filters not applied; ``lfilters``/``rfilters`` carry them and run in
+    the body), consumed lazily: each pair joins its power-of-2 size band as
+    it arrives, and a full band wave dispatches while later pairs still
+    load. Each wave reserves its footprint on the device ledger first
+    (plan/join_memory.DeviceLedger) and parks, spilling earlier waves,
+    instead of declining when the ledger is full.
+
+    ``strategy`` (plan/join_memory.JoinMemoryPlan) gives each bucket's
+    split row count; None keeps the fixed ``join_split_rows()``. A bucket
+    above it splits into left chunks only when every aggregate is count,
+    min or max (f32 sums are not decomposition-invariant). ``banded=False``
+    (``HYPERSPACE_PIPELINE=0``) runs every pair as ONE wave, unsplit. The
+    body runs per item at its exact lengths, so the results are the same
+    bits whatever the banding, the splits and the spills.
+
+    Engages only when every occupied pair is eligible; otherwise None (the
+    reason is counted in ``session.device_stats.declines``) and the
+    caller's per-bucket flow takes over with the pairs it already loaded."""
+    from .join_memory import DeviceLedger
+
+    ledger = DeviceLedger()
+    try:
+        return _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan,
+                                      lfilters, rfilters, lcols_avail, rcols_avail,
+                                      banded, strategy, ledger)
+    finally:
+        ledger.close()  # a decline or an error returns every reservation
+
+
+def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfilters,
+                           rfilters, lcols_avail, rcols_avail, banded, strategy, ledger):
     from .gpu_exec import _decline, kernel_route
     from .kernel_cache import join_fingerprint
 
     device = session.device  # raises when CUDA was asked for and is absent
+    stats = session.device_stats
     lk_name, rk_name = lkeys[0], rkeys[0]
-    elig = body = None
-    dt = None
-    first_rb = None
-    done: list = []  # (right batch, its sort order or None, device results)
-    for _b, lb, rb, l_sorted, r_sorted in pairs:
+    st: dict = {"elig": None, "dt": None, "body": None, "first_rb": None}
+
+    def shipped(col: Column, order=None):
+        def build():
+            a = _shippable(col)
+            return a if order is None else a[order]
+        return build
+
+    def dispatch(pads, items):
+        """Upload what the wave's items need (from the device cache) and
+        launch the body per item: [(counts, aggregate tensors)]."""
+        _gc, _specs, left_names, _rg, right_names = st["elig"]
+        out = []
+        for it in items:
+            rtag = ("join_r",) if it.rorder is None else ("join_r_sorted",)
+            rsrcs = () if it.rorder is None else (it.rb.column(rk_name).data,)
+            lk_col = it.lb.column(lk_name)
+            lk_d = _upload(session, device, (lk_col.data,), ("join_l",), shipped(lk_col))
+            rk_d = _upload(session, device, (it.rb.column(rk_name).data,) + rsrcs, rtag,
+                           shipped(it.rb.column(rk_name), it.rorder))
+            lcols = {c: _upload(session, device, (it.lb.column(c).data,), ("join_l",),
+                                shipped(it.lb.column(c))) for c in left_names}
+            rcols = {c: _upload(session, device, (it.rb.column(c).data,) + rsrcs, rtag,
+                                shipped(it.rb.column(c), it.rorder)) for c in right_names}
+            if (it.lo, it.hi) != (0, it.lb.num_rows):  # a left chunk: views
+                lk_d = lk_d[it.lo:it.hi]
+                lcols = {c: t[it.lo:it.hi] for c, t in lcols.items()}
+            counts, vals = st["body"](lk_d, rk_d, lcols, rcols, it.probe_sorted)
+            out.append((counts,) + tuple(vals))
+        return out
+
+    def estimate(pads, items):
+        # the wave's 32-bit uploads (keys and shipped columns) and outputs
+        _gc, specs, left_names, _rg, right_names = st["elig"]
+        pad_l, pad_r = pads
+        return 4 * len(items) * (pad_l * (1 + len(left_names))
+                                 + pad_r * (1 + len(right_names))
+                                 + pad_r * (1 + len(specs)))
+
+    def retire(wave):
+        # a spill: this wave's results to the host, folded with the rest
+        # at the end, so spilling changes when they come back, not what
+        flat = _fetch_all([t for rec in wave.rec for t in rec])
+        return _regroup(flat, wave.rec)
+
+    sched = _BandScheduler(dispatch, ledger, estimate, retire, banded=banded)
+    split_default = join_split_rows() if banded else 0
+    n_splits = 0
+    splittable = False
+    for b, lb, rb, l_sorted, r_sorted in pairs:
         if lb is None or rb is None or not lb.num_rows or not rb.num_rows:
             continue
-        if elig is None:
+        if st["elig"] is None:
             elig = _stacked_eligibility(
                 agg_plan, lb, rb, lkeys, rkeys, residual, lfilters, rfilters,
                 lcols_avail, rcols_avail,
@@ -385,8 +493,10 @@ def try_stacked_join_agg(
                 return _decline(session, "join_unsupported_shape")
             group_cols, agg_specs, left_names, right_gather, rfn = elig
             right_names = sorted(set(right_gather) | set(rfn))
-            agg_list = [(k, c) for _n, k, c in agg_specs]
-            first_rb = rb
+            st["elig"] = (group_cols, agg_specs, left_names, right_gather, right_names)
+            st["first_rb"] = rb
+            splittable = all(k in ("count", "min", "max") for _n, k, _c in agg_specs)
+        group_cols, agg_specs, left_names, right_gather, right_names = st["elig"]
         lk_col, rk_col = lb.column(lk_name), rb.column(rk_name)
         if lk_col.data.dtype == np.float64 or rk_col.data.dtype == np.float64:
             return _decline(session, "join_f64_key")  # keys never downcast
@@ -394,9 +504,9 @@ def try_stacked_join_agg(
         # exact dtype equality: searchsorted compares the two key tensors
         if lk_dt is None or rk_dt is None or lk_dt != rk_dt:
             return _decline(session, "join_key_not_shippable")
-        if dt is None:
-            dt = lk_dt
-        elif lk_dt != dt:
+        if st["dt"] is None:
+            st["dt"] = lk_dt
+        elif lk_dt != st["dt"]:
             return _decline(session, "join_key_dtype_varies")
         for batch, names in ((lb, left_names), (rb, right_names)):
             if any(_ship_dtype(batch.column(c), session) is None for c in names):
@@ -418,53 +528,87 @@ def try_stacked_join_agg(
         if dup and (right_gather or any(src != "key" for _n, src in group_cols)):
             # a per-key gather would drop the other matching rows
             return _decline(session, "join_dup_right_keys")
-        if body is None:
+        if st["body"] is None:
             key = join_fingerprint(
-                kernel_route(device), dt.str, agg_list, residual, lfilters, rfilters,
+                kernel_route(device), st["dt"].str, [(k, c) for _n, k, c in agg_specs],
+                residual, lfilters, rfilters,
                 (tuple(left_names), tuple(right_names), tuple(right_gather)),
             )
-            body = session.kernel_cache.get_or_build(
+            st["body"] = session.kernel_cache.get_or_build(
                 key, lambda: stacked_join_body(
-                    agg_list, list(residual), list(lfilters), list(rfilters),
-                    right_gather,
+                    [(k, c) for _n, k, c in agg_specs], list(residual), list(lfilters),
+                    list(rfilters), right_gather,
                 ),
             )
+        n_l, n_r = lb.num_rows, rb.num_rows
+        if strategy is not None:
+            strategy.observe_actual(b, n_l, _batch_data_nbytes(lb))
+        split = strategy.split_rows(b, splittable) if strategy is not None and banded \
+            else split_default
+        if split and splittable and n_l > split:
+            n_splits += -(-n_l // split) - 1
+            for c0 in range(0, n_l, split):
+                c1 = min(c0 + split, n_l)
+                sched.add(_AggItem(b, lb, rb, rorder, probe_sorted, c0, c1), c1 - c0, n_r)
+        else:
+            sched.add(_AggItem(b, lb, rb, rorder, probe_sorted, 0, n_l), n_l, n_r)
 
-        def shipped(col: Column, order=None):
-            def build():
-                a = _shippable(col)
-                return a if order is None else a[order]
-            return build
-
-        rtag = ("join_r",) if rorder is None else ("join_r_sorted",)
-        rsrcs = () if rorder is None else (rk_col.data,)
-        lk_d = _upload(session, device, (lk_col.data,), ("join_l",), shipped(lk_col))
-        rk_d = _upload(session, device, (rk_col.data,) + rsrcs, rtag,
-                       shipped(rk_col, rorder))
-        lcols = {c: _upload(session, device, (lb.column(c).data,), ("join_l",),
-                            shipped(lb.column(c))) for c in left_names}
-        rcols = {c: _upload(session, device, (rb.column(c).data,) + rsrcs, rtag,
-                            shipped(rb.column(c), rorder)) for c in right_names}
-        counts, vals = body(lk_d, rk_d, lcols, rcols, probe_sorted)
-        done.append((rb, rorder, (counts,) + tuple(vals)))
-
-    if elig is None:
+    if st["elig"] is None:
         return None  # no occupied bucket pair: the caller emits the empty shape
-    fetched = _fetch_all([t for _rb, _ro, tensors in done for t in tensors])
-    session.device_stats.device_join_fragments += 1
+    records = sched.finish()
+    stats.join_spills += sched.spills
+    stats.join_waves += len(records)
+    stats.join_splits += n_splits
+    stats.join_parks += ledger.parks
+    # ONE fetch over every wave that did not spill
+    pending = [w for w in records if w.done is None]
+    if pending:
+        flat = _fetch_all([t for w in pending for rec in w.rec for t in rec])
+        ofs = 0
+        for w in pending:
+            n = sum(len(rec) for rec in w.rec)
+            w.done = _regroup(flat[ofs:ofs + n], w.rec)
+            w.rec = None
+            ofs += n
+    sched.release_reservations()
+    stats.device_join_fragments += 1
+    return _assemble_stacked(records, st["elig"], agg_plan.schema, rk_name, st["first_rb"])
 
-    schema = agg_plan.schema
+
+def _regroup(flat: list, recs: list) -> list:
+    """Fetched arrays back into one tuple per item, in the wave's order."""
+    out, i = [], 0
+    for rec in recs:
+        out.append(tuple(flat[i:i + len(rec)]))
+        i += len(rec)
+    return out
+
+
+def _assemble_stacked(records, elig, schema, rk_name, first_rb) -> ColumnBatch:
+    """Fold split chunks exactly (count adds, min and max take the
+    extreme) and emit one row per matched right key, bucket by bucket."""
+    group_cols, agg_specs, _ln, _rg, _rn = elig
+    per_bucket: dict[int, list] = {}
+    for wave in records:
+        for it, res in zip(wave.items, wave.done):
+            slot = per_bucket.get(it.bucket)
+            if slot is None:
+                per_bucket[it.bucket] = [it, res[0], list(res[1:])]
+                continue
+            slot[1] = slot[1] + res[0]
+            for j, (_nm, kind, _c) in enumerate(agg_specs):
+                a, v = slot[2][j], res[1 + j]
+                slot[2][j] = (a + v if kind == "count"
+                              else np.minimum(a, v) if kind == "min" else np.maximum(a, v))
     parts = []
-    i = 0
-    for rb, rorder, tensors in done:
-        counts, vals = fetched[i], fetched[i + 1:i + len(tensors)]
-        i += len(tensors)
+    for b in sorted(per_bucket):
+        it, counts, vals = per_bucket[b]
         kept = np.flatnonzero(counts)  # the right keys some left row matched
         if not len(kept):
             continue
-        rows = kept if rorder is None else rorder[kept]
+        rows = kept if it.rorder is None else it.rorder[kept]
         out_cols: dict[str, Column] = {
-            nm: rb.column(rk_name if src == "key" else src).take(rows)
+            nm: it.rb.column(rk_name if src == "key" else src).take(rows)
             for nm, src in group_cols
         }
         for (nm, kind, _c), full in zip(agg_specs, vals):
@@ -481,6 +625,13 @@ def try_stacked_join_agg(
             out_cols[nm] = Column(np.empty(0, numpy_dtype(dtype)), dtype)
         return ColumnBatch(out_cols)
     return ColumnBatch.concat(parts)
+
+
+def _batch_data_nbytes(batch: ColumnBatch) -> int:
+    """Decoded bytes of one loaded bucket side (the actual beside the
+    footer estimate the plan priced it at)."""
+    return sum(c.data.nbytes + (0 if c.validity is None else c.validity.nbytes)
+               for c in batch.columns.values())
 
 
 def _is_sorted(keys: np.ndarray, session) -> bool:
@@ -500,6 +651,233 @@ def _agg_column(schema, nm: str, kind: str, vals: np.ndarray) -> Column:
     if f.dtype in ("int64", "int32", "int16", "int8"):
         return Column(vals.astype(np.dtype(f.dtype)), f.dtype)
     return Column(vals.astype(np.float64), "float64")
+
+
+# ---------------------------------------------------------------------------
+# one bucket pair on the device (the per-bucket flow)
+# ---------------------------------------------------------------------------
+
+def per_bucket_join_body(agg_specs, residual, left_names, right_names, pad_r: int,
+                         dup: bool = False):
+    """The per-bucket fused probe + gather + residual + segment reduction
+    (counterpart of device_join._build_kernel): rows whose probe misses, or
+    fails a residual, and the padding rows land in the dump segment
+    ``pad_r``, which is cut off. With ``dup`` (duplicate right keys and
+    left-only aggregates) a row weighs ``hi - pos``, its number of matching
+    right rows. Counts and integer sums add exactly, float sums in a fixed
+    order (rows laid out by segment, ``segment_reduce``), min and max by
+    ``scatter_reduce``, so two runs give the same bits.
+
+    The returned function takes ``dev_in``: "lk" [pad_l], "rk" [pad_r]
+    (sorted, padded with the dtype's maximum), "mask" bool[pad_l] (the real
+    left rows), "n_r" (int), "sorted" (the left keys are sorted), and the
+    columns as "l_<name>" [pad_l] and "r_<name>" [pad_r]; it returns
+    (counts int32[pad_r], one tensor [pad_r] per aggregate)."""
+    from .gpu_exec import _as_column, _extreme, _is_int, compile_expr
+
+    def body(dev_in):
+        lk, rk, mask, n_r = dev_in["lk"], dev_in["rk"], dev_in["mask"], dev_in["n_r"]
+        dev = lk.device
+        pos = torch.searchsorted(rk, lk)
+        posc = torch.clamp(pos, 0, pad_r - 1)
+        found = mask & (posc < n_r) & (rk[posc] == lk)
+        env = {c: dev_in["l_" + c] for c in left_names}
+        env.update({c: dev_in["r_" + c][posc] for c in right_names})
+        for r in residual:
+            found = found & _as_column(compile_expr(r, env), lk)
+        if dup:
+            hi = torch.clamp(torch.searchsorted(rk, lk, right=True), max=n_r)
+            w = torch.where(found, hi - torch.clamp(pos, max=n_r), 0).to(torch.int32)
+        else:
+            w = found.to(torch.int32)
+        seg = torch.where(found, posc, pad_r)
+        counts = torch.zeros(pad_r + 1, dtype=torch.int32, device=dev).index_add_(0, seg, w)
+        order = lengths = None
+        out = []
+        for kind, child in agg_specs:
+            if kind == "count":
+                out.append(counts[:pad_r])
+                continue
+            vals = _as_column(compile_expr(child, env), lk)
+            if kind in ("sum", "avg"):
+                if _is_int(vals):
+                    acc = torch.zeros(pad_r + 1, dtype=torch.int64, device=dev)
+                    s = acc.index_add_(0, seg, torch.where(found, vals.long() * w, 0))[:pad_r]
+                    if kind == "avg":
+                        s = s.to(torch.float64)
+                else:
+                    if order is None:
+                        order = _found_first_order(found, seg, dev_in["sorted"])
+                        lengths = torch.bincount(seg, minlength=pad_r + 1)
+                    wv = torch.where(found, vals * w, 0)
+                    s = torch.segment_reduce(wv[order], "sum", lengths=lengths,
+                                             unsafe=True)[:pad_r]
+                out.append(s if kind == "sum" else s / torch.clamp(counts[:pad_r], min=1))
+            elif kind in ("min", "max"):
+                ident = _extreme(vals.dtype, kind == "min")
+                init = torch.full((pad_r + 1,), ident, dtype=vals.dtype, device=dev)
+                out.append(init.scatter_reduce_(
+                    0, seg, torch.where(found, vals, ident),
+                    "amin" if kind == "min" else "amax")[:pad_r])
+        return counts[:pad_r], tuple(out)
+
+    return body
+
+
+def try_device_join_agg(agg_plan, lb: ColumnBatch, rb: ColumnBatch, lkeys: Sequence[str],
+                        rkeys: Sequence[str], residual: Sequence[Expr], session,
+                        r_sorted: bool, l_sorted: bool = False) -> Optional[ColumnBatch]:
+    """One bucket pair's fused join+aggregate on the device, in one fetch;
+    None when its shape or data is not the body's (the host twin runs
+    then). A CUDA error raises."""
+    prep = prepare_device_join_agg(agg_plan, lb, rb, lkeys, rkeys, residual, session,
+                                   r_sorted, l_sorted)
+    if prep is None:
+        return None
+    tensors, assemble = prep
+    return assemble(_fetch_all(tensors))
+
+
+def prepare_device_join_agg(agg_plan, lb: ColumnBatch, rb: ColumnBatch,
+                            lkeys: Sequence[str], rkeys: Sequence[str],
+                            residual: Sequence[Expr], session, r_sorted: bool,
+                            l_sorted: bool = False):
+    """The screens and the launch of one bucket pair's fused join+aggregate,
+    without the fetch: (device result tensors, assemble(fetched) ->
+    ColumnBatch), so a caller with many pairs can fetch them together;
+    None -> the host twin."""
+    if session is None or len(lkeys) != 1 or not session.conf.exec_device_enabled:
+        return None
+    return _prepare_join_agg_inner(agg_plan, lb, rb, lkeys, rkeys, residual, session,
+                                   r_sorted, l_sorted)
+
+
+def _prepare_join_agg_inner(agg_plan, lb, rb, lkeys, rkeys, residual, session,
+                            r_sorted: bool, l_sorted: bool):
+    from .gpu_exec import _expr_device_ok, _literals_fit, kernel_route
+    from .kernel_cache import bucket_join_fingerprint
+
+    lk_name, rk_name = lkeys[0], rkeys[0]
+    group_cols = []  # (output name, "key" or a right column)
+    for g in agg_plan.group_exprs:
+        if not isinstance(g, X.Col):
+            return None
+        nm = g.name
+        if nm.lower() in (lk_name.lower(), rk_name.lower()):
+            group_cols.append((nm, "key"))
+        elif nm in rb.columns:
+            group_cols.append((nm, nm))
+        else:
+            return None
+    if not any(src == "key" for _n, src in group_cols):
+        return None  # key groups are what make a group bucket-local
+    agg_specs = []  # (name, kind, child or None)
+    schema = agg_plan.schema
+    for e in agg_plan.agg_exprs:
+        name, agg = _unwrap(e)
+        if isinstance(agg, X.Count):
+            # device columns are non-null, so count(expr) counts matches
+            if not isinstance(agg.child, X.Lit) and not _expr_device_ok(agg.child):
+                return None
+            agg_specs.append((name, "count", None))
+            continue
+        if not isinstance(agg, (X.Sum, X.Avg, X.Min, X.Max)):
+            return None
+        if not _expr_device_ok(agg.child) or not _literals_fit(agg.child):
+            return None
+        if isinstance(agg, (X.Sum, X.Avg)):
+            if schema.field(name).dtype not in ("float32", "float64"):
+                return None
+            if session.conf.exec_exact_f64_aggregates and any(
+                _col_dtype(c, lb, rb) == "float64" for c in agg.child.references()
+            ):
+                return None  # exactF64Aggregates: the host twin sums in f64
+        agg_specs.append((name, agg.func, agg.child))
+    for r in residual:
+        if not _expr_device_ok(r) or not _literals_fit(r):
+            return None
+    refs: set[str] = set()
+    for _n, _k, c in agg_specs:
+        if c is not None:
+            refs |= c.references()
+    for e in agg_plan.agg_exprs:
+        _nm, agg = _unwrap(e)
+        if isinstance(agg, X.Count) and not isinstance(agg.child, X.Lit):
+            refs |= agg.child.references()
+    for r in residual:
+        refs |= r.references()
+    left_refs = {c for c in refs if c in lb.columns}
+    right_refs = refs - left_refs
+    if not right_refs <= set(rb.columns):
+        return None
+
+    lk_col, rk_col = lb.column(lk_name), rb.column(rk_name)
+    if lk_col.data.dtype == np.float64 or rk_col.data.dtype == np.float64:
+        return None  # keys never downcast: collapsed f64 keys would match
+    lk_arr, rk_arr = _shippable(lk_col), _shippable(rk_col)
+    if lk_arr is None or rk_arr is None or lk_arr.dtype.kind != rk_arr.dtype.kind:
+        return None
+    ship_l, ship_r = {}, {}
+    for names, batch, ship in ((left_refs, lb, ship_l), (right_refs, rb, ship_r)):
+        for c in names:
+            a = _shippable(batch.column(c))
+            if a is None:
+                return None
+            ship[c] = a
+    rorder = None
+    if not r_sorted:
+        rorder = np.argsort(rk_arr, kind="stable")
+        rk_arr = rk_arr[rorder]
+        ship_r = {c: a[rorder] for c, a in ship_r.items()}
+    dup = _has_duplicates(rk_arr)
+    if dup and (right_refs or any(src != "key" for _n, src in group_cols)):
+        return None  # a per-key gather would drop the other matching rows
+
+    # one key dtype for both sides (searchsorted compares them): a narrower
+    # key widens exactly; pads carry its maximum so real keys stay a prefix
+    kdt = np.promote_types(lk_arr.dtype, rk_arr.dtype)
+    n_l, n_r = lb.num_rows, rb.num_rows
+    pad_l, pad_r = _pow2(n_l), _pow2(n_r)
+    rk_pad = np.iinfo(kdt).max if kdt.kind == "i" else np.float32(np.inf)
+    device = session.device
+
+    def up(a, pad, fill=0, dtype=None):
+        host = np.full(pad, fill, dtype=dtype or a.dtype)
+        host[: len(a)] = a
+        return torch.from_numpy(host).to(device)
+
+    dev_in = {"lk": up(lk_arr, pad_l, 0, kdt), "rk": up(rk_arr, pad_r, rk_pad, kdt),
+              "mask": up(np.ones(n_l, dtype=bool), pad_l, False), "n_r": n_r,
+              "sorted": bool(l_sorted and _is_sorted(lk_col.data, session))}
+    for c, a in ship_l.items():
+        dev_in["l_" + c] = up(a, pad_l)
+    for c, a in ship_r.items():
+        dev_in["r_" + c] = up(a, pad_r)
+    agg_list = [(k, c) for _n, k, c in agg_specs]
+    key = bucket_join_fingerprint(
+        kernel_route(device), "bucket_agg_dup" if dup else "bucket_agg", pad_r, kdt.str,
+        agg_list, residual,
+        tuple(sorted(("l_" + c, str(a.dtype)) for c, a in ship_l.items()))
+        + tuple(sorted(("r_" + c, str(a.dtype)) for c, a in ship_r.items())),
+    )
+    body = session.kernel_cache.get_or_build(
+        key, lambda: per_bucket_join_body(agg_list, list(residual), sorted(ship_l),
+                                          sorted(ship_r), pad_r, dup))
+    counts_d, vals_d = body(dev_in)
+
+    def assemble(fetched) -> ColumnBatch:
+        counts = fetched[0][:n_r]
+        keep = np.flatnonzero(counts > 0)
+        rows = keep if rorder is None else rorder[keep]
+        out_cols: dict[str, Column] = {
+            nm: rb.column(rk_name if src == "key" else src).take(rows)
+            for nm, src in group_cols
+        }
+        for (nm, kind, _c), full in zip(agg_specs, fetched[1:]):
+            out_cols[nm] = _agg_column(schema, nm, kind, full[:n_r][keep])
+        return ColumnBatch(out_cols)
+
+    return [counts_d, *vals_d], assemble
 
 
 # ---------------------------------------------------------------------------
@@ -562,6 +940,13 @@ def try_host_join_agg(
         return None  # a per-key gather would drop rows
 
     lk = lk_col.data
+    # one int64 key, no residual: the native kernel fuses the probe and the
+    # per-key sums of left-side Sum/Avg/Count inputs in one pass
+    if not residual and lk.dtype == np.int64 and rk.dtype == np.int64:
+        out = _native_probe_agg(agg_specs, agg_plan, lb, rb, rk_name, group_cols, lk, rk,
+                                rorder)
+        if out is not None:
+            return out
     n_r = len(rk)
     pos = np.searchsorted(rk, lk)
     posc = np.clip(pos, 0, n_r - 1)
@@ -606,6 +991,50 @@ def try_host_join_agg(
             col = col.take(rorder)
         out_cols[nm] = col.take(np.flatnonzero(keep))
     out_cols.update(agg_cols)
+    return ColumnBatch(out_cols)
+
+
+def _native_probe_agg(agg_specs, agg_plan, lb, rb, rk_name, group_cols, lk, rk,
+                      rorder) -> Optional[ColumnBatch]:
+    """The host twin through native.probe_agg_i64, when every aggregate is
+    count(*) or a Sum/Avg of left-side columns; None otherwise (the numpy
+    form runs). The sums add in left-row order, np.bincount's."""
+    from .. import native
+
+    for _nm, agg in agg_specs:  # the whole spec list, before any evaluation
+        if isinstance(agg, X.Count) and isinstance(agg.child, X.Lit):
+            continue
+        if not isinstance(agg, (X.Sum, X.Avg)) or not agg.child.references() <= set(lb.columns):
+            return None
+    specs, weights = [], []
+    for nm, agg in agg_specs:
+        if isinstance(agg, X.Count):
+            specs.append((nm, "count", -1))
+            continue
+        v = agg.child.eval(lb)
+        if v.validity is not None or v.dtype == STRING:
+            return None
+        specs.append((nm, agg.func, len(weights)))
+        weights.append(v.data.astype(np.float64, copy=False))
+    counts, sums = native.probe_agg_i64(lk, rk, weights)
+    keep = counts > 0
+    out_cols: dict[str, Column] = {}
+    for nm, src in group_cols:
+        col = rb.column(rk_name if src == "key" else src)
+        if rorder is not None:
+            col = col.take(rorder)
+        out_cols[nm] = col.take(np.flatnonzero(keep))
+    kept_counts = counts[keep]
+    for nm, kind, wi in specs:
+        if kind == "count":
+            out_cols[nm] = Column(kept_counts, "int64")
+        elif kind == "avg":
+            out_cols[nm] = Column(sums[wi][keep] / np.maximum(kept_counts, 1), "float64")
+        else:
+            f = agg_plan.schema.field(nm)
+            s = sums[wi][keep]
+            out_cols[nm] = (Column(s.astype(np.int64).astype(np.dtype(f.dtype)), f.dtype)
+                            if f.dtype.startswith("int") else Column(s, "float64"))
     return ColumnBatch(out_cols)
 
 
@@ -661,11 +1090,25 @@ def _pow2(n: int, floor: int = 10) -> int:
     return 1 << max(floor, int(np.ceil(np.log2(max(1, n)))))
 
 
-# left-side row count above which a bucket splits into left-chunk probe
-# items (0 disables); the reference's default when no memory plan is active.
-# Per-left-row probe results are independent of the chunking, so chunk
-# results concatenate into exactly the unsplit bucket's.
+# left-side row count above which a bucket splits into left-chunk items
+# when no memory plan is active (0 disables): HYPERSPACE_JOIN_SPLIT_ROWS's
+# default. Per-left-row probe results are independent of the chunking, so
+# chunk results concatenate into exactly the unsplit bucket's.
 _JOIN_SPLIT_ROWS = 1 << 18
+
+
+def join_split_rows() -> int:
+    """The split row count when no memory plan is active:
+    ``HYPERSPACE_JOIN_SPLIT_ROWS``, else ``_JOIN_SPLIT_ROWS``. With the
+    device ledger on, plan/join_memory.plan_join_memory decides per bucket
+    instead, and a set knob overrides its grant-derived count."""
+    from ..utils import env
+
+    raw = env.read_raw("HYPERSPACE_JOIN_SPLIT_ROWS")
+    try:
+        return _JOIN_SPLIT_ROWS if raw is None else int(raw)
+    except ValueError:
+        return _JOIN_SPLIT_ROWS
 
 
 def _band_pads(n_l: int, n_r: int) -> tuple:
@@ -698,31 +1141,44 @@ class _Wave:
 
 
 class _BandScheduler:
-    """Groups probe items into power-of-2 ``(pad_l, pad_r)`` bands and
-    dispatches a band's stacked probe as soon as ``_JOIN_WAVE`` items wait
-    (CUDA launches are asynchronous, so the card works while the host
-    stacks the next band). Before a wave dispatches, its padded footprint
-    (``estimate(pads, items)``) is reserved on the device ledger; when it
-    does not fit, the admission parks it and ``spill_one`` retires this
-    join's oldest in-flight wave (``retire(wave)`` fetches its results,
-    freeing its reservation). A ``_JoinDeclined`` from a spill's retire
-    stops the scheduler (``declined``); any other error propagates."""
+    """Groups join items into power-of-2 ``(pad_l, pad_r)`` bands and
+    dispatches a band as soon as ``wave`` items wait (CUDA launches are
+    asynchronous, so the card works while the host loads and stacks the
+    next pairs). With ``banded=False`` (``HYPERSPACE_PIPELINE=0``) every
+    item waits for ``finish()`` and dispatches as ONE wave at the global
+    pads, which the banded path matches bit for bit.
 
-    def __init__(self, dispatch, ledger, estimate, retire):
+    Before a wave dispatches, its padded footprint (``estimate(pads,
+    items)``) is reserved on the device ledger; when it does not fit, the
+    admission parks it and ``spill_one`` retires this join's oldest
+    in-flight wave (``retire(wave)`` fetches its results, freeing its
+    reservation). A ``_JoinDeclined`` from a spill's retire stops the
+    scheduler (``declined``); any other error propagates."""
+
+    def __init__(self, dispatch, ledger, estimate, retire, banded: bool = True,
+                 wave: int = _JOIN_WAVE):
         self._dispatch = dispatch  # (pads, items) -> device record
         self._ledger = ledger  # plan/join_memory.DeviceLedger
         self._estimate = estimate  # (pads, items) -> wave footprint bytes
         self._retire = retire  # (_Wave) -> host results (the spill fetch)
+        self.banded = banded
+        self.wave = wave
         self._groups: dict = {}
+        self._max_l = self._max_r = 0
         self.records: list[_Wave] = []
         self.declined: Optional[_JoinDeclined] = None
         self.spills = 0
 
     def add(self, item, n_l: int, n_r: int) -> None:
+        self._max_l = max(self._max_l, n_l)
+        self._max_r = max(self._max_r, n_r)
+        if not self.banded:
+            self._groups.setdefault(None, []).append(item)
+            return
         pads = _band_pads(n_l, n_r)
         group = self._groups.setdefault(pads, [])
         group.append(item)
-        if len(group) >= _JOIN_WAVE:
+        if len(group) >= self.wave:
             self._flush(pads, group)
             self._groups[pads] = []
 
@@ -762,8 +1218,11 @@ class _BandScheduler:
         self.records.append(_Wave(pads, items, self._dispatch(pads, items), need))
 
     def finish(self) -> list:
-        for pads in sorted(self._groups):
-            self._flush(pads, self._groups[pads])
+        if self.banded:
+            for pads in sorted(self._groups):
+                self._flush(pads, self._groups[pads])
+        elif self._groups.get(None):
+            self._flush(_band_pads(self._max_l, self._max_r), self._groups[None])
         self._groups = {}
         return self.records
 
@@ -895,51 +1354,55 @@ def _stack_band_keys(items, arr_attr: str, src_attr: str, pad: int, dt, pad_val,
     return session.device_cache.get_or_put(srcs, tag, build)
 
 
-def try_batched_plain_join(work, residual, session) -> Optional[dict]:
+def try_batched_plain_join(work, residual, session, banded=None,
+                           strategy=None) -> Optional[dict]:
     """Device plain join over MANY co-partitioned buckets: band-stacked
     probes, then band-stacked run expansions, with exactly TWO blocking
     fetches in all when no wave spills (the totals, then the pairs), each
     into pinned memory. Every probe wave reserves its padded footprint on
     the device ledger first; a wave that does not fit parks and spills
-    earlier waves (their own two fetches) instead of declining. Buckets
-    above ``_JOIN_SPLIT_ROWS`` split into left-chunk items.
+    earlier waves (their own two fetches) instead of declining.
 
-    ``work`` lists ``(bucket, lb, rb, lk32_sorted, rk32_sorted, lorder,
-    rorder, lk_src, rk_src)`` (bucket_join._prep_plain_work); the src
-    arrays are the ORIGINAL key buffers, whose identities key the device
-    cache. Returns {bucket: joined ColumnBatch}, rows in the host merge
-    join's order, or None when the join declines by data (counted in
+    ``work`` is an iterable of ``(bucket, lb, rb, lk32_sorted, rk32_sorted,
+    lorder, rorder, lk_src, rk_src)`` (bucket_join._prep_plain_work),
+    consumed lazily: each item joins its band as it arrives and a full
+    band wave dispatches its probe while the caller loads the next pairs.
+    The src arrays are the ORIGINAL key buffers, whose identities key the
+    device cache. ``strategy`` (plan/join_memory.JoinMemoryPlan) gives each
+    bucket's split row count; None keeps ``join_split_rows()``.
+    ``banded=None`` follows ``HYPERSPACE_PIPELINE``: ``0`` runs ONE wave at
+    the global pads, unsplit, which the banded path matches bit for bit.
+
+    Returns {bucket: joined ColumnBatch}, rows in the host merge join's
+    order, or None when the join declines by data (counted in
     ``session.device_stats.declines``). A CUDA error raises."""
     from .join_memory import DeviceLedger
 
     ledger = DeviceLedger()
     try:
-        return _batched_plain_join_impl(work, residual, session, ledger)
+        return _batched_plain_join_impl(work, residual, session, banded, strategy, ledger)
     finally:
         ledger.close()  # a decline or an error returns every reservation
 
 
-def _batched_plain_join_impl(work, residual, session, ledger) -> Optional[dict]:
-    from .gpu_exec import _decline, kernel_route
+def _batched_plain_join_impl(work, residual, session, banded, strategy,
+                             ledger) -> Optional[dict]:
+    from .gpu_exec import _decline, _pipeline_enabled, kernel_route
     from .kernel_cache import plain_join_fingerprint
 
-    work = list(work)
-    if not work:
-        return None
-    dt = work[0][3].dtype
-    if any(w[3].dtype != dt for w in work):
-        return _decline(session, "plain_join_key_dtype_varies")
-    if sum(len(w[3]) for w in work) < _PLAIN_MIN_ROWS:
-        return _decline(session, "plain_join_small")
+    if banded is None:
+        banded = _pipeline_enabled()
     device = session.device  # raises when CUDA was asked for and is absent
     route = kernel_route(device)
     cache = session.kernel_cache
     stats = session.device_stats
-    pad_val = np.iinfo(dt).max if dt.kind == "i" else np.float32(np.inf)
+    st: dict = {"dt": None}
     probe = cache.get_or_build(plain_join_fingerprint(route, "stacked_probe"),
                                _build_stacked_probe_kernel)
 
     def dispatch_probe(pads, items):
+        dt = st["dt"]
+        pad_val = np.iinfo(dt).max if dt.kind == "i" else np.float32(np.inf)
         lk_d, n_l = _stack_band_keys(items, "lk32", "lk_src", pads[0], dt, pad_val,
                                      session, device)
         rk_d, n_r = _stack_band_keys(items, "rk32", "rk_src", pads[1], dt, pad_val,
@@ -969,7 +1432,7 @@ def _batched_plain_join_impl(work, residual, session, ledger) -> Optional[dict]:
 
     def est_probe(pads, items):
         # stacked key uploads and the probe's int32 outputs per left slot
-        return len(items) * ((pads[0] + pads[1]) * dt.itemsize + 2 * pads[0] * 4)
+        return len(items) * ((pads[0] + pads[1]) * st["dt"].itemsize + 2 * pads[0] * 4)
 
     def retire_probe(wave):
         # the spill of one parked admission: this wave's two fetches only
@@ -982,15 +1445,34 @@ def _batched_plain_join_impl(work, residual, session, ledger) -> Optional[dict]:
         stats.plain_join_fetches += 1
         return totals, li, ri
 
-    sched = _BandScheduler(dispatch_probe, ledger, est_probe, retire_probe)
-    split = _JOIN_SPLIT_ROWS
+    sched = _BandScheduler(dispatch_probe, ledger, est_probe, retire_probe, banded=banded)
+    split_default = join_split_rows() if banded else 0
+    total_left = n_splits = 0
     for w in work:
+        if st["dt"] is None:
+            st["dt"] = w[3].dtype
+        elif w[3].dtype != st["dt"]:
+            return _decline(session, "plain_join_key_dtype_varies")
+        total_left += len(w[3])
+        if strategy is not None:
+            strategy.observe_actual(w[0], len(w[3]), _batch_data_nbytes(w[1]))
+        split = strategy.split_rows(w[0]) if strategy is not None and banded \
+            else split_default
         for item in _split_probe_items(w, split):
+            if item.lo_ofs == 0 and split and len(w[3]) > split:
+                n_splits += -(-len(w[3]) // split) - 1
             sched.add(item, len(item.lk32), len(item.rk32))
     records = sched.finish()
     stats.join_spills += sched.spills
+    stats.join_waves += len(records)
+    stats.join_splits += n_splits
+    stats.join_parks += ledger.parks
     if sched.declined is not None:
         return _decline(session, sched.declined.reason)
+    if not records:
+        return None  # no occupied pair
+    if total_left < _PLAIN_MIN_ROWS:
+        return _decline(session, "plain_join_small")
 
     try:
         pending = [w for w in records if w.done is None]

@@ -292,10 +292,12 @@ def join_indices(
     left_keys: Sequence[str],
     right_keys: Sequence[str],
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Inner-join row indices via sort + searchsorted on factorized keys,
-    left-major with ascending right rows within a key. A NULL key never
-    matches anything, another NULL included."""
-    from ..ops.join import expand_runs
+    """Inner-join row indices of factorized keys, left-major with ascending
+    right rows within a key. A NULL key never matches anything, another
+    NULL included. From 4096 left rows up the native hash join computes
+    them (native/hs_native.cpp), below that ``join_codes_plain``; both give
+    the same pairs in the same order."""
+    from .. import native
 
     la, lb = [], []
     for lk, rk in zip(left_keys, right_keys):
@@ -309,6 +311,19 @@ def join_indices(
         lcodes = np.where(lnull, np.int64(-1), lcodes)
     if rnull is not None:
         rcodes = np.where(rnull, np.int64(-2), rcodes)
+    if len(lcodes) >= _NATIVE_JOIN_MIN_ROWS:
+        return native.join_i64(lcodes, rcodes)
+    return join_codes_plain(lcodes, rcodes)
+
+
+_NATIVE_JOIN_MIN_ROWS = 4096
+
+
+def join_codes_plain(lcodes: np.ndarray, rcodes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The numpy form of the code join: sort the right codes, find each left
+    code's run of equal right codes, expand the runs."""
+    from ..ops.join import expand_runs
+
     order = np.argsort(rcodes, kind="stable")
     starts, counts = _match_runs(lcodes, rcodes, order)
     li = np.repeat(np.arange(len(lcodes)), counts)

@@ -125,13 +125,24 @@ class ScanTiming:
     upload: UploadTimer
 
 
+JOIN_PLANS_KEPT = 64  # join plan summaries a session keeps, newest last
+
+
 @dataclass
 class DeviceTierStats:
     """What the device tier did, per session: filter-aggregate fragments
     it ran; fused join+aggregate queries (plan/device_join.py); which
     bucketed-join path each co-bucketed join took (``join_paths``:
-    "batched", "per_bucket" or "stacked_agg"); the plain join's blocking
-    fetches, spilled waves and per-bucket device probes; device top-k and
+    "batched", "per_bucket" or "stacked_agg", and "per_bucket_device", the
+    buckets whose fused join+aggregate ran on the device in the per-bucket
+    flow); the plain join's blocking fetches, spilled waves and per-bucket
+    device probes; the join strategy plans (``join_plans``: a summary of
+    each of the last ``JOIN_PLANS_KEPT`` planned joins, the reference's
+    ``join:plan`` span; ``join_strategies``: buckets per strategy, its
+    ``join.strategy.*`` counters), the band waves
+    both stacked joins dispatched, the extra chunks their splits made and
+    the admissions that parked (its ``pipeline.join.bands``,
+    ``pipeline.join.splits`` and ``join.spill.parks``); device top-k and
     sort runs; and how often each reason declined a fragment or a join
     that matched (``declines``) or a top-k or sort (``order_declines``).
     The pipelined tier counts its queries and chunks, the streams it
@@ -145,6 +156,11 @@ class DeviceTierStats:
     join_paths: dict = field(default_factory=dict)
     plain_join_fetches: int = 0
     join_spills: int = 0
+    join_plans: deque = field(default_factory=lambda: deque(maxlen=JOIN_PLANS_KEPT))
+    join_strategies: dict = field(default_factory=dict)
+    join_waves: int = 0
+    join_splits: int = 0
+    join_parks: int = 0
     device_plain_probes: int = 0
     device_topk: int = 0
     device_sort: int = 0

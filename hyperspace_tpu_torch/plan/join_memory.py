@@ -1,47 +1,245 @@
-"""The device-memory ledger of the plain co-bucketed join: admission with
-park, spill and resume (counterpart of hyperspace_tpu/plan/join_memory.py,
-lean).
+"""Memory-adaptive execution of the co-bucketed join: the per-bucket
+strategy plan, and the device-memory ledger's admission with park, spill
+and resume (counterpart of hyperspace_tpu/plan/join_memory.py).
 
-The band scheduler (plan/device_join._BandScheduler) reserves each wave's
-padded device footprint on the device-byte accountant
-(serve/budget.device_budget) before it dispatches. A reservation that does
-not fit PARKS the wave instead of declining the join to the host: the
-scheduler spills its own oldest in-flight waves (fetching their results to
-the host releases their reservations) until the wave fits; when nothing of
-its own is left, it waits a bounded time (``_PARK_WAIT_MS``) for other
-joins' releases and then takes the zero-holder grant. Spilling changes when
-a wave's results come back, never what they are.
+**Strategy plan** (``plan_join_memory``): every bucket pair picks its
+execution strategy from the parquet footer statistics of its files
+(``columnar.io.read_rowgroup_stats``: rows and bytes per row group, cached
+by the file's version, so planning costs footer reads at most once):
 
-Not ported yet: the per-bucket strategy plan (``plan_join_memory``,
-``JoinMemoryPlan``) and the grant-derived split row count it uses
-(``grant_bytes``, ``derive_split_rows``); the plan reads footer statistics
-from the pruning cache the port does not have. Without a plan, the split
-row count is the fixed ``plan/device_join._JOIN_SPLIT_ROWS``, the
-reference's own path when no plan is active.
+    broadcast   both sides at most ``HYPERSPACE_JOIN_BROADCAST_ROWS`` (4096)
+                rows: one band item, never split
+    banded      a power-of-2 band item, unsplit
+    split       the left side's estimated rows exceed the split row count:
+                the bucket probes in left chunks whose results fold exactly
+
+The split row count derives from the device-memory grant
+(``HYPERSPACE_DEVICE_BUDGET_MB``, default 4096): one band wave of left
+chunks should fit in a quarter of the grant (``derive_split_rows``,
+clamped to 2^12..2^22 rows). An explicitly set ``HYPERSPACE_JOIN_SPLIT_ROWS``
+overrides the derived value. A grant of 0 disables the plan, and the
+executors split at the fixed ``plan/device_join.join_split_rows()``.
+The reference's ``join.strategy.*`` counters and ``join:plan`` span are
+counted on ``session.device_stats`` (``join_strategies``, ``join_plans``).
+
+**Ledger admission** (``DeviceLedger``): the band scheduler
+(plan/device_join._BandScheduler) reserves each wave's padded device
+footprint on the device-byte accountant (serve/budget.device_budget)
+before it dispatches. A reservation that does not fit PARKS the wave
+instead of declining the join to the host: the scheduler spills its own
+oldest in-flight waves (fetching their results to the host releases their
+reservations) until the wave fits; when nothing of its own is left, it
+waits a bounded time (``_PARK_WAIT_MS``) for other joins' releases and
+then takes the zero-holder grant. Spilling changes when a wave's results
+come back, never what they are.
+
+Not ported yet: the adaptive re-derivation of a bucket's split row count
+from observed actuals inside ``JoinMemoryPlan.split_rows`` (it goes with
+plan/adaptive.py, ROADMAP Queue 1 item 3; under the reference's default
+``HYPERSPACE_ADAPTIVE=0`` that branch returns the planned value, which is
+what the port returns), the estimator-feedback correction of the byte
+estimate (off by default there too) and the per-device ledgers of the mesh
+placement (Queue 1 item 4).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 from ..serve import budget as serve_budget
+from ..utils import env
+
+# fraction of the grant one band wave of left-chunk slabs should fit in: 4
+# keeps a spilling join about two waves in flight, with room for the right
+# sides and the outputs, which the wave estimate prices separately
+_WAVE_GRANT_FRACTION = 4
+
+# derived split row counts clamp into this band: below the floor the
+# dispatch overhead dwarfs the chunk, above the ceiling one slab upload
+# stalls the pipeline whatever the grant
+_SPLIT_ROWS_FLOOR = 1 << 12
+_SPLIT_ROWS_CEIL = 1 << 22
+
+_BROADCAST_ROWS_DEFAULT = 4096  # HYPERSPACE_JOIN_BROADCAST_ROWS
 
 _PARK_POLL_S = 0.02  # release-condition wait quantum
 _PARK_WAIT_MS = 50.0  # bounded wait for other joins' releases, then grant
 
 
+def grant_bytes() -> int:
+    """The device-memory grant the ledger enforces (0: the ledger and the
+    plan are off), read from the live accountant so planning and admission
+    agree."""
+    return serve_budget.device_budget().max_bytes
+
+
+def derive_split_rows(grant: int, row_bytes: float, wave: int = 8) -> int:
+    """The largest power of two of rows such that one band wave of ``wave``
+    left-chunk slabs fits in ``grant / _WAVE_GRANT_FRACTION`` bytes,
+    clamped to [2^12, 2^22]; 0 when there is no grant. Powers of two keep
+    nearby grants on the same pads."""
+    if grant <= 0:
+        return 0
+    target = grant // _WAVE_GRANT_FRACTION
+    rows = int(target / max(1.0, row_bytes) / max(1, wave))
+    if rows < _SPLIT_ROWS_FLOOR:
+        return _SPLIT_ROWS_FLOOR
+    return min(_SPLIT_ROWS_CEIL, 1 << rows.bit_length() - 1)
+
+
+def classify_bucket(est_l: int, est_r: int, split_rows: int, broadcast_rows: int) -> str:
+    """One bucket pair's strategy from its estimated row counts."""
+    if max(est_l, est_r) <= broadcast_rows:
+        return "broadcast"
+    if split_rows and est_l > split_rows:
+        return "split"
+    return "banded"
+
+
+def _bucket_estimates(side, b: int) -> tuple[int, float]:
+    """(estimated rows, estimated bytes) of one side's bucket, summed over
+    its files' footer row groups (every run of a refreshed bucket counts);
+    16 bytes a row of the file size when a footer cannot be read."""
+    from ..columnar import io as cio
+
+    rows = 0
+    nbytes = 0
+    for f in side.files_for_bucket(b):
+        stats = cio.read_rowgroup_stats(f.name, [])
+        if stats is None:
+            rows += max(1, f.size // 16)
+            nbytes += f.size
+            continue
+        for g in stats:
+            rows += int(g.get("num_rows") or 0)
+            nbytes += int(g.get("nbytes") or 0)
+    return rows, float(nbytes)
+
+
+class JoinMemoryPlan:
+    """The per-bucket strategy decisions of one bucketed-join execution."""
+
+    __slots__ = ("strategies", "split_rows_by_bucket", "grant", "derived_split_rows",
+                 "override_split_rows", "estimates", "observed")
+
+    def __init__(self, strategies: dict, split_rows_by_bucket: dict, grant: int,
+                 derived: int, override: Optional[int], estimates: Optional[dict] = None):
+        self.strategies = strategies  # bucket -> "broadcast" | "banded" | "split"
+        self.split_rows_by_bucket = split_rows_by_bucket  # bucket -> rows (0: never)
+        self.grant = grant
+        self.derived_split_rows = derived
+        self.override_split_rows = override
+        # bucket -> (estimated left rows, estimated left bytes), read-only
+        self.estimates = dict(estimates or {})
+        # bucket -> (decoded rows, decoded bytes), filled as pairs load
+        self.observed: dict[int, tuple] = {}
+
+    def observe_actual(self, b: int, rows: int, nbytes: int) -> None:
+        """Record one planned bucket's decoded left rows and bytes beside its
+        footer estimate (once per bucket)."""
+        if b in self.estimates and b not in self.observed:
+            self.observed[b] = (int(rows), int(nbytes))
+
+    def strategy(self, b: int) -> str:
+        return self.strategies.get(b, "banded")
+
+    def split_rows(self, b: int, splittable: bool = True) -> int:
+        """Bucket ``b``'s split row count; 0 never splits. A bucket the plan
+        never saw (rows only in a hybrid scan's appended part) keeps the
+        override or the derived count. ``splittable`` is the reference's
+        signature: it steers only its adaptive re-derivation, not ported."""
+        fallback = (self.override_split_rows if self.override_split_rows is not None
+                    else self.derived_split_rows)
+        return self.split_rows_by_bucket.get(b, fallback)
+
+    def counts(self) -> dict:
+        out = {"broadcast": 0, "banded": 0, "split": 0}
+        for s in self.strategies.values():
+            out[s] = out.get(s, 0) + 1
+        return out
+
+    def summary(self) -> dict:
+        """What the reference's ``join:plan`` span carries."""
+        return {"buckets": len(self.strategies), "grant_bytes": self.grant,
+                "split_rows": (self.override_split_rows if self.override_split_rows
+                               is not None else self.derived_split_rows),
+                "derived_split_rows": self.derived_split_rows,
+                "override_split_rows": self.override_split_rows, **self.counts()}
+
+
+def split_rows_override() -> Optional[int]:
+    """An explicitly set ``HYPERSPACE_JOIN_SPLIT_ROWS``; None when unset or
+    unparseable."""
+    raw = env.read_raw("HYPERSPACE_JOIN_SPLIT_ROWS")
+    if raw is None:
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        return None
+
+
+def _broadcast_rows() -> int:
+    try:
+        return int(env.read_raw("HYPERSPACE_JOIN_BROADCAST_ROWS",
+                                str(_BROADCAST_ROWS_DEFAULT)))
+    except ValueError:
+        return _BROADCAST_ROWS_DEFAULT
+
+
+def plan_join_memory(left, right, session) -> Optional[JoinMemoryPlan]:
+    """Per-bucket-pair strategies of one bucketed join from the footer
+    statistics of both sides; None when the device ledger is off
+    (``HYPERSPACE_DEVICE_BUDGET_MB=0``). Counts the decisions on
+    ``session.device_stats`` when a session is given."""
+    grant = grant_bytes()
+    if grant <= 0:
+        return None
+    override = split_rows_override()
+    broadcast_rows = _broadcast_rows()
+    strategies: dict[int, str] = {}
+    split_by_bucket: dict[int, int] = {}
+    estimates: dict[int, tuple] = {}
+    derived = 0
+    for b in range(left.spec.num_buckets):
+        est_l, bytes_l = _bucket_estimates(left, b)
+        est_r, _bytes_r = _bucket_estimates(right, b)
+        if est_l == 0 or est_r == 0:
+            continue  # an empty pair: nothing runs
+        estimates[b] = (est_l, bytes_l)
+        derived = derive_split_rows(grant, bytes_l / est_l)
+        split_rows = override if override is not None else derived
+        strat = classify_bucket(est_l, est_r, split_rows, broadcast_rows)
+        strategies[b] = strat
+        # broadcast pairs never split; banded ones keep the count, so an
+        # estimate below the decoded rows still splits
+        split_by_bucket[b] = 0 if strat == "broadcast" else split_rows
+    plan = JoinMemoryPlan(strategies, split_by_bucket, grant, derived, override,
+                          estimates=estimates)
+    if session is not None:
+        stats = session.device_stats
+        for strat, c in plan.counts().items():
+            if c:
+                stats.join_strategies[strat] = stats.join_strategies.get(strat, 0) + c
+        stats.join_plans.append(plan.summary())
+    return plan
+
+
 class DeviceLedger:
     """One join execution's handle on the device-byte accountant, and the
-    park/spill/resume admission loop the band scheduler drives. ``close()``
-    (the caller's ``finally``) returns every outstanding byte."""
+    park/spill/resume admission loop the band scheduler drives. ``parks``
+    counts the admissions that did not fit at once (the reference's
+    ``join.spill.parks``). ``close()`` (the caller's ``finally``) returns
+    every outstanding byte."""
 
-    __slots__ = ("_acct", "_stream", "enabled")
+    __slots__ = ("_acct", "_stream", "enabled", "parks")
 
     def __init__(self):
         self._acct = serve_budget.device_budget()
         self.enabled = self._acct.max_bytes > 0
         self._stream = self._acct.stream() if self.enabled else None
+        self.parks = 0
 
     def admit(self, nbytes: int, spill_one: Callable[[], bool]) -> None:
         """Reserve ``nbytes`` for one band wave before it dispatches. When
@@ -53,11 +251,15 @@ class DeviceLedger:
             return
         acct, stream = self._acct, self._stream
         deadline = None
+        parked = False
         while True:
             if acct.held_bytes() + nbytes <= acct.max_bytes:
                 if stream.try_reserve(nbytes):
                     return
                 continue  # lost a race with another reservation: re-check
+            if not parked:
+                parked = True
+                self.parks += 1
             if spill_one():
                 continue  # freed some of our own bytes: retry
             if deadline is None:

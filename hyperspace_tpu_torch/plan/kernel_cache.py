@@ -96,3 +96,19 @@ def order_fingerprint(route: str, kind: str, *params) -> tuple:
     """Device top-k ("topk": k, direction, key dtype) and sort ("sort":
     number of key words) bodies of plan/gpu_exec.py."""
     return ("order", kind, route) + tuple(params)
+
+
+def bucket_join_fingerprint(route: str, kind: str, pad_r: int, key_dtype: str, agg_list,
+                            residual, col_sig: tuple) -> tuple:
+    """Per-bucket fused join+aggregate body of plan/device_join.py ("bucket_agg",
+    or "bucket_agg_dup" for duplicate right keys), with its baked dump
+    segment ``pad_r``."""
+    return (
+        kind,
+        route,
+        pad_r,
+        key_dtype,
+        tuple((k, repr(c)) for k, c in agg_list),
+        tuple(repr(r) for r in residual),
+        col_sig,
+    )

@@ -10,9 +10,9 @@ on it, reserve an estimate per chunk or pair before submitting its decode
 and release it on delivery. Its limit is ``HYPERSPACE_GLOBAL_BUDGET_MB``
 (default 1024), or ``HYPERSPACE_IO_BUDGET_MB`` when only that is set.
 
-The device ledger: the band scheduler of the plain co-bucketed join (plan/device_join.py)
-reserves each wave's padded device footprint through this ledger before it
-dispatches, and releases it once the wave's results are on the host. The
+The device ledger: the band schedulers of the co-bucketed joins (plan/
+device_join.py), plain and fused, reserve each wave's padded device
+footprint through this ledger before it dispatches, and releases it once the wave's results are on the host. The
 limit is ``HYPERSPACE_DEVICE_BUDGET_MB`` (default 4096; 0 disables the
 ledger). A stream that holds nothing is always granted its reservation,
 even past the limit (the zero-holder progress rule), so joins that share
@@ -107,11 +107,20 @@ _DEVICE: list = []  # the process-wide accountant, made at first use
 
 
 def device_budget() -> BudgetAccountant:
-    """The device-byte accountant every plain-join band scheduler reserves
-    through, sized by the knob when first used."""
+    """The device-byte accountant every join band scheduler reserves
+    through, sized by the knob when first used; the join strategy plan
+    reads its limit as the grant."""
     with _lock:
         if not _DEVICE:
             _DEVICE.append(BudgetAccountant(configured_device_budget_bytes()))
+        return _DEVICE[0]
+
+
+def reset_device_budget() -> BudgetAccountant:
+    """Re-read ``HYPERSPACE_DEVICE_BUDGET_MB`` and install a fresh device
+    ledger (never mid-query)."""
+    with _lock:
+        _DEVICE[:] = [BudgetAccountant(configured_device_budget_bytes())]
         return _DEVICE[0]
 
 

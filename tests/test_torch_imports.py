@@ -77,3 +77,30 @@ def test_session_without_device_raises_instead_of_running_on_cpu(tmp_path, monke
     ).to_pydict()
     assert out == {"sum(x)": [42.0], "count(1)": [7]}
     assert cpu.device_stats.device_fragments == 1
+
+
+_NATIVE_PROBE = r"""
+import importlib, json, pkgutil, subprocess, sys
+sys.path.insert(0, {repo!r})
+calls = []
+for name in ("run", "Popen", "call", "check_call", "check_output"):
+    setattr(subprocess, name, lambda *a, _n=name, **k: calls.append(_n))
+import hyperspace_tpu_torch
+from hyperspace_tpu_torch import native
+for m in pkgutil.walk_packages(hyperspace_tpu_torch.__path__, "hyperspace_tpu_torch."):
+    importlib.import_module(m.name)
+print(json.dumps({{"calls": calls, "loaded": len(native._lib),
+                  "cdll": [m for m in sys.modules if m == "hyperspace_tpu_torch.native"]}}))
+"""
+
+
+def test_importing_the_native_bindings_builds_nothing():
+    """The native library compiles at first use only: importing the port
+    (its bindings included) starts no compiler and loads no library."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _NATIVE_PROBE.format(repo=REPO)], capture_output=True,
+        text=True, timeout=120, cwd=REPO, env=env, check=True,
+    )
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"calls": [], "loaded": 0, "cdll": ["hyperspace_tpu_torch.native"]}

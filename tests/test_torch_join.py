@@ -14,6 +14,18 @@ numpy-seeded inputs.
   must be used.
 - The declines: f64 join keys, and duplicate right keys where a right
   column is gathered, fall to the host and still match.
+- The per-bucket fused body (``per_bucket_join_body``) against the JAX
+  ``_build_kernel``, with and without ``dup`` and a residual, and
+  ``try_device_join_agg`` against the JAX one: counts exact, f32 sums
+  within relative 1e-4, min and max exact; the same declines.
+- The per-bucket route: under ``HYPERSPACE_PIPELINE=0`` or with the device
+  ledger off, a join whose index bytes exceed ``maxBytesInMemory`` takes
+  the path the JAX package's ``_log_join_exec`` names, its buckets on the
+  device.
+- The stacked fused join over a skewed lake: a set
+  ``HYPERSPACE_JOIN_SPLIT_ROWS`` splits count/min/max buckets as many
+  times as the JAX package does, never a sum's; empty and disjoint
+  buckets; ``HYPERSPACE_PIPELINE`` serial, 1 and 0 give the same bits.
 """
 
 import os
@@ -508,3 +520,382 @@ def test_fused_join_sorts_unsorted_bucket_sides(tmp_path):
         np.testing.assert_allclose(other["s"], want["s"], rtol=REL)
     np.testing.assert_array_equal(got["m"], want["m"])
     np.testing.assert_allclose(host["m"], want["m"], rtol=1e-7)  # the device's max is f32
+
+
+# ---------------------------------------------------------------------------
+# (e) the per-bucket fused body and try_device_join_agg
+# ---------------------------------------------------------------------------
+
+_PER_BUCKET_CASES = {
+    # name: (residual, dup right keys, left keys sorted, disjoint)
+    "plain": (None, False, True, False),
+    "residual": (lambda M: M.col("rv") < M.col("disc") * 300.0, False, True, False),
+    "unsorted_left": (None, False, False, False),
+    "dup": (None, True, True, False),
+    "dup_residual": (lambda M: M.col("qty") > 12, True, False, False),
+    "no_matches": (None, False, True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PER_BUCKET_CASES))
+def test_per_bucket_body_matches_jax(case):
+    res, dup, l_sorted, disjoint = _PER_BUCKET_CASES[case]
+    lk, rk, lcols, rcols = _body_inputs(len(case) + 40, 3000, 700, dup, disjoint)
+    if not l_sorted:
+        perm = np.random.default_rng(1).permutation(len(lk))
+        lk, lcols = lk[perm], {c: a[perm] for c, a in lcols.items()}
+    left_only = dup
+    n_l, n_r = len(lk), len(rk)
+    pad_l, pad_r = _pow2(n_l), _pow2(n_r)
+    right_names = [] if left_only else ["rv"]
+    left_names = ["disc", "price", "qty"]
+    if res is not None and "rv" in repr(res(TX)):
+        right_names = ["rv"]
+
+    def padded(a, pad, fill=0):
+        out = np.full(pad, fill, dtype=a.dtype)
+        out[:len(a)] = a
+        return out
+
+    host = {"lk": padded(lk, pad_l), "rk": padded(rk, pad_r, np.iinfo(np.int32).max),
+            "mask": padded(np.ones(n_l, bool), pad_l, False)}
+    host.update({"l_" + c: padded(lcols[c], pad_l) for c in left_names})
+    host.update({"r_" + c: padded(rcols[c], pad_r) for c in right_names})
+    jkernel = jdj._build_kernel(_aggs(JX, left_only), [res(JX)] if res else [], left_names,
+                                right_names, pad_r, dup)
+    j_counts, j_outs = jkernel({**{k: jnp.asarray(v) for k, v in host.items()},
+                                "n_r": jnp.int32(n_r)})
+    body = tdj.per_bucket_join_body(_aggs(TX, left_only), [res(TX)] if res else [],
+                                    left_names, right_names, pad_r, dup)
+    dev_in = {k: torch.from_numpy(v) for k, v in host.items()}
+    t_counts, t_outs = body({**dev_in, "n_r": n_r, "sorted": l_sorted})
+    again = body({**dev_in, "n_r": n_r, "sorted": l_sorted})
+    np.testing.assert_array_equal(again[0].numpy(), t_counts.numpy())
+    for a, b in zip(again[1], t_outs):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())  # the same bits
+    t_counts = t_counts.numpy()[:n_r]
+    np.testing.assert_array_equal(t_counts, np.asarray(j_counts)[:n_r])
+    assert (t_counts.sum() == 0) == disjoint
+    if dup:
+        assert t_counts.max() > 1 and (rk[1:] == rk[:-1]).any()
+    keep = t_counts > 0
+    for (kind, _c), got, want in zip(_aggs(TX, left_only), t_outs, j_outs):
+        got, want = got.numpy()[:n_r][keep], np.asarray(want)[:n_r][keep]
+        if kind in ("sum", "avg"):
+            np.testing.assert_allclose(got, want, rtol=REL)
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+def _agg_batches(seed: int, r_sorted: bool, dup: bool = False, key_dtype=np.int64):
+    rng = np.random.default_rng(seed)
+    n_l, n_r = 5000, 800
+    lk = np.sort(rng.integers(0, 1200, n_l)).astype(key_dtype)
+    rk = (rng.integers(0, 600, n_r) if dup else rng.permutation(1200)[:n_r]).astype(key_dtype)
+    rk = np.sort(rk) if r_sorted else rk
+    left = {"k": lk, "v": rng.uniform(0, 100, n_l), "q": rng.integers(1, 51, n_l)}
+    right = {"rk": rk, "d": rng.integers(8000, 9000, n_r).astype(np.int32),
+             "w": rng.uniform(0, 10, n_r)}
+    out = []
+    for Col, Batch in ((JColumn, JBatch), (TColumn, TBatch)):
+        out.append((Batch({n: Col(a, str(a.dtype)) for n, a in left.items()}),
+                    Batch({n: Col(a, str(a.dtype)) for n, a in right.items()})))
+    return out
+
+
+def _agg_plan(M, groups, aggs, lb, rb):
+    from hyperspace_tpu.plan import nodes as jnodes
+    from hyperspace_tpu_torch.plan import nodes as tnodes
+
+    N = jnodes if M is JX else tnodes
+    return N.Aggregate([M.col(g) for g in groups], aggs(M),
+                       N.Join(N.InMemoryScan(lb), N.InMemoryScan(rb), M.col("k") == M.col("rk")))
+
+
+_DEVICE_AGG_CASES = {
+    # name: (groups, aggregates, residual, r_sorted, dup, declines)
+    "key_groups": (["k"], lambda M: [M.Sum(M.col("v") * M.col("w")).alias("s"),
+                                     M.Count(M.lit(1)).alias("n"),
+                                     M.Max(M.col("q")).alias("m")], None, True, False, False),
+    "right_group_unsorted": (["k", "d"], lambda M: [M.Avg(M.col("v")).alias("a"),
+                                                    M.Min(M.col("w")).alias("lo")],
+                             lambda M: M.col("d") < 8700, False, False, False),
+    "dup_left_only": (["k"], lambda M: [M.Sum(M.col("v")).alias("s"),
+                                        M.Count(M.lit(1)).alias("n")], None, True, True, False),
+    "dup_right_ref": (["k"], lambda M: [M.Sum(M.col("v") * M.col("w")).alias("s")], None,
+                      True, True, True),
+    "int_sum": (["k"], lambda M: [M.Sum(M.col("q")).alias("s")], None, True, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_DEVICE_AGG_CASES))
+def test_try_device_join_agg_matches_jax(case, tmp_path):
+    groups, aggs, res, r_sorted, dup, declines = _DEVICE_AGG_CASES[case]
+    (jl, jr), (tl, tr) = _agg_batches(len(case), r_sorted, dup)
+    js = J.HyperspaceSession(str(tmp_path / "j"), conf={JC.EXEC_TPU_ENABLED: True})
+    ts = T.HyperspaceSession(str(tmp_path / "t"), device="cpu")
+    jres = [res(JX)] if res else []
+    tres = [res(TX)] if res else []
+    jout = jdj.try_device_join_agg(_agg_plan(JX, groups, aggs, jl, jr), jl, jr, ["k"], ["rk"],
+                                   jres, js, r_sorted)
+    tout = tdj.try_device_join_agg(_agg_plan(TX, groups, aggs, tl, tr), tl, tr, ["k"], ["rk"],
+                                   tres, ts, r_sorted, True)
+    if declines:
+        assert jout is None and tout is None
+        return
+    want, got = jout.to_pydict(), tout.to_pydict()
+    assert list(got) == list(want) and len(got["k"]) > 100
+    for name in want:
+        if name in ("s", "a"):
+            np.testing.assert_allclose(got[name], want[name], rtol=REL)
+        else:
+            assert got[name] == want[name], name
+    # the host twin agrees too (its sums in f64)
+    host = tdj.try_host_join_agg(_agg_plan(TX, groups, aggs, tl, tr), tl, tr, ["k"], ["rk"],
+                                 tres, ts, r_sorted)
+    if host is not None:
+        for name, vals in host.to_pydict().items():
+            np.testing.assert_allclose(got[name], vals, rtol=REL)
+
+
+def test_try_device_join_agg_declines_as_jax(tmp_path):
+    """f64 keys and int64 keys past the int32 range stay on the host."""
+    ts = T.HyperspaceSession(str(tmp_path / "t"), device="cpu")
+    js = J.HyperspaceSession(str(tmp_path / "j"), conf={JC.EXEC_TPU_ENABLED: True})
+    aggs = lambda M: [M.Count(M.lit(1)).alias("n")]  # noqa: E731
+    for dtype, shift in ((np.float64, 0), (np.int64, 2**40)):
+        (jl, jr), (tl, tr) = _agg_batches(3, True, key_dtype=dtype)
+        for b in (jl, tl):
+            b.columns["k"] = type(b.columns["k"])(b.columns["k"].data + shift, str(dtype.__name__))
+        assert jdj.try_device_join_agg(_agg_plan(JX, ["k"], aggs, jl, jr), jl, jr, ["k"], ["rk"],
+                                       [], js, True) is None
+        assert tdj.try_device_join_agg(_agg_plan(TX, ["k"], aggs, tl, tr), tl, tr, ["k"], ["rk"],
+                                       [], ts, True) is None
+
+
+# ---------------------------------------------------------------------------
+# (f) the routes over co-bucketed lakes: per-bucket, split, modes
+# ---------------------------------------------------------------------------
+
+def hex_rows(d: dict) -> str:
+    return repr({k: [x.hex() if isinstance(x, float) else x for x in v] for k, v in d.items()})
+
+
+def _two_sided_lake(root, left: dict, right: dict, buckets: int = 4):
+    for side, table in (("l", left), ("r", right)):
+        _write(str(root / side / f"{side}.parquet"), pa.table(table))
+    for pkg, wh, kw in ((J, "wj", {}), (T, "wt", {"device": "cpu"})):
+        session = pkg.HyperspaceSession(str(root / wh), **kw)
+        session.set_conf(JC.INDEX_NUM_BUCKETS, buckets)
+        hs = pkg.Hyperspace(session)
+        hs.create_index(session.read.parquet(str(root / "l")),
+                        pkg.CoveringIndexConfig("jl", ["k"], ["p"]))
+        hs.create_index(session.read.parquet(str(root / "r")),
+                        pkg.CoveringIndexConfig("jr", ["rk"], ["w"]))
+    return root
+
+
+@pytest.fixture(scope="module")
+def skew_agg_lake(tmp_path_factory):
+    """40% of the left rows on one hot key; right keys only below 200."""
+    rng = np.random.default_rng(101)
+    n = 24_000
+    k = rng.integers(0, 400, n)
+    k[: int(n * 0.4)] = 7
+    return _two_sided_lake(tmp_path_factory.mktemp("skew_agg"),
+                           {"k": k, "p": rng.uniform(0, 100, n)},
+                           {"rk": np.arange(200), "w": rng.uniform(size=200)})
+
+
+def _agg_query(M, session, root, kind: str):
+    left = session.read.parquet(str(root / "l")).select("k", "p")
+    right = session.read.parquet(str(root / "r")).select("rk", "w")
+    joined = left.join(right, M.col("k") == M.col("rk"))
+    if kind == "sum":
+        return joined.group_by("k").agg(M.Sum(M.col("p") * M.col("w")).alias("s"),
+                                        M.Count(M.lit(1)).alias("n"))
+    return joined.group_by("k").agg(M.Count(M.lit(1)).alias("n"), M.Min(M.col("p")).alias("lo"),
+                                    M.Max(M.col("p")).alias("hi"))
+
+
+def _run_both(root, kind, conf=None, spy_paths=None):
+    from hyperspace_tpu.telemetry.metrics import REGISTRY
+
+    splits0 = REGISTRY.counter("pipeline.join.splits").value
+    js = J.HyperspaceSession(str(root / "wj"), conf={JC.EXEC_TPU_ENABLED: True, **(conf or {})})
+    want = _agg_query(JX, js.enable_hyperspace(), root, kind).to_pydict()
+    jsplits = REGISTRY.counter("pipeline.join.splits").value - splits0
+    ts = T.HyperspaceSession(str(root / "wt"), conf=conf, device="cpu").enable_hyperspace()
+    got = _agg_query(TX, ts, root, kind).to_pydict()
+    return want, got, jsplits, ts.device_stats
+
+
+def _assert_agg_match(got, want):
+    assert list(got) == list(want) and len(got["k"]) > 0
+    for name in want:
+        if name == "s":
+            np.testing.assert_allclose(got[name], want[name], rtol=REL)
+        else:
+            assert got[name] == want[name], name
+
+
+@pytest.fixture
+def device_grant(monkeypatch):
+    """Sets both packages' device ledgers to a grant (MiB; "0" turns the
+    ledger and the strategy plan off), and the default ones back after."""
+    from hyperspace_tpu.serve import budget as jbudget
+    from hyperspace_tpu_torch.serve import budget as tbudget
+
+    def set_grant(mb):
+        if mb is None:
+            monkeypatch.delenv("HYPERSPACE_DEVICE_BUDGET_MB", raising=False)
+        else:
+            monkeypatch.setenv("HYPERSPACE_DEVICE_BUDGET_MB", mb)
+        jbudget.reset_device_budget()
+        tbudget.reset_device_budget()
+
+    yield set_grant
+    monkeypatch.delenv("HYPERSPACE_DEVICE_BUDGET_MB", raising=False)
+    jbudget.reset_device_budget()
+    tbudget.reset_device_budget()
+
+
+@pytest.mark.parametrize("grant", [None, "0"])
+@pytest.mark.parametrize("kind,split_rows", [("span", "1024"), ("span", "5000"),
+                                             ("sum", "1024")])
+def test_set_split_rows_splits_the_stacked_join_as_jax(skew_agg_lake, monkeypatch, device_grant,
+                                                       kind, split_rows, grant):
+    """A set HYPERSPACE_JOIN_SPLIT_ROWS overrides the plan's split row
+    count in the fused join (and is the count without a plan, at a grant
+    of 0): count/min/max buckets split as often as the JAX package splits
+    them; a sum never splits."""
+    device_grant(grant)
+    monkeypatch.setenv("HYPERSPACE_JOIN_SPLIT_ROWS", split_rows)
+    monkeypatch.setenv("HYPERSPACE_PIPELINE", "1")
+    want, got, jsplits, stats = _run_both(skew_agg_lake, kind)
+    _assert_agg_match(got, want)
+    assert stats.join_paths == {"stacked_agg": 1} and not stats.declines
+    assert stats.join_splits == jsplits
+    assert (jsplits > 0) == (kind == "span")
+    # the unsplit run gives the same bits
+    monkeypatch.delenv("HYPERSPACE_JOIN_SPLIT_ROWS")
+    _w, unsplit, _j, ustats = _run_both(skew_agg_lake, kind)
+    assert ustats.join_splits == 0 and hex_rows(unsplit) == hex_rows(got)
+
+
+@pytest.mark.parametrize("kind", ["span", "sum"])
+def test_pipeline_modes_of_the_stacked_join_give_the_same_bits(skew_agg_lake, monkeypatch,
+                                                               kind):
+    monkeypatch.setenv("HYPERSPACE_JOIN_SPLIT_ROWS", "2048")
+    out = {}
+    for mode in ("serial", "1", "0"):
+        monkeypatch.setenv("HYPERSPACE_PIPELINE", mode)
+        want, out[mode], _j, stats = _run_both(skew_agg_lake, kind)
+        assert stats.join_paths == {"stacked_agg": 1}
+        assert stats.join_waves == (1 if mode == "0" else stats.join_waves)
+    _assert_agg_match(out["1"], want)
+    assert hex_rows(out["serial"]) == hex_rows(out["1"]) == hex_rows(out["0"])
+
+
+@pytest.mark.parametrize("settings,jax_path", [
+    ({"HYPERSPACE_PIPELINE": "0"}, "per_bucket"),
+    ({"HYPERSPACE_PIPELINE": "1", "HYPERSPACE_DEVICE_BUDGET_MB": "0"}, "per_bucket"),
+    ({"HYPERSPACE_PIPELINE": "1"}, "stacked_agg"),
+])
+@pytest.mark.parametrize("kind", ["span", "sum"])
+def test_over_memory_join_takes_the_jax_packages_path(skew_agg_lake, monkeypatch, settings,
+                                                      jax_path, kind):
+    """Index bytes above maxBytesInMemory: the per-bucket flow under
+    HYPERSPACE_PIPELINE=0 or with the device ledger off (each occupied
+    bucket's fused join+aggregate on the device), the stacked join when it
+    can run memory-adaptively; the path the JAX package's _log_join_exec
+    names."""
+    from hyperspace_tpu.serve import budget as jbudget
+    from hyperspace_tpu_torch.serve import budget as tbudget
+
+    for k, v in settings.items():
+        monkeypatch.setenv(k, v)
+    jbudget.reset_device_budget()
+    tbudget.reset_device_budget()
+    paths = []
+    orig = jbj._log_join_exec
+    monkeypatch.setattr(jbj, "_log_join_exec",
+                        lambda s, l, r, path: paths.append(path) or orig(s, l, r, path))
+    try:
+        want, got, _j, stats = _run_both(skew_agg_lake, kind,
+                                         conf={JC.BUILD_MAX_BYTES_IN_MEMORY: 1000})
+    finally:
+        monkeypatch.delenv("HYPERSPACE_DEVICE_BUDGET_MB", raising=False)
+        jbudget.reset_device_budget()
+        tbudget.reset_device_budget()
+    assert paths == [jax_path]
+    _assert_agg_match(got, want)
+    if jax_path == "per_bucket":
+        # the four buckets are occupied on both sides
+        assert stats.join_paths == {"per_bucket": 1, "per_bucket_device": 4}
+        assert stats.declines == {"join_over_memory": 1}
+        assert stats.device_join_fragments == 0
+    else:
+        assert stats.join_paths == {"stacked_agg": 1} and not stats.declines
+
+
+def test_empty_and_disjoint_buckets_of_the_stacked_join(tmp_path_factory, monkeypatch):
+    """Right keys in two buckets only, and a second lake whose keys are
+    disjoint: the groups (or no group) the JAX package gives, on the device."""
+    rng = np.random.default_rng(5)
+    n = 12_000
+    left = {"k": rng.integers(0, 64, n), "p": rng.uniform(0, 10, n)}
+    sparse = _two_sided_lake(tmp_path_factory.mktemp("sparse"), left,
+                             {"rk": np.array([3, 11]), "w": np.array([1.5, 2.5])})
+    disjoint = _two_sided_lake(tmp_path_factory.mktemp("disjoint"), left,
+                               {"rk": np.arange(100, 140), "w": rng.uniform(size=40)})
+    for mode in ("1", "0"):
+        monkeypatch.setenv("HYPERSPACE_PIPELINE", mode)
+        for root, keys in ((sparse, [3, 11]), (disjoint, [])):
+            for kind in ("span", "sum"):
+                want, got, _j, stats = _run_both(root, kind)
+                assert sorted(got["k"]) == keys
+                assert got == want if kind == "span" else list(got) == list(want)
+                assert stats.device_join_fragments == 1 and not stats.declines
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "residual", "dup"])
+def test_cuda_per_bucket_body_matches_the_cpu(cuda_device, case):
+    """The per-bucket body on the card: counts, min and max equal the CPU
+    run's, sums within relative 1e-4, and two card runs the same bits."""
+    res, dup, l_sorted, _dis = _PER_BUCKET_CASES[case]
+    lk, rk, lcols, rcols = _body_inputs(7, 50_000, 900, dup)  # unique keys below 1000
+    pad_l, pad_r = _pow2(len(lk)), _pow2(len(rk))
+    right_names = [] if dup else ["rv"]
+    left_names = ["disc", "price", "qty"]
+
+    def dev_in(device):
+        def up(a, pad, fill=0):
+            out = np.full(pad, fill, dtype=a.dtype)
+            out[:len(a)] = a
+            return torch.from_numpy(out).to(device)
+        d = {"lk": up(lk, pad_l), "rk": up(rk, pad_r, np.iinfo(np.int32).max),
+             "mask": up(np.ones(len(lk), bool), pad_l, False), "n_r": len(rk), "sorted": l_sorted}
+        d.update({"l_" + c: up(lcols[c], pad_l) for c in left_names})
+        d.update({"r_" + c: up(rcols[c], pad_r) for c in right_names})
+        return d
+
+    body = tdj.per_bucket_join_body(_aggs(TX, dup), [res(TX)] if res else [], left_names,
+                                    right_names, pad_r, dup)
+    cpu = body(dev_in("cpu"))
+    card, again = body(dev_in(cuda_device)), body(dev_in(cuda_device))
+    assert torch.equal(card[0], again[0]) and torch.equal(cpu[0], card[0].cpu())
+    for (kind, _c), a, b, c in zip(_aggs(TX, dup), cpu[1], card[1], again[1]):
+        assert torch.equal(b, c)
+        if kind in ("sum", "avg"):
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=REL)
+        else:
+            assert torch.equal(a, b.cpu())

@@ -20,6 +20,12 @@ and Q18 held against the JAX package on the same numpy-seeded inputs.
   within relative 1e-4, and the reference's routes.
 - The host string comparisons the side filters run (by the ranks of the
   dictionary entries) equal the JAX package's.
+- The streamed and banded plain join over a skewed co-bucketed lake: pairs
+  stream into the probe under ``HYPERSPACE_PIPELINE`` 1 and serial (a
+  barrier list under 0), a set ``HYPERSPACE_JOIN_SPLIT_ROWS`` splits as
+  often as the JAX package splits and dispatches as many band waves, the
+  rows are the JAX package's in its order under every mode, and empty and
+  disjoint buckets give the JAX package's rows and path.
 """
 
 import os
@@ -625,3 +631,143 @@ def test_cuda_batched_plain_join_matches_the_cpu(cuda_device, tmp_path, monkeypa
         outs.append(tdj.try_batched_plain_join(work, [], ts))
         assert ts.device_stats.plain_join_fetches == 2
     _assert_parts_equal(*outs)
+
+
+# ---------------------------------------------------------------------------
+# (e) the streamed, banded plain join over co-bucketed lakes
+# ---------------------------------------------------------------------------
+
+def _two_sided_lake(root, left: dict, right: dict, buckets: int = 4):
+    for side, table in (("l", left), ("r", right)):
+        _write(str(root / side / f"{side}.parquet"), pa.table(table))
+    for pkg, wh, kw in ((J, "wj", {}), (T, "wt", {"device": "cpu"})):
+        session = pkg.HyperspaceSession(str(root / wh), **kw)
+        session.set_conf(JC.INDEX_NUM_BUCKETS, buckets)
+        hs = pkg.Hyperspace(session)
+        hs.create_index(session.read.parquet(str(root / "l")),
+                        pkg.CoveringIndexConfig("jl", ["k"], ["p"]))
+        hs.create_index(session.read.parquet(str(root / "r")),
+                        pkg.CoveringIndexConfig("jr", ["rk"], ["w"]))
+    return root
+
+
+@pytest.fixture(scope="module")
+def skew_plain_lake(tmp_path_factory):
+    """40% of the left rows on one hot key; right keys only below 200."""
+    rng = np.random.default_rng(101)
+    n = 24_000
+    k = rng.integers(0, 400, n)
+    k[: int(n * 0.4)] = 7
+    return _two_sided_lake(tmp_path_factory.mktemp("skew_plain"),
+                           {"k": k, "p": rng.uniform(0, 100, n)},
+                           {"rk": np.arange(200), "w": rng.uniform(size=200)})
+
+
+def _plain_q(M, session, root):
+    left = session.read.parquet(str(root / "l")).select("k", "p")
+    right = session.read.parquet(str(root / "r")).select("rk", "w")
+    return left.join(right, M.col("k") == M.col("rk")).select("k", "p", "w")
+
+
+def _run_plain_both(root, monkeypatch):
+    from hyperspace_tpu.telemetry.metrics import REGISTRY
+
+    counters = ("pipeline.join.splits", "pipeline.join.bands")
+    before = {c: REGISTRY.counter(c).value for c in counters}
+    js = J.HyperspaceSession(str(root / "wj"), conf={JC.EXEC_TPU_ENABLED: True})
+    want = _plain_q(JX, js.enable_hyperspace(), root).to_pydict()
+    jcounts = {c: REGISTRY.counter(c).value - before[c] for c in counters}
+    works = []
+    orig = tdj.try_batched_plain_join
+
+    def spy(work, *a, **kw):
+        works.append(type(work).__name__)
+        return orig(work, *a, **kw)
+
+    monkeypatch.setattr(tdj, "try_batched_plain_join", spy)
+    ts = T.HyperspaceSession(str(root / "wt"), device="cpu").enable_hyperspace()
+    got = _plain_q(TX, ts, root).to_pydict()
+    monkeypatch.setattr(tdj, "try_batched_plain_join", orig)
+    return want, got, jcounts, ts.device_stats, works
+
+
+def _assert_rows_equal(got, want):
+    assert list(got) == list(want)
+    for name in want:  # bit for bit, in the reference's row order
+        assert list(got[name]) == list(want[name]), name
+
+
+@pytest.fixture
+def device_grant(monkeypatch):
+    """Sets both packages' device ledgers to a grant (MiB; "0" turns the
+    ledger and the strategy plan off), and the default ones back after."""
+    from hyperspace_tpu.serve import budget as jbudget
+
+    def set_grant(mb):
+        if mb is None:
+            monkeypatch.delenv("HYPERSPACE_DEVICE_BUDGET_MB", raising=False)
+        else:
+            monkeypatch.setenv("HYPERSPACE_DEVICE_BUDGET_MB", mb)
+        jbudget.reset_device_budget()
+        tbudget.reset_device_budget()
+
+    yield set_grant
+    monkeypatch.delenv("HYPERSPACE_DEVICE_BUDGET_MB", raising=False)
+    jbudget.reset_device_budget()
+    tbudget.reset_device_budget()
+
+
+@pytest.mark.parametrize("grant", [None, "0"])
+@pytest.mark.parametrize("split_rows", [None, "1024", "3000"])
+@pytest.mark.parametrize("mode", ["1", "serial", "0"])
+def test_streamed_plain_join_splits_and_bands_as_jax(skew_plain_lake, monkeypatch, device_grant,
+                                                     mode, split_rows, grant):
+    """With the strategy plan (the default grant) and without it (a grant of
+    0), a set HYPERSPACE_JOIN_SPLIT_ROWS splits the buckets as the JAX
+    package splits them."""
+    monkeypatch.setenv("HYPERSPACE_PIPELINE", mode)
+    device_grant(grant)
+    if split_rows is not None:
+        monkeypatch.setenv("HYPERSPACE_JOIN_SPLIT_ROWS", split_rows)
+    want, got, jcounts, stats, works = _run_plain_both(skew_plain_lake, monkeypatch)
+    assert len(stats.join_plans) == (0 if grant == "0" else 1)
+    _assert_rows_equal(got, want)
+    assert stats.join_paths == {"batched": 1} and not stats.declines
+    assert stats.plain_join_fetches == 2
+    # pairs stream into the probe, except behind the barrier
+    assert works == (["list"] if mode == "0" else ["generator"])
+    assert stats.join_splits == jcounts["pipeline.join.splits"]
+    assert stats.join_waves == jcounts["pipeline.join.bands"]
+    assert (stats.join_splits > 0) == (split_rows is not None and mode != "0")
+    if mode == "0":
+        assert stats.join_waves == 1
+
+
+def test_plain_join_modes_give_the_same_bits(skew_plain_lake, monkeypatch):
+    monkeypatch.setenv("HYPERSPACE_JOIN_SPLIT_ROWS", "1024")
+    out = {}
+    for mode in ("serial", "1", "0"):
+        monkeypatch.setenv("HYPERSPACE_PIPELINE", mode)
+        _want, out[mode], _j, _stats, _w = _run_plain_both(skew_plain_lake, monkeypatch)
+    for name in out["0"]:
+        np.testing.assert_array_equal(np.asarray(out["serial"][name]), np.asarray(out["0"][name]))
+        np.testing.assert_array_equal(np.asarray(out["1"][name]), np.asarray(out["0"][name]))
+
+
+@pytest.mark.parametrize("mode", ["1", "0"])
+def test_plain_join_empty_and_disjoint_buckets_match_jax(tmp_path_factory, monkeypatch, mode):
+    """Right keys in two buckets only: the JAX package's rows, on the
+    device; disjoint keys: an empty result on the device path, as there."""
+    monkeypatch.setenv("HYPERSPACE_PIPELINE", mode)
+    rng = np.random.default_rng(5)
+    n = 12_000
+    left = {"k": rng.integers(0, 64, n), "p": rng.uniform(0, 10, n)}
+    sparse = _two_sided_lake(tmp_path_factory.mktemp("sparse"), left,
+                             {"rk": np.array([3, 11]), "w": np.array([1.5, 2.5])})
+    disjoint = _two_sided_lake(tmp_path_factory.mktemp("disjoint"), left,
+                               {"rk": np.arange(100, 140), "w": rng.uniform(size=40)})
+    for root, keys in ((sparse, {3, 11}), (disjoint, set())):
+        want, got, _j, stats, _w = _run_plain_both(root, monkeypatch)
+        _assert_rows_equal(got, want)
+        assert set(got["k"]) == keys
+        assert stats.join_paths == {"batched": 1} and not stats.declines
