@@ -170,7 +170,42 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
        equal, both timed: hash32, bucket_partition into 8 buckets,
        radix_argsort, and join_i64 of l_orderkey against o_orderkey; the
        main phase's index build seconds are printed with them;
-9. order phase: the device top-k and sort against the host on one
+9. sources phase (the source providers and the readers), each query held
+    to the host executor over its raw source, its indexes, route and
+    kernel launches checked, then its lakes removed:
+    (a) the first 40 lineitem files (20M rows) written hive-partitioned by
+        l_returnflag/l_linestatus (the two columns only in the paths; the
+        generator draws them independently, so six directories): raw q1 on
+        the card (the scan attaches each partition's values), a partition
+        filter on the host that must read only the R directories (its rows
+        held to arrow over the source files), the covering index
+        pt_flagstatus (li_flagstatus's config) that q1_sums reads through
+        filter_grouped_multi_sum, and the data-skipping pt_shipdate_mm with
+        its automatic PartitionSketches, consulted by q6_count on the raw
+        lake (filter_weighted_sum);
+    (b) SF10's orders as 16 CSV files with a header (read back and held to
+        the parquet orders), the covering index csv_od_orderkey over them in
+        the main warehouse: q3_agg with li_orderkey through the fused join,
+        held to the main phase's host result and device result, and a key
+        range's count and date span over the CSV index; then the index is
+        deleted and vacuumed;
+    (c) a snapshot (Delta-style) lineitem of the same 20M rows committed in
+        four versions of 5M: a lineage-enabled z-order index at v1, v2 and
+        v3 committed and an incremental refresh; q6_count and q6_sum at v3,
+        q6_count at v1 by time travel (the log version recorded for v1);
+        v0's file deleted (v4), q6_count by hybrid scan (lineage ids), an
+        incremental refresh, q6_count again;
+    (d) an Iceberg-style orders of three 5M-row snapshots (ids from a
+        seeded generator): an index at s0, a full refresh at s2, the key
+        range's span by snapshot id and by time; the log version each
+        reads follows the ancestry chain (s1 reads the source: its nearest
+        recorded ancestor was built over other files);
+10. reference-cache check: a first and a warm run of q6_count and q1_sums
+    in a fresh session at the JAX package's cache budgets (the smoke runs
+    at 16 GiB of index chunks, 16 GiB of device columns and 2 GiB of
+    host-derived arrays, set through the same HYPERSPACE_*_CACHE_MB knobs
+    and printed at the start), with ms and upload bytes;
+11. order phase: the device top-k and sort against the host on one
    2^23-row batch (cut from 2^25 to keep the whole run well inside its
    time limit) of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
@@ -184,8 +219,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
-add up the end-to-end, lifecycle, skipping, pipeline and join phases'
-counts, each read on its own (``launches_by_phase``).
+add up the end-to-end, lifecycle, skipping, pipeline, join and sources
+phases' counts, each read on its own (``launches_by_phase``).
 """
 
 from __future__ import annotations
@@ -272,6 +307,12 @@ PLAIN_QUERIES = {
 # executor's own code, instead of a second pass over the 60M-row source:
 # q3 is q3_agg's groups through Limit(Sort), q1_sums is q1 less avg_qty
 DERIVED_REFERENCES = {"q3": "q3_agg", "q1_sums": "q1"}
+# the queries whose reference is arrow's filters, joins and aggregates over
+# the raw lake (arrow_reference) instead of the port's host executor, whose
+# numpy joins and group-bys over 60M rows took 188 s of a 1029 s smoke (my
+# chip run, PR 11); the cheap filter-aggregate references stay the host
+# executor's
+ARROW_REFERENCES = ("q1", "q1_span", "q3_agg", "q10", "q17", "q18")
 # the join phase: the bucketed joins whose strategy plans it prints (q18's
 # join is not a bucketed one, so it plans none), its small grant and split
 # override, and the per-bucket route's build limit
@@ -318,6 +359,27 @@ WIDE_ROWS = 1 << 22
 WIDE_SEED = 6
 SKIP_WARM_RUNS = 1
 MINMAX_CASES = ("random", "all_invalid", "nan_valid", "nan_invalid", "int")
+# the sources phase: the lineitem files its partitioned and snapshot lakes
+# take (the first 40 of SF10's 120, as the lifecycle phase's), the CSV
+# orders' file count, the snapshot versions and Iceberg snapshots, the
+# deleted share hybrid scan must accept (one of four versions' files), and
+# the key range of its range queries
+SOURCES_FILES = 40
+SOURCES_CSV_FILES = 16
+SNAPSHOT_VERSIONS = 4
+ICEBERG_SNAPSHOTS = 3
+SNAPSHOT_DELETED_RATIO = 0.3
+SOURCES_KEY_RANGE = 200_000
+SOURCES_WARM_RUNS = 1
+# the cache budgets (MB) the smoke runs at, set through the JAX package's
+# knobs: an SF10 index slice is about 2 GB decoded on the host and 1.3 GB
+# padded on the card, more than the reference's 1 GiB index-chunk default;
+# the build and footer-statistics caches keep the reference's defaults
+H100_CACHE_MB = {"HYPERSPACE_INDEX_CACHE_MB": "16384", "HYPERSPACE_DEVICE_CACHE_MB": "16384",
+                 "HYPERSPACE_HOST_DERIVED_CACHE_MB": "2048"}
+CACHE_KNOBS = ("HYPERSPACE_INDEX_CACHE_MB", "HYPERSPACE_DEVICE_CACHE_MB",
+               "HYPERSPACE_HOST_DERIVED_CACHE_MB", "HYPERSPACE_BUILD_CACHE_MB",
+               "HYPERSPACE_STATS_CACHE_MB")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -683,6 +745,89 @@ def derived_reference(q: str, batch):
     raise ValueError(q)
 
 
+def arrow_reference(q: str, lake: str):
+    """The result of ``q`` by arrow's own filters, hash joins, hash
+    aggregates and sorts over the raw lake (code the port does not share),
+    as a ColumnBatch with the query's columns in its order: the reference
+    of the queries whose host-executor run over 60M rows is the phase's
+    largest cost (ARROW_REFERENCES)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.columnar import io as cio
+
+    def read(table: str, cols: list):
+        return pq.read_table(os.path.join(lake, table), columns=cols)
+
+    def revenue(t):
+        return pc.multiply(t["l_extendedprice"], pc.subtract(1.0, t["l_discount"]))
+
+    if q in ("q1", "q1_span"):
+        li = read("lineitem", ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+                               "l_discount", "l_shipdate"])
+        li = li.filter(pc.less_equal(li["l_shipdate"], 10470))
+        keys = ["l_returnflag", "l_linestatus"]
+        if q == "q1":
+            li = li.append_column("disc_price", revenue(li))
+            g = li.group_by(keys).aggregate([
+                ("l_quantity", "sum"), ("l_extendedprice", "sum"), ("disc_price", "sum"),
+                ("l_quantity", "mean"), ("l_quantity", "count")])
+            names = {"l_quantity_sum": "sum_qty", "l_extendedprice_sum": "sum_base_price",
+                     "disc_price_sum": "sum_disc_price", "l_quantity_mean": "avg_qty",
+                     "l_quantity_count": "count_order"}
+        else:
+            g = li.group_by(keys).aggregate([("l_shipdate", "count"), ("l_shipdate", "min"),
+                                             ("l_shipdate", "max")])
+            names = {"l_shipdate_count": "count_order", "l_shipdate_min": "first_ship",
+                     "l_shipdate_max": "last_ship"}
+        g = g.sort_by([(k, "ascending") for k in keys])
+        out = pa.table({**{k: g[k] for k in keys}, **{n: g[a] for a, n in names.items()}})
+    elif q == "q3_agg":
+        li = read("lineitem", ["l_orderkey", "l_extendedprice", "l_discount"])
+        od = read("orders", ["o_orderkey", "o_orderdate"])
+        od = od.filter(pc.less(od["o_orderdate"], 9500))
+        j = li.join(od, keys="l_orderkey", right_keys="o_orderkey", join_type="inner")
+        j = j.append_column("revenue", revenue(j))
+        g = j.group_by(["l_orderkey", "o_orderdate"]).aggregate([("revenue", "sum")])
+        out = pa.table({"l_orderkey": g["l_orderkey"], "o_orderdate": g["o_orderdate"],
+                        "revenue": g["revenue_sum"]})
+    elif q == "q10":
+        li = read("lineitem", ["l_orderkey", "l_extendedprice", "l_discount", "l_returnflag"])
+        li = li.filter(pc.equal(li["l_returnflag"], "R"))
+        od = read("orders", ["o_orderkey", "o_custkey", "o_orderdate"])
+        od = od.filter(pc.and_(pc.greater_equal(od["o_orderdate"], 8766),
+                               pc.less(od["o_orderdate"], 8856)))
+        j = li.join(od, keys="l_orderkey", right_keys="o_orderkey", join_type="inner")
+        j = j.append_column("revenue", revenue(j))
+        g = j.group_by(["o_custkey"]).aggregate([("revenue", "sum")])
+        g = g.sort_by([("revenue_sum", "descending"), ("o_custkey", "ascending")]).slice(0, 20)
+        out = pa.table({"o_custkey": g["o_custkey"], "revenue": g["revenue_sum"]})
+    elif q == "q17":
+        li = read("lineitem", ["l_partkey", "l_quantity", "l_extendedprice"])
+        pt = read("part", ["p_partkey", "p_brand"])
+        pt = pt.filter(pc.equal(pt["p_brand"], "Brand#3")).select(["p_partkey"])
+        avg = li.group_by(["l_partkey"]).aggregate([("l_quantity", "mean")])
+        j = li.join(pt, keys="l_partkey", right_keys="p_partkey", join_type="inner")
+        j = j.join(avg, keys="l_partkey", join_type="inner")
+        j = j.filter(pc.less(j["l_quantity"], pc.multiply(0.2, j["l_quantity_mean"])))
+        total = pc.sum(j["l_extendedprice"]).as_py() or 0.0
+        out = pa.table({"avg_yearly": pa.array([total / 7.0], pa.float64())})
+    elif q == "q18":
+        li = read("lineitem", ["l_orderkey", "l_quantity"])
+        big = li.group_by(["l_orderkey"]).aggregate([("l_quantity", "sum")])
+        big = big.filter(pc.greater(big["l_quantity_sum"], 300))
+        od = read("orders", ["o_orderkey", "o_custkey", "o_orderdate"])
+        j = big.join(od, keys="l_orderkey", right_keys="o_orderkey", join_type="inner")
+        j = j.sort_by([("l_quantity_sum", "descending"), ("l_orderkey", "ascending")])
+        j = j.slice(0, 100)
+        out = pa.table({"o_custkey": j["o_custkey"], "l_orderkey": j["l_orderkey"],
+                        "o_orderdate": j["o_orderdate"], "sum_qty": j["l_quantity_sum"]})
+    else:
+        raise ValueError(q)
+    return cio.table_to_batch(out)
+
+
 def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> dict:
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
     from hyperspace_tpu_torch import constants as C
@@ -728,7 +873,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
         if q in DERIVED_REFERENCES:
             continue
         t0 = time.perf_counter()
-        batches[q] = fn(host, lake).collect()
+        batches[q] = (arrow_reference(q, lake) if q in ARROW_REFERENCES
+                      else fn(host, lake).collect())
         want[q] = result(q, batches[q])
         out.setdefault("host_s", {})[q] = time.perf_counter() - t0
     for q, src in DERIVED_REFERENCES.items():
@@ -914,6 +1060,7 @@ def lifecycle_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = F
                                       ZOrderCoveringIndexConfig)
     from hyperspace_tpu_torch import constants as C
     from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.columnar.table import ColumnBatch
     from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
 
     t_phase = time.perf_counter()
@@ -953,12 +1100,16 @@ def lifecycle_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = F
     session.enable_hyperspace()
 
     def result(q: str, df) -> dict:
-        return _columns(df.collect()) if q == "q3_agg" else _floats(df.to_pydict())
+        """A query's result (a DataFrame, or a reference batch) as
+        comparable columns."""
+        batch = df if isinstance(df, ColumnBatch) else df.collect()
+        return _columns(batch) if q == "q3_agg" else _floats(batch.to_pydict())
 
     def host_reference() -> dict:
         host = HyperspaceSession(warehouse, conf={C.EXEC_TPU_ENABLED: False})
         t0 = time.perf_counter()
-        want = {q: result(q, fn(host, lake)) for q, fn in queries.items()}
+        want = {q: result(q, arrow_reference(q, lake) if q in ARROW_REFERENCES
+                          else fn(host, lake)) for q, fn in queries.items()}
         out.setdefault("host_reference_s", []).append(time.perf_counter() - t0)
         return want
 
@@ -1975,6 +2126,401 @@ def join_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# sources phase
+# ---------------------------------------------------------------------------
+
+def _write_partitioned(src_files: list, dst: str) -> dict:
+    """Each lineitem file split by (l_returnflag, l_linestatus) into hive
+    directories, the two columns living only in the paths; returns the
+    count and the l_extendedprice sum of the l_returnflag = 'R' rows, read
+    off the source files by arrow."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    def one(i_path):
+        i, path = i_path
+        t = pq.read_table(path)
+        flag, status = t.column("l_returnflag"), t.column("l_linestatus")
+        rest = t.drop_columns(["l_returnflag", "l_linestatus"])
+        for rf in pc.unique(flag).to_pylist():
+            for ls in pc.unique(status).to_pylist():
+                mask = pc.and_(pc.equal(flag, rf), pc.equal(status, ls))
+                d = os.path.join(dst, f"l_returnflag={rf}", f"l_linestatus={ls}")
+                os.makedirs(d, exist_ok=True)
+                pq.write_table(rest.filter(mask), os.path.join(d, f"part-{i:04d}.parquet"))
+        r = pc.equal(flag, "R")
+        return (int(pc.sum(r.cast("int64")).as_py()),
+                float(pc.sum(pc.filter(t.column("l_extendedprice"), r)).as_py()))
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        parts = list(pool.map(one, enumerate(src_files)))
+    return {"count": sum(p[0] for p in parts), "sum_price": sum(p[1] for p in parts)}
+
+
+def _write_csv_orders(src: str, dst: str, files: int) -> dict:
+    """The orders table as ``files`` CSV files with a header row; returns
+    its row count and the sums of o_orderkey and o_orderdate."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow.compute as pc
+    import pyarrow.csv as pacsv
+    import pyarrow.parquet as pq
+
+    t = pq.read_table(src)
+    os.makedirs(dst)
+    per = -(-t.num_rows // files)
+
+    def one(i):
+        pacsv.write_csv(t.slice(i * per, per), os.path.join(dst, f"part-{i:04d}.csv"))
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(one, range(files)))
+    return {"rows": t.num_rows, "o_orderkey_sum": int(pc.sum(t.column("o_orderkey")).as_py()),
+            "o_orderdate_sum": int(pc.sum(t.column("o_orderdate")).as_py())}
+
+
+def sources_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
+    """Partitioned, CSV, snapshot (Delta-style) and Iceberg-style lakes
+    (the module docstring lists the parts). Every query is held to the
+    host executor over its raw source (or, for q3_agg over the CSV orders,
+    to the main phase's host result over the same rows); each query's
+    indexes, route and kernel launches are checked."""
+    import random
+
+    import numpy as np
+
+    from hyperspace_tpu_torch import (CoveringIndexConfig, DataSkippingIndexConfig, Hyperspace,
+                                      HyperspaceSession, IcebergStyleTable, MinMaxSketch,
+                                      SnapshotTable, ZOrderCoveringIndexConfig)
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.columnar import io as cio
+    from hyperspace_tpu_torch.plan.expr import Count, Max, Min, col, lit
+    from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
+    from hyperspace_tpu_torch.sources import iceberg as ice
+
+    t_phase = time.perf_counter()
+    root = os.path.join(DATA_DIR, "sources")
+    warehouse = os.path.join(root, "warehouse")
+    lake = e2e["lake"]
+    li_files = sorted(os.path.join(lake, "lineitem", f)
+                      for f in os.listdir(os.path.join(lake, "lineitem")))
+    n_files = min(SOURCES_FILES, len(li_files))
+    require(n_files >= SNAPSHOT_VERSIONS, f"sources: {n_files} lineitem files, too few")
+    src_files = li_files[:n_files]
+    out: dict = {"lineitem_files": n_files, "queries": {}, "actions_s": {}, "writes_s": {}}
+    K.reset_counts()  # the phase's launches start here
+
+    def timed(kind: str, label: str, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        out[kind][label] = time.perf_counter() - t0
+        log({"sources_" + kind: label, "card": card, "seconds": out[kind][label]})
+        return r
+
+    def host(label: str, make, joined: bool = False) -> dict:
+        """The host executor over the raw source: no index, no device."""
+        h = HyperspaceSession(warehouse, conf={C.EXEC_TPU_ENABLED: False})
+        t0 = time.perf_counter()
+        batch = make(h).collect()
+        out.setdefault("host_reference_s", {})[label] = time.perf_counter() - t0
+        return batch
+
+    def run(label: str, session, make, want, indexes: list, kernel, route=None,
+            log_versions=None, join: bool = False, warm_runs: int = SOURCES_WARM_RUNS) -> dict:
+        """A query on the card: the indexes (and log versions) its plan
+        reads, its route ("device", "pipelined" or "join"), ``kernel``
+        launched once per run (no other), no decline, and every run equal
+        to ``want``."""
+        plan = make(session).optimized_plan()
+        scans = [n for n in plan.preorder() if getattr(n, "index_info", None) is not None]
+        used = [n.index_info.index_name for n in scans]
+        require(used == indexes, f"sources {label}: plan reads {used}, expected {indexes}")
+        versions = [n.index_info.log_version for n in scans]
+        require(log_versions is None or versions == log_versions,
+                f"sources {label}: log versions {versions}, expected {log_versions}")
+        rec: dict = {"indexes": used, "log_versions": versions,
+                     "lineage_ids": [n.lineage_filter_ids for n in scans]}
+        session.device_stats = DeviceTierStats()
+        before = dict(K.LAUNCHES)
+        result = (lambda: _columns(make(session).collect())) if join else \
+            (lambda: _floats(make(session).to_pydict()))
+        check = (lambda got: compare_join("q3_agg", got, want)) if join else \
+            (lambda got: compare_batches(label, got, want))
+        up0 = session.device_cache.uploaded_bytes
+        t0 = time.perf_counter()
+        got = result()
+        rec["first_run_s"] = time.perf_counter() - t0
+        rec["upload_bytes_first"] = session.device_cache.uploaded_bytes - up0
+        rec["first_run_route"] = scan_route(session.device_stats.last_scan)
+        check(got)
+        warm, warm_up = [], []
+        for _ in range(warm_runs):
+            u = session.device_cache.uploaded_bytes
+            t0 = time.perf_counter()
+            again = result()
+            warm.append(time.perf_counter() - t0)
+            warm_up.append(session.device_cache.uploaded_bytes - u)
+            check(again)
+        runs = 1 + warm_runs
+        launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        stats = session.device_stats
+        if join:
+            require(stats.device_join_fragments == runs and not stats.declines,
+                    f"sources {label}: join fragments {stats.device_join_fragments}, "
+                    f"declines {stats.declines}")
+        else:
+            require(stats.device_fragments == runs and not stats.declines,
+                    f"sources {label}: device fragments {stats.device_fragments}, "
+                    f"declines {stats.declines}")
+            got_route = rec["first_run_route"]["route"]
+            require(route is None or got_route == route,
+                    f"sources {label}: route {rec['first_run_route']}, expected {route}")
+        require(launched == {k: (runs if k == kernel else 0) for k in K.LAUNCHES},
+                f"sources {label}: launches {launched}, expected {kernel} x {runs}")
+        rec.update({"warm_s": warm, "upload_bytes_warm": warm_up, "launches": launched,
+                    "join_paths": stats.join_paths, "matches_host": True})
+        out["queries"][label] = rec
+        log({"sources": label, "card": card, **rec})
+        return got
+
+    # (a) a hive-partitioned lineitem
+    part = os.path.join(root, "part_lineitem")
+    r_ref = timed("writes_s", "partitioned lineitem",
+                  lambda: _write_partitioned(src_files, part))
+    dirs = sorted(os.path.relpath(d, part) for d, _s, fs in os.walk(part) if fs)
+    out["partitions"] = dirs
+    log({"sources": "partitions", "card": card, "directories": dirs,
+         "files": sum(len(fs) for _d, _s, fs in os.walk(part))})
+    session = HyperspaceSession(warehouse, conf={
+        C.HYBRID_SCAN_MAX_DELETED_RATIO: SNAPSHOT_DELETED_RATIO})
+    hs = Hyperspace(session)
+    read_part = lambda s: s.read.parquet(part)  # noqa: E731
+    schema = read_part(session).schema.names
+    require(schema[-2:] == ["l_returnflag", "l_linestatus"] and len(schema) == 10,
+            f"sources: partitioned schema {schema}")
+    q1_host = host("q1_partitioned", lambda s: tpch.q1_of(read_part(s)))
+    run("q1_partitioned", session, lambda s: tpch.q1_of(read_part(s)),
+        _floats(q1_host.to_pydict()), [], None, route="device")
+    # a partition filter on the host path: only the R directories are read
+    reads: list = []
+    real_read = cio.read_parquet
+    cio.read_parquet = lambda paths, *a, **kw: reads.extend(paths) or real_read(paths, *a, **kw)
+    try:
+        t0 = time.perf_counter()
+        flagged = read_part(session).filter(col("l_returnflag") == "R").select(
+            "l_orderkey", "l_extendedprice").collect()
+        r_s = time.perf_counter() - t0
+    finally:
+        cio.read_parquet = real_read
+    r_files = sum(1 for d in dirs if d.startswith("l_returnflag=R")) * n_files
+    require(len(reads) == r_files and all("/l_returnflag=R/" in p for p in reads),
+            f"sources: the R filter read {len(reads)} files, expected the {r_files} under R")
+    require(flagged.num_rows == r_ref["count"], f"sources: {flagged.num_rows} R rows "
+            f"vs {r_ref['count']}")
+    got_sum = float(flagged.column("l_extendedprice").data.sum())
+    require(rel_err(got_sum, r_ref["sum_price"]) <= REL_TOL,
+            f"sources: R sum {got_sum} vs {r_ref['sum_price']}")
+    out["partition_filter"] = {"files_read": len(reads), "files_total": len(dirs) * n_files,
+                               "rows": flagged.num_rows, "seconds": r_s}
+    log({"sources": "partition_filter", "card": card, **out["partition_filter"]})
+    del flagged
+    timed("actions_s", "create pt_flagstatus", lambda: hs.create_index(
+        read_part(session), CoveringIndexConfig("pt_flagstatus", *tpch.LI_FLAGSTATUS[1:])))
+    timed("actions_s", "create pt_shipdate_mm", lambda: hs.create_index(
+        read_part(session), DataSkippingIndexConfig("pt_shipdate_mm",
+                                                    [MinMaxSketch("l_shipdate")])))
+    kinds = [type(s).__name__ for s in hs.get_index("pt_shipdate_mm").derived_dataset.sketches]
+    require(kinds == ["MinMaxSketch", "PartitionSketch", "PartitionSketch"],
+            f"sources: pt_shipdate_mm sketches {kinds}")
+    session.enable_hyperspace()
+    run("q1_sums_partitioned", session, lambda s: tpch.q1_sums_of(read_part(s)),
+        _floats(derived_reference("q1_sums", q1_host).to_pydict()), ["pt_flagstatus"],
+        "filter_grouped_multi_sum")
+    del q1_host
+    make = lambda s: tpch.q6_count_of(read_part(s))  # noqa: E731
+    run("q6_count_partitioned", session, make, _floats(host("q6_count_partitioned",
+                                                            make).to_pydict()),
+        [], "filter_weighted_sum", route="device")
+    last = session.dataskipping_stats.last
+    require(last.get("index") == "pt_shipdate_mm"
+            and last.get("files_total") == len(dirs) * n_files,
+            f"sources: the data-skipping index was not consulted: {last}")
+    out["queries"]["q6_count_partitioned"]["dataskipping"] = last["message"]
+
+    # (b) the orders as CSV files
+    csv_dir = os.path.join(root, "orders_csv")
+    od = timed("writes_s", "csv orders", lambda: _write_csv_orders(
+        os.path.join(lake, "orders", "part-0.parquet"), csv_dir, SOURCES_CSV_FILES))
+    csv_files = sorted(os.path.join(csv_dir, f) for f in os.listdir(csv_dir))
+    raw = timed("writes_s", "csv read back", lambda: cio.read_csv(csv_files))
+    require(raw.num_rows == od["rows"]
+            and int(raw.column("o_orderkey").data.sum()) == od["o_orderkey_sum"]
+            and int(raw.column("o_orderdate").data.sum()) == od["o_orderdate_sum"],
+            "sources: the CSV orders read back differ from the parquet orders")
+    del raw
+    main = HyperspaceSession(e2e["warehouse"])  # the main phase's li_orderkey
+    main_hs = Hyperspace(main)
+    timed("actions_s", "create csv_od_orderkey", lambda: main_hs.create_index(
+        main.read.csv(csv_dir), CoveringIndexConfig("csv_od_orderkey", *tpch.OD_ORDERKEY[1:])))
+    main.enable_hyperspace()
+    got = run("q3_agg_csv", main, lambda s: tpch.q3_agg_of(tpch._lineitem(s, lake),
+                                                           s.read.csv(csv_dir)),
+              e2e["want"]["q3_agg"], [tpch.LI_ORDERKEY[0], "csv_od_orderkey"], None, join=True,
+              warm_runs=2)
+    compare_join("q3_agg", got, e2e["device_results"]["q3_agg"])  # the parquet orders' run
+    del got
+    key0 = tpch.first_orderkey(lake)
+
+    def key_span(df, start):
+        return df.filter((col("o_orderkey") >= start)
+                         & (col("o_orderkey") < start + SOURCES_KEY_RANGE)).agg(
+            Count(lit(1)).alias("count"), Min(col("o_orderdate")).alias("first_date"),
+            Max(col("o_orderdate")).alias("last_date"))
+
+    make = lambda s: key_span(s.read.csv(csv_dir), key0)  # noqa: E731
+    run("range_span_csv", main, make, _floats(host("range_span_csv", make).to_pydict()),
+        ["csv_od_orderkey"], None)
+    timed("actions_s", "delete+vacuum csv_od_orderkey",
+          lambda: (main_hs.delete_index("csv_od_orderkey"),
+                   main_hs.vacuum_index("csv_od_orderkey")))
+    del main, main_hs
+
+    # (c) a snapshot (Delta-style) lineitem: 4 versions of a quarter each
+    table = SnapshotTable(os.path.join(root, "snap_lineitem"))
+    per = n_files // SNAPSHOT_VERSIONS
+
+    def commit(v: int) -> None:
+        timed("writes_s", f"snapshot v{v}", lambda: table.commit(
+            cio.read_parquet(src_files[v * per:(v + 1) * per])))
+
+    commit(0)
+    commit(1)
+    session.set_conf(C.INDEX_LINEAGE_ENABLED, True)  # the deletes of v4 need it
+    z_spec = tpch.LI_SHIPDATE_Z[1:]
+    timed("actions_s", "create snap_shipdate_z (v1)", lambda: hs.create_index(
+        table.scan(session), ZOrderCoveringIndexConfig("snap_shipdate_z", *z_spec)))
+    created = hs.get_index("snap_shipdate_z").id
+    commit(2)
+    commit(3)
+    timed("actions_s", "refresh incremental snap_shipdate_z (v3)",
+          lambda: hs.refresh_index("snap_shipdate_z", C.REFRESH_MODE_INCREMENTAL))
+    refreshed = hs.get_index("snap_shipdate_z")
+    history = refreshed.properties.get("snapshotVersionHistory")
+    require(history == f"{created}:1,{refreshed.id}:3", f"sources: history {history}")
+    for label, version, q, kernel in (("q6_count_v3", None, tpch.q6_count_of,
+                                       "filter_weighted_sum"),
+                                      ("q6_sum_v3", None, tpch.q6_sum_of, "filter_sum"),
+                                      ("q6_count_v1", 1, tpch.q6_count_of,
+                                       "filter_weighted_sum")):
+        make = lambda s, v=version, q=q: q(table.scan(s, version=v))  # noqa: E731
+        run(label, session, make, _floats(host(label, make).to_pydict()), ["snap_shipdate_z"],
+            kernel, log_versions=[created if version == 1 else refreshed.id])
+    deleted = table.snapshot_files(0)
+    table.delete_files(deleted)  # v4
+    session.set_conf(C.HYBRID_SCAN_ENABLED, True)
+    make = lambda s: tpch.q6_count_of(table.scan(s))  # noqa: E731
+    want = _floats(host("q6_count_v4", make).to_pydict())
+    run("q6_count_v4_hybrid", session, make, want, ["snap_shipdate_z"], "filter_weighted_sum",
+        route="device", log_versions=[refreshed.id])
+    require(len(out["queries"]["q6_count_v4_hybrid"]["lineage_ids"][0] or []) == len(deleted),
+            f"sources: hybrid lineage ids {out['queries']['q6_count_v4_hybrid']}")
+    timed("actions_s", "refresh incremental snap_shipdate_z (v4 deletes)",
+          lambda: hs.refresh_index("snap_shipdate_z", C.REFRESH_MODE_INCREMENTAL))
+    session.set_conf(C.HYBRID_SCAN_ENABLED, False)
+    last_id = hs.get_index("snap_shipdate_z").id
+    run("q6_count_v4_refreshed", session, make, want, ["snap_shipdate_z"],
+        "filter_weighted_sum", log_versions=[last_id])
+    out["snapshot"] = {"created": created, "refreshed": refreshed.id, "after_deletes": last_id,
+                       "history": hs.get_index("snap_shipdate_z").properties[
+                           "snapshotVersionHistory"]}
+
+    # (d) an Iceberg-style orders: three snapshots of a third each
+    itable = IcebergStyleTable(os.path.join(root, "ice_orders"), rng=random.Random(SEED))
+    orders = cio.read_parquet([os.path.join(lake, "orders", "part-0.parquet")])
+    third = -(-orders.num_rows // ICEBERG_SNAPSHOTS)
+    sids = []
+
+    def icommit(i: int) -> None:
+        sids.append(timed("writes_s", f"iceberg s{i}", lambda: itable.commit(
+            orders.slice(i * third, min(orders.num_rows, (i + 1) * third)))))
+
+    icommit(0)
+    timed("actions_s", "create ice_od_orderkey (s0)", lambda: hs.create_index(
+        itable.scan(session), CoveringIndexConfig("ice_od_orderkey", *tpch.OD_ORDERKEY[1:])))
+    first = hs.get_index("ice_od_orderkey").id
+    icommit(1)
+    icommit(2)
+    del orders
+    timed("actions_s", "refresh full ice_od_orderkey (s2)",
+          lambda: hs.refresh_index("ice_od_orderkey", C.REFRESH_MODE_FULL))
+    entry = hs.get_index("ice_od_orderkey")
+    chain = {f"s{i}": ice.closest_index_version_by_ancestry(itable, entry.properties, sid)
+             for i, sid in enumerate(sids)}
+    require(chain == {"s0": first, "s1": first, "s2": entry.id}, f"sources: ancestry {chain}")
+    stamp = {s["snapshot-id"]: s["timestamp-ms"] for s in itable.snapshots()}
+    start = int(key0 % third)  # a key range inside the first snapshot
+    for label, kw, indexes, versions in (
+            ("range_span_s0", {"snapshot_id": sids[0]}, ["ice_od_orderkey"], [first]),
+            ("range_span_as_of_s0", {"as_of_ms": stamp[sids[0]]}, ["ice_od_orderkey"], [first]),
+            # s1's nearest recorded ancestor is s0, built over other files:
+            # the signature check refuses it and the scan reads the source
+            ("range_span_s1", {"snapshot_id": sids[1]}, [], []),
+            ("range_span_s2", {}, ["ice_od_orderkey"], [entry.id])):
+        make = lambda s, kw=kw: key_span(itable.scan(s, **kw), start)  # noqa: E731
+        run(label, session, make, _floats(host(label, make).to_pydict()), indexes, None,
+            log_versions=versions)
+    out["iceberg"] = {"snapshots": sids, "created": first, "refreshed": entry.id,
+                      "ancestry": chain}
+    require(not any(K.PLAIN_CALLS.values()),
+            f"sources: plain versions ran on the card's path: {K.PLAIN_CALLS}")
+    out["launches"] = dict(K.LAUNCHES)
+    for k in ON_PATH:
+        require(out["launches"][k] > 0, f"sources: {k} never launched")
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log({"phase": "sources", "card": card, "seconds": out["seconds"],
+         "launches": out["launches"]})
+    return out
+
+
+def reference_cache_check(e2e: dict, card: str) -> dict:
+    """A warm run each of q6_count and q1_sums in a fresh session at the
+    JAX package's cache budgets (the knobs unset), then the H100 sizing
+    back: ms and upload bytes of the first and the warm run, each result
+    held to the main phase's host reference."""
+    from hyperspace_tpu_torch import HyperspaceSession
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.columnar import io as cio
+
+    saved = {k: os.environ.pop(k, None) for k in CACHE_KNOBS}
+    try:
+        session = HyperspaceSession(e2e["warehouse"]).enable_hyperspace()
+    finally:
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+        cio.configure_caches()
+    out: dict = {"budgets_mb": {"index": session.index_chunk_cache.max_bytes >> 20,
+                                "device": session.device_cache.budget_bytes >> 20,
+                                "host_derived": session.host_derived_cache.budget_bytes >> 20}}
+    for q in ("q6_count", "q1_sums"):
+        rec = {}
+        for run in ("first", "warm"):
+            u = session.device_cache.uploaded_bytes
+            t0 = time.perf_counter()
+            got = _floats(getattr(tpch, q)(session, e2e["lake"]).to_pydict())
+            rec[f"{run}_ms"] = (time.perf_counter() - t0) * 1e3
+            rec[f"{run}_upload_bytes"] = session.device_cache.uploaded_bytes - u
+            compare_batches(f"{q} at the reference's cache budgets", got, e2e["want"][q])
+        out[q] = rec
+        log({"reference_cache_budgets": q, "card": card, **out["budgets_mb"], **rec})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # order phase
 # ---------------------------------------------------------------------------
 
@@ -2156,6 +2702,15 @@ def main() -> int:
     log({"phase": "device", "kind": kind, "nvidia_smi": smi, "count": torch.cuda.device_count(),
          "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    # the cache budgets, set through the JAX package's knobs before any
+    # session reads them (the build and footer-statistics caches keep its
+    # defaults)
+    os.environ.update(H100_CACHE_MB)
+    from hyperspace_tpu_torch.utils import env as hs_env
+
+    sizing = {k: hs_env.cache_bytes(k) >> 20 for k in CACHE_KNOBS}
+    log({"phase": "cache_sizing", "card": smi, "mb": sizing})
+
     build_s = K.build_kernels()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
@@ -2182,6 +2737,8 @@ def main() -> int:
     skipping = phase("skipping", skipping_phase, torch, K, e2e, args.rows, smi, args.profile)
     pipeline = phase("pipeline", pipeline_phase, torch, K, e2e, args.rows, smi)
     join = phase("join", join_phase, torch, K, e2e, args.rows, smi)
+    sources = phase("sources", sources_phase, torch, K, e2e, args.rows, smi)
+    ref_cache = phase("reference_cache", reference_cache_check, e2e, smi)
     del e2e["want"], e2e["device_results"]
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     order = phase("order", order_phase, torch, min(ORDER_ROWS, _pad_pow2(args.rows)), smi)
@@ -2194,13 +2751,15 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_ROWS.items():
         r = kernels[name]
         by_query = {q: v["launches"][name]
-                    for q, v in {**e2e["queries"], **skipping["queries"]}.items()
+                    for q, v in {**e2e["queries"], **skipping["queries"],
+                                 **sources["queries"]}.items()
                     if v["launches"][name]}
         by_phase = {"end_to_end": e2e["main_path_launches"][name],
                     "lifecycle": lifecycle["launches"][name],
                     "skipping": skipping["launches"][name],
                     "pipeline": pipeline["launches"][name],
-                    "join": join["launches"][name]}
+                    "join": join["launches"][name],
+                    "sources": sources["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
@@ -2216,7 +2775,9 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": {"kind": kind, "nvidia_smi": smi}, "build_s": build_s,
                    "kernels": kernels, "end_to_end": e2e, "lifecycle": lifecycle,
-                   "skipping": skipping, "pipeline": pipeline, "join": join, "order": order,
+                   "skipping": skipping, "pipeline": pipeline, "join": join,
+                   "sources": sources, "reference_cache": ref_cache, "order": order,
+                   "cache_sizing_mb": sizing,
                    "phase_s": phase_s, "total_s": time.perf_counter() - t_start}, f, indent=1)
     log({"phase": "done", "card": smi, "phase_s": phase_s,
          "total_s": time.perf_counter() - t_start})

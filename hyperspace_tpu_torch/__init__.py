@@ -7,7 +7,10 @@ query's predicate, and run the fragments on the card through hand-written
 CUDA kernels. A data-skipping index prunes a source scan's files by
 per-file sketches. Indexes are refreshed, optimized, deleted, restored and
 vacuumed as the lake changes, and hybrid scan serves an index whose source
-gained or lost files.
+gained or lost files. Sources are parquet, CSV, JSON, ORC, text and avro
+directories (hive-partitioned or not, glob roots included), snapshot
+(Delta-style) tables and Iceberg-style tables, whose older snapshots use
+the index version built for them.
 The JAX package ``hyperspace_tpu`` is the reference this package is held
 against; nothing here imports it, or JAX.
 """
@@ -24,7 +27,9 @@ from .models import (
     ZRegionSketch,
 )
 from .session import HyperspaceSession
+from .sources.delta import SnapshotTable
+from .sources.iceberg import IcebergStyleTable
 
 __all__ = ["BloomFilterSketch", "CoveringIndexConfig", "DataSkippingIndexConfig",
-           "Hyperspace", "HyperspaceSession", "MinMaxSketch", "ValueListSketch",
-           "ZOrderCoveringIndexConfig", "ZRegionSketch"]
+           "Hyperspace", "HyperspaceSession", "IcebergStyleTable", "MinMaxSketch",
+           "SnapshotTable", "ValueListSketch", "ZOrderCoveringIndexConfig", "ZRegionSketch"]

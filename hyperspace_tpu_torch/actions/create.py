@@ -2,7 +2,10 @@
 
 Builds the index data into _staging/0, publishes it as v__=0, and commits a
 log entry recording the source relation (files with stable ids), the plan
-fingerprint and the index content, in the JSON the JAX package writes.
+fingerprint and the index content, in the JSON the JAX package writes. The
+source must be a relation a source provider supports (sources/manager.py);
+a snapshot provider records the table version the index was built from in
+its properties.
 """
 
 from __future__ import annotations
@@ -18,10 +21,8 @@ from ..meta.data_manager import IndexDataManager
 from ..meta.entry import (
     Content,
     FileIdTracker,
-    FileInfo,
     IndexLogEntry,
     LogicalPlanFingerprint,
-    Relation,
     Signature,
     Source,
     SourcePlan,
@@ -62,22 +63,6 @@ def content_of_version_dir(version_path: str) -> Content:
     )
 
 
-def relation_metadata(scan, tracker: FileIdTracker) -> Relation:
-    """Serialized source relation with stable file ids."""
-    infos = [
-        FileInfo(f.name, f.size, f.modified_time,
-                 tracker.add_file(f.name, f.size, f.modified_time))
-        for f in scan.files
-    ]
-    return Relation(
-        root_paths=scan.root_paths,
-        content=Content.from_files(infos),
-        schema=scan.full_schema.to_list(),
-        file_format=scan.fmt,
-        options=dict(scan.options),
-    )
-
-
 class CreateAction(Action):
     transient_state = S.CREATING
     final_state = S.ACTIVE
@@ -93,8 +78,11 @@ class CreateAction(Action):
         self.data_manager = data_manager
         self.tracker = FileIdTracker()
         self._index = None
+        self._relation = None
 
     def validate(self) -> None:
+        from ..sources.manager import SourceProviderManager
+
         latest = self.log_manager.get_latest_log()
         if latest is not None and latest.state != S.DOESNOTEXIST:
             raise HyperspaceError(
@@ -102,8 +90,10 @@ class CreateAction(Action):
                 f"exists in state {latest.state}"
             )
         scan = _single_file_scan(self.df)
-        if scan.fmt != "parquet" or scan.index_info is not None:
+        manager = SourceProviderManager(self.session)
+        if not manager.is_supported_relation(scan):
             raise HyperspaceError(f"Relation format {scan.fmt!r} is not supported for indexing")
+        self._relation = manager.get_relation(scan)
         resolve_columns(self.df.schema, self.config.referenced_columns())
 
     def op(self) -> None:
@@ -118,12 +108,17 @@ class CreateAction(Action):
         self.data_manager.publish(0)
 
     def log_entry(self) -> IndexLogEntry:
-        rel = relation_metadata(_single_file_scan(self.df), self.tracker)
-        fingerprint = compute_fingerprint(self.df.plan)
+        rel = self._relation.create_relation_metadata(self.tracker)
+        properties = dict(self._index.properties())
+        self._relation.record_version_history(properties,
+                                              self.base_id + C.LOG_ID_FINAL_OFFSET)
+        if properties != self._index.properties():
+            self._index._properties = properties  # persisted with the index
         return IndexLogEntry(
             name=self.config.index_name,
             derived_dataset=self._index,
             content=index_content_from_path(self.index_path),
-            source=Source(SourcePlan([rel], self.df.plan.pretty(), fingerprint)),
-            properties=dict(self._index.properties()),
+            source=Source(SourcePlan([rel], self.df.plan.pretty(),
+                                     compute_fingerprint(self.df.plan))),
+            properties=properties,
         )

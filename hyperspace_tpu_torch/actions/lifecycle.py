@@ -22,10 +22,12 @@ from ..meta.data_manager import IndexDataManager
 from ..meta.entry import IndexLogEntry, LogEntry
 from ..meta.log_manager import IndexLogManager
 from ..models.dataskipping.sketch_store import derived_base
+from ..sources.delta import VERSION_HISTORY_PROPERTY
+from ..sources.iceberg import SNAPSHOT_ID_HISTORY_PROPERTY
 
-# the JAX package's snapshot sources record table-version history in these
-# entry properties; after vacuum-outdated only the latest version is valid
-_HISTORY_PROPERTIES = ("snapshotVersionHistory", "icebergSnapshotIdHistory")
+# the snapshot providers' table-version history; after vacuum-outdated
+# only the latest table version remains valid for time travel
+_HISTORY_PROPERTIES = (VERSION_HISTORY_PROPERTY, SNAPSHOT_ID_HISTORY_PROPERTY)
 
 
 def _copy_entry(e: LogEntry, state: str) -> LogEntry:

@@ -1,9 +1,12 @@
 """Refresh actions: full, incremental, quick (counterpart of
 hyperspace_tpu/actions/refresh.py).
 
-Each reloads the source from the relation the entry recorded (its roots
-listed afresh); appended and deleted files are the set differences between
-that listing and the recorded files. Deleted files keep their recorded ids,
+Each reloads the source from the relation the entry recorded, through
+the source provider that owns it (its roots, or its glob scope, listed
+afresh; a snapshot table at its latest version); appended and deleted
+files are the set differences between that listing and the recorded
+files. A snapshot provider records the table version each refreshed log
+version was built from. Deleted files keep their recorded ids,
 which the lineage anti-filter needs, and the file-id tracker is seeded from
 the entry, so ids survive every refresh.
 
@@ -22,8 +25,8 @@ from typing import TYPE_CHECKING
 
 from . import states as S
 from .base import IndexMutationAction
-from .create import compute_fingerprint, content_of_version_dir, relation_metadata
-from ..columnar.table import Schema
+from .create import compute_fingerprint, content_of_version_dir
+from .. import constants as C
 from ..exceptions import HyperspaceError, NoChangesError
 from ..meta.data_manager import IndexDataManager
 from ..meta.entry import (
@@ -32,7 +35,6 @@ from ..meta.entry import (
     FileIdTracker,
     FileInfo,
     IndexLogEntry,
-    Relation,
     Source,
     SourcePlan,
 )
@@ -43,18 +45,6 @@ from ..models.covering import _single_file_scan
 if TYPE_CHECKING:
     from ..plan.dataframe import DataFrame
     from ..session import HyperspaceSession
-
-
-def reload_relation(session: "HyperspaceSession", relation: Relation) -> "DataFrame":
-    """The recorded source relation over its current files."""
-    from ..plan.dataframe import DataFrame, relist_files
-    from ..plan.nodes import FileScan
-
-    if relation.file_format != "parquet":
-        raise HyperspaceError(f"Relation format {relation.file_format!r} is not supported")
-    scan = FileScan(relation.root_paths, relation.file_format, Schema.from_list(relation.schema),
-                    relist_files(relation.root_paths), options=dict(relation.options))
-    return DataFrame(session, scan)
 
 
 class RefreshActionBase(IndexMutationAction):
@@ -80,7 +70,9 @@ class RefreshActionBase(IndexMutationAction):
     def df(self) -> "DataFrame":
         """The source DataFrame over the current files."""
         if self._df is None:
-            self._df = reload_relation(self.session, self.entry.relation)
+            from ..sources.manager import SourceProviderManager
+
+            self._df = SourceProviderManager(self.session).reload_relation(self.entry.relation)
         return self._df
 
     def current_files(self) -> set[FileInfo]:
@@ -108,14 +100,19 @@ class RefreshActionBase(IndexMutationAction):
             )
 
     def _refreshed_entry(self, derived_dataset, content: Content) -> IndexLogEntry:
-        rel = relation_metadata(_single_file_scan(self.df), self.tracker)
+        from ..sources.manager import SourceProviderManager
+
+        relation = SourceProviderManager(self.session).get_relation(_single_file_scan(self.df))
+        properties = dict(self.entry.properties)
+        relation.record_version_history(properties, self.base_id + C.LOG_ID_FINAL_OFFSET)
         return IndexLogEntry(
             name=self.entry.name,
             derived_dataset=derived_dataset,
             content=content,
-            source=Source(SourcePlan([rel], self.df.plan.pretty(),
+            source=Source(SourcePlan([relation.create_relation_metadata(self.tracker)],
+                                     self.df.plan.pretty(),
                                      compute_fingerprint(self.df.plan))),
-            properties=dict(self.entry.properties),
+            properties=properties,
         )
 
 

@@ -133,11 +133,11 @@ def _q6_predicate():
     )
 
 
-def q1(session, root: str):
-    """Pricing summary report: grouped aggregates over a shipdate bound."""
+def q1_of(li):
+    """Pricing summary report over a lineitem DataFrame: grouped aggregates
+    over a shipdate bound."""
     return (
-        _lineitem(session, root)
-        .filter(col("l_shipdate") <= 10470)
+        li.filter(col("l_shipdate") <= 10470)
         .select(
             "l_returnflag",
             "l_linestatus",
@@ -157,11 +157,14 @@ def q1(session, root: str):
     )
 
 
-def q1_sums(session, root: str):
+def q1(session, root: str):
+    return q1_of(_lineitem(session, root))
+
+
+def q1_sums_of(li):
     """Q1 without avg_qty: sums and a count only (the grouped kernel's shape)."""
     return (
-        _lineitem(session, root)
-        .filter(col("l_shipdate") <= 10470)
+        li.filter(col("l_shipdate") <= 10470)
         .select(
             "l_returnflag",
             "l_linestatus",
@@ -180,6 +183,10 @@ def q1_sums(session, root: str):
     )
 
 
+def q1_sums(session, root: str):
+    return q1_sums_of(_lineitem(session, root))
+
+
 def q6(session, root: str):
     """Forecasting revenue change: tight range filter + global aggregate."""
     return (
@@ -190,20 +197,28 @@ def q6(session, root: str):
     )
 
 
-def q6_count(session, root: str):
+def q6_count_of(li):
     """Q6 as filter -> sum(a*b) + count (the weighted-sum kernel's shape)."""
-    return _lineitem(session, root).filter(_q6_predicate()).agg(
+    return li.filter(_q6_predicate()).agg(
         Sum(col("l_extendedprice") * col("l_discount")).alias("revenue"),
         Count(lit(1)).alias("count"),
     )
 
 
-def q6_sum(session, root: str):
+def q6_count(session, root: str):
+    return q6_count_of(_lineitem(session, root))
+
+
+def q6_sum_of(li):
     """Q6 as filter -> sum(a) + count (the single-measure kernel's shape)."""
-    return _lineitem(session, root).filter(_q6_predicate()).agg(
+    return li.filter(_q6_predicate()).agg(
         Sum(col("l_extendedprice")).alias("sum_price"),
         Count(lit(1)).alias("count"),
     )
+
+
+def q6_sum(session, root: str):
+    return q6_sum_of(_lineitem(session, root))
 
 
 def q6_span(session, root: str):
@@ -241,9 +256,9 @@ def q6_tax_sum(session, root: str):
     ).agg(Sum(col("l_tax")).alias("sum_tax"), Count(lit(1)).alias("count"))
 
 
-def _q3_grouped(session, root: str):
-    li = _lineitem(session, root)
-    od = session.read.parquet(os.path.join(root, "orders"))
+def q3_agg_of(li, od):
+    """Q3 without the sort and limit over lineitem and orders DataFrames:
+    revenue of every qualifying order."""
     return (
         li.select("l_orderkey", "l_extendedprice", "l_discount")
         .join(
@@ -254,6 +269,10 @@ def _q3_grouped(session, root: str):
         .group_by("l_orderkey", "o_orderdate")
         .agg(Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount"))).alias("revenue"))
     )
+
+
+def _q3_grouped(session, root: str):
+    return q3_agg_of(_lineitem(session, root), session.read.parquet(os.path.join(root, "orders")))
 
 
 def q3(session, root: str):

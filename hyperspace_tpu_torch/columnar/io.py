@@ -1,19 +1,23 @@
-"""Parquet <-> ColumnBatch via pyarrow (counterpart of
-hyperspace_tpu/columnar/io.py, reduced to what the covering-index query
-path needs: whole-file and row-group-selected reads, footer-only row-group
-statistics, index-file writes, the decoded index-chunk cache, and the
-ordered chunk stream the pipelined executor consumes, ``iter_chunks``).
+"""Parquet, CSV, JSON, ORC and text <-> ColumnBatch via pyarrow
+(counterpart of hyperspace_tpu/columnar/io.py): whole-file and
+row-group-selected reads, footer-only row-group statistics, index-file
+writes, the decoded index-chunk cache, and the ordered chunk stream the
+pipelined executor consumes (``iter_chunks``). A struct column's leaves
+read as flat columns named ``__hs_nested.a.b``, as in the JAX package.
 
 The chunk cache matters to the device tier: it hands repeated index scans
 the SAME numpy buffers, and the device-resident column cache
 (utils/device_cache.py) keys on buffer identity, so a warm query uploads
 nothing. Raw source scans never use it.
 
-Inside an index action (``maintenance_scope``), a multi-file read of named
-source columns decodes file by file and concatenates the batches, as the
-JAX package's maintenance reads do: a string column then carries the
-sorted union of the files' dictionaries, so both packages write the same
-index files.
+Inside an index action (``maintenance_scope``), a read of named source
+columns goes through the process-wide source-column cache
+(``HYPERSPACE_BUILD_CACHE_MB``): each file is decoded alone, per column,
+and the files' batches concatenated, as the JAX package's maintenance
+reads are: a string column then carries the sorted union of the files'
+dictionaries, so both packages write the same index files. The footer
+statistics cache (``HYPERSPACE_STATS_CACHE_MB``) is process-wide too;
+the session sets both budgets when it is made (``configure_caches``).
 """
 
 from __future__ import annotations
@@ -28,9 +32,12 @@ from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.csv as pacsv
+import pyarrow.json as pajson
 import pyarrow.parquet as pq
 
 from .table import Column, ColumnBatch, DATE32, Field, STRING, Schema
+from ..constants import NESTED_FIELD_PREFIX
 from ..exceptions import HyperspaceError
 from ..serve import budget as serve_budget
 from ..utils import env
@@ -74,8 +81,26 @@ def _leaf_logical(t: pa.DataType, name: str) -> str:
     return logical
 
 
+def _flatten_struct_field(f: pa.Field, prefix: str) -> list[Field]:
+    """A struct's leaves as flat fields named ``<NESTED_FIELD_PREFIX>a.b.c``."""
+    out: list[Field] = []
+    for sub in f.type:
+        path = f"{prefix}.{sub.name}"
+        if pa.types.is_struct(sub.type):
+            out.extend(_flatten_struct_field(sub, path))
+        else:
+            out.append(Field(NESTED_FIELD_PREFIX + path, _leaf_logical(sub.type, path)))
+    return out
+
+
 def arrow_schema_to_schema(sch: pa.Schema) -> Schema:
-    return Schema([Field(f.name, _leaf_logical(f.type, f.name)) for f in sch])
+    fields: list[Field] = []
+    for f in sch:
+        if pa.types.is_struct(f.type):
+            fields.extend(_flatten_struct_field(f, f.name))
+        else:
+            fields.append(Field(f.name, _leaf_logical(f.type, f.name)))
+    return Schema(fields)
 
 
 def _chunked_to_column(arr, logical: str) -> Column:
@@ -107,11 +132,26 @@ def _chunked_to_column(arr, logical: str) -> Column:
     return Column(np.ascontiguousarray(data), logical, validity)
 
 
+def _nested_leaf(table: pa.Table, flat_name: str):
+    """The struct leaf behind a ``<NESTED_FIELD_PREFIX>a.b.c`` name; a null
+    parent struct makes the leaf null."""
+    import pyarrow.compute as pc
+
+    path = flat_name[len(NESTED_FIELD_PREFIX):].split(".")
+    arr = table.column(path[0])
+    for seg in path[1:]:
+        arr = pc.struct_field(arr, seg)
+    return arr
+
+
 def table_to_batch(table: pa.Table) -> ColumnBatch:
     schema = arrow_schema_to_schema(table.schema)
-    return ColumnBatch(
-        {f.name: _chunked_to_column(table.column(f.name), f.dtype) for f in schema}
-    )
+    top = set(table.schema.names)
+    return ColumnBatch({
+        f.name: _chunked_to_column(
+            table.column(f.name) if f.name in top else _nested_leaf(table, f.name), f.dtype)
+        for f in schema
+    })
 
 
 def batch_to_table(batch: ColumnBatch) -> pa.Table:
@@ -138,56 +178,134 @@ def batch_to_table(batch: ColumnBatch) -> pa.Table:
 # --- readers -----------------------------------------------------------------
 
 
+def _col_nbytes(col: Column) -> int:
+    nbytes = col.data.nbytes + (col.validity.nbytes if col.validity is not None else 0)
+    if col.dictionary:
+        nbytes += sum(len(v) for v in col.dictionary)
+    return nbytes
+
+
 def _batch_nbytes(batch: ColumnBatch) -> int:
+    """A decoded batch's bytes as the JAX package's caches count them (a
+    dictionary's strings and 48 bytes of overhead per entry included)."""
     total = 0
     for col in batch.columns.values():
         total += col.data.nbytes
         if col.validity is not None:
             total += col.validity.nbytes
+        if col.dictionary:
+            total += sum(len(v) for v in col.dictionary) + 48 * len(col.dictionary)
     return total
 
 
-class IndexChunkCache:
-    """Bytes-bounded LRU of decoded index-file reads, keyed by the files'
-    (path, mtime_ns, inode, size) and the requested columns, so a rewrite of
-    any file invalidates its entries. Owned by a session; a budget of 0
-    disables it."""
+class BytesBoundedLRU:
+    """Bytes-bounded LRU with the JAX package's ``cache.<name>.*`` counts:
+    ``hits``, ``misses`` (a build that stored or would have stored),
+    ``evictions`` and ``evicted_bytes``. A value larger than the budget is
+    returned and not kept; a budget of 0 keeps nothing."""
 
     def __init__(self, max_bytes: int):
         self.max_bytes = max_bytes
         self._d: OrderedDict = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.evicted_bytes = 0
 
     def __contains__(self, key) -> bool:
         with self._lock:
             return key in self._d
 
-    def get_or_put(self, key, factory: Callable[[], ColumnBatch]) -> ColumnBatch:
+    def get(self, key):
         with self._lock:
             hit = self._d.get(key)
             if hit is not None:
                 self._d.move_to_end(key)
+                self.hits += 1
                 return hit[0]
-        batch = factory()
-        nbytes = _batch_nbytes(batch)
+            self.misses += 1
+            return None
+
+    def set(self, key, value, nbytes: int) -> None:
         if nbytes > self.max_bytes:
-            return batch
+            return
         with self._lock:
+            old = self._d.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._d[key] = (value, nbytes)
+            self._bytes += nbytes
+            self._trim()
+
+    def _trim(self) -> None:
+        while self._bytes > self.max_bytes and self._d:
+            _, (_v, nb) = self._d.popitem(last=False)
+            self._bytes -= nb
+            self.evictions += 1
+            self.evicted_bytes += nb
+
+    def resize(self, max_bytes: int) -> None:
+        with self._lock:
+            self.max_bytes = max_bytes
+            self._trim()
+
+    def get_or_put(self, key, factory: Callable[[], tuple]):
+        """The value under ``key``, else ``factory()``'s ``(value, nbytes)``
+        stored; a concurrent builder of the same key may store it first."""
+        with self._lock:
+            hit = self._d.get(key)
+            if hit is not None:
+                self._d.move_to_end(key)
+                self.hits += 1
+                return hit[0]
+        value, nbytes = factory()
+        with self._lock:
+            self.misses += 1
             if key in self._d:  # a concurrent reader stored it first
                 return self._d[key][0]
-            self._d[key] = (batch, nbytes)
-            self._bytes += nbytes
-            while self._bytes > self.max_bytes:
-                _, (_b, nb) = self._d.popitem(last=False)
-                self._bytes -= nb
-        return batch
+        self.set(key, value, nbytes)
+        return value
+
+    def check_consistency(self) -> bool:
+        with self._lock:
+            return (self._bytes == sum(nb for _v, nb in self._d.values())
+                    and self._bytes <= max(self.max_bytes, 0))
+
+
+class IndexChunkCache(BytesBoundedLRU):
+    """Decoded index-file reads, keyed by the files' (path, mtime_ns,
+    inode, size), the requested columns, the row-group selection and the
+    filter, so a rewrite of any file invalidates its entries
+    (``HYPERSPACE_INDEX_CACHE_MB``). Owned by a session."""
+
+
+# the process-wide caches of the JAX package's columnar/io.py: decoded
+# source columns inside index actions, and parquet footer statistics; the
+# session sets their budgets from the knobs (configure_caches)
+_SOURCE_COL_CACHE = BytesBoundedLRU(env.cache_bytes("HYPERSPACE_BUILD_CACHE_MB"))
+_ROWGROUP_STATS_CACHE = BytesBoundedLRU(env.cache_bytes("HYPERSPACE_STATS_CACHE_MB"))
+
+
+def configure_caches() -> None:
+    """Set the process-wide caches' budgets from ``HYPERSPACE_BUILD_CACHE_MB``
+    and ``HYPERSPACE_STATS_CACHE_MB`` (a smaller budget evicts at once)."""
+    _SOURCE_COL_CACHE.resize(env.cache_bytes("HYPERSPACE_BUILD_CACHE_MB"))
+    _ROWGROUP_STATS_CACHE.resize(env.cache_bytes("HYPERSPACE_STATS_CACHE_MB"))
 
 
 def _read_one_table(path: str, cols, row_group_sel=None, arrow_filter=None) -> pa.Table:
     """One file. ``arrow_filter`` (a pyarrow.compute expression) skips row
     groups by their statistics and masks rows; on a row-group selection it
-    masks the selected groups' rows."""
+    masks the selected groups' rows. A ``__hs_nested.a.b`` column that the
+    file holds inside its struct ``a`` reads the struct."""
+    if cols is not None and any(c.startswith(NESTED_FIELD_PREFIX) for c in cols):
+        phys = set(pq.read_schema(path).names)
+        cols = list(dict.fromkeys(
+            c[len(NESTED_FIELD_PREFIX):].split(".", 1)[0]
+            if c not in phys and c.startswith(NESTED_FIELD_PREFIX) else c
+            for c in cols))
     if row_group_sel is not None:
         table = pq.ParquetFile(path).read_row_groups(list(row_group_sel), columns=cols)
         return table if arrow_filter is None else table.filter(arrow_filter)
@@ -225,7 +343,8 @@ _MAINTENANCE_DEPTH = 0
 
 class maintenance_scope:
     """Marks an index action's reads (reentrant; process-wide, as the JAX
-    package's source-read scope is)."""
+    package's ``source_cache_scope`` is): reads of named source columns
+    inside it serve and fill the source-column cache."""
 
     def __enter__(self):
         global _MAINTENANCE_DEPTH
@@ -238,16 +357,82 @@ class maintenance_scope:
         return False
 
 
-def _read_per_file(paths, cols, row_groups) -> ColumnBatch | None:
-    """Maintenance read: each file decoded alone, then concatenated; None
-    when the files' dtypes differ (the arrow concat promotes them)."""
-    with ThreadPoolExecutor(max_workers=min(8, len(paths))) as pool:
-        batches = list(pool.map(
-            lambda p: table_to_batch(_read_one_table(p, cols, row_groups.get(p))), paths))
-    try:
-        return ColumnBatch.concat(batches)
-    except HyperspaceError:
+def _source_cached_read(paths, cols: list[str], arrow_filter=None,
+                        row_groups=None) -> ColumnBatch | None:
+    """A maintenance read through the source-column cache: per (file,
+    column), and for several files also the concatenated column under the
+    whole file set's key; a filter or a row-group selection extends the
+    keys. None for a nested column or an unstattable file (the generic
+    read takes it), and when the files' dtypes differ (the arrow concat
+    promotes them)."""
+    if any(c.startswith(NESTED_FIELD_PREFIX) for c in cols):
         return None
+    try:
+        stats = [(p, os.stat(p)) for p in paths]
+    except OSError:
+        return None
+    filt = repr(arrow_filter) if arrow_filter is not None else None
+
+    def extend(key, p=None):
+        sel = tuple(row_groups[p]) if row_groups and p in row_groups else None
+        return key if filt is None and sel is None else key + (filt, sel)
+
+    fkeys = [(p, st.st_mtime_ns, st.st_ino, st.st_size) for p, st in stats]
+    set_sel = (tuple((p, tuple(row_groups[p])) for p in paths if p in row_groups)
+               if row_groups else None)
+    set_key = None
+    if len(fkeys) > 1:
+        set_key = (tuple(fkeys) if filt is None and set_sel is None
+                   else (tuple(fkeys), filt, set_sel))
+    cache = _SOURCE_COL_CACHE
+    whole: dict[str, Column] = {}
+    todo = list(cols)
+    if set_key is not None:
+        for c in cols:
+            hit = cache.get((set_key, c))
+            if hit is not None:
+                whole[c] = hit
+        todo = [c for c in cols if c not in whole]
+        if not todo:
+            return ColumnBatch({c: whole[c] for c in cols})
+    haves: list[dict[str, Column]] = []
+    missings: list[list[str]] = []
+    for (p, _st), fkey in zip(stats, fkeys):
+        have: dict[str, Column] = {}
+        for c in todo:
+            hit = cache.get(extend((fkey, c), p))
+            if hit is not None:
+                have[c] = hit
+        haves.append(have)
+        missings.append([c for c in todo if c not in have])
+
+    def decode(i: int) -> ColumnBatch | None:
+        p = stats[i][0]
+        if not missings[i]:
+            return None
+        sel = row_groups.get(p) if row_groups else None
+        return table_to_batch(_read_one_table(p, missings[i], sel, arrow_filter))
+
+    per_file: list[ColumnBatch] = []
+    for i, batch in enumerate(_pmap_ordered(decode, range(len(stats)))):
+        p, fkey, have = stats[i][0], fkeys[i], haves[i]
+        for c in missings[i]:
+            col = batch.column(c)
+            cache.set(extend((fkey, c), p), col, _col_nbytes(col))
+            have[c] = col
+        per_file.append(ColumnBatch({c: have[c] for c in todo}))
+    if len(per_file) == 1:
+        merged = per_file[0]
+    else:
+        try:
+            merged = ColumnBatch.concat(per_file)
+        except HyperspaceError:
+            return None
+        if set_key is not None:
+            for c in todo:
+                col = merged.column(c)
+                cache.set((set_key, c), col, _col_nbytes(col))
+    return ColumnBatch({c: whole[c] if c in whole else merged.column(c) for c in cols})
 
 
 def read_parquet(
@@ -269,9 +454,9 @@ def read_parquet(
     the result is the same either way."""
     cols = list(columns) if columns else None
     row_groups = row_groups or {}
-    if (_MAINTENANCE_DEPTH > 0 and cols and cache is None and len(paths) > 1
-            and arrow_filter is None):
-        batch = _read_per_file(paths, cols, row_groups)
+    if (_MAINTENANCE_DEPTH > 0 and cols and cache is None
+            and _SOURCE_COL_CACHE.max_bytes > 0):
+        batch = _source_cached_read(paths, cols, arrow_filter, row_groups)
         if batch is not None:
             return batch
 
@@ -297,7 +482,12 @@ def read_parquet(
 
     if cache is None or cache.max_bytes <= 0:
         return decode()
-    stored = cache.get_or_put(_chunk_cache_key(paths, cols, row_groups, arrow_filter), decode)
+    def decode_for_cache():
+        batch = decode()
+        return ColumnBatch(batch.columns), _batch_nbytes(batch)
+
+    stored = cache.get_or_put(_chunk_cache_key(paths, cols, row_groups, arrow_filter),
+                              decode_for_cache)
     # shallow copy: callers may rebind columns; Column objects are shared
     return ColumnBatch(stored.columns)
 
@@ -490,6 +680,130 @@ def read_parquet_schema(path: str) -> Schema:
     return arrow_schema_to_schema(pq.read_schema(path))
 
 
+# --- the other formats ---------------------------------------------------------
+
+
+def _pmap_ordered(fn, items):
+    """``[fn(x) for x in items]`` on a pool of ``io_threads()`` workers,
+    results in item order; a worker's exception propagates."""
+    items = list(items)
+    width = min(io_threads(), len(items))
+    if width <= 1:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(max_workers=width, thread_name_prefix="hs-read") as pool:
+        return list(pool.map(fn, items))
+
+
+def _read_concat(read_one, paths: Sequence[str], columns) -> ColumnBatch:
+    table = pa.concat_tables(_pmap_ordered(read_one, paths), promote_options="permissive")
+    if columns:
+        table = table.select(list(columns))
+    return table_to_batch(table)
+
+
+def read_csv(paths: Sequence[str], columns: Sequence[str] | None = None) -> ColumnBatch:
+    """CSV files with a header row, types inferred by pyarrow's defaults
+    (an ISO date column reads as date32)."""
+    return _read_concat(pacsv.read_csv, paths, columns)
+
+
+def read_json(paths: Sequence[str], columns: Sequence[str] | None = None) -> ColumnBatch:
+    """Newline-delimited JSON records."""
+    return _read_concat(pajson.read_json, paths, columns)
+
+
+def read_orc(paths: Sequence[str], columns: Sequence[str] | None = None) -> ColumnBatch:
+    from pyarrow import orc as paorc
+
+    return _read_concat(paorc.read_table, paths, columns)
+
+
+def write_orc(batch: ColumnBatch, path: str) -> None:
+    """ORC has no dictionary type: string columns are written plain."""
+    from pyarrow import orc as paorc
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    table = batch_to_table(batch)
+    for i, f in enumerate(table.schema):
+        if pa.types.is_dictionary(f.type):
+            plain = table.column(i).cast(f.type.value_type)
+            table = table.set_column(i, pa.field(f.name, f.type.value_type), plain)
+    paorc.write_table(table, path)
+
+
+def read_text(paths: Sequence[str], columns: Sequence[str] | None = None) -> ColumnBatch:
+    """One string column ``value``, a row per line: the trailing newline
+    dropped, rows split on '\\n' only (a CR before it dropped, other
+    Unicode line breaks kept inside a row); an empty file has no rows."""
+    lines: list[str] = []
+    for p in paths:
+        with open(p, encoding="utf-8", newline="") as f:
+            content = f.read()
+        if content:
+            body = content[:-1] if content.endswith("\n") else content
+            lines.extend(s[:-1] if s.endswith("\r") else s for s in body.split("\n"))
+    table = pa.table({"value": pa.array(lines, type=pa.string())})
+    if columns:
+        table = table.select(list(columns))
+    return table_to_batch(table)
+
+
+def write_text(batch: ColumnBatch, path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        for v in batch.column("value").decode():
+            f.write(f"{v}\n")
+
+
+def read_avro(paths: Sequence[str], columns: Sequence[str] | None = None) -> ColumnBatch:
+    """Avro records through ``fastavro``; raises HyperspaceError when it is
+    not installed. The field names are every file's writer schema's, in
+    order of first appearance, null where a file lacks one."""
+    try:
+        import fastavro
+    except ImportError as e:
+        raise HyperspaceError(
+            "avro support requires the 'fastavro' package, which is not "
+            "installed in this environment"
+        ) from e
+    rows: list[dict] = []
+    names: list[str] = []
+    for p in paths:
+        with open(p, "rb") as f:
+            r = fastavro.reader(f)
+            for fld in (r.writer_schema or {}).get("fields", []):
+                if fld["name"] not in names:
+                    names.append(fld["name"])
+            rows.extend(r)
+    table = pa.table({k: [r.get(k) for r in rows] for k in names})
+    if columns:
+        table = table.select(list(columns))
+    return table_to_batch(table)
+
+
+_READERS = {"csv": read_csv, "json": read_json, "orc": read_orc, "text": read_text,
+            "avro": read_avro}
+
+
+def read_files(fmt: str, paths: Sequence[str],
+               columns: Sequence[str] | None = None) -> ColumnBatch:
+    """``paths`` of format ``fmt`` read into one batch, in order."""
+    if fmt == "parquet":
+        return read_parquet(paths, columns)
+    reader = _READERS.get(fmt)
+    if reader is None:
+        raise HyperspaceError(f"Unsupported format: {fmt}")
+    return reader(paths, columns)
+
+
+def read_schema(fmt: str, path: str) -> Schema:
+    """A file's schema: a parquet footer's, or another format's from a
+    read of the whole file."""
+    if fmt == "parquet":
+        return read_parquet_schema(path)
+    return read_files(fmt, [path]).schema
+
+
 def file_num_rows(path: str) -> int:
     """Row count from file metadata only (no data pages), cached by the
     file's (mtime_ns, inode, size): the pipelined executor counts a scan's
@@ -507,29 +821,46 @@ def _num_rows(path: str, _version: tuple) -> int:
 def read_rowgroup_stats(path: str, columns: Sequence[str]) -> list[dict] | None:
     """Per-row-group footer statistics of ``columns``, with each group's row
     and byte counts: ``[{"num_rows", "nbytes", "cols": {col: (min, max,
-    null_count) or None}}]``. Reads the footer only, and caches it by the
-    file's (mtime_ns, inode, size), so a rewrite invalidates it: point
-    lookups consult the same footers on every query. None when the footer
-    cannot be read (the caller keeps the file); that is not cached."""
+    null_count) or None}}]``. Reads the footer only, and caches it in the
+    footer-statistics cache by the file's (mtime_ns, inode, size) and the
+    columns, so a rewrite invalidates it: point lookups consult the same
+    footers on every query. None when the footer cannot be read (the
+    caller keeps the file); that is not cached."""
     try:
         st = os.stat(path)
-        return _footer_stats(path, (st.st_mtime_ns, st.st_ino, st.st_size),
-                             tuple(sorted(set(columns))))
-    except Exception:
+    except OSError:
+        return None
+    cols = tuple(sorted(columns))
+    key = ((path, st.st_mtime_ns, st.st_ino, st.st_size), cols)
+    try:
+        if _ROWGROUP_STATS_CACHE.max_bytes > 0:
+            return _ROWGROUP_STATS_CACHE.get_or_put(key, lambda: _footer_stats(path, cols))
+        return _footer_stats(path, cols)[0]
+    except _UnreadableFooter:
         return None
 
 
-@functools.lru_cache(maxsize=16384)
-def _footer_stats(path: str, _version: tuple, columns: tuple[str, ...]) -> list[dict]:
-    md = pq.ParquetFile(path).metadata
+class _UnreadableFooter(Exception):
+    """The footer did not parse: the caller keeps the file (never cached)."""
+
+
+def _footer_stats(path: str, columns: tuple[str, ...]) -> tuple[list[dict], int]:
+    """(the statistics, their approximate bytes as the JAX package counts
+    them)."""
+    try:
+        md = pq.ParquetFile(path).metadata
+    except Exception as e:
+        raise _UnreadableFooter from e
+    want = set(columns)
     out = []
+    nbytes = 64
     for g in range(md.num_row_groups):
         rg = md.row_group(g)
         entry: dict = {"num_rows": rg.num_rows, "nbytes": rg.total_byte_size, "cols": {}}
         for j in range(rg.num_columns):
             cmeta = rg.column(j)
             name = cmeta.path_in_schema
-            if name not in columns:
+            if name not in want:
                 continue
             try:
                 stats = cmeta.statistics if cmeta.is_stats_set else None
@@ -540,8 +871,10 @@ def _footer_stats(path: str, _version: tuple, columns: tuple[str, ...]) -> list[
                     entry["cols"][name] = None
             except Exception:  # undecodable statistics count as absent
                 entry["cols"][name] = None
+            nbytes += 96
         out.append(entry)
-    return out
+        nbytes += 64
+    return out, nbytes
 
 
 # --- writers -----------------------------------------------------------------

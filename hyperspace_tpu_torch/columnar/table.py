@@ -267,6 +267,30 @@ class ColumnBatch:
             raise HyperspaceError(f"Ragged columns: {lengths}")
         self._num_rows = lengths.pop() if lengths else 0
 
+    @staticmethod
+    def from_pydict(data: Mapping[str, Sequence[Any]],
+                    schema: Schema | None = None) -> "ColumnBatch":
+        """Columns from Python values; ``schema`` may name a column's type
+        (a date32 column takes days since the epoch or ``datetime.date``;
+        None is NULL)."""
+        import datetime
+
+        cols = {}
+        for name, values in data.items():
+            dtype = schema.field(name).dtype if schema and name in schema else None
+            if dtype == DATE32:
+                epoch = datetime.date(1970, 1, 1)
+                days = [0 if v is None else (v - epoch).days if isinstance(v, datetime.date)
+                        else int(v) for v in values]
+                validity = np.array([v is not None for v in values], dtype=bool)
+                cols[name] = Column(np.asarray(days, dtype=np.int32), DATE32,
+                                    None if validity.all() else validity)
+            elif dtype == STRING:
+                cols[name] = Column.from_values(list(values))
+            else:
+                cols[name] = Column.from_values(values, dtype)
+        return ColumnBatch(cols)
+
     @property
     def num_rows(self) -> int:
         return self._num_rows

@@ -27,6 +27,17 @@ class HyperspaceConf:
         return _as_bool(self._conf.get(C.APPLY_ENABLED, C.APPLY_ENABLED_DEFAULT))
 
     @property
+    def default_source_formats(self) -> tuple[str, ...]:
+        """The formats the default source provider takes."""
+        raw = str(self._conf.get(C.DEFAULT_SOURCE_FORMATS, C.DEFAULT_SOURCE_FORMATS_DEFAULT))
+        return tuple(p.strip().lower() for p in raw.split(",") if p.strip())
+
+    @property
+    def dataskipping_auto_partition_sketch(self) -> bool:
+        return _as_bool(self._conf.get(C.DATASKIPPING_AUTO_PARTITION_SKETCH,
+                                       C.DATASKIPPING_AUTO_PARTITION_SKETCH_DEFAULT))
+
+    @property
     def num_buckets(self) -> int:
         v = self._conf.get(C.INDEX_NUM_BUCKETS)
         if v is None:

@@ -64,6 +64,23 @@ INDEX_COMPRESSION_DEFAULT = "lz4"
 BUILD_MAX_BYTES_IN_MEMORY = "hyperspace.tpu.build.maxBytesInMemory"
 BUILD_MAX_BYTES_IN_MEMORY_DEFAULT = 2 * 1024 * 1024 * 1024  # 2 GB
 
+# data skipping: a PartitionSketch per partition column of a partitioned
+# source, added to a data-skipping index's sketches
+DATASKIPPING_AUTO_PARTITION_SKETCH = "hyperspace.index.dataskipping.autoPartitionSketch"
+DATASKIPPING_AUTO_PARTITION_SKETCH_DEFAULT = True
+
+# sources: the provider classes (dotted names), the default provider's
+# formats, the reader's declared glob pattern and the scan option that
+# records a relation's glob scope
+FILE_BASED_SOURCE_BUILDERS = "hyperspace.index.sources.fileBasedBuilders"
+DEFAULT_SOURCE_FORMATS = "hyperspace.index.sources.defaultFileBasedSource.supportedFileFormats"
+DEFAULT_SOURCE_FORMATS_DEFAULT = "avro,csv,json,orc,parquet,text"
+GLOBBING_PATTERN_KEY = "hyperspace.source.globbingPattern"
+OPT_GLOB_PATHS = "globPaths"
+
+# a struct column's leaf reads as a flat column of this prefix and its path
+NESTED_FIELD_PREFIX = "__hs_nested."
+
 # log id offsets of the two-phase action protocol
 LOG_ID_TRANSIENT_OFFSET = 1
 LOG_ID_FINAL_OFFSET = 2

@@ -92,11 +92,14 @@ def index_write_opts(session, clustered_columns) -> dict:
 
 
 def resolve_columns(schema: Schema, names: Sequence[str]) -> list[str]:
-    """Case-insensitive column resolution."""
+    """Case-insensitive column resolution; a dotted path resolves to its
+    flattened nested column (``__hs_nested.a.b``)."""
     by_lower = {f.name.lower(): f.name for f in schema}
     out = []
     for n in names:
         r = by_lower.get(n.lower())
+        if r is None:
+            r = by_lower.get((C.NESTED_FIELD_PREFIX + n).lower())
         if r is None:
             raise HyperspaceError(
                 f"Column {n!r} could not be resolved; available: {schema.names}"
@@ -318,10 +321,12 @@ def _lineage_fast_path(ctx: IndexerContext, df: "DataFrame", scan: FileScan,
                        cols: list[str]) -> Optional[ColumnBatch]:
     """Lineage from one multi-file read and each file's row count (from
     its footer), for a plan that is only projections over the scan, whose
-    rows therefore arrive in file order; None for another plan."""
+    rows therefore arrive in file order; None for another plan, for a
+    partitioned scan (it reads by partition) and for a source with no
+    parquet footers."""
     from ..plan.dataframe import DataFrame as DF
 
-    if scan.pushed_filter is not None:
+    if scan.fmt != "parquet" or scan.partition_columns or scan.pushed_filter is not None:
         return None
     if not all(isinstance(n, (FileScan, Project)) for n in df.plan.preorder()):
         return None

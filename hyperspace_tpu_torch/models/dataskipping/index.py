@@ -185,9 +185,11 @@ def _translate(pred: Expr, sketches: Sequence[Sketch]) -> Optional[SketchPredica
 
 class DataSkippingIndexConfig(IndexConfig):
     """A name and its sketches; two sketches of one kind on one column are
-    refused. The JAX package adds a PartitionSketch per partition column
-    of a partitioned source; the port reads no partitioned sources, so its
-    scans have no partition column to add one for."""
+    refused. Over a partitioned source, a PartitionSketch is added for each
+    partition column that has none, when
+    ``hyperspace.index.dataskipping.autoPartitionSketch`` is on (the
+    default): a disjunction over partition and data columns still skips
+    files, which partition pruning alone cannot."""
 
     def __init__(self, index_name: str, sketches: Sequence[Sketch]):
         if not index_name:
@@ -212,8 +214,15 @@ class DataSkippingIndexConfig(IndexConfig):
 
     def create_index(self, ctx: IndexerContext, df: "DataFrame", properties: dict[str, str]
                      ) -> tuple[DataSkippingIndex, ColumnBatch]:
-        from ..covering import resolve_columns
+        from ..covering import _single_file_scan, resolve_columns
+        from .sketches import PartitionSketch
 
         resolve_columns(df.schema, self.referenced_columns())
-        index = DataSkippingIndex(self.sketches, properties)
-        return index, DataSkippingIndex.build_sketch_table(ctx, df, self.sketches)
+        sketches = list(self.sketches)
+        if ctx.session.conf.dataskipping_auto_partition_sketch:
+            have = {(s.kind, s.expr.lower()) for s in sketches}
+            for pcol in _single_file_scan(df).partition_columns:
+                if (PartitionSketch.kind, pcol.lower()) not in have:
+                    sketches.append(PartitionSketch(pcol))
+        index = DataSkippingIndex(sketches, properties)
+        return index, DataSkippingIndex.build_sketch_table(ctx, df, sketches)

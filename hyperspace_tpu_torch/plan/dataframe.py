@@ -4,21 +4,53 @@ Every DataFrame op builds logical nodes lazily; collect() runs filter
 pushdown through joins and column pruning, the session's extra
 optimizations (the Hyperspace rewrite when enabled), predicate pushdown
 into scans, column pruning again and index pruning, then hands the plan to
-the executor.
+the executor. ``session.read`` builds the leaf: a FileScan over the files
+of parquet, CSV, JSON, ORC, text or avro roots, with glob roots expanded,
+a declared ``globbingPattern`` checked and recorded, and hive-style
+``key=value`` directories as partition columns. A dotted column name
+binds to a struct's flattened leaf (``__hs_nested.a.b``).
 """
 
 from __future__ import annotations
 
+import fnmatch
+import glob as _glob
 import os
 from typing import Sequence
 
-from .expr import Expr, Lit, col
-from .nodes import Aggregate, FileScan, Filter, Join, Limit, LogicalPlan, Project, Sort
+from .expr import Alias, Col, Expr, Lit, col, map_cols
+from .nodes import (
+    Aggregate,
+    FileScan,
+    Filter,
+    Join,
+    Limit,
+    LogicalPlan,
+    Project,
+    Sort,
+    Union,
+)
 from .executor import execute_plan
+from .. import constants as C
 from ..columnar import io as cio
 from ..columnar.table import ColumnBatch, Schema
 from ..exceptions import HyperspaceError
-from ..meta.entry import FileInfo
+
+
+def _glob_segments_match(path: str, pattern: str) -> bool:
+    """fnmatch per path component: ``*`` never crosses a separator."""
+    p_segs, g_segs = path.split(os.sep), pattern.split(os.sep)
+    return len(p_segs) == len(g_segs) and all(
+        fnmatch.fnmatch(p, g) for p, g in zip(p_segs, g_segs))
+
+
+def _first_unmatched(paths: list[str], patterns: list[str]) -> str | None:
+    """The first path no pattern covers; None when all are covered."""
+    for p in paths:
+        if not any(_glob_segments_match(os.path.abspath(p), os.path.abspath(g))
+                   for g in patterns):
+            return p
+    return None
 
 
 def _to_expr(c) -> Expr:
@@ -29,42 +61,96 @@ def _to_expr(c) -> Expr:
     return Lit(c)
 
 
+def resolve_nested_refs(e: Expr, schema: Schema, alias_bare: bool = False) -> Expr:
+    """A dotted ``col("a.b.c")`` bound to the schema's flattened
+    ``__hs_nested.a.b.c`` when the schema has it (case-insensitively); with
+    ``alias_bare``, a bare column so rewritten keeps the user's name."""
+    names = set(schema.names)
+    if not any(n.startswith(C.NESTED_FIELD_PREFIX) for n in names):
+        return e
+    lower = {n.lower(): n for n in names}
+
+    def fix(c: Col) -> Col:
+        if c.name in names:
+            return c
+        cand = lower.get((C.NESTED_FIELD_PREFIX + c.name).lower())
+        return Col(cand) if cand is not None else c
+
+    out = map_cols(e, fix)
+    if alias_bare and isinstance(e, Col) and isinstance(out, Col) and out.name != e.name:
+        return Alias(out, e.name)
+    return out
+
+
 class DataFrame:
     def __init__(self, session, plan: LogicalPlan):
         self.session = session
         self.plan = plan
 
+    def _r(self, e: Expr, alias_bare: bool = False) -> Expr:
+        return resolve_nested_refs(e, self.plan.schema, alias_bare)
+
     def filter(self, condition: Expr) -> "DataFrame":
-        return DataFrame(self.session, Filter(condition, self.plan))
+        return DataFrame(self.session, Filter(self._r(condition), self.plan))
 
     where = filter
 
     def select(self, *cols) -> "DataFrame":
-        return DataFrame(self.session, Project([_to_expr(c) for c in cols], self.plan))
+        exprs = [self._r(_to_expr(c), alias_bare=True) for c in cols]
+        return DataFrame(self.session, Project(exprs, self.plan))
+
+    def with_column(self, name: str, e: Expr) -> "DataFrame":
+        """Every other column, then ``e`` as ``name`` (last)."""
+        exprs: list[Expr] = [col(n) for n in self.schema.names if n != name]
+        exprs.append(_to_expr(e).alias(name))
+        return DataFrame(self.session, Project(exprs, self.plan))
+
+    def with_column_renamed(self, old: str, new: str) -> "DataFrame":
+        exprs = [col(n).alias(new) if n == old else col(n) for n in self.schema.names]
+        return DataFrame(self.session, Project(exprs, self.plan))
 
     def join(self, other: "DataFrame", condition: Expr, how: str = "inner") -> "DataFrame":
-        return DataFrame(self.session, Join(self.plan, other.plan, condition, how))
+        both = Schema(list(self.plan.schema) + list(other.plan.schema))
+        return DataFrame(self.session, Join(self.plan, other.plan,
+                                            resolve_nested_refs(condition, both), how))
 
     def group_by(self, *cols) -> "GroupedData":
-        return GroupedData(self, [_to_expr(c) for c in cols])
+        # keys stay bare Cols (the device paths match on Col); a nested key
+        # comes out under its full __hs_nested. name
+        return GroupedData(self, [self._r(_to_expr(c)) for c in cols])
+
+    groupBy = group_by
 
     def agg(self, *aggs: Expr) -> "DataFrame":
-        return DataFrame(self.session, Aggregate([], list(aggs), self.plan))
+        return DataFrame(self.session, Aggregate([], [self._r(a) for a in aggs], self.plan))
 
     def sort(self, *cols, ascending: bool | Sequence[bool] = True) -> "DataFrame":
-        exprs = [_to_expr(c) for c in cols]
+        exprs = [self._r(_to_expr(c)) for c in cols]
         if isinstance(ascending, bool):
             orders = [(e, ascending) for e in exprs]
         else:
             orders = list(zip(exprs, ascending))
         return DataFrame(self.session, Sort(orders, self.plan))
 
+    order_by = sort
+
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, Limit(n, self.plan))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self.session, Union([self.plan, other.plan]))
 
     @property
     def schema(self) -> Schema:
         return self.plan.schema
+
+    @property
+    def columns(self) -> list[str]:
+        return self.schema.names
+
+    def __getitem__(self, name: str) -> Col:
+        self.schema.field(name)  # raises on an unknown column
+        return col(name)
 
     def optimized_plan(self) -> LogicalPlan:
         from .passes import pre_rewrite_plan, prune_columns, push_predicates
@@ -83,6 +169,17 @@ class DataFrame:
     def to_pydict(self) -> dict[str, list]:
         return self.collect().to_pydict()
 
+    def to_pandas(self):
+        import pandas as pd
+
+        return pd.DataFrame(self.to_pydict())
+
+    def count(self) -> int:
+        return self.collect().num_rows
+
+    def write_parquet(self, path: str, filename: str = "part-0.parquet") -> None:
+        cio.write_parquet(self.collect(), os.path.join(path, filename))
+
 
 class GroupedData:
     def __init__(self, df: DataFrame, group_exprs: list[Expr]):
@@ -90,58 +187,90 @@ class GroupedData:
         self._group_exprs = group_exprs
 
     def agg(self, *aggs: Expr) -> DataFrame:
-        return DataFrame(
-            self._df.session, Aggregate(self._group_exprs, list(aggs), self._df.plan)
-        )
-
-
-def _data_files(root: str) -> list[FileInfo]:
-    """The data files under a directory, hidden and metadata dirs and files
-    (``_*``, ``.*``, e.g. _hyperspace_log) skipped."""
-    files: list[FileInfo] = []
-    for dirpath, _dirs, names in os.walk(root):
-        parts = os.path.relpath(dirpath, root).split(os.sep)
-        if any(p.startswith(("_", ".")) for p in parts if p != "."):
-            continue
-        for fn in sorted(names):
-            if not fn.startswith(("_", ".")):
-                files.append(FileInfo.from_path(os.path.join(dirpath, fn)))
-    return files
-
-
-def relist_files(root_paths: Sequence[str]) -> list[FileInfo]:
-    """A fresh listing of a recorded relation's roots (refresh and the
-    hybrid-scan delta read the source as it is now)."""
-    files: list[FileInfo] = []
-    for root in root_paths:
-        if os.path.isfile(root):
-            files.append(FileInfo.from_path(root))
-        elif os.path.isdir(root):
-            files.extend(_data_files(root))
-        else:
-            raise HyperspaceError(f"Source path disappeared: {root}")
-    return files
+        return DataFrame(self._df.session, Aggregate(
+            self._group_exprs, [self._df._r(a) for a in aggs], self._df.plan))
 
 
 class DataFrameReader:
-    """session.read.parquet(path) -> a FileScan over the resolved files."""
+    """``session.read``: options, then ``parquet``, ``csv``, ``json``,
+    ``orc``, ``text`` or ``format(f).load`` of a path or paths; each builds
+    a FileScan over the resolved files."""
 
     def __init__(self, session):
         self.session = session
+        self._options: dict[str, str] = {}
 
-    def parquet(self, path: str | Sequence[str]) -> DataFrame:
+    def option(self, key: str, value) -> "DataFrameReader":
+        self._options[key] = str(value)
+        return self
+
+    def _load(self, fmt: str, path: str | Sequence[str]) -> DataFrame:
+        from ..sources.interfaces import encode_glob_paths, expand_glob_roots, relist_files
+        from ..utils.partitions import infer_partition_fields
+
         roots = [path] if isinstance(path, str) else list(path)
-        files: list[FileInfo] = []
+        had_glob = any(_glob.has_magic(r) for r in roots)
+        expanded = expand_glob_roots(roots)
+        declared = (self._options.get(C.GLOBBING_PATTERN_KEY)
+                    or self._options.get("globbingPattern"))
+        if declared:
+            # the whole string first (a path may hold a comma), then the
+            # comma-separated patterns
+            whole = [str(declared)]
+            parts = [p.strip() for p in str(declared).split(",") if p.strip()]
+            patterns = whole if _first_unmatched(expanded, whole) is None else parts
+            bad = _first_unmatched(expanded, patterns)
+            if bad is not None:
+                raise HyperspaceError(
+                    f"Path {bad!r} does not match the declared globbing pattern {declared!r}")
+            # the declared pattern is the relation's scope: refresh expands it
+            self._options[C.OPT_GLOB_PATHS] = encode_glob_paths(patterns)
+        elif had_glob:
+            self._options[C.OPT_GLOB_PATHS] = encode_glob_paths(roots)
+        else:
+            # a reused reader never inherits an earlier load's scope
+            self._options.pop(C.OPT_GLOB_PATHS, None)
+        roots = [os.path.abspath(r) for r in expanded]
         for root in roots:
-            root = os.path.abspath(root)
-            if os.path.isfile(root):
-                files.append(FileInfo.from_path(root))
-            elif os.path.isdir(root):
-                files.extend(_data_files(root))
-            else:
+            if not (os.path.isfile(root) or os.path.isdir(root)):
                 raise HyperspaceError(f"Path not found: {root}")
+        files = relist_files(roots)
         if not files:
             raise HyperspaceError(f"No data files under {roots}")
-        schema = cio.read_parquet_schema(files[0].name)
-        scan = FileScan([os.path.abspath(r) for r in roots], "parquet", schema, files)
+        schema = cio.read_schema(fmt, files[0].name)
+        part_fields = [f for f in infer_partition_fields([fi.name for fi in files], roots)
+                       if f.name not in schema]
+        if part_fields:
+            schema = Schema(list(schema.fields) + part_fields)
+        scan = FileScan(roots, fmt, schema, files, options=self._options,
+                        partition_columns=[f.name for f in part_fields])
         return DataFrame(self.session, scan)
+
+    def parquet(self, path) -> DataFrame:
+        return self._load("parquet", path)
+
+    def csv(self, path) -> DataFrame:
+        return self._load("csv", path)
+
+    def json(self, path) -> DataFrame:
+        return self._load("json", path)
+
+    def orc(self, path) -> DataFrame:
+        return self._load("orc", path)
+
+    def text(self, path) -> DataFrame:
+        return self._load("text", path)
+
+    def format(self, fmt: str) -> "_FormatReader":
+        return _FormatReader(self, fmt)
+
+
+class _FormatReader:
+    """``session.read.format(fmt)``; ``load(path)`` reads it."""
+
+    def __init__(self, reader: DataFrameReader, fmt: str):
+        self._reader = reader
+        self._fmt = fmt
+
+    def load(self, path) -> DataFrame:
+        return self._reader._load(self._fmt, path)

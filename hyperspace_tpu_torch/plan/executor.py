@@ -124,12 +124,15 @@ def resolve_scan_pruning(scan: FileScan):
 def scan_streamable(scan: FileScan) -> bool:
     """True when the scan can run as an ordered stream of file-group chunks
     whose concatenation is the monolithic read: parquet, at least two files
-    to overlap, no pushed filter, no lineage filter (it makes new buffers
-    per read), not in pruning's verify mode (the comparison with the full
-    read runs in ``_exec_file_scan``), and some column to read."""
+    to overlap, no partition column to attach, no pushed filter, no lineage
+    filter (it makes new buffers per read), not in pruning's verify mode
+    (the comparison with the full read runs in ``_exec_file_scan``), and
+    some column to read."""
     if scan.fmt != "parquet" or len(scan.files) < 2:
         return False
     if scan.pushed_filter is not None or scan.lineage_filter_ids is not None:
+        return False
+    if any(c in scan.full_schema for c in scan.partition_columns):
         return False
     if scan.prune_spec is not None:
         from . import pruning
@@ -171,22 +174,53 @@ def _maybe_verify_pruning(scan: FileScan, out: ColumnBatch, session) -> ColumnBa
     return out
 
 
+def _constant_column(dtype: str, value: str, n: int) -> Column:
+    """A partition value as a column of ``n`` rows."""
+    if dtype == STRING:
+        return Column(np.zeros(n, dtype=np.int32), STRING, None, [value])
+    return Column(np.full(n, int(value), dtype=np.int64).astype(np.dtype(dtype)), dtype)
+
+
+def _partition_conjuncts(scan: FileScan, part_names: list[str]) -> list[Expr]:
+    """The pushed filter's conjuncts on partition columns alone: each
+    decides a file group before any read."""
+    if scan.pushed_filter is None:
+        return []
+    part_set = set(part_names)
+    return [c for c in split_conjunction(scan.pushed_filter)
+            if c.references() and c.references() <= part_set]
+
+
 def _exec_file_scan(scan: FileScan, session=None) -> ColumnBatch:
     """Read the scan's columns: only the files and row groups its pruning
     keeps. Index files, and source files a data-skipping index pruned, go
     through the session's chunk cache (stable buffers for the device-
     resident column cache); other source scans never cache. A read of
-    source files applies the pushed filter as the parquet reader's filter
-    (passes.to_arrow_filter), which skips row groups by their statistics;
-    the Filter above the scan still applies the whole condition. A covering
-    index's read stays unfiltered, so its cached buffers are the same for
-    every predicate (its PruneSpec prunes it). A lineage filter drops the
-    rows of deleted source files, which makes new buffers on every read,
-    as in the reference."""
+    source parquet files applies the pushed filter as the parquet reader's
+    filter (passes.to_arrow_filter), which skips row groups by their
+    statistics; the Filter above the scan still applies the whole
+    condition. A covering index's read stays unfiltered, so its cached
+    buffers are the same for every predicate (its PruneSpec prunes it). A
+    lineage filter drops the rows of deleted source files, which makes new
+    buffers on every read, as in the reference.
+
+    A partitioned scan reads its files by partition, skips a partition the
+    pushed filter's partition-only conjuncts rule out before any read, and
+    attaches each partition's values as constant columns; when only
+    partition columns are wanted, parquet footers give the row counts.
+    Formats other than parquet read through ``columnar/io.read_files``."""
+    from ..utils.partitions import partition_key
+
     want = list(scan.required_columns or scan.full_schema.names)
-    if scan.fmt != "parquet":
-        raise HyperspaceError(f"Unsupported format: {scan.fmt}")
-    row_groups, files = resolve_scan_pruning(scan)
+    part_names = [c for c in scan.partition_columns if c in scan.full_schema]
+    read_cols = [c for c in want if c not in part_names]
+    lineage = scan.lineage_filter_ids is not None
+    if lineage and C.DATA_FILE_NAME_ID not in read_cols:
+        read_cols.append(C.DATA_FILE_NAME_ID)
+    if part_names or not read_cols:
+        row_groups, files = None, list(scan.files)
+    else:
+        row_groups, files = resolve_scan_pruning(scan)
     if not files:
         return _maybe_verify_pruning(scan, _empty_scan_batch(scan, want), session)
     cache = (
@@ -195,20 +229,50 @@ def _exec_file_scan(scan: FileScan, session=None) -> ColumnBatch:
         else None
     )
     arrow_filter = None
-    if scan.pushed_filter is not None and (
+    if scan.pushed_filter is not None and scan.fmt == "parquet" and (
             scan.index_info is None or scan.index_info.index_kind_abbr == "DS"):
         from .passes import to_arrow_filter
 
-        arrow_filter = to_arrow_filter(scan.pushed_filter, scan.full_schema)
-    read_cols = list(want)
-    lineage = scan.lineage_filter_ids is not None
-    if lineage and C.DATA_FILE_NAME_ID not in read_cols:
-        read_cols.append(C.DATA_FILE_NAME_ID)
-    out = cio.read_parquet([f.name for f in files], read_cols, cache, row_groups,
-                           arrow_filter)
+        physical = scan.full_schema.select(
+            [n for n in scan.full_schema.names if n not in part_names])
+        arrow_filter = to_arrow_filter(scan.pushed_filter, physical)
+
+    def read(paths: list[str]) -> ColumnBatch:
+        if scan.fmt != "parquet":
+            return cio.read_files(scan.fmt, paths, read_cols)
+        if not read_cols and arrow_filter is None:
+            n = sum(cio.file_num_rows(p) for p in paths)
+            return ColumnBatch({"__rows__": Column(np.zeros(n, np.int8), "int8")})
+        return cio.read_parquet(paths, read_cols, cache, row_groups, arrow_filter)
+
+    if not part_names:
+        out = read([f.name for f in files])
+    else:
+        groups: dict[tuple, list[str]] = {}
+        for f in files:
+            groups.setdefault(partition_key(f.name, part_names, scan.root_paths),
+                              []).append(f.name)
+        prunable = _partition_conjuncts(scan, part_names)
+        dtypes = {c: scan.full_schema.field(c).dtype for c in part_names}
+        parts = []
+        for key, paths in groups.items():
+            values = ColumnBatch({c: _constant_column(dtypes[c], v, 1)
+                                  for c, v in zip(part_names, key)})
+            if any(not bool(p.eval(values).data[0]) for p in prunable):
+                continue
+            b = read(paths)
+            for c, v in zip(part_names, key):
+                if c in want:
+                    b = b.with_column(c, _constant_column(dtypes[c], v, b.num_rows))
+            parts.append(b)
+        if not parts:
+            return _empty_scan_batch(scan, want)
+        out = ColumnBatch.concat([p.select(parts[0].schema.names) for p in parts])
     if lineage:
         ids = np.asarray(scan.lineage_filter_ids, dtype=np.int64)
-        out = out.filter(~np.isin(out.column(C.DATA_FILE_NAME_ID).data, ids)).select(want)
+        out = out.filter(~np.isin(out.column(C.DATA_FILE_NAME_ID).data, ids))
+    if out.schema.names != want:
+        out = out.select(want)
     return _maybe_verify_pruning(scan, out, session)
 
 

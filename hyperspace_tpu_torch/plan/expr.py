@@ -425,6 +425,23 @@ class Avg(AggExpr):
 # public helpers
 # ---------------------------------------------------------------------------
 
+def map_cols(e: Expr, fn) -> Expr:
+    """``e`` rebuilt with ``fn`` applied to every Col leaf."""
+    if isinstance(e, Col):
+        return fn(e)
+    if isinstance(e, Lit):
+        return e
+    if isinstance(e, Alias):
+        return Alias(map_cols(e.child, fn), e.name)
+    if isinstance(e, In):
+        return In(map_cols(e.child, fn), e.values)
+    if isinstance(e, (Not, IsNull, IsNotNull, AggExpr)):
+        return type(e)(map_cols(e.child, fn))
+    if isinstance(e, _Binary):
+        return type(e)(map_cols(e.left, fn), map_cols(e.right, fn))
+    return e
+
+
 def col(name: str) -> Col:
     return Col(name)
 

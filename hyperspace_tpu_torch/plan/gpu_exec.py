@@ -842,7 +842,8 @@ def _run_global(frag, plan, session, device, dev_cols, mask) -> ColumnBatch:
         else ()
     )
     agg_list, names = _agg_list_names(frag)
-    key = fused_fingerprint(kernel_route(device), pred_expr, proj_exprs, agg_list, dev_cols)
+    key = fused_fingerprint(kernel_route(device), frag.scan, pred_expr, proj_exprs, agg_list,
+                          dev_cols)
     kernel = session.kernel_cache.get_or_build(
         key, lambda: _build_kernel(pred_expr, proj_exprs, agg_list)
     )
@@ -1080,7 +1081,7 @@ def _run_grouped(frag, plan, session, device, dev_cols, gids_d, mask, key_cols, 
     proj_exprs = tuple((X.expr_output_name(e), e) for e in _device_projections(frag))
     agg_list, names = _agg_list_names(frag)
     key = grouped_fingerprint(
-        kernel_route(device), seg_pad, pred_expr, proj_exprs, agg_list, dev_cols
+        kernel_route(device), frag.scan, seg_pad, pred_expr, proj_exprs, agg_list, dev_cols
     )
     kernel = session.kernel_cache.get_or_build(
         key, lambda: _build_grouped_kernel(pred_expr, proj_exprs, agg_list, seg_pad)
@@ -1356,7 +1357,8 @@ def _stream_global_partial(frag, plan, chunks, overlap, session, device,
         dev_cols = _upload_columns(batch, device_refs & set(batch.columns), padded, session,
                                    device, timer=timer)
         mask = _padded_mask(padded, n, device)
-        key = fused_fingerprint(kernel_route(device), pred, proj_exprs, agg_list, dev_cols)
+        key = fused_fingerprint(kernel_route(device), frag.scan, pred, proj_exprs, agg_list,
+                                dev_cols)
         kernel = session.kernel_cache.get_or_build(
             key, lambda: _build_kernel(pred, proj_exprs, agg_list)
         )
@@ -1509,8 +1511,8 @@ def _stream_grouped_partial(frag, plan, chunks, overlap, session, device,
         gids_d = _group_ids_to_device(session, device, bufs, cacheable, gids_l, n, padded,
                                       seg_pad, "gids", timer)
         mask = _padded_mask(padded, n, device)
-        key = grouped_fingerprint(kernel_route(device), seg_pad, pred, proj_exprs, agg_list,
-                                  dev_cols)
+        key = grouped_fingerprint(kernel_route(device), frag.scan, seg_pad, pred, proj_exprs,
+                                  agg_list, dev_cols)
         kernel = session.kernel_cache.get_or_build(
             key, lambda: _build_grouped_kernel(pred, proj_exprs, agg_list, seg_pad)
         )

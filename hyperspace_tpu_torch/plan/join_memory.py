@@ -29,7 +29,8 @@ before it dispatches. A reservation that does not fit PARKS the wave
 instead of declining the join to the host: the scheduler spills its own
 oldest in-flight waves (fetching their results to the host releases their
 reservations) until the wave fits; when nothing of its own is left, it
-waits a bounded time (``_PARK_WAIT_MS``) for other joins' releases and
+waits a bounded time (``HYPERSPACE_PARK_WAIT_MS``, read when the wave
+parks) for other joins' releases and
 then takes the zero-holder grant. Spilling changes when a wave's results
 come back, never what they are.
 
@@ -64,7 +65,16 @@ _SPLIT_ROWS_CEIL = 1 << 22
 _BROADCAST_ROWS_DEFAULT = 4096  # HYPERSPACE_JOIN_BROADCAST_ROWS
 
 _PARK_POLL_S = 0.02  # release-condition wait quantum
-_PARK_WAIT_MS = 50.0  # bounded wait for other joins' releases, then grant
+
+
+def park_wait_ms() -> float:
+    """``HYPERSPACE_PARK_WAIT_MS``: how long a parked wave waits for other
+    joins' releases before its zero-holder grant (50; an unparseable value
+    means the default)."""
+    try:
+        return env.env_float("HYPERSPACE_PARK_WAIT_MS")
+    except ValueError:
+        return env.DEFAULTS["HYPERSPACE_PARK_WAIT_MS"]
 
 
 def grant_bytes() -> int:
@@ -263,7 +273,7 @@ class DeviceLedger:
             if spill_one():
                 continue  # freed some of our own bytes: retry
             if deadline is None:
-                deadline = time.perf_counter() + _PARK_WAIT_MS / 1000.0
+                deadline = time.perf_counter() + park_wait_ms() / 1000.0
             if time.perf_counter() >= deadline and stream.try_reserve(nbytes):
                 return  # zero-holder grant past the limit
             acct.wait_for_release(_PARK_POLL_S)

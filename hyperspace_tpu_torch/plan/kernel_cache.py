@@ -4,9 +4,9 @@ A device-tier "kernel" is the closure that runs one fragment's body over
 device columns: the filter, projections and aggregates, routed through the
 hand-written CUDA kernels where the fragment's shape allows. It is keyed by
 a canonical fingerprint of the fragment (route, expressions, device dtypes,
-shape constants), so a repeated query template reuses its closure. The
-route ("cuda" or "plain") is part of the key, because it is decided when
-the closure is built.
+shape constants) and of the scan it reads (``scan_structure``), so a
+repeated query template reuses its closure. The route ("cuda" or "plain")
+is part of the key, because it is decided when the closure is built.
 """
 
 from __future__ import annotations
@@ -45,10 +45,45 @@ class KernelCache:
         return kernel
 
 
-def fused_fingerprint(route: str, pred_expr, proj_exprs, agg_list, dev_cols: dict) -> tuple:
-    """Global filter-aggregate kernel."""
+def scan_structure(n) -> tuple:
+    """A FileScan's identity, its file list left out: format, columns,
+    schema, pushed filter, lineage ids, index and bucket layout, options,
+    partition columns and the derived pruning. A raw scan's roots are part
+    of it (partition values derive from them); an index scan's root, the
+    common path of its files, is not."""
+    ps = n.prune_spec
+    prune = None
+    if ps is not None:
+        prune = (
+            ps.index_name, ps.num_buckets, tuple(ps.key_columns), tuple(ps.sort_columns),
+            tuple(sorted(ps.bucket_keep)) if ps.bucket_keep is not None else None,
+            tuple(repr(c) for c in ps.rowgroup_conjuncts),
+            tuple(repr(c) for c in ps.sketch_conjuncts),
+            repr(ps.pred),
+        )
+    return (
+        "FileScan",
+        n.fmt,
+        None if n.index_info is not None else tuple(n.root_paths),
+        tuple(n.required_columns or ()),
+        tuple((f.name, f.dtype) for f in n.full_schema),
+        repr(n.pushed_filter),
+        tuple(n.lineage_filter_ids or ()),
+        (n.index_info.index_name, n.index_info.index_kind_abbr) if n.index_info else None,
+        (n.bucket_spec.num_buckets, n.bucket_spec.bucket_columns, n.bucket_spec.sort_columns)
+        if n.bucket_spec else None,
+        tuple(n.partition_columns),
+        tuple(sorted(n.options.items())),
+        prune,
+    )
+
+
+def fused_fingerprint(route: str, scan, pred_expr, proj_exprs, agg_list,
+                      dev_cols: dict) -> tuple:
+    """Global filter-aggregate kernel over ``scan``."""
     return (
         route,
+        scan_structure(scan),
         repr(pred_expr),
         tuple((n, repr(e)) for n, e in proj_exprs),
         tuple((k, repr(c)) for k, c in agg_list),
@@ -56,12 +91,13 @@ def fused_fingerprint(route: str, pred_expr, proj_exprs, agg_list, dev_cols: dic
     )
 
 
-def grouped_fingerprint(route: str, seg_pad: int, pred_expr, proj_exprs, agg_list,
+def grouped_fingerprint(route: str, scan, seg_pad: int, pred_expr, proj_exprs, agg_list,
                         dev_cols: dict) -> tuple:
-    """Grouped kernel (seg_pad is baked into the body)."""
+    """Grouped kernel over ``scan`` (seg_pad is baked into the body)."""
     return (
         "grouped",
         route,
+        scan_structure(scan),
         seg_pad,
         repr(pred_expr),
         tuple((nm, repr(e)) for nm, e in proj_exprs),

@@ -112,7 +112,10 @@ class FileScan(LogicalPlan):
     contract of a bucketed index scan (plan/pruning.PruneSpec), from which
     the pushed filter derives the buckets and row groups to read.
     ``lineage_filter_ids`` are the ids of deleted source files whose rows
-    the scan drops by the index's lineage column (hybrid scan)."""
+    the scan drops by the index's lineage column (hybrid scan).
+    ``partition_columns`` are hive-style columns derived from ``key=value``
+    directories; ``full_schema`` holds them after the files' own columns,
+    and no file stores them."""
 
     def __init__(
         self,
@@ -126,6 +129,7 @@ class FileScan(LogicalPlan):
         lineage_filter_ids: Optional[Sequence[int]] = None,
         required_columns: Optional[Sequence[str]] = None,
         pushed_filter: Optional[Expr] = None,
+        partition_columns: Optional[Sequence[str]] = None,
         prune_spec=None,
     ):
         super().__init__([])
@@ -141,6 +145,7 @@ class FileScan(LogicalPlan):
         )
         self.required_columns = list(required_columns) if required_columns else None
         self.pushed_filter = pushed_filter
+        self.partition_columns = list(partition_columns or [])
         self.prune_spec = prune_spec
 
     def with_new_children(self, children):
@@ -160,6 +165,7 @@ class FileScan(LogicalPlan):
             lineage_filter_ids=self.lineage_filter_ids,
             required_columns=self.required_columns,
             pushed_filter=self.pushed_filter,
+            partition_columns=self.partition_columns,
             prune_spec=self.prune_spec,
         )
         args.update(kw)

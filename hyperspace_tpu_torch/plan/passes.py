@@ -165,6 +165,12 @@ def _literal_for(col_name: str, value, schema: Schema):
 def _leaf_to_arrow(e: Expr, schema: Schema):
     import pyarrow.compute as pc
 
+    from ..constants import NESTED_FIELD_PREFIX
+
+    # a flattened nested column lives inside a struct in source files: its
+    # dotted name is no arrow field there, so it is never pushed
+    if any(r.startswith(NESTED_FIELD_PREFIX) for r in e.references()):
+        return None
     if type(e) in _ARROW_CMP:
         for a, b, kind in ((e.left, e.right, type(e)), (e.right, e.left, _ARROW_FLIP[type(e)])):
             if isinstance(a, X.Col) and isinstance(b, X.Lit):

@@ -26,9 +26,10 @@ columns. Pruning cashes it in, in two stages:
 Soundness: pruning may only drop rows that cannot satisfy the conjuncts
 it used; the plan's own Filter still applies the whole condition, so
 keeping too much is slow and keeping too little would be a wrong answer.
-``_PRUNE_MODE`` is "1" (on, the reference's default), "0" (off) or
-"verify" (read pruned and full, compare after the prune predicate, raise
-on any difference).
+``HYPERSPACE_PRUNE`` (``prune_mode``, read on every call as the JAX
+package reads it) is "1" (on, the default), "0" (off) or "verify" (read
+pruned and full, compare after the prune predicate, raise on any
+difference).
 """
 
 from __future__ import annotations
@@ -46,8 +47,7 @@ from .expr import Expr, split_conjunction
 from .nodes import FileScan, LogicalPlan
 from ..columnar.table import Column, ColumnBatch, DATE32, STRING, Schema, numpy_dtype
 from ..exceptions import HyperspaceError
-
-_PRUNE_MODE = "1"
+from ..utils import env
 
 # cross-product cap of multi-column or IN bucket candidates: past it the
 # predicate is no point lookup and bucket pruning declines
@@ -113,10 +113,19 @@ def prune_spec_for(entry) -> Optional[PruneSpec]:
                      sketch_capability=sketch_store.declared_capability(dd.schema(), cols))
 
 
+def prune_mode() -> str:
+    """``HYPERSPACE_PRUNE``: "1" (on), "0" (off: "0", "false", "off") or
+    "verify"; anything else means on."""
+    v = env.env_str("HYPERSPACE_PRUNE").strip().lower()
+    if v in ("0", "false", "off"):
+        return "0"
+    return "verify" if v == "verify" else "1"
+
+
 def is_verify(scan: FileScan) -> bool:
     spec = scan.prune_spec
     return (spec is not None and spec.active and bool(spec.verify_files)
-            and _PRUNE_MODE == "verify")
+            and prune_mode() == "verify")
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +295,7 @@ def apply_pruning(plan: LogicalPlan) -> LogicalPlan:
     carries a PruneSpec and a pushed filter. Bucket pruning shrinks the
     file list here; the row-group conjuncts ride on the spec to the
     executor."""
-    if _PRUNE_MODE == "0":
+    if prune_mode() == "0":
         return plan
     replacements: dict[int, FileScan] = {}
     for node in plan.preorder():
@@ -325,7 +334,7 @@ def _derive_scan_pruning(scan: FileScan) -> Optional[FileScan]:
         pred = c if pred is None else X.And(pred, c)
     new_spec = replace(
         spec, bucket_keep=buckets, rowgroup_conjuncts=rg_conjs, sketch_conjuncts=sk_conjs,
-        pred=pred, verify_files=tuple(files) if _PRUNE_MODE == "verify" else (),
+        pred=pred, verify_files=tuple(files) if prune_mode() == "verify" else (),
         sketch_fraction=(_sketch_stage_fraction(sk_conjs, scan.files) if sk_conjs else -1.0),
     )
     return scan.copy(files=kept, prune_spec=new_spec)
@@ -411,7 +420,7 @@ def rowgroup_selection(scan: FileScan) -> tuple[Optional[dict[str, tuple[int, ..
 
     spec = scan.prune_spec
     if (spec is None or not (spec.rowgroup_conjuncts or spec.sketch_conjuncts)
-            or scan.fmt != "parquet" or _PRUNE_MODE == "0"):
+            or scan.fmt != "parquet" or prune_mode() == "0"):
         return None, list(scan.files)
     sketch_masks = _sketch_masks(scan) if spec.sketch_conjuncts else {}
     stat_cols: list[str] = []

@@ -6,9 +6,12 @@ the scan's files (FileSignatureFilter). A quick-refreshed entry matches
 through its current fingerprint and serves its recorded delta by hybrid
 scan. With hybrid scan on, an entry whose files overlap the scan's is a
 candidate too, within the appended and deleted byte ratios; it is tagged
-with the files the rewrite must add and drop. The JAX package's snapshot
-time travel (Delta and Iceberg sources) and adaptive vetoes wait with their
-planes.
+with the files the rewrite must add and drop. A scan is a candidate only
+when a source provider supports it (sources/manager.py). A scan of an
+older table snapshot (Delta- or Iceberg-style) may use the index log
+version recorded against that snapshot: its entry is substituted for the
+latest one (time travel). The JAX package's adaptive vetoes wait with
+their plane.
 """
 
 from __future__ import annotations
@@ -67,28 +70,37 @@ class ColumnSchemaFilter(SourcePlanIndexFilter):
         return out
 
 
+TAG_SUBSTITUTE_ENTRY = "SUBSTITUTE_LOG_ENTRY"
+
+
 class FileSignatureFilter(SourcePlanIndexFilter):
-    """Exact fingerprint match, or hybrid-scan overlap candidacy."""
+    """Exact fingerprint match, snapshot time travel, or hybrid-scan
+    overlap candidacy."""
 
     def apply(self, plan: FileScan, entries: list[IndexLogEntry]) -> list[IndexLogEntry]:
         hybrid = self.session.conf.hybrid_scan_enabled
         out = []
         for e in entries:
-            # an exact match (or a quick refresh's promise) wins whatever the
-            # hybrid toggle: turning it on never makes an index less usable
+            # an exact match, a quick refresh's promise or time travel wins
+            # whatever the hybrid toggle: turning it on never makes an index
+            # less usable
             if self._signature_match(plan, e, tag_on_fail=not hybrid):
-                out.append(e)
+                sub = e.get_tag(plan.plan_id, TAG_SUBSTITUTE_ENTRY)
+                out.append(sub if sub is not None else e)
             elif hybrid and self._hybrid_candidate(plan, e):
                 out.append(e)
         return out
 
     def _signature_match(self, plan: FileScan, e: IndexLogEntry, tag_on_fail: bool) -> bool:
         sig = e.signature.signatures[0]
-        ok = get_provider(sig.provider).sign(_LeafPlan(plan)) == sig.value
+        current = get_provider(sig.provider).sign(_LeafPlan(plan))
+        ok = current == sig.value
         if ok and e.source_update() is not None:
             # quick-refreshed: the recorded delta is served by hybrid scan,
             # with no ratio thresholds (the user asked for it)
             self._tag_recorded_delta(plan, e)
+            return True
+        if not ok and self._closest_snapshot_match(plan, e, current):
             return True
         if not tag_on_fail:
             return ok
@@ -100,6 +112,21 @@ class FileSignatureFilter(SourcePlanIndexFilter):
         deleted = e.deleted_files()  # recorded with their build-time ids
         common_bytes = sum(f.size for f in e.source_file_infos() if f not in deleted)
         _set_hybrid_tags(plan, e, appended, deleted, common_bytes)
+
+    def _closest_snapshot_match(self, plan: FileScan, e: IndexLogEntry, current_sig) -> bool:
+        """Time travel: the log version recorded against the scan's table
+        snapshot, when its signature is the scan's, is tagged to stand in
+        for ``e``."""
+        log_version = _closest_log_version_for_plan(plan, e.properties)
+        if log_version is None or log_version == e.id:
+            return False
+        from ..index_manager import index_manager_for
+
+        old = index_manager_for(self.session).get_index(e.name, log_version)
+        if old is None or current_sig != old.signature.signatures[0].value:
+            return False
+        e.set_tag(plan.plan_id, TAG_SUBSTITUTE_ENTRY, old)
+        return True
 
     def _hybrid_candidate(self, plan: FileScan, e: IndexLogEntry) -> bool:
         indexed_files = e.source_file_infos()
@@ -158,17 +185,37 @@ class CandidateIndexCollector:
 
     def apply(self, plan: LogicalPlan, all_indexes: list[IndexLogEntry]
               ) -> dict[int, list[IndexLogEntry]]:
+        from ..sources.manager import SourceProviderManager
+
+        manager = SourceProviderManager(self.session)
         schema_filter = ColumnSchemaFilter(self.session)
         signature_filter = FileSignatureFilter(self.session)
         out: dict[int, list[IndexLogEntry]] = {}
         for node in plan.preorder():
-            # the reference's source providers support parquet relations; an
-            # index scan is not a source relation
-            if not isinstance(node, FileScan) or node.index_info is not None:
-                continue
-            if node.fmt != "parquet":
+            if not isinstance(node, FileScan) or not manager.is_supported_relation(node):
                 continue
             entries = signature_filter.apply(node, schema_filter.apply(node, all_indexes))
             if entries:
                 out[node.plan_id] = entries
         return out
+
+
+def _closest_log_version_for_plan(plan: FileScan, properties) -> "int | None":
+    """The index log version a snapshot scan travels to: by version order
+    for a Delta-style table, by the snapshot's ancestry for an
+    Iceberg-style one; None for any other scan."""
+    from ..sources import delta as D
+    from ..sources import iceberg as I
+
+    fmt = plan.options.get("format")
+    if fmt == D.SNAPSHOT_FORMAT:
+        queried = plan.options.get(D.OPT_SNAPSHOT_VERSION)
+        return None if queried is None else D.closest_index_version(properties, int(queried))
+    if fmt == I.ICEBERG_FORMAT:
+        queried = plan.options.get(I.OPT_SNAPSHOT_ID)
+        table_path = plan.options.get(I.OPT_TABLE_PATH)
+        if queried is None or table_path is None:
+            return None
+        return I.closest_index_version_by_ancestry(I.IcebergStyleTable(table_path), properties,
+                                                   int(queried))
+    return None

@@ -9,7 +9,12 @@ plain PyTorch bodies on the host.
 
 The session owns the caches the device tier uses: decoded index chunks
 (host), device-resident columns, host-side group-key factorizations and
-built fragment kernels.
+built fragment kernels. Their budgets are the JAX package's knobs, read
+when the session is made: ``HYPERSPACE_INDEX_CACHE_MB`` (1024),
+``HYPERSPACE_DEVICE_CACHE_MB`` (6144) and
+``HYPERSPACE_HOST_DERIVED_CACHE_MB`` (512); the session also sets the
+process-wide source-column and footer-statistics caches' budgets
+(``HYPERSPACE_BUILD_CACHE_MB`` 2048, ``HYPERSPACE_STATS_CACHE_MB`` 64).
 """
 
 from __future__ import annotations
@@ -22,13 +27,7 @@ import torch
 from . import constants as C
 from .config import HyperspaceConf
 from .exceptions import DeviceUnavailableError
-
-_GB = 1 << 30
-# budgets sized for one H100 (80 GB) on a host with ~96 GB: an SF10 index
-# slice is ~2 GB decoded on the host and ~1.3 GB padded on the card
-INDEX_CHUNK_CACHE_BYTES = 16 * _GB
-DEVICE_CACHE_BYTES = 16 * _GB
-HOST_DERIVED_CACHE_BYTES = 2 * _GB
+from .utils import env
 
 
 class HyperspaceSession:
@@ -38,7 +37,7 @@ class HyperspaceSession:
         conf: dict[str, Any] | None = None,
         device: str | torch.device | None = None,
     ):
-        from .columnar.io import IndexChunkCache
+        from .columnar.io import IndexChunkCache, configure_caches
         from .models.dataskipping.rule import DataSkippingStats
         from .plan.gpu_exec import DeviceTierStats
         from .plan.kernel_cache import KernelCache
@@ -49,9 +48,11 @@ class HyperspaceSession:
         self.conf = HyperspaceConf(self._conf)
         self.extra_optimizations: list[Any] = []
         self._device_request = device
-        self.index_chunk_cache = IndexChunkCache(INDEX_CHUNK_CACHE_BYTES)
-        self.device_cache = DeviceColumnCache(DEVICE_CACHE_BYTES)
-        self.host_derived_cache = DeviceColumnCache(HOST_DERIVED_CACHE_BYTES)
+        self.index_chunk_cache = IndexChunkCache(env.cache_bytes("HYPERSPACE_INDEX_CACHE_MB"))
+        self.device_cache = DeviceColumnCache(env.cache_bytes("HYPERSPACE_DEVICE_CACHE_MB"))
+        self.host_derived_cache = DeviceColumnCache(
+            env.cache_bytes("HYPERSPACE_HOST_DERIVED_CACHE_MB"))
+        configure_caches()
         self.kernel_cache = KernelCache()
         self.device_stats = DeviceTierStats()
         self.dataskipping_stats = DataSkippingStats()
@@ -77,6 +78,12 @@ class HyperspaceSession:
     def set_conf(self, key: str, value: Any) -> None:
         self._conf[key] = value
 
+    def unset_conf(self, key: str) -> None:
+        self._conf.pop(key, None)
+
+    def get_conf(self, key: str, default: Any = None) -> Any:
+        return self._conf.get(key, default)
+
     # --- rewrite toggle ---
     def enable_hyperspace(self) -> "HyperspaceSession":
         from .rules.apply import ApplyHyperspace
@@ -95,8 +102,23 @@ class HyperspaceSession:
         ]
         return self
 
+    def is_hyperspace_enabled(self) -> bool:
+        from .rules.apply import ApplyHyperspace
+
+        return self.conf.apply_enabled and any(
+            isinstance(r, ApplyHyperspace) for r in self.extra_optimizations
+        )
+
     @property
     def read(self):
         from .plan.dataframe import DataFrameReader
 
         return DataFrameReader(self)
+
+    def create_dataframe(self, data: dict, schema=None):
+        """An in-memory DataFrame from a dict of column -> values."""
+        from .columnar.table import ColumnBatch
+        from .plan.dataframe import DataFrame
+        from .plan.nodes import InMemoryScan
+
+        return DataFrame(self, InMemoryScan(ColumnBatch.from_pydict(data, schema)))

@@ -1,5 +1,5 @@
-"""The ``HYPERSPACE_*`` environment knobs of the pipelined tier
-(counterpart of hyperspace_tpu/utils/env.py, lean: these knobs only).
+"""The ``HYPERSPACE_*`` environment knobs the port reads (counterpart of
+hyperspace_tpu/utils/env.py, lean: these knobs only).
 
 The names and defaults are the JAX package's, and every read happens at
 call time, as there, so one environment setting steers both packages:
@@ -13,7 +13,19 @@ call time, as there, so one environment setting steers both packages:
   ``<= 1`` or unparseable means serial);
 - ``HYPERSPACE_IO_BUDGET_MB``: decoded bytes a stream may hold undelivered
   (512), the fallback of ``HYPERSPACE_GLOBAL_BUDGET_MB``, the process-wide
-  read-ahead ledger (1024).
+  read-ahead ledger (1024);
+- the cache budgets, in MB: ``HYPERSPACE_INDEX_CACHE_MB`` (decoded index
+  chunks, 1024), ``HYPERSPACE_DEVICE_CACHE_MB`` (device-resident columns,
+  6144), ``HYPERSPACE_HOST_DERIVED_CACHE_MB`` (host-side derivations such
+  as group-key factorizations, 512), ``HYPERSPACE_BUILD_CACHE_MB``
+  (decoded source columns inside index actions, 2048) and
+  ``HYPERSPACE_STATS_CACHE_MB`` (parquet footer statistics, 64); 0 turns a
+  cache off;
+- ``HYPERSPACE_PRUNE``: ``1`` prunes index scans by the query's predicate
+  (the default), ``0`` reads them whole, ``verify`` reads both and
+  compares;
+- ``HYPERSPACE_PARK_WAIT_MS``: how long a parked join wave waits for other
+  joins' releases before it is granted past the device budget (50).
 """
 
 from __future__ import annotations
@@ -27,6 +39,13 @@ DEFAULTS = {
     "HYPERSPACE_IO_THREADS": None,
     "HYPERSPACE_IO_BUDGET_MB": 512.0,
     "HYPERSPACE_GLOBAL_BUDGET_MB": 1024.0,
+    "HYPERSPACE_INDEX_CACHE_MB": 1024,
+    "HYPERSPACE_DEVICE_CACHE_MB": 6144.0,
+    "HYPERSPACE_HOST_DERIVED_CACHE_MB": 512.0,
+    "HYPERSPACE_BUILD_CACHE_MB": 2048,
+    "HYPERSPACE_STATS_CACHE_MB": 64,
+    "HYPERSPACE_PRUNE": "1",
+    "HYPERSPACE_PARK_WAIT_MS": 50.0,
 }
 
 
@@ -48,3 +67,10 @@ def env_int(name: str) -> int:
 def env_float(name: str) -> float:
     v = os.environ.get(name)
     return float(v) if v is not None else DEFAULTS[name]
+
+
+def cache_bytes(name: str) -> int:
+    """A cache budget knob (MB) in bytes; the integer knobs truncate as
+    the JAX package's ``env_int`` does."""
+    mb = env_int(name) if isinstance(DEFAULTS[name], int) else env_float(name)
+    return int(mb * 1024 * 1024)

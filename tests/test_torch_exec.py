@@ -235,10 +235,13 @@ def test_generic_grouped_large_domain_is_deterministic():
 
 
 def test_route_is_part_of_the_kernel_key():
+    from hyperspace_tpu_torch.columnar.table import Field, Schema
     from hyperspace_tpu_torch.plan.kernel_cache import fused_fingerprint
+    from hyperspace_tpu_torch.plan.nodes import FileScan
 
     cols, _ = device_columns({"x": np.ones(4, np.float32)}, "cpu")
     assert gpu_exec.kernel_route(torch.device("cpu")) == "plain"
     assert gpu_exec.kernel_route(torch.device("cuda", 0)) == "cuda"
-    args = (None, (), [("count", None)], cols)
+    scan = FileScan(["/lake"], "parquet", Schema([Field("x", "float32")]), [])
+    args = (scan, None, (), [("count", None)], cols)
     assert fused_fingerprint("plain", *args) != fused_fingerprint("cuda", *args)

@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "models.dataskipping.sketches", "models.dataskipping.index",
                    "models.dataskipping.rule", "models.dataskipping.sketch_store",
                    "ops.sketch", "plan.passes", "actions.refresh", "actions.optimize",
-                   "actions.lifecycle", "meta.cache", "index_manager"):
+                   "actions.lifecycle", "meta.cache", "index_manager", "sources.interfaces",
+                   "sources.default", "sources.manager", "sources.delta", "sources.iceberg",
+                   "utils.partitions"):
         assert f"hyperspace_tpu_torch.{module}" in out["loaded"], module
 
 

@@ -53,7 +53,6 @@ def _fresh_ledgers(monkeypatch):
     monkeypatch.delenv("HYPERSPACE_JOIN_SPLIT_ROWS", raising=False)
     monkeypatch.delenv("HYPERSPACE_DEVICE_BUDGET_MB", raising=False)
     monkeypatch.setenv("HYPERSPACE_PARK_WAIT_MS", "1")
-    monkeypatch.setattr(tjm, "_PARK_WAIT_MS", 1.0)
     jbudget.reset_device_budget()
     tbudget.reset_device_budget()
     yield

@@ -323,13 +323,11 @@ def test_scan_streamable_equals_the_jax_packages(tmp_path):
 
 
 def test_scan_streamable_refuses_verify_mode(tmp_path, monkeypatch):
-    from hyperspace_tpu_torch.plan import pruning
-
     (_j, scan), = [v for k, v in _scan_cases(tmp_path).items() if k == "plain"]
     spec = type("Spec", (), {"active": True, "verify_files": [1]})()
-    monkeypatch.setattr(pruning, "_PRUNE_MODE", "verify")
+    monkeypatch.setenv("HYPERSPACE_PRUNE", "verify")
     assert not texec.scan_streamable(scan.copy(prune_spec=spec))
-    monkeypatch.setattr(pruning, "_PRUNE_MODE", "1")
+    monkeypatch.setenv("HYPERSPACE_PRUNE", "1")
     assert texec.scan_streamable(scan.copy(prune_spec=spec))
 
 

@@ -50,7 +50,6 @@ from hyperspace_tpu_torch.benchmark import tpch as ttpch
 from hyperspace_tpu_torch.columnar.table import Column as TColumn, ColumnBatch as TBatch
 from hyperspace_tpu_torch.plan import bucket_join as tbj
 from hyperspace_tpu_torch.plan import device_join as tdj
-from hyperspace_tpu_torch.plan import join_memory as tjm
 from hyperspace_tpu_torch.plan import expr as TX
 from hyperspace_tpu_torch.serve import budget as tbudget
 
@@ -274,7 +273,7 @@ def test_over_budget_ledger_parks_spills_and_matches(tmp_path, monkeypatch, seed
     spills the earlier ones; the rows stay the same, and the ledger drains."""
     monkeypatch.setenv("HYPERSPACE_JOIN_SPLIT_ROWS", "1024")  # the JAX package's
     monkeypatch.setattr(tdj, "_JOIN_SPLIT_ROWS", 1024)
-    monkeypatch.setattr(tjm, "_PARK_WAIT_MS", 1.0)
+    monkeypatch.setenv("HYPERSPACE_PARK_WAIT_MS", "1")
     acct = tbudget.BudgetAccountant(10_000)
     monkeypatch.setattr(tbudget, "_DEVICE", [acct])
     pairs = _bucket_pairs(seed, sizes)

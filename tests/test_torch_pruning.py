@@ -274,7 +274,6 @@ def test_lookup_results_equal_the_jax_packages(lake, built_by, monkeypatch):
 def test_verify_mode_passes_on_the_lookups(lake, monkeypatch):
     root, built = lake
     monkeypatch.setenv("HYPERSPACE_PRUNE", "verify")
-    monkeypatch.setattr(tpr, "_PRUNE_MODE", "verify")
     js, ts = _sessions(built["torch"])
     js.set_conf(JC.EXEC_TPU_ENABLED, False)
     ts.set_conf(TC.EXEC_TPU_ENABLED, False)
@@ -286,7 +285,7 @@ def test_verify_mode_passes_on_the_lookups(lake, monkeypatch):
 
 def test_verify_mode_catches_a_broken_bucket_hash(lake, monkeypatch):
     root, built = lake
-    monkeypatch.setattr(tpr, "_PRUNE_MODE", "verify")
+    monkeypatch.setenv("HYPERSPACE_PRUNE", "verify")
     real = tpr.bucket_of_literals
     monkeypatch.setattr(tpr, "bucket_of_literals",
                         lambda v, d, nb: (real(v, d, nb) + 1) % nb)
@@ -339,7 +338,7 @@ def test_verify_mode_passes_on_a_pruned_join_side(lake, join_warehouse, monkeypa
     js.set_conf(JC.EXEC_TPU_ENABLED, False)
     ts.set_conf(TC.EXEC_TPU_ENABLED, False)
     want = _join_queries(JX, root, key)[q](js).to_pydict()
-    monkeypatch.setattr(tpr, "_PRUNE_MODE", "verify")
+    monkeypatch.setenv("HYPERSPACE_PRUNE", "verify")
     loaded = []
     real = tbj._load_side_bucket
     monkeypatch.setattr(tbj, "_load_side_bucket",
@@ -360,7 +359,7 @@ def test_pruning_off_reads_every_file(lake, monkeypatch):
     _js, ts = _sessions(built["torch"])
     ts.set_conf(TC.EXEC_TPU_ENABLED, False)
     pruned = ttpch.lookup_count(ts, root).to_pydict()
-    monkeypatch.setattr(tpr, "_PRUNE_MODE", "0")
+    monkeypatch.setenv("HYPERSPACE_PRUNE", "0")
     scan = _scan(ttpch.lookup_count(ts, root).optimized_plan())
     assert scan.prune_spec is not None and not scan.prune_spec.active
     assert len(scan.files) == BUCKETS

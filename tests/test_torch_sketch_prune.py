@@ -265,7 +265,7 @@ def test_a_tampered_sidecar_raises_under_verify(lake, monkeypatch):
                 df.collect()
             monkeypatch.delenv("HYPERSPACE_PRUNE")
         else:
-            monkeypatch.setattr(tpr, "_PRUNE_MODE", "verify")
+            monkeypatch.setenv("HYPERSPACE_PRUNE", "verify")
             with pytest.raises(HyperspaceError, match="verify mismatch"):
                 _query(X, s, src, QUERIES["bloom_eq"]).collect()
 
