@@ -18,7 +18,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    views (pred, gids and each measure offset by different rows, which the
    kernels take through their scalar loops), with gids that are negative,
    in [G, 16) and >= 16: counts exact, sums within relative 1e-4, min and
-   max exact (NaN, all-invalid and empty inputs included), two launches
+   max exact (NaN, all-invalid, all-valid and empty inputs included, and
+   masked_min_max also at its tile edges, 511-4097 rows), two launches
    bit-identical; then each kernel's time at the main path's padded size:
    per call with the wrapper included (CUDA events around one call, median
    of 25) and on the device (CUDA events around 50 back-to-back launches,
@@ -358,7 +359,11 @@ EV_SEED = 23
 WIDE_ROWS = 1 << 22
 WIDE_SEED = 6
 SKIP_WARM_RUNS = 1
-MINMAX_CASES = ("random", "all_invalid", "nan_valid", "nan_invalid", "int")
+MINMAX_CASES = ("random", "all_invalid", "all_valid", "nan_valid", "nan_invalid", "nan_tail",
+                "int")
+# masked_min_max's tile edges (a warp folds 512 rows a tile, a thread two
+# tiles at once), checked beside the sizes every kernel runs
+MINMAX_TILE_SIZES = (511, 512, 513, 1024 + 3, 2 * 512 * 4 + 1)
 # the sources phase: the lineitem files its partitioned and snapshot lakes
 # take (the first 40 of SF10's 120, as the lifecycle phase's), the CSV
 # orders' file count, the snapshot versions and Iceberg snapshots, the
@@ -488,21 +493,27 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str,
                 r["max_abs_err"] = max(r["max_abs_err"], abs(x - y))
         results[name]["checks"] += 1
 
-    def minmax_inputs(n: int, case: str, seed: int):
+    def minmax_inputs(n: int, case: str, seed: int, offsets=(0, 0)):
+        """x and valid of n rows, each a view that starts `offsets` (x,
+        valid) rows into its storage."""
         gen.manual_seed(seed)
-        x = (torch.rand(n, generator=gen, device=dev) - 0.5) * 2000
-        valid = torch.rand(n, generator=gen, device=dev) < 0.5
+        xo, vo = offsets
+        x = ((torch.rand(n + xo, generator=gen, device=dev) - 0.5) * 2000)[xo:]
+        valid = (torch.rand(n + vo, generator=gen, device=dev) < 0.5)[vo:]
         if case == "all_invalid":
             valid[:] = False
+        elif case == "all_valid":
+            valid[:] = True
         elif case == "int":
-            x = torch.randint(-(2**20), 2**20, (n,), generator=gen, device=dev,
-                              dtype=torch.int32)
-        elif case in ("nan_valid", "nan_invalid") and n:
-            x[n // 2] = float("nan")
-            valid[n // 2] = case == "nan_valid"
+            x = torch.randint(-(2**20), 2**20, (n + xo,), generator=gen, device=dev,
+                              dtype=torch.int32)[xo:]
+        elif case in ("nan_valid", "nan_invalid", "nan_tail") and n:
+            i = n - 1 if case == "nan_tail" else n // 2
+            x[i] = float("nan")
+            valid[i] = case != "nan_invalid"
         return x, valid
 
-    def check_minmax(got, again, want, what):
+    def check_minmax(got, again, want, n, case, what):
         name = "masked_min_max"
         for g, a, w, side in zip(got, again, want, ("min", "max")):
             require(torch.equal(g.view(torch.int32), a.view(torch.int32)),
@@ -510,7 +521,7 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str,
             gv, wv = float(g), float(w)
             same = (math.isnan(gv) and math.isnan(wv)) or gv == wv
             require(same, f"{name} {what}: {side} {gv} vs plain {wv}")
-        if what.endswith("nan_valid") and not what.startswith("n=0 "):
+        if case in ("nan_valid", "nan_tail") and n:
             require(all(math.isnan(float(v)) for v in got), f"{name} {what}: NaN dropped")
         r = results[name]
         r["checks"] += 1
@@ -533,12 +544,17 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str,
                     want = R.filter_grouped_multi_sum(pred, gids, xs, groups)
                     compare("filter_grouped_multi_sum", got, again, want,
                             f"n={n} G={groups} k={k} offsets={off}")
-        for case in MINMAX_CASES:
-            x, valid = minmax_inputs(n, case, 7 * n + len(case))
-            got = K.masked_min_max(x, valid)
-            again = K.masked_min_max(x, valid)
-            want = R.masked_min_max(x, valid)
-            check_minmax(got, again, want, f"n={n} {case}")
+    # masked_min_max at every size and its tile edges, with x and valid
+    # offset as the measures and pred are above
+    for n in sorted({*sizes, *MINMAX_TILE_SIZES}):
+        for po, _go, xo in OFFSETS:
+            for case in MINMAX_CASES:
+                x, valid = minmax_inputs(n, case, 7 * n + len(case) + xo, (xo, po))
+                got = K.masked_min_max(x, valid)
+                again = K.masked_min_max(x, valid)
+                want = R.masked_min_max(x, valid)
+                check_minmax(got, again, want, n, case,
+                             f"n={n} {case} offsets=(x {xo}, valid {po})")
     torch.cuda.synchronize()
 
     # times at the main path's padded size; the grouped kernel at q1_sums'

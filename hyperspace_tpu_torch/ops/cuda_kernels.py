@@ -23,9 +23,9 @@ and so the partials' size, is what the library reports for the device
 (``hs_*_partial_*``): filter_sum and filter_grouped_multi_sum run a
 persistent grid of a few blocks per SM that loads 16 rows a thread per step
 through 4- and 16-byte words, and take the kernel's own scalar loop for
-inputs that are not so aligned; filter_weighted_sum and masked_min_max
-keep a grid of up to 1024 blocks with one row per thread in flight. The
-source notes in ``csrc/`` say what bounds each kernel and why it is built
+inputs that are not so aligned; masked_min_max runs the same grid and
+loads as filter_sum; filter_weighted_sum keeps a grid of up to 1024
+blocks with one row per thread in flight. The source notes in ``csrc/`` say what bounds each kernel and why it is built
 as it is.
 
 The sources compile at first use, one nvcc per source, all started
@@ -110,7 +110,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name, args in (("hs_filter_partial_slots", [_I]),
                        ("hs_grouped_partial_blocks", [_I, _I]),
                        ("hs_grouped_max_measures", []), ("hs_grouped_slots", []),
-                       ("hs_minmax_partial_slots", [])):
+                       ("hs_minmax_partial_slots", [_I])):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = _I
@@ -329,15 +329,15 @@ def masked_min_max(x: torch.Tensor, valid: torch.Tensor):
     if n == 0:
         return (torch.full((), float("inf"), dtype=torch.float32, device=dev),
                 torch.full((), float("-inf"), dtype=torch.float32, device=dev))
-    out = torch.empty(2, dtype=torch.float32, device=dev)
     lib = _lib("minmax.cu")
-    slots = lib.hs_minmax_partial_slots()
-    part_mn = torch.empty(slots, dtype=torch.float32, device=dev)
-    part_mx = torch.empty(slots, dtype=torch.float32, device=dev)
+    slots = _partial_slots("masked_min_max", lib.hs_minmax_partial_slots(dev.index))
+    # one buffer: the min partials, the max partials, then (min, max)
+    buf = torch.empty(2 * slots + 2, dtype=torch.float32, device=dev)
+    base, f32 = buf.data_ptr(), buf.element_size()
     rc = lib.hs_masked_min_max(
-        dev.index, xf.data_ptr(), valid.data_ptr(), n, part_mn.data_ptr(),
-        part_mx.data_ptr(), out.data_ptr(), _stream(dev),
+        dev.index, xf.data_ptr(), valid.data_ptr(), n, base, base + slots * f32,
+        base + 2 * slots * f32, _stream(dev),
     )
     _raise_on("masked_min_max", rc)
     LAUNCHES["masked_min_max"] += 1
-    return out[0], out[1]
+    return buf[2 * slots], buf[2 * slots + 1]

@@ -216,37 +216,76 @@ def _minmax_inputs(n: int, case: str, seed: int):
     valid = rng.random(n) < 0.5
     if case == "all_invalid":
         valid[:] = False
+    elif case == "all_valid":
+        valid[:] = True
     elif case == "int":
         x = rng.integers(-(2**20), 2**20, n).astype(np.int32)
-    elif case in ("nan_valid", "nan_invalid") and n:
-        i = n // 2
+    elif case in ("nan_valid", "nan_invalid", "nan_tail") and n:
+        i = n - 1 if case == "nan_tail" else n // 2
         x[i] = np.nan
-        valid[i] = case == "nan_valid"
+        valid[i] = case != "nan_invalid"
     return x, valid
 
 
-_MINMAX_CASES = [(n, "random") for n in SIZES] + [
-    (n, case) for n in (1, 1025, 5000)
+def _minmax_views(n: int, case: str, offsets=(0, 0), device="cpu"):
+    """x and valid of n rows, each a view that starts `offsets` (x, valid)
+    rows into a longer tensor on `device`: a view offset by rows that are
+    not a multiple of 4 (x) or of 4 bytes (valid) is misaligned for the
+    CUDA kernel's vector loads, which then takes every row through its
+    scalar loop."""
+    xo, vo = offsets
+    seed = 17 * n + len(case) + 5 * xo + vo
+    x, valid = _minmax_inputs(n, case, seed)
+    rng = np.random.default_rng(seed + 1)
+    x_long = np.concatenate([rng.uniform(-1e6, 1e6, xo).astype(x.dtype), x])
+    v_long = np.concatenate([rng.random(vo) < 0.5, valid])
+    x_d = torch.from_numpy(x_long).to(device)[xo:]
+    v_d = torch.from_numpy(v_long).to(device)[vo:]
+    return x, valid, x_d, v_d
+
+
+# n at the CUDA kernel's tile edges: a warp takes 512 rows a tile, and a
+# thread two tiles (4 words of 4 rows each) before it folds either
+_MINMAX_TILE_SIZES = (511, 512, 513, 1024 + 3, 2 * 512 * 4 + 1)
+_MINMAX_OFFSETS = ((1, 0), (0, 3), (1, 3))
+_MINMAX_CASES = [(n, "random", (0, 0)) for n in SIZES] + [
+    (n, case, (0, 0)) for n in (1, 1025, 5000)
     for case in ("all_invalid", "nan_valid", "nan_invalid", "int")
+] + [
+    (n, case, (0, 0)) for n in _MINMAX_TILE_SIZES
+    for case in ("random", "all_valid", "nan_tail")
+] + [
+    (n, case, off) for n in (1, 1025, 2 * 512 * 4 + 1) for off in _MINMAX_OFFSETS
+    for case in ("random", "all_valid", "nan_valid", "nan_tail")
 ]
+# the cases of the card test: every size and offset above, and 10^6 + 3 rows
+_CUDA_MINMAX_CASES = [(0, "random", (0, 0)), (1025, "nan_valid", (0, 0)),
+                      (1025, "nan_invalid", (0, 0)), (1_000_003, "random", (0, 0)),
+                      (1_000_003, "int", (0, 0)), (1025, "all_invalid", (0, 0))] + [
+    c for c in _MINMAX_CASES if c[0] in _MINMAX_TILE_SIZES or c[2] != (0, 0)
+] + [(1_000_003, "all_valid", (0, 0)), (1_000_003, "nan_tail", (0, 0)),
+     (1_000_003, "random", (1, 3))]
+
+
+def _minmax_id(case) -> str:
+    n, kind, (xo, vo) = case
+    return f"{n}-{kind}" if (xo, vo) == (0, 0) else f"{n}-{kind}-x{xo}-v{vo}"
 
 
 def _same_value(a: float, b: float) -> bool:
     return (np.isnan(a) and np.isnan(b)) or a == b
 
 
-@pytest.mark.parametrize("n,case", _MINMAX_CASES)
-def test_masked_min_max_matches_pallas(n, case):
-    x, valid = _minmax_inputs(n, case, 17 * n + len(case))
+@pytest.mark.parametrize("n,case,offsets", _MINMAX_CASES,
+                         ids=[_minmax_id(c) for c in _MINMAX_CASES])
+def test_masked_min_max_matches_pallas(n, case, offsets):
+    x, valid, x_t, v_t = _minmax_views(n, case, offsets)
     mn, mx = PK.masked_min_max(jnp.asarray(x), jnp.asarray(valid))
-    p_mn, p_mx = _plain_call_delta(
-        "masked_min_max",
-        lambda: K.masked_min_max(torch.from_numpy(x), torch.from_numpy(valid)),
-    )
+    p_mn, p_mx = _plain_call_delta("masked_min_max", lambda: K.masked_min_max(x_t, v_t))
     assert p_mn.dtype == p_mx.dtype == torch.float32
     assert p_mn.shape == p_mx.shape == ()
     assert _same_value(float(p_mn), float(mn)) and _same_value(float(p_mx), float(mx))
-    if case == "nan_valid":
+    if case in ("nan_valid", "nan_tail") and n:
         assert np.isnan(float(p_mn)) and np.isnan(float(p_mx))
     elif case == "all_invalid" or n == 0 or not valid.any():
         assert float(p_mn) == np.inf and float(p_mx) == -np.inf
@@ -256,16 +295,18 @@ def test_masked_min_max_matches_pallas(n, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,case", [(0, "random"), (1025, "nan_valid"), (1025, "nan_invalid"),
-                                    (1_000_003, "random"), (1_000_003, "int"),
-                                    (1025, "all_invalid")])
-def test_cuda_masked_min_max_matches_plain(cuda_device, n, case):
-    x, valid = _minmax_inputs(n, case, n)
-    x_d = torch.from_numpy(x).to(cuda_device)
-    v_d = torch.from_numpy(valid).to(cuda_device)
+@pytest.mark.parametrize("n,case,offsets", _CUDA_MINMAX_CASES,
+                         ids=[_minmax_id(c) for c in _CUDA_MINMAX_CASES])
+def test_cuda_masked_min_max_matches_plain(cuda_device, n, case, offsets):
+    """The CUDA kernel against its plain version on the card, at the tile
+    edges and on misaligned views: the same value (NaN equals NaN) and the
+    same bits on a repeat launch."""
+    _, _, x_d, v_d = _minmax_views(n, case, offsets, cuda_device)
+    before = K.LAUNCHES["masked_min_max"]
     got = K.masked_min_max(x_d, v_d)
     again = K.masked_min_max(x_d, v_d)
     want = R.masked_min_max(x_d, v_d)
+    assert K.LAUNCHES["masked_min_max"] == before + (2 if n else 0)
     for a, b, w in zip(got, again, want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))  # same bits
         assert _same_value(float(a), float(w))
