@@ -206,7 +206,25 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     at 16 GiB of index chunks, 16 GiB of device columns and 2 GiB of
     host-derived arrays, set through the same HYPERSPACE_*_CACHE_MB knobs
     and printed at the start), with ms and upload bytes;
-11. order phase: the device top-k and sort against the host on one
+11. analysis phase (the analysis views and the telemetry core) over the
+    SF10 lake and the main phase's indexes, in a fresh session on the card:
+    (a) explain(verbose) of q6, q1, q3, q10, q17 and q18, each listing the
+        indexes its optimized plan reads; (b) whyNot of q3 (extended) and
+        q18; (c) EXPLAIN ANALYZE of q6_count, q1_sums, range_sum,
+        lookup_count, q3_agg and q10, warm: each kernel's launches and the
+        device tier's route record equal a plain warm run's, the analyzed
+        run has the plain run's bits (q3_agg's and q10's the main phase's
+        device result, the others held to its host result), the root
+        node's rows are the result's and the notes hold the route taken;
+        (d) profile of q6_count and q3_agg: the span tree holds query ->
+        plan -> rule:* and exec:* -> kernel:* (q3_agg: join:band), with a
+        dispatch and no upload on the warm run, each span's ms printed;
+        (e) warm q6_count and q1_sums untraced and traced, five runs each
+        in turns, the same bits, both medians printed; (f) the min/max
+        layout comparison of l_shipdate over the raw lineitem against
+        li_shipdate_z, printed. The phase launches filter_weighted_sum,
+        filter_sum and filter_grouped_multi_sum, and no plain version;
+12. order phase: the device top-k and sort against the host on one
    2^23-row batch (cut from 2^25 to keep the whole run well inside its
    time limit) of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
@@ -220,8 +238,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
-add up the end-to-end, lifecycle, skipping, pipeline, join and sources
-phases' counts, each read on its own (``launches_by_phase``).
+add up the end-to-end, lifecycle, skipping, pipeline, join, sources and
+analysis phases' counts, each read on its own (``launches_by_phase``).
 """
 
 from __future__ import annotations
@@ -2537,6 +2555,218 @@ def reference_cache_check(e2e: dict, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# analysis phase
+# ---------------------------------------------------------------------------
+
+ANALYSIS_EXPLAIN = ("q6", "q1", "q3", "q10", "q17", "q18")
+ANALYZE_QUERIES = ("q6_count", "q1_sums", "range_sum", "lookup_count", "q3_agg", "q10")
+PROFILE_QUERIES = ("q6_count", "q3_agg")
+TRACE_COST_QUERIES = ("q6_count", "q1_sums")
+TRACE_COST_TURNS = 5
+_ROUTE_FIELDS = ("device_fragments", "device_join_fragments", "declines", "join_paths",
+                 "plain_join_fetches", "join_spills", "join_waves", "join_splits",
+                 "device_plain_probes", "pipelined_queries", "pipelined_chunks",
+                 "pipeline_declines", "pipeline_aborts")
+
+
+def _route_record(stats) -> dict:
+    """What the device tier recorded for one run: its counts by route and
+    the last scan's route."""
+    rec = {f: getattr(stats, f) for f in _ROUTE_FIELDS}
+    last = stats.last_scan
+    rec["scan"] = None if last is None else (last.route, last.stream)
+    return rec
+
+
+def _span_tree(span, depth: int = 0) -> list:
+    """(depth, name, ms) of a span and its descendants, in preorder."""
+    out = [(depth, span.name, span.duration_s * 1e3)]
+    for c in span.children:
+        out += _span_tree(c, depth + 1)
+    return out
+
+
+def analysis_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
+    """The analysis views and the telemetry core over the main phase's lake
+    and tpch_indexes, through the user's entry points:
+    (a) explain(verbose) of q6, q1, q3, q10, q17 and q18 lists the indexes
+        the optimized plan reads;
+    (b) whyNot of q3 (extended) and q18 render;
+    (c) EXPLAIN ANALYZE of q6_count, q1_sums, range_sum, lookup_count,
+        q3_agg and q10, warm: each kernel's launches and the device tier's
+        route record equal a plain warm run's; the analyzed run (the same
+        collector, installed again to read its batch) has the plain run's
+        bits, its root node's rows are the result's rows, and its notes
+        hold the route the device tier took;
+    (d) profile of q6_count and q3_agg: the span tree holds query -> plan
+        -> rule:* and exec:* -> kernel:* (q6_count) or join:band (q3_agg),
+        the root's meter delta holds a dispatch and no upload (warm); each
+        span's name and ms print;
+    (e) the cost of tracing: warm q6_count and q1_sums untraced and traced
+        in turns, five runs each, the same bits, both medians printed (no
+        threshold);
+    (f) the min/max layout comparison of l_shipdate over the raw lineitem
+        against li_shipdate_z, printed."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch.analysis import minmax_analysis
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
+    from hyperspace_tpu_torch.telemetry import plan_stats, trace
+
+    lake, warehouse = e2e["lake"], e2e["warehouse"]
+    session = HyperspaceSession(warehouse).enable_hyperspace()  # device=None: the card
+    hs = Hyperspace(session)
+    fns = {**tpch.QUERIES, **tpch.LOOKUP_QUERIES, **tpch.JOIN_QUERIES, **tpch.TPCH_QUERIES}
+    out: dict = {"explain": {}, "analyze": {}, "profile": {}, "trace_cost": {}}
+    launches0, plain0 = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+
+    # (a) explain
+    for q in ANALYSIS_EXPLAIN:
+        text = hs.explain(fns[q](session, lake), verbose=True)
+        listed = text.split("Indexes used:")[1].split("=" * 65)[1].strip().splitlines()
+        listed = sorted(line.split(" (Type:")[0] for line in listed if "(Type:" in line)
+        plan = fns[q](session, lake).optimized_plan()
+        used = sorted({n.index_info.index_name for n in plan.preorder()
+                       if getattr(n, "index_info", None) is not None})
+        require(listed == used, f"explain {q}: lists {listed}, the plan reads {used}")
+        require("Physical operator stats:" in text and "Applicable indexes:" in text,
+                f"explain {q}: verbose sections missing")
+        out["explain"][q] = listed
+        log({"explain": q, "card": card, "indexes": listed, "chars": len(text)})
+
+    # (b) whyNot
+    for q, extended in (("q3", True), ("q18", False)):
+        text = hs.why_not(fns[q](session, lake), extended=extended)
+        for part in ("Plan with Hyperspace & Summary:", "Applied indexes:",
+                     "Plan without Hyperspace:", "Index reasons:"):
+            require(part in text, f"whyNot {q}: {part!r} missing")
+        log({"why_not": q, "card": card, "extended": extended, "chars": len(text)})
+
+    # (c) EXPLAIN ANALYZE
+    for q in ANALYZE_QUERIES:
+        fn = fns[q]
+        fn(session, lake).collect()  # warm: every cache filled
+        runs = {}
+        for mode in ("plain", "explain_analyze", "collector"):
+            session.device_stats = DeviceTierStats()
+            before = dict(K.LAUNCHES)
+            t0 = time.perf_counter()
+            if mode == "plain":
+                batch = fn(session, lake).collect()
+            elif mode == "explain_analyze":
+                report = hs.explain_analyze(fn(session, lake))
+            else:
+                with plan_stats.collect_scope() as col:
+                    batch_a = fn(session, lake).collect()
+            ms = (time.perf_counter() - t0) * 1e3
+            runs[mode] = {"launches": {k: K.LAUNCHES[k] - before[k] for k in before},
+                          "route": _route_record(session.device_stats), "ms": ms}
+        for mode in ("explain_analyze", "collector"):
+            require(runs[mode]["launches"] == runs["plain"]["launches"],
+                    f"{q}: {mode} launches {runs[mode]['launches']} vs "
+                    f"{runs['plain']['launches']}")
+            require(runs[mode]["route"] == runs["plain"]["route"],
+                    f"{q}: {mode} route {runs[mode]['route']} vs {runs['plain']['route']}")
+        got = _columns(batch_a)
+        require(same_bits(got, _columns(batch)), f"{q}: the analyzed run's bits differ")
+        if q in e2e["device_results"]:
+            require(same_bits(got, e2e["device_results"][q]),
+                    f"{q}: the analyzed run differs from the main phase's device result")
+        elif q in e2e["want"]:
+            compare_batches(q, _floats(batch_a.to_pydict()), e2e["want"][q])
+        root = col.nodes.get(col.plan.plan_id)
+        require(root is not None and root.rows_out == batch_a.num_rows,
+                f"{q}: root rows {None if root is None else root.rows_out} vs "
+                f"{batch_a.num_rows}")
+        routes = dict(col.summary()["routes"])
+        scan = runs["plain"]["route"]["scan"]
+        if scan is not None:  # a fragment: its Aggregate notes the scan's route
+            require(routes.get(scan[0], 0) >= 1, f"{q}: notes {routes}, scan route {scan}")
+        else:  # a bucketed join
+            require(routes.get("bucketed", 0) >= 1, f"{q}: notes {routes}")
+        for part in ("Plan statistics (EXPLAIN ANALYZE):", "rows=", "wall=", "routes:",
+                     f"result: {batch_a.num_rows} row(s)"):
+            require(part in report, f"{q}: EXPLAIN ANALYZE lacks {part!r}")
+        out["analyze"][q] = {"routes": routes, "scan_route": scan,
+                             "join_paths": runs["plain"]["route"]["join_paths"],
+                             "rows": batch_a.num_rows,
+                             "launches": runs["plain"]["launches"],
+                             "ms": {m: r["ms"] for m, r in runs.items()}}
+        log({"explain_analyze": q, "card": card, **out["analyze"][q]})
+
+    # (d) profile
+    for q in PROFILE_QUERIES:
+        fn = fns[q]
+        text = hs.profile(fn(session, lake))
+        require("Query profile (spans + metrics):" in text and "metrics:" in text,
+                f"profile {q}: report sections missing")
+        with trace.capture() as cap:
+            fn(session, lake).collect()
+        (query,) = [r for r in cap.roots if r.name == "query"]
+        tree = _span_tree(query)
+        names = [n for _d, n, _ms in tree]
+        kids = {c.name.split(":")[0] for c in query.children}
+        require({"plan", "exec"} <= kids, f"profile {q}: the query's children {kids}")
+        (plan,) = [c for c in query.children if c.name == "plan"]
+        require(any(n.startswith("rule:") for _d, n, _ms in _span_tree(plan)),
+                f"profile {q}: no rule span under plan")
+        leaf = "kernel:" if q == "q6_count" else "join:band"
+        execs = [c for c in query.children if c.name.startswith("exec:")]
+        require(any(n.startswith(leaf) for e in execs for _d, n, _ms in _span_tree(e)),
+                f"profile {q}: no {leaf} span under exec:*")
+        require(query.rpc["dispatches"] >= 1 and query.rpc["upload_bytes"] == 0,
+                f"profile {q}: warm meter delta {query.rpc}")
+        out["profile"][q] = {"rpc": query.rpc, "spans": len(names)}
+        log({"profile": q, "card": card, "rpc": query.rpc,
+             "spans": [["  " * d + n, round(ms, 3)] for d, n, ms in tree]})
+
+    # (e) the cost of tracing
+    for q in TRACE_COST_QUERIES:
+        fn = fns[q]
+        fn(session, lake).collect()
+        times = {"untraced": [], "traced": []}
+        bits = {}
+        for _turn in range(TRACE_COST_TURNS):
+            for mode in ("untraced", "traced"):
+                t0 = time.perf_counter()
+                if mode == "traced":
+                    with trace.capture():
+                        batch = fn(session, lake).collect()
+                else:
+                    batch = fn(session, lake).collect()
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+                got = _columns(batch)
+                require(same_bits(got, bits.setdefault(mode, got))
+                        and same_bits(got, bits.setdefault("untraced", got)),
+                        f"{q}: a traced run's bits differ")
+        trace.drain_roots()
+        out["trace_cost"][q] = {"untraced_median_ms": statistics.median(times["untraced"]),
+                                "traced_median_ms": statistics.median(times["traced"]),
+                                "untraced_ms": times["untraced"], "traced_ms": times["traced"]}
+        log({"trace_cost": q, "card": card, **out["trace_cost"][q]})
+
+    # (f) the min/max layout comparison
+    t0 = time.perf_counter()
+    z_files = hs.get_index(tpch.LI_SHIPDATE_Z[0]).content.files()
+    report = minmax_analysis.analyze_comparison(
+        session.read.parquet(os.path.join(lake, "lineitem")), session.read.parquet(z_files),
+        ["l_shipdate"])
+    require("l_shipdate — before" in report and "l_shipdate — after" in report,
+            "the min/max comparison did not render")
+    out["minmax_s"] = time.perf_counter() - t0
+    log({"minmax_comparison": "l_shipdate", "card": card, "seconds": out["minmax_s"],
+         "z_files": len(z_files)})
+    print(report, flush=True)
+
+    out["launches"] = {k: K.LAUNCHES[k] - launches0[k] for k in launches0}
+    require(K.PLAIN_CALLS == plain0, f"plain versions ran in the analysis phase: "
+            f"{ {k: K.PLAIN_CALLS[k] - plain0[k] for k in plain0} }")
+    for k in ON_PATH:
+        require(out["launches"][k] > 0, f"the analysis phase launched {k} no time")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # order phase
 # ---------------------------------------------------------------------------
 
@@ -2755,6 +2985,7 @@ def main() -> int:
     join = phase("join", join_phase, torch, K, e2e, args.rows, smi)
     sources = phase("sources", sources_phase, torch, K, e2e, args.rows, smi)
     ref_cache = phase("reference_cache", reference_cache_check, e2e, smi)
+    analysis = phase("analysis", analysis_phase, torch, K, e2e, args.rows, smi)
     del e2e["want"], e2e["device_results"]
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     order = phase("order", order_phase, torch, min(ORDER_ROWS, _pad_pow2(args.rows)), smi)
@@ -2775,7 +3006,8 @@ def main() -> int:
                     "skipping": skipping["launches"][name],
                     "pipeline": pipeline["launches"][name],
                     "join": join["launches"][name],
-                    "sources": sources["launches"][name]}
+                    "sources": sources["launches"][name],
+                    "analysis": analysis["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
@@ -2792,7 +3024,8 @@ def main() -> int:
         json.dump({"device": {"kind": kind, "nvidia_smi": smi}, "build_s": build_s,
                    "kernels": kernels, "end_to_end": e2e, "lifecycle": lifecycle,
                    "skipping": skipping, "pipeline": pipeline, "join": join,
-                   "sources": sources, "reference_cache": ref_cache, "order": order,
+                   "sources": sources, "reference_cache": ref_cache,
+                   "analysis": analysis, "order": order,
                    "cache_sizing_mb": sizing,
                    "phase_s": phase_s, "total_s": time.perf_counter() - t_start}, f, indent=1)
     log({"phase": "done", "card": smi, "phase_s": phase_s,

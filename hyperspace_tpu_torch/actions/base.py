@@ -13,6 +13,13 @@ maintenance read scope (columnar/io.py), as the JAX package's does.
 Every running action registers its index path, so recovery can tell a live
 in-process transaction (its transient entry is healthy) from one a crash
 left behind.
+
+Telemetry, as in the JAX package: the whole run is an ``action:<Name>``
+span, a lost race counts ``action.retry.attempts`` (and
+``action.retry.gave_up`` when the budget is spent), and an action with an
+``event_class`` logs its CRUD event ("started", then "succeeded", "noop:
+..." or "failed: ...") to its ``event_logger``, which the index manager
+sets from the session (``telemetry/logger.event_logger_for``).
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ from ..columnar.io import maintenance_scope
 from ..exceptions import ConcurrentWriteError, HyperspaceError, NoChangesError
 from ..meta.entry import LogEntry
 from ..meta.log_manager import IndexLogManager
+from ..telemetry import trace
+from ..telemetry.events import AppInfo, HyperspaceEvent
+from ..telemetry.metrics import REGISTRY
 
 logger = logging.getLogger(__name__)
 
@@ -68,10 +78,12 @@ def action_in_progress(index_path: str) -> bool:
 class Action:
     transient_state: str = "?"
     final_state: str = "?"
+    event_class: "type[HyperspaceEvent] | None" = None  # its CRUD event
 
     def __init__(self, log_manager: IndexLogManager):
         self.log_manager = log_manager
         self.base_id: int = 0
+        self.event_logger = None
 
     def validate(self) -> None:
         """Raise HyperspaceError if the action cannot run from this state;
@@ -86,15 +98,45 @@ class Action:
     def reset_for_retry(self) -> None:
         """Re-read whatever the action cached from the log before a retry."""
 
+    def event_index_name(self) -> str:
+        """The index name the action's event carries: the latest stable
+        entry's (what a cancel rolls back to)."""
+        stable = self.log_manager.get_latest_stable_log()
+        return getattr(stable, "name", "") if stable else ""
+
+    def event(self, message: str) -> "HyperspaceEvent | None":
+        if self.event_class is None:
+            return None
+        return self.event_class(AppInfo.current(), message,
+                                index_name=self.event_index_name())
+
+    def _log_event(self, message: str) -> None:
+        if self.event_logger is not None:
+            ev = self.event(message)
+            if ev is not None:
+                self.event_logger.log_event(ev)
+
     def run(self) -> None:
         index_path = self.log_manager.index_path
-        _tx_enter(index_path)
-        try:
-            self._run_with_conflict_retry()
-        except NoChangesError as e:
-            logger.info("No-op action: %s", e)
-        finally:
-            _tx_exit(index_path)
+        with trace.span(f"action:{type(self).__name__}") as sp:
+            self._log_event("started")
+            _tx_enter(index_path)
+            try:
+                attempts = self._run_with_conflict_retry()
+                self._log_event("succeeded")
+                sp.set_attr("outcome", "succeeded")
+                if attempts > 1:
+                    sp.set_attr("attempts", attempts)
+            except NoChangesError as e:
+                logger.info("No-op action: %s", e)
+                self._log_event(f"noop: {e}")
+                sp.set_attr("outcome", "noop")
+            except Exception as e:
+                self._log_event(f"failed: {e}")
+                sp.set_attr("outcome", "failed")
+                raise
+            finally:
+                _tx_exit(index_path)
 
     def _run_with_conflict_retry(self) -> int:
         total = max(1, _ACTION_RETRIES)
@@ -109,9 +151,12 @@ class Action:
                 return attempt
             except ConcurrentWriteError as e:
                 if attempt >= total:
+                    REGISTRY.counter("action.retry.gave_up").inc()
                     if attempt > 1:
                         raise type(e)(f"{e} (conflict survived {attempt} attempts)") from e
                     raise
+                REGISTRY.counter("action.retry.attempts").inc()
+                trace.add_event("retry:action", attempt=attempt, error=str(e)[:120])
                 logger.info("%s lost the optimistic-concurrency race (%s); re-reading "
                             "the log and retrying (%d/%d)", type(self).__name__, e,
                             attempt, total)
@@ -159,6 +204,9 @@ class IndexMutationAction(Action):
 
     def reset_for_retry(self) -> None:
         self._prev = self.log_manager.get_latest_log()
+
+    def event_index_name(self) -> str:
+        return getattr(self._prev, "name", "")
 
     def validate(self) -> None:
         prev = self.log_manager.get_latest_log()

@@ -31,6 +31,7 @@ from ..meta.log_manager import IndexLogManager
 from ..meta.signatures import DEFAULT_PROVIDER_NAME, get_provider
 from ..models.base import IndexerContext
 from ..models.covering import _single_file_scan, resolve_columns
+from ..telemetry.events import CreateActionEvent
 
 if TYPE_CHECKING:
     from ..models.base import IndexConfig
@@ -66,6 +67,7 @@ def content_of_version_dir(version_path: str) -> Content:
 class CreateAction(Action):
     transient_state = S.CREATING
     final_state = S.ACTIVE
+    event_class = CreateActionEvent
 
     def __init__(self, session: "HyperspaceSession", df: "DataFrame", config: "IndexConfig",
                  index_path: str, log_manager: IndexLogManager,
@@ -79,6 +81,9 @@ class CreateAction(Action):
         self.tracker = FileIdTracker()
         self._index = None
         self._relation = None
+
+    def event_index_name(self) -> str:
+        return self.config.index_name
 
     def validate(self) -> None:
         from ..sources.manager import SourceProviderManager

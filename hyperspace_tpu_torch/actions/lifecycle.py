@@ -24,6 +24,13 @@ from ..meta.log_manager import IndexLogManager
 from ..models.dataskipping.sketch_store import derived_base
 from ..sources.delta import VERSION_HISTORY_PROPERTY
 from ..sources.iceberg import SNAPSHOT_ID_HISTORY_PROPERTY
+from ..telemetry.events import (
+    CancelActionEvent,
+    DeleteActionEvent,
+    RestoreActionEvent,
+    VacuumActionEvent,
+    VacuumOutdatedActionEvent,
+)
 
 # the snapshot providers' table-version history; after vacuum-outdated
 # only the latest table version remains valid for time travel
@@ -49,12 +56,14 @@ class _CopyStateAction(IndexMutationAction):
 class DeleteAction(_CopyStateAction):
     transient_state = S.DELETING
     final_state = S.DELETED
+    event_class = DeleteActionEvent
     allowed_prior_states = frozenset({S.ACTIVE})
 
 
 class RestoreAction(_CopyStateAction):
     transient_state = S.RESTORING
     final_state = S.ACTIVE
+    event_class = RestoreActionEvent
     allowed_prior_states = frozenset({S.DELETED})
 
 
@@ -63,6 +72,7 @@ class VacuumAction(IndexMutationAction):
 
     transient_state = S.VACUUMING
     final_state = S.DOESNOTEXIST
+    event_class = VacuumActionEvent
     allowed_prior_states = frozenset({S.DELETED})
 
     def __init__(self, index_path: str, log_manager: IndexLogManager):
@@ -86,6 +96,7 @@ class VacuumOutdatedAction(IndexMutationAction):
 
     transient_state = S.VACUUMINGOUTDATED
     final_state = S.ACTIVE
+    event_class = VacuumOutdatedActionEvent
     allowed_prior_states = frozenset({S.ACTIVE})
 
     def __init__(self, index_path: str, log_manager: IndexLogManager,
@@ -128,6 +139,7 @@ class VacuumOutdatedAction(IndexMutationAction):
 
 class CancelAction(Action):
     """Roll a transient state back to the last stable one."""
+    event_class = CancelActionEvent
 
     transient_state = S.CANCELLING
 

@@ -23,6 +23,7 @@ from ..meta.entry import Content, Directory, FileIdTracker, FileInfo, IndexLogEn
 from ..meta.log_manager import IndexLogManager
 from ..models.base import IndexerContext
 from ..models.covering import bucket_id_from_filename
+from ..telemetry.events import OptimizeActionEvent
 
 if TYPE_CHECKING:
     from ..session import HyperspaceSession
@@ -31,6 +32,7 @@ if TYPE_CHECKING:
 class OptimizeAction(IndexMutationAction):
     transient_state = S.OPTIMIZING
     final_state = S.ACTIVE
+    event_class = OptimizeActionEvent
     allowed_prior_states = frozenset({S.ACTIVE})
 
     def __init__(self, session: "HyperspaceSession", index_path: str,

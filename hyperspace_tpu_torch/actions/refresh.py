@@ -41,6 +41,11 @@ from ..meta.entry import (
 from ..meta.log_manager import IndexLogManager
 from ..models.base import IndexerContext, UpdateMode
 from ..models.covering import _single_file_scan
+from ..telemetry.events import (
+    RefreshActionEvent,
+    RefreshIncrementalActionEvent,
+    RefreshQuickActionEvent,
+)
 
 if TYPE_CHECKING:
     from ..plan.dataframe import DataFrame
@@ -118,6 +123,7 @@ class RefreshActionBase(IndexMutationAction):
 
 class RefreshAction(RefreshActionBase):
     """Full rebuild into a new data version."""
+    event_class = RefreshActionEvent
 
     def __init__(self, *args):
         super().__init__(*args)
@@ -148,6 +154,7 @@ class RefreshAction(RefreshActionBase):
 
 class RefreshIncrementalAction(RefreshActionBase):
     """Index the appended files; drop the deleted files' rows by lineage."""
+    event_class = RefreshIncrementalActionEvent
 
     def __init__(self, *args):
         super().__init__(*args)
@@ -189,6 +196,7 @@ class RefreshIncrementalAction(RefreshActionBase):
 
 class RefreshQuickAction(RefreshActionBase):
     """Record the source delta in the entry; the index data stays."""
+    event_class = RefreshQuickActionEvent
 
     def __init__(self, *args):
         super().__init__(*args)

@@ -18,6 +18,13 @@ reads are: a string column then carries the sorted union of the files'
 dictionaries, so both packages write the same index files. The footer
 statistics cache (``HYPERSPACE_STATS_CACHE_MB``) is process-wide too;
 the session sets both budgets when it is made (``configure_caches``).
+
+The three caches count in the metrics registry as ``cache.index_chunk.*``,
+``cache.source_col.*`` and ``cache.rowgroup_stats.*``; the chunk stream
+counts ``io.chunks``, ``io.bytes_decoded``, ``io.rows_decoded`` and
+``io.chunk_decode_ms``, and a read fanned out over files counts
+``io.parallel_reads``, as in the JAX package. Every pool is sized by
+``utils/workers`` (``HYPERSPACE_IO_THREADS``).
 """
 
 from __future__ import annotations
@@ -27,7 +34,6 @@ import os
 import threading
 import time
 from collections import OrderedDict
-from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
@@ -40,7 +46,9 @@ from .table import Column, ColumnBatch, DATE32, Field, STRING, Schema
 from ..constants import NESTED_FIELD_PREFIX
 from ..exceptions import HyperspaceError
 from ..serve import budget as serve_budget
+from ..telemetry.metrics import REGISTRY
 from ..utils import env
+from ..utils.workers import io_pool, io_thread_cap
 
 _ARROW_TO_LOGICAL = {
     pa.int8(): "int8",
@@ -201,11 +209,14 @@ def _batch_nbytes(batch: ColumnBatch) -> int:
 class BytesBoundedLRU:
     """Bytes-bounded LRU with the JAX package's ``cache.<name>.*`` counts:
     ``hits``, ``misses`` (a build that stored or would have stored),
-    ``evictions`` and ``evicted_bytes``. A value larger than the budget is
-    returned and not kept; a budget of 0 keeps nothing."""
+    ``evictions`` and ``evicted_bytes``, kept on the instance and, under
+    ``metric_name``, in the metrics registry with the occupancy gauge
+    ``cache.<name>.bytes``. A value larger than the budget is returned and
+    not kept; a budget of 0 keeps nothing."""
 
-    def __init__(self, max_bytes: int):
+    def __init__(self, max_bytes: int, metric_name: str = ""):
         self.max_bytes = max_bytes
+        self.metric_name = metric_name
         self._d: OrderedDict = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
@@ -213,6 +224,10 @@ class BytesBoundedLRU:
         self.misses = 0
         self.evictions = 0
         self.evicted_bytes = 0
+
+    def _count(self, event: str, n: int = 1) -> None:
+        if self.metric_name:
+            REGISTRY.counter(f"cache.{self.metric_name}.{event}").inc(n)
 
     def __contains__(self, key) -> bool:
         with self._lock:
@@ -224,9 +239,10 @@ class BytesBoundedLRU:
             if hit is not None:
                 self._d.move_to_end(key)
                 self.hits += 1
-                return hit[0]
-            self.misses += 1
-            return None
+            else:
+                self.misses += 1
+        self._count("hits" if hit is not None else "misses")
+        return None if hit is None else hit[0]
 
     def set(self, key, value, nbytes: int) -> None:
         if nbytes > self.max_bytes:
@@ -237,19 +253,35 @@ class BytesBoundedLRU:
                 self._bytes -= old[1]
             self._d[key] = (value, nbytes)
             self._bytes += nbytes
-            self._trim()
+            evicted = self._trim()
+        self._note(evicted)
 
-    def _trim(self) -> None:
+    def _trim(self) -> tuple:
+        """Evict down to the budget (under the lock): (entries, bytes,
+        occupancy)."""
+        n = b = 0
         while self._bytes > self.max_bytes and self._d:
             _, (_v, nb) = self._d.popitem(last=False)
             self._bytes -= nb
-            self.evictions += 1
-            self.evicted_bytes += nb
+            n += 1
+            b += nb
+        self.evictions += n
+        self.evicted_bytes += b
+        return n, b, self._bytes
+
+    def _note(self, evicted: tuple) -> None:
+        n, b, occupancy = evicted
+        if n:
+            self._count("evictions", n)
+            self._count("evicted_bytes", b)
+        if self.metric_name:
+            REGISTRY.gauge(f"cache.{self.metric_name}.bytes").set(occupancy)
 
     def resize(self, max_bytes: int) -> None:
         with self._lock:
             self.max_bytes = max_bytes
-            self._trim()
+            evicted = self._trim()
+        self._note(evicted)
 
     def get_or_put(self, key, factory: Callable[[], tuple]):
         """The value under ``key``, else ``factory()``'s ``(value, nbytes)``
@@ -259,12 +291,16 @@ class BytesBoundedLRU:
             if hit is not None:
                 self._d.move_to_end(key)
                 self.hits += 1
-                return hit[0]
+        if hit is not None:
+            self._count("hits")
+            return hit[0]
         value, nbytes = factory()
         with self._lock:
             self.misses += 1
-            if key in self._d:  # a concurrent reader stored it first
-                return self._d[key][0]
+            stored = self._d.get(key)  # a concurrent reader stored it first
+        self._count("misses")
+        if stored is not None:
+            return stored[0]
         self.set(key, value, nbytes)
         return value
 
@@ -278,14 +314,19 @@ class IndexChunkCache(BytesBoundedLRU):
     """Decoded index-file reads, keyed by the files' (path, mtime_ns,
     inode, size), the requested columns, the row-group selection and the
     filter, so a rewrite of any file invalidates its entries
-    (``HYPERSPACE_INDEX_CACHE_MB``). Owned by a session."""
+    (``HYPERSPACE_INDEX_CACHE_MB``). Owned by a session; counted as
+    ``cache.index_chunk.*``."""
+
+    def __init__(self, max_bytes: int):
+        super().__init__(max_bytes, "index_chunk")
 
 
 # the process-wide caches of the JAX package's columnar/io.py: decoded
 # source columns inside index actions, and parquet footer statistics; the
 # session sets their budgets from the knobs (configure_caches)
-_SOURCE_COL_CACHE = BytesBoundedLRU(env.cache_bytes("HYPERSPACE_BUILD_CACHE_MB"))
-_ROWGROUP_STATS_CACHE = BytesBoundedLRU(env.cache_bytes("HYPERSPACE_STATS_CACHE_MB"))
+_SOURCE_COL_CACHE = BytesBoundedLRU(env.cache_bytes("HYPERSPACE_BUILD_CACHE_MB"), "source_col")
+_ROWGROUP_STATS_CACHE = BytesBoundedLRU(env.cache_bytes("HYPERSPACE_STATS_CACHE_MB"),
+                                        "rowgroup_stats")
 
 
 def configure_caches() -> None:
@@ -467,11 +508,7 @@ def read_parquet(
         def one(p):
             return _read_one_table(p, cols, row_groups.get(p), arrow_filter)
 
-        if parallel and len(paths) > 1:
-            with ThreadPoolExecutor(max_workers=min(8, len(paths))) as pool:
-                tables = list(pool.map(one, paths))
-        else:
-            tables = [one(p) for p in paths]
+        tables = _pmap_ordered(one, paths) if parallel else [one(p) for p in paths]
         if len(tables) > 1:
             tables = _unify_string_encoding(tables)
         table = pa.concat_tables(tables, promote_options="permissive")
@@ -524,12 +561,9 @@ def _all_cached(groups, columns, cache: IndexChunkCache | None, row_groups) -> b
 
 
 def io_threads() -> int:
-    """IO pool width: ``HYPERSPACE_IO_THREADS``, default ``min(8, nproc)``;
-    an unparseable value means serial (1)."""
-    try:
-        return int(env.read_raw("HYPERSPACE_IO_THREADS", str(min(8, os.cpu_count() or 1))))
-    except ValueError:
-        return 1
+    """IO pool width: ``utils/workers.io_thread_cap`` (``HYPERSPACE_IO_THREADS``,
+    default ``min(8, nproc)``; an unparseable value means serial)."""
+    return io_thread_cap()
 
 
 def io_byte_budget() -> int:
@@ -632,10 +666,16 @@ def iter_chunks(
                                  parallel=parallel)
         except Exception as e:  # noqa: BLE001 - one type for every read failure
             raise ChunkReadError(f"chunk decode failed for {group}: {e}") from e
-        return batch, time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        REGISTRY.histogram("io.chunk_decode_ms").observe(dt * 1000)
+        return batch, dt
 
     def emit(i: int, batch: ColumnBatch, dt: float) -> StreamChunk:
-        return StreamChunk(batch, i, groups[i], dt, _batch_nbytes(batch))
+        nbytes = _batch_nbytes(batch)
+        REGISTRY.counter("io.chunks").inc()
+        REGISTRY.counter("io.bytes_decoded").inc(nbytes)
+        REGISTRY.counter("io.rows_decoded").inc(batch.num_rows)
+        return StreamChunk(batch, i, groups[i], dt, nbytes)
 
     width = min(io_threads(), len(groups))
     if not overlap or width <= 1 or len(groups) < 2 or _all_cached(groups, columns, cache,
@@ -648,7 +688,7 @@ def iter_chunks(
     ests = [max(1, sum(os.path.getsize(p) for p in g if os.path.exists(p))) * 2
             for g in groups]
     max_inflight = width + 2
-    pool = ThreadPoolExecutor(max_workers=width, thread_name_prefix="hs-scan-io")
+    pool = io_pool(width, "hs-scan-io")
     bstream = serve_budget.global_budget().stream("scan")
     futures: dict = {}
     nxt = 0
@@ -688,9 +728,10 @@ def _pmap_ordered(fn, items):
     results in item order; a worker's exception propagates."""
     items = list(items)
     width = min(io_threads(), len(items))
-    if width <= 1:
+    if width <= 1 or len(items) < 2:
         return [fn(x) for x in items]
-    with ThreadPoolExecutor(max_workers=width, thread_name_prefix="hs-read") as pool:
+    REGISTRY.counter("io.parallel_reads").inc(len(items))
+    with io_pool(width, "hs-read") as pool:
         return list(pool.map(fn, items))
 
 

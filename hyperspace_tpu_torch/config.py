@@ -109,3 +109,11 @@ class HyperspaceConf:
     def build_max_bytes_in_memory(self) -> int:
         return int(self._conf.get(C.BUILD_MAX_BYTES_IN_MEMORY,
                                   C.BUILD_MAX_BYTES_IN_MEMORY_DEFAULT))
+
+    @property
+    def event_logger_class(self) -> str | None:
+        return self._conf.get(C.EVENT_LOGGER_CLASS)
+
+    @property
+    def display_mode(self) -> str:
+        return str(self._conf.get(C.DISPLAY_MODE, C.DISPLAY_MODE_DEFAULT))

@@ -78,6 +78,17 @@ DEFAULT_SOURCE_FORMATS_DEFAULT = "avro,csv,json,orc,parquet,text"
 GLOBBING_PATTERN_KEY = "hyperspace.source.globbingPattern"
 OPT_GLOB_PATHS = "globPaths"
 
+# telemetry: the event logger's class path (the JAX package's logger class
+# names map to the port's, telemetry/logger.py)
+EVENT_LOGGER_CLASS = "hyperspace.telemetry.eventLoggerClass"
+
+# explain and whyNot: the display mode and the highlight tags that override
+# the mode's own when both are set
+DISPLAY_MODE = "hyperspace.explain.displayMode"
+DISPLAY_MODE_DEFAULT = "plaintext"
+HIGHLIGHT_BEGIN_TAG = "hyperspace.explain.displayMode.highlight.beginTag"
+HIGHLIGHT_END_TAG = "hyperspace.explain.displayMode.highlight.endTag"
+
 # a struct column's leaf reads as a flat column of this prefix and its path
 NESTED_FIELD_PREFIX = "__hs_nested."
 

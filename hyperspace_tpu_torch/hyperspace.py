@@ -1,20 +1,17 @@
 """Hyperspace, the user-facing facade (counterpart of
 hyperspace_tpu/hyperspace.py): create, the lifecycle actions (delete,
-restore, vacuum, vacuum-outdated, refresh, optimize, cancel, recover) and
-introspection. The JAX package's ingest verbs (``append``,
-``compact_index``) and its explain, whyNot and profiling views are not
-ported."""
+restore, vacuum, vacuum-outdated, refresh, optimize, cancel, recover),
+introspection, and the analysis views: ``explain``, ``why_not``,
+``explain_analyze`` and ``profile``. The JAX package's ingest verbs
+(``append``, ``compact_index``) and its workload views
+(``workload_report``, ``index_report``) are not ported yet."""
 
 from __future__ import annotations
 
-import json
-import os
 from typing import TYPE_CHECKING, Optional
 
-import numpy as np
-
 from . import constants as C
-from .columnar.table import Column, ColumnBatch
+from .analysis.statistics import index_statistics_df
 from .exceptions import HyperspaceError
 from .index_manager import index_manager_for
 from .meta.entry import IndexLogEntry
@@ -24,57 +21,13 @@ if TYPE_CHECKING:
     from .plan.dataframe import DataFrame
     from .session import HyperspaceSession
 
-_INT_COLUMNS = ("numBuckets", "numIndexFiles", "indexSizeInBytes", "numSourceFiles",
-                "sourceSizeInBytes", "numAppendedFiles", "numDeletedFiles", "logVersion")
-_SUMMARY_COLUMNS = ("name", "indexedColumns", "includedColumns", "numBuckets", "schema",
-                    "indexLocation", "state", "kind")
 
-
-def _row(entry: IndexLogEntry, extended: bool) -> dict:
-    """The reference's statistics row: the summary columns, and with
-    ``extended`` the file counts and sizes, the recorded delta and the log
-    version."""
-    dd = entry.derived_dataset
-    files = entry.content.files()
-    row = {
-        "name": entry.name,
-        "indexedColumns": ",".join(dd.indexed_columns()),
-        # a data-skipping index has no included columns and no schema
-        "includedColumns": ",".join(getattr(dd, "included_columns", lambda: [])()),
-        "numBuckets": getattr(dd, "num_buckets", 0),
-        "schema": json.dumps(getattr(dd, "_schema", [])),
-        "indexLocation": os.path.commonpath(files) if files else "",
-        "state": entry.state,
-        "kind": dd.kind,
-    }
-    if extended:
-        row.update({
-            "numIndexFiles": len(files),
-            "indexSizeInBytes": entry.index_data_size_in_bytes(),
-            "numSourceFiles": len(entry.source_file_infos()),
-            "sourceSizeInBytes": entry.source_files_size_in_bytes(),
-            "numAppendedFiles": len(entry.appended_files()),
-            "numDeletedFiles": len(entry.deleted_files()),
-            "logVersion": entry.id,
-            "additionalStats": json.dumps(dd.statistics(), default=str),
-        })
-    return row
-
-
-def _statistics_df(session, entries: list[IndexLogEntry], extended: bool) -> "DataFrame":
-    from .plan.dataframe import DataFrame
-    from .plan.nodes import InMemoryScan
-
-    rows = [_row(e, extended) for e in entries]
-    names = list(rows[0]) if rows else list(_SUMMARY_COLUMNS)
-    cols = {
-        k: (Column(np.asarray([r[k] for r in rows], dtype=np.int64), "int64")
-            if k in _INT_COLUMNS
-            else Column.from_values([r[k] for r in rows], "string") if rows
-            else Column(np.zeros(0, np.int32), "string", None, [""]))
-        for k in names
-    }
-    return DataFrame(session, InMemoryScan(ColumnBatch(cols)))
+def _emit(s: str, redirect) -> Optional[str]:
+    """The report, or None after handing it to ``redirect``."""
+    if redirect is not None:
+        redirect(s)
+        return None
+    return s
 
 
 class Hyperspace:
@@ -112,17 +65,51 @@ class Hyperspace:
         list); it also runs when a session's manager is built."""
         return self._manager.recover(name, force=force)
 
+    # --- analysis views ---
+    def explain(self, df: "DataFrame", verbose: bool = False, redirect=None) -> Optional[str]:
+        """The plan with and without the indexes, the differing lines
+        highlighted, and the indexes used; ``verbose`` adds the index scan
+        detail, the operator counts and the applicable indexes."""
+        from .analysis.explain import explain_string
+
+        return _emit(explain_string(self.session, df, verbose), redirect)
+
+    def why_not(
+        self, df: "DataFrame", index_name: str = "", extended: bool = False, redirect=None
+    ) -> Optional[str]:
+        """Why each candidate index was or was not applied to the query."""
+        from .analysis.whynot import why_not_string
+
+        return _emit(why_not_string(self.session, df, index_name or None, extended), redirect)
+
+    def explain_analyze(self, df: "DataFrame", redirect=None) -> Optional[str]:
+        """Execute the query once with the plan-statistics collector on and
+        return the optimized plan annotated with per-node actual rows, wall
+        time, route and bytes and the estimator q-errors; the run takes the
+        same route and gives the same bits as a plain collect."""
+        from .analysis.explain import explain_analyze_string
+
+        return _emit(explain_analyze_string(self.session, df), redirect)
+
+    def profile(self, df: "DataFrame", redirect=None) -> Optional[str]:
+        """Execute the query once under tracing and return the per-query
+        profile: the span tree with the metrics, and the estimator
+        accuracy."""
+        from .analysis.explain import profile_string
+
+        return _emit(profile_string(self.session, df), redirect)
+
     # --- introspection ---
     def indexes(self) -> "DataFrame":
         """One row per index: the reference's summary columns."""
-        return _statistics_df(self.session, self._manager.get_indexes(), extended=False)
+        return index_statistics_df(self.session, self._manager.get_indexes(), extended=False)
 
     def index(self, name: str) -> "DataFrame":
         """The detailed statistics row of one index."""
         entry = self._manager.get_index(name)
         if entry is None:
             raise HyperspaceError(f"Index with name {name!r} could not be found")
-        return _statistics_df(self.session, [entry], extended=True)
+        return index_statistics_df(self.session, [entry], extended=True)
 
     def get_index_versions(self, name: str, states: list[str] | None = None) -> list[int]:
         return self._manager.get_index_versions(name, states)

@@ -18,7 +18,12 @@ action clears it, so a query is never rewritten to a stale entry.
   crashed vacuum is finished);
 - a latestStable pointer that lags the log is fixed forward.
 
-The pass runs once when a session's manager is built. The JAX package's
+The pass runs once when a session's manager is built, and counts
+``recovery.runs``, ``recovery.rolled_back``, ``recovery.pointer_fixed``,
+``recovery.staging_removed``, ``recovery.orphan_versions`` and
+``recovery.temp_files`` in the metrics registry. Every action runs with
+the session's event logger (``hyperspace.telemetry.eventLoggerClass``).
+The JAX package's
 ingest verbs (``append``, ``compact_index``) and snapshot pins belong to its
 ingest plane, which is not ported.
 """
@@ -49,6 +54,7 @@ from .meta.data_manager import IndexDataManager
 from .meta.entry import IndexLogEntry
 from .meta.log_manager import IndexLogManager
 from .meta.path_resolver import PathResolver
+from .telemetry.metrics import REGISTRY
 
 if TYPE_CHECKING:
     from .models.base import IndexConfig
@@ -82,23 +88,23 @@ class IndexCollectionManager:
     # --- actions ---
     def create(self, df: "DataFrame", config: "IndexConfig") -> None:
         path, lm, dm = self._managers(config.index_name)
-        CreateAction(self.session, df, config, path, lm, dm).run()
+        self._run(CreateAction(self.session, df, config, path, lm, dm))
 
     def delete(self, name: str) -> None:
         _, lm, _ = self._existing_log_manager(name)
-        DeleteAction(lm).run()
+        self._run(DeleteAction(lm))
 
     def restore(self, name: str) -> None:
         _, lm, _ = self._existing_log_manager(name)
-        RestoreAction(lm).run()
+        self._run(RestoreAction(lm))
 
     def vacuum(self, name: str) -> None:
         path, lm, _ = self._existing_log_manager(name)
-        VacuumAction(path, lm).run()
+        self._run(VacuumAction(path, lm))
 
     def vacuum_outdated(self, name: str) -> None:
         path, lm, dm = self._existing_log_manager(name)
-        VacuumOutdatedAction(path, lm, dm).run()
+        self._run(VacuumOutdatedAction(path, lm, dm))
 
     def refresh(self, name: str, mode: str = C.REFRESH_MODE_FULL) -> None:
         path, lm, dm = self._existing_log_manager(name)
@@ -109,15 +115,22 @@ class IndexCollectionManager:
         }.get(mode)
         if cls is None:
             raise HyperspaceError(f"Invalid refresh mode {mode!r}; valid: {C.REFRESH_MODES}")
-        cls(self.session, path, lm, dm).run()
+        self._run(cls(self.session, path, lm, dm))
 
     def optimize(self, name: str, mode: str = C.OPTIMIZE_MODE_QUICK) -> None:
         path, lm, dm = self._existing_log_manager(name)
-        OptimizeAction(self.session, path, lm, dm, mode).run()
+        self._run(OptimizeAction(self.session, path, lm, dm, mode))
 
     def cancel(self, name: str) -> None:
         _, lm, _ = self._existing_log_manager(name)
-        CancelAction(lm).run()
+        self._run(CancelAction(lm))
+
+    def _run(self, action) -> None:
+        """Run a user-requested action with the session's event logger."""
+        from .telemetry.logger import event_logger_for
+
+        action.event_logger = event_logger_for(self.session)
+        action.run()
 
     # --- reads ---
     def get_indexes(self, states: list[str] | None = None) -> list[IndexLogEntry]:
@@ -180,6 +193,7 @@ class IndexCollectionManager:
             names = sorted(n for n in os.listdir(root) if os.path.isdir(os.path.join(root, n)))
         else:
             names = []
+        REGISTRY.counter("recovery.runs").inc()
         for n in names:
             r = self._recover_index(n, force)
             report["indexes_scanned"] += 1
@@ -188,6 +202,13 @@ class IndexCollectionManager:
             if repaired or r["skipped"]:
                 report["per_index"][n] = r
             report["repaired"] = report["repaired"] or repaired
+            if r["rolled_back"]:
+                REGISTRY.counter("recovery.rolled_back").inc()
+            if r["pointer_fixed"]:
+                REGISTRY.counter("recovery.pointer_fixed").inc()
+            REGISTRY.counter("recovery.staging_removed").inc(r["staging_removed"])
+            REGISTRY.counter("recovery.orphan_versions").inc(len(r["orphan_versions"]))
+            REGISTRY.counter("recovery.temp_files").inc(r["temp_files"])
         return report
 
     def _recover_index(self, name: str, force: bool) -> dict:
@@ -207,7 +228,7 @@ class IndexCollectionManager:
                     # entry and its staging and spool files alone
                     r["skipped"] = f"fresh-transient:{latest.state}"
                     return r
-                CancelAction(lm).run()
+                self._run(CancelAction(lm))
                 r["rolled_back"] = latest.state
                 latest_id = lm.get_latest_id()
                 latest = lm.get_log(latest_id) if latest_id is not None else None

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import os
 import re
-from concurrent.futures import ThreadPoolExecutor
 from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
@@ -52,6 +51,7 @@ from ..exceptions import HyperspaceError
 from ..meta.entry import FileInfo
 from ..ops.bucketize import partition_batch, stable_argsort
 from ..plan.nodes import FileScan, Project
+from ..utils.workers import io_pool, io_worker_count
 
 if TYPE_CHECKING:
     from ..plan.dataframe import DataFrame
@@ -190,7 +190,13 @@ class CoveringIndex(Index):
             # anew over the merged batch
             _write_sketch_sidecar(part, out_path, INDEX_ROW_GROUP_SIZE, self._indexed)
 
-        with ThreadPoolExecutor(max_workers=max(1, min(len(by_bucket), 8))) as pool:
+        # HYPERSPACE_IO_THREADS sizes the pool, further clamped so the
+        # buckets in flight stay within the build budget
+        biggest = max((sum(f.size for f in files) for files in by_bucket.values()),
+                      default=1)
+        budget = ctx.session.conf.build_max_bytes_in_memory
+        workers = io_worker_count(len(by_bucket), cap=max(1, budget // max(1, biggest)))
+        with io_pool(workers, "hs-compact") as pool:
             list(pool.map(compact, by_bucket.items()))
 
     def refresh_incremental(self, ctx: IndexerContext, appended_df: "DataFrame | None",
@@ -384,8 +390,10 @@ def write_bucketed(
         return fname
 
     work = partition_batch(batch, bucket_columns, num_buckets)
-    # pyarrow's encoder releases the GIL: buckets write concurrently
-    with ThreadPoolExecutor(max_workers=max(1, min(len(work), os.cpu_count() or 1))) as pool:
+    # pyarrow's encoder releases the GIL: buckets write concurrently, on at
+    # most as many threads as cores (the numpy half holds the GIL)
+    workers = io_worker_count(max(1, len(work)), cap=os.cpu_count() or 1)
+    with io_pool(workers, "hs-build-write") as pool:
         return list(pool.map(write_bucket, work))
 
 

@@ -7,9 +7,10 @@ the greatest name) prunes the scan's file list through its sketch table.
 A file the index does not know (appended since its build) is never
 skipped. The score is 1, so any covering rewrite wins over skipping.
 
-The JAX package counts ``dataskipping.*`` in its telemetry registry and
-traces an event; the port keeps the same numbers on the session's
-``dataskipping_stats`` until its telemetry plane lands.
+Every consultation counts ``dataskipping.files_scanned``,
+``files_pruned`` and ``bytes_pruned`` in the metrics registry, traces a
+``dataskipping`` event and logs the usage event, as the JAX package does;
+the session's ``dataskipping_stats`` keeps the same numbers per session.
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ from ...rules.base import (
     reason,
 )
 from ...rules.filter_rule import match_filter_pattern
-from ...rules.rule_utils import find_scan_by_id
+from ...rules.rule_utils import find_scan_by_id, log_index_usage
+from ...telemetry import trace
+from ...telemetry.metrics import REGISTRY
 from ...rules.score_optimizer import register_rule
 
 TAG_DS_PREDICATE = "DATASKIPPING_INDEX_PREDICATE"
@@ -76,6 +79,7 @@ class DSFilterConditionFilter(QueryPlanIndexFilter):
                        "No sketch can bound any part of the filter condition."),
             ):
                 e.set_tag(scan.plan_id, TAG_DS_PREDICATE, translated)
+                self.tag_applicable_rule(plan, e, "ApplyDataSkippingIndex")
                 out.append(e)
         return {scan.plan_id: out} if out else {}
 
@@ -137,6 +141,15 @@ def _prune_scan(session, plan: LogicalPlan, leaf_id: int, entry: IndexLogEntry) 
             kept_files.append(f)  # an unknown file is never skipped
     n_pruned = len(leaf.files) - len(kept_files)
     bytes_pruned = sum(f.size for f in leaf.files) - sum(f.size for f in kept_files)
+    # the effect counts even when nothing is pruned
+    REGISTRY.counter("dataskipping.files_scanned").inc(len(kept_files))
+    REGISTRY.counter("dataskipping.files_pruned").inc(n_pruned)
+    REGISTRY.counter("dataskipping.bytes_pruned").inc(bytes_pruned)
+    if trace.enabled():
+        trace.add_event("dataskipping", index=entry.name, files_total=len(leaf.files),
+                        files_pruned=n_pruned, bytes_pruned=bytes_pruned)
+    message = f"Data skipping applied: {n_pruned} of {len(leaf.files)} files pruned"
+    log_index_usage(session, "ApplyDataSkippingIndex", [entry.name], message)
     stats = session.dataskipping_stats
     stats.consulted += 1
     stats.files_scanned += len(kept_files)
@@ -145,7 +158,7 @@ def _prune_scan(session, plan: LogicalPlan, leaf_id: int, entry: IndexLogEntry) 
     stats.last = {
         "index": entry.name, "files_total": len(leaf.files), "files_pruned": n_pruned,
         "bytes_pruned": bytes_pruned,
-        "message": f"Data skipping applied: {n_pruned} of {len(leaf.files)} files pruned",
+        "message": message,
     }
     if not n_pruned:
         return plan  # consulted, nothing pruned: the plan stays as it was

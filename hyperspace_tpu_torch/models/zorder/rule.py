@@ -22,6 +22,7 @@ from ...rules.base import (
 )
 from ...rules.filter_rule import match_filter_pattern
 from ...rules.rule_utils import (
+    log_index_usage,
     common_bytes_ratio,
     find_scan_by_id,
     subtree_required_columns,
@@ -56,6 +57,7 @@ class ZOrderFilterColumnFilter(QueryPlanIndexFilter):
                        missing=sorted(required - covered)),
             ):
                 continue
+            self.tag_applicable_rule(plan, e, "ZOrderFilterIndexRule")
             out.append(e)
         return {scan.plan_id: out} if out else {}
 
@@ -87,6 +89,8 @@ class ZOrderFilterIndexRule(HyperspaceRule):
         for leaf_id, entry in chosen.items():
             # z-order data has no bucket spec
             out = transform_plan_to_use_index(entry, out, leaf_id, False, False)
+            log_index_usage(self.session, "ZOrderFilterIndexRule", [entry.name],
+                            f"Z-order index applied: {entry.name}")
         return out
 
     def score(self, plan, chosen) -> int:

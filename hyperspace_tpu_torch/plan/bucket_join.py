@@ -55,7 +55,7 @@ re-planning (item 3).
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
+import time
 from dataclasses import dataclass, replace
 from typing import Optional, Sequence
 
@@ -77,6 +77,9 @@ from ..exceptions import HyperspaceError
 from ..models.covering import bucket_id_from_filename
 from ..ops.bucketize import bucket_ids_for_batch
 from ..ops.join import host_merge_join_indices
+from ..telemetry import trace
+from ..telemetry.metrics import REGISTRY
+from ..utils.workers import io_pool, io_worker_count
 
 @dataclass
 class BucketedSide:
@@ -192,7 +195,7 @@ def try_bucketed_scan_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
         return None if batch.num_rows == 0 else aggregate(batch)
 
     n = side.spec.num_buckets
-    with ThreadPoolExecutor(max_workers=max(1, min(8, n))) as pool:
+    with io_pool(io_worker_count(n), "hs-join") as pool:
         parts = [p for p in pool.map(agg_bucket, range(n)) if p is not None]
     if not parts:
         # every bucket filtered to nothing: the empty grouped shape (read
@@ -282,8 +285,14 @@ def try_bucketed_merge_join(
 
     n = left.spec.num_buckets
     appended = (_bucketize_appended(left, n, session), _bucketize_appended(right, n, session))
+    t0 = time.perf_counter()
 
     def done(out: ColumnBatch, path: str) -> ColumnBatch:
+        _log_join_exec(session, left, right, path)
+        if path != "per_bucket":
+            REGISTRY.counter("pipeline.join.queries").inc()
+            REGISTRY.histogram("pipeline.join.query_ms").observe(
+                (time.perf_counter() - t0) * 1000)
         if session is not None:
             paths = session.device_stats.join_paths
             paths[path] = paths.get(path, 0) + 1
@@ -303,6 +312,8 @@ def try_bucketed_merge_join(
                                                     appended, session, strategy)
         if dev_out is not None:
             return done(dev_out, "batched")
+        if preloaded is not None:
+            REGISTRY.counter("pipeline.join.aborted").inc()
     if agg_plan is not None and per_bucket is not None and device_on:
         reason = _fused_device_decline(session, left, right, lkeys, rkeys)
         if reason is None and not _stacked_plan_screen(session, agg_plan, left, right, lkeys,
@@ -340,6 +351,7 @@ def try_bucketed_merge_join(
                     raw_loaded[b] = (lb, rb, ls, rs)
             finally:
                 gen.close()  # stops the read-ahead, whatever raised
+            REGISTRY.counter("pipeline.join.aborted").inc()
             preloaded = [
                 None if t is None else (
                     None if t[0] is None else _apply_side_ops(left, t[0]),
@@ -394,7 +406,7 @@ def try_bucketed_merge_join(
 
     probed: list = []  # buckets whose probe ran on the device
     on_device: list = []  # buckets whose fused join+aggregate ran on the device
-    with ThreadPoolExecutor(max_workers=max(1, min(8, n))) as pool:
+    with io_pool(io_worker_count(n), "hs-join") as pool:
         parts = [p for p in pool.map(join_bucket, range(n)) if p is not None]
     if probed:
         session.device_stats.device_plain_probes += len(probed)
@@ -556,7 +568,7 @@ def _load_all_bucket_pairs(left, right, appended, session, raw: bool = False) ->
     thread pool before anything else runs: ``[(lb, rb, l_sorted,
     r_sorted)]`` by bucket."""
     n = left.spec.num_buckets
-    with ThreadPoolExecutor(max_workers=max(1, min(8, n))) as pool:
+    with io_pool(io_worker_count(n), "hs-join") as pool:
         return list(pool.map(
             lambda b: _load_pair(left, right, appended, session, b, raw), range(n)))
 
@@ -666,18 +678,21 @@ def _iter_bucket_pairs(left, right, appended, session, raw: bool = False,
     through the global read-ahead ledger before it is submitted (a stream
     that holds nothing is always granted). Without it, or with one bucket
     or one thread, each pair loads on the caller's thread when asked for."""
-    from ..columnar.io import io_threads
     from ..serve import budget as serve_budget
 
     n = left.spec.num_buckets
-    width = max(1, min(io_threads(), n))
+    width = io_worker_count(n)
     if not overlap or width <= 1 or n < 2:
         for b in range(n):
-            yield (b,) + _load_pair(left, right, appended, session, b, raw)
+            with trace.span("join:load", bucket=b) as sp:
+                out = _load_pair(left, right, appended, session, b, raw)
+                _note_pair_rows(sp, out)
+            REGISTRY.counter("pipeline.join.pairs").inc()
+            yield (b,) + out
         return
     ests = [max(1, sum(f.size for side in (left, right) for f in side.files_for_bucket(b))) * 2
             for b in range(n)]
-    pool = ThreadPoolExecutor(max_workers=width, thread_name_prefix="hs-join-io")
+    pool = io_pool(width, "hs-join-io")
     bstream = serve_budget.global_budget().stream("join")
     futures: dict = {}
     nxt = 0
@@ -691,9 +706,13 @@ def _iter_bucket_pairs(left, right, appended, session, raw: bool = False,
     try:
         pump()
         for b in range(n):
-            out = futures.pop(b).result()
+            # the span is the consumer's wait for the pair, on its thread
+            with trace.span("join:load", bucket=b) as sp:
+                out = futures.pop(b).result()
+                _note_pair_rows(sp, out)
             bstream.release(ests[b])
             pump()
+            REGISTRY.counter("pipeline.join.pairs").inc()
             yield (b,) + out
     finally:
         try:
@@ -702,6 +721,27 @@ def _iter_bucket_pairs(left, right, appended, session, raw: bool = False,
             pool.shutdown(wait=False)
         finally:
             bstream.close()
+
+
+def _note_pair_rows(sp, out) -> None:
+    sp.set_attr("rows_l", 0 if out[0] is None else out[0].num_rows)
+    sp.set_attr("rows_r", 0 if out[1] is None else out[1].num_rows)
+
+
+def _log_join_exec(session, left: BucketedSide, right: BucketedSide, path: str) -> None:
+    """The usage event of the bucketed join's execution tier (which path
+    ran: the batched device join, the stacked fused aggregate or the
+    per-bucket flow), logged as the rewrite rules log theirs. A bucketed
+    scan that is no index's stays silent."""
+    if session is None:
+        return
+    names = sorted({s.scan.index_info.index_name for s in (left, right)
+                    if s.scan.index_info is not None})
+    if names:
+        from ..rules.rule_utils import log_index_usage
+
+        log_index_usage(session, "BucketedJoinExec", names,
+                        f"Bucketed join executed ({path}): {', '.join(names)}")
 
 
 def _apply_side_ops(side: BucketedSide, batch: ColumnBatch) -> ColumnBatch:

@@ -3,8 +3,9 @@
 Every DataFrame op builds logical nodes lazily; collect() runs filter
 pushdown through joins and column pruning, the session's extra
 optimizations (the Hyperspace rewrite when enabled), predicate pushdown
-into scans, column pruning again and index pruning, then hands the plan to
-the executor. ``session.read`` builds the leaf: a FileScan over the files
+into scans, column pruning again and index pruning (all in a ``plan``
+span), then hands the plan to the executor (in a ``query`` span).
+``explain(analyze=True)`` is EXPLAIN ANALYZE. ``session.read`` builds the leaf: a FileScan over the files
 of parquet, CSV, JSON, ORC, text or avro roots, with glob roots expanded,
 a declared ``globbingPattern`` checked and recorded, and hive-style
 ``key=value`` directories as partition columns. A dotted column name
@@ -155,16 +156,55 @@ class DataFrame:
     def optimized_plan(self) -> LogicalPlan:
         from .passes import pre_rewrite_plan, prune_columns, push_predicates
         from .pruning import apply_pruning
+        from ..telemetry import trace
 
-        plan = pre_rewrite_plan(self.plan)
-        for rule in self.session.extra_optimizations:
-            plan = rule(plan)
-        # scan-level passes after the rewrite, so index scans get them too;
-        # index pruning last: it reads the filters pushed just before
-        return apply_pruning(prune_columns(push_predicates(plan)))
+        with trace.span("plan"):
+            plan = pre_rewrite_plan(self.plan)
+            for rule in self.session.extra_optimizations:
+                plan = rule(plan)
+            # scan-level passes after the rewrite, so index scans get them
+            # too; index pruning last: it reads the filters pushed just
+            # before
+            return apply_pruning(prune_columns(push_predicates(plan)), self.session)
+
+    def explain_plan(self, optimized: bool = True) -> str:
+        return (self.optimized_plan() if optimized else self.plan).pretty()
+
+    def explain(self, analyze: bool = False, redirect=None):
+        """The optimized plan tree; ``analyze=True`` executes the query once
+        with the plan-statistics collector installed and returns the tree
+        annotated with per-node actual rows, wall time, route and bytes and
+        the estimator q-errors (the same route and bits as ``collect``)."""
+        if not analyze:
+            s = self.explain_plan()
+        else:
+            from ..analysis.explain import explain_analyze_string
+
+            s = explain_analyze_string(self.session, self)
+        if redirect is not None:
+            redirect(s)
+            return None
+        return s
 
     def collect(self) -> ColumnBatch:
-        return execute_plan(self.optimized_plan(), self.session)
+        """Plan and execute. ``plan_stats.maybe_scope`` installs a per-node
+        statistics collector only under ``HYPERSPACE_PLAN_STATS=1``
+        (EXPLAIN ANALYZE installs its own outside); with tracing on, the run
+        is one ``query`` span."""
+        from ..telemetry import plan_stats, trace
+
+        def run() -> ColumnBatch:
+            optimized = self.optimized_plan()
+            plan_stats.note_plan(optimized)
+            return execute_plan(optimized, self.session)
+
+        if not trace.enabled():
+            with plan_stats.maybe_scope():
+                return run()
+        with plan_stats.maybe_scope(), trace.span("query") as sp:
+            out = run()
+            sp.set_attr("rows_out", out.num_rows)
+            return out
 
     def to_pydict(self) -> dict[str, list]:
         return self.collect().to_pydict()

@@ -66,6 +66,9 @@ import torch
 from . import expr as X
 from .expr import Expr
 from ..columnar.table import Column, ColumnBatch, STRING, numpy_dtype
+from ..telemetry import plan_stats, trace
+from ..telemetry.metrics import REGISTRY
+from ..utils.rpc_meter import METER
 
 
 # ---------------------------------------------------------------------------
@@ -331,15 +334,19 @@ def _fetch_all(tensors: list) -> list[np.ndarray]:
     """Every device result to the host in ONE transfer: the tensors are
     concatenated as bytes on the device, copied once (into pinned memory,
     several times faster than pageable) and split again, each in its own
-    dtype and shape."""
+    dtype and shape. The copy is one blocking fetch for the RpcMeter, in a
+    ``fetch`` span."""
     if not tensors:
         return []
     flat = torch.cat([_as_bytes(t) for t in tensors])
-    if flat.device.type == "cuda":
-        pinned = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
-        host = pinned.copy_(flat).numpy()  # the views keep the buffer alive
-    else:
-        host = flat.numpy()
+    with trace.span("fetch"):
+        if flat.device.type == "cuda":
+            pinned = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+            host = pinned.copy_(flat).numpy()  # the views keep the buffer alive
+        else:
+            host = flat.numpy()
+        METER.record_fetch(host.nbytes)
+        trace.add_attr("nbytes", host.nbytes)
     out, ofs = [], 0
     for t in tensors:
         nbytes = t.numel() * t.element_size()
@@ -443,6 +450,7 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
         """Upload what the wave's items need (from the device cache) and
         launch the body per item: [(counts, aggregate tensors)]."""
         _gc, _specs, left_names, _rg, right_names = st["elig"]
+        METER.record_dispatch()  # one wave, as the JAX package's stacked kernel
         out = []
         for it in items:
             rtag = ("join_r",) if it.rorder is None else ("join_r_sorted",)
@@ -478,7 +486,7 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
 
     sched = _BandScheduler(dispatch, ledger, estimate, retire, banded=banded)
     split_default = join_split_rows() if banded else 0
-    n_splits = 0
+    n_splits = n_buckets = 0
     splittable = False
     for b, lb, rb, l_sorted, r_sorted in pairs:
         if lb is None or rb is None or not lb.num_rows or not rb.num_rows:
@@ -538,8 +546,9 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
                 key, lambda: stacked_join_body(
                     [(k, c) for _n, k, c in agg_specs], list(residual), list(lfilters),
                     list(rfilters), right_gather,
-                ),
+                ), "join_stacked_agg",
             )
+        n_buckets += 1
         n_l, n_r = lb.num_rows, rb.num_rows
         if strategy is not None:
             strategy.observe_actual(b, n_l, _batch_data_nbytes(lb))
@@ -560,10 +569,15 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
     stats.join_waves += len(records)
     stats.join_splits += n_splits
     stats.join_parks += ledger.parks
+    if sched.declined is None and records:
+        REGISTRY.counter("pipeline.join.buckets").inc(n_buckets)
+        if n_splits:
+            REGISTRY.counter("pipeline.join.splits").inc(n_splits)
     # ONE fetch over every wave that did not spill
     pending = [w for w in records if w.done is None]
     if pending:
-        flat = _fetch_all([t for w in pending for rec in w.rec for t in rec])
+        with trace.span("join:fold", waves=len(pending)):
+            flat = _fetch_all([t for w in pending for rec in w.rec for t in rec])
         ofs = 0
         for w in pending:
             n = sum(len(rec) for rec in w.rec)
@@ -862,7 +876,8 @@ def _prepare_join_agg_inner(agg_plan, lb, rb, lkeys, rkeys, residual, session,
     )
     body = session.kernel_cache.get_or_build(
         key, lambda: per_bucket_join_body(agg_list, list(residual), sorted(ship_l),
-                                          sorted(ship_r), pad_r, dup))
+                                          sorted(ship_r), pad_r, dup), "join_agg")
+    METER.record_dispatch()
     counts_d, vals_d = body(dev_in)
 
     def assemble(fetched) -> ColumnBatch:
@@ -1168,10 +1183,13 @@ class _BandScheduler:
         self.records: list[_Wave] = []
         self.declined: Optional[_JoinDeclined] = None
         self.spills = 0
+        self._n_items = 0
+        self._item_pads = 0  # the pad rows of every dispatched item
 
     def add(self, item, n_l: int, n_r: int) -> None:
         self._max_l = max(self._max_l, n_l)
         self._max_r = max(self._max_r, n_r)
+        self._n_items += 1
         if not self.banded:
             self._groups.setdefault(None, []).append(item)
             return
@@ -1188,9 +1206,13 @@ class _BandScheduler:
         reservation. False when every dispatched wave is already retired."""
         for w in self.records:
             if w.done is None:
-                w.done = self._retire(w)
+                with trace.span("join:spill", pad_l=w.pads[0], pad_r=w.pads[1],
+                                buckets=len(w.items), bytes=w.nbytes):
+                    w.done = self._retire(w)
                 w.rec = None
                 self.spills += 1
+                REGISTRY.counter("join.spill.spills").inc()
+                plan_stats.note_flag("spilled_waves")
                 if w.nbytes:
                     self._ledger.release(w.nbytes)
                     w.nbytes = 0
@@ -1215,7 +1237,11 @@ class _BandScheduler:
         except _JoinDeclined as e:
             self.declined = e
             return
-        self.records.append(_Wave(pads, items, self._dispatch(pads, items), need))
+        with trace.span("join:band", pad_l=pads[0], pad_r=pads[1], buckets=len(items)):
+            rec = self._dispatch(pads, items)
+        REGISTRY.counter("pipeline.join.bands").inc()
+        self._item_pads += len(items) * (pads[0] + pads[1])
+        self.records.append(_Wave(pads, items, rec, need))
 
     def finish(self) -> list:
         if self.banded:
@@ -1224,6 +1250,11 @@ class _BandScheduler:
         elif self._groups.get(None):
             self._flush(_band_pads(self._max_l, self._max_r), self._groups[None])
         self._groups = {}
+        if self.banded and self._n_items:
+            # the pad rows banding avoided against one global pad
+            saved = self._n_items * sum(_band_pads(self._max_l, self._max_r)) - self._item_pads
+            if saved > 0:
+                REGISTRY.counter("pipeline.join.pad_rows_saved").inc(saved)
         return self.records
 
 
@@ -1398,7 +1429,7 @@ def _batched_plain_join_impl(work, residual, session, banded, strategy,
     stats = session.device_stats
     st: dict = {"dt": None}
     probe = cache.get_or_build(plain_join_fingerprint(route, "stacked_probe"),
-                               _build_stacked_probe_kernel)
+                               _build_stacked_probe_kernel, "join_stacked_probe")
 
     def dispatch_probe(pads, items):
         dt = st["dt"]
@@ -1407,6 +1438,7 @@ def _batched_plain_join_impl(work, residual, session, banded, strategy,
                                      session, device)
         rk_d, n_r = _stack_band_keys(items, "rk32", "rk_src", pads[1], dt, pad_val,
                                      session, device)
+        METER.record_dispatch()
         return probe(lk_d, rk_d, n_r, n_l)
 
     def expansion_plan(wave, totals, ok):
@@ -1425,9 +1457,10 @@ def _batched_plain_join_impl(work, residual, session, banded, strategy,
             raise _JoinDeclined("plain_join_skew")
         expand = cache.get_or_build(
             plain_join_fingerprint(route, "expand", out_pad),
-            lambda: _build_stacked_expand_kernel(out_pad),
+            lambda: _build_stacked_expand_kernel(out_pad), "join_expand",
         )
         lo_d, offs_d, totals_d, _ok = wave.rec
+        METER.record_dispatch()
         return totals, expand(lo_d, offs_d, totals_d)
 
     def est_probe(pads, items):
@@ -1447,13 +1480,14 @@ def _batched_plain_join_impl(work, residual, session, banded, strategy,
 
     sched = _BandScheduler(dispatch_probe, ledger, est_probe, retire_probe, banded=banded)
     split_default = join_split_rows() if banded else 0
-    total_left = n_splits = 0
+    total_left = n_splits = n_buckets = 0
     for w in work:
         if st["dt"] is None:
             st["dt"] = w[3].dtype
         elif w[3].dtype != st["dt"]:
             return _decline(session, "plain_join_key_dtype_varies")
         total_left += len(w[3])
+        n_buckets += 1
         if strategy is not None:
             strategy.observe_actual(w[0], len(w[3]), _batch_data_nbytes(w[1]))
         split = strategy.split_rows(w[0]) if strategy is not None and banded \
@@ -1473,17 +1507,22 @@ def _batched_plain_join_impl(work, residual, session, banded, strategy,
         return None  # no occupied pair
     if total_left < _PLAIN_MIN_ROWS:
         return _decline(session, "plain_join_small")
+    REGISTRY.counter("pipeline.join.buckets").inc(n_buckets)
+    if n_splits:
+        REGISTRY.counter("pipeline.join.splits").inc(n_splits)
 
     try:
         pending = [w for w in records if w.done is None]
         if pending:
             # fetch 1: every unspilled wave's totals and overflow flags
-            flat = _fetch_all([t for w in pending for t in (w.rec[2], w.rec[3])])
+            with trace.span("join:probe", waves=len(pending)):
+                flat = _fetch_all([t for w in pending for t in (w.rec[2], w.rec[3])])
             stats.plain_join_fetches += 1
             plans = [expansion_plan(w, flat[2 * i], flat[2 * i + 1])
                      for i, w in enumerate(pending)]
             # fetch 2: every wave's (li, ri) pairs
-            pairs = _fetch_all([t for _tot, p in plans if p is not None for t in p])
+            with trace.span("join:fold", waves=sum(p is not None for _t, p in plans)):
+                pairs = _fetch_all([t for _tot, p in plans if p is not None for t in p])
             if pairs:
                 stats.plain_join_fetches += 1
             k = 0
@@ -1594,7 +1633,9 @@ def _device_plain_join_inner(lb, rb, lk32, rk32, lk_src, rk_src, l_sorted: bool,
     lorder, lk_d = _sorted_padded_keys(lk32, lk_src, l_sorted, _pow2(n_l), session, device)
     rorder, rk_d = _sorted_padded_keys(rk32, rk_src, r_sorted, _pow2(n_r), session, device)
     probe = session.kernel_cache.get_or_build(
-        plain_join_fingerprint(kernel_route(device), "probe"), _build_plain_probe_kernel)
+        plain_join_fingerprint(kernel_route(device), "probe"), _build_plain_probe_kernel,
+        "join_probe")
+    METER.record_dispatch()
     lo, cnt = _fetch_all(list(probe(lk_d, rk_d, n_r)))
     starts = lo[:n_l].astype(np.int64)
     counts = cnt[:n_l].astype(np.int64)

@@ -42,6 +42,37 @@ from ..exceptions import HyperspaceError
 
 
 def execute_plan(plan: LogicalPlan, session=None) -> ColumnBatch:
+    """Execute one plan node (recursing into its children). With tracing on
+    every node runs in an ``exec:<op>`` span carrying its output rows and
+    the meter deltas of everything beneath it; with a plan-statistics
+    collector active (EXPLAIN ANALYZE, ``HYPERSPACE_PLAN_STATS=1``) the
+    node's output rows and inclusive wall time are recorded. Both observe
+    only. Off, this costs one contextvar read and one bool check."""
+    from ..telemetry import plan_stats, trace
+
+    col = plan_stats.current()
+    if col is None and not trace.enabled():
+        return _execute_node(plan, session)
+    import time
+
+    t0 = time.perf_counter() if col is not None else 0.0
+    if not trace.enabled():
+        out = _execute_node(plan, session)
+        col.record_node(plan, out.num_rows, time.perf_counter() - t0)
+        return out
+    with trace.span(f"exec:{plan.kind}", plan_id=plan.plan_id) as sp:
+        out = _execute_node(plan, session)
+        sp.set_attr("rows_out", out.num_rows)
+        if col is not None:
+            ns = col.record_node(plan, out.num_rows, time.perf_counter() - t0)
+            if ns.route != "host":
+                sp.set_attr("route", ns.route)
+            if ns.bytes_scanned is not None:
+                sp.set_attr("bytes_scanned", ns.bytes_scanned)
+        return out
+
+
+def _execute_node(plan: LogicalPlan, session=None) -> ColumnBatch:
     if (
         session is not None
         and isinstance(plan, Aggregate)
@@ -79,6 +110,9 @@ def execute_plan(plan: LogicalPlan, session=None) -> ColumnBatch:
 
                 topk = try_device_topk(sort_plan, plan.n, child, session)
                 if topk is not None:
+                    from ..telemetry import plan_stats
+
+                    plan_stats.note_route(plan.plan_id, "device")
                     return topk
             topk = _try_topk_batch(sort_plan, plan.n, child)
             if topk is not None:
@@ -426,6 +460,9 @@ def _exec_join(plan: Join, session) -> ColumnBatch:
 
     bucketed = try_bucketed_merge_join(plan, session)
     if bucketed is not None:
+        from ..telemetry import plan_stats
+
+        plan_stats.note_route(plan.plan_id, "bucketed")
         return bucketed
     plan.schema  # raises on ambiguous output columns before any work runs
     if plan.condition is None:
@@ -478,17 +515,21 @@ def _agg_values(agg: AggExpr, batch: ColumnBatch):
 
 
 def _exec_aggregate(plan: Aggregate, session) -> ColumnBatch:
+    from ..telemetry import plan_stats
+
     if isinstance(plan.child, Join):
         from .bucket_join import try_bucketed_join_aggregate
 
         fused = try_bucketed_join_aggregate(plan, session)
         if fused is not None:
+            plan_stats.note_route(plan.plan_id, "bucketed")
             return fused
     elif plan.group_exprs and not isinstance(plan.child, InMemoryScan):
         from .bucket_join import try_bucketed_scan_aggregate
 
         fused = try_bucketed_scan_aggregate(plan, session)
         if fused is not None:
+            plan_stats.note_route(plan.plan_id, "bucketed")
             return fused
     child = execute_plan(plan.child, session)
     if not plan.group_exprs:

@@ -77,7 +77,10 @@ from ..columnar.table import Column, ColumnBatch, STRING
 from ..exceptions import HyperspaceError
 from ..ops import cuda_kernels as K
 from ..ops.intsum import _INT_SUM_ROW_CAP, combine_int_chunks, int_chunk_sums
+from ..telemetry import plan_stats, trace
+from ..telemetry.metrics import REGISTRY
 from ..utils import env
+from ..utils.rpc_meter import METER, device_get
 
 
 class UploadTimer:
@@ -696,10 +699,17 @@ def _padded_mask(padded: int, n: int, device) -> torch.Tensor:
 
 
 def _fetch(tree):
-    """Device results to host numpy, preserving the tuple structure."""
-    if isinstance(tree, torch.Tensor):
-        return tree.cpu().numpy()
-    return tuple(_fetch(v) for v in tree)
+    """Device results to host numpy, preserving the tuple structure: the
+    one blocking fetch of a fragment (``utils/rpc_meter.device_get``)."""
+    return device_get(tree)
+
+
+def _observe_dispatch(kernel_name: str, t0: float) -> None:
+    """Per-kernel dispatch-latency histograms, in ms: from the launch to
+    the fetched result, since a launch returns at once."""
+    ms = (time.perf_counter() - t0) * 1000
+    REGISTRY.histogram("kernel.dispatch_ms").observe(ms)
+    REGISTRY.histogram(f"kernel.{kernel_name}.dispatch_ms").observe(ms)
 
 
 def kernel_route(device: torch.device) -> str:
@@ -823,13 +833,18 @@ def _execute_global(frag, batch, plan, session, device, wide_ok,
                     timer=None) -> Optional[ColumnBatch]:
     n = batch.num_rows
     padded = _pad_pow2(n)
-    dev_cols = _upload_columns(
-        batch, _device_refs(frag) & set(batch.columns), padded, session, device, wide_ok,
-        timer,
-    )
-    if dev_cols is None:
-        return _decline(session, "nullable_or_out_of_range")
-    return _run_global(frag, plan, session, device, dev_cols, _padded_mask(padded, n, device))
+    # the span opens before the upload, so its meter delta carries the
+    # fragment's whole device traffic
+    with trace.span("kernel:fused_agg", rows=n, padded=padded) as sp:
+        dev_cols = _upload_columns(
+            batch, _device_refs(frag) & set(batch.columns), padded, session, device, wide_ok,
+            timer,
+        )
+        if dev_cols is None:
+            sp.set_attr("declined", "nullable_or_out_of_range")
+            return _decline(session, "nullable_or_out_of_range")
+        return _run_global(frag, plan, session, device, dev_cols,
+                           _padded_mask(padded, n, device))
 
 
 def _run_global(frag, plan, session, device, dev_cols, mask) -> ColumnBatch:
@@ -845,9 +860,12 @@ def _run_global(frag, plan, session, device, dev_cols, mask) -> ColumnBatch:
     key = fused_fingerprint(kernel_route(device), frag.scan, pred_expr, proj_exprs, agg_list,
                           dev_cols)
     kernel = session.kernel_cache.get_or_build(
-        key, lambda: _build_kernel(pred_expr, proj_exprs, agg_list)
+        key, lambda: _build_kernel(pred_expr, proj_exprs, agg_list), "fused_agg"
     )
+    METER.record_dispatch()
+    t0 = time.perf_counter()
     matched, results = _fetch(kernel(_wrap_wide(dev_cols), mask))
+    _observe_dispatch("fused_agg", t0)
     matched = int(matched)
     scalar_values = []
     for v, (kind, _c) in zip(results, agg_list):
@@ -1040,7 +1058,7 @@ def _group_ids_to_device(session, device, bufs, cacheable, group_ids, n, padded,
         return session.device_cache.get_or_put(bufs, (tag, padded, seg_pad, str(device)),
                                                build)
     gids = build()
-    session.device_cache.uploaded_bytes += gids.numel() * 4
+    session.device_cache.record_upload(gids.numel() * 4)
     return gids
 
 
@@ -1059,17 +1077,19 @@ def _execute_grouped(frag, batch, plan, session, device, wide_ok,
         session, key_cols, key_bufs, "factorize", lambda: factorize_group_keys(key_cols))
     seg_pad = _seg_pad(num_groups)
     padded = _pad_pow2(n)
-    dev_cols = _upload_columns(
-        batch, _device_refs(frag) & set(batch.columns), padded, session, device, wide_ok,
-        timer,
-    )
-    if dev_cols is None:
-        return _decline(session, "nullable_or_out_of_range")
-    gids_d = _group_ids_to_device(session, device, key_bufs, cacheable, group_ids, n, padded,
-                                  seg_pad, "gids", timer)
-    return _run_grouped(frag, plan, session, device, dev_cols, gids_d,
-                        _padded_mask(padded, n, device), key_cols, first_idx, num_groups,
-                        seg_pad)
+    with trace.span("kernel:grouped_agg", rows=n, padded=padded, groups=num_groups) as sp:
+        dev_cols = _upload_columns(
+            batch, _device_refs(frag) & set(batch.columns), padded, session, device, wide_ok,
+            timer,
+        )
+        if dev_cols is None:
+            sp.set_attr("declined", "nullable_or_out_of_range")
+            return _decline(session, "nullable_or_out_of_range")
+        gids_d = _group_ids_to_device(session, device, key_bufs, cacheable, group_ids, n,
+                                      padded, seg_pad, "gids", timer)
+        return _run_grouped(frag, plan, session, device, dev_cols, gids_d,
+                            _padded_mask(padded, n, device), key_cols, first_idx, num_groups,
+                            seg_pad)
 
 
 def _run_grouped(frag, plan, session, device, dev_cols, gids_d, mask, key_cols, first_idx,
@@ -1084,9 +1104,13 @@ def _run_grouped(frag, plan, session, device, dev_cols, gids_d, mask, key_cols, 
         kernel_route(device), frag.scan, seg_pad, pred_expr, proj_exprs, agg_list, dev_cols
     )
     kernel = session.kernel_cache.get_or_build(
-        key, lambda: _build_grouped_kernel(pred_expr, proj_exprs, agg_list, seg_pad)
+        key, lambda: _build_grouped_kernel(pred_expr, proj_exprs, agg_list, seg_pad),
+        "grouped_agg",
     )
+    METER.record_dispatch()
+    t0 = time.perf_counter()
     counts_full, first_masked, results = _fetch(kernel(_wrap_wide(dev_cols), gids_d, mask))
+    _observe_dispatch("grouped_agg", t0)
     results = [
         _combine_chunks_maybe_avg(v, kind, counts_full)
         for v, (kind, _c) in zip(results, agg_list)
@@ -1235,6 +1259,7 @@ def _execute_streaming(frag: _Fragment, scan: FileScan, plan, session,
     stats = session.device_stats
     route = _stream_route(frag, plan)
     if route is None:
+        REGISTRY.counter("pipeline.declined").inc()
         return _count(stats.pipeline_declines,
                       "string_concat" if _fragment_literals_fit(frag) else "wide64")
     # one row-group resolution for the row count and the chunk stream
@@ -1247,18 +1272,27 @@ def _execute_streaming(frag: _Fragment, scan: FileScan, plan, session,
     overlap = _pipeline_overlap()
     timing = ScanTiming("pipelined", route, 0, 0.0, UploadTimer(device))
     chunks = _observed(iter_scan_chunks(scan, session, overlap, selection), timing)
-    try:
-        if route == "concat":
-            out = _stream_concat(frag, plan, chunks, session, device, timing.upload,
-                                 stable=scan.index_info is not None)
-        elif frag.agg.group_exprs:
-            out = _stream_grouped_partial(frag, plan, chunks, overlap, session, device,
-                                          timing.upload)
+    t0 = time.perf_counter()
+    with trace.span(f"pipeline:{route}", rows=n_total, files=len(scan.files),
+                    grouped=bool(frag.agg.group_exprs)) as sp:
+        try:
+            if route == "concat":
+                out = _stream_concat(frag, plan, chunks, session, device, timing.upload,
+                                     stable=scan.index_info is not None)
+            elif frag.agg.group_exprs:
+                out = _stream_grouped_partial(frag, plan, chunks, overlap, session, device,
+                                              timing.upload)
+            else:
+                out = _stream_global_partial(frag, plan, chunks, overlap, session, device,
+                                             timing.upload)
+        finally:
+            chunks.close()
+        if out is None:
+            sp.set_attr("aborted", True)
+            REGISTRY.counter("pipeline.aborted").inc()
         else:
-            out = _stream_global_partial(frag, plan, chunks, overlap, session, device,
-                                         timing.upload)
-    finally:
-        chunks.close()
+            REGISTRY.counter("pipeline.queries").inc()
+            REGISTRY.histogram("pipeline.query_ms").observe((time.perf_counter() - t0) * 1000)
     if out is not None:
         stats.pipelined_queries += 1
         stats.last_scan = timing
@@ -1326,7 +1360,8 @@ def _stream_global_partial(frag, plan, chunks, overlap, session, device,
 
     def fold(res) -> None:
         nonlocal matched_total
-        matched, results = _fetch(res)
+        with trace.span("pipeline:fetch"):
+            matched, results = _fetch(res)
         matched_total += int(matched)
         for i, (v, (kind, _c)) in enumerate(zip(results, agg_list)):
             if kind == "count":
@@ -1347,23 +1382,27 @@ def _stream_global_partial(frag, plan, chunks, overlap, session, device,
         n = batch.num_rows
         if n == 0:
             continue
-        reason = _chunk_abort_reason(batch, device_refs, expect)
-        if reason is not None:
-            return _count(stats.pipeline_aborts, reason)
-        pred, ok = _chunk_pred(frag, batch)
-        if not ok:
-            return _count(stats.pipeline_aborts, "string_predicate")
-        padded = _pad_pow2(n)
-        dev_cols = _upload_columns(batch, device_refs & set(batch.columns), padded, session,
-                                   device, timer=timer)
-        mask = _padded_mask(padded, n, device)
-        key = fused_fingerprint(kernel_route(device), frag.scan, pred, proj_exprs, agg_list,
-                                dev_cols)
-        kernel = session.kernel_cache.get_or_build(
-            key, lambda: _build_kernel(pred, proj_exprs, agg_list)
-        )
-        pending.append(kernel(dev_cols, mask))
-        stats.pipelined_chunks += 1
+        with trace.span("pipeline:chunk", index=chunk.index, rows=n,
+                        decode_ms=round(chunk.decode_s * 1000, 3)):
+            reason = _chunk_abort_reason(batch, device_refs, expect)
+            if reason is not None:
+                return _count(stats.pipeline_aborts, reason)
+            pred, ok = _chunk_pred(frag, batch)
+            if not ok:
+                return _count(stats.pipeline_aborts, "string_predicate")
+            padded = _pad_pow2(n)
+            dev_cols = _upload_columns(batch, device_refs & set(batch.columns), padded, session,
+                                       device, timer=timer)
+            mask = _padded_mask(padded, n, device)
+            key = fused_fingerprint(kernel_route(device), frag.scan, pred, proj_exprs, agg_list,
+                                    dev_cols)
+            kernel = session.kernel_cache.get_or_build(
+                key, lambda: _build_kernel(pred, proj_exprs, agg_list), "fused_agg"
+            )
+            METER.record_dispatch()
+            pending.append(kernel(dev_cols, mask))
+            REGISTRY.counter("pipeline.chunks").inc()
+            stats.pipelined_chunks += 1
         while len(pending) > depth:
             fold(pending.popleft())
     while pending:
@@ -1442,7 +1481,8 @@ def _stream_grouped_partial(frag, plan, chunks, overlap, session, device,
     def fold(entry) -> None:
         nonlocal counts_g, first_g
         gmap, num_l, offset, res = entry
-        counts_l, first_l, results = _fetch(res)
+        with trace.span("pipeline:fetch"):
+            counts_l, first_l, results = _fetch(res)
         size = len(key_index)
         counts_g = _grown(counts_g, size, 0, np.int64)
         first_g = _grown(first_g, size, np.iinfo(np.int64).max, np.int64)
@@ -1481,43 +1521,48 @@ def _stream_grouped_partial(frag, plan, chunks, overlap, session, device,
         n = batch.num_rows
         if n == 0:
             continue
-        reason = _chunk_abort_reason(batch, device_refs, expect)
-        if reason is not None:
-            return _count(stats.pipeline_aborts, reason)
-        pred, ok = _chunk_pred(frag, batch)
-        if not ok:
-            return _count(stats.pipeline_aborts, "string_predicate")
-        key_cols = [batch.column(nm) for nm in key_names]
-        bufs = tuple(kc.data for kc in key_cols)
-        (gids_l, num_l, first_idx_l), cacheable = _cached_factorization(
-            session, key_cols, bufs, "factorize", lambda: factorize_group_keys(key_cols))
-        gmap = np.empty(num_l, dtype=np.int64)
-        new_rows = []
-        for j, t in enumerate(_key_tuple_rows(key_cols, first_idx_l)):
-            g = key_index.get(t)
-            if g is None:
-                g = key_index[t] = len(key_index)
-                new_rows.append(first_idx_l[j])
-            gmap[j] = g
-        if new_rows:
-            rows = np.asarray(new_rows, dtype=np.int64)
-            key_slices.append(ColumnBatch({nm: kc.take(rows)
-                                           for nm, kc in zip(key_names, key_cols)}))
-        # each chunk's seg_pad is its own, and so is its kernel's key
-        seg_pad = _seg_pad(num_l)
-        padded = _pad_pow2(n)
-        dev_cols = _upload_columns(batch, device_refs & set(batch.columns), padded, session,
-                                   device, timer=timer)
-        gids_d = _group_ids_to_device(session, device, bufs, cacheable, gids_l, n, padded,
-                                      seg_pad, "gids", timer)
-        mask = _padded_mask(padded, n, device)
-        key = grouped_fingerprint(kernel_route(device), frag.scan, seg_pad, pred, proj_exprs,
-                                  agg_list, dev_cols)
-        kernel = session.kernel_cache.get_or_build(
-            key, lambda: _build_grouped_kernel(pred, proj_exprs, agg_list, seg_pad)
-        )
-        pending.append((gmap, num_l, row_offset, kernel(dev_cols, gids_d, mask)))
-        stats.pipelined_chunks += 1
+        with trace.span("pipeline:chunk", index=chunk.index, rows=n,
+                        decode_ms=round(chunk.decode_s * 1000, 3)):
+            reason = _chunk_abort_reason(batch, device_refs, expect)
+            if reason is not None:
+                return _count(stats.pipeline_aborts, reason)
+            pred, ok = _chunk_pred(frag, batch)
+            if not ok:
+                return _count(stats.pipeline_aborts, "string_predicate")
+            key_cols = [batch.column(nm) for nm in key_names]
+            bufs = tuple(kc.data for kc in key_cols)
+            (gids_l, num_l, first_idx_l), cacheable = _cached_factorization(
+                session, key_cols, bufs, "factorize", lambda: factorize_group_keys(key_cols))
+            gmap = np.empty(num_l, dtype=np.int64)
+            new_rows = []
+            for j, t in enumerate(_key_tuple_rows(key_cols, first_idx_l)):
+                g = key_index.get(t)
+                if g is None:
+                    g = key_index[t] = len(key_index)
+                    new_rows.append(first_idx_l[j])
+                gmap[j] = g
+            if new_rows:
+                rows = np.asarray(new_rows, dtype=np.int64)
+                key_slices.append(ColumnBatch({nm: kc.take(rows)
+                                               for nm, kc in zip(key_names, key_cols)}))
+            # each chunk's seg_pad is its own, and so is its kernel's key
+            seg_pad = _seg_pad(num_l)
+            padded = _pad_pow2(n)
+            dev_cols = _upload_columns(batch, device_refs & set(batch.columns), padded, session,
+                                       device, timer=timer)
+            gids_d = _group_ids_to_device(session, device, bufs, cacheable, gids_l, n, padded,
+                                          seg_pad, "gids", timer)
+            mask = _padded_mask(padded, n, device)
+            key = grouped_fingerprint(kernel_route(device), frag.scan, seg_pad, pred, proj_exprs,
+                                      agg_list, dev_cols)
+            kernel = session.kernel_cache.get_or_build(
+                key, lambda: _build_grouped_kernel(pred, proj_exprs, agg_list, seg_pad),
+                "grouped_agg",
+            )
+            METER.record_dispatch()
+            pending.append((gmap, num_l, row_offset, kernel(dev_cols, gids_d, mask)))
+            REGISTRY.counter("pipeline.chunks").inc()
+            stats.pipelined_chunks += 1
         row_offset += n
         while len(pending) > depth:
             fold(pending.popleft())
@@ -1585,23 +1630,26 @@ def _stream_concat(frag, plan, chunks, session, device, timer,
         n = batch.num_rows
         if n == 0:
             continue
-        reason = _chunk_abort_reason(batch, device_refs, expect)
-        if reason is not None:
-            return _count(stats.pipeline_aborts, reason)
-        for name in device_refs:
-            if name not in batch.columns:
-                continue
-            d = batch.column(name).data
-            dev_parts.setdefault(name, []).append(cache.get_or_put(
-                (d,), ("chunk", str(device)),
-                lambda data=d: _to_device(data.astype(_device_dtype(data.dtype)), device,
-                                          timer),
-                store=stable,
-            ))
-            src_parts.setdefault(name, []).append(d)
-        if key_names:
-            key_parts.append(batch.select(key_names))
-        stats.pipelined_chunks += 1
+        with trace.span("pipeline:chunk", index=chunk.index, rows=n,
+                        decode_ms=round(chunk.decode_s * 1000, 3)):
+            reason = _chunk_abort_reason(batch, device_refs, expect)
+            if reason is not None:
+                return _count(stats.pipeline_aborts, reason)
+            for name in device_refs:
+                if name not in batch.columns:
+                    continue
+                d = batch.column(name).data
+                dev_parts.setdefault(name, []).append(cache.get_or_put(
+                    (d,), ("chunk", str(device)),
+                    lambda data=d: _to_device(data.astype(_device_dtype(data.dtype)), device,
+                                              timer),
+                    store=stable,
+                ))
+                src_parts.setdefault(name, []).append(d)
+            if key_names:
+                key_parts.append(batch.select(key_names))
+            REGISTRY.counter("pipeline.chunks").inc()
+            stats.pipelined_chunks += 1
         n_seen += n
     if n_seen == 0:
         return None
@@ -1618,7 +1666,8 @@ def _stream_concat(frag, plan, chunks, session, device, timer,
                                           cat, meter=False, store=stable)
     mask = _padded_mask(padded, n_seen, device)
     if not key_names:
-        return _run_global(frag, plan, session, device, dev_cols, mask)
+        with trace.span("kernel:fused_agg", rows=n_seen, padded=padded):
+            return _run_global(frag, plan, session, device, dev_cols, mask)
 
     def factorize():
         """The factorization of the concatenated keys, with each group's
@@ -1637,9 +1686,10 @@ def _stream_concat(frag, plan, chunks, session, device, timer,
     seg_pad = _seg_pad(num_groups)
     gids_d = _group_ids_to_device(session, device, bufs, cacheable, group_ids, n_seen, padded,
                                   seg_pad, "cat_gids", timer)
-    return _run_grouped(frag, plan, session, device, dev_cols, gids_d, mask,
-                        [reps.column(nm) for nm in key_names], np.arange(num_groups),
-                        num_groups, seg_pad)
+    with trace.span("kernel:grouped_agg", rows=n_seen, padded=padded, groups=num_groups):
+        return _run_grouped(frag, plan, session, device, dev_cols, gids_d, mask,
+                            [reps.column(nm) for nm in key_names], np.arange(num_groups),
+                            num_groups, seg_pad)
 
 
 # ---------------------------------------------------------------------------
@@ -1687,6 +1737,9 @@ def try_execute_gpu(plan: LogicalPlan, session) -> Optional[ColumnBatch]:
             out = _execute_streaming(frag, scan, plan, session, device)
             if out is not None:
                 session.device_stats.device_fragments += 1
+                plan_stats.note_route(plan.plan_id, "pipelined")
+                plan_stats.note_scan(frag.scan.plan_id, len(scan.files),
+                                     sum(f.size for f in scan.files))
                 return out
     t0 = time.perf_counter()
     batch = _exec_file_scan(scan, session)
@@ -1712,6 +1765,9 @@ def try_execute_gpu(plan: LogicalPlan, session) -> Optional[ColumnBatch]:
     if out is not None:
         session.device_stats.device_fragments += 1
         session.device_stats.last_scan = timing
+        plan_stats.note_route(plan.plan_id, "device")
+        plan_stats.note_scan(frag.scan.plan_id, len(scan.files),
+                             sum(f.size for f in scan.files), rows=batch.num_rows)
     return out
 
 
@@ -1785,13 +1841,17 @@ def try_device_topk(sort_plan, k: int, batch: ColumnBatch, session) -> Optional[
     if data is None:
         return _order_decline(session, "topk_key_inexact")
     device = session.device
-    x = torch.from_numpy(np.ascontiguousarray(data)).to(device)
-    session.device_cache.uploaded_bytes += data.nbytes
-    kernel = session.kernel_cache.get_or_build(
-        order_fingerprint(kernel_route(device), "topk", int(k), bool(asc), data.dtype.str),
-        lambda: _build_topk_kernel(int(k), bool(asc)),
-    )
-    (idx,) = _fetch_all([kernel(x, n)])
+    with trace.span("kernel:topk", rows=n, k=int(k)):
+        x = torch.from_numpy(np.ascontiguousarray(data)).to(device)
+        session.device_cache.record_upload(data.nbytes)
+        kernel = session.kernel_cache.get_or_build(
+            order_fingerprint(kernel_route(device), "topk", int(k), bool(asc), data.dtype.str),
+            lambda: _build_topk_kernel(int(k), bool(asc)), "topk",
+        )
+        METER.record_dispatch()
+        t0 = time.perf_counter()
+        (idx,) = _fetch_all([kernel(x, n)])
+        _observe_dispatch("topk", t0)
     session.device_stats.device_topk += 1
     return batch.take(idx)
 
@@ -1906,14 +1966,19 @@ def try_device_sort(sort_plan, batch: ColumnBatch, session) -> Optional[ColumnBa
             return _order_decline(session, "sort_key_type")
         words.extend(w)
     device = session.device
-    ops = [torch.from_numpy(np.ascontiguousarray(w).view(np.int32)).to(device)
-           for w in words]
-    session.device_cache.uploaded_bytes += sum(w.nbytes for w in words)
-    kernel = session.kernel_cache.get_or_build(
-        order_fingerprint(kernel_route(device), "sort", len(words)),
-        lambda: _build_sort_kernel(len(words)),
-    )
-    (perm,) = _fetch_all([kernel(*ops)])
+    with trace.span("kernel:sort", rows=n, n_words=len(words)):
+        ops = [torch.from_numpy(np.ascontiguousarray(w).view(np.int32)).to(device)
+               for w in words]
+        for w in words:
+            session.device_cache.record_upload(w.nbytes)
+        kernel = session.kernel_cache.get_or_build(
+            order_fingerprint(kernel_route(device), "sort", len(words)),
+            lambda: _build_sort_kernel(len(words)), "sort",
+        )
+        METER.record_dispatch()
+        t0 = time.perf_counter()
+        (perm,) = _fetch_all([kernel(*ops)])
+        _observe_dispatch("sort", t0)
     session.device_stats.device_sort += 1
     # gather with a copy of the permutation: on the card's host, numpy's
     # take read its index array from the pinned fetch buffer several times

@@ -19,8 +19,12 @@ chunks should fit in a quarter of the grant (``derive_split_rows``,
 clamped to 2^12..2^22 rows). An explicitly set ``HYPERSPACE_JOIN_SPLIT_ROWS``
 overrides the derived value. A grant of 0 disables the plan, and the
 executors split at the fixed ``plan/device_join.join_split_rows()``.
-The reference's ``join.strategy.*`` counters and ``join:plan`` span are
-counted on ``session.device_stats`` (``join_strategies``, ``join_plans``).
+The plan runs in a ``join:plan`` span and counts ``join.strategy.*``, as
+the reference's does, and on ``session.device_stats`` (``join_strategies``,
+``join_plans``). Each bucket's decoded left bytes meet their footer
+estimate in the accuracy ledger (``join_build_bytes``); under
+``HYPERSPACE_ESTIMATOR_FEEDBACK=1`` the plan scales the estimate by the
+ledger's observed correction.
 
 **Ledger admission** (``DeviceLedger``): the band scheduler
 (plan/device_join._BandScheduler) reserves each wave's padded device
@@ -32,15 +36,17 @@ reservations) until the wave fits; when nothing of its own is left, it
 waits a bounded time (``HYPERSPACE_PARK_WAIT_MS``, read when the wave
 parks) for other joins' releases and
 then takes the zero-holder grant. Spilling changes when a wave's results
-come back, never what they are.
+come back, never what they are. A park counts ``join.spill.parks`` and
+runs in a ``join:park`` span; its wait lands in ``join.spill.park_ms``, and
+a granted resume counts ``join.spill.resumes`` with a ``join:resume``
+marker.
 
 Not ported yet: the adaptive re-derivation of a bucket's split row count
 from observed actuals inside ``JoinMemoryPlan.split_rows`` (it goes with
 plan/adaptive.py, ROADMAP Queue 1 item 3; under the reference's default
 ``HYPERSPACE_ADAPTIVE=0`` that branch returns the planned value, which is
-what the port returns), the estimator-feedback correction of the byte
-estimate (off by default there too) and the per-device ledgers of the mesh
-placement (Queue 1 item 4).
+what the port returns) with its ``adapt.join_bytes`` observation, and the
+per-device ledgers of the mesh placement (Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ import time
 from typing import Callable, Optional
 
 from ..serve import budget as serve_budget
+from ..telemetry import plan_stats, trace
+from ..telemetry.metrics import REGISTRY
 from ..utils import env
 
 # fraction of the grant one band wave of left-chunk slabs should fit in: 4
@@ -131,10 +139,11 @@ class JoinMemoryPlan:
     """The per-bucket strategy decisions of one bucketed-join execution."""
 
     __slots__ = ("strategies", "split_rows_by_bucket", "grant", "derived_split_rows",
-                 "override_split_rows", "estimates", "observed")
+                 "override_split_rows", "estimates", "observed", "index_name")
 
     def __init__(self, strategies: dict, split_rows_by_bucket: dict, grant: int,
-                 derived: int, override: Optional[int], estimates: Optional[dict] = None):
+                 derived: int, override: Optional[int], estimates: Optional[dict] = None,
+                 index_name: str = ""):
         self.strategies = strategies  # bucket -> "broadcast" | "banded" | "split"
         self.split_rows_by_bucket = split_rows_by_bucket  # bucket -> rows (0: never)
         self.grant = grant
@@ -144,12 +153,21 @@ class JoinMemoryPlan:
         self.estimates = dict(estimates or {})
         # bucket -> (decoded rows, decoded bytes), filled as pairs load
         self.observed: dict[int, tuple] = {}
+        self.index_name = index_name
 
     def observe_actual(self, b: int, rows: int, nbytes: int) -> None:
         """Record one planned bucket's decoded left rows and bytes beside its
-        footer estimate (once per bucket)."""
-        if b in self.estimates and b not in self.observed:
-            self.observed[b] = (int(rows), int(nbytes))
+        footer estimate (once per bucket), and feed the accuracy ledger's
+        ``join_build_bytes`` estimator the decoded truth."""
+        if b in self.observed:
+            return
+        est = self.estimates.get(b)
+        if est is None:
+            return
+        self.observed[b] = (int(rows), int(nbytes))
+        if est[1] > 0 and nbytes > 0:
+            plan_stats.ACCURACY.observe("join_build_bytes", est[1], nbytes,
+                                        index=self.index_name)
 
     def strategy(self, b: int) -> str:
         return self.strategies.get(b, "banded")
@@ -158,7 +176,8 @@ class JoinMemoryPlan:
         """Bucket ``b``'s split row count; 0 never splits. A bucket the plan
         never saw (rows only in a hybrid scan's appended part) keeps the
         override or the derived count. ``splittable`` is the reference's
-        signature: it steers only its adaptive re-derivation, not ported."""
+        signature: it steers only its adaptive re-derivation, which waits
+        with the adaptive plane."""
         fallback = (self.override_split_rows if self.override_split_rows is not None
                     else self.derived_split_rows)
         return self.split_rows_by_bucket.get(b, fallback)
@@ -201,32 +220,53 @@ def _broadcast_rows() -> int:
 def plan_join_memory(left, right, session) -> Optional[JoinMemoryPlan]:
     """Per-bucket-pair strategies of one bucketed join from the footer
     statistics of both sides; None when the device ledger is off
-    (``HYPERSPACE_DEVICE_BUDGET_MB=0``). Counts the decisions on
-    ``session.device_stats`` when a session is given."""
+    (``HYPERSPACE_DEVICE_BUDGET_MB=0``). In a ``join:plan`` span, counting
+    the decisions as ``join.strategy.*`` and noting the mix on the
+    plan-statistics collector, and on ``session.device_stats`` when a
+    session is given. Under ``HYPERSPACE_ESTIMATOR_FEEDBACK=1`` the footer
+    byte estimate is scaled by the ledger's observed ``join_build_bytes``
+    correction for the index."""
     grant = grant_bytes()
     if grant <= 0:
         return None
     override = split_rows_override()
     broadcast_rows = _broadcast_rows()
+    index_info = getattr(getattr(left, "scan", None), "index_info", None)
+    index_name = index_info.index_name if index_info is not None else ""
+    corr = (plan_stats.ACCURACY.correction("join_build_bytes", index_name)
+            if plan_stats.feedback_enabled() else 1.0)
+    n = left.spec.num_buckets
     strategies: dict[int, str] = {}
     split_by_bucket: dict[int, int] = {}
     estimates: dict[int, tuple] = {}
     derived = 0
-    for b in range(left.spec.num_buckets):
-        est_l, bytes_l = _bucket_estimates(left, b)
-        est_r, _bytes_r = _bucket_estimates(right, b)
-        if est_l == 0 or est_r == 0:
-            continue  # an empty pair: nothing runs
-        estimates[b] = (est_l, bytes_l)
-        derived = derive_split_rows(grant, bytes_l / est_l)
-        split_rows = override if override is not None else derived
-        strat = classify_bucket(est_l, est_r, split_rows, broadcast_rows)
-        strategies[b] = strat
-        # broadcast pairs never split; banded ones keep the count, so an
-        # estimate below the decoded rows still splits
-        split_by_bucket[b] = 0 if strat == "broadcast" else split_rows
-    plan = JoinMemoryPlan(strategies, split_by_bucket, grant, derived, override,
-                          estimates=estimates)
+    with trace.span("join:plan", buckets=n, grant_bytes=grant) as sp:
+        for b in range(n):
+            est_l, bytes_l = _bucket_estimates(left, b)
+            est_r, _bytes_r = _bucket_estimates(right, b)
+            if est_l == 0 or est_r == 0:
+                continue  # an empty pair: nothing runs
+            estimates[b] = (est_l, bytes_l)
+            derived = derive_split_rows(grant, bytes_l * corr / est_l)
+            split_rows = override if override is not None else derived
+            strat = classify_bucket(est_l, est_r, split_rows, broadcast_rows)
+            strategies[b] = strat
+            # broadcast pairs never split; banded ones keep the count, so an
+            # estimate below the decoded rows still splits
+            split_by_bucket[b] = 0 if strat == "broadcast" else split_rows
+        plan = JoinMemoryPlan(strategies, split_by_bucket, grant, derived, override,
+                              estimates=estimates, index_name=index_name)
+        counts = plan.counts()
+        for strat, c in counts.items():
+            if c:
+                REGISTRY.counter(f"join.strategy.{strat}").inc(c)
+        for strat in ("broadcast", "banded", "split"):
+            sp.set_attr(strat, counts[strat])
+        col = plan_stats.current()
+        if col is not None:
+            col.note_join_plan({"buckets": len(strategies), "grant_bytes": grant,
+                                "split_rows": override if override is not None else derived,
+                                **{k: v for k, v in counts.items() if v}})
     if session is not None:
         stats = session.device_stats
         for strat, c in plan.counts().items():
@@ -261,22 +301,43 @@ class DeviceLedger:
             return
         acct, stream = self._acct, self._stream
         deadline = None
-        parked = False
-        while True:
-            if acct.held_bytes() + nbytes <= acct.max_bytes:
-                if stream.try_reserve(nbytes):
-                    return
-                continue  # lost a race with another reservation: re-check
-            if not parked:
-                parked = True
-                self.parks += 1
-            if spill_one():
-                continue  # freed some of our own bytes: retry
-            if deadline is None:
-                deadline = time.perf_counter() + park_wait_ms() / 1000.0
-            if time.perf_counter() >= deadline and stream.try_reserve(nbytes):
-                return  # zero-holder grant past the limit
-            acct.wait_for_release(_PARK_POLL_S)
+        parked_at = None
+        park_span = None
+        granted = False
+        try:
+            while True:
+                if acct.held_bytes() + nbytes <= acct.max_bytes:
+                    if stream.try_reserve(nbytes):
+                        granted = True
+                        return
+                    continue  # lost a race with another reservation: re-check
+                if parked_at is None:
+                    parked_at = time.perf_counter()
+                    self.parks += 1
+                    REGISTRY.counter("join.spill.parks").inc()
+                    plan_stats.note_flag("parked_waves")
+                    park_span = trace.span("join:park", bytes=nbytes)
+                    park_span.__enter__()
+                if spill_one():
+                    continue  # freed some of our own bytes: retry
+                if deadline is None:
+                    deadline = time.perf_counter() + park_wait_ms() / 1000.0
+                if time.perf_counter() >= deadline and stream.try_reserve(nbytes):
+                    granted = True
+                    return  # zero-holder grant past the limit
+                acct.wait_for_release(_PARK_POLL_S)
+        finally:
+            if park_span is not None:
+                park_span.__exit__(None, None, None)
+            if parked_at is not None:
+                waited = time.perf_counter() - parked_at
+                REGISTRY.histogram("join.spill.park_ms").observe(waited * 1000)
+                if granted:
+                    REGISTRY.counter("join.spill.resumes").inc()
+                    # a zero-width marker of when the parked wave re-admitted
+                    with trace.span("join:resume", bytes=nbytes,
+                                    parked_ms=round(waited * 1000, 3)):
+                        pass
 
     def release(self, nbytes: int) -> None:
         if self._stream is not None and nbytes > 0:

@@ -6,7 +6,10 @@ hand-written CUDA kernels where the fragment's shape allows. It is keyed by
 a canonical fingerprint of the fragment (route, expressions, device dtypes,
 shape constants) and of the scan it reads (``scan_structure``), so a
 repeated query template reuses its closure. The route ("cuda" or "plain")
-is part of the key, because it is decided when the closure is built.
+is part of the key, because it is decided when the closure is built. A
+build runs in a ``compile:<kind>`` span and counts ``kernel.retrace``, as
+the JAX package's kernel caches do; the port's cache is the session's, so a
+new session builds again where the JAX package's process-wide caches hit.
 """
 
 from __future__ import annotations
@@ -32,12 +35,17 @@ class KernelCache:
         self._d: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
 
-    def get_or_build(self, key, builder: Callable):
+    def get_or_build(self, key, builder: Callable, kind: str = "kernel"):
         with self._lock:
             if key in self._d:
                 self._d.move_to_end(key)
                 return self._d[key]
-        kernel = builder()
+        from ..telemetry import trace
+        from ..telemetry.metrics import REGISTRY
+
+        with trace.span(f"compile:{kind}"):
+            kernel = builder()
+        REGISTRY.counter("kernel.retrace").inc()
         with self._lock:
             self._d[key] = kernel
             while len(self._d) > self.maxlen:

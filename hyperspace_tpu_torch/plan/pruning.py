@@ -1,6 +1,5 @@
 """Predicate-driven pruning of covering-index scans (counterpart of
-hyperspace_tpu/plan/pruning.py, without its telemetry and with estimator
-feedback off, its default).
+hyperspace_tpu/plan/pruning.py).
 
 A covering index's layout is a promise: rows are hash-bucketed by the
 indexed columns (models/covering.write_bucketed), sorted by them within
@@ -30,6 +29,15 @@ keeping too much is slow and keeping too little would be a wrong answer.
 package reads it) is "1" (on, the default), "0" (off) or "verify" (read
 pruned and full, compare after the prune predicate, raise on any
 difference).
+
+Telemetry, at the JAX package's sites and under its names: the
+``prune:plan``, ``prune:bucket``, ``prune:sketch`` and ``prune:rowgroup``
+spans, the ``pruning.*`` counters, the ``IndexPruning`` usage event, and
+the estimator-accuracy observations ``scan_fraction``, ``prune_files`` and
+``sketch_rowgroups`` (telemetry/plan_stats.py). Under
+``HYPERSPACE_ESTIMATOR_FEEDBACK=1`` the ranker's scan fraction and the NDV
+model's sketch fraction are multiplied by the ledger's observed
+corrections; off (the default) they are the raw estimates.
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ from .expr import Expr, split_conjunction
 from .nodes import FileScan, LogicalPlan
 from ..columnar.table import Column, ColumnBatch, DATE32, STRING, Schema, numpy_dtype
 from ..exceptions import HyperspaceError
+from ..telemetry import trace
+from ..telemetry.metrics import REGISTRY
 from ..utils import env
 
 # cross-product cap of multi-column or IN bucket candidates: past it the
@@ -79,6 +89,8 @@ class PruneSpec:
     sketch_conjuncts: tuple = ()  # conjuncts on other columns, for the sidecars
     pred: Optional[Expr] = None  # conjunction of every conjunct pruning used
     verify_files: tuple = ()  # the file list before pruning (verify mode)
+    # the uniform-bucket model's predicted kept file count (-1: none)
+    predicted_kept: int = -1
     # the NDV model's predicted kept fraction of row groups of the sketch
     # stage (-1: no prediction)
     sketch_fraction: float = -1.0
@@ -290,19 +302,20 @@ def _bucket_conjuncts(conjuncts: Sequence[Expr], spec: PruneSpec) -> list[Expr]:
     return out
 
 
-def apply_pruning(plan: LogicalPlan) -> LogicalPlan:
+def apply_pruning(plan: LogicalPlan, session=None) -> LogicalPlan:
     """The last optimizer pass: derive the pruning of every index scan that
     carries a PruneSpec and a pushed filter. Bucket pruning shrinks the
     file list here; the row-group conjuncts ride on the spec to the
-    executor."""
-    if prune_mode() == "0":
+    executor. With a session, each derived pruning logs its usage event."""
+    mode = prune_mode()
+    if mode == "0":
         return plan
     replacements: dict[int, FileScan] = {}
     for node in plan.preorder():
         if (isinstance(node, FileScan) and node.prune_spec is not None
                 and not node.prune_spec.active and node.pushed_filter is not None
                 and node.fmt == "parquet"):
-            pruned = _derive_scan_pruning(node)
+            pruned = _derive_scan_pruning(node, session, mode)
             if pruned is not None:
                 replacements[node.plan_id] = pruned
     if not replacements:
@@ -312,41 +325,114 @@ def apply_pruning(plan: LogicalPlan) -> LogicalPlan:
     )
 
 
-def _derive_scan_pruning(scan: FileScan) -> Optional[FileScan]:
+def _derive_scan_pruning(scan: FileScan, session, mode: str) -> Optional[FileScan]:
     from ..models.covering import bucket_id_from_filename
+    from ..telemetry import plan_stats
 
     spec = scan.prune_spec
-    conjuncts = split_conjunction(scan.pushed_filter)
-    buckets = candidate_buckets(conjuncts, spec, scan.full_schema)
-    rg_conjs = _rowgroup_conjuncts(conjuncts, spec)
-    sk_conjs = _sketch_conjuncts(conjuncts, spec)
-    if buckets is None and not rg_conjs and not sk_conjs:
-        return None
-    files = list(scan.files)
-    kept = files
-    if buckets is not None:
-        kept = [f for f in files
-                if (b := bucket_id_from_filename(f.name)) is None or b in buckets]
-    used = (([] if buckets is None else _bucket_conjuncts(conjuncts, spec)) + list(rg_conjs)
-            + [c for c in sk_conjs if c not in rg_conjs])
-    pred = None
-    for c in used:
-        pred = c if pred is None else X.And(pred, c)
-    new_spec = replace(
-        spec, bucket_keep=buckets, rowgroup_conjuncts=rg_conjs, sketch_conjuncts=sk_conjs,
-        pred=pred, verify_files=tuple(files) if prune_mode() == "verify" else (),
-        sketch_fraction=(_sketch_stage_fraction(sk_conjs, scan.files) if sk_conjs else -1.0),
-    )
-    return scan.copy(files=kept, prune_spec=new_spec)
+    with trace.span("prune:plan", index=spec.index_name) as sp:
+        conjuncts = split_conjunction(scan.pushed_filter)
+        buckets = candidate_buckets(conjuncts, spec, scan.full_schema)
+        rg_conjs = _rowgroup_conjuncts(conjuncts, spec)
+        sk_conjs = _sketch_conjuncts(conjuncts, spec)
+        if buckets is None and not rg_conjs and not sk_conjs:
+            return None
+        files = list(scan.files)
+        kept = files
+        predicted_kept = -1
+        pred_fraction = None
+        if buckets is not None:
+            pred_fraction = max(len(buckets), 1) / spec.num_buckets
+            predicted_kept = round(pred_fraction * len(files))
+            with trace.span("prune:bucket", index=spec.index_name) as bsp:
+                kept = [f for f in files
+                        if (b := bucket_id_from_filename(f.name)) is None or b in buckets]
+                REGISTRY.counter("pruning.files_total").inc(len(files))
+                REGISTRY.counter("pruning.files_kept").inc(len(kept))
+                REGISTRY.counter("pruning.bytes_skipped").inc(
+                    sum(f.size for f in files) - sum(f.size for f in kept))
+                bsp.set_attr("files_total", len(files))
+                bsp.set_attr("files_kept", len(kept))
+                bsp.set_attr("buckets_kept", len(buckets))
+                bsp.set_attr("predicted_kept", predicted_kept)
+        used = (([] if buckets is None else _bucket_conjuncts(conjuncts, spec)) + list(rg_conjs)
+                + [c for c in sk_conjs if c not in rg_conjs])
+        pred = None
+        for c in used:
+            pred = c if pred is None else X.And(pred, c)
+        new_spec = replace(
+            spec, bucket_keep=buckets, rowgroup_conjuncts=rg_conjs, sketch_conjuncts=sk_conjs,
+            pred=pred, verify_files=tuple(files) if mode == "verify" else (),
+            predicted_kept=predicted_kept,
+            sketch_fraction=(_sketch_stage_fraction(sk_conjs, scan.files, spec.index_name)
+                             if sk_conjs else -1.0),
+        )
+        sp.set_attr("kind", _prune_kind(new_spec))
+        out = scan.copy(files=kept, prune_spec=new_spec)
+        # estimator accuracy: the ranker priced the scan at len(buckets)/nb
+        # of the index; the truth is the kept byte fraction, which skewed
+        # bucket sizes move
+        if buckets is not None:
+            total_bytes = sum(f.size for f in files)
+            if total_bytes > 0:
+                plan_stats.observe(
+                    "scan_fraction", pred_fraction, sum(f.size for f in kept) / total_bytes,
+                    index=spec.index_name,
+                    shape=predicate_shape(scan.pushed_filter, spec.key_columns),
+                    plan_id=out.plan_id,
+                )
+            if not rg_conjs:
+                # no row-group stage at execution: the kept count is final
+                plan_stats.observe(
+                    "prune_files", max(predicted_kept, 1), max(len(kept), 1),
+                    index=spec.index_name, plan_id=out.plan_id,
+                )
+        if session is not None:
+            from ..rules.rule_utils import log_index_usage
+
+            note = f" (predicted {predicted_kept})" if predicted_kept >= 0 else ""
+            log_index_usage(
+                session, "IndexPruning", [spec.index_name],
+                f"Index pruning planned ({_prune_kind(new_spec)}): "
+                f"kept {len(kept)} of {len(files)} files{note}",
+            )
+        return out
 
 
-def _ndv_sketch_fraction(conjuncts: Sequence[Expr], stats) -> float:
+def _prune_kind(spec: PruneSpec) -> str:
+    kinds = []
+    if spec.bucket_keep is not None:
+        kinds.append("bucket")
+    if spec.rowgroup_conjuncts:
+        kinds.append("rowgroup")
+    if spec.sketch_conjuncts:
+        kinds.append("sketch")
+    return "+".join(kinds) or "none"
+
+
+def _sketch_shape(conjuncts: Sequence[Expr]) -> str:
+    """Canonical shape of the sketch-stage conjuncts (the accuracy
+    ledger's correction key): ``v:eq+s:in3``, a range as ``rng``."""
+    parts = []
+    for c in conjuncts:
+        name = ",".join(sorted(r.lower() for r in c.references()))
+        if isinstance(c, X.In):
+            parts.append(f"{name}:in{len(c.values)}")
+        elif isinstance(c, X.Eq):
+            parts.append(f"{name}:eq")
+        else:
+            parts.append(f"{name}:rng")
+    return "+".join(sorted(parts))
+
+
+def _ndv_sketch_fraction(conjuncts: Sequence[Expr], stats, index_name: str) -> float:
     """The NDV model's estimate of the row-group fraction the sketch stage
     keeps for Eq and IN conjuncts: a value spread uniformly appears in a
     group with probability about min(1, group_rows / ndv), an IN of k
     values k times that, and conjuncts intersect (the least). Floored at
-    the bloom filter's false-positive rate. The JAX package's estimator
-    feedback, off by default there, is not ported."""
+    the bloom filter's false-positive rate, and under
+    ``HYPERSPACE_ESTIMATOR_FEEDBACK=1`` multiplied by the accuracy ledger's
+    observed ``sketch_rowgroups`` correction."""
     if stats is None:
         return 1.0
     ndv_map, group_rows = stats
@@ -366,16 +452,22 @@ def _ndv_sketch_fraction(conjuncts: Sequence[Expr], stats) -> float:
     if frac >= 1.0:
         return 1.0
     from ..models.dataskipping.sketch_store import BLOOM_FPP
+    from ..telemetry import plan_stats
 
-    return max(frac, BLOOM_FPP)
+    frac = max(frac, BLOOM_FPP)
+    if plan_stats.feedback_enabled():
+        corr = plan_stats.ACCURACY.correction(
+            "sketch_rowgroups", index_name, _sketch_shape(conjuncts))
+        frac = min(1.0, frac * corr)
+    return frac
 
 
-def _sketch_stage_fraction(conjuncts: Sequence[Expr], files) -> float:
+def _sketch_stage_fraction(conjuncts: Sequence[Expr], files, index_name: str) -> float:
     """The plan-time predicted kept fraction of the sketch stage, from the
     first of the scan's files whose sidecar has NDV statistics."""
     from ..models.dataskipping.sketch_store import ndv_stats
 
-    return _ndv_sketch_fraction(conjuncts, ndv_stats(files))
+    return _ndv_sketch_fraction(conjuncts, ndv_stats(files), index_name)
 
 
 # ---------------------------------------------------------------------------
@@ -391,17 +483,41 @@ def _stats_column(dtype: str, values: list) -> Column:
 
 
 def _sketch_masks(scan: FileScan) -> dict[str, np.ndarray]:
-    """The sketch stage: each file's keep-mask over its row groups from its
-    sidecar. A file without a usable sidecar, or whose sidecar bounds no
-    conjunct, is absent (it keeps every group)."""
+    """The sketch stage, in a ``prune:sketch`` span: each file's keep-mask
+    over its row groups from its sidecar. A file without a usable sidecar,
+    or whose sidecar bounds no conjunct, is absent (it keeps every
+    group)."""
     from ..models.dataskipping import sketch_store
+    from ..telemetry import plan_stats
 
+    spec = scan.prune_spec
     masks = {}
-    for f in scan.files:
-        sc = sketch_store.load_sidecar(f.name)
-        mask = None if sc is None else sc.keep_mask(scan.prune_spec.sketch_conjuncts)
-        if mask is not None:
-            masks[f.name] = mask
+    checked = skipped = nosidecar = 0
+    with trace.span("prune:sketch", index=spec.index_name) as sp:
+        for f in scan.files:
+            sc = sketch_store.load_sidecar(f.name)
+            if sc is None:
+                nosidecar += 1
+                continue
+            mask = sc.keep_mask(spec.sketch_conjuncts)
+            if mask is not None:
+                masks[f.name] = mask
+                checked += len(mask)
+                skipped += int((~mask).sum())
+        REGISTRY.counter("pruning.sketch.rowgroups_checked").inc(checked)
+        REGISTRY.counter("pruning.sketch.rowgroups_skipped").inc(skipped)
+        if nosidecar:
+            REGISTRY.counter("pruning.sketch.files_nosidecar").inc(nosidecar)
+        sp.set_attr("rowgroups_checked", checked)
+        sp.set_attr("rowgroups_skipped", skipped)
+        sp.set_attr("files_nosidecar", nosidecar)
+        if spec.sketch_fraction >= 0 and checked > 0:
+            # the NDV model's prediction meets the groups the sketches kept
+            plan_stats.observe(
+                "sketch_rowgroups", max(round(spec.sketch_fraction * checked), 1),
+                max(checked - skipped, 1), index=spec.index_name,
+                shape=_sketch_shape(spec.sketch_conjuncts), plan_id=scan.plan_id,
+            )
     return masks
 
 
@@ -414,9 +530,12 @@ def rowgroup_selection(scan: FileScan) -> tuple[Optional[dict[str, tuple[int, ..
     sidecar sketches' on the others. Each may only vote a definite miss: a
     group without usable statistics on a referenced column, and a file
     without a sidecar (or whose sidecar's group count differs from the
-    footer's), keep their groups."""
+    footer's), keep their groups. The footer stage runs in a
+    ``prune:rowgroup`` span and notes the kept files on the plan-statistics
+    collector."""
     from ..columnar import io as cio
     from ..models.dataskipping.sketches import MinMaxSketch
+    from ..telemetry import plan_stats
 
     spec = scan.prune_spec
     if (spec is None or not (spec.rowgroup_conjuncts or spec.sketch_conjuncts)
@@ -440,36 +559,61 @@ def rowgroup_selection(scan: FileScan) -> tuple[Optional[dict[str, tuple[int, ..
 
     selection: dict[str, tuple[int, ...]] = {}
     kept_files = []
-    for f in scan.files:
-        stats = cio.read_rowgroup_stats(f.name, stat_cols)
-        if not stats:
-            kept_files.append(f)
-            continue
-        n = len(stats)
-        keep = np.ones(n, dtype=bool)
-        valid_idx = [g for g in range(n)
-                     if all(usable(c, stats[g]["cols"].get(c)) for c in stat_cols)]
-        if converters and valid_idx:
-            table = {}
-            for c in stat_cols:
-                table[f"{c}__min"] = _stats_column(
-                    dtypes[c], [stats[g]["cols"][c][0] for g in valid_idx])
-                table[f"{c}__max"] = _stats_column(
-                    dtypes[c], [stats[g]["cols"][c][1] for g in valid_idx])
-            batch = ColumnBatch(table)
-            mask = np.ones(len(valid_idx), dtype=bool)
-            for fn in converters:
-                mask &= np.asarray(fn(batch), dtype=bool)
-            keep[np.asarray(valid_idx)] = mask
-        smask = sketch_masks.get(f.name)
-        if smask is not None and len(smask) == n:
-            keep &= smask
-        kept_groups = tuple(int(g) for g in np.flatnonzero(keep))
-        if len(kept_groups) == n:
-            kept_files.append(f)
-        elif kept_groups:
-            selection[f.name] = kept_groups
-            kept_files.append(f)
+    total = kept = bytes_skipped = 0
+    with trace.span("prune:rowgroup", index=spec.index_name) as sp:
+        for f in scan.files:
+            stats = cio.read_rowgroup_stats(f.name, stat_cols)
+            if not stats:
+                kept_files.append(f)
+                continue
+            n = len(stats)
+            total += n
+            keep = np.ones(n, dtype=bool)
+            valid_idx = [g for g in range(n)
+                         if all(usable(c, stats[g]["cols"].get(c)) for c in stat_cols)]
+            if converters and valid_idx:
+                table = {}
+                for c in stat_cols:
+                    table[f"{c}__min"] = _stats_column(
+                        dtypes[c], [stats[g]["cols"][c][0] for g in valid_idx])
+                    table[f"{c}__max"] = _stats_column(
+                        dtypes[c], [stats[g]["cols"][c][1] for g in valid_idx])
+                batch = ColumnBatch(table)
+                mask = np.ones(len(valid_idx), dtype=bool)
+                for fn in converters:
+                    mask &= np.asarray(fn(batch), dtype=bool)
+                keep[np.asarray(valid_idx)] = mask
+            smask = sketch_masks.get(f.name)
+            if smask is not None:
+                if len(smask) == n:
+                    keep &= smask
+                else:  # the sidecar's group count drifted from the footer's
+                    REGISTRY.counter("pruning.sketch.stale").inc()
+            kept_groups = tuple(int(g) for g in np.flatnonzero(keep))
+            kept += len(kept_groups)
+            bytes_skipped += sum(stats[g]["nbytes"] for g in range(n) if not keep[g])
+            if len(kept_groups) == n:
+                kept_files.append(f)
+            elif kept_groups:
+                selection[f.name] = kept_groups
+                kept_files.append(f)
+        REGISTRY.counter("pruning.rowgroups_total").inc(total)
+        REGISTRY.counter("pruning.rowgroups_kept").inc(kept)
+        REGISTRY.counter("pruning.bytes_skipped").inc(bytes_skipped)
+        REGISTRY.counter("pruning.files_total").inc(len(scan.files))
+        REGISTRY.counter("pruning.files_kept").inc(len(kept_files))
+        sp.set_attr("rowgroups_total", total)
+        sp.set_attr("rowgroups_kept", kept)
+        sp.set_attr("bytes_skipped", bytes_skipped)
+        sp.set_attr("files_kept", len(kept_files))
+        if spec.predicted_kept >= 0:
+            # the plan-time prediction meets its final truth: row-group
+            # skipping can drop whole files past bucket pruning
+            plan_stats.observe(
+                "prune_files", max(spec.predicted_kept, 1), max(len(kept_files), 1),
+                index=spec.index_name, plan_id=scan.plan_id,
+            )
+        plan_stats.note_scan(scan.plan_id, len(kept_files), sum(f.size for f in kept_files))
     return (selection or None), kept_files
 
 
@@ -536,6 +680,43 @@ def estimate_scan_fraction(condition: Optional[Expr], entry) -> float:
     return frac * _entry_sketch_fraction(conjuncts, entry, spec)
 
 
+def predicate_shape(condition: Optional[Expr], key_columns) -> str:
+    """Canonical shape of a predicate's constraints on the bucket key
+    columns, the accuracy ledger's per-shape correction key: ``ev_k:eq``,
+    ``a:eq+b:in3``, ``k:*`` (unconstrained)."""
+    if condition is None or not key_columns:
+        return ""
+    conjuncts = split_conjunction(condition)
+    parts = []
+    for cname in key_columns:
+        cands = _column_candidates(conjuncts, cname)
+        low = cname.lower()
+        if cands is None:
+            parts.append(f"{low}:*")
+        elif cands == {_NULL}:
+            parts.append(f"{low}:null")
+        elif len(cands) <= 1:
+            parts.append(f"{low}:eq")
+        else:
+            parts.append(f"{low}:in{len(cands)}")
+    return "+".join(parts)
+
+
+def corrected_scan_fraction(condition: Optional[Expr], entry) -> float:
+    """``estimate_scan_fraction`` times the accuracy ledger's observed
+    correction for this (index, predicate shape), only under
+    ``HYPERSPACE_ESTIMATOR_FEEDBACK=1``; off, the raw estimate."""
+    from ..telemetry import plan_stats
+
+    frac = estimate_scan_fraction(condition, entry)
+    if frac >= 1.0 or not plan_stats.feedback_enabled():
+        return frac
+    keys = tuple(entry.derived_dataset.indexed_columns())
+    corr = plan_stats.ACCURACY.correction(
+        "scan_fraction", entry.name, predicate_shape(condition, keys))
+    return min(1.0, frac * corr)
+
+
 def _entry_sketch_fraction(conjuncts: Sequence[Expr], entry, spec: PruneSpec) -> float:
     """The sketch stage's estimated kept fraction for a candidate entry:
     1.0 when sketches are off, nothing converts, or no sidecar is there."""
@@ -544,4 +725,4 @@ def _entry_sketch_fraction(conjuncts: Sequence[Expr], entry, spec: PruneSpec) ->
     sk_conjs = _sketch_conjuncts(conjuncts, spec)
     if not sk_conjs:
         return 1.0
-    return _ndv_sketch_fraction(sk_conjs, sketch_store.index_ndv_stats(entry))
+    return _ndv_sketch_fraction(sk_conjs, sketch_store.index_ndv_stats(entry), entry.name)

@@ -28,6 +28,7 @@ from .rule_utils import (
     common_bytes_ratio,
     find_scan_by_id,
     is_plan_linear,
+    log_index_usage,
     subtree_required_columns,
     transform_plan_to_use_index,
 )
@@ -90,6 +91,7 @@ class AggColumnFilter(QueryPlanIndexFilter):
                        missing=sorted(required - covered)),
             ):
                 continue
+            self.tag_applicable_rule(plan, e, "AggregateIndexRule")
             out.append(e)
         return {scan.plan_id: out} if out else {}
 
@@ -121,6 +123,8 @@ class AggregateIndexRule(HyperspaceRule):
         out = plan
         for leaf_id, entry in chosen.items():
             out = transform_plan_to_use_index(entry, out, leaf_id, True, True)
+            log_index_usage(self.session, "AggregateIndexRule", [entry.name],
+                            f"Aggregate index applied: {entry.name}")
         return out
 
     def score(self, plan, chosen):

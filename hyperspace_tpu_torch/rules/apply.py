@@ -4,7 +4,8 @@ hyperspace_tpu/rules/apply.py).
 Index maintenance runs queries of its own, which must not be rewritten:
 with_hyperspace_rule_disabled() guards them. As in the reference, the
 rewrite is fail-open: if it raises, the warning is logged with its traceback
-and the query runs on its original plan.
+and the query runs on its original plan. With tracing on, the rewrite is a
+``rule:ApplyHyperspace`` span holding each rule's ``rule:<Name>`` spans.
 """
 
 from __future__ import annotations
@@ -51,12 +52,17 @@ class ApplyHyperspace:
         from .collector import CandidateIndexCollector
         from .score_optimizer import ScoreBasedIndexPlanOptimizer
 
-        indexes = [
-            e for e in index_manager_for(self.session).get_indexes([ACTIVE]) if e.enabled
-        ]
-        if not indexes:
-            return plan
-        candidates = CandidateIndexCollector(self.session).apply(plan, indexes)
-        if not candidates:
-            return plan
-        return ScoreBasedIndexPlanOptimizer(self.session).apply(plan, candidates)
+        from ..telemetry import trace
+
+        with trace.span("rule:ApplyHyperspace") as sp:
+            indexes = [
+                e for e in index_manager_for(self.session).get_indexes([ACTIVE]) if e.enabled
+            ]
+            sp.set_attr("active_indexes", len(indexes))
+            if not indexes:
+                return plan
+            candidates = CandidateIndexCollector(self.session).apply(plan, indexes)
+            sp.set_attr("candidates", sum(len(v) for v in candidates.values()))
+            if not candidates:
+                return plan
+            return ScoreBasedIndexPlanOptimizer(self.session).apply(plan, candidates)

@@ -17,15 +17,24 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .base import HyperspaceRule, IndexRankFilter, QueryPlanIndexFilter
+from .base import (
+    HyperspaceRule,
+    IndexRankFilter,
+    MISSING_REQUIRED_COL,
+    NO_FIRST_INDEXED_COL_COND,
+    QueryPlanIndexFilter,
+    index_type_filter,
+    reason,
+)
 from .rule_utils import (
     common_bytes_ratio,
     find_scan_by_id,
+    log_index_usage,
     subtree_required_columns,
     transform_plan_to_use_index,
 )
 from ..plan.nodes import FileScan, Filter, LogicalPlan, Project
-from ..plan.pruning import estimate_scan_fraction
+from ..plan.pruning import corrected_scan_fraction, estimate_scan_fraction
 
 
 def match_filter_pattern(plan: LogicalPlan) -> Optional[tuple[Filter, FileScan]]:
@@ -55,14 +64,26 @@ class FilterColumnFilter(QueryPlanIndexFilter):
         filter_refs = {c.lower() for c in filter_node.condition.references()}
         required = {c.lower() for c in subtree_required_columns(plan)} | filter_refs
         out = []
-        for e in candidates.get(scan.plan_id, []):
-            if e.derived_dataset.kind != "CI":
-                continue
+        for e in index_type_filter("CI")(candidates.get(scan.plan_id, [])):
             indexed = [c.lower() for c in e.derived_dataset.indexed_columns()]
             covered = {c.lower() for c in e.derived_dataset.referenced_columns()}
             leading_ok = indexed[0] in filter_refs or _sketchable_condition(e, filter_node)
-            if leading_ok and required <= covered:
-                out.append(e)
+            if not self.tag_reason_if(
+                leading_ok, plan, e,
+                reason(NO_FIRST_INDEXED_COL_COND,
+                       "The first indexed column is not in the filter condition.",
+                       firstIndexedCol=indexed[0]),
+            ):
+                continue
+            if not self.tag_reason_if(
+                required <= covered, plan, e,
+                reason(MISSING_REQUIRED_COL,
+                       "The index does not cover all required columns.",
+                       missing=sorted(required - covered)),
+            ):
+                continue
+            self.tag_applicable_rule(plan, e, "FilterIndexRule")
+            out.append(e)
         return {scan.plan_id: out} if out else {}
 
 
@@ -84,7 +105,11 @@ def _filter_condition(plan):
 
 class FilterIndexRanker(IndexRankFilter):
     """With hybrid scan on, the candidate covering most of the scan's
-    bytes; otherwise the least expected read."""
+    bytes; otherwise the least expected read. Under
+    ``HYPERSPACE_ESTIMATOR_FEEDBACK=1`` the expected fraction is multiplied
+    by the accuracy ledger's observed correction for (index, predicate
+    shape) (plan/pruning.corrected_scan_fraction); off, it is the raw
+    estimate."""
 
     def apply(self, plan, candidates):
         cond = _filter_condition(plan)
@@ -97,7 +122,7 @@ class FilterIndexRanker(IndexRankFilter):
                 out[leaf_id] = max(entries, key=lambda e: (common_bytes_ratio(e, scan), e.name))
             else:
                 out[leaf_id] = min(entries, key=lambda e: (
-                    e.index_data_size_in_bytes() * estimate_scan_fraction(cond, e), e.name))
+                    e.index_data_size_in_bytes() * corrected_scan_fraction(cond, e), e.name))
         return out
 
 
@@ -114,6 +139,8 @@ class FilterIndexRule(HyperspaceRule):
         out = plan
         for leaf_id, entry in chosen.items():
             out = transform_plan_to_use_index(entry, out, leaf_id, False, False)
+            log_index_usage(self.session, "FilterIndexRule", [entry.name],
+                            f"Filter index applied: {entry.name}")
         return out
 
     def score(self, plan, chosen):

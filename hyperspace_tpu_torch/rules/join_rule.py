@@ -33,6 +33,7 @@ from .rule_utils import (
     common_bytes_ratio,
     find_scan_by_id,
     is_plan_linear,
+    log_index_usage,
     subtree_required_columns,
     transform_plan_to_use_index,
 )
@@ -165,6 +166,9 @@ class JoinIndexRule(HyperspaceRule):
         out = plan
         for leaf_id, entry in chosen.items():
             out = transform_plan_to_use_index(entry, out, leaf_id, True, True)
+        names = sorted(e.name for e in chosen.values())
+        log_index_usage(self.session, "JoinIndexRule", names,
+                        f"Join indexes applied: {', '.join(names)}")
         return out
 
     def score(self, plan, chosen):

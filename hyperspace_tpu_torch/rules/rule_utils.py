@@ -39,6 +39,27 @@ from ..plan.nodes import (
 from ..plan.pruning import prune_spec_for
 
 
+def log_index_usage(session, rule: str, index_names: list[str], message: str) -> None:
+    """The one HyperspaceIndexUsageEvent emission of every rewrite and
+    index-backed execution: the session's event logger gets the event, the
+    ``rules.usage.<rule>`` counter counts each index, and the enclosing span
+    gets an ``index_usage`` event when tracing is on."""
+    from ..telemetry import trace
+    from ..telemetry.events import AppInfo, HyperspaceIndexUsageEvent
+    from ..telemetry.logger import event_logger_for
+    from ..telemetry.metrics import REGISTRY
+
+    event_logger_for(session).log_event(
+        HyperspaceIndexUsageEvent(
+            AppInfo.current(), message, index_names=list(index_names), rule=rule
+        )
+    )
+    for name in index_names:
+        REGISTRY.counter(f"rules.usage.{rule}").inc()
+        if trace.enabled():
+            trace.add_event("index_usage", rule=rule, index=name)
+
+
 def find_scan_by_id(plan: LogicalPlan, plan_id: int) -> Optional[FileScan]:
     for n in plan.preorder():
         if isinstance(n, FileScan) and n.plan_id == plan_id:

@@ -1,5 +1,5 @@
 """Byte ledgers (counterpart of hyperspace_tpu/serve/budget.py, lean: no
-tenants, no queries, no metrics).
+tenants and no queries).
 
 Two process-wide accountants share one class. The global read-ahead
 ledger (``global_budget()``) bounds the decoded bytes every streaming
@@ -17,6 +17,12 @@ limit is ``HYPERSPACE_DEVICE_BUDGET_MB`` (default 4096; 0 disables the
 ledger). A stream that holds nothing is always granted its reservation,
 even past the limit (the zero-holder progress rule), so joins that share
 the ledger cannot deadlock.
+
+Each ledger counts in the metrics registry under its name, as the
+reference's do: ``<name>.reservations``, ``<name>.force_grants`` (a
+zero-holder grant past the limit), ``<name>.stalls`` and the occupancy
+gauge ``<name>_bytes``; the names are ``serve.budget`` and
+``serve.device_budget``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import os
 import threading
 
+from ..telemetry.metrics import REGISTRY
 from ..utils import env
 
 DEVICE_BUDGET_MB_DEFAULT = 4096.0
@@ -56,8 +63,9 @@ class BudgetStream:
 
 
 class BudgetAccountant:
-    def __init__(self, max_bytes: int):
+    def __init__(self, max_bytes: int, name: str = "serve.budget"):
         self.max_bytes = max_bytes
+        self.name = name  # the registry's metric prefix
         self._lock = threading.Lock()
         self._held = 0
         # wakes consumers parked on a full ledger when bytes come back
@@ -67,20 +75,32 @@ class BudgetAccountant:
         return BudgetStream(self, label)
 
     def _reserve(self, s: BudgetStream, nbytes: int) -> bool:
+        forced = False
         with self._lock:
-            if s.held > 0 and self._held + nbytes > self.max_bytes:
-                return False
-            s.held += nbytes
-            self._held += nbytes
-            return True
+            granted = not (s.held > 0 and self._held + nbytes > self.max_bytes)
+            if granted:
+                forced = self._held + nbytes > self.max_bytes
+                s.held += nbytes
+                self._held += nbytes
+            occupancy = self._held
+        if granted:
+            REGISTRY.counter(f"{self.name}.reservations").inc()
+            if forced:
+                REGISTRY.counter(f"{self.name}.force_grants").inc()
+            REGISTRY.gauge(f"{self.name}_bytes").set(occupancy)
+        else:
+            REGISTRY.counter(f"{self.name}.stalls").inc()
+        return granted
 
     def _release(self, s: BudgetStream, nbytes: int) -> None:
         with self._lock:
             n = min(nbytes, s.held)
             s.held -= n
             self._held -= n
+            occupancy = self._held
         with self._released:
             self._released.notify_all()
+        REGISTRY.gauge(f"{self.name}_bytes").set(occupancy)
 
     def wait_for_release(self, timeout: float) -> None:
         """Block until some stream releases or ``timeout`` seconds pass;
@@ -112,7 +132,8 @@ def device_budget() -> BudgetAccountant:
     reads its limit as the grant."""
     with _lock:
         if not _DEVICE:
-            _DEVICE.append(BudgetAccountant(configured_device_budget_bytes()))
+            _DEVICE.append(BudgetAccountant(configured_device_budget_bytes(),
+                                            "serve.device_budget"))
         return _DEVICE[0]
 
 
@@ -120,7 +141,8 @@ def reset_device_budget() -> BudgetAccountant:
     """Re-read ``HYPERSPACE_DEVICE_BUDGET_MB`` and install a fresh device
     ledger (never mid-query)."""
     with _lock:
-        _DEVICE[:] = [BudgetAccountant(configured_device_budget_bytes())]
+        _DEVICE[:] = [BudgetAccountant(configured_device_budget_bytes(),
+                                       "serve.device_budget")]
         return _DEVICE[0]
 
 

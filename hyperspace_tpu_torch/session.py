@@ -51,7 +51,7 @@ class HyperspaceSession:
         self.index_chunk_cache = IndexChunkCache(env.cache_bytes("HYPERSPACE_INDEX_CACHE_MB"))
         self.device_cache = DeviceColumnCache(env.cache_bytes("HYPERSPACE_DEVICE_CACHE_MB"))
         self.host_derived_cache = DeviceColumnCache(
-            env.cache_bytes("HYPERSPACE_HOST_DERIVED_CACHE_MB"))
+            env.cache_bytes("HYPERSPACE_HOST_DERIVED_CACHE_MB"), "host_derived")
         configure_caches()
         self.kernel_cache = KernelCache()
         self.device_stats = DeviceTierStats()

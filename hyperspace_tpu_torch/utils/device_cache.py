@@ -8,15 +8,24 @@ derivation tag. A weakref to each source buffer guards against id() reuse:
 an entry hits only while every weakref still resolves to the same object.
 Eviction is least-recently-used by device bytes, within
 ``HYPERSPACE_DEVICE_CACHE_MB`` (6144; 0 keeps nothing), read when the
-session is made; ``hits``, ``misses``, ``evictions`` and ``evicted_bytes``
-count as the JAX package's ``cache.device.*`` counters do. Every miss is a
-host-to-device transfer and adds its bytes to ``uploaded_bytes``, so a warm
-query that uploads nothing leaves the counter where it was; an entry built
-on the card from other entries (the pipelined executor's concatenated
-column, keyed on every chunk buffer under ``("cat", padded, device)``) is
-put with ``meter=False``. A second
-instance caches host-side derivations (group-key factorizations) the same
-way, within ``HYPERSPACE_HOST_DERIVED_CACHE_MB`` (512).
+session is made. ``hits``, ``misses``, ``evictions`` and ``evicted_bytes``
+count per session and, process-wide, as the ``cache.device.*`` counters
+and the ``cache.device.bytes`` gauge of the metrics registry. Every miss is
+a host-to-device transfer: it runs in an ``upload`` span, the RpcMeter
+counts one upload of its bytes, and ``uploaded_bytes`` grows by them, so a
+warm query that uploads nothing leaves both where they were. An entry
+built on the card from other entries (the pipelined executor's
+concatenated column, keyed on every chunk buffer under ``("cat", padded,
+device)``) is put with ``meter=False``; a transfer that is not cached (a
+sort key, a per-query group-id column) goes through ``record_upload``. A
+second instance caches host-side derivations (group-key factorizations)
+the same way, within ``HYPERSPACE_HOST_DERIVED_CACHE_MB`` (512), under
+``cache.host_derived.*``; its builds move nothing to the card.
+
+The port counts the entries it holds. The JAX package also caches the
+padded valid-rows masks of its device tier; the port fills them on the
+card and holds no mask entry, so its ``cache.device.*`` counts differ from
+the JAX package's by those.
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ import numpy as np
 import torch
 
 from ..columnar.table import Column, ColumnBatch
+from ..telemetry import trace
+from ..telemetry.metrics import REGISTRY
+from .rpc_meter import METER
 
 
 def _nbytes(value) -> int:
@@ -47,8 +59,9 @@ def _nbytes(value) -> int:
 
 
 class DeviceColumnCache:
-    def __init__(self, budget_bytes: int):
+    def __init__(self, budget_bytes: int, metric: str = "device"):
         self.budget_bytes = budget_bytes
+        self.metric = metric  # the registry's cache.<metric>.* names
         self._d: OrderedDict = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
@@ -58,12 +71,26 @@ class DeviceColumnCache:
         self.evictions = 0
         self.evicted_bytes = 0
 
+    def _count(self, event: str, n: int = 1) -> None:
+        REGISTRY.counter(f"cache.{self.metric}.{event}").inc(n)
+
+    def record_upload(self, nbytes: int) -> None:
+        """A host-to-device transfer that is not cached."""
+        with self._lock:
+            self.uploaded_bytes += nbytes
+        METER.record_upload(nbytes)
+
     def _build(self, builder: Callable, meter: bool):
-        value = builder()
-        nbytes = _nbytes(value)
-        if meter:
+        if not meter or self.metric != "device":
+            value = builder()
+            return value, _nbytes(value)
+        with trace.span("upload"):
+            value = builder()
+            nbytes = _nbytes(value)
             with self._lock:
                 self.uploaded_bytes += nbytes
+            METER.record_upload(nbytes)
+            trace.add_attr("nbytes", nbytes)
         return value, nbytes
 
     def get_or_put(self, srcs: Sequence, tag, builder: Callable, meter: bool = True,
@@ -78,6 +105,7 @@ class DeviceColumnCache:
         if not store:
             with self._lock:
                 self.misses += 1
+            self._count("misses")
             return self._build(builder, meter)[0]
         srcs = tuple(srcs)
         key = (tuple(id(s) for s in srcs), tag)
@@ -88,21 +116,31 @@ class DeviceColumnCache:
                 if all(r() is s for r, s in zip(refs, srcs)):
                     self._d.move_to_end(key)
                     self.hits += 1
+                    self._count("hits")
                     return value
                 del self._d[key]  # an id was reused by another buffer
                 self._bytes -= nbytes
             self.misses += 1
+        self._count("misses")
         value, nbytes = self._build(builder, meter)
         if nbytes > self.budget_bytes:
             return value
+        evicted_n = evicted_b = 0
         with self._lock:
             self._d[key] = (tuple(weakref.ref(s) for s in srcs), value, nbytes)
             self._bytes += nbytes
             while self._bytes > self.budget_bytes and self._d:
                 _, (_r, _v, nb) = self._d.popitem(last=False)
                 self._bytes -= nb
-                self.evictions += 1
-                self.evicted_bytes += nb
+                evicted_n += 1
+                evicted_b += nb
+            self.evictions += evicted_n
+            self.evicted_bytes += evicted_b
+            occupancy = self._bytes
+        if evicted_n:
+            self._count("evictions", evicted_n)
+            self._count("evicted_bytes", evicted_b)
+        REGISTRY.gauge(f"cache.{self.metric}.bytes").set(occupancy)
         return value
 
     @property

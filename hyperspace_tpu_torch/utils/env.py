@@ -25,7 +25,18 @@ call time, as there, so one environment setting steers both packages:
   (the default), ``0`` reads them whole, ``verify`` reads both and
   compares;
 - ``HYPERSPACE_PARK_WAIT_MS``: how long a parked join wave waits for other
-  joins' releases before it is granted past the device budget (50).
+  joins' releases before it is granted past the device budget (50);
+- ``HYPERSPACE_TRACE``: ``1`` turns query tracing on when
+  ``telemetry/trace.py`` is imported, and ``HYPERSPACE_TRACE_FILE`` then
+  names a JSONL file every completed span is appended to;
+- ``HYPERSPACE_PLAN_STATS``: ``1`` collects per-node plan statistics on
+  every ``collect()``, not only under EXPLAIN ANALYZE;
+- ``HYPERSPACE_ESTIMATOR_FEEDBACK``: ``1`` makes the filter ranker and the
+  join memory planner multiply their estimates by the accuracy ledger's
+  observed correction.
+
+A boolean knob is on only for the literal string ``1``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ DEFAULTS = {
     "HYPERSPACE_STATS_CACHE_MB": 64,
     "HYPERSPACE_PRUNE": "1",
     "HYPERSPACE_PARK_WAIT_MS": 50.0,
+    "HYPERSPACE_TRACE_FILE": None,
 }
 
 
@@ -57,6 +69,11 @@ def read_raw(name: str, default: str | None = None) -> str | None:
 def env_str(name: str) -> str:
     v = os.environ.get(name)
     return v if v is not None else DEFAULTS[name]
+
+
+def env_bool(name: str) -> bool:
+    """Only the literal string "1" turns a boolean knob on."""
+    return os.environ.get(name) == "1"
 
 
 def env_int(name: str) -> int:

@@ -1,5 +1,6 @@
-"""The port stands alone: importing hyperspace_tpu_torch (every module) and
-chip_smoke.py loads neither JAX nor the JAX package; and the device tier
+"""The port stands alone: importing hyperspace_tpu_torch (every module, the
+telemetry and analysis ones included) and chip_smoke.py loads neither JAX
+nor the JAX package; and the device tier
 runs on CUDA unless the caller asks for the CPU."""
 
 import json
@@ -46,7 +47,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "ops.sketch", "plan.passes", "actions.refresh", "actions.optimize",
                    "actions.lifecycle", "meta.cache", "index_manager", "sources.interfaces",
                    "sources.default", "sources.manager", "sources.delta", "sources.iceberg",
-                   "utils.partitions"):
+                   "utils.partitions", "utils.workers", "utils.rpc_meter", "telemetry",
+                   "telemetry.metrics", "telemetry.trace", "telemetry.events",
+                   "telemetry.logger", "telemetry.plan_stats", "analysis.display",
+                   "analysis.whynot", "analysis.explain", "analysis.statistics",
+                   "analysis.minmax_analysis"):
         assert f"hyperspace_tpu_torch.{module}" in out["loaded"], module
 
 

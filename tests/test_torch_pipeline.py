@@ -160,7 +160,7 @@ def test_iter_chunks_share_the_chunk_cache(tmp_path, monkeypatch):
     def no_pool(*a, **k):
         raise AssertionError("a warm stream started an IO pool")
 
-    monkeypatch.setattr(tio, "ThreadPoolExecutor", no_pool)
+    monkeypatch.setattr(tio, "io_pool", no_pool)
     again = [c.batch.column("x").data for c in tio.iter_chunks(paths, ["x"], cache=cache)]
     assert len(again) == 3 and all(a is b for a, b in zip(first, again))
 
