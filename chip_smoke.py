@@ -224,7 +224,27 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
         layout comparison of l_shipdate over the raw lineitem against
         li_shipdate_z, printed. The phase launches filter_weighted_sum,
         filter_sum and filter_grouped_multi_sum, and no plain version;
-12. order phase: the device top-k and sort against the host on one
+12. ingest phase (the ingest plane, the result cache and view
+    maintenance) over the SF10 lake's lineitem and li_orderkey, with
+    HYPERSPACE_RESULT_CACHE=1: lookup_count (a key in the base run and in
+    every delta run), range_sum and range_stats (count, min, max and sum
+    of l_orderkey over range_sum's range, every output foldable) over
+    order keys [0, 200000): first runs miss, warm runs hit with no
+    dispatch or upload; four batches of generate_tpch's lineitem (1M rows
+    each at SF10, seeds 44-47) appended, three through Hyperspace.append
+    and one through ingest.append_batch, each followed by the background
+    refresh that folds range_stats by a scan of the new runs on the card
+    (held to a cache-off run bit for bit, which at SF10 takes the host as
+    the JAX package's integer-sum cap does, and to a numpy reference over
+    one in-memory read of the columns) and
+    by lookup_count and range_sum over the multi-run buckets on the card
+    (filter_weighted_sum and filter_sum); a pin scope held across
+    compact_index and vacuum_outdated_index (the pinned versions deferred,
+    the held plan's result unchanged), a second vacuum that retires them,
+    the three recomputed, and one pass under
+    HYPERSPACE_RESULT_CACHE=verify. Append, fold, hit, recompute and
+    compaction seconds are printed;
+13. order phase: the device top-k and sort against the host on one
    2^23-row batch (cut from 2^25 to keep the whole run well inside its
    time limit) of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
@@ -238,8 +258,9 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
-add up the end-to-end, lifecycle, skipping, pipeline, join, sources and
-analysis phases' counts, each read on its own (``launches_by_phase``).
+add up the end-to-end, lifecycle, skipping, pipeline, join, sources,
+analysis and ingest phases' counts, each read on its own
+(``launches_by_phase``).
 """
 
 from __future__ import annotations
@@ -2767,6 +2788,353 @@ def analysis_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ingest phase
+# ---------------------------------------------------------------------------
+
+INGEST_BATCHES = (44, 45, 46, 47)  # generate_tpch seeds of the appended batches
+INGEST_BATCH_ROWS = 1_000_000
+INGEST_BATCH_API = ("append", "append", "append", "append_batch")
+INGEST_RANGE = (0, 200_000)  # range_sum's and range_stats's key range
+INGEST_COLUMNS = ("l_orderkey", "l_extendedprice", "l_discount")
+INGEST_REFRESH_WAIT_S = 120.0
+
+
+def range_stats(session, root: str, start: int = INGEST_RANGE[0],
+                width: int = INGEST_RANGE[1]):
+    """range_sum's l_orderkey range with count(1), min, max and sum of
+    l_orderkey: every output folds exactly (tests/test_torch_result_cache.py
+    writes it the same way for both packages)."""
+    from hyperspace_tpu_torch.plan.expr import Count, Max, Min, Sum, col, lit
+
+    return session.read.parquet(os.path.join(root, "lineitem")).filter(
+        (col("l_orderkey") >= start) & (col("l_orderkey") < start + width)
+    ).agg(Count(lit(1)).alias("count"), Min(col("l_orderkey")).alias("min_key"),
+          Max(col("l_orderkey")).alias("max_key"), Sum(col("l_orderkey")).alias("sum_key"))
+
+
+def _ingest_host_reference(cols: dict, key: int) -> dict:
+    """The three forms over the in-memory columns of the lake's current
+    lineitem files: numpy, float64, no device."""
+    import numpy as np
+
+    ok, price, disc = (cols[c] for c in INGEST_COLUMNS)
+    at = ok == key
+    lo, hi = INGEST_RANGE[0], INGEST_RANGE[0] + INGEST_RANGE[1]
+    inr = (ok >= lo) & (ok < hi)
+    keys = ok[inr]
+    return {
+        "lookup_count": {"revenue": [float((price[at] * disc[at]).sum())],
+                         "count": [int(at.sum())]},
+        "range_sum": {"sum_price": [float(price[inr].sum())], "count": [int(inr.sum())]},
+        "range_stats": {"count": [int(keys.size)], "min_key": [int(keys.min())],
+                        "max_key": [int(keys.max())], "sum_key": [int(keys.sum())]},
+    }
+
+
+def ingest_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
+    """The ingest plane, the result cache and view maintenance over the
+    main lake's lineitem and li_orderkey, through the user's entry points,
+    with HYPERSPACE_RESULT_CACHE=1 (restored afterwards):
+    (1) lookup_count (a key in the base run and in every delta), range_sum
+        and range_stats over INGEST_RANGE: first runs miss, warm runs hit
+        with no dispatch and no upload, bit for bit;
+    (2) four batches of generate_tpch's lineitem (seeds 44-47, 1M rows each
+        at SF10) renamed into the lake, three through Hyperspace.append and
+        one through ingest.append_batch; after each, the background refresh
+        folds range_stats (cache.result.folds +1; its delta scan of the new
+        runs is one device fragment) and the query is served from the folded
+        entry, bit for bit a run with the cache off and the host reference
+        (an integer sum over more than 2^23 rows takes the host, as in the
+        JAX package, so at SF10 the cache-off recompute runs there while
+        the fold's delta scan runs on the card); lookup_count and range_sum miss,
+        run on the card over the multi-run buckets (filter_weighted_sum and
+        filter_sum once each) and match the host reference;
+    (3) a query's pin scope held across compact_index (one file per bucket)
+        and vacuum_outdated_index: the pinned versions are deferred and the
+        held plan's result is its pre-compaction result; after the scope, a
+        vacuum retires them, and the three forms recompute (no fold over a
+        rewritten layout) and match;
+    (4) one pass under HYPERSPACE_RESULT_CACHE=verify, with no divergence."""
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, ingest
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.cache import view_maintenance
+    from hyperspace_tpu_torch.cache.result_cache import RESULT_CACHE
+    from hyperspace_tpu_torch.plan.executor import execute_plan
+    from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
+    from hyperspace_tpu_torch.telemetry import plan_stats
+    from hyperspace_tpu_torch.telemetry.metrics import REGISTRY
+    from hyperspace_tpu_torch.utils.rpc_meter import METER
+
+    lake, warehouse = e2e["lake"], e2e["warehouse"]
+    li_dir = os.path.join(lake, "lineitem")
+    name = tpch.LI_ORDERKEY[0]
+    batch_rows = min(INGEST_BATCH_ROWS, max(20_000, rows // 10))
+    saved_mode = os.environ.get("HYPERSPACE_RESULT_CACHE")
+    os.environ["HYPERSPACE_RESULT_CACHE"] = "1"
+    RESULT_CACHE.clear()
+    launches0, plain0 = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    out: dict = {"batch_rows": batch_rows, "appends": []}
+
+    def val(n: str) -> int:
+        m = REGISTRY.get(n)
+        return 0 if m is None else int(m.value)
+
+    names = ("cache.result.hits", "cache.result.misses", "cache.result.folds",
+             "cache.result.refreshes", "cache.result.verified", "ingest.vacuum.deferred",
+             "ingest.vacuum.versions_removed", "ingest.appends", "ingest.rows_appended")
+
+    def counters() -> dict:
+        return {n: val(n) for n in names}
+
+    def moved(before: dict) -> dict:
+        return {n: val(n) - before[n] for n in names}
+
+    try:
+        t0 = time.perf_counter()
+        cols = {c: [] for c in INGEST_COLUMNS}
+        for f in sorted(os.listdir(li_dir)):
+            t = pq.read_table(os.path.join(li_dir, f), columns=list(INGEST_COLUMNS))
+            for c in INGEST_COLUMNS:
+                cols[c].append(t.column(c).to_numpy())
+        host = {c: np.concatenate(v) for c, v in cols.items()}
+        out["host_read_s"] = time.perf_counter() - t0
+
+        # the batches, generated up front; the lookup key is the first key of
+        # the first batch that the base holds, so it is in every run
+        staged = []
+        for seed in INGEST_BATCHES:
+            root = os.path.join(DATA_DIR, f"ingest_{seed}")
+            tpch.generate_tpch(root, rows_lineitem=batch_rows, seed=seed)
+            files = sorted(os.listdir(os.path.join(root, "lineitem")))
+            staged.append((seed, root, files))
+        first = pq.read_table(os.path.join(staged[0][1], "lineitem", staged[0][2][0]),
+                              columns=["l_orderkey"]).column(0).to_numpy()
+        present = np.isin(first[:1000], host["l_orderkey"])
+        require(bool(present.any()), "ingest: no key of the first batch is in the base")
+        key = int(first[:1000][present][0])
+        out["lookup_key"] = key
+
+        session = HyperspaceSession(warehouse).enable_hyperspace()  # device=None: the card
+        hs = Hyperspace(session)
+        forms = {"lookup_count": lambda: tpch.lookup_count(session, lake, key=key),
+                 "range_sum": lambda: tpch.range_sum(session, lake, start=INGEST_RANGE[0],
+                                                     width=INGEST_RANGE[1]),
+                 "range_stats": lambda: range_stats(session, lake)}
+
+        def run(q: str):
+            """One collect of ``q``: its columns, seconds, launches, meter
+            delta, device fragments and the root's route note."""
+            session.device_stats = DeviceTierStats()
+            before = dict(K.LAUNCHES)
+            with plan_stats.collect_scope() as col, METER.measure() as m:
+                t = time.perf_counter()
+                batch = forms[q]().collect()
+                secs = time.perf_counter() - t
+            root = col.nodes.get(col.plan.plan_id)
+            return {"got": _columns(batch), "floats": _floats(batch.to_pydict()), "s": secs,
+                    "launches": {k: K.LAUNCHES[k] - before[k] for k in before},
+                    "rpc": m.delta, "fragments": session.device_stats.device_fragments,
+                    "declines": dict(session.device_stats.declines),
+                    "route": None if root is None else root.route}
+
+        def on_card_or_capped(r: dict) -> bool:
+            """range_stats's integer sum: the card, or, over more rows than
+            the exact integer route takes (ops/intsum.py, 2^23), the host,
+            as the JAX package declines it (its _INT_SUM_ROW_CAP)."""
+            return (r["fragments"], r["declines"]) in ((1, {}), (0, {"int_sum_row_cap": 1}))
+
+        def cache_off(q: str) -> dict:
+            os.environ["HYPERSPACE_RESULT_CACHE"] = "0"
+            try:
+                return run(q)
+            finally:
+                os.environ["HYPERSPACE_RESULT_CACHE"] = "1"
+
+        def check_on_card(q: str, r: dict, want: dict, stage: str) -> None:
+            kernel = EXPECTED_KERNEL[q]
+            require(r["fragments"] == 1 and r["launches"][kernel] == 1,
+                    f"ingest {stage}: {q} fragments {r['fragments']}, launches "
+                    f"{r['launches']}")
+            compare_batches(q, r["floats"], want[q])
+
+        # (1) populate: first runs miss, warm runs hit
+        want = _ingest_host_reference(host, key)
+        first_runs, hits = {}, {}
+        for q in forms:
+            c0 = counters()
+            first_runs[q] = run(q)
+            warm = run(q)
+            d = moved(c0)
+            require(d["cache.result.misses"] == 1 and d["cache.result.hits"] == 1,
+                    f"ingest populate: {q} counters {d}")
+            require(warm["rpc"]["dispatches"] == 0 and warm["rpc"]["uploads"] == 0
+                    and warm["rpc"]["fetches"] == 0 and warm["route"] == "cached",
+                    f"ingest populate: {q} warm hit ran {warm['rpc']}, route {warm['route']}")
+            require(same_bits(warm["got"], first_runs[q]["got"]),
+                    f"ingest populate: {q} hit differs from its first run")
+            if q != "range_stats":
+                check_on_card(q, first_runs[q], want, "populate")
+            else:  # the generic body, no hand-written kernel
+                require(on_card_or_capped(first_runs[q]),
+                        f"ingest populate: range_stats fragments "
+                        f"{first_runs[q]['fragments']}, declines {first_runs[q]['declines']}")
+                compare_batches(q, first_runs[q]["floats"], want[q])
+            # a hit plans the query before its key exists: the planning
+            # alone, timed apart (outside a pin scope nothing is pinned)
+            t0 = time.perf_counter()
+            forms[q]().optimized_plan()
+            plan_s = time.perf_counter() - t0
+            hits[q] = {"first_run_s": first_runs[q]["s"], "hit_s": warm["s"], "plan_s": plan_s}
+            log({"ingest": "populate", "card": card, "query": q,
+                 "first_run_s": first_runs[q]["s"], "hit_ms": warm["s"] * 1e3,
+                 "plan_ms": plan_s * 1e3, "launches": first_runs[q]["launches"]})
+        out["populate"] = hits
+
+        # (2) appends
+        last = {}
+        for i, (seed, root, files) in enumerate(staged):
+            moved_to = []
+            for f in files:
+                dst = os.path.join(li_dir, f"part-ingest-{seed}-{f}")
+                os.rename(os.path.join(root, "lineitem", f), dst)
+                moved_to.append(dst)
+            for c in INGEST_COLUMNS:
+                for dst in moved_to:
+                    host[c] = np.concatenate(
+                        [host[c], pq.read_table(dst, columns=[c]).column(0).to_numpy()])
+            want = _ingest_host_reference(host, key)
+            c0 = counters()
+            session.device_stats = DeviceTierStats()
+            t0 = time.perf_counter()
+            if INGEST_BATCH_API[i] == "append":
+                hs.append(name, session.read.parquet(moved_to))
+            else:  # append_batch writes the batch as one file and appends it
+                from hyperspace_tpu_torch.columnar import io as cio
+
+                batch = cio.read_parquet(moved_to)
+                for dst in moved_to:
+                    os.unlink(dst)
+                moved_to = [ingest.append_batch(session, name, batch,
+                                                filename=f"part-ingest-{seed}.parquet")]
+            append_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            while not view_maintenance.refresh_idle():
+                require(time.perf_counter() - t0 < INGEST_REFRESH_WAIT_S,
+                        "ingest: the background refresh did not finish")
+                time.sleep(0.001)
+            refresh_s = time.perf_counter() - t0
+            # the fold's delta scan (the new runs only) ran on the card
+            fold_fragments = session.device_stats.device_fragments
+            require(fold_fragments == 1 and not session.device_stats.declines,
+                    f"ingest append {i}: the fold ran {fold_fragments} device fragments, "
+                    f"declines {session.device_stats.declines}")
+            entry = hs.get_index(name)
+            runs = ingest.runs_per_bucket(entry)
+            stats = run("range_stats")
+            off = cache_off("range_stats")
+            d = moved(c0)
+            # every stale foldable entry is refreshed: the first folds from
+            # the newest, the others then hit the stored fold
+            require(d["cache.result.folds"] == 1 and d["cache.result.refreshes"] >= 1
+                    and stats["route"] == "cached" and stats["rpc"]["dispatches"] == 0,
+                    f"ingest append {i}: range_stats counters {d}, route {stats['route']}, "
+                    f"rpc {stats['rpc']}")
+            require(same_bits(stats["got"], off["got"]) and on_card_or_capped(off),
+                    f"ingest append {i}: the folded range_stats differs from a cache-off run "
+                    f"(fragments {off['fragments']}, declines {off['declines']})")
+            compare_batches("range_stats", stats["floats"], want["range_stats"])
+            results = {}
+            for q in ("lookup_count", "range_sum"):
+                results[q] = run(q)
+                check_on_card(q, results[q], want, f"append {i}")
+            last = results
+            rec = {"seed": seed, "api": INGEST_BATCH_API[i], "files": len(moved_to),
+                   "rows": d["ingest.rows_appended"], "append_s": append_s,
+                   "fold_refresh_s": refresh_s, "range_stats_hit_ms": stats["s"] * 1e3,
+                   "range_stats_recompute_s": off["s"],
+                   "range_stats_recompute_on_card": off["fragments"] == 1,
+                   "lookup_count_s": results["lookup_count"]["s"],
+                   "range_sum_s": results["range_sum"]["s"],
+                   "runs_per_bucket": sorted(set(runs.values())),
+                   "version_dirs": len(entry.index_version_dirs())}
+            require(d["ingest.appends"] == 1 and rec["runs_per_bucket"] == [i + 2],
+                    f"ingest append {i}: {d}, runs per bucket {runs}")
+            out["appends"].append(rec)
+            log({"ingest": "append", "card": card, **rec})
+
+        # (3) a pin scope held across compaction and vacuum
+        c0 = counters()
+        pre = last["lookup_count"]["got"]
+        with ingest.pin_scope():
+            plan = forms["lookup_count"]().optimized_plan()
+            pinned = ingest.current_pins()
+            require(len(pinned) >= 1, "ingest: the held plan pinned nothing")
+            t0 = time.perf_counter()
+            hs.compact_index(name, min_runs=2)
+            out["compact_s"] = time.perf_counter() - t0
+            compacted = ingest.runs_per_bucket(hs.get_index(name))
+            require(set(compacted.values()) == {1},
+                    f"ingest: after compaction, runs per bucket {compacted}")
+            t0 = time.perf_counter()
+            hs.vacuum_outdated_index(name)
+            out["vacuum_deferred_s"] = time.perf_counter() - t0
+            deferred = moved(c0)["ingest.vacuum.deferred"]
+            require(deferred >= 1, "ingest: vacuum deferred no pinned version")
+            held = _columns(execute_plan(plan, session))
+            require(same_bits(held, pre), "ingest: the held query's result changed")
+        t0 = time.perf_counter()
+        hs.vacuum_outdated_index(name)
+        out["vacuum_s"] = time.perf_counter() - t0
+        d = moved(c0)
+        require(d["ingest.vacuum.versions_removed"] >= 1,
+                f"ingest: the second vacuum retired nothing ({d})")
+        c1 = counters()
+        after = {q: run(q) for q in forms}
+        d1 = moved(c1)
+        require(d1["cache.result.folds"] == 0 and d1["cache.result.misses"] == 3,
+                f"ingest: after compaction the forms should recompute ({d1})")
+        for q in ("lookup_count", "range_sum"):
+            check_on_card(q, after[q], want, "compacted")
+        require(on_card_or_capped(after["range_stats"]),
+                f"ingest compacted: range_stats {after['range_stats']['declines']}")
+        compare_batches("range_stats", after["range_stats"]["floats"], want["range_stats"])
+        out["compaction"] = {"compact_s": out["compact_s"], "deferred": deferred,
+                             "versions_removed": d["ingest.vacuum.versions_removed"],
+                             "runs_per_bucket": sorted(set(compacted.values())),
+                             "recompute_s": {q: after[q]["s"] for q in forms}}
+        log({"ingest": "compaction", "card": card, **out["compaction"],
+             "vacuum_deferred_s": out["vacuum_deferred_s"], "vacuum_s": out["vacuum_s"]})
+
+        # (4) verify mode
+        os.environ["HYPERSPACE_RESULT_CACHE"] = "verify"
+        c2 = counters()
+        for q in forms:
+            r = run(q)
+            require(same_bits(r["got"], after[q]["got"]), f"ingest verify: {q} differs")
+        d2 = moved(c2)
+        require(d2["cache.result.verified"] == 3 and d2["cache.result.hits"] == 3,
+                f"ingest verify: {d2}")
+        out["verified"] = d2["cache.result.verified"]
+        log({"ingest": "verify", "card": card, "verified": out["verified"]})
+    finally:
+        if saved_mode is None:
+            os.environ.pop("HYPERSPACE_RESULT_CACHE", None)
+        else:
+            os.environ["HYPERSPACE_RESULT_CACHE"] = saved_mode
+        RESULT_CACHE.clear()
+
+    out["launches"] = {k: K.LAUNCHES[k] - launches0[k] for k in launches0}
+    require(K.PLAIN_CALLS == plain0, f"plain versions ran in the ingest phase: "
+            f"{ {k: K.PLAIN_CALLS[k] - plain0[k] for k in plain0} }")
+    for k in ("filter_weighted_sum", "filter_sum"):
+        require(out["launches"][k] > 0, f"the ingest phase launched {k} no time")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # order phase
 # ---------------------------------------------------------------------------
 
@@ -2986,6 +3354,7 @@ def main() -> int:
     sources = phase("sources", sources_phase, torch, K, e2e, args.rows, smi)
     ref_cache = phase("reference_cache", reference_cache_check, e2e, smi)
     analysis = phase("analysis", analysis_phase, torch, K, e2e, args.rows, smi)
+    ingest = phase("ingest", ingest_phase, torch, K, e2e, args.rows, smi)
     del e2e["want"], e2e["device_results"]
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     order = phase("order", order_phase, torch, min(ORDER_ROWS, _pad_pow2(args.rows)), smi)
@@ -3007,7 +3376,8 @@ def main() -> int:
                     "pipeline": pipeline["launches"][name],
                     "join": join["launches"][name],
                     "sources": sources["launches"][name],
-                    "analysis": analysis["launches"][name]}
+                    "analysis": analysis["launches"][name],
+                    "ingest": ingest["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
@@ -3025,7 +3395,7 @@ def main() -> int:
                    "kernels": kernels, "end_to_end": e2e, "lifecycle": lifecycle,
                    "skipping": skipping, "pipeline": pipeline, "join": join,
                    "sources": sources, "reference_cache": ref_cache,
-                   "analysis": analysis, "order": order,
+                   "analysis": analysis, "ingest": ingest, "order": order,
                    "cache_sizing_mb": sizing,
                    "phase_s": phase_s, "total_s": time.perf_counter() - t_start}, f, indent=1)
     log({"phase": "done", "card": smi, "phase_s": phase_s,

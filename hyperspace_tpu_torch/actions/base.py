@@ -4,9 +4,9 @@ hyperspace_tpu/actions/base.py).
 run() = validate, begin (write the transient entry at base_id+1), op, end
 (write the final entry at base_id+2 and the latestStable pointer). A taken
 log id means another writer won the optimistic-concurrency race: the
-transaction re-reads the log and runs again, up to ``_ACTION_RETRIES``
-attempts in all (the default of the JAX package's
-``HYPERSPACE_ACTION_RETRIES``). A NoChangesError from validate or op ends
+transaction re-reads the log and runs again, up to
+``HYPERSPACE_ACTION_RETRIES`` attempts in all (3; read at every run, as in
+the JAX package). A NoChangesError from validate or op ends
 the action as a no-op, with no state transition. op() runs in the
 maintenance read scope (columnar/io.py), as the JAX package's does.
 
@@ -37,12 +37,9 @@ from ..meta.log_manager import IndexLogManager
 from ..telemetry import trace
 from ..telemetry.events import AppInfo, HyperspaceEvent
 from ..telemetry.metrics import REGISTRY
+from ..utils import env
 
 logger = logging.getLogger(__name__)
-
-# attempts an action makes when it loses the optimistic-concurrency race (a
-# module constant, which tests monkeypatch)
-_ACTION_RETRIES = 3
 
 _TX_LOCK = threading.Lock()
 _ACTIVE_TX: dict[str, int] = {}  # abspath(index_path) -> nesting depth
@@ -139,7 +136,7 @@ class Action:
                 _tx_exit(index_path)
 
     def _run_with_conflict_retry(self) -> int:
-        total = max(1, _ACTION_RETRIES)
+        total = max(1, env.env_int("HYPERSPACE_ACTION_RETRIES"))
         attempt = 1
         while True:
             try:

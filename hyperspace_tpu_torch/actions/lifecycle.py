@@ -5,7 +5,11 @@
 - restore: DELETED -> ACTIVE;
 - vacuum: DELETED -> DOESNOTEXIST, removing all index data (the log stays);
 - vacuum-outdated: on an ACTIVE index, remove the data versions and files
-  the latest entry no longer references;
+  the latest entry no longer references, except what an in-flight query
+  pinned or a live action protects (ingest/snapshots.py), and a version
+  superseded for less than ``HYPERSPACE_VACUUM_GRACE_S``: those wait for a
+  later pass (``ingest.vacuum.deferred``); a removed version's cached
+  results leave the result cache (``ingest.vacuum.versions_removed``);
 - cancel: roll a transient state back to the last stable one (an index
   being created or vacuumed has none, and ends at DOESNOTEXIST).
 """
@@ -107,13 +111,35 @@ class VacuumOutdatedAction(IndexMutationAction):
         self.entry: IndexLogEntry = self.previous_entry
 
     def op(self) -> None:
+        from ..cache.result_cache import RESULT_CACHE
+        from ..ingest.snapshots import REGISTRY as SNAPSHOTS
+        from ..telemetry.metrics import REGISTRY as METRICS
+        from ..utils import env
+
         if not isinstance(self.entry, IndexLogEntry):
             raise HyperspaceError("Latest log entry has no index metadata")
         referenced_files = set(self.entry.content.files())
         referenced_dirs = {int(d.split("=")[1]) for d in self.entry.index_version_dirs()}
+        grace = env.env_float("HYPERSPACE_VACUUM_GRACE_S")
+        path = os.path.abspath(self.index_path)
         for v in self.data_manager.get_all_versions():
+            # retirement follows the refcount: a version an in-flight query
+            # pinned, or a live action protects, waits for a later pass
+            pinned = SNAPSHOTS.is_pinned(path, v) or SNAPSHOTS.is_protected(path, v)
             if v not in referenced_dirs:
+                if pinned or not SNAPSHOTS.grace_elapsed(path, v, grace):
+                    METRICS.counter("ingest.vacuum.deferred").inc()
+                    continue
                 self.data_manager.delete_version(v)
+                SNAPSHOTS.forget_version(path, v)
+                # its bytes are gone: so are the results cached over it
+                RESULT_CACHE.invalidate_version(path, v)
+                METRICS.counter("ingest.vacuum.versions_removed").inc()
+                continue
+            if pinned:
+                # a pinned older entry may reference files of this dir that
+                # the latest no longer does: the dir stays whole
+                METRICS.counter("ingest.vacuum.deferred").inc()
                 continue
             # a referenced version directory loses its unreferenced files; a
             # derived file (a sketch sidecar, which no content listing holds)

@@ -199,8 +199,10 @@ def profile_string(session: "HyperspaceSession", df: "DataFrame") -> str:
     """Execute the query once under tracing and render the per-query profile:
     the span tree (rule decisions → plan → executor → kernel dispatches, each
     with wall time and RpcMeter deltas) plus the metrics-registry snapshot,
-    and the process-wide estimator-accuracy block. The run-it-and-attribute
-    companion to `explain_string`'s static plan diff."""
+    the result cache's block and the process-wide estimator-accuracy
+    block. The run-it-and-attribute companion to `explain_string`'s static
+    plan diff."""
+    from ..cache.result_cache import result_cache_state_string
     from ..telemetry import trace
     from ..telemetry.plan_stats import accuracy_string
 
@@ -209,6 +211,8 @@ def profile_string(session: "HyperspaceSession", df: "DataFrame") -> str:
     buf = BufferStream(display_mode_for(session))
     _write_header(buf, "Query profile (spans + metrics):")
     buf.write_block(cap.profile_string())
+    buf.write_line()
+    buf.write_block(result_cache_state_string())
     buf.write_line()
     buf.write_block(accuracy_string())
     return buf.render()

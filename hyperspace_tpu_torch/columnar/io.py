@@ -24,7 +24,10 @@ The three caches count in the metrics registry as ``cache.index_chunk.*``,
 counts ``io.chunks``, ``io.bytes_decoded``, ``io.rows_decoded`` and
 ``io.chunk_decode_ms``, and a read fanned out over files counts
 ``io.parallel_reads``, as in the JAX package. Every pool is sized by
-``utils/workers`` (``HYPERSPACE_IO_THREADS``).
+``utils/workers`` (``HYPERSPACE_IO_THREADS``). Each file's decode and
+footer read retries transient IO errors (``utils/retry.py``,
+``HYPERSPACE_IO_RETRIES``) around the ``io.read_file`` and ``io.footer``
+fault points (``utils/faults.py``).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from ..constants import NESTED_FIELD_PREFIX
 from ..exceptions import HyperspaceError
 from ..serve import budget as serve_budget
 from ..telemetry.metrics import REGISTRY
-from ..utils import env
+from ..utils import env, faults, retry
 from ..utils.workers import io_pool, io_thread_cap
 
 _ARROW_TO_LOGICAL = {
@@ -340,7 +343,20 @@ def _read_one_table(path: str, cols, row_group_sel=None, arrow_filter=None) -> p
     """One file. ``arrow_filter`` (a pyarrow.compute expression) skips row
     groups by their statistics and masks rows; on a row-group selection it
     masks the selected groups' rows. A ``__hs_nested.a.b`` column that the
-    file holds inside its struct ``a`` reads the struct."""
+    file holds inside its struct ``a`` reads the struct.
+
+    This is the per-file retry boundary: the decode retries transient IO
+    errors under ``utils/retry.py``'s bounded backoff, and the
+    ``io.read_file`` fault point fires inside the retried unit, as in the
+    JAX package."""
+    return retry.retry_call(
+        lambda: _read_one_table_once(path, cols, row_group_sel, arrow_filter),
+        what="io.read_file",
+    )
+
+
+def _read_one_table_once(path: str, cols, row_group_sel=None, arrow_filter=None) -> pa.Table:
+    faults.fire("io.read_file", path=os.path.basename(path))
     if cols is not None and any(c.startswith(NESTED_FIELD_PREFIX) for c in cols):
         phys = set(pq.read_schema(path).names)
         cols = list(dict.fromkeys(
@@ -735,8 +751,23 @@ def _pmap_ordered(fn, items):
         return list(pool.map(fn, items))
 
 
+def _retried_file_reader(read_fn):
+    """A non-parquet reader's per-file decode unit, with
+    ``_read_one_table``'s retry boundary and ``io.read_file`` fault point."""
+
+    def unit(p):
+        def once():
+            faults.fire("io.read_file", path=os.path.basename(p))
+            return read_fn(p)
+
+        return retry.retry_call(once, what="io.read_file")
+
+    return unit
+
+
 def _read_concat(read_one, paths: Sequence[str], columns) -> ColumnBatch:
-    table = pa.concat_tables(_pmap_ordered(read_one, paths), promote_options="permissive")
+    tables = _pmap_ordered(_retried_file_reader(read_one), paths)
+    table = pa.concat_tables(tables, promote_options="permissive")
     if columns:
         table = table.select(list(columns))
     return table_to_batch(table)
@@ -888,8 +919,14 @@ class _UnreadableFooter(Exception):
 def _footer_stats(path: str, columns: tuple[str, ...]) -> tuple[list[dict], int]:
     """(the statistics, their approximate bytes as the JAX package counts
     them)."""
+    def open_footer():
+        faults.fire("io.footer", path=os.path.basename(path))
+        return pq.ParquetFile(path).metadata
+
     try:
-        md = pq.ParquetFile(path).metadata
+        # transient IO errors retry with backoff; an exhausted or permanent
+        # failure keeps the file (never cached)
+        md = retry.retry_call(open_footer, what="io.footer")
     except Exception as e:
         raise _UnreadableFooter from e
     want = set(columns)

@@ -1,10 +1,10 @@
 """Hyperspace, the user-facing facade (counterpart of
 hyperspace_tpu/hyperspace.py): create, the lifecycle actions (delete,
-restore, vacuum, vacuum-outdated, refresh, optimize, cancel, recover),
-introspection, and the analysis views: ``explain``, ``why_not``,
-``explain_analyze`` and ``profile``. The JAX package's ingest verbs
-(``append``, ``compact_index``) and its workload views
-(``workload_report``, ``index_report``) are not ported yet."""
+restore, vacuum, vacuum-outdated, refresh, optimize, cancel, recover), the
+ingest verbs (``append``, ``compact_index``), introspection, and the
+analysis views: ``explain``, ``why_not``, ``explain_analyze`` and
+``profile``. The JAX package's workload views (``workload_report``,
+``index_report``) are not ported yet."""
 
 from __future__ import annotations
 
@@ -56,6 +56,19 @@ class Hyperspace:
 
     def optimize_index(self, name: str, mode: str = C.OPTIMIZE_MODE_QUICK) -> None:
         self._manager.optimize(name, mode)
+
+    def append(self, name: str, df: "DataFrame") -> None:
+        """Index ``df``'s new source files into the index as append-only
+        per-bucket delta runs: one atomically published immutable
+        snapshot, at a cost that follows the batch. Past
+        ``HYPERSPACE_COMPACT_RUNS`` runs a background compaction follows."""
+        self._manager.append(name, df)
+
+    def compact_index(self, name: str, min_runs: int | None = None) -> None:
+        """Merge the delta runs of buckets holding ``min_runs`` files or more
+        into one sorted file per bucket; vacuum retires the superseded
+        versions once their pins drain."""
+        self._manager.compact(name, min_runs)
 
     def cancel(self, name: str) -> None:
         self._manager.cancel(name)

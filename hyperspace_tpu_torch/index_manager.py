@@ -11,11 +11,13 @@ action clears it, so a query is never rewritten to a stale entry.
 
 - a transient latest entry (CREATING, REFRESHING, ...) whose owner is dead
   is rolled back to the last stable state through CancelAction. An entry
-  younger than ``_STALE_TX_S`` may be another process's live transaction
-  and is left alone unless ``force``; an in-process one is never touched;
+  younger than ``HYPERSPACE_STALE_TX_S`` (3600 s, read at every pass) may
+  be another process's live transaction and is left alone unless
+  ``force``; an in-process one is never touched;
 - staged builds, stale log spool files and data versions no committed
   entry references are removed (all data, under a DOESNOTEXIST tail: a
-  crashed vacuum is finished);
+  crashed vacuum is finished), except a version an in-flight query pinned
+  or a live action protects (ingest/snapshots.py);
 - a latestStable pointer that lags the log is fixed forward.
 
 The pass runs once when a session's manager is built, and counts
@@ -23,9 +25,13 @@ The pass runs once when a session's manager is built, and counts
 ``recovery.staging_removed``, ``recovery.orphan_versions`` and
 ``recovery.temp_files`` in the metrics registry. Every action runs with
 the session's event logger (``hyperspace.telemetry.eventLoggerClass``).
-The JAX package's
-ingest verbs (``append``, ``compact_index``) and snapshot pins belong to its
-ingest plane, which is not ported.
+
+The ingest verbs: ``append`` indexes a batch's new source files as delta
+runs (ingest/actions.py), then schedules a background compaction past
+``HYPERSPACE_COMPACT_RUNS`` and a refresh of the foldable cached results;
+``compact`` merges the delta runs. In-process writers (append, compact,
+vacuum-outdated) serialize on the index's writer mutex
+(``ingest/compaction.writer_lock``).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from .meta.entry import IndexLogEntry
 from .meta.log_manager import IndexLogManager
 from .meta.path_resolver import PathResolver
 from .telemetry.metrics import REGISTRY
+from .utils import env
 
 if TYPE_CHECKING:
     from .models.base import IndexConfig
@@ -62,11 +69,6 @@ if TYPE_CHECKING:
     from .session import HyperspaceSession
 
 logger = logging.getLogger(__name__)
-
-# age in seconds past which recovery treats a transient entry as a dead
-# transaction (the default of the JAX package's HYPERSPACE_STALE_TX_S)
-_STALE_TX_S = 3600.0
-
 
 class IndexCollectionManager:
     def __init__(self, session: "HyperspaceSession", auto_recover: bool = True):
@@ -103,8 +105,11 @@ class IndexCollectionManager:
         self._run(VacuumAction(path, lm))
 
     def vacuum_outdated(self, name: str) -> None:
+        from .ingest.compaction import writer_lock
+
         path, lm, dm = self._existing_log_manager(name)
-        self._run(VacuumOutdatedAction(path, lm, dm))
+        with writer_lock(path):
+            self._run(VacuumOutdatedAction(path, lm, dm))
 
     def refresh(self, name: str, mode: str = C.REFRESH_MODE_FULL) -> None:
         path, lm, dm = self._existing_log_manager(name)
@@ -120,6 +125,32 @@ class IndexCollectionManager:
     def optimize(self, name: str, mode: str = C.OPTIMIZE_MODE_QUICK) -> None:
         path, lm, dm = self._existing_log_manager(name)
         self._run(OptimizeAction(self.session, path, lm, dm, mode))
+
+    def append(self, name: str, df: "DataFrame") -> None:
+        """Index ``df``'s new source files as append-only delta runs in a
+        fresh data version (no rebuild), then schedule a background
+        compaction when a bucket crossed the run threshold, and a
+        background refresh of the foldable cached results over the index."""
+        from .cache.view_maintenance import maybe_refresh
+        from .ingest.actions import IngestAppendAction
+        from .ingest.compaction import maybe_schedule, writer_lock
+
+        path, lm, dm = self._existing_log_manager(name)
+        with writer_lock(path):
+            self._run(IngestAppendAction(self.session, path, lm, dm, df))
+        maybe_schedule(self.session, name)
+        maybe_refresh(self.session, name)
+
+    def compact(self, name: str, min_runs: int | None = None) -> None:
+        """Merge the delta runs of the buckets holding ``min_runs`` files or
+        more (``HYPERSPACE_COMPACT_RUNS`` by default) into one sorted file
+        each."""
+        from .ingest.actions import IngestCompactAction
+        from .ingest.compaction import writer_lock
+
+        path, lm, dm = self._existing_log_manager(name)
+        with writer_lock(path):
+            self._run(IngestCompactAction(self.session, path, lm, dm, min_runs))
 
     def cancel(self, name: str) -> None:
         _, lm, _ = self._existing_log_manager(name)
@@ -223,7 +254,7 @@ class IndexCollectionManager:
             latest = lm.get_log(latest_id) if latest_id is not None else None
             if latest is not None and latest.state not in S.STABLE_STATES:
                 age_ms = time.time() * 1000 - (latest.timestamp or 0)
-                if not force and age_ms < _STALE_TX_S * 1000:
+                if not force and age_ms < env.env_float("HYPERSPACE_STALE_TX_S") * 1000:
                     # possibly another process's live transaction: leave the
                     # entry and its staging and spool files alone
                     r["skipped"] = f"fresh-transient:{latest.state}"
@@ -325,6 +356,8 @@ class CachingIndexCollectionManager(IndexCollectionManager):
     vacuum_outdated = _mutating(IndexCollectionManager.vacuum_outdated)
     refresh = _mutating(IndexCollectionManager.refresh)
     optimize = _mutating(IndexCollectionManager.optimize)
+    append = _mutating(IndexCollectionManager.append)
+    compact = _mutating(IndexCollectionManager.compact)
     cancel = _mutating(IndexCollectionManager.cancel)
     recover = _mutating(IndexCollectionManager.recover)
 

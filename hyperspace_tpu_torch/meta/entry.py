@@ -22,11 +22,11 @@ from __future__ import annotations
 
 import os
 import time
-from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Optional
 
 from ..exceptions import HyperspaceError, UnknownIndexKindError
+from ..utils.lru import BoundedLRU
 
 LOG_VERSION = "0.1"
 
@@ -436,7 +436,10 @@ class IndexLogEntry(LogEntry):
         self.content = content
         self.source = source
         self.properties: dict[str, str] = dict(properties or {})
-        self._tags: OrderedDict = OrderedDict()
+        # the runtime per-plan tag map, keyed by (plan_key, tag_name), never
+        # serialized: a bounded LRU touched on get and set, since entries
+        # outlive many queries in the collection cache
+        self._tags: BoundedLRU = BoundedLRU(self._MAX_TAGS)
 
     # --- convenience accessors (ref: IndexLogEntry.scala:430-530) ---
     @property
@@ -521,10 +524,7 @@ class IndexLogEntry(LogEntry):
 
     # --- runtime tags ---
     def set_tag(self, plan_key: Any, tag: str, value: Any) -> None:
-        self._tags[(plan_key, tag)] = value
-        self._tags.move_to_end((plan_key, tag))
-        while len(self._tags) > self._MAX_TAGS:
-            self._tags.popitem(last=False)
+        self._tags.set((plan_key, tag), value)
 
     def get_tag(self, plan_key: Any, tag: str) -> Any:
         return self._tags.get((plan_key, tag))

@@ -9,7 +9,8 @@ A commit is "rename-if-absent": the entry is spooled to a temp file and
 hard-linked to its id, which fails if another writer committed that id
 first. Filesystems without hard links fall back to an O_CREAT|O_EXCL
 create of the target. The recovery surface finds the temp spool files a
-hard kill leaves behind and a latestStable pointer that lags the log.
+hard kill leaves behind and a latestStable pointer that lags the log. The
+``log.write`` fault point (utils/faults.py) brackets the commit.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import time
 from typing import Optional
 
 from .. import constants as C
+from ..utils import faults
 from .entry import LogEntry
 
 STABLE_STATES = frozenset({"ACTIVE", "DELETED", "DOESNOTEXIST"})
@@ -101,6 +103,7 @@ class IndexLogManager:
                 json.dump(entry.to_dict(), f, indent=2)
                 f.flush()
                 os.fsync(f.fileno())
+            faults.fire("log.write", id=log_id, state=entry.state)
             try:
                 os.link(tmp, target)  # fails iff target exists: the CAS
             except FileExistsError:
@@ -108,7 +111,9 @@ class IndexLogManager:
             except OSError as e:
                 if e.errno not in (errno.EPERM, errno.EOPNOTSUPP, errno.ENOTSUP, errno.EMLINK):
                     raise
-                return self._exclusive_create(tmp, target)
+                if not self._exclusive_create(tmp, target):
+                    return False
+            faults.fire_after("log.write", id=log_id, state=entry.state)
             return True
         finally:
             try:

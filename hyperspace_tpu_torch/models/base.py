@@ -64,6 +64,11 @@ class Index:
     ) -> tuple["Index", UpdateMode]:
         raise NotImplementedError(f"{self.kind} does not support incremental refresh")
 
+    def ingest_delta(self, ctx: IndexerContext, delta_df: "DataFrame", version: int) -> int:
+        """Write only ``delta_df``'s rows as append-only runs into the
+        staged version dir (log-structured ingest); returns rows written."""
+        raise NotImplementedError(f"{self.kind} does not support delta ingestion")
+
     def refresh_full(self, ctx: IndexerContext, df: "DataFrame") -> tuple["Index", Any]:
         raise NotImplementedError
 

@@ -14,7 +14,9 @@ Maintenance: incremental refresh writes the appended rows as a new run per
 bucket beside the old data (Merge), or, when source files were deleted,
 rewrites every bucket without their rows (Overwrite); full refresh
 rebuilds; optimize compacts each bucket's files into one sorted file,
-bucket by bucket, with no re-hash.
+bucket by bucket, with no re-hash; an ingest append (``ingest_delta``)
+writes the batch's rows as one more run per bucket, named by the ingest
+version (``part-<version>-b<bucket>``).
 
 Out of core: a create or full refresh whose source exceeds
 ``hyperspace.tpu.build.maxBytesInMemory`` (2 GB by default) streams the
@@ -198,6 +200,20 @@ class CoveringIndex(Index):
         workers = io_worker_count(len(by_bucket), cap=max(1, budget // max(1, biggest)))
         with io_pool(workers, "hs-compact") as pool:
             list(pool.map(compact, by_bucket.items()))
+
+    def ingest_delta(self, ctx: IndexerContext, delta_df: "DataFrame", version: int) -> int:
+        """Log-structured ingest: bucket only the delta rows and write them
+        as append-only runs, one per bucket, into the staged version dir;
+        the cost follows the batch, not the index. The file name's version
+        field is the ingest data version, so the runs of successive batches
+        never collide when their version dirs merge. Compaction
+        (``ingest/actions.IngestCompactAction``) re-sorts a bucket's runs
+        into one file. Returns rows written."""
+        data = CoveringIndex.create_index_data(ctx, delta_df, self._indexed, self._included,
+                                               self.has_lineage())
+        write_bucketed(data, ctx.index_data_path, self._indexed, self.num_buckets,
+                       version=version, session=ctx.session)
+        return data.num_rows
 
     def refresh_incremental(self, ctx: IndexerContext, appended_df: "DataFrame | None",
                             deleted_files: list[FileInfo],

@@ -88,7 +88,7 @@ class ZOrderFilterIndexRule(HyperspaceRule):
         out = plan
         for leaf_id, entry in chosen.items():
             # z-order data has no bucket spec
-            out = transform_plan_to_use_index(entry, out, leaf_id, False, False)
+            out = transform_plan_to_use_index(self.session, entry, out, leaf_id, False, False)
             log_index_usage(self.session, "ZOrderFilterIndexRule", [entry.name],
                             f"Z-order index applied: {entry.name}")
         return out

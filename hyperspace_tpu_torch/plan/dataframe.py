@@ -187,21 +187,29 @@ class DataFrame:
         return s
 
     def collect(self) -> ColumnBatch:
-        """Plan and execute. ``plan_stats.maybe_scope`` installs a per-node
-        statistics collector only under ``HYPERSPACE_PLAN_STATS=1``
-        (EXPLAIN ANALYZE installs its own outside); with tracing on, the run
-        is one ``query`` span."""
+        """Plan and execute, in the JAX package's order: a pin scope keeps
+        every index snapshot the rewrite resolves on disk until the query
+        drains (released on success and failure alike), and
+        ``serve_collect`` is the result-cache chokepoint: with
+        ``HYPERSPACE_RESULT_CACHE`` on, a plan whose (fingerprint, pinned
+        snapshots) key repeats is served from the cache with no scan,
+        upload or dispatch, and otherwise it executes exactly as before.
+        ``plan_stats.maybe_scope`` installs a per-node statistics collector
+        only under ``HYPERSPACE_PLAN_STATS=1`` (EXPLAIN ANALYZE installs its
+        own outside); with tracing on, the run is one ``query`` span."""
+        from ..cache.result_cache import serve_collect
+        from ..ingest.snapshots import pin_scope
         from ..telemetry import plan_stats, trace
 
         def run() -> ColumnBatch:
             optimized = self.optimized_plan()
             plan_stats.note_plan(optimized)
-            return execute_plan(optimized, self.session)
+            return serve_collect(self.session, self.plan, optimized)
 
         if not trace.enabled():
-            with plan_stats.maybe_scope():
+            with plan_stats.maybe_scope(), pin_scope():
                 return run()
-        with plan_stats.maybe_scope(), trace.span("query") as sp:
+        with plan_stats.maybe_scope(), trace.span("query") as sp, pin_scope():
             out = run()
             sp.set_attr("rows_out", out.num_rows)
             return out

@@ -42,8 +42,14 @@ class KernelCache:
                 return self._d[key]
         from ..telemetry import trace
         from ..telemetry.metrics import REGISTRY
+        from ..utils import faults
 
         with trace.span(f"compile:{kind}"):
+            # the kernel.compile fault point fires on a real build only: a
+            # warm cache never builds, so never faults. Its context key is
+            # ``kernel`` (the JAX package passes ``kind``, which collides
+            # with the span event's own ``kind`` and raises TypeError)
+            faults.fire("kernel.compile", kernel=kind)
             kernel = builder()
         REGISTRY.counter("kernel.retrace").inc()
         with self._lock:
@@ -155,4 +161,48 @@ def bucket_join_fingerprint(route: str, kind: str, pad_r: int, key_dtype: str, a
         tuple((k, repr(c)) for k, c in agg_list),
         tuple(repr(r) for r in residual),
         col_sig,
+    )
+
+
+# --- whole-plan fingerprints (the result cache's key, cache/result_cache.py)
+#
+# Two optimized plans share a cached result only when they are canonically
+# identical. The fingerprint comes in two halves, so that view maintenance
+# can tell "the same query template over a grown file set":
+#
+#   plan_structure_fingerprint: every semantic property of the plan but the
+#     leaves' file lists (node kinds and arities in preorder, expression
+#     reprs, each scan's structure and prune decisions, index identity);
+#   plan_files_fingerprint: the (path, size, mtime) of every resolved file,
+#     per scan in preorder. With equal structure, equal files mean a
+#     bit-identical result, since execution over a resolved file set is
+#     deterministic.
+
+
+def plan_structure_fingerprint(plan) -> tuple:
+    """The canonical structure of a whole optimized plan, file lists left
+    out. A node's arity rides along, so the preorder cannot confuse two
+    tree shapes; a Project's full expression reprs are in it (its
+    describe() names only the outputs)."""
+    from .nodes import FileScan, Project
+
+    parts = []
+    for n in plan.preorder():
+        if isinstance(n, FileScan):
+            parts.append(scan_structure(n))
+        elif isinstance(n, Project):
+            parts.append(("Project", 1, tuple(repr(e) for e in n.exprs)))
+        else:
+            parts.append((n.kind, len(n.children()), n.describe()))
+    return tuple(parts)
+
+
+def plan_files_fingerprint(plan) -> tuple:
+    """Each scan's resolved files as sorted (path, size, mtime_ms) tuples,
+    scans in preorder."""
+    from .nodes import FileScan
+
+    return tuple(
+        tuple(sorted((f.name, f.size, f.modified_time) for f in n.files))
+        for n in plan.preorder() if isinstance(n, FileScan)
     )

@@ -122,7 +122,7 @@ class AggregateIndexRule(HyperspaceRule):
     def apply_index(self, plan, chosen):
         out = plan
         for leaf_id, entry in chosen.items():
-            out = transform_plan_to_use_index(entry, out, leaf_id, True, True)
+            out = transform_plan_to_use_index(self.session, entry, out, leaf_id, True, True)
             log_index_usage(self.session, "AggregateIndexRule", [entry.name],
                             f"Aggregate index applied: {entry.name}")
         return out

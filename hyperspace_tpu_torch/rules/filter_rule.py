@@ -138,7 +138,7 @@ class FilterIndexRule(HyperspaceRule):
     def apply_index(self, plan, chosen):
         out = plan
         for leaf_id, entry in chosen.items():
-            out = transform_plan_to_use_index(entry, out, leaf_id, False, False)
+            out = transform_plan_to_use_index(self.session, entry, out, leaf_id, False, False)
             log_index_usage(self.session, "FilterIndexRule", [entry.name],
                             f"Filter index applied: {entry.name}")
         return out

@@ -165,7 +165,7 @@ class JoinIndexRule(HyperspaceRule):
     def apply_index(self, plan, chosen):
         out = plan
         for leaf_id, entry in chosen.items():
-            out = transform_plan_to_use_index(entry, out, leaf_id, True, True)
+            out = transform_plan_to_use_index(self.session, entry, out, leaf_id, True, True)
         names = sorted(e.name for e in chosen.values())
         log_index_usage(self.session, "JoinIndexRule", names,
                         f"Join indexes applied: {', '.join(names)}")

@@ -109,13 +109,22 @@ def index_visible_schema(entry: IndexLogEntry) -> Schema:
     return schema.select([n for n in schema.names if n != C.DATA_FILE_NAME_ID])
 
 
-def index_scan(entry: IndexLogEntry, use_bucket_spec: bool = False,
+def index_scan(session, entry: IndexLogEntry, use_bucket_spec: bool = False,
                lineage_filter_ids: Optional[list[int]] = None) -> FileScan:
     """A scan over the index's data files, marked as an index scan; with
     ``use_bucket_spec`` it carries the index's bucket layout (the join
     rule's rewrite, which the bucketed join executes). A scan of a bucketed
     index also carries its PruneSpec. Its full schema keeps the lineage
-    column, so a lineage filter can read it."""
+    column, so a lineage filter can read it.
+
+    The file set resolved here is what the query streams for its whole
+    life, so the entry's data versions are pinned into the active pin scope
+    (ingest/snapshots.py; ``DataFrame.collect`` opens it): compaction and
+    vacuum cannot delete them until the query drains. Outside a scope
+    (explain and whyNot) nothing is pinned."""
+    from ..ingest.snapshots import pin_current
+
+    pin_current(session, entry)
     dd = entry.derived_dataset
     files = entry.content.file_infos()
     root = os.path.commonpath([f.name for f in files]) if files else ""
@@ -139,20 +148,20 @@ def index_scan(entry: IndexLogEntry, use_bucket_spec: bool = False,
     )
 
 
-def transform_plan_to_use_index(entry: IndexLogEntry, plan: LogicalPlan, leaf_id: int,
+def transform_plan_to_use_index(session, entry: IndexLogEntry, plan: LogicalPlan, leaf_id: int,
                                 use_bucket_spec: bool, use_bucket_union: bool) -> LogicalPlan:
     """Swap the source leaf for the index scan, or its hybrid-scan form."""
     leaf = find_scan_by_id(plan, leaf_id)
     if leaf is None:
         raise HyperspaceError(f"Leaf {leaf_id} not found in plan")
     if not entry.get_tag(leaf_id, TAG_HYBRIDSCAN_REQUIRED):
-        scan = index_scan(entry, use_bucket_spec)
+        scan = index_scan(session, entry, use_bucket_spec)
         return plan.transform_up(lambda n: scan if n is leaf else n)
 
     appended = entry.get_tag(leaf_id, TAG_HYBRIDSCAN_APPENDED) or []
     deleted = entry.get_tag(leaf_id, TAG_HYBRIDSCAN_DELETED) or []
     # deleted files carry the ids the index's lineage column recorded
-    scan = index_scan(entry, use_bucket_spec, [f.id for f in deleted] if deleted else None)
+    scan = index_scan(session, entry, use_bucket_spec, [f.id for f in deleted] if deleted else None)
     if not appended:
         return plan.transform_up(lambda n: scan if n is leaf else n)
     # the appended files read the source format and project the index's

@@ -84,6 +84,14 @@ class CancelActionEvent(HyperspaceIndexCRUDEvent):
     pass
 
 
+class IngestAppendActionEvent(HyperspaceIndexCRUDEvent):
+    pass
+
+
+class IngestCompactActionEvent(HyperspaceIndexCRUDEvent):
+    pass
+
+
 @dataclass
 class HyperspaceIndexUsageEvent(HyperspaceEvent):
     """Emitted when a query plan is rewritten to use indexes

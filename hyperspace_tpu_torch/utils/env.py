@@ -33,7 +33,24 @@ call time, as there, so one environment setting steers both packages:
   every ``collect()``, not only under EXPLAIN ANALYZE;
 - ``HYPERSPACE_ESTIMATOR_FEEDBACK``: ``1`` makes the filter ranker and the
   join memory planner multiply their estimates by the accuracy ledger's
-  observed correction.
+  observed correction;
+- ``HYPERSPACE_RESULT_CACHE``: the cross-query result cache, ``0`` off
+  (the default), ``1`` on, ``verify`` on with every hit and fold
+  recomputed and compared; ``HYPERSPACE_RESULT_CACHE_MB`` its byte budget
+  (256) and ``HYPERSPACE_RESULT_CACHE_FOLD_DEPTH`` the folds an entry may
+  stack before a miss recomputes it (32);
+- ``HYPERSPACE_COMPACT_RUNS``: the runs a bucket of an ingested index
+  holds before an append schedules a background compaction (8), and
+  ``HYPERSPACE_VACUUM_GRACE_S`` the seconds a superseded data version must
+  stay observed before vacuum retires it (0: the refcount alone);
+- ``HYPERSPACE_FAULTS``: the fault-injection spec armed when
+  ``utils/faults.py`` is imported (unset: disarmed), and
+  ``HYPERSPACE_IO_RETRIES`` the attempts of a file's decode or footer read
+  (3; 1 turns retrying off);
+- ``HYPERSPACE_STALE_TX_S``: the age in seconds past which recovery treats
+  a transient log entry as a dead transaction (3600), and
+  ``HYPERSPACE_ACTION_RETRIES`` the attempts of an action that loses the
+  optimistic-concurrency race (3).
 
 A boolean knob is on only for the literal string ``1``, as in the JAX
 package.
@@ -58,6 +75,14 @@ DEFAULTS = {
     "HYPERSPACE_PRUNE": "1",
     "HYPERSPACE_PARK_WAIT_MS": 50.0,
     "HYPERSPACE_TRACE_FILE": None,
+    "HYPERSPACE_RESULT_CACHE": "0",
+    "HYPERSPACE_RESULT_CACHE_MB": 256.0,
+    "HYPERSPACE_RESULT_CACHE_FOLD_DEPTH": 32,
+    "HYPERSPACE_COMPACT_RUNS": 8,
+    "HYPERSPACE_VACUUM_GRACE_S": 0.0,
+    "HYPERSPACE_IO_RETRIES": 3,
+    "HYPERSPACE_STALE_TX_S": 3600.0,
+    "HYPERSPACE_ACTION_RETRIES": 3,
 }
 
 

@@ -1,0 +1,47 @@
+"""A small bounded LRU map (counterpart of hyperspace_tpu/utils/lru.py, at
+the site where the JAX package uses it: the runtime tags of a log entry):
+recency moves on both get and set, so hot entries survive churn.
+Thread-safe. The JAX package's class also builds values single-flight
+(``get_or_put``), which no site of the port calls, and guards the map
+with an audited lock of its lock-order checker; the port's lock is a
+plain ``threading.Lock``.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+
+
+class BoundedLRU:
+    def __init__(self, maxlen: int):
+        self.maxlen = maxlen
+        self._d: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key, default=None):
+        with self._lock:
+            try:
+                value = self._d[key]
+            except KeyError:
+                return default
+            self._d.move_to_end(key)
+            return value
+
+    def set(self, key, value) -> None:
+        with self._lock:
+            self._d[key] = value
+            self._d.move_to_end(key)
+            while len(self._d) > self.maxlen:
+                self._d.popitem(last=False)
+
+    def pop(self, key, default=None):
+        with self._lock:
+            return self._d.pop(key, default)
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def __contains__(self, key) -> bool:
+        with self._lock:
+            return key in self._d

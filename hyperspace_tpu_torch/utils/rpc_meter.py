@@ -8,10 +8,10 @@ device-to-host fetch (``device_get``) and each real host-to-device
 transfer. Spans (telemetry/trace.py) carry the meter's deltas, and a
 caller can take the delta around a block with ``METER.measure()``.
 
-The JAX package's ``record_dispatch``/``record_upload`` also fire its fault
-injection points (``device.dispatch``, ``device.upload``,
-``device.fetch``); the port has no ``utils/faults.py`` yet, so those calls
-wait for it.
+``record_dispatch``, ``record_upload`` and ``device_get`` are also the
+fault injection points ``device.dispatch``, ``device.upload`` and
+``device.fetch`` (utils/faults.py), as in the JAX package. An injected
+device fault raises: the port has no breaker to absorb it.
 
 Thread-safe: one lock and a few integer adds per event.
 """
@@ -19,6 +19,8 @@ Thread-safe: one lock and a few integer adds per event.
 from __future__ import annotations
 
 import threading
+
+from . import faults
 
 
 def _tree_nbytes(value) -> int:
@@ -39,10 +41,12 @@ class RpcMeter:
         self.fetch_bytes = 0
 
     def record_dispatch(self, n: int = 1) -> None:
+        faults.fire("device.dispatch")
         with self._lock:
             self.dispatches += n
 
     def record_upload(self, nbytes: int, n: int = 1) -> None:
+        faults.fire("device.upload")
         with self._lock:
             self.uploads += n
             self.upload_bytes += nbytes
@@ -126,6 +130,7 @@ def device_get(tree):
     from ..telemetry import trace
 
     with trace.span("fetch"):
+        faults.fire("device.fetch")
         out = _to_host(tree)
         nbytes = _tree_nbytes(out)
         METER.record_fetch(nbytes)

@@ -1,6 +1,6 @@
 """The port stands alone: importing hyperspace_tpu_torch (every module, the
-telemetry and analysis ones included) and chip_smoke.py loads neither JAX
-nor the JAX package; and the device tier
+telemetry, analysis, ingest, cache and fault-injection ones included) and
+chip_smoke.py loads neither JAX nor the JAX package; and the device tier
 runs on CUDA unless the caller asks for the CPU."""
 
 import json
@@ -51,7 +51,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "telemetry.metrics", "telemetry.trace", "telemetry.events",
                    "telemetry.logger", "telemetry.plan_stats", "analysis.display",
                    "analysis.whynot", "analysis.explain", "analysis.statistics",
-                   "analysis.minmax_analysis"):
+                   "analysis.minmax_analysis", "utils.faults", "utils.retry", "utils.lru",
+                   "ingest", "ingest.snapshots", "ingest.actions", "ingest.compaction",
+                   "cache", "cache.result_cache", "cache.view_maintenance"):
         assert f"hyperspace_tpu_torch.{module}" in out["loaded"], module
 
 
