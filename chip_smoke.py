@@ -224,7 +224,30 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
         layout comparison of l_shipdate over the raw lineitem against
         li_shipdate_z, printed. The phase launches filter_weighted_sum,
         filter_sum and filter_grouped_multi_sum, and no plain version;
-12. ingest phase (the ingest plane, the result cache and view
+12. serve phase (the serving plane and the rest of telemetry) over the
+    SF10 lake and tpch_indexes in the analysis phase's session: a
+    QueryScheduler of four workers, the tenants of the HYPERSPACE_TENANTS
+    spec "dash:weight=3;batch:weight=1,max_active=2", the workload journal
+    in a scratch directory and the exporter on an ephemeral port of
+    127.0.0.1. 48 submissions of the warm mix (q6_count, q6_sum, q1_sums,
+    lookup_count and range_sum under dash; q3_agg and q1 under batch) each
+    equal, bit for bit, the same query's direct warm result of this
+    session and of the end-to-end phase; then a running q18 is cancelled
+    mid-stream (a read-ahead or device-ledger stream of its own open): it
+    resolves "cancelled", the read-ahead and device ledgers hold 0 bytes
+    and no snapshot pin is left. Over the window, the per-query (and
+    per-tenant) sums of every io., cache., rpc., pipeline., pruning. and
+    serve.budget. counter equal the global deltas; /metrics, /snapshot
+    and /healthz answer once (/healthz 200 "ok"); the journal holds one
+    record per served query; index_report counts each served query
+    against li_shipdate_z, li_flagstatus or li_orderkey, the first and the
+    last with a benefit above 0 (li_flagstatus's queries decode more bytes
+    than the raw files hold, which the reference's benefit clamps to 0).
+    Printed: the served wall beside
+    the sum of the direct warm medians, queue-wait p50 and p99 per tenant,
+    the cancel-to-resolution seconds and each kernel's launches; kernels
+    1-3 launch in the window and no plain version runs;
+13. ingest phase (the ingest plane, the result cache and view
     maintenance) over the SF10 lake's lineitem and li_orderkey, with
     HYPERSPACE_RESULT_CACHE=1: lookup_count (a key in the base run and in
     every delta run), range_sum and range_stats (count, min, max and sum
@@ -244,7 +267,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     the three recomputed, and one pass under
     HYPERSPACE_RESULT_CACHE=verify. Append, fold, hit, recompute and
     compaction seconds are printed;
-13. order phase: the device top-k and sort against the host on one
+14. order phase: the device top-k and sort against the host on one
    2^23-row batch (cut from 2^25 to keep the whole run well inside its
    time limit) of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
@@ -259,7 +282,7 @@ The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
 add up the end-to-end, lifecycle, skipping, pipeline, join, sources,
-analysis and ingest phases' counts, each read on its own
+analysis, serve and ingest phases' counts, each read on its own
 (``launches_by_phase``).
 """
 
@@ -1036,6 +1059,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
             compare_batches(q, got, want[q])
         if q in JOIN_PHASE_QUERIES:
             out.setdefault("device_results", {})[q] = got
+        if q in SERVE_QUERIES:  # the serve phase holds its served results to these
+            out.setdefault("warm_results", {})[q] = again
         queries[q] = {"first_run_s": cold_s, "first_run_route": route,
                       "warm_median_s": statistics.median(warm), "warm_s": warm,
                       "upload_bytes_first": up1 - up0, "upload_bytes_second": uploads_warm[0],
@@ -2784,6 +2809,308 @@ def analysis_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
             f"{ {k: K.PLAIN_CALLS[k] - plain0[k] for k in plain0} }")
     for k in ON_PATH:
         require(out["launches"][k] > 0, f"the analysis phase launched {k} no time")
+    out["session"] = session  # the serve phase serves from its warm caches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serve phase
+# ---------------------------------------------------------------------------
+
+SERVE_TENANTS = "dash:weight=3;batch:weight=1,max_active=2"
+SERVE_MIX = (("dash", "q6_count"), ("dash", "q6_sum"), ("dash", "q1_sums"),
+             ("dash", "lookup_count"), ("dash", "range_sum"), ("batch", "q3_agg"),
+             ("batch", "q1"))
+SERVE_QUERIES = tuple(q for _t, q in SERVE_MIX)
+SERVE_SUBMISSIONS = 48
+SERVE_WORKERS = 4
+SERVE_WARM_RUNS = 3
+SERVE_CANCEL_QUERY = "q18"
+SERVE_CONSERVED = ("io.", "cache.", "rpc.", "pipeline.", "pruning.", "serve.budget.")
+SERVE_KNOBS = ("HYPERSPACE_TENANTS", "HYPERSPACE_WORKLOAD_DIR", "HYPERSPACE_METRICS_PORT")
+SERVE_SETTLE_S = 10.0  # straggler read-ahead tasks of a cancelled query
+
+
+def _result_form(q: str, batch) -> dict:
+    """A query's result as the end-to-end phase keeps it: numpy columns for
+    the joins and the plain-join queries, Python values otherwise (exact:
+    a float converts without rounding, so == compares bits)."""
+    from hyperspace_tpu_torch.benchmark import tpch
+
+    if q in tpch.JOIN_QUERIES or q in PLAIN_QUERIES:
+        return _columns(batch)
+    return _floats(batch.to_pydict())
+
+
+def _same_result(q: str, a: dict, b: dict) -> bool:
+    from hyperspace_tpu_torch.benchmark import tpch
+
+    if q in tpch.JOIN_QUERIES or q in PLAIN_QUERIES:
+        return same_bits(a, b)
+    return a == b
+
+
+def _percentile(xs: list, p: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * len(xs)))] if xs else 0.0
+
+
+def _http_get(url: str) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode("utf-8")
+
+
+def serve_phase(K, e2e: dict, session, card: str) -> dict:
+    """The serving plane over the main phase's lake and tpch_indexes, in
+    ``session`` (the analysis phase's, its caches warm):
+    (a) each query of SERVE_MIX run directly, SERVE_WARM_RUNS warm runs
+        timed after one run that warms it; the last equals the end-to-end
+        phase's warm result bit for bit;
+    (b) the window: the tenants of SERVE_TENANTS, the workload journal in
+        a scratch directory and the exporter on an ephemeral port (the
+        scheduler starts it from HYPERSPACE_METRICS_PORT=0);
+        SERVE_SUBMISSIONS submissions of SERVE_MIX, in turn, through one
+        QueryScheduler of SERVE_WORKERS workers: every result equals (a)'s
+        bit for bit; then SERVE_CANCEL_QUERY submitted and cancelled once
+        a read-ahead or device-ledger stream of its own is open: it
+        resolves "cancelled", both ledgers hold 0 bytes and no pin is left;
+    (c) conservation over the window: per-query and per-tenant sums of the
+        SERVE_CONSERVED counters equal the global deltas;
+    (d) /metrics, /snapshot and /healthz fetched once (/healthz 200 ok);
+        the journal holds one record per served query; index_report counts
+        each served query against the index it read (li_shipdate_z,
+        li_flagstatus, li_orderkey), li_shipdate_z's and li_orderkey's
+        benefit above 0;
+    (e) kernels 1-3 launch in the window, no plain version runs.
+    The knobs it sets are restored afterwards."""
+    import json as _json
+    import tempfile
+
+    from hyperspace_tpu_torch import Hyperspace, serve
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.ingest import REGISTRY as PINS
+    from hyperspace_tpu_torch.serve import tenant as tenant_mod
+    from hyperspace_tpu_torch.telemetry import attribution, exporter, workload
+    from hyperspace_tpu_torch.telemetry.metrics import REGISTRY
+
+    t_phase = time.perf_counter()
+    lake = e2e["lake"]
+    fns = {**tpch.QUERIES, **tpch.LOOKUP_QUERIES, **tpch.JOIN_QUERIES, **tpch.TPCH_QUERIES}
+    hs = Hyperspace(session)
+    out: dict = {"direct": {}, "tenants": {}}
+    plain0 = dict(K.PLAIN_CALLS)
+
+    # (a) the direct warm runs
+    direct = {}
+    for q in SERVE_QUERIES:
+        fns[q](session, lake).collect()
+        warm = []
+        for _ in range(SERVE_WARM_RUNS):
+            t0 = time.perf_counter()
+            batch = fns[q](session, lake).collect()
+            warm.append(time.perf_counter() - t0)
+        direct[q] = _result_form(q, batch)
+        require(_same_result(q, direct[q], e2e["warm_results"][q]),
+                f"serve {q}: the direct warm result differs from the end-to-end phase's")
+        out["direct"][q] = {"warm_s": warm, "warm_median_s": statistics.median(warm)}
+    del batch
+    log({"serve": "direct", "card": card,
+         "warm_median_s": {q: v["warm_median_s"] for q, v in out["direct"].items()}})
+
+    saved = {k: os.environ.get(k) for k in SERVE_KNOBS}
+    journal_dir = tempfile.mkdtemp(prefix="serve_workload_", dir=DATA_DIR)
+    os.environ.update({"HYPERSPACE_TENANTS": SERVE_TENANTS,
+                       "HYPERSPACE_WORKLOAD_DIR": journal_dir,
+                       "HYPERSPACE_METRICS_PORT": "0"})
+    tenant_mod.TENANTS.reset_for_testing()  # the spec above, bootstrapped
+    workload.reset_for_testing()
+    attribution.LEDGER.reset_for_testing()
+    serve.reset_global_budget()
+
+    def conserved() -> dict:
+        return {n: v for n, kind, v in REGISTRY.export()
+                if kind == "counter" and n.startswith(SERVE_CONSERVED)}
+
+    sched = None
+    try:
+        # (b) the window
+        g0 = conserved()
+        launches0 = dict(K.LAUNCHES)
+        sched = serve.QueryScheduler(max_concurrent=SERVE_WORKERS, queue_depth=64)
+        exp = exporter.get_exporter()
+        require(exp is not None and exp.host == "127.0.0.1",
+                "the scheduler did not start the exporter from HYPERSPACE_METRICS_PORT")
+        t0 = time.perf_counter()
+        handles = []
+        for i in range(SERVE_SUBMISSIONS):
+            tenant, q = SERVE_MIX[i % len(SERVE_MIX)]
+            handles.append((tenant, q, sched.submit_query(fns[q](session, lake), label=q,
+                                                          tenant=tenant)))
+        require(sched.drain(600), "the served mix did not drain")
+        served_wall = time.perf_counter() - t0
+        for _tenant, q, h in handles:
+            require(h.status == "done", f"serve {q}: status {h.status} ({h._error!r})")
+            require(_same_result(q, _result_form(q, h.result(0)), direct[q]),
+                    f"serve {q} (query {h.query_id}): the served result differs from the "
+                    f"direct warm result")
+        serial = sum(out["direct"][q]["warm_median_s"] for _t, q, _h in handles)
+        waits: dict = {}
+        for tenant, _q, h in handles:
+            waits.setdefault(tenant, []).append(h.queue_wait_s)
+        for tenant, ws in sorted(waits.items()):
+            out["tenants"][tenant] = {"queries": len(ws),
+                                      "queue_wait_p50_s": _percentile(ws, 0.5),
+                                      "queue_wait_p99_s": _percentile(ws, 0.99)}
+        out.update({"served_wall_s": served_wall, "serial_warm_sum_s": serial,
+                    "speedup": serial / served_wall if served_wall else None})
+        log({"serve": "mix", "card": card, "submissions": SERVE_SUBMISSIONS,
+             "workers": SERVE_WORKERS, "served_wall_s": served_wall,
+             "serial_warm_sum_s": serial, "speedup": out["speedup"],
+             "tenants": out["tenants"], "qos": sched.state()["tenants"]})
+
+        # the cancel of a running query, mid-stream
+        victim = sched.submit_query(fns[SERVE_CANCEL_QUERY](session, lake),
+                                    label=SERVE_CANCEL_QUERY, tenant="batch")
+        qid, mid_stream, deadline = victim.query_id, None, time.perf_counter() + 60
+        while mid_stream is None and time.perf_counter() < deadline and not victim.done():
+            for ledger, name in ((serve.global_budget(), "read-ahead"),
+                                 (serve.device_budget(), "device")):
+                if any(st["query"] == qid for st in ledger.state()["streams"]):
+                    mid_stream = name
+            if mid_stream is None:
+                time.sleep(0.001)
+        t_cancel = time.perf_counter()
+        victim.cancel()
+        try:
+            victim.result(120)
+            outcome = "done"
+        except serve.QueryCancelledError:
+            outcome = "cancelled"
+        cancel_s = time.perf_counter() - t_cancel
+        require(mid_stream is not None, f"{SERVE_CANCEL_QUERY} opened no stream before it "
+                                        f"finished ({victim.status})")
+        require(outcome == "cancelled" and victim.status == "cancelled",
+                f"{SERVE_CANCEL_QUERY}: resolved {outcome} / {victim.status}")
+        require(sched.drain(120), "the scheduler did not drain after the cancel")
+        held = {"read_ahead": serve.global_budget().held_bytes(),
+                "device": serve.device_budget().held_bytes(), "pins": PINS.active_pins()}
+        require(held == {"read_ahead": 0, "device": 0, "pins": 0},
+                f"the cancelled {SERVE_CANCEL_QUERY} left {held}")
+        require(serve.global_budget().check_consistency()
+                and serve.device_budget().check_consistency(), "a byte ledger is inconsistent")
+        out["cancel"] = {"query": SERVE_CANCEL_QUERY, "stream_open": mid_stream,
+                         "cancel_to_resolution_s": cancel_s, "held_after": held}
+        log({"serve": "cancel", "card": card, **out["cancel"]})
+        out["launches"] = {k: K.LAUNCHES[k] - launches0[k] for k in launches0}
+
+        # (c) conservation over the window
+        def mismatches(by_tenant: bool) -> dict:
+            g1 = conserved()
+            deltas = {k: g1.get(k, 0) - g0.get(k, 0) for k in set(g0) | set(g1)}
+            if by_tenant:
+                lsum: dict = {}
+                for counters in attribution.LEDGER.aggregate_counters_by_tenant().values():
+                    for k, v in counters.items():
+                        lsum[k] = lsum.get(k, 0) + v
+            else:
+                lsum = attribution.LEDGER.aggregate_counters()
+            lsum = {k: v for k, v in lsum.items() if k.startswith(SERVE_CONSERVED)}
+            return {k: (deltas.get(k, 0), lsum.get(k, 0)) for k in set(deltas) | set(lsum)
+                    if deltas.get(k, 0) != lsum.get(k, 0)}
+
+        for by_tenant in (False, True):
+            settle = time.perf_counter() + SERVE_SETTLE_S
+            m = mismatches(by_tenant)
+            while m and time.perf_counter() < settle:
+                time.sleep(0.1)  # straggler read-ahead tasks of the cancelled query
+                m = mismatches(by_tenant)
+            require(m == {}, f"conservation (by tenant: {by_tenant}): (global, ledger) {m}")
+        records = attribution.LEDGER.recent_records()
+        out["conserved_counters"] = len({k for r in records for k in r["counters"]
+                                         if k.startswith(SERVE_CONSERVED)})
+        phases = {p: sum(r["phases_ms"][p] for r in records) for p in attribution.PHASES}
+        log({"serve": "conservation", "card": card, "records": len(records),
+             "counters_checked": out["conserved_counters"], "phases_ms_sum": phases})
+
+        # (d) the exporter, the journal, index_report
+        scrapes = {}
+        for path in ("/metrics", "/snapshot", "/healthz"):
+            code, body = _http_get(exp.url + path)
+            require(code == 200, f"{path}: HTTP {code}: {body[:200]}")
+            scrapes[path] = len(body)
+            if path == "/metrics":
+                require("hyperspace_serve_tenant_queries{tenant=\"dash\"}" in body
+                        and "breaker" not in body, "/metrics: tenant series missing")
+            elif path == "/snapshot":
+                snap = _json.loads(body)
+                require(len(snap["queries"]["recent"]) > 0 and "breaker" not in snap,
+                        "/snapshot: no query records")
+            else:
+                health = _json.loads(body)
+                require(health["status"] == "ok", f"/healthz: {health}")
+        workload.JOURNAL.flush(60)
+        journal = workload.JOURNAL.load()
+        served_ids = sorted([h.query_id for _t, _q, h in handles] + [qid])
+        require(sorted(r["query_id"] for r in journal) == served_ids,
+                f"the journal holds {len(journal)} records for {len(served_ids)} served "
+                f"queries")
+        report = hs.index_report()
+        rows_by_name = {r["name"]: r for r in workload.INDEX_LEDGER.report()}
+        # every served query settles, the cancelled q18 (li_orderkey) too
+        served_by_index = {tpch.LI_SHIPDATE_Z[0]: ("q6_count", "q6_sum"),
+                           tpch.LI_FLAGSTATUS[0]: ("q1_sums", "q1"),
+                           tpch.LI_ORDERKEY[0]: ("lookup_count", "range_sum", "q3_agg",
+                                                 SERVE_CANCEL_QUERY)}
+        served_labels = [q for _t, q, _h in handles] + [SERVE_CANCEL_QUERY]
+        for name, qs in served_by_index.items():
+            row = rows_by_name.get(name, {})
+            require(name in report and row.get("queries", 0)
+                    == sum(q in qs for q in served_labels),
+                    f"index_report: {name} missing or with {row.get('queries')} queries")
+        # the benefit is the JAX package's counterfactual: the raw files'
+        # (compressed) bytes the rewrite replaced less the bytes the query
+        # decoded, plus what pruning skipped. li_flagstatus's queries decode
+        # seven of lineitem's sixteen columns, more bytes than the raw
+        # files hold, so its benefit is 0 by that formula; the pruned
+        # lookups and the four-column q6 scans credit theirs
+        for name in (tpch.LI_SHIPDATE_Z[0], tpch.LI_ORDERKEY[0]):
+            require(rows_by_name[name]["benefit_s"] > 0, f"index_report: {name}'s benefit "
+                    f"is {rows_by_name[name]['benefit_s']} s")
+        out["index_report"] = {n: {k: r[k] for k in ("queries", "benefit_bytes",
+                                                     "bytes_skipped", "benefit_s",
+                                                     "net_utility_s")}
+                               for n, r in rows_by_name.items()}
+        out.update({"scrape_bytes": scrapes, "journal_records": len(journal),
+                    "health": health["status"]})
+        log({"serve": "telemetry", "card": card, "scrape_bytes": scrapes,
+             "journal_records": len(journal), "index_report": out["index_report"]})
+        print(report, flush=True)
+    finally:
+        if sched is not None:
+            sched.shutdown(wait=True, cancel=True)
+        exporter.stop_exporter()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        workload.reset_for_testing()
+        tenant_mod.TENANTS.reset_for_testing()
+        shutil.rmtree(journal_dir, ignore_errors=True)
+
+    # (e) the kernels
+    require(K.PLAIN_CALLS == plain0, f"plain versions ran in the serve phase: "
+            f"{ {k: K.PLAIN_CALLS[k] - plain0[k] for k in plain0} }")
+    for k in ON_PATH:
+        require(out["launches"][k] > 0, f"the serve phase launched {k} no time")
+    log({"serve": "launches", "card": card, **out["launches"]})
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3354,8 +3681,9 @@ def main() -> int:
     sources = phase("sources", sources_phase, torch, K, e2e, args.rows, smi)
     ref_cache = phase("reference_cache", reference_cache_check, e2e, smi)
     analysis = phase("analysis", analysis_phase, torch, K, e2e, args.rows, smi)
+    served = phase("serve", serve_phase, K, e2e, analysis.pop("session"), smi)
     ingest = phase("ingest", ingest_phase, torch, K, e2e, args.rows, smi)
-    del e2e["want"], e2e["device_results"]
+    del e2e["want"], e2e["device_results"], e2e["warm_results"]
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     order = phase("order", order_phase, torch, min(ORDER_ROWS, _pad_pow2(args.rows)), smi)
     # after the queries' profiles: a profiler session before them lost
@@ -3377,6 +3705,7 @@ def main() -> int:
                     "join": join["launches"][name],
                     "sources": sources["launches"][name],
                     "analysis": analysis["launches"][name],
+                    "serve": served["launches"][name],
                     "ingest": ingest["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3395,7 +3724,8 @@ def main() -> int:
                    "kernels": kernels, "end_to_end": e2e, "lifecycle": lifecycle,
                    "skipping": skipping, "pipeline": pipeline, "join": join,
                    "sources": sources, "reference_cache": ref_cache,
-                   "analysis": analysis, "ingest": ingest, "order": order,
+                   "analysis": analysis, "serve": served, "ingest": ingest,
+                   "order": order,
                    "cache_sizing_mb": sizing,
                    "phase_s": phase_s, "total_s": time.perf_counter() - t_start}, f, indent=1)
     log({"phase": "done", "card": smi, "phase_s": phase_s,

@@ -27,6 +27,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
 
 from . import states as S
 from .. import constants as C
@@ -114,26 +115,39 @@ class Action:
                 self.event_logger.log_event(ev)
 
     def run(self) -> None:
+        from ..telemetry import workload
+
         index_path = self.log_manager.index_path
+        outcome = "failed"
+        t0 = time.perf_counter()
         with trace.span(f"action:{type(self).__name__}") as sp:
             self._log_event("started")
             _tx_enter(index_path)
             try:
-                attempts = self._run_with_conflict_retry()
+                # nested chokepoints (sketch sidecar writes) attribute to
+                # the index under maintenance
+                with workload.maintenance_scope(os.path.basename(os.path.abspath(index_path))):
+                    attempts = self._run_with_conflict_retry()
                 self._log_event("succeeded")
                 sp.set_attr("outcome", "succeeded")
+                outcome = "succeeded"
                 if attempts > 1:
                     sp.set_attr("attempts", attempts)
             except NoChangesError as e:
                 logger.info("No-op action: %s", e)
                 self._log_event(f"noop: {e}")
                 sp.set_attr("outcome", "noop")
+                outcome = "noop"
             except Exception as e:
                 self._log_event(f"failed: {e}")
                 sp.set_attr("outcome", "failed")
                 raise
             finally:
                 _tx_exit(index_path)
+                # the action's wall time is this index's maintenance cost
+                # (a no-op with the workload plane off)
+                workload.charge_maintenance(index_path, type(self).__name__,
+                                            time.perf_counter() - t0, outcome)
 
     def _run_with_conflict_retry(self) -> int:
         total = max(1, env.env_int("HYPERSPACE_ACTION_RETRIES"))

@@ -9,11 +9,12 @@ in verbose mode append the applicable-index table
 (CandidateIndexAnalyzer.applicableIndexInfoString, PlanAnalyzer.scala:131).
 Rendering goes through BufferStream/DisplayMode (BufferStream.scala:23-83).
 
-The JAX package's profile also renders its serving, tenant, result-cache
-and query-log state and its device tier's circuit breaker; the port has no
-serving plane, result cache or per-query attribution yet, and by design no
-breaker (a kernel that fails raises), so its profile holds the span tree
-with the metrics and the accuracy block.
+The profile renders, after the span tree with the metrics, the serving,
+tenant, result-cache, estimator-accuracy and query-log blocks, as the JAX
+package's does. The JAX package's profile also names its device tier's
+circuit breaker; the port has none by design (a kernel that fails raises
+inside its query), so that line is left out. ``workload_report_string``
+and ``index_report_string`` are the workload plane's views.
 """
 
 from __future__ import annotations
@@ -199,8 +200,8 @@ def profile_string(session: "HyperspaceSession", df: "DataFrame") -> str:
     """Execute the query once under tracing and render the per-query profile:
     the span tree (rule decisions → plan → executor → kernel dispatches, each
     with wall time and RpcMeter deltas) plus the metrics-registry snapshot,
-    the result cache's block and the process-wide estimator-accuracy
-    block. The run-it-and-attribute companion to `explain_string`'s static
+    then the serving, tenant, result-cache, estimator-accuracy and query-log
+    blocks. The run-it-and-attribute companion to `explain_string`'s static
     plan diff."""
     from ..cache.result_cache import result_cache_state_string
     from ..telemetry import trace
@@ -212,7 +213,215 @@ def profile_string(session: "HyperspaceSession", df: "DataFrame") -> str:
     _write_header(buf, "Query profile (spans + metrics):")
     buf.write_block(cap.profile_string())
     buf.write_line()
+    buf.write_block(serving_state_string())
+    buf.write_line()
+    buf.write_block(tenant_state_string())
+    buf.write_line()
     buf.write_block(result_cache_state_string())
     buf.write_line()
     buf.write_block(accuracy_string())
+    buf.write_line()
+    buf.write_block(query_log_string())
     return buf.render()
+
+
+def serving_state_string() -> str:
+    """Aggregate serving-layer snapshot: active/queued queries with their
+    queue waits, admission totals, and global-budget occupancy — so a
+    loaded server is debuggable from the REPL (``hs.profile``)."""
+    from ..serve import serve_state
+
+    st = serve_state()
+    budget = st["budget"]
+    lines = ["Serving (scheduler + global budget):"]
+    if st["max_concurrent"] is None:
+        lines.append("  scheduler: idle (no queries submitted)")
+    else:
+        t = st["totals"]
+        lines.append(
+            f"  scheduler: {len(st['active'])} active / "
+            f"{len(st['queued'])} queued "
+            f"(max_concurrent={st['max_concurrent']}, "
+            f"queue_depth={st['queue_depth_limit']})"
+        )
+        lines.append(
+            f"  totals: admitted={t.get('admitted', 0)} "
+            f"done={t.get('done', 0)} failed={t.get('failed', 0)} "
+            f"cancelled={t.get('cancelled', 0)} "
+            f"rejected={t.get('rejected', 0)}"
+        )
+        for q in st["active"]:
+            lines.append(
+                f"  active q{q['query_id']} [{q['label']}] "
+                f"prio={q['priority']} "
+                f"queue_wait={q['queue_wait_ms']:.1f}ms "
+                f"running={q['running_ms']:.1f}ms"
+            )
+        for q in st["queued"]:
+            lines.append(
+                f"  queued q{q['query_id']} [{q['label']}] "
+                f"prio={q['priority']} waited={q['waited_ms']:.1f}ms"
+            )
+    pct = (
+        100.0 * budget["held_bytes"] / budget["limit_bytes"]
+        if budget["limit_bytes"]
+        else 0.0
+    )
+    lines.append(
+        f"  budget: {budget['held_bytes']}/{budget['limit_bytes']} bytes "
+        f"held ({pct:.1f}%), {len(budget['streams'])} open stream(s)"
+    )
+    dev = st.get("device_budget")
+    if dev is not None:
+        if dev["limit_bytes"]:
+            dpct = 100.0 * dev["held_bytes"] / dev["limit_bytes"]
+            lines.append(
+                f"  device budget: {dev['held_bytes']}/{dev['limit_bytes']} "
+                f"bytes held ({dpct:.1f}%), {len(dev['streams'])} open "
+                f"stream(s) | parks={dev.get('parks', 0)} "
+                f"spills={dev.get('spills', 0)} "
+                f"resumes={dev.get('resumes', 0)}"
+            )
+        else:
+            lines.append("  device budget: disabled "
+                         "(HYPERSPACE_DEVICE_BUDGET_MB=0)")
+    return "\n".join(lines)
+
+
+def tenant_state_string() -> str:
+    """Per-tenant QoS snapshot: weights, virtual clocks, delivered cost
+    share, queue occupancy, quota rejections (scheduler side) merged with
+    the attribution ledger's per-tenant rollups — the ``hs.profile`` face
+    of the multi-tenant serving plane."""
+    from ..serve import serve_state
+    from ..telemetry.attribution import LEDGER
+
+    sched = serve_state().get("tenants") or {}
+    rollups = LEDGER.tenant_rollups()
+    lines = ["Tenants (weighted-fair QoS):"]
+    names = sorted(set(sched) | set(rollups))
+    if not names:
+        lines.append("  (no tenant activity recorded)")
+        return "\n".join(lines)
+    hdr = (
+        f"  {'tenant':<12} {'weight':>6} {'share':>6} {'vclock':>9} "
+        f"{'q/a':>5} {'done':>5} {'rej':>4} {'wall_ms':>9} {'MB':>8}"
+    )
+    lines.append(hdr)
+    for name in names:
+        s = sched.get(name) or {}
+        r = rollups.get(name) or {}
+        rejected = (
+            s.get("rejected_rate", 0) + s.get("rejected_quota", 0)
+            + s.get("rejected_deadline", 0)
+        )
+        lines.append(
+            f"  {name[:12]:<12} {s.get('weight', 1.0):>6.2f} "
+            f"{s.get('delivered_share', 0.0):>6.2f} "
+            f"{s.get('vclock', 0.0):>9.3f} "
+            f"{s.get('queued', 0)}/{s.get('active', 0):>3} "
+            f"{s.get('done', 0):>5} {rejected:>4} "
+            f"{r.get('total_ms', 0.0):>9.1f} "
+            f"{r.get('bytes_read', 0) / 1e6:>8.2f}"
+        )
+    return "\n".join(lines)
+
+
+def _phase_cell(record: dict) -> str:
+    """Compact ``plan/io/up/disp/fetch/fold/park`` ms breakdown for one
+    query record (phases the query never entered are omitted)."""
+    short = {"plan": "plan", "io": "io", "upload": "up",
+             "dispatch": "disp", "fetch": "fetch", "fold": "fold",
+             "park": "park"}
+    parts = [
+        f"{short.get(p, p)}={ms:.0f}"
+        for p, ms in record.get("phases_ms", {}).items()
+        if ms >= 0.05
+    ]
+    return " ".join(parts) if parts else "-"
+
+
+def query_log_string(limit: int = 12) -> str:
+    """Per-query breakdown from the serving attribution ledger
+    (telemetry/attribution.py): active queries plus the tail of the
+    rolling query log, each with its phase times, bytes, and cache hit
+    ratio — the ``hs.profile`` face of the per-query telemetry plane."""
+    from ..telemetry.attribution import LEDGER
+
+    snap = LEDGER.snapshot(limit=limit)
+    lines = ["Query log (per-query attribution):"]
+    if not snap["active"] and not snap["recent"]:
+        lines.append("  (no serving queries recorded)")
+        return "\n".join(lines)
+    totals = snap["totals"]
+    lines.append(
+        f"  recorded={totals.get('recorded', 0)} "
+        f"slow={totals.get('slow', 0)} window={snap['window']}"
+    )
+    hdr = (
+        f"  {'qid':>5} {'label':<18} {'tenant':<10} {'outcome':<9} "
+        f"{'total_ms':>9} {'queue_ms':>9} {'MB':>7} {'hit%':>5}  phases_ms"
+    )
+    lines.append(hdr)
+    for r in snap["active"] + snap["recent"][-limit:]:
+        ratio = r.get("cache_hit_ratio")
+        lines.append(
+            f"  {r['query_id']:>5} {r['label'][:18]:<18} "
+            f"{str(r.get('tenant', '-'))[:10]:<10} "
+            f"{r['outcome'][:9]:<9} {r['total_ms']:>9.1f} "
+            f"{r['queue_wait_ms']:>9.1f} "
+            f"{r['bytes_read'] / 1e6:>7.2f} "
+            f"{100 * ratio if ratio is not None else 0:>5.1f}  "
+            f"{_phase_cell(r)}"
+        )
+    return "\n".join(lines)
+
+
+def workload_report_string() -> str:
+    """``hs.workload_report()``: the durable-journal state, the journaled
+    workload's label/shape mix, and the drift detector's regressions."""
+    from ..telemetry import workload
+
+    return workload.workload_report_string()
+
+
+def index_report_string() -> str:
+    """``hs.index_report()``: the per-index utility ledger — counterfactual
+    benefit vs maintenance cost, heat, and cold-index candidates."""
+    from ..telemetry import workload
+    from ..telemetry.index_ledger import INDEX_LEDGER
+
+    lines = ["== Index utility ledger =="]
+    if not workload.enabled():
+        lines.append("disabled (set HYPERSPACE_WORKLOAD_DIR to enable)")
+        return "\n".join(lines)
+    INDEX_LEDGER.maybe_recover(workload.journal_dir())
+    rows = INDEX_LEDGER.report()
+    if not rows:
+        lines.append("  (no index activity recorded)")
+        return "\n".join(lines)
+    lines.append(
+        f"  {'index':<20} {'queries':>7} {'benefit_MB':>10} "
+        f"{'skip_MB':>8} {'rg_skip':>7} {'maint_s':>8} {'actions':>7} "
+        f"{'net_s':>9}  last_used"
+    )
+    import time as _time
+
+    for r in rows:
+        last = (
+            _time.strftime("%H:%M:%S", _time.localtime(r["last_used_s"]))
+            if r["last_used_s"] else "-"
+        )
+        actions = sum(r["maintenance_actions"].values())
+        lines.append(
+            f"  {r['name'][:20]:<20} {r['queries']:>7} "
+            f"{r['benefit_bytes'] / 1e6:>10.2f} "
+            f"{r['bytes_skipped'] / 1e6:>8.2f} "
+            f"{r['rowgroups_skipped']:>7} "
+            f"{r['maintenance_s']:>8.3f} {actions:>7} "
+            f"{r['net_utility_s']:>9.3f}  {last}"
+        )
+    cold = INDEX_LEDGER.cold_candidates()
+    if cold:
+        lines.append(f"  cold candidates: {', '.join(cold)}")
+    return "\n".join(lines)

@@ -398,17 +398,24 @@ def serve_collect(session, raw_plan, plan):
 
 def _log_cache_index_usage(session, plan, rule: str) -> None:
     """A served result bypasses the rules, so the indexes of the cached
-    plan log their usage event here, through the rules' own chokepoint.
-    (The JAX package also credits the avoided scan to its workload plane,
-    which the port does not have.)"""
+    plan log their usage event here, through the rules' own chokepoint,
+    and the avoided index scan is credited to the workload plane."""
     from ..plan.nodes import FileScan
     from ..rules.rule_utils import log_index_usage
+    from ..telemetry import workload
 
-    names = sorted({n.index_info.index_name for n in plan.preorder()
-                    if isinstance(n, FileScan) and n.index_info is not None})
-    if names:
-        log_index_usage(session, rule, names,
-                        f"Result cache served plan using indexes: {', '.join(names)}")
+    index_bytes: dict[str, int] = {}
+    for n in plan.preorder():
+        if isinstance(n, FileScan) and n.index_info is not None:
+            name = n.index_info.index_name
+            index_bytes[name] = index_bytes.get(name, 0) + sum(f.size for f in n.files)
+    if not index_bytes:
+        return
+    names = sorted(index_bytes)
+    log_index_usage(session, rule, names,
+                    f"Result cache served plan using indexes: {', '.join(names)}")
+    for name in names:
+        workload.note_index_applied(name, index_bytes[name], rule=rule)
 
 
 def result_cache_state_string() -> str:

@@ -251,18 +251,31 @@ def _refresh_entry(entry) -> None:
     """Run one cached template again against the live source: its source
     files resolved anew (the stored plan's leaves predate the append), then
     an ordinary collect, which probes the cache, folds when additive,
-    recomputes otherwise, and stores the result at the new snapshot."""
+    recomputes otherwise, and stores the result at the new snapshot. The
+    work is charged to its own ``cache:refresh`` ledger record, so
+    per-query attribution stays conserved while refreshes interleave with
+    serving traffic."""
     from ..plan.dataframe import DataFrame
-    from ..telemetry import trace
+    from ..serve.context import QueryContext
+    from ..telemetry import attribution, trace
+    from ..telemetry.attribution import LEDGER
     from ..telemetry.metrics import REGISTRY
 
     session = entry.session_ref() if entry.session_ref is not None else None
     if session is None:
         return
-    with trace.span("cache:refresh"):
-        plan = _reresolve_sources(session, entry.raw_plan)
-        DataFrame(session, plan).collect()
-        REGISTRY.counter("cache.result.refreshes").inc()
+    stats = LEDGER.begin(QueryContext(label="cache:refresh"))
+    try:
+        with trace.span("cache:refresh"), attribution.scope(stats):
+            plan = _reresolve_sources(session, entry.raw_plan)
+            DataFrame(session, plan).collect()
+            # inside the scope: the refresh's own counters (this one
+            # included) charge its record
+            REGISTRY.counter("cache.result.refreshes").inc()
+    except BaseException as e:
+        LEDGER.finish(stats, "failed", e)
+        raise
+    LEDGER.finish(stats, "done")
 
 
 def _reresolve_sources(session, raw_plan):

@@ -49,6 +49,8 @@ from .table import Column, ColumnBatch, DATE32, Field, STRING, Schema
 from ..constants import NESTED_FIELD_PREFIX
 from ..exceptions import HyperspaceError
 from ..serve import budget as serve_budget
+from ..serve.context import check_cancelled, current_query
+from ..telemetry import attribution as _attr
 from ..telemetry.metrics import REGISTRY
 from ..utils import env, faults, retry
 from ..utils.workers import io_pool, io_thread_cap
@@ -672,7 +674,10 @@ def iter_chunks(
     nothing is always granted). Without it, or with one group or one
     thread, each group decodes on the caller's thread when asked for; so
     it does when ``cache`` holds every group already (a warm index scan:
-    nothing to decode ahead, and no pool to start)."""
+    nothing to decode ahead, and no pool to start). Under a serving query
+    the read-ahead runs on the shared engine pool, each task charged to
+    the query (its ``io`` phase and counters), and a cancelled query
+    unwinds at the next group, returning its reservations."""
     groups = plan_chunk_groups(paths, target_bytes)
 
     def decode(group: list[str], parallel: bool):
@@ -684,6 +689,7 @@ def iter_chunks(
             raise ChunkReadError(f"chunk decode failed for {group}: {e}") from e
         dt = time.perf_counter() - t0
         REGISTRY.histogram("io.chunk_decode_ms").observe(dt * 1000)
+        _attr.charge_phase("io", dt)
         return batch, dt
 
     def emit(i: int, batch: ColumnBatch, dt: float) -> StreamChunk:
@@ -697,6 +703,7 @@ def iter_chunks(
     if not overlap or width <= 1 or len(groups) < 2 or _all_cached(groups, columns, cache,
                                                                      row_groups):
         for i, g in enumerate(groups):
+            check_cancelled()
             batch, dt = decode(g, True)
             yield emit(i, batch, dt)
         return
@@ -704,7 +711,7 @@ def iter_chunks(
     ests = [max(1, sum(os.path.getsize(p) for p in g if os.path.exists(p))) * 2
             for g in groups]
     max_inflight = width + 2
-    pool = io_pool(width, "hs-scan-io")
+    pool, owned = _stream_pool(width, "hs-scan-io")
     bstream = serve_budget.global_budget().stream("scan")
     futures: dict = {}
     nxt = 0
@@ -713,12 +720,13 @@ def iter_chunks(
         nonlocal nxt
         while nxt < len(groups) and len(futures) < max_inflight \
                 and bstream.try_reserve(ests[nxt]):
-            futures[nxt] = pool.submit(decode, groups[nxt], False)
+            futures[nxt] = pool.submit(_attr.bound(decode), groups[nxt], False)
             nxt += 1
 
     try:
         pump()
         for i in range(len(groups)):
+            check_cancelled()
             batch, dt = futures.pop(i).result()
             bstream.release(ests[i])
             pump()
@@ -727,9 +735,22 @@ def iter_chunks(
         try:
             for f in futures.values():
                 f.cancel()
-            pool.shutdown(wait=False)
+            if owned:
+                pool.shutdown(wait=False)
         finally:
             bstream.close()
+
+
+def _stream_pool(width: int, name: str):
+    """(pool, owned) for a streamer's read-ahead: under a serving query the
+    process-wide shared engine pool, so total decode parallelism stays
+    bounded across concurrent queries (owned=False: never shut it down);
+    otherwise a private pool of ``width`` workers."""
+    from ..utils.workers import shared_io_pool
+
+    if current_query() is not None:
+        return shared_io_pool(), False
+    return io_pool(width, name), True
 
 
 def read_parquet_schema(path: str) -> Schema:
@@ -747,8 +768,11 @@ def _pmap_ordered(fn, items):
     if width <= 1 or len(items) < 2:
         return [fn(x) for x in items]
     REGISTRY.counter("io.parallel_reads").inc(len(items))
+    # per-file work (decode, retries, cache counters) runs on pool threads:
+    # each task carries the caller's attribution target (a running query's
+    # ledger record), so its charges stay the query's
     with io_pool(width, "hs-read") as pool:
-        return list(pool.map(fn, items))
+        return list(pool.map(_attr.bound(fn), items))
 
 
 def _retried_file_reader(read_fn):

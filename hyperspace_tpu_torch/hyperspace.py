@@ -1,10 +1,10 @@
 """Hyperspace, the user-facing facade (counterpart of
 hyperspace_tpu/hyperspace.py): create, the lifecycle actions (delete,
 restore, vacuum, vacuum-outdated, refresh, optimize, cancel, recover), the
-ingest verbs (``append``, ``compact_index``), introspection, and the
-analysis views: ``explain``, ``why_not``, ``explain_analyze`` and
-``profile``. The JAX package's workload views (``workload_report``,
-``index_report``) are not ported yet."""
+ingest verbs (``append``, ``compact_index``), introspection, the
+analysis views (``explain``, ``why_not``, ``explain_analyze`` and
+``profile``) and the workload views (``workload_report`` and
+``index_report``, which need ``HYPERSPACE_WORKLOAD_DIR``)."""
 
 from __future__ import annotations
 
@@ -106,11 +106,27 @@ class Hyperspace:
 
     def profile(self, df: "DataFrame", redirect=None) -> Optional[str]:
         """Execute the query once under tracing and return the per-query
-        profile: the span tree with the metrics, and the estimator
-        accuracy."""
+        profile: the span tree with the metrics, the serving, tenant and
+        result-cache state, the estimator accuracy and the query log."""
         from .analysis.explain import profile_string
 
         return _emit(profile_string(self.session, df), redirect)
+
+    def workload_report(self, redirect=None) -> Optional[str]:
+        """The workload plane's report: the durable journal's state, the
+        journaled label and shape mix, and the drift regressions. Needs
+        ``HYPERSPACE_WORKLOAD_DIR``."""
+        from .analysis.explain import workload_report_string
+
+        return _emit(workload_report_string(), redirect)
+
+    def index_report(self, redirect=None) -> Optional[str]:
+        """The per-index utility ledger: counterfactual benefit against
+        maintenance cost per index, the net-utility ranking, heat and the
+        cold-index candidates. Needs ``HYPERSPACE_WORKLOAD_DIR``."""
+        from .analysis.explain import index_report_string
+
+        return _emit(index_report_string(), redirect)
 
     # --- introspection ---
     def indexes(self) -> "DataFrame":

@@ -265,6 +265,11 @@ def maybe_write_sidecar(batch: ColumnBatch, data_path: str, row_group_size: int,
     side["data_size"] = os.path.getsize(data_path)
     with open(sidecar_path(data_path), "w", encoding="utf-8") as f:
         json.dump(side, f)
+    from ...telemetry import workload
+
+    # a maintenance charge against the index under maintenance (a no-op
+    # with the workload plane off)
+    workload.charge_sketch_write()
     return True
 
 

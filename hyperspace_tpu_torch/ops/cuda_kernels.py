@@ -67,10 +67,17 @@ NVCC_FLAGS = (
 )
 
 # launches of each CUDA kernel, and calls served by the plain version for
-# CPU tensors; reset_counts() zeroes both
+# CPU tensors; reset_counts() zeroes both. Concurrent served queries count
+# from several threads, so every increment goes through _count.
 LAUNCHES = {"filter_weighted_sum": 0, "filter_sum": 0, "filter_grouped_multi_sum": 0,
             "masked_min_max": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
+_count_lock = threading.Lock()
+
+
+def _count(counts: dict, name: str) -> None:
+    with _count_lock:
+        counts[name] += 1
 
 # nvcc's output per source from the last build (ptxas register/spill report)
 BUILD_LOG: dict[str, str] = {}
@@ -202,7 +209,7 @@ def filter_weighted_sum(pred: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
     """(sum of x*y over rows where pred, as f32; count(pred), as int32),
     both 0-d tensors on pred's device. pred bool[n]; x, y float32[n]."""
     if pred.device.type == "cpu":
-        PLAIN_CALLS["filter_weighted_sum"] += 1
+        _count(PLAIN_CALLS, "filter_weighted_sum")
         return reference.filter_weighted_sum(pred, x, y)
     n = pred.shape[0] if pred.dim() == 1 else -1
     for nm, t, dt in (("pred", pred, torch.bool), ("x", x, torch.float32),
@@ -214,7 +221,7 @@ def filter_weighted_sum(pred: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
 def filter_sum(pred: torch.Tensor, x: torch.Tensor):
     """(sum of x over rows where pred, as f32; count(pred), as int32)."""
     if pred.device.type == "cpu":
-        PLAIN_CALLS["filter_sum"] += 1
+        _count(PLAIN_CALLS, "filter_sum")
         return reference.filter_sum(pred, x)
     n = pred.shape[0] if pred.dim() == 1 else -1
     _check("filter_sum.pred", pred, torch.bool, n, pred.device)
@@ -243,7 +250,7 @@ def _launch_filter(name: str, pred: torch.Tensor, xs: tuple):
     else:
         rc = lib.hs_filter_sum(dev.index, pred.data_ptr(), xs[0].data_ptr(), n, *tail)
     _raise_on(name, rc)
-    LAUNCHES[name] += 1
+    _count(LAUNCHES, name)
     return out_s, out_c
 
 
@@ -260,7 +267,7 @@ def filter_grouped_multi_sum(
         )
     xs = tuple(xs)
     if pred.device.type == "cpu":
-        PLAIN_CALLS["filter_grouped_multi_sum"] += 1
+        _count(PLAIN_CALLS, "filter_grouped_multi_sum")
         return reference.filter_grouped_multi_sum(pred, gids, xs, num_groups)
     dev = pred.device
     n = pred.shape[0] if pred.dim() == 1 else -1
@@ -296,7 +303,7 @@ def filter_grouped_multi_sum(
             _stream(dev),
         )
         _raise_on("filter_grouped_multi_sum", rc)
-        LAUNCHES["filter_grouped_multi_sum"] += 1
+        _count(LAUNCHES, "filter_grouped_multi_sum")
         if counts is None:
             counts = out_c[:num_groups]
         sums.extend(out_s[: k * slots].view(k, slots)[:, :num_groups].unbind(0))
@@ -319,7 +326,7 @@ def masked_min_max(x: torch.Tensor, valid: torch.Tensor):
     cast to f32 first, as the Pallas kernel casts it. A NaN in a valid row
     makes the result NaN (jnp.minimum/jnp.maximum semantics)."""
     if x.device.type == "cpu":
-        PLAIN_CALLS["masked_min_max"] += 1
+        _count(PLAIN_CALLS, "masked_min_max")
         return reference.masked_min_max(x, valid)
     dev = x.device
     n = x.shape[0] if x.dim() == 1 else -1
@@ -339,5 +346,5 @@ def masked_min_max(x: torch.Tensor, valid: torch.Tensor):
         base + 2 * slots * f32, _stream(dev),
     )
     _raise_on("masked_min_max", rc)
-    LAUNCHES["masked_min_max"] += 1
+    _count(LAUNCHES, "masked_min_max")
     return buf[2 * slots], buf[2 * slots + 1]

@@ -77,9 +77,11 @@ from ..exceptions import HyperspaceError
 from ..models.covering import bucket_id_from_filename
 from ..ops.bucketize import bucket_ids_for_batch
 from ..ops.join import host_merge_join_indices
+from ..serve.context import check_cancelled, current_query
+from ..telemetry import attribution as _attr
 from ..telemetry import trace
 from ..telemetry.metrics import REGISTRY
-from ..utils.workers import io_pool, io_worker_count
+from ..utils.workers import io_pool, io_worker_count, shared_io_pool
 
 @dataclass
 class BucketedSide:
@@ -196,7 +198,7 @@ def try_bucketed_scan_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
 
     n = side.spec.num_buckets
     with io_pool(io_worker_count(n), "hs-join") as pool:
-        parts = [p for p in pool.map(agg_bucket, range(n)) if p is not None]
+        parts = [p for p in pool.map(_attr.bound(agg_bucket), range(n)) if p is not None]
     if not parts:
         # every bucket filtered to nothing: the empty grouped shape (read
         # from no file, so verify mode has nothing to hold it against)
@@ -407,7 +409,7 @@ def try_bucketed_merge_join(
     probed: list = []  # buckets whose probe ran on the device
     on_device: list = []  # buckets whose fused join+aggregate ran on the device
     with io_pool(io_worker_count(n), "hs-join") as pool:
-        parts = [p for p in pool.map(join_bucket, range(n)) if p is not None]
+        parts = [p for p in pool.map(_attr.bound(join_bucket), range(n)) if p is not None]
     if probed:
         session.device_stats.device_plain_probes += len(probed)
     if on_device:
@@ -557,10 +559,15 @@ def _bucket_sorted(side: BucketedSide, b: int, appended) -> bool:
 
 
 def _load_pair(left, right, appended, session, b: int, raw: bool) -> tuple:
-    """Bucket ``b``'s ``(lb, rb, l_sorted, r_sorted)``."""
-    return (_load_side_bucket(left, b, appended[0], session, raw=raw),
-            _load_side_bucket(right, b, appended[1], session, raw=raw),
-            _bucket_sorted(left, b, appended[0]), _bucket_sorted(right, b, appended[1]))
+    """Bucket ``b``'s ``(lb, rb, l_sorted, r_sorted)``; its decode is the
+    running query's ``io`` phase (on a pool thread too, through
+    ``attribution.bound``)."""
+    t0 = time.perf_counter()
+    out = (_load_side_bucket(left, b, appended[0], session, raw=raw),
+           _load_side_bucket(right, b, appended[1], session, raw=raw),
+           _bucket_sorted(left, b, appended[0]), _bucket_sorted(right, b, appended[1]))
+    _attr.charge_phase("io", time.perf_counter() - t0)
+    return out
 
 
 def _load_all_bucket_pairs(left, right, appended, session, raw: bool = False) -> list:
@@ -570,7 +577,8 @@ def _load_all_bucket_pairs(left, right, appended, session, raw: bool = False) ->
     n = left.spec.num_buckets
     with io_pool(io_worker_count(n), "hs-join") as pool:
         return list(pool.map(
-            lambda b: _load_pair(left, right, appended, session, b, raw), range(n)))
+            _attr.bound(lambda b: _load_pair(left, right, appended, session, b, raw)),
+            range(n)))
 
 
 def _collect_plain_join_work(left, right, lkeys, rkeys, appended, session):
@@ -677,13 +685,17 @@ def _iter_bucket_pairs(left, right, appended, session, raw: bool = False,
     most width + 2 in flight, each reserving twice both sides' file bytes
     through the global read-ahead ledger before it is submitted (a stream
     that holds nothing is always granted). Without it, or with one bucket
-    or one thread, each pair loads on the caller's thread when asked for."""
+    or one thread, each pair loads on the caller's thread when asked for.
+    Under a serving query the pairs load on the shared engine pool, each
+    task charged to the query, and a cancelled query unwinds at the next
+    pair, returning its reservations."""
     from ..serve import budget as serve_budget
 
     n = left.spec.num_buckets
     width = io_worker_count(n)
     if not overlap or width <= 1 or n < 2:
         for b in range(n):
+            check_cancelled()
             with trace.span("join:load", bucket=b) as sp:
                 out = _load_pair(left, right, appended, session, b, raw)
                 _note_pair_rows(sp, out)
@@ -692,7 +704,8 @@ def _iter_bucket_pairs(left, right, appended, session, raw: bool = False,
         return
     ests = [max(1, sum(f.size for side in (left, right) for f in side.files_for_bucket(b))) * 2
             for b in range(n)]
-    pool = io_pool(width, "hs-join-io")
+    owned = current_query() is None  # served: the shared engine pool
+    pool = io_pool(width, "hs-join-io") if owned else shared_io_pool()
     bstream = serve_budget.global_budget().stream("join")
     futures: dict = {}
     nxt = 0
@@ -700,12 +713,14 @@ def _iter_bucket_pairs(left, right, appended, session, raw: bool = False,
     def pump() -> None:
         nonlocal nxt
         while nxt < n and len(futures) < width + 2 and bstream.try_reserve(ests[nxt]):
-            futures[nxt] = pool.submit(_load_pair, left, right, appended, session, nxt, raw)
+            futures[nxt] = pool.submit(_attr.bound(_load_pair), left, right, appended,
+                                       session, nxt, raw)
             nxt += 1
 
     try:
         pump()
         for b in range(n):
+            check_cancelled()
             # the span is the consumer's wait for the pair, on its thread
             with trace.span("join:load", bucket=b) as sp:
                 out = futures.pop(b).result()
@@ -718,7 +733,8 @@ def _iter_bucket_pairs(left, right, appended, session, raw: bool = False,
         try:
             for f in futures.values():
                 f.cancel()
-            pool.shutdown(wait=False)
+            if owned:
+                pool.shutdown(wait=False)
         finally:
             bstream.close()
 

@@ -156,9 +156,9 @@ class DataFrame:
     def optimized_plan(self) -> LogicalPlan:
         from .passes import pre_rewrite_plan, prune_columns, push_predicates
         from .pruning import apply_pruning
-        from ..telemetry import trace
+        from ..telemetry import attribution, trace
 
-        with trace.span("plan"):
+        with trace.span("plan"), attribution.phase("plan"):
             plan = pre_rewrite_plan(self.plan)
             for rule in self.session.extra_optimizations:
                 plan = rule(plan)
@@ -187,9 +187,37 @@ class DataFrame:
         return s
 
     def collect(self) -> ColumnBatch:
+        """Plan and execute. A direct collect opens its own
+        ``collect:<RootKind>`` record in the per-query ledger
+        (telemetry/attribution.py), so the query log and the slow-query
+        log cover ad-hoc queries too; a served query (an attribution scope
+        already installed by the scheduler) keeps the scheduler's record."""
+        from ..telemetry import attribution
+
+        if attribution.current_stats() is not None:
+            return self._collect_inner()
+        from ..serve.context import QueryCancelledError, QueryContext
+        from ..telemetry.attribution import LEDGER
+
+        stats = LEDGER.begin(QueryContext(label=f"collect:{self.plan.kind}"))
+        outcome, error = "done", None
+        try:
+            with attribution.scope(stats):
+                return self._collect_inner()
+        except QueryCancelledError as e:
+            outcome, error = "cancelled", e
+            raise
+        except BaseException as e:
+            outcome, error = "failed", e
+            raise
+        finally:
+            # after the scope exited: the rollups are not charged back
+            LEDGER.finish(stats, outcome, error)
+
+    def _collect_inner(self) -> ColumnBatch:
         """Plan and execute, in the JAX package's order: a pin scope keeps
         every index snapshot the rewrite resolves on disk until the query
-        drains (released on success and failure alike), and
+        drains (released on success, failure and cancellation alike), and
         ``serve_collect`` is the result-cache chokepoint: with
         ``HYPERSPACE_RESULT_CACHE`` on, a plan whose (fingerprint, pinned
         snapshots) key repeats is served from the cache with no scan,
@@ -199,11 +227,14 @@ class DataFrame:
         own outside); with tracing on, the run is one ``query`` span."""
         from ..cache.result_cache import serve_collect
         from ..ingest.snapshots import pin_scope
-        from ..telemetry import plan_stats, trace
+        from ..telemetry import plan_stats, trace, workload
 
         def run() -> ColumnBatch:
             optimized = self.optimized_plan()
             plan_stats.note_plan(optimized)
+            # the workload plane's shapes, join keys and columns (a no-op
+            # with HYPERSPACE_WORKLOAD_DIR unset)
+            workload.note_plan(optimized)
             return serve_collect(self.session, self.plan, optimized)
 
         if not trace.enabled():

@@ -66,6 +66,7 @@ import torch
 from . import expr as X
 from .expr import Expr
 from ..columnar.table import Column, ColumnBatch, STRING, numpy_dtype
+from ..telemetry import attribution as _attr
 from ..telemetry import plan_stats, trace
 from ..telemetry.metrics import REGISTRY
 from ..utils.rpc_meter import METER
@@ -339,7 +340,7 @@ def _fetch_all(tensors: list) -> list[np.ndarray]:
     if not tensors:
         return []
     flat = torch.cat([_as_bytes(t) for t in tensors])
-    with trace.span("fetch"):
+    with trace.span("fetch"), _attr.phase("fetch"):
         if flat.device.type == "cuda":
             pinned = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
             host = pinned.copy_(flat).numpy()  # the views keep the buffer alive
@@ -481,7 +482,8 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
     def retire(wave):
         # a spill: this wave's results to the host, folded with the rest
         # at the end, so spilling changes when they come back, not what
-        flat = _fetch_all([t for rec in wave.rec for t in rec])
+        with _attr.phase("fold"):
+            flat = _fetch_all([t for rec in wave.rec for t in rec])
         return _regroup(flat, wave.rec)
 
     sched = _BandScheduler(dispatch, ledger, estimate, retire, banded=banded)
@@ -576,7 +578,7 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
     # ONE fetch over every wave that did not spill
     pending = [w for w in records if w.done is None]
     if pending:
-        with trace.span("join:fold", waves=len(pending)):
+        with trace.span("join:fold", waves=len(pending)), _attr.phase("fold"):
             flat = _fetch_all([t for w in pending for rec in w.rec for t in rec])
         ofs = 0
         for w in pending:
@@ -1521,7 +1523,8 @@ def _batched_plain_join_impl(work, residual, session, banded, strategy,
             plans = [expansion_plan(w, flat[2 * i], flat[2 * i + 1])
                      for i, w in enumerate(pending)]
             # fetch 2: every wave's (li, ri) pairs
-            with trace.span("join:fold", waves=sum(p is not None for _t, p in plans)):
+            with trace.span("join:fold", waves=sum(p is not None for _t, p in plans)), \
+                    _attr.phase("fold"):
                 pairs = _fetch_all([t for _tot, p in plans if p is not None for t in p])
             if pairs:
                 stats.plain_join_fetches += 1

@@ -47,9 +47,12 @@ def execute_plan(plan: LogicalPlan, session=None) -> ColumnBatch:
     the meter deltas of everything beneath it; with a plan-statistics
     collector active (EXPLAIN ANALYZE, ``HYPERSPACE_PLAN_STATS=1``) the
     node's output rows and inclusive wall time are recorded. Both observe
-    only. Off, this costs one contextvar read and one bool check."""
+    only. Off, this costs one contextvar read and one bool check. A
+    cancelled serving query unwinds here, before the node runs."""
+    from ..serve.context import check_cancelled
     from ..telemetry import plan_stats, trace
 
+    check_cancelled()
     col = plan_stats.current()
     if col is None and not trace.enabled():
         return _execute_node(plan, session)

@@ -77,6 +77,8 @@ from ..columnar.table import Column, ColumnBatch, STRING
 from ..exceptions import HyperspaceError
 from ..ops import cuda_kernels as K
 from ..ops.intsum import _INT_SUM_ROW_CAP, combine_int_chunks, int_chunk_sums
+from ..serve.context import check_cancelled
+from ..telemetry import attribution as _attr
 from ..telemetry import plan_stats, trace
 from ..telemetry.metrics import REGISTRY
 from ..utils import env
@@ -706,10 +708,13 @@ def _fetch(tree):
 
 def _observe_dispatch(kernel_name: str, t0: float) -> None:
     """Per-kernel dispatch-latency histograms, in ms: from the launch to
-    the fetched result, since a launch returns at once."""
-    ms = (time.perf_counter() - t0) * 1000
+    the fetched result, since a launch returns at once. Doubles as the
+    serving query's ``dispatch`` phase chokepoint."""
+    dt = time.perf_counter() - t0
+    ms = dt * 1000
     REGISTRY.histogram("kernel.dispatch_ms").observe(ms)
     REGISTRY.histogram(f"kernel.{kernel_name}.dispatch_ms").observe(ms)
+    _attr.charge_phase("dispatch", dt)
 
 
 def kernel_route(device: torch.device) -> str:
@@ -1360,7 +1365,7 @@ def _stream_global_partial(frag, plan, chunks, overlap, session, device,
 
     def fold(res) -> None:
         nonlocal matched_total
-        with trace.span("pipeline:fetch"):
+        with trace.span("pipeline:fetch"), _attr.phase("fold"):
             matched, results = _fetch(res)
         matched_total += int(matched)
         for i, (v, (kind, _c)) in enumerate(zip(results, agg_list)):
@@ -1406,6 +1411,8 @@ def _stream_global_partial(frag, plan, chunks, overlap, session, device,
         while len(pending) > depth:
             fold(pending.popleft())
     while pending:
+        # a cancel mid-drain stops fetching the remaining in-flight results
+        check_cancelled()
         fold(pending.popleft())
     scalar_values = []
     for acc, (kind, _c) in zip(accs, agg_list):
@@ -1481,7 +1488,7 @@ def _stream_grouped_partial(frag, plan, chunks, overlap, session, device,
     def fold(entry) -> None:
         nonlocal counts_g, first_g
         gmap, num_l, offset, res = entry
-        with trace.span("pipeline:fetch"):
+        with trace.span("pipeline:fetch"), _attr.phase("fold"):
             counts_l, first_l, results = _fetch(res)
         size = len(key_index)
         counts_g = _grown(counts_g, size, 0, np.int64)
@@ -1567,6 +1574,8 @@ def _stream_grouped_partial(frag, plan, chunks, overlap, session, device,
         while len(pending) > depth:
             fold(pending.popleft())
     while pending:
+        # a cancel mid-drain stops fetching the remaining in-flight results
+        check_cancelled()
         fold(pending.popleft())
     if not key_index:
         return None  # every chunk was empty: the monolithic path decides

@@ -55,6 +55,8 @@ import time
 from typing import Callable, Optional
 
 from ..serve import budget as serve_budget
+from ..serve.context import check_cancelled
+from ..telemetry import attribution as _attr
 from ..telemetry import plan_stats, trace
 from ..telemetry.metrics import REGISTRY
 from ..utils import env
@@ -318,6 +320,9 @@ class DeviceLedger:
                     plan_stats.note_flag("parked_waves")
                     park_span = trace.span("join:park", bytes=nbytes)
                     park_span.__enter__()
+                # a cancelled query unwinds out of the park (its finally
+                # returns the join's reservations)
+                check_cancelled()
                 if spill_one():
                     continue  # freed some of our own bytes: retry
                 if deadline is None:
@@ -330,7 +335,9 @@ class DeviceLedger:
             if park_span is not None:
                 park_span.__exit__(None, None, None)
             if parked_at is not None:
+                # the parked wall charges even on a cancel's unwind
                 waited = time.perf_counter() - parked_at
+                _attr.charge_phase("park", waited)
                 REGISTRY.histogram("join.spill.park_ms").observe(waited * 1000)
                 if granted:
                     REGISTRY.counter("join.spill.resumes").inc()

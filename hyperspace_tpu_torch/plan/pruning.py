@@ -347,10 +347,17 @@ def _derive_scan_pruning(scan: FileScan, session, mode: str) -> Optional[FileSca
             with trace.span("prune:bucket", index=spec.index_name) as bsp:
                 kept = [f for f in files
                         if (b := bucket_id_from_filename(f.name)) is None or b in buckets]
+                bucket_bytes_skipped = sum(f.size for f in files) - sum(f.size for f in kept)
                 REGISTRY.counter("pruning.files_total").inc(len(files))
                 REGISTRY.counter("pruning.files_kept").inc(len(kept))
-                REGISTRY.counter("pruning.bytes_skipped").inc(
-                    sum(f.size for f in files) - sum(f.size for f in kept))
+                REGISTRY.counter("pruning.bytes_skipped").inc(bucket_bytes_skipped)
+                from ..telemetry import workload
+
+                workload.note_prune(
+                    spec.index_name, "bucket",
+                    shape=predicate_shape(scan.pushed_filter, spec.key_columns),
+                    bytes_skipped=bucket_bytes_skipped,
+                )
                 bsp.set_attr("files_total", len(files))
                 bsp.set_attr("files_kept", len(kept))
                 bsp.set_attr("buckets_kept", len(buckets))
@@ -602,6 +609,14 @@ def rowgroup_selection(scan: FileScan) -> tuple[Optional[dict[str, tuple[int, ..
         REGISTRY.counter("pruning.bytes_skipped").inc(bytes_skipped)
         REGISTRY.counter("pruning.files_total").inc(len(scan.files))
         REGISTRY.counter("pruning.files_kept").inc(len(kept_files))
+        from ..telemetry import workload
+
+        sk_skipped = sum(int((~np.asarray(m, dtype=bool)).sum()) for m in sketch_masks.values())
+        workload.note_prune(
+            spec.index_name, "sketch" if sk_skipped else "rowgroup",
+            shape=_sketch_shape(spec.sketch_conjuncts) if spec.sketch_conjuncts else "",
+            bytes_skipped=bytes_skipped, rowgroups_skipped=total - kept,
+        )
         sp.set_attr("rowgroups_total", total)
         sp.set_attr("rowgroups_kept", kept)
         sp.set_attr("bytes_skipped", bytes_skipped)

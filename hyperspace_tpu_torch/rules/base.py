@@ -92,10 +92,12 @@ class IndexFilter:
         if not condition:
             if isinstance(entries, IndexLogEntry):
                 entries = [entries]
-            from ..telemetry import trace
+            from ..telemetry import trace, workload
             from ..telemetry.metrics import REGISTRY
 
             REGISTRY.counter(f"rules.reject.{r.code}").inc(max(1, len(entries)))
+            # the workload plane's candidate rejects (a no-op when it is off)
+            workload.note_candidate_reject([e.name for e in entries], r.code)
             if trace.enabled():
                 trace.add_event("reject", code=r.code,
                                 indexes=[e.name for e in entries], **dict(r.args))

@@ -154,6 +154,11 @@ def transform_plan_to_use_index(session, entry: IndexLogEntry, plan: LogicalPlan
     leaf = find_scan_by_id(plan, leaf_id)
     if leaf is None:
         raise HyperspaceError(f"Leaf {leaf_id} not found in plan")
+    # the workload plane: the replaced leaf's bytes are the counterfactual
+    # raw-scan cost this index is credited against when the query finishes
+    from ..telemetry import workload
+
+    workload.note_index_applied(entry.name, sum(f.size for f in leaf.files))
     if not entry.get_tag(leaf_id, TAG_HYBRIDSCAN_REQUIRED):
         scan = index_scan(session, entry, use_bucket_spec)
         return plan.transform_up(lambda n: scan if n is leaf else n)

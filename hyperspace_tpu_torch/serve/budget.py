@@ -1,5 +1,4 @@
-"""Byte ledgers (counterpart of hyperspace_tpu/serve/budget.py, lean: no
-tenants and no queries).
+"""Byte ledgers (counterpart of hyperspace_tpu/serve/budget.py).
 
 Two process-wide accountants share one class. The global read-ahead
 ledger (``global_budget()``) bounds the decoded bytes every streaming
@@ -23,6 +22,17 @@ reference's do: ``<name>.reservations``, ``<name>.force_grants`` (a
 zero-holder grant past the limit), ``<name>.stalls`` and the occupancy
 gauge ``<name>_bytes``; the names are ``serve.budget`` and
 ``serve.device_budget``.
+
+Every stream opened under a serving query carries the query's id and
+tenant (serve/context.current_query). While bytes are held by more than
+one tenant, a stream that already holds bytes is also capped at its
+tenant's share of the limit: ``budget_fraction`` where the tenant sets
+one, else its weight's share among the tenants holding bytes; such a
+stall counts as ``<name>.tenant_stalls`` too. With zero or one tenant
+holding bytes the partition is never consulted, so a single-tenant
+process reserves exactly as without tenants. ``state()`` lists the open
+streams with their holder and the bytes each tenant holds;
+``check_consistency()`` holds the total to the per-stream sum.
 """
 
 from __future__ import annotations
@@ -32,19 +42,24 @@ import threading
 
 from ..telemetry.metrics import REGISTRY
 from ..utils import env
+from .context import current_query
 
 DEVICE_BUDGET_MB_DEFAULT = 4096.0
 
 
 class BudgetStream:
     """One consumer's handle on a ledger (a scan stream, a pair loader, one
-    join execution), pumped from one thread."""
+    join execution), pumped from one thread. ``query_id`` and ``tenant``
+    name the serving query that opened it (None outside the scheduler)."""
 
-    __slots__ = ("_acct", "label", "held", "_closed")
+    __slots__ = ("_acct", "label", "query_id", "tenant", "held", "_closed")
 
-    def __init__(self, acct: "BudgetAccountant", label: str = ""):
+    def __init__(self, acct: "BudgetAccountant", label: str = "", query_id=None,
+                 tenant: "str | None" = None):
         self._acct = acct
         self.label = label
+        self.query_id = query_id
+        self.tenant = tenant
         self.held = 0
         self._closed = False
 
@@ -59,7 +74,7 @@ class BudgetStream:
         """Return whatever the stream still holds; idempotent."""
         if not self._closed:
             self._closed = True
-            self._acct._release(self, self.held)
+            self._acct._close(self)
 
 
 class BudgetAccountant:
@@ -68,17 +83,56 @@ class BudgetAccountant:
         self.name = name  # the registry's metric prefix
         self._lock = threading.Lock()
         self._held = 0
+        self._streams: dict[int, BudgetStream] = {}
         # wakes consumers parked on a full ledger when bytes come back
         self._released = threading.Condition(threading.Lock())
 
-    def stream(self, label: str = "") -> BudgetStream:
-        return BudgetStream(self, label)
+    def stream(self, label: str = "", query=None, tenant=None) -> BudgetStream:
+        """Open a consumer handle; ``query`` and ``tenant`` default to the
+        thread's current serving query (None outside the scheduler)."""
+        if query is None:
+            ctx = current_query()
+            if ctx is not None:
+                query = ctx.query_id
+                if tenant is None:
+                    tenant = ctx.tenant
+        s = BudgetStream(self, label, query, tenant)
+        with self._lock:
+            self._streams[id(s)] = s
+        return s
+
+    def _tenant_over_share_locked(self, s: BudgetStream, nbytes: int) -> bool:
+        """While bytes are held by more than one tenant, is ``s``'s tenant
+        past its share of the limit with ``nbytes`` more? Never consulted
+        with zero or one tenant in play."""
+        if s.tenant is None:
+            return False
+        holders = {st.tenant for st in self._streams.values()
+                   if st.held > 0 and st.tenant is not None}
+        holders.add(s.tenant)
+        if len(holders) <= 1:
+            return False
+        from .tenant import TENANTS
+
+        tenants = {name: TENANTS.get(name) for name in holders}
+        total_weight = sum(max(1e-6, t.weight) for t in tenants.values())
+        mine = tenants[s.tenant]
+        share = (mine.budget_fraction if mine.budget_fraction is not None
+                 else max(1e-6, mine.weight) / total_weight)
+        limit = self.max_bytes * max(0.0, min(1.0, share))
+        held_t = sum(st.held for st in self._streams.values() if st.tenant == s.tenant)
+        return held_t + nbytes > limit
 
     def _reserve(self, s: BudgetStream, nbytes: int) -> bool:
-        forced = False
+        forced = tenant_stall = False
         with self._lock:
-            granted = not (s.held > 0 and self._held + nbytes > self.max_bytes)
-            if granted:
+            if s.held > 0 and self._held + nbytes > self.max_bytes:
+                granted = False
+            elif s.held > 0 and self._tenant_over_share_locked(s, nbytes):
+                granted = False
+                tenant_stall = True
+            else:
+                granted = True
                 forced = self._held + nbytes > self.max_bytes
                 s.held += nbytes
                 self._held += nbytes
@@ -90,6 +144,8 @@ class BudgetAccountant:
             REGISTRY.gauge(f"{self.name}_bytes").set(occupancy)
         else:
             REGISTRY.counter(f"{self.name}.stalls").inc()
+            if tenant_stall:
+                REGISTRY.counter(f"{self.name}.tenant_stalls").inc()
         return granted
 
     def _release(self, s: BudgetStream, nbytes: int) -> None:
@@ -97,6 +153,16 @@ class BudgetAccountant:
             n = min(nbytes, s.held)
             s.held -= n
             self._held -= n
+            occupancy = self._held
+        with self._released:
+            self._released.notify_all()
+        REGISTRY.gauge(f"{self.name}_bytes").set(occupancy)
+
+    def _close(self, s: BudgetStream) -> None:
+        with self._lock:
+            self._held -= s.held
+            s.held = 0
+            self._streams.pop(id(s), None)
             occupancy = self._held
         with self._released:
             self._released.notify_all()
@@ -111,6 +177,25 @@ class BudgetAccountant:
     def held_bytes(self) -> int:
         with self._lock:
             return self._held
+
+    def state(self) -> dict:
+        """The limit, the total held, each open stream with its holder, and
+        the bytes each tenant holds."""
+        with self._lock:
+            streams = [{"label": s.label, "query": s.query_id, "tenant": s.tenant,
+                        "held_bytes": s.held} for s in self._streams.values()]
+            held = self._held
+        tenants: dict[str, int] = {}
+        for s in streams:
+            if s["tenant"] is not None and s["held_bytes"]:
+                tenants[s["tenant"]] = tenants.get(s["tenant"], 0) + s["held_bytes"]
+        return {"limit_bytes": self.max_bytes, "held_bytes": held, "streams": streams,
+                "tenants": tenants}
+
+    def check_consistency(self) -> bool:
+        """The total equals the sum over the open streams."""
+        with self._lock:
+            return self._held == sum(s.held for s in self._streams.values())
 
 
 def configured_device_budget_bytes() -> int:

@@ -48,6 +48,7 @@ class HyperspaceSession:
         self.conf = HyperspaceConf(self._conf)
         self.extra_optimizations: list[Any] = []
         self._device_request = device
+        self._resolved_device: "torch.device | None" = None
         self.index_chunk_cache = IndexChunkCache(env.cache_bytes("HYPERSPACE_INDEX_CACHE_MB"))
         self.device_cache = DeviceColumnCache(env.cache_bytes("HYPERSPACE_DEVICE_CACHE_MB"))
         self.host_derived_cache = DeviceColumnCache(
@@ -60,7 +61,13 @@ class HyperspaceSession:
     @property
     def device(self) -> torch.device:
         """The device-tier device; raises when CUDA is asked for (the
-        default) and absent."""
+        default) and absent. A CUDA request without an index takes the
+        current device of the thread that first asks and keeps it, so the
+        scheduler's worker threads run on the session's card, not on each
+        thread's own current device."""
+        resolved = self._resolved_device
+        if resolved is not None:
+            return resolved
         req = self._device_request
         dev = torch.device("cuda" if req is None else req)
         if dev.type == "cuda":
@@ -72,6 +79,7 @@ class HyperspaceSession:
                 )
             if dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
+        self._resolved_device = dev
         return dev
 
     # --- conf ---

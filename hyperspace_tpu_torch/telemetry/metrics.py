@@ -43,13 +43,13 @@ Canonical metric names (see docs/observability.md for the full catalog):
     rpc.upload_bytes / rpc.fetch_bytes             transfer volume
     io.bytes_decoded / io.rows_decoded             decoded scan volume
 
-Attributed write path: when a serving query runs, its per-query ledger
-entry sits in the ``_attr_target`` contextvar, and every ``Counter.inc`` /
-``Histogram.observe`` charges the same delta to that entry as well as to
-the global value. The port has no serving plane or per-query attribution
-yet, so nothing installs a target and the path costs one contextvar read
-returning None; it is kept so that attribution can land without touching
-the write sites.
+Attributed write path: while a query runs (served by the scheduler, or a
+direct ``collect()``), its per-query ledger entry (telemetry/attribution.
+QueryStats) sits in the ``_attr_target`` contextvar, and every
+``Counter.inc`` / ``Histogram.observe`` charges the same delta to that
+entry as well as to the global value. IO-pool tasks carry the target over
+through ``attribution.bound``. Outside a query the path costs one
+contextvar read returning None.
 
 Every lock here is a plain ``threading.Lock``: the JAX package's registry
 lock is an audited lock of its lock-order checker, which the port does not

@@ -125,6 +125,9 @@ class EstimatorAccuracy:
         REGISTRY.histogram(
             f"estimator.qerror.{estimator}", QERROR_BOUNDS
         ).observe(q)
+        from . import workload
+
+        workload.observe_qerror(estimator, q)
         from . import trace
 
         if trace.enabled():

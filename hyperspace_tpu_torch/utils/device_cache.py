@@ -22,6 +22,11 @@ second instance caches host-side derivations (group-key factorizations)
 the same way, within ``HYPERSPACE_HOST_DERIVED_CACHE_MB`` (512), under
 ``cache.host_derived.*``; its builds move nothing to the card.
 
+Builds run outside the lock, so two queries that miss on one key at once
+both build it; the second to finish serves the copy the first stored,
+so every caller holds one object and its bytes count once
+(``check_consistency``).
+
 The port counts the entries it holds. The JAX package also caches the
 padded valid-rows masks of its device tier; the port fills them on the
 card and holds no mask entry, so its ``cache.device.*`` counts differ from
@@ -84,7 +89,9 @@ class DeviceColumnCache:
         if not meter or self.metric != "device":
             value = builder()
             return value, _nbytes(value)
-        with trace.span("upload"):
+        from ..telemetry import attribution
+
+        with trace.span("upload"), attribution.phase("upload"):
             value = builder()
             nbytes = _nbytes(value)
             with self._lock:
@@ -125,10 +132,19 @@ class DeviceColumnCache:
         value, nbytes = self._build(builder, meter)
         if nbytes > self.budget_bytes:
             return value
+        refs = tuple(weakref.ref(s) for s in srcs)
         evicted_n = evicted_b = 0
         with self._lock:
-            self._d[key] = (tuple(weakref.ref(s) for s in srcs), value, nbytes)
-            self._bytes += nbytes
+            existing = self._d.get(key)
+            if existing is not None:
+                # a concurrent build of the same key stored first: serve the
+                # resident copy, so every caller holds the same object, and
+                # drop this one (its bytes were never counted). The entry's
+                # refs are live: we hold srcs, so their ids cannot be reused
+                value = existing[1]
+            else:
+                self._d[key] = (refs, value, nbytes)
+                self._bytes += nbytes
             while self._bytes > self.budget_bytes and self._d:
                 _, (_r, _v, nb) = self._d.popitem(last=False)
                 self._bytes -= nb
@@ -146,3 +162,8 @@ class DeviceColumnCache:
     @property
     def resident_bytes(self) -> int:
         return self._bytes
+
+    def check_consistency(self) -> bool:
+        """The occupancy equals the sum of the resident entries' sizes."""
+        with self._lock:
+            return self._bytes == sum(e[2] for e in self._d.values())

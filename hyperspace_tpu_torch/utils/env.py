@@ -50,7 +50,27 @@ call time, as there, so one environment setting steers both packages:
 - ``HYPERSPACE_STALE_TX_S``: the age in seconds past which recovery treats
   a transient log entry as a dead transaction (3600), and
   ``HYPERSPACE_ACTION_RETRIES`` the attempts of an action that loses the
-  optimistic-concurrency race (3).
+  optimistic-concurrency race (3);
+- the serving plane (serve/): ``HYPERSPACE_MAX_CONCURRENT_QUERIES`` (4
+  worker slots), ``HYPERSPACE_SERVE_QUEUE_DEPTH`` (32 queued queries),
+  ``HYPERSPACE_SERVE_DEFAULT_PRIORITY`` (0), ``HYPERSPACE_SERVE_AGING_MS``
+  (0: no aging) and ``HYPERSPACE_SERVE_AGING_CAP`` (100 levels),
+  ``HYPERSPACE_TENANTS`` (the tenant spec, unset) and
+  ``HYPERSPACE_QOS_COST_MBPS`` (256: the rate that turns a query's bytes
+  into seconds of delivered cost);
+- the query log (telemetry/attribution.py): ``HYPERSPACE_QUERY_LOG_WINDOW``
+  (256 records), ``HYPERSPACE_SLOW_QUERY_FILE`` (the slow-query JSONL,
+  unset) and ``HYPERSPACE_SLOW_QUERY_MS`` (0: every finished query);
+- the exporter (telemetry/exporter.py): ``HYPERSPACE_METRICS_PORT`` (unset:
+  off; 0 binds an ephemeral port), ``HYPERSPACE_SNAPSHOT_FILE`` (unset:
+  off) and ``HYPERSPACE_SNAPSHOT_INTERVAL_S`` (10);
+- the workload plane (telemetry/workload.py): ``HYPERSPACE_WORKLOAD_DIR``
+  (unset: off), ``_ROTATE_MB`` (64), ``_RETAIN`` (8), ``_WINDOW`` (64),
+  ``_BASELINE`` (64), ``_DRIFT_FACTOR`` (2.0), ``_DRIFT_MIN`` (8) and
+  ``_DRIFT_ABS_MS`` (1.0);
+- ``HYPERSPACE_APPROX`` (``0``) and ``HYPERSPACE_APPROX_FRACTIONS``
+  (``0.01,0.1``), read by the serving plane's degrade policy
+  (models/sample_store.py).
 
 A boolean knob is on only for the literal string ``1``, as in the JAX
 package.
@@ -83,6 +103,29 @@ DEFAULTS = {
     "HYPERSPACE_IO_RETRIES": 3,
     "HYPERSPACE_STALE_TX_S": 3600.0,
     "HYPERSPACE_ACTION_RETRIES": 3,
+    "HYPERSPACE_MAX_CONCURRENT_QUERIES": 4,
+    "HYPERSPACE_SERVE_QUEUE_DEPTH": 32,
+    "HYPERSPACE_SERVE_DEFAULT_PRIORITY": 0,
+    "HYPERSPACE_SERVE_AGING_MS": 0.0,
+    "HYPERSPACE_SERVE_AGING_CAP": 100,
+    "HYPERSPACE_TENANTS": None,
+    "HYPERSPACE_QOS_COST_MBPS": 256.0,
+    "HYPERSPACE_QUERY_LOG_WINDOW": 256,
+    "HYPERSPACE_SLOW_QUERY_FILE": None,
+    "HYPERSPACE_SLOW_QUERY_MS": 0.0,
+    "HYPERSPACE_METRICS_PORT": None,
+    "HYPERSPACE_SNAPSHOT_FILE": None,
+    "HYPERSPACE_SNAPSHOT_INTERVAL_S": 10.0,
+    "HYPERSPACE_WORKLOAD_DIR": None,
+    "HYPERSPACE_WORKLOAD_ROTATE_MB": 64.0,
+    "HYPERSPACE_WORKLOAD_RETAIN": 8,
+    "HYPERSPACE_WORKLOAD_WINDOW": 64,
+    "HYPERSPACE_WORKLOAD_BASELINE": 64,
+    "HYPERSPACE_WORKLOAD_DRIFT_FACTOR": 2.0,
+    "HYPERSPACE_WORKLOAD_DRIFT_MIN": 8,
+    "HYPERSPACE_WORKLOAD_DRIFT_ABS_MS": 1.0,
+    "HYPERSPACE_APPROX": "0",
+    "HYPERSPACE_APPROX_FRACTIONS": "0.01,0.1",
 }
 
 

@@ -27,10 +27,12 @@ Injection points (the catalog; a new point is added HERE):
                      bracketing stage -> write -> publish
     ingest.compact   delta-run compaction build (ingest/actions.py), the
                      same bracket around the compacted version
-    workload.journal, approx.sample
-                     named so that a spec written for the JAX package
-                     parses here; the port has no workload journal or
-                     sample store, so nothing fires them
+    workload.journal the workload journal's line write (telemetry/
+                     workload.py): crash_after dies between the payload
+                     and its newline, the torn tail the reader skips
+    approx.sample    named so that a spec written for the JAX package
+                     parses here; the port has no sample store, so
+                     nothing fires it
 
 Spec grammar (``HYPERSPACE_FAULTS``, also ``arm()``):
 

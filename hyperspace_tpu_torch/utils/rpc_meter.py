@@ -126,10 +126,10 @@ def device_get(tree):
     """The one blocking device-to-host fetch: every tensor of ``tree``
     (tuples, lists and dicts nest) comes back as a numpy array, in a
     ``fetch`` span when tracing is on, and the meter counts one fetch of
-    the returned bytes."""
-    from ..telemetry import trace
+    the returned bytes; a running query is charged its ``fetch`` phase."""
+    from ..telemetry import attribution, trace
 
-    with trace.span("fetch"):
+    with trace.span("fetch"), attribution.phase("fetch"):
         faults.fire("device.fetch")
         out = _to_host(tree)
         nbytes = _tree_nbytes(out)

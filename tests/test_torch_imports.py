@@ -1,5 +1,6 @@
 """The port stands alone: importing hyperspace_tpu_torch (every module, the
-telemetry, analysis, ingest, cache and fault-injection ones included) and
+telemetry, analysis, ingest, cache, fault-injection and serving ones
+included) and
 chip_smoke.py loads neither JAX nor the JAX package; and the device tier
 runs on CUDA unless the caller asks for the CPU."""
 
@@ -53,7 +54,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "analysis.whynot", "analysis.explain", "analysis.statistics",
                    "analysis.minmax_analysis", "utils.faults", "utils.retry", "utils.lru",
                    "ingest", "ingest.snapshots", "ingest.actions", "ingest.compaction",
-                   "cache", "cache.result_cache", "cache.view_maintenance"):
+                   "cache", "cache.result_cache", "cache.view_maintenance",
+                   "serve", "serve.budget", "serve.context", "serve.tenant", "serve.qos",
+                   "serve.scheduler", "telemetry.attribution", "telemetry.index_ledger",
+                   "telemetry.workload", "telemetry.exporter", "models.sample_store"):
         assert f"hyperspace_tpu_torch.{module}" in out["loaded"], module
 
 

@@ -15,11 +15,10 @@ seed per batch, one fixed mtime) and a covering index of 4 buckets:
   points, ``crash_before`` and ``crash_after``: after ``recover()`` both
   packages hold the same warehouse, and after the operation runs again
   the same one as a twin that never crashed;
-- the append counters, and the disarmed fault points (no counter moves).
-
-The cancellation of a pinned query through the scheduler
-(tests/test_ingest.py ``test_cancelled_query_releases_its_pin``) waits for
-the port's ``serve/`` and is not written here.
+- the append counters, and the disarmed fault points (no counter moves);
+- a pinned query cancelled through the scheduler drains its pins
+  (tests/test_ingest.py ``test_cancelled_query_releases_its_pin``), in
+  each package alike.
 """
 
 import json
@@ -779,3 +778,43 @@ def test_smoke_ingest_phase_rehearses_on_cpu(tmp_path, monkeypatch):
     # populate 1, four appends, the held plan, the recompute, the verify pass
     assert out["launches"]["filter_weighted_sum"] == 8
     assert out["launches"]["filter_sum"] == 7
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_cancelled_query_releases_its_pin(tmp_path, pkg):
+    """A scheduler-cancelled query (QueryCancelledError is a BaseException)
+    unwinds through its pin scope and drains its refcounts."""
+    import threading
+    import time
+
+    serve = __import__(PKGS[pkg]["mod"].__name__ + ".serve", fromlist=["serve"])
+    ing = PKGS[pkg]["ingest"]
+    src = _lake(tmp_path)
+    session, hs = _create(pkg, str(tmp_path / "wh"), src)
+    pinned = threading.Event()
+
+    def query():
+        with ing.pin_scope():
+            ing.pin_current(session, hs.get_index(NAME))
+            pinned.set()
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                serve.check_cancelled()  # raises once the handle is cancelled
+                time.sleep(0.01)
+            raise AssertionError("cancel never arrived")
+
+    sched = serve.QueryScheduler(max_concurrent=1)
+    try:
+        h = sched.submit(query, label="pinned")
+        assert pinned.wait(timeout=30)
+        assert ing.REGISTRY.active_pins() > 0
+        h.cancel()
+        with pytest.raises(serve.QueryCancelledError):
+            h.result(timeout=30)
+        assert h.status == "cancelled"
+        assert ing.REGISTRY.active_pins() == 0
+    finally:
+        sched.shutdown(wait=True, cancel=True)
+        # the served query's ledger record and cost-model sample
+        PKGS[pkg]["mod"].telemetry.attribution.LEDGER.reset_for_testing()
+        serve.COST_MODEL.reset_for_testing()

@@ -14,11 +14,11 @@ per batch) and a covering index of 4 buckets, in each package:
   passes), non-foldable forms, verify mode (clean and divergent), eviction
   by bytes, and a stale entry after vacuum, never served;
 - the background refresh after an append, single-flight population, the
-  EXPLAIN ANALYZE route notes and profile's ``== Result cache ==`` block.
-
-Waiting for the port's ``serve/`` and not written here: the scheduler
-cases of tests/test_result_cache.py (a cancelled served query, the
-exporter's snapshot).
+  EXPLAIN ANALYZE route notes and profile's ``== Result cache ==`` block;
+- the scheduler cases of tests/test_result_cache.py: a served query
+  cancelled while it waits leaves the cache clean and its follower
+  computes the cold result, in each package alike, and the exporter's
+  snapshot carries the cache's state with the JAX package's keys.
 """
 
 import os
@@ -637,3 +637,50 @@ def test_state_and_profile_block(tmp_path, cache_on):
             "== Result cache ==\ndisabled (HYPERSPACE_RESULT_CACHE=0)")
     finally:
         os.environ["HYPERSPACE_RESULT_CACHE"] = "1"
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_cancelled_served_query_leaves_cache_clean(tmp_path, cache_on, pkg):
+    """A scheduler-cancelled query unwinds without latching a build; the
+    same query, served next, computes the cold result."""
+    serve = __import__(PKGS[pkg]["mod"].__name__ + ".serve", fromlist=["serve"])
+    cache = PKGS[pkg]["rc"].RESULT_CACHE
+    session, _hs, src = _mk(pkg, tmp_path)
+    cold = _cold(pkg, _agg, session, src)
+    sched = serve.QueryScheduler(max_concurrent=1, queue_depth=8)
+    try:
+        blocker = threading.Event()
+
+        def slow():
+            blocker.wait(5)
+            return _agg(pkg, session, src).collect()
+
+        h1 = sched.submit(slow, label="victim")
+        h2 = sched.submit(lambda: _agg(pkg, session, src).collect(), label="follower")
+        h1.cancel()
+        blocker.set()
+        with pytest.raises(serve.QueryCancelledError):
+            h1.result(timeout=30)
+        assert _bits(h2.result(timeout=30).to_pydict()) == cold
+        assert h1.status == "cancelled" and h2.status == "done"
+        assert not cache._inflight and cache.check_consistency()
+    finally:
+        sched.shutdown(wait=True)
+        # the served query's ledger record and cost-model sample
+        PKGS[pkg]["mod"].telemetry.attribution.LEDGER.reset_for_testing()
+        serve.COST_MODEL.reset_for_testing()
+
+
+def test_exporter_snapshot_carries_the_cache(tmp_path, cache_on):
+    from hyperspace_tpu.telemetry.exporter import snapshot_dict as jsnap
+    from hyperspace_tpu_torch.telemetry.exporter import snapshot_dict as tsnap
+
+    for pkg in ("jax", "torch"):
+        session, _hs, src = _mk(pkg, tmp_path / pkg)
+        _agg(pkg, session, src).collect()
+    j, t = jsnap(), tsnap()
+    assert t["result_cache"]["entries"] == j["result_cache"]["entries"] == 1
+    assert sorted(t["result_cache"]) == sorted(j["result_cache"])
+    from hyperspace_tpu_torch.telemetry.attribution import LEDGER
+
+    LEDGER.reset_for_testing()
