@@ -167,7 +167,9 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
        in turns (1, 0, 0, 1): the same bits; wall and pair-load (decode)
        seconds;
    (e) the native host kernels (hyperspace_tpu_torch/native) over the
-       lake's 60M l_orderkey values against their numpy forms, outputs
+       lake's first 2^24 l_orderkey values (and 2^22 o_orderkey values;
+       all 60M and 15M before PR 16, cut to keep the whole run inside its
+       time limit) against their numpy forms, outputs
        equal, both timed: hash32, bucket_partition into 8 buckets,
        radix_argsort, and join_i64 of l_orderkey against o_orderkey; the
        main phase's index build seconds are printed with them;
@@ -247,7 +249,29 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     the sum of the direct warm medians, queue-wait p50 and p99 per tenant,
     the cancel-to-resolution seconds and each kernel's launches; kernels
     1-3 launch in the window and no plain version runs;
-13. ingest phase (the ingest plane, the result cache and view
+13. approx phase (the approximate tier, the adaptive executor and the
+    Arrow IPC index format; approx_phase's docstring has each check):
+    run before the ingest phase, whose appends leave the lineitem indexes
+    but li_orderkey stale:
+    (a) a fresh warehouse with HYPERSPACE_APPROX=1 and fractions 0.01 and
+        0.1: li_orderkey and od_orderkey over the SF10 lake with their
+        sample twins (twins per fraction, kept rows against f·rows, build
+        seconds beside the end-to-end phase's build without twins);
+        q3_revenue (port-only: q3_agg's join and filter with sum(revenue)
+        and count, no groups) exact, then sampled at 0.1 and 0.01, first
+        run and warm, each interval covering the exact answer, one verify
+        pass, q3_agg declined as group-on-key with its exact bits, and a
+        served degrade (engaged) beside an allow_approx=False rejection;
+    (b) the warm mix (q6_count, q6_sum, q1_sums, lookup_count, range_sum,
+        q3_agg) in the serve phase's session under
+        HYPERSPACE_ADAPTIVE=verify, bit for bit mode 0, and
+        tools/adapt_smoke.py's three planted mis-estimates on seeded tables
+        (the phase's one cut: 2M rows, and the join's fixed 150k-row
+        geometry), each switch with the static bits;
+    (c) li_orderkey as Arrow IPC files over the lifecycle phase's 40-file
+        cut: lookup_count and range_sum equal the parquet index's bits and
+        launch the same kernel;
+14. ingest phase (the ingest plane, the result cache and view
     maintenance) over the SF10 lake's lineitem and li_orderkey, with
     HYPERSPACE_RESULT_CACHE=1: lookup_count (a key in the base run and in
     every delta run), range_sum and range_stats (count, min, max and sum
@@ -267,9 +291,9 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     the three recomputed, and one pass under
     HYPERSPACE_RESULT_CACHE=verify. Append, fold, hit, recompute and
     compaction seconds are printed;
-14. order phase: the device top-k and sort against the host on one
-   2^23-row batch (cut from 2^25 to keep the whole run well inside its
-   time limit) of lineitem columns (the generator's distributions):
+15. order phase: the device top-k and sort against the host on one
+   2^22-row batch (cut from 2^25 in PR 10 and from 2^23 in PR 16 to keep
+   the whole run well inside its time limit) of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
    descending, k in {10, 100, 4096}; (l_extendedprice f64, l_orderkey
    int64) ascending and descending. The rows must be the host's stable
@@ -282,7 +306,7 @@ The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
 add up the end-to-end, lifecycle, skipping, pipeline, join, sources,
-analysis, serve and ingest phases' counts, each read on its own
+analysis, serve, approx and ingest phases' counts, each read on its own
 (``launches_by_phase``).
 """
 
@@ -384,7 +408,11 @@ JOIN_SMALL_GRANT_MB = "256"
 JOIN_SPLIT_OVERRIDE = "65536"
 JOIN_PER_BUCKET_WARM_RUNS = 2
 JOIN_MODE_TURNS = ("1", "0", "0", "1")  # (d)'s warm runs, in turns
-ORDER_ROWS = 1 << 23
+ORDER_ROWS = 1 << 22
+# the join phase's native host kernels: the first keys of the lake's
+# l_orderkey and o_orderkey (the whole columns cost 53 s of the run)
+NATIVE_LEFT_KEYS = 1 << 24
+NATIVE_RIGHT_KEYS = 1 << 22
 TOPK_KS = (10, 100, 4096)
 KERNEL_ROWS = {
     "filter_weighted_sum": ("hyperspace_tpu_torch/ops/csrc/filter_reduce.cu",
@@ -2171,7 +2199,8 @@ def join_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
         setenv(**saved)
 
     # (e) the native host kernels over the lake's own keys
-    lk, ok = li_table["l_orderkey"].to_numpy(), od_table["o_orderkey"].to_numpy()
+    lk = li_table["l_orderkey"].to_numpy()[:NATIVE_LEFT_KEYS]
+    ok = od_table["o_orderkey"].to_numpy()[:NATIVE_RIGHT_KEYS]
     del li_table, od_table
     native.build()
 
@@ -3462,6 +3491,498 @@ def ingest_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# approx phase
+# ---------------------------------------------------------------------------
+
+APPROX_FRACTIONS = (0.01, 0.1)
+APPROX_QUERY = "q3_revenue"
+APPROX_WARM_RUNS = 1
+APPROX_DEADLINE_SHARE = 0.5  # the degraded submit's deadline, as a share of the exact wall
+ADAPT_MIX = ("q6_count", "q6_sum", "q1_sums", "lookup_count", "range_sum", "q3_agg")
+# the planted mis-estimates' seeded tables: the phase's one cut (a few
+# million rows, not SF10); the join keeps tools/adapt_smoke.py's geometry
+# (4 buckets that pad to one band wave each under a 2 MB grant)
+ADAPT_ROWS = 2_000_000
+ADAPT_JOIN_ROWS = 150_000
+ADAPT_JOIN_GRANT_MB = "2.0"
+ADAPT_SEED = 7
+
+
+def _approx_run(session, df_fn, fraction=None) -> dict:
+    """One collect under a plan-statistics collector (and the sampled
+    tier's scope when ``fraction`` is set): its columns, wall, approx block,
+    routes and the bucketed joins' paths."""
+    from hyperspace_tpu_torch.plan import sampling
+    from hyperspace_tpu_torch.telemetry import plan_stats
+
+    stats = session.device_stats
+    j0 = dict(stats.join_paths)
+    t0 = time.perf_counter()
+    with plan_stats.collect_scope() as col:
+        if fraction is None:
+            batch = df_fn().collect()
+        else:
+            with sampling.approx_scope(fraction):
+                batch = df_fn().collect()
+    summary = col.summary()
+    return {"got": _columns(batch), "s": time.perf_counter() - t0,
+            "approx": summary.get("approx"), "routes": sorted(summary["routes"]),
+            "join_paths": {k: v - j0.get(k, 0) for k, v in stats.join_paths.items()
+                           if v != j0.get(k, 0)}}
+
+
+def _approx_tier(lake: str, e2e: dict, q3_agg_exact: dict, card: str) -> dict:
+    """(a): the sampled tier over a fresh warehouse of the SF10 lake;
+    ``q3_agg_exact`` is q3_agg's mode-0 result over the same lake's
+    end-to-end indexes (the same data files)."""
+    import numpy as np
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import serve
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.models import sample_store
+    from hyperspace_tpu_torch.plan import sampling
+    from hyperspace_tpu_torch.telemetry.attribution import LEDGER
+    from hyperspace_tpu_torch.telemetry.metrics import REGISTRY
+
+    def val(n: str) -> int:
+        m = REGISTRY.get(n)
+        return 0 if m is None else int(m.value)
+
+    os.environ["HYPERSPACE_APPROX"] = "1"
+    os.environ["HYPERSPACE_APPROX_FRACTIONS"] = ",".join(f"{f:g}" for f in APPROX_FRACTIONS)
+    out: dict = {"build_s": {}, "build_s_without_twins": {}, "twins": {}}
+    session = HyperspaceSession(os.path.join(DATA_DIR, "approx_wh")).enable_hyperspace()
+    hs = Hyperspace(session)
+    for table, spec in (("lineitem", tpch.LI_ORDERKEY), ("orders", tpch.OD_ORDERKEY)):
+        t0 = time.perf_counter()
+        tpch.build_index(session, hs, lake, table, "CI", spec)
+        out["build_s"][spec[0]] = time.perf_counter() - t0
+        out["build_s_without_twins"][spec[0]] = e2e.get("index_build_s", {}).get(spec[0])
+        files = [f.name for f in hs.get_index(spec[0]).index_data_files()]
+        metas = [sample_store.load_sample_meta(p) for p in files]
+        require(all(metas), f"approx: {spec[0]} has a data file without a sample meta")
+        n = sum(m["rows"] for m in metas)
+        per = {}
+        for f in APPROX_FRACTIONS:
+            twins = [sample_store.sample_path(p, f) for p in files]
+            require(all(os.path.exists(t) for t in twins), f"approx: {spec[0]} misses a twin at {f}")
+            kept = sum(m["kept"][str(sample_store.fraction_ppm(f))] for m in metas)
+            per[f"{f:g}"] = {"twins": len(twins), "kept_rows": kept, "target_rows": f * n,
+                             "kept_over_target": kept / (f * n)}
+            # whole keys are kept: within five binomial deviations over the
+            # keys (the metas' distinct hashes), or 5% where that is wider
+            keys = sum(m["key_ndv"] for m in metas)
+            tol = max(0.05, 5.0 * math.sqrt((1.0 - f) / (f * keys)))
+            require(abs(kept / (f * n) - 1.0) < tol,
+                    f"approx: {spec[0]} keeps {kept} rows at {f} of {n}")
+        out["twins"][spec[0]] = {"rows": n, "data_files": len(files), "fractions": per}
+    log({"approx": "twins", "card": card, **out})
+
+    q = lambda: tpch.q3_revenue(session, lake)  # noqa: E731
+    exact = [_approx_run(session, q) for _ in range(1 + APPROX_WARM_RUNS)]
+    for r in exact:
+        # no groups: the batched plain join on the card, the sum on the host
+        require(r["join_paths"] == {"batched": 1},
+                f"approx: exact {APPROX_QUERY} took {r['join_paths']}")
+        require(same_bits(r["got"], exact[0]["got"]), f"approx: exact {APPROX_QUERY} repeats")
+    want = {k: float(v[0]) for k, v in exact[0]["got"].items()}
+    # q3_agg under the scope is declined (group-on-key) and keeps the exact
+    # bits; its groups add up to the revenue
+    g0 = val("approx.ineligible.group-on-key")
+    agg_scoped = _approx_run(session, lambda: tpch.q3_agg(session, lake), APPROX_FRACTIONS[-1])
+    require(same_bits(agg_scoped["got"], q3_agg_exact), "approx: q3_agg under the scope differs")
+    require(rel_err(float(np.sum(agg_scoped["got"]["revenue"], dtype=np.float64)),
+                    want["revenue"]) <= REL_TOL,
+            "approx: q3_revenue differs from the sum of q3_agg's groups")
+    require(val("approx.ineligible.group-on-key") == g0 + 1,
+            "approx: q3_agg was not declined as group-on-key")
+    require(agg_scoped["approx"] and agg_scoped["approx"].get("reason") == "group-on-key",
+            f"approx: q3_agg's approx block {agg_scoped['approx']}")
+    out["exact"] = {"result": want, "first_s": exact[0]["s"],
+                    "warm_s": [r["s"] for r in exact[1:]], "routes": exact[0]["routes"],
+                    "join_paths": exact[0]["join_paths"]}
+    out["q3_agg_declined"] = {"reason": "group-on-key", "bits_equal": True}
+
+    def covered(r, f) -> dict:
+        a = r["approx"]
+        require(a and a.get("fraction") == f, f"approx: the sampled tier did not engage at {f}")
+        est = {}
+        for name in ("revenue", "count"):
+            e = float(r["got"][name][0])
+            hw = a["outputs"][name]["ci95_max"]
+            require(abs(e - want[name]) <= hw,
+                    f"approx: {name} at {f}: {e} +- {hw} misses the exact {want[name]}")
+            est[name] = {"estimate": e, "half_width": hw, "rel_half_width": hw / abs(want[name]),
+                         "rel_error": rel_err(e, want[name])}
+        return est
+
+    out["sampled"] = {}
+    for f in sorted(APPROX_FRACTIONS, reverse=True):
+        runs = [_approx_run(session, q, f) for _ in range(1 + APPROX_WARM_RUNS)]
+        for r in runs:
+            require(f"sampled(f={f:g})" in r["routes"], f"approx: routes {r['routes']} at {f}")
+            # the inner level groups by the join key: the fused device join
+            require(r["join_paths"] == {"stacked_agg": 1},
+                    f"approx: the sampled join took {r['join_paths']} at {f}")
+        out["sampled"][f"{f:g}"] = {"first": covered(runs[0], f), "first_s": runs[0]["s"],
+                                    "warm_s": [r["s"] for r in runs[1:]],
+                                    "warm": [covered(r, f) for r in runs[1:]],
+                                    "route": runs[0]["routes"],
+                                    "join_paths": runs[0]["join_paths"]}
+        log({"approx": "sampled", "card": card, "fraction": f, **out["sampled"][f"{f:g}"],
+             "exact_first_s": exact[0]["s"], "exact_warm_s": out["exact"]["warm_s"]})
+
+    os.environ["HYPERSPACE_APPROX"] = "verify"
+    v0 = sampling.APPROX.snapshot()["verify_checked"]
+    r = _approx_run(session, q, APPROX_FRACTIONS[-1])
+    covered(r, APPROX_FRACTIONS[-1])
+    require(sampling.APPROX.snapshot()["verify_checked"] == v0 + 1, "approx: verify did not run")
+    out["verify_s"] = r["s"]
+    os.environ["HYPERSPACE_APPROX"] = "1"
+
+    # the served degrade: the cost model learns the exact wall; a deadline
+    # of half of it is unmeetable exact, and the 0.1 tier's prior fits
+    label = APPROX_QUERY
+    exact_s = out["exact"]["warm_s"][-1]
+    serve.COST_MODEL.update(label, exact_s)
+    deadline = exact_s * APPROX_DEADLINE_SHARE
+    sched = serve.QueryScheduler(max_concurrent=1, queue_depth=4)
+    rejected = False
+    try:
+        h = sched.submit(q().collect, label=label, deadline_s=deadline, allow_approx=True)
+        served = _columns(h.result(600))
+        try:
+            sched.submit(q().collect, label=label, deadline_s=deadline, allow_approx=False)
+        except serve.DeadlineUnmeetable:
+            rejected = True
+    finally:
+        sched.shutdown()
+    require(rejected, "approx: the allow_approx=False submit was not rejected")
+    rec = [x for x in LEDGER.recent_records() if x["query_id"] == h.query_id][-1]
+    a = rec.get("approx") or {}
+    require(a.get("degraded") and a.get("engaged") is True,
+            f"approx: the served degrade did not engage: {a}")
+    require(LEDGER.recent_records()[-1]["outcome"] == "rejected",
+            "approx: the rejected submit left no rejected record")
+    served_est = covered({"got": served, "approx": a}, a["fraction"])
+    out["served"] = {"deadline_s": deadline, "fraction": a["fraction"], "wall_ms": rec["total_ms"],
+                     "estimate": served_est, "rejected_without_approx": rejected}
+    log({"approx": "served", "card": card, **out["served"]})
+    return out
+
+
+def _approx_adaptive(K, e2e: dict, session, card: str) -> dict:
+    """(b): the adaptive executor over the end-to-end indexes in
+    ``session`` (warm: the serve phase's), then the three planted
+    mis-estimates on seeded tables."""
+    import glob
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.models import covering
+    from hyperspace_tpu_torch.plan import join_memory
+    from hyperspace_tpu_torch.plan.expr import Count, Max, Min, col, lit
+    from hyperspace_tpu_torch.serve import budget as serve_budget
+    from hyperspace_tpu_torch.telemetry.metrics import REGISTRY
+
+    def val(n: str) -> float:
+        m = REGISTRY.get(n)
+        return 0 if m is None else m.value
+
+    lake = e2e["lake"]
+    os.environ["HYPERSPACE_APPROX"] = "0"
+    out: dict = {"mix": {}}
+    if session is None:
+        session = HyperspaceSession(e2e["warehouse"]).enable_hyperspace()
+    launches0 = dict(K.LAUNCHES)
+    for q in ADAPT_MIX:
+        fn = getattr(tpch, q)
+        os.environ["HYPERSPACE_ADAPTIVE"] = "0"
+        static = _columns(fn(session, lake).collect())
+        os.environ["HYPERSPACE_ADAPTIVE"] = "verify"
+        v0 = val("adaptive.verified")
+        t0 = time.perf_counter()
+        got = _columns(fn(session, lake).collect())
+        out["mix"][q] = {"verify_s": time.perf_counter() - t0,
+                         "verified": val("adaptive.verified") - v0}
+        require(same_bits(got, static), f"adaptive verify: {q} differs from mode 0")
+        require(out["mix"][q]["verified"] == 1, f"adaptive verify: {q} was not verified")
+        if q == "q3_agg":
+            out["q3_agg_exact"] = static
+    out["mix_launches"] = {k: K.LAUNCHES[k] - launches0[k] for k in launches0}
+    out["verified"] = sum(v["verified"] for v in out["mix"].values())
+    log({"approx": "adaptive_mix", "card": card, "mix": out["mix"],
+         "mix_launches": out["mix_launches"], "verified": out["verified"]})
+
+    root = os.path.join(DATA_DIR, "adapt")
+    rng = np.random.default_rng(ADAPT_SEED)
+    os.environ["HYPERSPACE_ADAPTIVE_WARMUP_CHUNKS"] = "1"
+
+    def write(path: str, table: dict) -> None:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        pq.write_table(pa.table(table), path)
+
+    t_sec = time.perf_counter()
+    # (i) join re-plan under footer byte statistics planted 64x low
+    write(os.path.join(root, "jl", "l.parquet"),
+          {"k": rng.integers(0, 600, ADAPT_JOIN_ROWS), "p": rng.uniform(0, 100, ADAPT_JOIN_ROWS)})
+    write(os.path.join(root, "jr", "r.parquet"),
+          {"rk": np.arange(500), "w": rng.uniform(size=500)})
+    s = HyperspaceSession(os.path.join(root, "wh"), conf={C.INDEX_NUM_BUCKETS: 4})
+    hs = Hyperspace(s)
+    hs.create_index(s.read.parquet(os.path.join(root, "jl")), CoveringIndexConfig("jl_idx", ["k"], ["p"]))
+    hs.create_index(s.read.parquet(os.path.join(root, "jr")), CoveringIndexConfig("jr_idx", ["rk"], ["w"]))
+    s.enable_hyperspace()
+
+    def join_q():
+        lhs = s.read.parquet(os.path.join(root, "jl")).select("k", "p")
+        rhs = s.read.parquet(os.path.join(root, "jr")).select("rk", "w")
+        return _columns(lhs.join(rhs, col("k") == col("rk")).group_by("k").agg(
+            Count(lit(1)).alias("n"), Min(col("p")).alias("lo"),
+            Max(col("p")).alias("hi")).sort("k").collect())
+
+    real = join_memory._bucket_estimates
+    join_memory._bucket_estimates = lambda side, b: (
+        lambda r, nb: (r, nb / 64.0))(*real(side, b))
+    saved = {k: os.environ.get(k) for k in ("HYPERSPACE_JOIN_BROADCAST_ROWS",
+                                            "HYPERSPACE_DEVICE_BUDGET_MB",
+                                            "HYPERSPACE_PARK_WAIT_MS")}
+    os.environ.update({"HYPERSPACE_JOIN_BROADCAST_ROWS": "10",
+                       "HYPERSPACE_DEVICE_BUDGET_MB": ADAPT_JOIN_GRANT_MB,
+                       "HYPERSPACE_PARK_WAIT_MS": "1"})
+    serve_budget.reset_device_budget()
+    try:
+        legs = {}
+        for mode in ("0", "1"):
+            os.environ["HYPERSPACE_ADAPTIVE"] = mode
+            c0 = {n: val(n) for n in ("join.spill.parks", "join.spill.spills", "adaptive.replan")}
+            got = join_q()
+            legs[mode] = {"got": got, **{n: val(n) - v for n, v in c0.items()}}
+    finally:
+        join_memory._bucket_estimates = real
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        serve_budget.reset_device_budget()
+    static, adapted = legs["0"], legs["1"]
+    require(same_bits(adapted["got"], static["got"]), "adaptive join: bits differ from static")
+    require(adapted["adaptive.replan"] >= 1, "adaptive join: no banded→split flip")
+    stalls = lambda d: d["join.spill.parks"] + d["join.spill.spills"]  # noqa: E731
+    require(stalls(adapted) < stalls(static),
+            f"adaptive join: {stalls(adapted)} parks and spills against static {stalls(static)}")
+    out["join_replan"] = {"flips": adapted["adaptive.replan"],
+                          "static_parks_spills": stalls(static),
+                          "adaptive_parks_spills": stalls(adapted),
+                          "s": time.perf_counter() - t_sec}
+    t_sec = time.perf_counter()
+
+    # (ii) a worst-order col-vs-col conjunction: reordered, same bits
+    write(os.path.join(root, "flt", "p.parquet"),
+          {c: rng.integers(0, 100, ADAPT_ROWS) for c in ("a", "b", "c")})
+    f_s = HyperspaceSession(os.path.join(root, "wh_flt"))
+
+    def filter_df():
+        return f_s.read.parquet(os.path.join(root, "flt")).filter(
+            (col("a") != col("c")) & (col("a") > col("b")) & (col("b") >= col("c"))
+        ).select("a", "b", "c")
+
+    os.environ["HYPERSPACE_ADAPTIVE"] = "1"
+    r0 = val("adaptive.reorder")
+    adapted_f = _columns(filter_df().collect())
+    reorders = val("adaptive.reorder") - r0
+    report = Hyperspace(f_s).explain_analyze(filter_df())
+    os.environ["HYPERSPACE_ADAPTIVE"] = "0"
+    static_f = _columns(filter_df().collect())
+    require(same_bits(adapted_f, static_f), "adaptive reorder: bits differ from static")
+    require(reorders >= 1, "adaptive reorder: no switch")
+    lines = [ln for ln in report.splitlines() if "[adapted:" in ln]
+    require(bool(lines), "adaptive reorder: EXPLAIN ANALYZE shows no [adapted: ...] line")
+    out["conjunct_reorder"] = {"reorders": reorders, "explain": lines,
+                               "rows_kept": len(adapted_f["a"]), "s": time.perf_counter() - t_sec}
+    t_sec = time.perf_counter()
+
+    # (iii) sketch NDVs planted 10^9 high: the index scan aborts and re-plans
+    saved_rgs = covering.INDEX_ROW_GROUP_SIZE
+    os.environ["HYPERSPACE_SKETCHES"] = "1"
+    covering.INDEX_ROW_GROUP_SIZE = 1024
+    ev = os.path.join(root, "events")
+    per = ADAPT_ROWS // 4
+    try:
+        for i in range(4):
+            base = i * per
+            keys = np.arange(base, base + per)
+            write(os.path.join(ev, f"part-{i:02d}.parquet"),
+                  {"ev_k": keys, "ev_cat": pa.array(np.char.add("c", (keys % 3).astype(str))),
+                   "ev_v": rng.uniform(0, 1, per)})
+        a_s = HyperspaceSession(os.path.join(root, "wh_ev"), conf={C.INDEX_NUM_BUCKETS: 2})
+        Hyperspace(a_s).create_index(a_s.read.parquet(ev),
+                                     CoveringIndexConfig("ev_idx", ["ev_k"], ["ev_cat", "ev_v"]))
+    finally:
+        covering.INDEX_ROW_GROUP_SIZE = saved_rgs
+    sides = sorted(glob.glob(os.path.join(root, "wh_ev", "indexes", "ev_idx", "**",
+                                          "_sketch.*.json"), recursive=True))
+    require(bool(sides), "adaptive abort: no sketch sidecars")
+    for side in sides:
+        with open(side) as f:
+            raw = json.load(f)
+        if "ev_cat" in raw.get("ndv", {}):
+            raw["ndv"]["ev_cat"] = 10**9
+            with open(side, "w") as f:
+                json.dump(raw, f)
+    os.environ["HYPERSPACE_STREAM_CHUNK_MB"] = "0.02"
+    try:
+        def scan_q():
+            return _columns(a_s.read.parquet(ev).filter(col("ev_cat") == "c1").group_by(
+                "ev_cat").agg(Count(lit(1)).alias("n"), Min(col("ev_v")).alias("lo"),
+                              Max(col("ev_v")).alias("hi")).collect())
+
+        raw_bits = scan_q()  # Hyperspace off: the raw scan
+        a_s.enable_hyperspace()
+        os.environ["HYPERSPACE_ADAPTIVE"] = "1"
+        a0, p0 = val("adaptive.abort"), val("adaptive.scan_replans")
+        got = scan_q()
+        aborts, replans = val("adaptive.abort") - a0, val("adaptive.scan_replans") - p0
+    finally:
+        os.environ.pop("HYPERSPACE_STREAM_CHUNK_MB", None)
+        os.environ.pop("HYPERSPACE_SKETCHES", None)
+        os.environ["HYPERSPACE_ADAPTIVE"] = "0"
+    require(same_bits(got, raw_bits), "adaptive abort: the re-planned result is not the raw scan's")
+    require(aborts >= 1 and replans >= 1, f"adaptive abort: {aborts} aborts, {replans} re-plans")
+    out["scan_abort"] = {"aborts": aborts, "scan_replans": replans, "tampered_sidecars": len(sides),
+                         "rows": ADAPT_ROWS, "s": time.perf_counter() - t_sec}
+    log({"approx": "adaptive_planted", "card": card, "join_replan": out["join_replan"],
+         "conjunct_reorder": out["conjunct_reorder"], "scan_abort": out["scan_abort"]})
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _approx_arrow(K, lake: str, card: str) -> dict:
+    """(c): li_orderkey as Arrow IPC files over the 40-file cut, held to
+    the same index as parquet."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.benchmark import tpch
+
+    cut = os.path.join(DATA_DIR, "approx_cut")
+    _hard_link_tree(os.path.join(lake, "lineitem"), os.path.join(cut, "lineitem"),
+                    LIFECYCLE_FILES)
+    os.environ["HYPERSPACE_ADAPTIVE"] = "0"
+    out: dict = {}
+    for fmt in ("parquet", "arrow"):
+        s = HyperspaceSession(os.path.join(DATA_DIR, f"approx_{fmt}"),
+                              conf={C.INDEX_FORMAT: fmt})
+        hs = Hyperspace(s)
+        t0 = time.perf_counter()
+        tpch.build_index(s, hs, cut, "lineitem", "CI", tpch.LI_ORDERKEY)
+        build_s = time.perf_counter() - t0
+        files = hs.get_index(tpch.LI_ORDERKEY[0]).content.files()
+        require(all(f.endswith(f".{fmt}") for f in files), f"arrow: {fmt} index files {files[:2]}")
+        s.enable_hyperspace()
+        res = {"build_s": build_s, "files": len(files),
+               "bytes": sum(os.path.getsize(f) for f in files), "queries": {}}
+        for q in ("lookup_count", "range_sum"):
+            runs = []
+            for _ in range(1 + APPROX_WARM_RUNS):
+                l0 = dict(K.LAUNCHES)
+                t0 = time.perf_counter()
+                got = _columns(getattr(tpch, q)(s, cut).collect())
+                runs.append({"got": got, "s": time.perf_counter() - t0,
+                             "launches": {k: K.LAUNCHES[k] - l0[k] for k in l0
+                                          if K.LAUNCHES[k] != l0[k]}})
+            require(all(same_bits(r["got"], runs[0]["got"]) for r in runs),
+                    f"arrow: {fmt} {q} repeats")
+            res["queries"][q] = {"got": runs[0]["got"], "launches": runs[0]["launches"],
+                                 "first_s": runs[0]["s"], "warm_s": [r["s"] for r in runs[1:]]}
+        out[fmt] = res
+    for q in ("lookup_count", "range_sum"):
+        a, p = out["arrow"]["queries"][q], out["parquet"]["queries"][q]
+        require(same_bits(a["got"], p["got"]), f"arrow: {q} differs from the parquet index")
+        require(a["launches"] == p["launches"] == {EXPECTED_KERNEL[q]: 1},
+                f"arrow: {q} launches {a['launches']} against parquet {p['launches']}")
+    for fmt in out:
+        for q in out[fmt]["queries"]:
+            out[fmt]["queries"][q]["got"] = _floats(out[fmt]["queries"][q]["got"])
+    log({"approx": "arrow", "card": card, **out})
+    shutil.rmtree(cut, ignore_errors=True)
+    return out
+
+
+APPROX_KNOBS = ("HYPERSPACE_APPROX", "HYPERSPACE_APPROX_FRACTIONS", "HYPERSPACE_ADAPTIVE",
+                "HYPERSPACE_ADAPTIVE_WARMUP_CHUNKS")
+
+
+def approx_phase(K, e2e: dict, session, card: str) -> dict:
+    """The approximate tier, the adaptive executor and the Arrow IPC index
+    format, through the user's entry points (the knobs restored afterwards):
+    (a) a fresh warehouse with HYPERSPACE_APPROX=1 and fractions 0.01 and
+        0.1: li_orderkey and od_orderkey built over the SF10 lake, every
+        data file with its twins and meta, each fraction's kept rows within
+        5% of f·rows; q3_revenue exact (first and warm), then under
+        approx_scope(0.1) and (0.01), first and warm, each through the
+        device join over the twins with intervals covering the exact answer;
+        one pass under HYPERSPACE_APPROX=verify; q3_agg under the scope
+        declined as group-on-key with its exact bits; a served q3_revenue
+        whose deadline (half the exact wall the cost model learned) degrades
+        to the sampled tier (engaged, covering exact), and the same submit
+        with allow_approx=False rejected;
+    (b) the warm mix over the end-to-end indexes, in ``session`` (the
+        serve phase's, warm for each; None makes a new one), under
+        HYPERSPACE_ADAPTIVE=verify, bit for bit mode 0; then the three
+        planted mis-estimates of tools/adapt_smoke.py on seeded tables: a
+        join over footer statistics 64x low (banded→split, fewer parks and
+        spills than static), a worst-order col-vs-col conjunction over
+        ADAPT_ROWS rows ([adapted: …] in EXPLAIN ANALYZE) and sketch NDVs
+        10^9 high over ADAPT_ROWS rows (the index scan aborts, is vetoed,
+        and the result is the raw scan's), each with the static bits;
+    (c) li_orderkey as Arrow IPC files over the lifecycle phase's 40-file
+        cut: lookup_count and range_sum equal the parquet index's bits and
+        launch the same kernel once per run."""
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in APPROX_KNOBS}
+    launches0, plain0 = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    out: dict = {}
+    parts: dict = {}
+    try:
+        t0 = time.perf_counter()
+        out["adaptive"] = _approx_adaptive(K, e2e, session, card)
+        parts["adaptive"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["sampled"] = _approx_tier(e2e["lake"], e2e, out["adaptive"].pop("q3_agg_exact"),
+                                      card)
+        parts["sampled"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["arrow"] = _approx_arrow(K, e2e["lake"], card)
+        parts["arrow"] = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(os.path.join(DATA_DIR, "approx_wh"), ignore_errors=True)
+        for fmt in ("parquet", "arrow"):
+            shutil.rmtree(os.path.join(DATA_DIR, f"approx_{fmt}"), ignore_errors=True)
+    out["launches"] = {k: K.LAUNCHES[k] - launches0[k] for k in launches0}
+    require(K.PLAIN_CALLS == plain0, f"plain versions ran in the approx phase: "
+            f"{ {k: K.PLAIN_CALLS[k] - plain0[k] for k in plain0} }")
+    for k in ON_PATH:
+        require(out["launches"][k] > 0, f"the approx phase launched {k} no time")
+    out["parts_s"] = parts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log({"phase": "approx", "card": card, "seconds": out["phase_s"], "parts_s": parts,
+         "launches": out["launches"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # order phase
 # ---------------------------------------------------------------------------
 
@@ -3681,7 +4202,12 @@ def main() -> int:
     sources = phase("sources", sources_phase, torch, K, e2e, args.rows, smi)
     ref_cache = phase("reference_cache", reference_cache_check, e2e, smi)
     analysis = phase("analysis", analysis_phase, torch, K, e2e, args.rows, smi)
-    served = phase("serve", serve_phase, K, e2e, analysis.pop("session"), smi)
+    warm_session = analysis.pop("session")
+    served = phase("serve", serve_phase, K, e2e, warm_session, smi)
+    # before the ingest phase, whose appends leave every lineitem index but
+    # li_orderkey stale: the approx phase reads the end-to-end indexes
+    approx = phase("approx", approx_phase, K, e2e, warm_session, smi)
+    del warm_session
     ingest = phase("ingest", ingest_phase, torch, K, e2e, args.rows, smi)
     del e2e["want"], e2e["device_results"], e2e["warm_results"]
     shutil.rmtree(DATA_DIR, ignore_errors=True)
@@ -3706,6 +4232,7 @@ def main() -> int:
                     "sources": sources["launches"][name],
                     "analysis": analysis["launches"][name],
                     "serve": served["launches"][name],
+                    "approx": approx["launches"][name],
                     "ingest": ingest["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3724,8 +4251,8 @@ def main() -> int:
                    "kernels": kernels, "end_to_end": e2e, "lifecycle": lifecycle,
                    "skipping": skipping, "pipeline": pipeline, "join": join,
                    "sources": sources, "reference_cache": ref_cache,
-                   "analysis": analysis, "serve": served, "ingest": ingest,
-                   "order": order,
+                   "analysis": analysis, "serve": served, "approx": approx,
+                   "ingest": ingest, "order": order,
                    "cache_sizing_mb": sizing,
                    "phase_s": phase_s, "total_s": time.perf_counter() - t_start}, f, indent=1)
     log({"phase": "done", "card": smi, "phase_s": phase_s,

@@ -25,7 +25,8 @@ from ..exceptions import HyperspaceError
 from ..meta.data_manager import IndexDataManager
 from ..meta.entry import IndexLogEntry, LogEntry
 from ..meta.log_manager import IndexLogManager
-from ..models.dataskipping.sketch_store import derived_base
+from ..models import sample_store
+from ..models.dataskipping import sketch_store
 from ..sources.delta import VERSION_HISTORY_PROPERTY
 from ..sources.iceberg import SNAPSHOT_ID_HISTORY_PROPERTY
 from ..telemetry.events import (
@@ -39,6 +40,13 @@ from ..telemetry.events import (
 # the snapshot providers' table-version history; after vacuum-outdated
 # only the latest table version remains valid for time travel
 _HISTORY_PROPERTIES = (VERSION_HISTORY_PROPERTY, SNAPSHOT_ID_HISTORY_PROPERTY)
+
+
+def _derived_base(file_name: str):
+    """The data file a derived file belongs to (a sample twin or meta, a
+    sketch sidecar), None for any other file."""
+    base = sample_store.derived_base(file_name)
+    return base if base is not None else sketch_store.derived_base(file_name)
 
 
 def _copy_entry(e: LogEntry, state: str) -> LogEntry:
@@ -142,14 +150,14 @@ class VacuumOutdatedAction(IndexMutationAction):
                 METRICS.counter("ingest.vacuum.deferred").inc()
                 continue
             # a referenced version directory loses its unreferenced files; a
-            # derived file (a sketch sidecar, which no content listing holds)
-            # lives as long as the data file it derives from
+            # derived file (a sample twin or meta, a sketch sidecar: no
+            # content listing holds them) lives as long as its data file
             for dirpath, _dirs, names in os.walk(self.data_manager.version_path(v)):
                 for fn in names:
                     full = os.path.join(dirpath, fn)
                     if full in referenced_files:
                         continue
-                    base = derived_base(fn)
+                    base = _derived_base(fn)
                     if base is not None and os.path.join(dirpath, base) in referenced_files:
                         continue
                     os.unlink(full)

@@ -33,6 +33,8 @@ query without the sort and limit, so every group is compared.
 ``q3_span`` (port-only) is q3_agg's join and groups with count, min and
 max of l_quantity, aggregates that fold exactly across left chunks, so the
 fused join splits its buckets where the strategy plan says so.
+``q3_revenue`` (port-only) is q3_agg's join and filter with sum(revenue)
+and count(1) and no groups: the sampled tier's shape.
 
 ``q10``, ``q17`` and ``q18`` are copies of the reference's: the plain
 co-bucketed join (q10 over ``li_orderkey`` and ``od_orderkey``, q17 over
@@ -283,6 +285,21 @@ def q3(session, root: str):
 def q3_agg(session, root: str):
     """Q3 without the sort and limit: revenue of every qualifying order."""
     return _q3_grouped(session, root)
+
+
+def q3_revenue(session, root: str):
+    """Q3's join and order-date filter with sum(revenue) and count(1), no
+    groups (port-only): the shape the sampled tier answers over the two
+    join indexes' twins (its groups are not the sampling key)."""
+    li = _lineitem(session, root)
+    od = session.read.parquet(os.path.join(root, "orders"))
+    return (
+        li.select("l_orderkey", "l_extendedprice", "l_discount")
+        .join(od.select("o_orderkey", "o_orderdate"), col("l_orderkey") == col("o_orderkey"))
+        .filter(col("o_orderdate") < 9500)
+        .agg(Sum(col("l_extendedprice") * (lit(1.0) - col("l_discount"))).alias("revenue"),
+             Count(lit(1)).alias("count"))
+    )
 
 
 def q3_span(session, root: str):

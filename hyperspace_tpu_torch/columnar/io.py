@@ -359,6 +359,8 @@ def _read_one_table(path: str, cols, row_group_sel=None, arrow_filter=None) -> p
 
 def _read_one_table_once(path: str, cols, row_group_sel=None, arrow_filter=None) -> pa.Table:
     faults.fire("io.read_file", path=os.path.basename(path))
+    if path.endswith(ARROW_EXT):
+        return _read_arrow_file(path, cols, arrow_filter)
     if cols is not None and any(c.startswith(NESTED_FIELD_PREFIX) for c in cols):
         phys = set(pq.read_schema(path).names)
         cols = list(dict.fromkeys(
@@ -754,6 +756,9 @@ def _stream_pool(width: int, name: str):
 
 
 def read_parquet_schema(path: str) -> Schema:
+    if path.endswith(ARROW_EXT):
+        with pa.memory_map(path) as src:
+            return arrow_schema_to_schema(pa.ipc.open_file(src).schema)
     return arrow_schema_to_schema(pq.read_schema(path))
 
 
@@ -911,6 +916,8 @@ def file_num_rows(path: str) -> int:
 
 @functools.lru_cache(maxsize=16384)
 def _num_rows(path: str, _version: tuple) -> int:
+    if path.endswith(ARROW_EXT):
+        return arrow_file_num_rows(path)
     return pq.ParquetFile(path).metadata.num_rows
 
 
@@ -921,7 +928,10 @@ def read_rowgroup_stats(path: str, columns: Sequence[str]) -> list[dict] | None:
     footer-statistics cache by the file's (mtime_ns, inode, size) and the
     columns, so a rewrite invalidates it: point lookups consult the same
     footers on every query. None when the footer cannot be read (the
-    caller keeps the file); that is not cached."""
+    caller keeps the file); that is not cached, nor is an Arrow IPC file's
+    (it has no row-group statistics)."""
+    if path.endswith(ARROW_EXT):
+        return None
     try:
         st = os.stat(path)
     except OSError:
@@ -979,6 +989,43 @@ def _footer_stats(path: str, columns: tuple[str, ...]) -> tuple[list[dict], int]
     return out, nbytes
 
 
+# --- Arrow IPC index files ---------------------------------------------------
+# ``hyperspace.tpu.index.format = arrow`` writes index data as uncompressed
+# Arrow IPC files: a faster encode and memory-mapped reads, at more disk and
+# with no row-group statistics. Readers go by the file's extension, so an
+# index whose runs were written under both settings stays readable.
+ARROW_EXT = ".arrow"
+
+
+def index_file_ext(fmt: str) -> str:
+    return ARROW_EXT if fmt == "arrow" else ".parquet"
+
+
+def write_arrow(batch: ColumnBatch, path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    table = batch_to_table(batch)
+    with pa.OSFile(path, "wb") as sink:
+        with pa.ipc.new_file(sink, table.schema) as writer:
+            writer.write_table(table)
+
+
+def _read_arrow_file(path: str, cols, arrow_filter) -> pa.Table:
+    with pa.memory_map(path) as src:
+        table = pa.ipc.open_file(src).read_all()
+    if cols is not None:
+        table = table.select(list(cols))
+    if arrow_filter is not None:
+        # no row-group statistics: the pushed filter masks the rows read
+        table = table.filter(arrow_filter)
+    return table
+
+
+def arrow_file_num_rows(path: str) -> int:
+    with pa.memory_map(path) as src:
+        reader = pa.ipc.open_file(src)
+        return sum(reader.get_batch(i).num_rows for i in range(reader.num_record_batches))
+
+
 # --- writers -----------------------------------------------------------------
 
 
@@ -989,9 +1036,15 @@ def write_index_file(
     stats_columns: Sequence[str] | None = None,
     compression: str = "lz4",
 ) -> None:
-    """One index data file: dictionary-typed strings kept, row-group
-    statistics limited to ``stats_columns`` (the clustered columns, the only
-    ones whose min/max prune), ``compression`` from the session conf."""
+    """One index data file in the format of ``path``'s extension (callers
+    pick it with ``index_file_ext``). Parquet keeps dictionary-typed
+    strings, limits row-group statistics to ``stats_columns`` (the
+    clustered columns, the only ones whose min/max prune) and takes
+    ``compression`` from the session conf; an Arrow IPC file takes none of
+    these."""
+    if path.endswith(ARROW_EXT):
+        write_arrow(batch, path)
+        return
     write_parquet(
         batch, path, row_group_size=row_group_size, compression=compression,
         keep_dictionary=True, stats_columns=stats_columns,

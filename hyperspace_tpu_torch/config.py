@@ -72,6 +72,11 @@ class HyperspaceConf:
                            C.HYBRID_SCAN_MAX_DELETED_RATIO_DEFAULT)
 
     @property
+    def filter_rule_use_bucket_spec(self) -> bool:
+        return _as_bool(self._conf.get(C.FILTER_RULE_USE_BUCKET_SPEC,
+                                       C.FILTER_RULE_USE_BUCKET_SPEC_DEFAULT))
+
+    @property
     def optimize_file_size_threshold(self) -> int:
         return int(self._conf.get(C.OPTIMIZE_FILE_SIZE_THRESHOLD,
                                   C.OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT))
@@ -104,6 +109,13 @@ class HyperspaceConf:
     @property
     def index_compression(self) -> str:
         return str(self._conf.get(C.INDEX_COMPRESSION, C.INDEX_COMPRESSION_DEFAULT)).lower()
+
+    @property
+    def index_format(self) -> str:
+        v = str(self._conf.get(C.INDEX_FORMAT, C.INDEX_FORMAT_DEFAULT)).lower()
+        if v not in ("parquet", "arrow"):
+            raise HyperspaceError(f"{C.INDEX_FORMAT} must be 'parquet' or 'arrow', got {v!r}")
+        return v
 
     @property
     def build_max_bytes_in_memory(self) -> int:

@@ -35,6 +35,11 @@ HYBRID_SCAN_MAX_APPENDED_RATIO_DEFAULT = 0.3
 HYBRID_SCAN_MAX_DELETED_RATIO = "hyperspace.index.hybridscan.maxDeletedRatio"
 HYBRID_SCAN_MAX_DELETED_RATIO_DEFAULT = 0.2
 
+# the filter rule's rewritten scan carries the index's bucket spec (which
+# then enters the plan fingerprint and makes the side bucketed for a join)
+FILTER_RULE_USE_BUCKET_SPEC = "hyperspace.index.filterRule.useBucketSpec"
+FILTER_RULE_USE_BUCKET_SPEC_DEFAULT = False
+
 OPTIMIZE_FILE_SIZE_THRESHOLD = "hyperspace.index.optimize.fileSizeThreshold"
 OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT = 256 * 1024 * 1024  # 256 MB
 OPTIMIZE_MODE_QUICK = "quick"
@@ -58,6 +63,10 @@ INDEX_STATS_COLUMNS = "hyperspace.tpu.index.statsColumns"
 INDEX_STATS_COLUMNS_DEFAULT = "clustered"
 INDEX_COMPRESSION = "hyperspace.tpu.index.compression"
 INDEX_COMPRESSION_DEFAULT = "lz4"
+# index data files as parquet (default) or Arrow IPC (".arrow": uncompressed,
+# memory-mapped reads, no row-group statistics); readers go by extension
+INDEX_FORMAT = "hyperspace.tpu.index.format"
+INDEX_FORMAT_DEFAULT = "parquet"
 
 # index builds and refreshes whose source exceeds this many bytes stream
 # through it in file groups of at most this size (out of core)

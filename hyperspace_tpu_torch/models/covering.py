@@ -77,9 +77,21 @@ _BUCKET_FILE_RE = re.compile(r"^part-(\d+)-b(\d{5})(?:-\d+(?:s\d+)?)?\.(?:parque
 
 
 def bucket_id_from_filename(name: str) -> Optional[int]:
-    """Bucket id of an index data file, None for another name."""
-    m = _BUCKET_FILE_RE.match(os.path.basename(name))
+    """Bucket id of an index data file, None for another name. A sample
+    twin (``_sample.r<ppm>.part-...``) carries its data file's bucket id, so
+    a sampled scan groups and prunes by bucket as an exact one does."""
+    base = os.path.basename(name)
+    if base.startswith("_sample."):
+        from .sample_store import strip_sample_prefix
+
+        base = strip_sample_prefix(base)
+    m = _BUCKET_FILE_RE.match(base)
     return int(m.group(2)) if m else None
+
+
+def _session_index_ext(session) -> str:
+    """The index data file extension the session's conf asks for."""
+    return cio.index_file_ext(session.conf.index_format if session is not None else "parquet")
 
 
 def index_write_opts(session, clustered_columns) -> dict:
@@ -179,18 +191,21 @@ class CoveringIndex(Index):
             write_bucketed(batch, ctx.index_data_path, self._indexed, self.num_buckets,
                            session=ctx.session)
             return
+        ext = _session_index_ext(ctx.session)
         write_opts = index_write_opts(ctx.session, self._indexed)
 
         def compact(item):
             b, files = item
             batch = cio.read_parquet([f.name for f in files])
             part = batch.take(sort_indices_within(batch, self._indexed))
-            out_path = os.path.join(ctx.index_data_path, bucket_file_name(0, b))
+            out_path = os.path.join(ctx.index_data_path, bucket_file_name(0, b, ext=ext))
             cio.write_index_file(part, out_path, row_group_size=INDEX_ROW_GROUP_SIZE,
                                  **write_opts)
             # the compacted file has new row groups: its sidecar is built
-            # anew over the merged batch
+            # anew over the merged batch, and its twins are the merged
+            # batch's (the keep mask is a pure function of the key)
             _write_sketch_sidecar(part, out_path, INDEX_ROW_GROUP_SIZE, self._indexed)
+            _write_sample_runs(part, out_path, INDEX_ROW_GROUP_SIZE, self._indexed)
 
         # HYPERSPACE_IO_THREADS sizes the pool, further clamped so the
         # buckets in flight stay within the build budget
@@ -272,10 +287,12 @@ class CoveringIndex(Index):
                     write_bucketed(kept, ctx.index_data_path, self._indexed, self.num_buckets,
                                    session=ctx.session, seq=seq)
                 else:
-                    out_path = os.path.join(ctx.index_data_path, bucket_file_name(0, bucket, seq))
+                    out_path = os.path.join(ctx.index_data_path, bucket_file_name(
+                        0, bucket, seq, _session_index_ext(ctx.session)))
                     cio.write_index_file(kept, out_path, row_group_size=INDEX_ROW_GROUP_SIZE,
                                          **index_write_opts(ctx.session, self._indexed))
                     _write_sketch_sidecar(kept, out_path, INDEX_ROW_GROUP_SIZE, self._indexed)
+                    _write_sample_runs(kept, out_path, INDEX_ROW_GROUP_SIZE, self._indexed)
             seq += 1
         return UpdateMode.OVERWRITE
 
@@ -389,6 +406,7 @@ def write_bucketed(
     bucket stably by the bucket columns, and write one file per non-empty
     bucket with the bucket id in its name (and the run ``seq``, if any)."""
     keys = [sort_key_values(batch.column(c), True) for c in reversed(bucket_columns)]
+    ext = _session_index_ext(session)
     write_opts = index_write_opts(session, bucket_columns)
 
     def write_bucket(item) -> str:
@@ -398,11 +416,14 @@ def write_bucketed(
         else:
             order = np.lexsort([k[rows] for k in keys])
         part = batch.take(rows[order])
-        fname = bucket_file_name(version, bucket, seq)
+        fname = bucket_file_name(version, bucket, seq, ext)
         rgs = index_row_group_size(part.num_rows)
-        cio.write_index_file(part, os.path.join(path, fname), row_group_size=rgs,
-                             **write_opts)
-        _write_sketch_sidecar(part, os.path.join(path, fname), rgs, bucket_columns)
+        full_path = os.path.join(path, fname)
+        cio.write_index_file(part, full_path, row_group_size=rgs, **write_opts)
+        # one hook for creates, streamed builds and ingest runs: the sketch
+        # sidecar and the sample twins
+        _write_sketch_sidecar(part, full_path, rgs, bucket_columns)
+        _write_sample_runs(part, full_path, rgs, bucket_columns)
         return fname
 
     work = partition_batch(batch, bucket_columns, num_buckets)
@@ -462,6 +483,16 @@ def _write_sketch_sidecar(batch: ColumnBatch, data_path: str, row_group_size: in
     from .dataskipping import sketch_store
 
     sketch_store.maybe_write_sidecar(batch, data_path, row_group_size, key_columns)
+
+
+def _write_sample_runs(batch: ColumnBatch, data_path: str, row_group_size: int,
+                       key_columns: Sequence[str]) -> None:
+    """The sample twins of a just-written index data file
+    (models/sample_store.py); nothing with ``HYPERSPACE_APPROX`` off, the
+    default."""
+    from . import sample_store
+
+    sample_store.maybe_write_samples(batch, data_path, row_group_size, key_columns)
 
 
 def _single_file_scan(df: "DataFrame") -> FileScan:

@@ -111,7 +111,8 @@ class ZOrderCoveringIndex(Index):
     def write(self, ctx: IndexerContext, index_data: ColumnBatch) -> None:
         write_zordered(
             index_data, ctx.index_data_path, self._indexed, self.fields,
-            _TARGET_BYTES_PER_PARTITION, session=ctx.session,
+            _TARGET_BYTES_PER_PARTITION, ext=cio.index_file_ext(ctx.session.conf.index_format),
+            session=ctx.session,
         )
 
     def optimize(self, ctx: IndexerContext, files_to_optimize: list[FileInfo]) -> None:
@@ -188,11 +189,12 @@ def write_zordered(
     fields: Sequence[ZOrderField],
     target_bytes_per_partition: int,
     version: int = 0,
+    ext: str = ".parquet",
     session=None,
 ) -> list[str]:
     """Sort rows stably by z-address (one indexed column: by its sort key)
     and split them into ``ceil(bytes / target)`` near-equal parts, one file
-    ``part-<version>-z<part>.parquet`` each. A string column counts 64
+    ``part-<version>-z<part><ext>`` each. A string column counts 64
     bytes per dictionary entry, as the JAX package counts it."""
     n = batch.num_rows
     if n == 0:
@@ -217,7 +219,7 @@ def write_zordered(
         part = sorted_batch.slice(int(bounds[i]), int(bounds[i + 1]))
         if part.num_rows == 0:
             return None
-        fname = f"part-{version}-z{i:05d}.parquet"
+        fname = f"part-{version}-z{i:05d}{ext}"
         cio.write_index_file(part, os.path.join(path, fname),
                              row_group_size=INDEX_ROW_GROUP_SIZE, **write_opts)
         return fname
@@ -304,6 +306,7 @@ def streaming_zorder_build(ctx: IndexerContext, df: "DataFrame", scan, indexed: 
 
     # pass 2: assign rows to ranges, sort, append one run per range
     os.makedirs(ctx.index_data_path, exist_ok=True)
+    zext = cio.index_file_ext(ctx.session.conf.index_format)
     write_opts = index_write_opts(ctx.session, indexed)
     schema_list = None
     for seq, group in enumerate(groups):
@@ -325,7 +328,7 @@ def streaming_zorder_build(ctx: IndexerContext, df: "DataFrame", scan, indexed: 
             if len(rows):
                 cio.write_index_file(
                     data.take(rows),
-                    os.path.join(ctx.index_data_path, f"part-0-z{p:05d}-{seq}.parquet"),
+                    os.path.join(ctx.index_data_path, f"part-0-z{p:05d}-{seq}{zext}"),
                     row_group_size=INDEX_ROW_GROUP_SIZE, **write_opts)
 
         with ThreadPoolExecutor(max_workers=8) as pool:

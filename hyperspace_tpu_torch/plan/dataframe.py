@@ -224,10 +224,16 @@ class DataFrame:
         upload or dispatch, and otherwise it executes exactly as before.
         ``plan_stats.maybe_scope`` installs a per-node statistics collector
         only under ``HYPERSPACE_PLAN_STATS=1`` (EXPLAIN ANALYZE installs its
-        own outside); with tracing on, the run is one ``query`` span."""
-        from ..cache.result_cache import serve_collect
+        own outside); with tracing on, the run is one ``query`` span.
+        Before the exact path, the sampled tier may answer the query
+        (plan/sampling.py: ``HYPERSPACE_APPROX`` and a requested fraction);
+        the exact path is ``adaptive.execute_collect``, which is
+        ``serve_collect`` with ``HYPERSPACE_ADAPTIVE=0`` and otherwise
+        re-plans a scan that aborted mid-stream against the same pinned
+        snapshot."""
         from ..ingest.snapshots import pin_scope
         from ..telemetry import plan_stats, trace, workload
+        from . import adaptive, sampling
 
         def run() -> ColumnBatch:
             optimized = self.optimized_plan()
@@ -235,7 +241,11 @@ class DataFrame:
             # the workload plane's shapes, join keys and columns (a no-op
             # with HYPERSPACE_WORKLOAD_DIR unset)
             workload.note_plan(optimized)
-            return serve_collect(self.session, self.plan, optimized)
+            approx = sampling.maybe_execute_sampled(self.session, optimized)
+            if approx is not None:
+                return approx
+            return adaptive.execute_collect(self.session, self.plan, optimized,
+                                            self.optimized_plan)
 
         if not trace.enabled():
             with plan_stats.maybe_scope(), pin_scope():

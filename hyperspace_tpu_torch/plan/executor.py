@@ -92,7 +92,14 @@ def _execute_node(plan: LogicalPlan, session=None) -> ColumnBatch:
         return _exec_file_scan(plan, session)
     if isinstance(plan, Filter):
         child = execute_plan(plan.child, session)
-        return child.filter(np.asarray(plan.condition.eval(child).data, dtype=bool))
+        # the adaptive conjunct reorder (HYPERSPACE_ADAPTIVE): None is the
+        # static path, and a mask it returns equals the static one
+        from . import adaptive
+
+        mask = adaptive.conjunct_mask(plan.condition, child)
+        if mask is None:
+            mask = np.asarray(plan.condition.eval(child).data, dtype=bool)
+        return child.filter(mask)
     if isinstance(plan, Project):
         plan.schema  # raises on duplicate output names
         child = execute_plan(plan.child, session)

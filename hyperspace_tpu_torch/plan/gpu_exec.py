@@ -1277,6 +1277,13 @@ def _execute_streaming(frag: _Fragment, scan: FileScan, plan, session,
     overlap = _pipeline_overlap()
     timing = ScanTiming("pipelined", route, 0, 0.0, UploadTimer(device))
     chunks = _observed(iter_scan_chunks(scan, session, overlap, selection), timing)
+    # the abort-and-replan monitor: the stream unchanged unless
+    # HYPERSPACE_ADAPTIVE is on and the scan's pruning kept far more than it
+    # predicted. Its ScanAbortAndReplan propagates to the collect loop: no
+    # handler on this path turns it into a host rerun
+    from . import adaptive
+
+    chunks = adaptive.monitor_scan_chunks(chunks, scan, selection)
     t0 = time.perf_counter()
     with trace.span(f"pipeline:{route}", rows=n_total, files=len(scan.files),
                     grouped=bool(frag.agg.group_exprs)) as sp:

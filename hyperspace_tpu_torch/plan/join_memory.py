@@ -41,16 +41,15 @@ runs in a ``join:park`` span; its wait lands in ``join.spill.park_ms``, and
 a granted resume counts ``join.spill.resumes`` with a ``join:resume``
 marker.
 
-Not ported yet: the adaptive re-derivation of a bucket's split row count
-from observed actuals inside ``JoinMemoryPlan.split_rows`` (it goes with
-plan/adaptive.py, ROADMAP Queue 1 item 3; under the reference's default
-``HYPERSPACE_ADAPTIVE=0`` that branch returns the planned value, which is
-what the port returns) with its ``adapt.join_bytes`` observation, and the
-per-device ledgers of the mesh placement (Queue 1 item 4).
+Under ``HYPERSPACE_ADAPTIVE`` a bucket's split row count is re-derived
+from the actuals of the pairs already loaded (``JoinMemoryPlan.split_rows``,
+plan/adaptive.py), with an ``adapt.join_bytes`` observation. Not ported
+yet: the per-device ledgers of the mesh placement.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, Optional
 
@@ -141,7 +140,8 @@ class JoinMemoryPlan:
     """The per-bucket strategy decisions of one bucketed-join execution."""
 
     __slots__ = ("strategies", "split_rows_by_bucket", "grant", "derived_split_rows",
-                 "override_split_rows", "estimates", "observed", "index_name")
+                 "override_split_rows", "estimates", "observed", "index_name",
+                 "_log_rows", "_log_bytes", "_n_valid", "_switched")
 
     def __init__(self, strategies: dict, split_rows_by_bucket: dict, grant: int,
                  derived: int, override: Optional[int], estimates: Optional[dict] = None,
@@ -156,20 +156,34 @@ class JoinMemoryPlan:
         # bucket -> (decoded rows, decoded bytes), filled as pairs load
         self.observed: dict[int, tuple] = {}
         self.index_name = index_name
+        # running sums of log(observed / estimated) rows and bytes: the
+        # geometric-mean correction later pairs re-derive with under
+        # HYPERSPACE_ADAPTIVE
+        self._log_rows = 0.0
+        self._log_bytes = 0.0
+        self._n_valid = 0
+        self._switched: set = set()  # buckets with a recorded replan
 
     def observe_actual(self, b: int, rows: int, nbytes: int) -> None:
         """Record one planned bucket's decoded left rows and bytes beside its
-        footer estimate (once per bucket), and feed the accuracy ledger's
-        ``join_build_bytes`` estimator the decoded truth."""
+        footer estimate (once per bucket), add them to the running
+        correction, and feed the accuracy ledger's ``join_build_bytes``
+        estimator the decoded truth."""
         if b in self.observed:
             return
         est = self.estimates.get(b)
         if est is None:
             return
         self.observed[b] = (int(rows), int(nbytes))
-        if est[1] > 0 and nbytes > 0:
-            plan_stats.ACCURACY.observe("join_build_bytes", est[1], nbytes,
-                                        index=self.index_name)
+        est_rows, est_bytes = est
+        if est_bytes <= 0 or nbytes <= 0:
+            return
+        if est_rows > 0 and rows > 0:
+            self._log_rows += math.log(rows / est_rows)
+            self._log_bytes += math.log(nbytes / est_bytes)
+            self._n_valid += 1
+        plan_stats.ACCURACY.observe("join_build_bytes", est_bytes, nbytes,
+                                    index=self.index_name)
 
     def strategy(self, b: int) -> str:
         return self.strategies.get(b, "banded")
@@ -177,12 +191,56 @@ class JoinMemoryPlan:
     def split_rows(self, b: int, splittable: bool = True) -> int:
         """Bucket ``b``'s split row count; 0 never splits. A bucket the plan
         never saw (rows only in a hybrid scan's appended part) keeps the
-        override or the derived count. ``splittable`` is the reference's
-        signature: it steers only its adaptive re-derivation, which waits
-        with the adaptive plane."""
+        override or the derived count.
+
+        With ``HYPERSPACE_ADAPTIVE`` on and the warmup pairs observed, the
+        count is re-derived from the bucket's own decoded actuals
+        (``observe_actual`` runs before the split decision) or, for a
+        bucket not yet observed, from the geometric-mean correction of the
+        pairs retired so far. A re-derivation that flips the planned
+        strategy records one ``replan`` switch for the bucket when the
+        caller can act on it (``splittable``); partials fold exactly either
+        way, so a flip changes how the pair is dispatched, never values."""
         fallback = (self.override_split_rows if self.override_split_rows is not None
                     else self.derived_split_rows)
-        return self.split_rows_by_bucket.get(b, fallback)
+        base = self.split_rows_by_bucket.get(b, fallback)
+        if base == 0:
+            return base  # a broadcast pair never splits
+        est = self.estimates.get(b)
+        if est is None:
+            return base
+        from . import adaptive
+
+        if not adaptive.active() or self._n_valid < adaptive.join_warmup_pairs():
+            return base
+        est_rows, est_bytes = est
+        obs = self.observed.get(b)
+        if obs is not None and obs[0] > 0 and obs[1] > 0:
+            act_rows, act_bytes = obs
+            row_bytes = act_bytes / act_rows
+            ratio = act_bytes / max(est_bytes, 1.0)
+        elif est_rows > 0 and est_bytes > 0:
+            rows_corr = math.exp(self._log_rows / self._n_valid)
+            bytes_corr = math.exp(self._log_bytes / self._n_valid)
+            act_rows = est_rows * rows_corr
+            act_bytes = est_bytes * bytes_corr
+            row_bytes = act_bytes / max(act_rows, 1.0)
+            ratio = bytes_corr
+        else:
+            return base
+        derived = derive_split_rows(self.grant, row_bytes)
+        adapted = self.override_split_rows if self.override_split_rows is not None else derived
+        if adapted <= 0:
+            return base
+        old = self.strategies.get(b, "banded")
+        new = "split" if act_rows > adapted else "banded"
+        if new != old and splittable and b not in self._switched:
+            self._switched.add(b)
+            adaptive.record_switch("replan", old, new, index=self.index_name,
+                                   ratio=ratio, at=len(self.observed))
+            plan_stats.observe("adapt.join_bytes", max(est_bytes, 1.0),
+                               max(act_bytes, 1.0), index=self.index_name)
+        return adapted
 
     def counts(self) -> dict:
         out = {"broadcast": 0, "banded": 0, "split": 0}

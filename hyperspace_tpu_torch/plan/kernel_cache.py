@@ -62,7 +62,8 @@ class KernelCache:
 def scan_structure(n) -> tuple:
     """A FileScan's identity, its file list left out: format, columns,
     schema, pushed filter, lineage ids, index and bucket layout, options,
-    partition columns and the derived pruning. A raw scan's roots are part
+    partition columns, the derived pruning and the sampled tier (a sampled
+    scan never shares a key with its exact twin). A raw scan's roots are part
     of it (partition values derive from them); an index scan's root, the
     common path of its files, is not."""
     ps = n.prune_spec
@@ -89,6 +90,7 @@ def scan_structure(n) -> tuple:
         tuple(n.partition_columns),
         tuple(sorted(n.options.items())),
         prune,
+        n.sample_spec.structure_key() if n.sample_spec is not None else None,
     )
 
 

@@ -113,6 +113,8 @@ class FileScan(LogicalPlan):
     the pushed filter derives the buckets and row groups to read.
     ``lineage_filter_ids`` are the ids of deleted source files whose rows
     the scan drops by the index's lineage column (hybrid scan).
+    ``sample_spec`` (plan/sampling.SampleSpec) marks a scan whose ``files``
+    are the index data's sample twins; None for an exact scan.
     ``partition_columns`` are hive-style columns derived from ``key=value``
     directories; ``full_schema`` holds them after the files' own columns,
     and no file stores them."""
@@ -131,6 +133,7 @@ class FileScan(LogicalPlan):
         pushed_filter: Optional[Expr] = None,
         partition_columns: Optional[Sequence[str]] = None,
         prune_spec=None,
+        sample_spec=None,
     ):
         super().__init__([])
         self.root_paths = list(root_paths)
@@ -147,6 +150,7 @@ class FileScan(LogicalPlan):
         self.pushed_filter = pushed_filter
         self.partition_columns = list(partition_columns or [])
         self.prune_spec = prune_spec
+        self.sample_spec = sample_spec
 
     def with_new_children(self, children):
         if children:
@@ -167,6 +171,7 @@ class FileScan(LogicalPlan):
             pushed_filter=self.pushed_filter,
             partition_columns=self.partition_columns,
             prune_spec=self.prune_spec,
+            sample_spec=self.sample_spec,
         )
         args.update(kw)
         return FileScan(**args)
@@ -193,6 +198,8 @@ class FileScan(LogicalPlan):
             extra += f" buckets={self.bucket_spec.num_buckets}"
         if self.prune_spec is not None and self.prune_spec.active:
             extra += f" pruned[{self.prune_spec.describe()}]"
+        if self.sample_spec is not None:
+            extra += f" {self.sample_spec.describe()}"
         return (
             f"FileScan {self.fmt} [{', '.join(self.schema.names)}] "
             f"({len(self.files)} files){extra}"

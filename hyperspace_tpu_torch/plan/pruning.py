@@ -481,12 +481,19 @@ def _sketch_stage_fraction(conjuncts: Sequence[Expr], files, index_name: str) ->
 # execution-time row-group selection
 # ---------------------------------------------------------------------------
 
+def _stats_value(dtype: str, v):
+    """A footer statistic in the column's stored form: parquet gives a
+    date column's statistics as dates."""
+    if dtype == DATE32 and isinstance(v, datetime.date):
+        return (v - _EPOCH).days
+    return v
+
+
 def _stats_column(dtype: str, values: list) -> Column:
     if dtype == STRING:
         return Column.from_values([str(v) for v in values])
-    if dtype == DATE32:  # parquet statistics of a date column are dates
-        values = [(v - _EPOCH).days if isinstance(v, datetime.date) else v for v in values]
-    return Column(np.array(values, dtype=numpy_dtype(dtype)), dtype)
+    return Column(np.array([_stats_value(dtype, v) for v in values],
+                           dtype=numpy_dtype(dtype)), dtype)
 
 
 def _sketch_masks(scan: FileScan) -> dict[str, np.ndarray]:
@@ -494,6 +501,7 @@ def _sketch_masks(scan: FileScan) -> dict[str, np.ndarray]:
     over its row groups from its sidecar. A file without a usable sidecar,
     or whose sidecar bounds no conjunct, is absent (it keeps every
     group)."""
+    from ..columnar import io as cio
     from ..models.dataskipping import sketch_store
     from ..telemetry import plan_stats
 
@@ -502,6 +510,8 @@ def _sketch_masks(scan: FileScan) -> dict[str, np.ndarray]:
     checked = skipped = nosidecar = 0
     with trace.span("prune:sketch", index=spec.index_name) as sp:
         for f in scan.files:
+            if f.name.endswith(cio.ARROW_EXT):
+                continue  # an Arrow IPC file has no row groups to sketch
             sc = sketch_store.load_sidecar(f.name)
             if sc is None:
                 nosidecar += 1
@@ -630,6 +640,48 @@ def rowgroup_selection(scan: FileScan) -> tuple[Optional[dict[str, tuple[int, ..
             )
         plan_stats.note_scan(scan.plan_id, len(kept_files), sum(f.size for f in kept_files))
     return (selection or None), kept_files
+
+
+def prune_underdelivery(scan: FileScan, selection) -> tuple[float, float, float]:
+    """``(ratio, predicted, actual)`` of the worst-kept prune prediction of a
+    resolved scan: the file stage's uniform-bucket ``predicted_kept`` files
+    against the files kept, and the sketch stage's NDV-model
+    ``sketch_fraction`` against the fraction of row groups kept (from the
+    cached footers). ``ratio`` above 1 means the scan kept more than
+    predicted; ``(0.0, 0.0, 0.0)`` without a prediction. The adaptive scan
+    monitor aborts at ``HYPERSPACE_ADAPTIVE_ABORT_FACTOR``."""
+    from ..columnar import io as cio
+
+    spec = scan.prune_spec
+    if spec is None:
+        return 0.0, 0.0, 0.0
+    row_groups, kept_files = selection
+    best = (0.0, 0.0, 0.0)
+    if spec.predicted_kept >= 0:
+        predicted = max(float(spec.predicted_kept), 1.0)
+        actual = float(len(kept_files))
+        r = actual / predicted
+        if r > best[0]:
+            best = (r, predicted, actual)
+    if spec.sketch_fraction > 0:
+        total = kept = 0
+        kept_names = {f.name for f in kept_files}
+        for f in scan.files:
+            if f.name.endswith(cio.ARROW_EXT):
+                continue
+            stats = cio.read_rowgroup_stats(f.name, [])
+            n = len(stats) if stats else 0
+            total += n
+            if f.name not in kept_names:
+                continue
+            sel = (row_groups or {}).get(f.name)
+            kept += len(sel) if sel is not None else n
+        if total:
+            actual_frac = kept / total
+            r = actual_frac / spec.sketch_fraction
+            if r > best[0]:
+                best = (r, spec.sketch_fraction, actual_frac)
+    return best
 
 
 # ---------------------------------------------------------------------------

@@ -195,9 +195,27 @@ class CandidateIndexCollector:
             if not isinstance(node, FileScan) or not manager.is_supported_relation(node):
                 continue
             entries = signature_filter.apply(node, schema_filter.apply(node, all_indexes))
+            entries = _drop_adaptive_vetoes(entries)
             if entries:
                 out[node.plan_id] = entries
         return out
+
+
+def _drop_adaptive_vetoes(entries: list[IndexLogEntry]) -> list[IndexLogEntry]:
+    """Drop the candidates the query's adaptive replan loop aborted out of
+    (plan/adaptive.vetoed_indexes), so the re-plan takes the next candidate
+    or the raw scan; outside a replan scope, one empty-set read."""
+    from ..plan.adaptive import vetoed_indexes
+
+    vetoed = vetoed_indexes()
+    if not vetoed:
+        return entries
+    dropped = [e.name for e in entries if e.name in vetoed]
+    if dropped:
+        from ..telemetry import workload
+
+        workload.note_candidate_reject(dropped, "ADAPTIVE_ABORT")
+    return [e for e in entries if e.name not in vetoed]
 
 
 def _closest_log_version_for_plan(plan: FileScan, properties) -> "int | None":

@@ -137,8 +137,10 @@ class FilterIndexRule(HyperspaceRule):
 
     def apply_index(self, plan, chosen):
         out = plan
+        use_bucket_spec = self.session.conf.filter_rule_use_bucket_spec
         for leaf_id, entry in chosen.items():
-            out = transform_plan_to_use_index(self.session, entry, out, leaf_id, False, False)
+            out = transform_plan_to_use_index(self.session, entry, out, leaf_id,
+                                              use_bucket_spec, False)
             log_index_usage(self.session, "FilterIndexRule", [entry.name],
                             f"Filter index applied: {entry.name}")
         return out

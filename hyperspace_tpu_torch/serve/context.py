@@ -66,8 +66,8 @@ class QueryContext:
         self.deadline_s = deadline_s
         self.device_home: Optional[int] = None
         # sampling fraction the QoS degrade policy selected for this query
-        # (serve/scheduler.py); None = exact. The port has no sampled tier
-        # yet, so the query runs exact whatever it says.
+        # (serve/scheduler.py); None = exact. plan/sampling.py reads it at
+        # collect time.
         self.approx_fraction: Optional[float] = None
         self._cancelled = threading.Event()
 

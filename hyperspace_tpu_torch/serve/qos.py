@@ -48,9 +48,9 @@ Graceful degradation: when the approximate tier is enabled
 deadline degrades instead of rejecting — ``choose_degrade_tier`` picks
 the largest sample fraction whose per-tier cost prediction fits the
 deadline. Degraded walls feed the cost model under ``tier_label(label,
-f)`` only when the sampled tier engaged, never the exact label. The port
-has no sampled tier yet: a degraded query runs exact, its record says
-``engaged: False``, and its wall feeds the exact label.
+f)`` only when the sampled tier engaged (plan/sampling.py), never the
+exact label; a degrade the tier declined ran exact and feeds the exact
+label.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ Per-tenant token buckets and quotas reject at the door with the typed
 deadline the cost model says cannot be met rejects fast with
 ``DeadlineUnmeetable`` — or, with the approximate tier enabled
 (``HYPERSPACE_APPROX``) and the submitter's ``allow_approx``, degrades
-instead of rejecting (serve/qos.choose_degrade_tier; the port has no
-sampled tier yet, so a degraded query runs exact). The scan pipeline and
+instead of rejecting (serve/qos.choose_degrade_tier; plan/sampling.py
+serves the tier). The scan pipeline and
 the join streamer become tasks interleaved across queries by
 construction: query A's worker blocks in a device launch while query B's
 chunks decode on the shared engine IO pool, all read-ahead reserving
@@ -349,6 +349,9 @@ class QueryScheduler:
                 LEDGER.record_unrun(ctx, outcome="rejected")
             raise exc
         if degraded is not None:
+            from ..plan.sampling import APPROX
+
+            APPROX.note_degrade()
             REGISTRY.counter("approx.degrades").inc()
         REGISTRY.counter("serve.admitted").inc()
         REGISTRY.gauge("serve.queue_depth").set(queued)
@@ -442,15 +445,11 @@ class QueryScheduler:
         stats = attribution.LEDGER.begin(h.ctx, queue_wait_s=h.queue_wait_s)
         if h.ctx.approx_fraction is not None:
             # stamp the admission-time degrade decision on the query-log
-            # record. The port has no sample twins, so the sampled tier
-            # never engages: the record says so, with the JAX package's
-            # reason for an index without samples, and the query runs exact
+            # record; plan/sampling.py merges engagement details on top
             stats.note_approx({
                 "degraded": True,
                 "requested_f": h.ctx.approx_fraction,
                 "deadline_s": h.ctx.deadline_s,
-                "engaged": False,
-                "reason": "missing-samples",
             })
         try:
             with query_scope(h.ctx), attribution.scope(stats):
@@ -484,11 +483,12 @@ class QueryScheduler:
         record = attribution.LEDGER.finish(stats, outcome=status, error=error)
         # degraded runs feed the cost model under their TIER label only, so
         # the exact label's EWMA never learns from a sampled wall — but only
-        # when the sampled tier actually ENGAGED. A degrade that ran exact
-        # (in the port: every degrade, for want of sample twins) feeds the
+        # when the sampled tier actually ENGAGED. A degrade the collect path
+        # declined (plan ineligible, missing twins) ran exact and feeds the
         # exact label: an exact wall under the tier label would inflate the
         # tier EWMA and skew future choose_degrade_tier picks. Engagement
-        # comes from the approx block merged onto the query record.
+        # comes from the approx block plan/sampling.py merged onto the
+        # query record.
         engaged = bool((record.get("approx") or {}).get("engaged"))
         cost_label = (
             qos.tier_label(h.label, h.ctx.approx_fraction)

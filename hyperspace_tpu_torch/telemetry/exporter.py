@@ -20,7 +20,9 @@ Endpoints (stdlib ``http.server``, a daemon thread, localhost by default):
                 carries the device-memory ledger: occupancy, open streams,
                 parked/spilled/resumed join waves), the per-query ledger
                 (active + recent query records), the result cache, the
-                estimator ledger and the workload plane.
+                estimator ledger, the workload plane and the sampled
+                tier (degrades, sampled and declined queries, verify
+                checks, the mean relative interval width).
     /healthz    Serving health: queue depth vs cap, rolling error/degrade
                 rates over the query-log window, workload drift. HTTP 200
                 when "ok"; 503 when "degraded" (queue full, high error
@@ -201,6 +203,7 @@ def snapshot_dict() -> dict:
     """The /snapshot payload: one consistent-per-component cut of the
     whole observability plane."""
     from ..cache.result_cache import RESULT_CACHE
+    from ..plan.sampling import APPROX
     from ..serve import serve_state
     from . import workload
     from .attribution import LEDGER
@@ -216,6 +219,7 @@ def snapshot_dict() -> dict:
         "result_cache": RESULT_CACHE.state(),
         "estimator": ACCURACY.snapshot(),
         "workload": workload.snapshot(),
+        "approx": APPROX.snapshot(),
     }
 
 

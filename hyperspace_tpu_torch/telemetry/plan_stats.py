@@ -36,12 +36,10 @@ parquet footer stats.  This module closes the loop in three layers:
 Collection is observe-only by construction: the collector never feeds back
 into an execution decision, so an analyze-mode run is bit-identical to a
 plain ``collect()``, and no hook synchronizes the device: a node's wall
-time on the card is what the host waited for.
-
-The JAX package's collector also records mid-query adaptation events and
-the sampled tier's confidence intervals, and feeds the workload journal;
-the port has no adaptive, sampling or workload plane yet, so those wait
-with them.
+time on the card is what the host waited for. The collector also records
+mid-query adaptation events (plan/adaptive.py; EXPLAIN ANALYZE's
+``[adapted: a→b @unit n]`` lines) and the sampled tier's fraction and
+confidence intervals (plan/sampling.py).
 """
 
 from __future__ import annotations
@@ -215,7 +213,8 @@ class PlanStatsCollector:
     from the query's worker thread (executor, tpu_exec, pruning) under one
     plain leaf lock — nothing else is ever acquired while holding it."""
 
-    __slots__ = ("_lock", "nodes", "plan", "flags", "joins")
+    __slots__ = ("_lock", "nodes", "plan", "flags", "joins", "switches",
+                 "approx")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -223,6 +222,8 @@ class PlanStatsCollector:
         self.plan = None  # optimized root, captured at collect time
         self.flags: dict[str, int] = {}  # query-level events (e.g. spilled)
         self.joins: list[dict] = []  # join memory-plan decision mixes
+        self.switches: list[dict] = []  # mid-query adaptation events
+        self.approx: Optional[dict] = None  # sampled-tier fraction and CIs
 
     def _node(self, plan_id: int, kind: str = "?") -> NodeStats:
         ns = self.nodes.get(plan_id)
@@ -272,6 +273,23 @@ class PlanStatsCollector:
         with self._lock:
             self.joins.append(info)
 
+    def note_switch(self, info: dict) -> None:
+        """One mid-query adaptation event (plan/adaptive.record_switch)."""
+        with self._lock:
+            self.switches.append(info)
+
+    def note_approx(self, info: dict) -> None:
+        """The sampled tier's engagement (plan/sampling.py): the fraction
+        and each output's interval widths, or the reason it declined."""
+        with self._lock:
+            self.approx = dict(info)
+
+    def note_plan_override(self, plan) -> None:
+        """Replace the captured plan when execution swapped it whole (the
+        sampled tier), so the annotated tree is the one whose node ids the
+        executor recorded."""
+        with self._lock:
+            self.plan = plan
 
     # --- reads ------------------------------------------------------------
 
@@ -315,7 +333,9 @@ class PlanStatsCollector:
                 ),
                 "flags": dict(self.flags),
                 "joins": list(self.joins),
+                "switches": list(self.switches),
                 "qerrors": qerrors,
+                "approx": dict(self.approx) if self.approx else None,
             }
 
 
@@ -402,6 +422,18 @@ def note_flag(name: str, n: int = 1) -> None:
         col.note_flag(name, n)
 
 
+def note_switch(site: str, from_: str, to: str, index: str = "",
+                ratio: float = 0.0, at: int = 0) -> None:
+    """Mid-query adaptation chokepoint (plan/adaptive.record_switch): one
+    contextvar read when no collector is installed."""
+    col = _collector.get()
+    if col is not None:
+        col.note_switch({
+            "site": site, "from": from_, "to": to, "index": index,
+            "ratio": round(float(ratio), 3), "at": int(at),
+        })
+
+
 
 def observe(estimator: str, predicted: float, actual: float,
             index: str = "", shape: str = "",
@@ -456,6 +488,26 @@ def summary_string(col: PlanStatsCollector) -> str:
         lines.append(
             "join plan: " + " ".join(f"{k}={v}" for k, v in sorted(j.items()))
         )
+    for sw in s["switches"]:
+        from ..plan.adaptive import SITE_UNITS
+
+        unit = SITE_UNITS.get(sw["site"], "at")
+        suffix = f" ({sw['index']})" if sw.get("index") else ""
+        lines.append(f"[adapted: {sw['from']}→{sw['to']} @{unit} {sw['at']}]{suffix}")
+    if s.get("approx") and "fraction" not in s["approx"]:
+        # the tier declined the plan (the JAX package's renderer raises
+        # KeyError here): its reason, and the exact run's report below
+        a = s["approx"]
+        lines.append(f"approx: declined reason={a.get('reason')} "
+                     f"requested_f={a.get('requested_f', 0):g}")
+    elif s.get("approx"):
+        a = s["approx"]
+        lines.append(
+            f"approx: sampled(f={a['fraction']:g}) "
+            f"safety={a.get('safety', 0):g} rows={a.get('rows', 0)}"
+        )
+        for name, ci in sorted((a.get("outputs") or {}).items()):
+            lines.append(f"  {name}: ±{ci['ci95_mean']:.6g} @95% (max ±{ci['ci95_max']:.6g})")
     if s["qerrors"]:
         lines.append("estimator q-errors (this query):")
         for kind, est, p, a, q in s["qerrors"]:

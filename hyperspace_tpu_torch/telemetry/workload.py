@@ -171,6 +171,26 @@ def note_prune(index_name: str, kind: str, shape: str = "",
     )
 
 
+def note_adaptive(site: str, from_: str, to: str, index: str = "",
+                  ratio: float = 0.0, at: int = 0) -> None:
+    """Mid-query adaptation chokepoint (plan/adaptive.record_switch): each
+    switch (site, from and to, trigger ratio, pair or chunk index) rides
+    the query's journal record under the ``workload.adaptive`` block."""
+    if not enabled():
+        return
+    stats = _current_stats()
+    if stats is None:
+        return
+    stats.note_workload(
+        "adaptive",
+        {
+            "site": site, "from": from_, "to": to, "index": index,
+            "ratio": round(float(ratio), 3), "at": int(at),
+        },
+        cap=_NOTE_CAP,
+    )
+
+
 # ---------------------------------------------------------------------------
 # maintenance attribution (actions/base.py + sketch_store call these)
 # ---------------------------------------------------------------------------
@@ -656,8 +676,6 @@ def journal_record(stats, record: dict) -> dict:
             "candidates": list(wl.get("candidates", ())),
             "chosen": chosen,
             "pruned": list(pruned),
-            # mid-query adaptation switches: the port has no adaptive
-            # executor yet, so the list stays empty (the JAX record's shape)
             "adaptive": list(wl.get("adaptive", ())),
             "qerror_counts": qerr,
         },

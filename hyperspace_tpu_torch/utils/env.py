@@ -68,9 +68,21 @@ call time, as there, so one environment setting steers both packages:
   (unset: off), ``_ROTATE_MB`` (64), ``_RETAIN`` (8), ``_WINDOW`` (64),
   ``_BASELINE`` (64), ``_DRIFT_FACTOR`` (2.0), ``_DRIFT_MIN`` (8) and
   ``_DRIFT_ABS_MS`` (1.0);
-- ``HYPERSPACE_APPROX`` (``0``) and ``HYPERSPACE_APPROX_FRACTIONS``
-  (``0.01,0.1``), read by the serving plane's degrade policy
-  (models/sample_store.py).
+- the approximate tier (models/sample_store.py, plan/sampling.py):
+  ``HYPERSPACE_APPROX`` (``0`` off, ``1`` on, ``verify`` with every
+  sampled answer's intervals held to the exact run),
+  ``HYPERSPACE_APPROX_FRACTIONS`` (``0.01,0.1``: the sample twins written
+  beside each index data file), ``HYPERSPACE_APPROX_CI_SAFETY`` (2.0: the
+  factor on every reported half-width), ``HYPERSPACE_APPROX_MAX_KEY_SHARE``
+  (0.05: a key holding this share of an index's rows that the sample drops
+  declines the tier) and ``HYPERSPACE_APPROX_MIN_KEYS`` (8: a fraction
+  expected to keep fewer distinct keys is declined);
+- the adaptive executor (plan/adaptive.py): ``HYPERSPACE_ADAPTIVE`` (``0``
+  off, ``1`` adapts mid-query, ``verify`` adapts and reruns the final plan
+  statically, comparing bits), ``HYPERSPACE_ADAPTIVE_ABORT_FACTOR`` (4.0:
+  the prune under-delivery that aborts a streamed index scan) and
+  ``HYPERSPACE_ADAPTIVE_WARMUP_CHUNKS`` (2: chunks or bucket pairs observed
+  before a switch).
 
 A boolean knob is on only for the literal string ``1``, as in the JAX
 package.
@@ -126,6 +138,12 @@ DEFAULTS = {
     "HYPERSPACE_WORKLOAD_DRIFT_ABS_MS": 1.0,
     "HYPERSPACE_APPROX": "0",
     "HYPERSPACE_APPROX_FRACTIONS": "0.01,0.1",
+    "HYPERSPACE_APPROX_CI_SAFETY": 2.0,
+    "HYPERSPACE_APPROX_MAX_KEY_SHARE": 0.05,
+    "HYPERSPACE_APPROX_MIN_KEYS": 8,
+    "HYPERSPACE_ADAPTIVE": "0",
+    "HYPERSPACE_ADAPTIVE_ABORT_FACTOR": 4.0,
+    "HYPERSPACE_ADAPTIVE_WARMUP_CHUNKS": 2,
 }
 
 

@@ -30,9 +30,10 @@ Injection points (the catalog; a new point is added HERE):
     workload.journal the workload journal's line write (telemetry/
                      workload.py): crash_after dies between the payload
                      and its newline, the torn tail the reader skips
-    approx.sample    named so that a spec written for the JAX package
-                     parses here; the port has no sample store, so
-                     nothing fires it
+    approx.sample    sample-twin writes beside an index data file
+                     (models/sample_store.py), bracketing the tier loop
+                     and the meta, so a crash leaves files without
+                     twins (the sampled tier then declines them)
 
 Spec grammar (``HYPERSPACE_FAULTS``, also ``arm()``):
 

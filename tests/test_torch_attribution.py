@@ -532,7 +532,7 @@ class TestExporter:
         code, body = _get(exp.url + "/snapshot")
         assert code == 200
         snap = json.loads(body)
-        want = set(jexp.snapshot_dict()) - {"breaker", "approx"}
+        want = set(jexp.snapshot_dict()) - {"breaker"}
         assert set(snap) == want
         assert set(snap["queries"]) >= {"window", "totals", "active", "recent"}
         code, body = _get(exp.url + "/healthz")

@@ -432,10 +432,10 @@ def test_rejections_are_typed_as_in_the_jax_package():
 
 
 def test_declined_degrade_feeds_the_exact_label(monkeypatch):
-    """The port has no sample twins: a degraded admit runs exact, its record
-    says the sampled tier did not engage, and its wall feeds the exact
-    label's EWMA, never the tier label's (as the JAX package does when the
-    tier declines)."""
+    """A degraded admit whose function is no collect never reaches the
+    sampled tier: its record holds the admission's degrade decision alone,
+    as the JAX package's does, and its wall feeds the exact label's EWMA,
+    never the tier label's."""
     monkeypatch.setenv("HYPERSPACE_APPROX", "1")
     got = {}
     for pkg in PKGS:
@@ -454,8 +454,10 @@ def test_declined_degrade_feeds_the_exact_label(monkeypatch):
         got[pkg] = (f, sched.state()["tenants"]["default"]["degraded"])
     assert got["torch"] == got["jax"]
     rec = T.telemetry.attribution.LEDGER.recent_records()[-1]
-    assert rec["label"] == "deg_label"
-    assert rec["approx"]["degraded"] and rec["approx"]["engaged"] is False
+    jrec = J.telemetry.attribution.LEDGER.recent_records()[-1]
+    assert rec["label"] == jrec["label"] == "deg_label"
+    assert rec["approx"] == jrec["approx"]
+    assert rec["approx"]["degraded"] and "engaged" not in rec["approx"]
 
 
 def test_deadline_without_history_admits():

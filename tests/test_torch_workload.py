@@ -266,9 +266,14 @@ def _utility(pkg: str, monkeypatch, tmp_path) -> dict:
         X.Sum(X.col("v")).alias("sv")).sort("k")
     outs.append(grouped.collect().to_pydict())
     wl.JOURNAL.flush()
-    rows = [{k: v for k, v in r.items() if k not in ("maintenance_s", "net_utility_s",
-                                                     "last_used_s", "last_used_seq")}
-            for r in wl.INDEX_LEDGER.report()]
+    report = wl.INDEX_LEDGER.report()
+    # the report ranks by net utility, whose maintenance half is each
+    # create's wall time: that order is checked within the package, and the
+    # rows are compared across the packages by name
+    assert report == sorted(report, key=lambda r: (-r["net_utility_s"], -r["queries"], r["name"]))
+    rows = sorted(({k: v for k, v in r.items() if k not in ("maintenance_s", "net_utility_s",
+                                                            "last_used_s", "last_used_seq")}
+                   for r in report), key=lambda r: r["name"])
     totals = wl.INDEX_LEDGER.totals()
     totals.pop("maintenance_s")
     deltas = {n: _val(n, reg) - before[n] for n in WL_COUNTERS}
