@@ -249,7 +249,23 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     the sum of the direct warm medians, queue-wait p50 and p99 per tenant,
     the cancel-to-resolution seconds and each kernel's launches; kernels
     1-3 launch in the window and no plain version runs;
-13. approx phase (the approximate tier, the adaptive executor and the
+13. staticcheck phase (the static checks) over the SF10 lake and
+    tpch_indexes in the serve phase's session (staticcheck_phase's
+    docstring has each check): 16 submissions of the warm mix (q6_count,
+    q6_sum, q1_sums, lookup_count, range_sum, q3_agg) served under the
+    lock-order and lifecycle audits, each bit for bit the end-to-end
+    phase's, a running q18 cancelled mid-stream, then check_quiescent();
+    every TPCH_QUERIES plan and the kernel-shaped forms verified under
+    HYPERSPACE_VERIFY_PLAN=1 (and in the approx phase, q3_revenue's
+    sampled plans over the twins); the kernel cache cleared and the mix
+    run once under HYPERSPACE_KERNEL_AUDIT=1, bit for bit; warm q6_count
+    and q1_sums with the audits off and on, in turns. Printed: lock
+    acquisitions, edges and violations, lifecycle acquires, releases and
+    leaks, plan runs, nodes and violations, hazards by kind and code,
+    retrace storms and the warm milliseconds (`{"staticcheck": ...}`
+    lines); a lock-order violation, a leak, a plan violation or a result
+    that differs fails the run;
+14. approx phase (the approximate tier, the adaptive executor and the
     Arrow IPC index format; approx_phase's docstring has each check):
     run before the ingest phase, whose appends leave the lineitem indexes
     but li_orderkey stale:
@@ -271,7 +287,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     (c) li_orderkey as Arrow IPC files over the lifecycle phase's 40-file
         cut: lookup_count and range_sum equal the parquet index's bits and
         launch the same kernel;
-14. ingest phase (the ingest plane, the result cache and view
+15. ingest phase (the ingest plane, the result cache and view
     maintenance) over the SF10 lake's lineitem and li_orderkey, with
     HYPERSPACE_RESULT_CACHE=1: lookup_count (a key in the base run and in
     every delta run), range_sum and range_stats (count, min, max and sum
@@ -291,7 +307,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     the three recomputed, and one pass under
     HYPERSPACE_RESULT_CACHE=verify. Append, fold, hit, recompute and
     compaction seconds are printed;
-15. order phase: the device top-k and sort against the host on one
+16. order phase: the device top-k and sort against the host on one
    2^22-row batch (cut from 2^25 in PR 10 and from 2^23 in PR 16 to keep
    the whole run well inside its time limit) of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
@@ -306,7 +322,8 @@ The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
 add up the end-to-end, lifecycle, skipping, pipeline, join, sources,
-analysis, serve, approx and ingest phases' counts, each read on its own
+analysis, serve, staticcheck, approx and ingest phases' counts, each read
+on its own
 (``launches_by_phase``).
 """
 
@@ -3144,6 +3161,219 @@ def serve_phase(K, e2e: dict, session, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# staticcheck phase
+# ---------------------------------------------------------------------------
+
+STATICCHECK_MIX = ("q6_count", "q6_sum", "q1_sums", "lookup_count", "range_sum", "q3_agg")
+STATICCHECK_SUBMISSIONS = 16
+STATICCHECK_WORKERS = 4
+STATICCHECK_CANCEL_QUERY = "q18"
+STATICCHECK_TIMED = ("q6_count", "q1_sums")
+STATICCHECK_TURNS = (False, True, True, False)  # audits off/on, in turns
+STATICCHECK_KNOBS = ("HYPERSPACE_VERIFY_PLAN", "HYPERSPACE_KERNEL_AUDIT")
+
+
+def _counters(prefix: str) -> dict:
+    from hyperspace_tpu_torch.telemetry.metrics import REGISTRY
+
+    return {n: v for n, kind, v in REGISTRY.export()
+            if kind == "counter" and n.startswith(prefix)}
+
+
+def _delta(before: dict, prefix: str) -> dict:
+    after = _counters(prefix)
+    return {k[len(prefix):]: after[k] - before.get(k, 0) for k in sorted(after)
+            if after[k] != before.get(k, 0)}
+
+
+def staticcheck_phase(K, e2e: dict, session, card: str) -> dict:
+    """The static checks over the main phase's lake and tpch_indexes, in
+    ``session`` (the serve phase's, its caches warm; nothing re-uploads):
+    (a) with the lock-order and lifecycle audits armed (set_audit),
+        STATICCHECK_SUBMISSIONS submissions of STATICCHECK_MIX through one
+        QueryScheduler of STATICCHECK_WORKERS workers, each bit for bit
+        the end-to-end phase's warm result, then a running q18 (on a new
+        session, its chunk caches cold) cancelled mid-stream; once every
+        handle has drained, check_quiescent()
+        (a LockOrderError or a ResourceLeakError fails the run);
+    (b) with HYPERSPACE_VERIFY_PLAN=1, the optimized plan of every
+        TPCH_QUERIES query and of the kernel-shaped forms (tpch.QUERIES,
+        LOOKUP_QUERIES, JOIN_QUERIES) verified (a PlanInvariantError fails
+        the run; the sampled q3_revenue plan is verified in the approx
+        phase, whose warehouse holds the twins);
+    (c) the session's kernel cache cleared (its device cache kept) and the
+        mix run once under HYPERSPACE_KERNEL_AUDIT=1: each built closure's
+        first call audited, each result bit for bit the end-to-end
+        phase's; hazards by kind and code and retrace storms printed;
+    (d) warm q6_count and q1_sums with every audit off and on, in turns.
+    Kernels 1-3 launch and no plain version runs. The knobs and audit
+    switches are restored afterwards."""
+    from hyperspace_tpu_torch import serve
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.staticcheck import concurrency, kernel_audit, lifecycle
+
+    t_phase = time.perf_counter()
+    lake = e2e["lake"]
+    fns = {**tpch.QUERIES, **tpch.LOOKUP_QUERIES, **tpch.JOIN_QUERIES, **tpch.TPCH_QUERIES}
+    want = e2e["warm_results"]
+    out: dict = {}
+    parts: dict = {}
+    launches0, plain0 = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    saved = {k: os.environ.get(k) for k in STATICCHECK_KNOBS}
+    prev_lock, prev_life = concurrency.audit_enabled(), lifecycle.audit_enabled()
+    sched = None
+
+    def arm(on: bool) -> None:
+        concurrency.set_audit(on)
+        lifecycle.set_audit(on)
+        if on:
+            os.environ["HYPERSPACE_VERIFY_PLAN"] = "1"
+        else:
+            os.environ.pop("HYPERSPACE_VERIFY_PLAN", None)
+
+    try:
+        # (a) the served mix under the lock-order and lifecycle audits
+        t0 = time.perf_counter()
+        lock0, life0 = _counters("staticcheck.lock."), _counters("staticcheck.lifecycle.")
+        arm(True)
+        sched = serve.QueryScheduler(max_concurrent=STATICCHECK_WORKERS, queue_depth=64)
+        handles = []
+        for i in range(STATICCHECK_SUBMISSIONS):
+            q = STATICCHECK_MIX[i % len(STATICCHECK_MIX)]
+            handles.append((q, sched.submit_query(fns[q](session, lake), label=q)))
+        require(sched.drain(600), "staticcheck: the served mix did not drain")
+        for q, h in handles:
+            require(h.status == "done", f"staticcheck {q}: status {h.status} ({h._error!r})")
+            require(_same_result(q, _result_form(q, h.result(0)), want[q]),
+                    f"staticcheck {q} (query {h.query_id}): the served result under the "
+                    f"audits differs from the end-to-end phase's")
+        # on a new session, whose chunk caches are cold, so that its scan
+        # streams (the warm session may hold every chunk q18 reads)
+        from hyperspace_tpu_torch import HyperspaceSession
+
+        cold = HyperspaceSession(e2e["warehouse"]).enable_hyperspace()
+        victim = sched.submit_query(fns[STATICCHECK_CANCEL_QUERY](cold, lake),
+                                    label=STATICCHECK_CANCEL_QUERY)
+        qid, mid_stream, deadline = victim.query_id, None, time.perf_counter() + 60
+        while mid_stream is None and time.perf_counter() < deadline and not victim.done():
+            for ledger, name in ((serve.global_budget(), "read-ahead"),
+                                 (serve.device_budget(), "device")):
+                if any(st["query"] == qid for st in ledger.state()["streams"]):
+                    mid_stream = name
+            if mid_stream is None:
+                time.sleep(0.001)
+        victim.cancel()
+        try:
+            victim.result(120)
+            outcome = "done"
+        except serve.QueryCancelledError:
+            outcome = "cancelled"
+        require(mid_stream is not None and outcome == "cancelled",
+                f"staticcheck: {STATICCHECK_CANCEL_QUERY} resolved {outcome} "
+                f"(stream open: {mid_stream})")
+        require(sched.drain(120), "staticcheck: the scheduler did not drain after the cancel")
+        sched.shutdown(wait=True, cancel=True)
+        sched = None
+        # straggler read-ahead tasks of the cancelled query release their
+        # attribution scopes when they end
+        settle = time.perf_counter() + SERVE_SETTLE_S
+        while lifecycle.live_handles() and time.perf_counter() < settle:
+            time.sleep(0.05)
+        lifecycle.check_quiescent()
+        lock_report = concurrency.report()
+        out["locks"] = {**_delta(lock0, "staticcheck.lock."), "edges_seen": len(
+            lock_report["edges"]), "registered": len(lock_report["locks"])}
+        out["lifecycle"] = _delta(life0, "staticcheck.lifecycle.")
+        for k in ("acquisitions", "edges", "violations"):
+            out["locks"].setdefault(k, 0)
+        for k in ("acquires", "releases", "leaks"):
+            out["lifecycle"].setdefault(k, 0)
+        require(out["locks"]["violations"] == 0 and out["lifecycle"]["leaks"] == 0,
+                f"staticcheck: {out['locks']} {out['lifecycle']}")
+        require(out["lifecycle"]["acquires"] == out["lifecycle"]["releases"] > 0,
+                f"staticcheck: lifecycle acquires and releases differ: {out['lifecycle']}")
+        out["served"] = {"submissions": len(handles), "cancelled": STATICCHECK_CANCEL_QUERY,
+                         "stream_open": mid_stream}
+        parts["served"] = time.perf_counter() - t0
+        log({"staticcheck": "served", "card": card, **out["served"],
+             "locks": out["locks"], "lifecycle": out["lifecycle"]})
+
+        # (b) every optimized plan through the verifier
+        t0 = time.perf_counter()
+        plan0 = _counters("staticcheck.plan.")
+        verified = []
+        for q in sorted(set(tpch.TPCH_QUERIES) | set(tpch.QUERIES) | set(tpch.LOOKUP_QUERIES)
+                        | set(tpch.JOIN_QUERIES)):
+            fns[q](session, lake).optimized_plan()  # raises PlanInvariantError
+            verified.append(q)
+        out["plans"] = {**_delta(plan0, "staticcheck.plan."), "queries": verified}
+        out["plans"].setdefault("violations", 0)
+        require(out["plans"].get("runs", 0) >= len(verified)
+                and out["plans"]["violations"] == 0,
+                f"staticcheck: plan verifier {out['plans']}")
+        parts["plans"] = time.perf_counter() - t0
+        log({"staticcheck": "plans", "card": card, **out["plans"]})
+
+        # (d) the audits' cost on warm queries: off, on, on, off
+        t0 = time.perf_counter()
+        timed: dict = {q: {"off": [], "on": []} for q in STATICCHECK_TIMED}
+        for on in STATICCHECK_TURNS:
+            arm(on)
+            for q in STATICCHECK_TIMED:
+                t1 = time.perf_counter()
+                batch = fns[q](session, lake).collect()
+                timed[q]["on" if on else "off"].append((time.perf_counter() - t1) * 1000)
+                require(_same_result(q, _result_form(q, batch), want[q]),
+                        f"staticcheck {q}: the warm result (audits {on}) differs")
+        arm(False)
+        out["warm_ms"] = {q: {k: {"runs": v, "median": statistics.median(v)}
+                              for k, v in d.items()} for q, d in timed.items()}
+        parts["warm_cost"] = time.perf_counter() - t0
+        log({"staticcheck": "warm_ms", "card": card, **out["warm_ms"]})
+
+        # (c) the kernel hazard audit over rebuilt closures
+        t0 = time.perf_counter()
+        kern0 = _counters("staticcheck.kernel.")
+        kernel_audit.reset_hazards()
+        session.kernel_cache.clear()
+        os.environ["HYPERSPACE_KERNEL_AUDIT"] = "1"
+        for q in STATICCHECK_MIX:
+            batch = fns[q](session, lake).collect()
+            require(_same_result(q, _result_form(q, batch), want[q]),
+                    f"staticcheck {q}: the result under the kernel audit differs")
+        os.environ.pop("HYPERSPACE_KERNEL_AUDIT", None)
+        by: dict = {}
+        for h in kernel_audit.hazards_found():
+            key = f"{h.kind}:{h.code}:{h.primitive}"
+            by[key] = by.get(key, 0) + 1
+        out["kernels"] = {**_delta(kern0, "staticcheck.kernel."), "hazards_by": by,
+                          "retrace_storms_in_run": kernel_audit.report()["retrace_storms"]}
+        require(out["kernels"].get("audited", 0) > 0, "staticcheck: no closure was audited")
+        parts["kernel_audit"] = time.perf_counter() - t0
+        log({"staticcheck": "kernels", "card": card, **out["kernels"]})
+    finally:
+        if sched is not None:
+            sched.shutdown(wait=True, cancel=True)
+        concurrency.set_audit(prev_lock)
+        lifecycle.set_audit(prev_life)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["launches"] = {k: K.LAUNCHES[k] - launches0[k] for k in launches0}
+    require(K.PLAIN_CALLS == plain0, f"plain versions ran in the staticcheck phase: "
+            f"{ {k: K.PLAIN_CALLS[k] - plain0[k] for k in plain0} }")
+    for k in ON_PATH:
+        require(out["launches"][k] > 0, f"the staticcheck phase launched {k} no time")
+    out["parts_s"] = parts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log({"phase": "staticcheck", "card": card, "seconds": out["phase_s"], "parts_s": parts,
+         "launches": out["launches"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # ingest phase
 # ---------------------------------------------------------------------------
 
@@ -3580,6 +3810,19 @@ def _approx_tier(lake: str, e2e: dict, q3_agg_exact: dict, card: str) -> dict:
     log({"approx": "twins", "card": card, **out})
 
     q = lambda: tpch.q3_revenue(session, lake)  # noqa: E731
+    # the staticcheck phase's sampled plan: q3_revenue's at each fraction,
+    # substituted over the twins, verified (a PlanInvariantError fails)
+    from hyperspace_tpu_torch.staticcheck.plan_verifier import verify_plan
+
+    out["verified_sampled_plans"] = {}
+    for f in APPROX_FRACTIONS:
+        sp = sampling.build_sampled_plan(session, q().optimized_plan(), f)
+        require(not isinstance(sp, str), f"approx: {APPROX_QUERY} declined at {f}: {sp}")
+        nodes0 = val("staticcheck.plan.nodes")
+        require(verify_plan(sp.plan, session) == [], "approx: sampled plan violations")
+        out["verified_sampled_plans"][f"{f:g}"] = val("staticcheck.plan.nodes") - nodes0
+    log({"staticcheck": "sampled_plans", "card": card,
+         "query": APPROX_QUERY, "nodes": out["verified_sampled_plans"]})
     exact = [_approx_run(session, q) for _ in range(1 + APPROX_WARM_RUNS)]
     for r in exact:
         # no groups: the batched plain join on the card, the sum on the host
@@ -4204,6 +4447,7 @@ def main() -> int:
     analysis = phase("analysis", analysis_phase, torch, K, e2e, args.rows, smi)
     warm_session = analysis.pop("session")
     served = phase("serve", serve_phase, K, e2e, warm_session, smi)
+    static = phase("staticcheck", staticcheck_phase, K, e2e, warm_session, smi)
     # before the ingest phase, whose appends leave every lineitem index but
     # li_orderkey stale: the approx phase reads the end-to-end indexes
     approx = phase("approx", approx_phase, K, e2e, warm_session, smi)
@@ -4232,6 +4476,7 @@ def main() -> int:
                     "sources": sources["launches"][name],
                     "analysis": analysis["launches"][name],
                     "serve": served["launches"][name],
+                    "staticcheck": static["launches"][name],
                     "approx": approx["launches"][name],
                     "ingest": ingest["launches"][name]}
         line.append({
@@ -4251,7 +4496,8 @@ def main() -> int:
                    "kernels": kernels, "end_to_end": e2e, "lifecycle": lifecycle,
                    "skipping": skipping, "pipeline": pipeline, "join": join,
                    "sources": sources, "reference_cache": ref_cache,
-                   "analysis": analysis, "serve": served, "approx": approx,
+                   "analysis": analysis, "serve": served, "staticcheck": static,
+                   "approx": approx,
                    "ingest": ingest, "order": order,
                    "cache_sizing_mb": sizing,
                    "phase_s": phase_s, "total_s": time.perf_counter() - t_start}, f, indent=1)

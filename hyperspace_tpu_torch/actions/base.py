@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 import time
 
 from . import states as S
@@ -35,6 +34,7 @@ from ..columnar.io import maintenance_scope
 from ..exceptions import ConcurrentWriteError, HyperspaceError, NoChangesError
 from ..meta.entry import LogEntry
 from ..meta.log_manager import IndexLogManager
+from ..staticcheck.concurrency import TrackedLock, guarded_by
 from ..telemetry import trace
 from ..telemetry.events import AppInfo, HyperspaceEvent
 from ..telemetry.metrics import REGISTRY
@@ -42,8 +42,13 @@ from ..utils import env
 
 logger = logging.getLogger(__name__)
 
-_TX_LOCK = threading.Lock()
-_ACTIVE_TX: dict[str, int] = {}  # abspath(index_path) -> nesting depth
+_TX_LOCK = TrackedLock("actions.active_tx")
+_ACTIVE_TX: dict[str, int] = guarded_by(
+    {},  # abspath(index_path) -> nesting depth
+    _TX_LOCK,
+    name="actions.base._ACTIVE_TX",
+    note="recovery must skip indexes with a live in-process transaction",
+)
 
 
 def _tx_key(index_path: str) -> str:

@@ -51,6 +51,8 @@ import weakref
 from collections import OrderedDict
 
 from ..exceptions import HyperspaceError
+from ..staticcheck.concurrency import TrackedLock
+from ..staticcheck.lifecycle import release_resource, tracked_resource
 from ..utils import env
 
 
@@ -124,11 +126,12 @@ class ResultCache:
 
     def __init__(self, name: str = "result"):
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = TrackedLock(f"cache.{name}")
         self._d: OrderedDict = OrderedDict()  # key -> CachedResult
         self._by_structure: dict = {}  # structure_key -> OrderedDict[key, None]
         self._bytes = 0
         self._inflight: dict = {}
+        self._inflight_lc: dict = {}  # key -> lifecycle-audit handle
 
     # --- metrics (outside the lock) ---
 
@@ -195,6 +198,7 @@ class ResultCache:
                 building = event is None
                 if building:
                     event = self._inflight[key] = threading.Event()
+                    self._inflight_lc[key] = tracked_resource("cache.inflight", self.name)
             if not building:
                 event.wait()
                 continue
@@ -203,7 +207,9 @@ class ResultCache:
             except BaseException:
                 with self._lock:
                     self._inflight.pop(key, None)
+                    lc = self._inflight_lc.pop(key, 0)
                 event.set()
+                release_resource(lc)
                 raise
             try:
                 if entry is not None:
@@ -211,7 +217,9 @@ class ResultCache:
             finally:
                 with self._lock:
                     self._inflight.pop(key, None)
+                    lc = self._inflight_lc.pop(key, 0)
                 event.set()
+                release_resource(lc)
             return entry, False
 
     # --- fold candidates and maintenance ---

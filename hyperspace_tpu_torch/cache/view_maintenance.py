@@ -32,9 +32,10 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 from dataclasses import dataclass
 from typing import Optional
+
+from ..staticcheck.concurrency import TrackedLock, guarded_by
 
 logger = logging.getLogger(__name__)
 
@@ -182,8 +183,13 @@ def try_fold(session, plan, spec: FoldSpec, candidates):
 
 # --- background refresh (the ingest log's hook) ---
 
-_REFRESH_LOCK = threading.Lock()
-_REFRESH_INFLIGHT: set = set()  # abspath(index_path) with a wave in flight
+_REFRESH_LOCK = TrackedLock("cache.result_refresh")
+_REFRESH_INFLIGHT: set = guarded_by(
+    set(),  # abspath(index_path) with a wave in flight
+    _REFRESH_LOCK,
+    name="cache.view_maintenance._REFRESH_INFLIGHT",
+    note="one refresh wave per index at a time",
+)
 
 
 def refresh_idle() -> bool:

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import functools
 import os
-import threading
 import time
 from collections import OrderedDict
 from typing import Callable, Iterator, Sequence
@@ -50,6 +49,7 @@ from ..constants import NESTED_FIELD_PREFIX
 from ..exceptions import HyperspaceError
 from ..serve import budget as serve_budget
 from ..serve.context import check_cancelled, current_query
+from ..staticcheck.concurrency import TrackedLock
 from ..telemetry import attribution as _attr
 from ..telemetry.metrics import REGISTRY
 from ..utils import env, faults, retry
@@ -224,7 +224,7 @@ class BytesBoundedLRU:
         self.metric_name = metric_name
         self._d: OrderedDict = OrderedDict()
         self._bytes = 0
-        self._lock = threading.Lock()
+        self._lock = TrackedLock(f"io.cache.{metric_name or 'anon'}")
         self.hits = 0
         self.misses = 0
         self.evictions = 0

@@ -314,7 +314,7 @@ class IndexCollectionManager:
         try:
             os.rmdir(path)  # succeeds only when empty
         except OSError:
-            pass
+            pass  # hslint: HS402 — non-empty or absent dir stays put
 
 
 class CachingIndexCollectionManager(IndexCollectionManager):

@@ -12,19 +12,16 @@ have drained and whose ``HYPERSPACE_VACUUM_GRACE_S`` has passed
 cycle. At most one task per index is in flight; losing a cycle is always
 safe, since compaction is only a layout optimization and vacuum starts
 afresh each pass.
-
-The JAX package guards these sets with audited locks of its lock-order
-checker; the port uses plain ``threading.Lock``s.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import threading
 from collections import Counter
 from typing import TYPE_CHECKING, Optional
 
+from ..staticcheck.concurrency import TrackedLock, guarded_by
 from ..utils import env
 
 if TYPE_CHECKING:
@@ -32,25 +29,36 @@ if TYPE_CHECKING:
 
 logger = logging.getLogger(__name__)
 
-_INFLIGHT_LOCK = threading.Lock()
-_INFLIGHT: set = set()  # abspath(index_path) with a task scheduled or running
+_INFLIGHT_LOCK = TrackedLock("ingest.compaction_inflight")
+_INFLIGHT: set = guarded_by(
+    set(),  # abspath(index_path) with a task scheduled or running
+    _INFLIGHT_LOCK,
+    name="ingest.compaction._INFLIGHT",
+    note="one background maintenance task per index at a time",
+)
 
 # the per-index writer mutex: in-process writers (append, compact, vacuum)
 # serialize on it, so the ingest stream never collides with its own
 # background maintenance mid-transaction; writers in other processes go
 # through the log's optimistic concurrency
-_WRITER_LOCKS_LOCK = threading.Lock()
-_WRITER_LOCKS: dict = {}  # abspath(index_path) -> threading.Lock
+_WRITER_LOCKS_LOCK = TrackedLock("ingest.writer_locks")
+_WRITER_LOCKS: dict = guarded_by(
+    {},  # abspath(index_path) -> TrackedLock
+    _WRITER_LOCKS_LOCK,
+    name="ingest.compaction._WRITER_LOCKS",
+    note="lazily created per-index writer mutexes",
+)
 
 
-def writer_lock(index_path: str) -> threading.Lock:
+def writer_lock(index_path: str) -> TrackedLock:
     """The index's writer mutex, made on first use. It is held across one
     whole maintenance transaction; queries never take it."""
     key = os.path.abspath(index_path)
     with _WRITER_LOCKS_LOCK:
         lock = _WRITER_LOCKS.get(key)
         if lock is None:
-            lock = _WRITER_LOCKS[key] = threading.Lock()
+            lock = TrackedLock(f"ingest.writer:{os.path.basename(key)}")
+            _WRITER_LOCKS[key] = lock
         return lock
 
 

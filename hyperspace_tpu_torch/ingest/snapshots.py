@@ -23,19 +23,22 @@ maintenance sound:
   process, from ``stage_version`` to the final log commit; protection is
   released in the action's ``finally``, even on an injected crash.
 
-The registry lock is a leaf: nothing else is acquired under it, and
-counters are emitted outside it. The JAX package's lock is an audited
-lock of its lock-order checker; the port uses a plain ``threading.Lock``.
+The registry lock is a leaf ``TrackedLock``: nothing else is acquired
+under it, and counters are emitted outside it. Each pin and each
+protection is a lifecycle-audit handle (``snapshot.pin``,
+``snapshot.protect``) under ``HYPERSPACE_LIFECYCLE_AUDIT``.
 """
 
 from __future__ import annotations
 
 import contextvars
 import os
-import threading
 import time
 from dataclasses import dataclass
 from typing import Optional
+
+from ..staticcheck.concurrency import TrackedLock
+from ..staticcheck.lifecycle import release_resource, tracked_resource
 
 
 @dataclass(frozen=True)
@@ -66,10 +69,15 @@ class SnapshotRegistry:
     vacuum's grace period."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("ingest.snapshots")
         self._refs: dict = {}  # (index_path, version) -> pin refcount
         self._protected: dict = {}  # (index_path, version) -> nesting depth
         self._superseded_at: dict = {}  # (index_path, version) -> monotonic s
+        # lifecycle-audit handles: id(Snapshot) -> handle for pins (each
+        # pin() returns a distinct Snapshot), (path, version) -> LIFO handle
+        # stack for nested protection
+        self._pin_handles: dict = {}
+        self._prot_handles: dict = {}
 
     # --- pinning ---
 
@@ -82,10 +90,13 @@ class SnapshotRegistry:
             versions=_versions_of_entry(entry),
             files=tuple(entry.content.files()),
         )
+        lc = tracked_resource("snapshot.pin", f"{snap.index_name}#{snap.entry_id}")
         with self._lock:
             for v in snap.versions:
                 key = (index_path, v)
                 self._refs[key] = self._refs.get(key, 0) + 1
+            if lc:
+                self._pin_handles[id(snap)] = lc
         from ..telemetry.metrics import REGISTRY
 
         REGISTRY.counter("ingest.snapshot.pins").inc()
@@ -100,6 +111,8 @@ class SnapshotRegistry:
                     self._refs.pop(key, None)
                 else:
                     self._refs[key] = n
+            lc = self._pin_handles.pop(id(snap), 0)
+        release_resource(lc)
         from ..telemetry.metrics import REGISTRY
 
         REGISTRY.counter("ingest.snapshot.releases").inc()
@@ -117,8 +130,11 @@ class SnapshotRegistry:
 
     def protect_version(self, index_path: str, version: int) -> None:
         key = (os.path.abspath(index_path), version)
+        lc = tracked_resource("snapshot.protect", f"{key[0]}@v{version}")
         with self._lock:
             self._protected[key] = self._protected.get(key, 0) + 1
+            if lc:
+                self._prot_handles.setdefault(key, []).append(lc)
 
     def unprotect_version(self, index_path: str, version: int) -> None:
         key = (os.path.abspath(index_path), version)
@@ -128,6 +144,11 @@ class SnapshotRegistry:
                 self._protected.pop(key, None)
             else:
                 self._protected[key] = depth
+            stack = self._prot_handles.get(key)
+            lc = stack.pop() if stack else 0
+            if stack is not None and not stack:
+                self._prot_handles.pop(key, None)
+        release_resource(lc)
 
     def is_protected(self, index_path: str, version: int) -> bool:
         key = (os.path.abspath(index_path), version)

@@ -120,4 +120,4 @@ class IndexDataManager:
         try:
             os.rmdir(os.path.join(self.index_path, STAGING_DIR))
         except OSError:
-            pass  # absent, or another staged build is still there
+            pass  # hslint: HS402 — non-empty or absent root stays put

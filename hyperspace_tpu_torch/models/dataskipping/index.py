@@ -14,7 +14,6 @@ table; full refresh rebuilds it. The kind has no optimize.
 from __future__ import annotations
 
 import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
@@ -53,7 +52,9 @@ def read_source_files_parallel(ctx: IndexerContext, df: "DataFrame", scan: "File
             sub = df.plan.transform_up(lambda n: n.copy(files=[f]) if n is scan else n)
             return DF(ctx.session, sub).select(*cols).collect()
 
-    with ThreadPoolExecutor(max_workers=max(1, min(len(scan.files), 8))) as pool:
+    from ...utils.workers import io_pool, io_worker_count
+
+    with io_pool(io_worker_count(len(scan.files)), "hs-build-read") as pool:
         batches = list(pool.map(read_one, scan.files))
     return fids, batches
 

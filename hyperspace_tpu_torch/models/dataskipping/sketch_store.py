@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 from collections import OrderedDict
 from typing import TYPE_CHECKING, Optional, Sequence
 
@@ -38,6 +37,8 @@ import numpy as np
 
 from ... import constants as C
 from ...columnar.table import Column, ColumnBatch, STRING, numpy_dtype
+from ...staticcheck.concurrency import TrackedLock
+from ...utils import env
 from .sketches import (
     BloomFilterSketch,
     Sketch,
@@ -71,7 +72,7 @@ def enabled_kinds() -> frozenset:
     """The kinds ``HYPERSPACE_SKETCHES`` enables: none when unset, "0" or
     "off"; every kind for "1" or "all"; else the known names of a comma
     list (an unknown name is ignored)."""
-    raw = os.environ.get("HYPERSPACE_SKETCHES", "").strip().lower()
+    raw = (env.env_str("HYPERSPACE_SKETCHES") or "").strip().lower()
     if raw in ("", "0", "false", "off"):
         return frozenset()
     if raw in ("1", "all", "true", "on"):
@@ -327,7 +328,7 @@ class _SidecarCache:
         self.max_bytes = max_bytes
         self._d: OrderedDict = OrderedDict()
         self._bytes = 0
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("io.cache.sketch")
 
     def get(self, key) -> Optional[Sidecar]:
         with self._lock:

@@ -27,13 +27,17 @@ from ...exceptions import HyperspaceError
 from ...ops.sketch import BloomFilter, segment_min_max_np
 from ...plan import expr as X
 from ...plan.expr import Expr
+from ...staticcheck.concurrency import guarded_by
 
 # a predicate over the sketch table: batch (one row per unit) -> keep mask
 SketchPredicate = Callable[[ColumnBatch], np.ndarray]
 
 _FLIP = {X.Lt: X.Gt, X.Le: X.Ge, X.Gt: X.Lt, X.Ge: X.Le, X.Eq: X.Eq, X.Ne: X.Ne}
 
-SKETCH_REGISTRY: dict[str, Callable[[dict], "Sketch"]] = {}
+SKETCH_REGISTRY: dict[str, Callable[[dict], "Sketch"]] = guarded_by(
+    {}, None, name="models.dataskipping.SKETCH_REGISTRY",
+    note="populated only by module-level register_sketch calls at import",
+)
 
 
 def register_sketch(kind: str, loader: Callable[[dict], "Sketch"]) -> None:

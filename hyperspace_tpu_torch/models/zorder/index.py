@@ -29,7 +29,6 @@ reference's does).
 from __future__ import annotations
 
 import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
@@ -227,7 +226,9 @@ def write_zordered(
     # bounded so in-flight part copies stay under ~1 GB of extra memory
     per_part = max(1, approx_bytes // num_parts)
     workers = max(1, min(8, num_parts, (1 << 30) // per_part))
-    with ThreadPoolExecutor(max_workers=workers) as pool:
+    from ...utils.workers import io_pool
+
+    with io_pool(workers, "hs-zorder") as pool:
         return [f for f in pool.map(write_part, range(num_parts)) if f]
 
 
@@ -331,7 +332,9 @@ def streaming_zorder_build(ctx: IndexerContext, df: "DataFrame", scan, indexed: 
                     os.path.join(ctx.index_data_path, f"part-0-z{p:05d}-{seq}{zext}"),
                     row_group_size=INDEX_ROW_GROUP_SIZE, **write_opts)
 
-        with ThreadPoolExecutor(max_workers=8) as pool:
+        from ...utils.workers import io_pool
+
+        with io_pool(8, "hs-zorder") as pool:
             list(pool.map(write_run, range(len(cuts) + 1)))
     return fields, schema_list or []
 

@@ -33,6 +33,7 @@ from pathlib import Path
 import numpy as np
 
 from ..exceptions import NativeError
+from ..staticcheck.concurrency import TrackedLock, guarded_by
 
 ABI_VERSION = 4
 COMPILER = "g++"
@@ -42,11 +43,19 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 
 # calls of each entry point (tests and the smoke read them); reset_counts()
 # zeroes them
-CALLS = {"hash32": 0, "hash32_words": 0, "bucket_partition": 0, "radix_argsort": 0,
-         "join_i64": 0, "probe_agg_i64": 0}
+CALLS = guarded_by(
+    {"hash32": 0, "hash32_words": 0, "bucket_partition": 0, "radix_argsort": 0,
+     "join_i64": 0, "probe_agg_i64": 0},
+    "<unlocked>", name="native.CALLS",
+    note="call counts, bumped without a lock; read at quiescence",
+)
 
-_lock = threading.Lock()
-_lib: list = []  # the loaded library, once built
+# named so the one-time compile/load critical section takes part in the
+# lock-order graph (it runs the compiler while held: nothing else may nest
+# inside it)
+_lock = TrackedLock("native.load")
+# the loaded library, once built
+_lib: list = guarded_by([], _lock, name="native._lib")
 
 
 def reset_counts() -> None:

@@ -41,7 +41,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 from typing import Sequence
@@ -50,6 +49,8 @@ import torch
 
 from . import reference
 from ..exceptions import KernelError
+from ..staticcheck.concurrency import TrackedLock, guarded_by
+from ..utils import env
 
 MAX_GROUPS = 16  # _MAX_PALLAS_GROUPS: the grouped kernel's group slots
 
@@ -69,10 +70,12 @@ NVCC_FLAGS = (
 # launches of each CUDA kernel, and calls served by the plain version for
 # CPU tensors; reset_counts() zeroes both. Concurrent served queries count
 # from several threads, so every increment goes through _count.
-LAUNCHES = {"filter_weighted_sum": 0, "filter_sum": 0, "filter_grouped_multi_sum": 0,
-            "masked_min_max": 0}
-PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
-_count_lock = threading.Lock()
+_count_lock = TrackedLock("cuda_kernels.counts")
+LAUNCHES = guarded_by({"filter_weighted_sum": 0, "filter_sum": 0,
+                       "filter_grouped_multi_sum": 0, "masked_min_max": 0},
+                      _count_lock, name="ops.cuda_kernels.LAUNCHES")
+PLAIN_CALLS = guarded_by(dict.fromkeys(LAUNCHES, 0), _count_lock,
+                         name="ops.cuda_kernels.PLAIN_CALLS")
 
 
 def _count(counts: dict, name: str) -> None:
@@ -80,10 +83,9 @@ def _count(counts: dict, name: str) -> None:
         counts[name] += 1
 
 # nvcc's output per source from the last build (ptxas register/spill report)
-BUILD_LOG: dict[str, str] = {}
-
-_build_lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_build_lock = TrackedLock("cuda_kernels.build")
+BUILD_LOG: dict[str, str] = guarded_by({}, _build_lock, name="ops.cuda_kernels.BUILD_LOG")
+_libs: dict[str, ctypes.CDLL] = guarded_by({}, _build_lock, name="ops.cuda_kernels._libs")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -97,7 +99,7 @@ def reset_counts() -> None:
 
 
 def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    home = env.read_raw("CUDA_HOME") or "/usr/local/cuda"
     cand = os.path.join(home, "bin", "nvcc")
     if os.path.exists(cand):
         return cand

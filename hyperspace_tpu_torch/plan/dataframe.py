@@ -165,7 +165,13 @@ class DataFrame:
             # scan-level passes after the rewrite, so index scans get them
             # too; index pruning last: it reads the filters pushed just
             # before
-            return apply_pruning(prune_columns(push_predicates(plan)), self.session)
+            plan = apply_pruning(prune_columns(push_predicates(plan)), self.session)
+            # HYPERSPACE_VERIFY_PLAN=1: enforce the structural invariants
+            # of the final plan (read-only walk; raises PlanInvariantError)
+            from ..staticcheck.plan_verifier import maybe_verify_plan
+
+            maybe_verify_plan(plan, self.session)
+            return plan
 
     def explain_plan(self, optimized: bool = True) -> str:
         return (self.optimized_plan() if optimized else self.plan).pretty()

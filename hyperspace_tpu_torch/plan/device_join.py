@@ -422,7 +422,7 @@ def try_stacked_join_agg(
     caller's per-bucket flow takes over with the pairs it already loaded."""
     from .join_memory import DeviceLedger
 
-    ledger = DeviceLedger()
+    ledger = DeviceLedger("join_agg")
     try:
         return _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan,
                                       lfilters, rfilters, lcols_avail, rcols_avail,
@@ -1411,7 +1411,7 @@ def try_batched_plain_join(work, residual, session, banded=None,
     ``session.device_stats.declines``). A CUDA error raises."""
     from .join_memory import DeviceLedger
 
-    ledger = DeviceLedger()
+    ledger = DeviceLedger("join_plain")
     try:
         return _batched_plain_join_impl(work, residual, session, banded, strategy, ledger)
     finally:

@@ -55,6 +55,7 @@ from typing import Callable, Optional
 
 from ..serve import budget as serve_budget
 from ..serve.context import check_cancelled
+from ..staticcheck.lifecycle import release_resource, tracked_resource
 from ..telemetry import attribution as _attr
 from ..telemetry import plan_stats, trace
 from ..telemetry.metrics import REGISTRY
@@ -343,13 +344,16 @@ class DeviceLedger:
     ``join.spill.parks``). ``close()`` (the caller's ``finally``) returns
     every outstanding byte."""
 
-    __slots__ = ("_acct", "_stream", "enabled", "parks")
+    __slots__ = ("_label", "_acct", "_stream", "enabled", "parks", "_waves")
 
-    def __init__(self):
+    def __init__(self, label: str = "join"):
+        self._label = label
         self._acct = serve_budget.device_budget()
         self.enabled = self._acct.max_bytes > 0
-        self._stream = self._acct.stream() if self.enabled else None
+        self._stream = self._acct.stream(label) if self.enabled else None
         self.parks = 0
+        # lifecycle-audit handles of the granted waves, newest last
+        self._waves: list = []
 
     def admit(self, nbytes: int, spill_one: Callable[[], bool]) -> None:
         """Reserve ``nbytes`` for one band wave before it dispatches. When
@@ -369,6 +373,7 @@ class DeviceLedger:
                 if acct.held_bytes() + nbytes <= acct.max_bytes:
                     if stream.try_reserve(nbytes):
                         granted = True
+                        self._note_wave(nbytes)
                         return
                     continue  # lost a race with another reservation: re-check
                 if parked_at is None:
@@ -387,6 +392,7 @@ class DeviceLedger:
                     deadline = time.perf_counter() + park_wait_ms() / 1000.0
                 if time.perf_counter() >= deadline and stream.try_reserve(nbytes):
                     granted = True
+                    self._note_wave(nbytes)
                     return  # zero-holder grant past the limit
                 acct.wait_for_release(_PARK_POLL_S)
         finally:
@@ -404,10 +410,21 @@ class DeviceLedger:
                                     parked_ms=round(waited * 1000, 3)):
                         pass
 
+    def _note_wave(self, nbytes: int) -> None:
+        lc = tracked_resource("ledger.wave", f"{self._label}/d0:{nbytes}b")
+        if lc:
+            self._waves.append(lc)
+
     def release(self, nbytes: int) -> None:
         if self._stream is not None and nbytes > 0:
             self._stream.release(nbytes)
+            if self._waves:
+                release_resource(self._waves.pop())
 
     def close(self) -> None:
+        # waves still noted here were reclaimed wholesale by the stream
+        # close below (the cancellation unwind), not leaked
+        while self._waves:
+            release_resource(self._waves.pop())
         if self._stream is not None:
             self._stream.close()

@@ -10,13 +10,19 @@ is part of the key, because it is decided when the closure is built. A
 build runs in a ``compile:<kind>`` span and counts ``kernel.retrace``, as
 the JAX package's kernel caches do; the port's cache is the session's, so a
 new session builds again where the JAX package's process-wide caches hit.
+
+Every build feeds the static checks (staticcheck/kernel_audit.py): the
+retrace watchdog always, grouping misses by kind and dtype signature
+(``fingerprint_dtype_signature``), and the hazard audit of the closure's
+first call under ``HYPERSPACE_KERNEL_AUDIT=1``.
 """
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Callable
+
+from ..staticcheck.concurrency import TrackedLock
 
 
 def dtype_signature(dev_cols: dict) -> tuple:
@@ -27,19 +33,36 @@ def dtype_signature(dev_cols: dict) -> tuple:
                         for n, a in dev_cols.items()))
 
 
-class KernelCache:
-    """Bounded LRU of built kernels."""
+def fingerprint_dtype_signature(key) -> tuple:
+    """The dtype-signature component of a fingerprint, by which the retrace
+    watchdog groups a cache's misses. Most forms end with it, as every JAX
+    fingerprint does; three do not, and name theirs here: the stacked join
+    body (its join-key dtype: the bodies take any column dtype), the
+    plain-join bodies and the sort body (dtype-free bodies: the empty
+    signature, as the JAX package's default ``col_sig``)."""
+    if key[0] == "join_agg":
+        return (("key", key[2]),)
+    if key[0] == "plain_join" or key[:2] == ("order", "sort"):
+        return ()
+    return key[-1]
 
-    def __init__(self, maxlen: int = 256):
+
+class KernelCache:
+    """Bounded LRU of built kernels, one per session, named as the JAX
+    package's process-wide kernel cache is."""
+
+    def __init__(self, name: str = "kernel", maxlen: int = 256):
+        self.name = name
         self.maxlen = maxlen
         self._d: OrderedDict = OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = TrackedLock(f"kernel_cache.{name}")
 
     def get_or_build(self, key, builder: Callable, kind: str = "kernel"):
         with self._lock:
             if key in self._d:
                 self._d.move_to_end(key)
                 return self._d[key]
+        from ..staticcheck.kernel_audit import observe_compile
         from ..telemetry import trace
         from ..telemetry.metrics import REGISTRY
         from ..utils import faults
@@ -52,11 +75,19 @@ class KernelCache:
             faults.fire("kernel.compile", kernel=kind)
             kernel = builder()
         REGISTRY.counter("kernel.retrace").inc()
+        kernel = observe_compile(self.name, kind, key, kernel,
+                                 fingerprint_dtype_signature(key))
         with self._lock:
             self._d[key] = kernel
             while len(self._d) > self.maxlen:
                 self._d.popitem(last=False)
         return kernel
+
+    def clear(self) -> None:
+        """Drop every built kernel (the next query of each template builds
+        again, through the static checks)."""
+        with self._lock:
+            self._d.clear()
 
 
 def scan_structure(n) -> tuple:

@@ -56,7 +56,6 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
-import threading
 from dataclasses import dataclass, replace
 from typing import Optional, Sequence
 
@@ -65,6 +64,7 @@ import numpy as np
 from ..exceptions import HyperspaceError
 from ..meta.entry import FileInfo
 from ..models import sample_store
+from ..staticcheck.concurrency import TrackedLock
 from ..utils import env
 from .expr import AggExpr, Alias, Col, Count, Mul, Sum, expr_output_name
 from .nodes import Aggregate, FileScan, Filter, Join, Limit, Project, Sort
@@ -156,7 +156,7 @@ class ApproxTelemetry:
     A leaf lock; metrics are emitted at the call sites, never under it."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("telemetry.approx")
         self.degrades = 0
         self.sampled_queries = 0
         self.ineligible = 0
@@ -548,6 +548,14 @@ def maybe_execute_sampled(session, optimized):
         return None
 
     from .executor import execute_plan
+
+    # the sampled plan bypasses DataFrame.optimized_plan (it derives from
+    # the already-optimized exact plan), so under HYPERSPACE_VERIFY_PLAN=1
+    # it gets its own verifier pass here: the SAMPLE_* codes check the twin
+    # substitution before it can execute
+    from ..staticcheck.plan_verifier import maybe_verify_plan
+
+    maybe_verify_plan(sp.plan, session)
 
     with trace.span("approx:sample", fraction=fraction, scans=len(sp.scan_plan_ids)) as span:
         raw = execute_plan(sp.plan, session)

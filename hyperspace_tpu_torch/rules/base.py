@@ -15,12 +15,12 @@ returns the rewritten plan with a score. An applied rule counts
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Callable, Optional
 
 from ..meta.entry import IndexLogEntry
 from ..plan.nodes import LogicalPlan
+from ..staticcheck.concurrency import TrackedLock, guarded_by
 
 if TYPE_CHECKING:
     from ..session import HyperspaceSession
@@ -34,8 +34,10 @@ TAG_COMMON_SOURCE_SIZE_IN_BYTES = "COMMON_SOURCE_SIZE_IN_BYTES"
 TAG_HYBRIDSCAN_APPENDED = "HYBRIDSCAN_APPENDED_FILES"
 TAG_HYBRIDSCAN_DELETED = "HYBRIDSCAN_DELETED_FILES"
 
-_analysis_lock = threading.Lock()
-_ANALYSIS_SESSIONS: set = set()
+_analysis_lock = TrackedLock("rules.analysis_sessions")
+_ANALYSIS_SESSIONS: set = guarded_by(
+    set(), _analysis_lock, name="rules.base._ANALYSIS_SESSIONS"
+)
 
 
 def set_analysis_enabled(session, enabled: bool) -> None:

@@ -16,15 +16,22 @@ from .filter_rule import FilterIndexRule
 from .join_rule import JoinIndexRule
 from ..meta.entry import IndexLogEntry
 from ..plan.nodes import LogicalPlan
+from ..staticcheck.concurrency import TrackedLock, guarded_by
 
 
-# rule classes that index kinds register when their package is imported
-_EXTRA_RULES: list = []
+# rule classes that index kinds register when their package is imported;
+# registration is check-then-append, so late registrations racing from two
+# threads need the lock (iteration reads a snapshot, lock-free)
+_rules_lock = TrackedLock("rules.extra_registry")
+_EXTRA_RULES: list = guarded_by(
+    [], _rules_lock, name="rules.score_optimizer._EXTRA_RULES"
+)
 
 
 def register_rule(rule_cls) -> None:
-    if rule_cls not in _EXTRA_RULES:
-        _EXTRA_RULES.append(rule_cls)
+    with _rules_lock:
+        if rule_cls not in _EXTRA_RULES:
+            _EXTRA_RULES.append(rule_cls)
 
 
 class ScoreBasedIndexPlanOptimizer:

@@ -37,14 +37,13 @@ streams with their holder and the bytes each tenant holds;
 
 from __future__ import annotations
 
-import os
 import threading
 
+from ..staticcheck.concurrency import TrackedLock, guarded_by
+from ..staticcheck.lifecycle import release_resource, tracked_resource
 from ..telemetry.metrics import REGISTRY
 from ..utils import env
 from .context import current_query
-
-DEVICE_BUDGET_MB_DEFAULT = 4096.0
 
 
 class BudgetStream:
@@ -52,7 +51,7 @@ class BudgetStream:
     join execution), pumped from one thread. ``query_id`` and ``tenant``
     name the serving query that opened it (None outside the scheduler)."""
 
-    __slots__ = ("_acct", "label", "query_id", "tenant", "held", "_closed")
+    __slots__ = ("_acct", "label", "query_id", "tenant", "held", "_closed", "_lc")
 
     def __init__(self, acct: "BudgetAccountant", label: str = "", query_id=None,
                  tenant: "str | None" = None):
@@ -62,6 +61,8 @@ class BudgetStream:
         self.tenant = tenant
         self.held = 0
         self._closed = False
+        self._lc = tracked_resource("budget.stream", f"{acct.name}/{label}",
+                                    query=query_id, tenant=tenant)
 
     def try_reserve(self, nbytes: int) -> bool:
         """Reserve ``nbytes``; False when over the limit and holding bytes."""
@@ -75,16 +76,20 @@ class BudgetStream:
         if not self._closed:
             self._closed = True
             self._acct._close(self)
+            release_resource(self._lc)
 
 
 class BudgetAccountant:
     def __init__(self, max_bytes: int, name: str = "serve.budget"):
         self.max_bytes = max_bytes
         self.name = name  # the registry's metric prefix
-        self._lock = threading.Lock()
+        self._lock = TrackedLock(name)
         self._held = 0
         self._streams: dict[int, BudgetStream] = {}
-        # wakes consumers parked on a full ledger when bytes come back
+        # wakes consumers parked on a full ledger when bytes come back (a
+        # plain leaf Condition: never held while acquiring anything else,
+        # so it stays out of the lock-order audit, as the per-metric value
+        # locks do)
         self._released = threading.Condition(threading.Lock())
 
     def stream(self, label: str = "", query=None, tenant=None) -> BudgetStream:
@@ -201,14 +206,15 @@ class BudgetAccountant:
 def configured_device_budget_bytes() -> int:
     """``HYPERSPACE_DEVICE_BUDGET_MB`` in bytes; 0 disables the ledger."""
     try:
-        mb = float(os.environ.get("HYPERSPACE_DEVICE_BUDGET_MB", DEVICE_BUDGET_MB_DEFAULT))
+        mb = env.env_float("HYPERSPACE_DEVICE_BUDGET_MB")
     except ValueError:
-        mb = DEVICE_BUDGET_MB_DEFAULT
+        mb = env.DEFAULTS["HYPERSPACE_DEVICE_BUDGET_MB"]
     return int(mb * 2**20)
 
 
-_lock = threading.Lock()
-_DEVICE: list = []  # the process-wide accountant, made at first use
+_lock = TrackedLock("serve.budget_singleton")  # guards the swaps only
+# the process-wide accountant, made at first use
+_DEVICE: list = guarded_by([], _lock, name="serve.budget._DEVICE")
 
 
 def device_budget() -> BudgetAccountant:
@@ -245,7 +251,8 @@ def configured_budget_bytes() -> int:
     return int(env.DEFAULTS["HYPERSPACE_GLOBAL_BUDGET_MB"] * 2**20)
 
 
-_GLOBAL: list = []  # the process-wide read-ahead accountant, made at first use
+# the process-wide read-ahead accountant, made at first use
+_GLOBAL: list = guarded_by([], _lock, name="serve.budget._GLOBAL")
 
 
 def global_budget() -> BudgetAccountant:

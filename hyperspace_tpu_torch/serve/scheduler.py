@@ -30,8 +30,7 @@ throttles *scheduling* of read-ahead, never results.
 
 Departures from the JAX package: ``_home_device_locked`` returns None (the
 port has one card and no mesh tier, as the JAX package returns with fewer
-than two mesh devices), and the locks are plain ``threading.Lock``s (the
-JAX package's are audited locks of its lock-order checker). A query whose
+than two mesh devices). A query whose
 kernel fails to build or launch raises inside its own run; the error is
 stored on its handle and the neighbouring queries go on.
 
@@ -54,6 +53,7 @@ import time
 from typing import Callable, Optional
 
 from ..exceptions import HyperspaceError
+from ..staticcheck.concurrency import TrackedLock
 from ..telemetry import trace
 from ..utils import env
 from . import qos
@@ -177,7 +177,7 @@ class QueryScheduler:
             if queue_depth is not None
             else env.env_int("HYPERSPACE_SERVE_QUEUE_DEPTH"),
         )
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("serve.scheduler")
         # per-tenant (-priority, seq, handle) heaps drained by weighted-
         # fair scheduling over delivered cost (serve/qos.py); one tenant
         # degenerates to exactly the old single FIFO+priority queue
@@ -383,7 +383,7 @@ class QueryScheduler:
                                     QueryCancelledError(
                                         f"query {h.query_id} cancelled"))
                 h._done.set()
-                # the caller holds self._lock (_locked contract)
+                # hslint: HS302 — caller holds self._lock (_locked contract)
                 self._unrun.append(h.ctx)
                 continue
             self._queued -= 1
@@ -414,7 +414,7 @@ class QueryScheduler:
         h._finish_t = time.perf_counter()
         self._active.pop(h.query_id, None)
         self._handles.discard(h)
-        # every caller holds self._lock (_locked contract)
+        # hslint: HS302 — every caller holds self._lock (_locked contract)
         self._totals[status] += 1
         self._queues.note_outcome(h.ctx.tenant, status)
 
@@ -611,7 +611,7 @@ class QueryScheduler:
 
 # --- process-default scheduler ----------------------------------------------
 
-_default_lock = threading.Lock()
+_default_lock = TrackedLock("serve.scheduler_singleton")
 _DEFAULT: Optional[QueryScheduler] = None
 
 

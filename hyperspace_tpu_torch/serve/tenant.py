@@ -38,6 +38,7 @@ import time
 from typing import Callable, Optional
 
 from ..exceptions import HyperspaceError
+from ..staticcheck.concurrency import TrackedLock
 from ..utils import env
 
 DEFAULT_TENANT = "default"
@@ -182,12 +183,10 @@ class TenantRegistry:
     """Process-wide tenant configuration. ``get`` auto-creates unknown
     tenants with defaults so tenancy is zero-config for existing callers;
     ``configure`` creates-or-updates. Bootstrapped from the
-    ``HYPERSPACE_TENANTS`` spec knob at construction. Its lock is a plain
-    ``threading.Lock`` (the JAX package's is an audited lock of its
-    lock-order checker, which the port does not have)."""
+    ``HYPERSPACE_TENANTS`` spec knob at construction."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("serve.tenants")
         self._tenants: dict[str, Tenant] = {}
         spec = env.env_str("HYPERSPACE_TENANTS")
         if spec:

@@ -49,8 +49,8 @@ log at ``HYPERSPACE_SLOW_QUERY_FILE``. Every record carries its owning
 ``aggregate_counters_by_tenant`` extend the conservation invariant to the
 tenant plane: sum over tenants == sum over queries == global deltas.
 
-The ledger's locks are plain ``threading.Lock``s: the JAX package's are
-audited locks of its lock-order checker, which the port does not have.
+The ledger's map lock is a ``TrackedLock``; each attribution scope is a
+lifecycle-audit handle (``attribution.scope``).
 """
 
 from __future__ import annotations
@@ -63,6 +63,8 @@ import threading
 import time
 from typing import Optional
 
+from ..staticcheck.concurrency import TrackedLock
+from ..staticcheck.lifecycle import release_resource, tracked_resource
 from ..utils import env
 from .metrics import _attr_target
 
@@ -231,18 +233,24 @@ def current_stats() -> Optional[QueryStats]:
 class scope:
     """Install ``stats`` as the attribution target for the duration."""
 
-    __slots__ = ("_stats", "_token")
+    __slots__ = ("_stats", "_token", "_lc")
 
     def __init__(self, stats: QueryStats):
         self._stats = stats
         self._token = None
+        self._lc = 0
 
     def __enter__(self) -> QueryStats:
+        self._lc = tracked_resource(
+            "attribution.scope", self._stats.label,
+            query=self._stats.query_id, tenant=self._stats.tenant,
+        )
         self._token = _attr_target.set(self._stats)
         return self._stats
 
     def __exit__(self, *exc) -> bool:
         _attr_target.reset(self._token)
+        release_resource(self._lc)
         return False
 
 
@@ -310,7 +318,7 @@ class QueryStatsLedger:
     writes happen outside it (the repo's lock discipline)."""
 
     def __init__(self, window: Optional[int] = None):
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("telemetry.attribution")
         self._window = max(
             1,
             window if window is not None
@@ -377,7 +385,7 @@ class QueryStatsLedger:
 
         try:
             workload.on_query_finished(stats, record)
-        except Exception:  # noqa: BLE001 - the workload plane must never fail finish
+        except Exception:  # hslint: HS402 — the workload plane must never fail finish
             pass
         return record
 
@@ -502,7 +510,7 @@ class QueryStatsLedger:
 
 # --- slow-query JSONL log ---------------------------------------------------
 
-_slow_lock = threading.Lock()
+_slow_lock = TrackedLock("telemetry.slow_query_log")
 
 
 def _slow_query_config() -> tuple:

@@ -46,11 +46,12 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..staticcheck.concurrency import TrackedLock
 from ..utils import env
 
 # module singletons, swapped only under _state_lock (same pattern as the
 # scheduler / budget singletons in serve/)
-_state_lock = threading.Lock()
+_state_lock = TrackedLock("telemetry.exporter")
 _exporter: "Optional[MetricsExporter]" = None
 _sink: "Optional[SnapshotSink]" = None
 
@@ -108,7 +109,7 @@ def _tenant_prom_lines() -> list[str]:
     state — one ``{tenant="..."}`` series per tenant per metric."""
     try:
         t = tenants_dict()
-    except Exception:  # noqa: BLE001 - a tenants-block bug must not break /metrics
+    except Exception:  # hslint: HS402 — a tenants-block bug must not break /metrics
         return []
     rollups, sched = t["rollups"], t["scheduler"]
     series: dict[str, dict[str, float]] = {}
@@ -155,7 +156,7 @@ def _index_prom_lines() -> list[str]:
         return []
     try:
         rows = workload.INDEX_LEDGER.report()
-    except Exception:  # noqa: BLE001 - an index-block bug must not break /metrics
+    except Exception:  # hslint: HS402 — an index-block bug must not break /metrics
         return []
     series: dict[str, dict[str, float]] = {}
     for r in rows:
@@ -283,7 +284,7 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 body, code, ctype = b'{"error": "not found"}', 404, "application/json"
             REGISTRY.counter("exporter.scrapes").inc()
-        except Exception as e:  # noqa: BLE001 - a scrape bug must 500, never kill the endpoint thread
+        except Exception as e:  # hslint: HS402 — a scrape bug must 500, never kill the endpoint thread
             body = json.dumps({"error": repr(e)}).encode("utf-8")
             code, ctype = 500, "application/json"
             REGISTRY.counter("exporter.scrape_errors").inc()
@@ -398,7 +399,7 @@ class SnapshotSink:
         try:
             self.write_once()
         except OSError:
-            pass  # teardown; a dead disk has no consumer here
+            pass  # hslint: HS402 — teardown; a dead disk has no consumer here
 
 
 def start_snapshot_sink(path: Optional[str] = None,

@@ -32,10 +32,10 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from typing import Optional
 
+from ..staticcheck.concurrency import TrackedLock
 from ..utils import env
 
 _LEDGER_NAME = "index_ledger.json"
@@ -59,7 +59,7 @@ class IndexUtilityLedger:
     """Process-wide per-index benefit/maintenance accumulator."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("telemetry.index_ledger")
         self._indexes: dict[str, dict] = {}
         self._recovered = False
 
@@ -215,7 +215,7 @@ class IndexUtilityLedger:
     def persist_safe(self, d: str) -> None:
         try:
             self.persist(d)
-        except Exception:  # noqa: BLE001 - persistence is best-effort
+        except Exception:  # hslint: HS402 — persistence is best-effort
             from .metrics import REGISTRY
 
             REGISTRY.counter("workload.journal.errors").inc()

@@ -50,10 +50,6 @@ QueryStats) sits in the ``_attr_target`` contextvar, and every
 entry as well as to the global value. IO-pool tasks carry the target over
 through ``attribution.bound``. Outside a query the path costs one
 contextvar read returning None.
-
-Every lock here is a plain ``threading.Lock``: the JAX package's registry
-lock is an audited lock of its lock-order checker, which the port does not
-have yet.
 """
 
 from __future__ import annotations
@@ -62,14 +58,19 @@ import contextvars
 import threading
 from typing import Iterable, Optional
 
+from ..staticcheck.concurrency import TrackedLock
+
 # The active per-query attribution target of the current context (an
 # object with charge_counter/charge_observation), or None.
 _attr_target: contextvars.ContextVar = contextvars.ContextVar(
     "hyperspace_attribution_target", default=None
 )
 
-# Per-metric value locks are leaves: an inc/observe never acquires anything
-# else while holding one.
+# Per-metric value locks below stay PLAIN threading.Locks on purpose: they
+# are leaves (an inc/observe never acquires anything else while holding
+# one) and sit on every instrumented path, so they skip the lock-order
+# audit by design. The registry map lock, which is held while metrics are
+# constructed, is tracked.
 
 
 class Counter:
@@ -211,7 +212,7 @@ class MetricsRegistry:
     """Get-or-create registry; one instance (REGISTRY) serves the process."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("metrics.registry")
         self._metrics: dict[str, object] = {}
 
     def _get_or_create(self, name: str, cls, *args):

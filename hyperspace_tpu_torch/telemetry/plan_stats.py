@@ -50,6 +50,7 @@ import math
 import threading
 from typing import Optional
 
+from ..staticcheck.concurrency import TrackedLock
 from ..utils import env
 
 # q-error histogram bounds: 1.0 = perfect estimate; the tail buckets catch
@@ -89,7 +90,7 @@ class EstimatorAccuracy:
     here under one leaf lock (metric emission happens outside it)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("telemetry.plan_stats")
         # (estimator, index, shape) -> deque of log(actual/predicted)
         self._ratios: dict[tuple, collections.deque] = {}
         self._counts: dict[str, int] = {}

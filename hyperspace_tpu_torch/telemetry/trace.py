@@ -58,6 +58,7 @@ import threading
 import time
 from typing import Any, Optional
 
+from ..staticcheck.concurrency import TrackedLock, guarded_by
 from ..utils import env
 from ..utils.rpc_meter import METER, RpcMeter
 
@@ -74,8 +75,8 @@ _ENABLED = False
 
 _ids = itertools.count(1)
 _local = threading.local()
-_roots_lock = threading.Lock()
-_roots: list["Span"] = []
+_roots_lock = TrackedLock("trace.roots")
+_roots: list["Span"] = guarded_by([], _roots_lock, name="telemetry.trace._roots")
 _MAX_ROOTS = 1024  # bound memory when force-enabled across a whole test run
 _sink: "Optional[TraceSink]" = None
 
@@ -141,7 +142,7 @@ class Span:
             try:
                 sink.write_span(self)
             except Exception:
-                pass  # a broken sink must never fail the query
+                pass  # hslint: HS402 — a broken sink must never fail the query
         return False
 
     # --- enrichment ---
@@ -244,7 +245,7 @@ class JsonlTraceSink(TraceSink):
 
     def __init__(self, path: str):
         self.path = path
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("trace.sink.jsonl")
         d = os.path.dirname(os.path.abspath(path))
         os.makedirs(d, exist_ok=True)
         self._f = open(path, "a", encoding="utf-8")
@@ -265,7 +266,7 @@ class ListTraceSink(TraceSink):
 
     def __init__(self):
         self.spans: list[Span] = []
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("trace.sink.list")
 
     def write_span(self, span: Span) -> None:
         with self._lock:
@@ -316,7 +317,7 @@ def disable() -> None:
         try:
             old.close()
         except Exception:
-            pass  # teardown: a close error has no consumer
+            pass  # hslint: HS402 — disable() is teardown; a close error has no consumer
 
 
 def drain_roots() -> list[Span]:

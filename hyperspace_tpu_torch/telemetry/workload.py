@@ -54,6 +54,7 @@ import threading
 import time
 from typing import Optional
 
+from ..staticcheck.concurrency import TrackedLock
 from ..utils import env, faults
 from .index_ledger import INDEX_LEDGER
 
@@ -113,7 +114,7 @@ def note_plan(plan) -> None:
                         stats.note_workload("shapes", shape, cap=_NOTE_CAP)
         for c in sorted(cols):
             stats.note_workload("columns", c, cap=_NOTE_CAP * 4)
-    except Exception:  # noqa: BLE001 - notes must never fail a collect
+    except Exception:  # hslint: HS402 — notes must never fail a collect
         pass
 
 
@@ -252,7 +253,7 @@ def charge_maintenance(index_path: str, action_name: str, wall_s: float,
             round(wall_s * 1000, 3)
         )
         _persist_ledger()
-    except Exception:  # noqa: BLE001 - attribution must never fail an action
+    except Exception:  # hslint: HS402 — attribution must never fail an action
         pass
 
 
@@ -270,7 +271,7 @@ def charge_sketch_write() -> None:
 
         INDEX_LEDGER.charge_maintenance(name, "sketch", 0.0, "succeeded")
         REGISTRY.counter("workload.maintenance.actions").inc()
-    except Exception:  # noqa: BLE001 - attribution must never fail a write
+    except Exception:  # hslint: HS402 — attribution must never fail a write
         pass
 
 
@@ -288,7 +289,7 @@ class WorkloadJournal:
     crash mid-write costs that one record, never the journal."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("telemetry.workload.journal")
         self._dir: Optional[str] = None
         self._size = 0  # current journal file size (cached)
         self._checked_tail = False
@@ -348,7 +349,7 @@ class WorkloadJournal:
 
         try:
             self.append(record)
-        except Exception:  # noqa: BLE001 - a full disk must not kill the pool
+        except Exception:  # hslint: HS402 — a full disk must not kill the pool
             REGISTRY.counter("workload.journal.errors").inc()
 
     def append(self, record: dict) -> None:
@@ -394,7 +395,7 @@ class WorkloadJournal:
                 if f.read(1) != b"\n":
                     f.write(b"\n")
                     self._size += 1
-        except OSError:  # healing is best-effort; load() skips torn lines anyway
+        except OSError:  # hslint: HS402 — healing is best-effort; load() skips torn lines anyway
             pass
 
     def _rotate(self, d: str, path: str, retain: int) -> None:
@@ -411,7 +412,7 @@ class WorkloadJournal:
         for seq in self._rotated_seqs(d)[:-retain]:
             try:
                 os.remove(os.path.join(d, f"workload.{seq:06d}.jsonl"))
-            except OSError:  # retention is best-effort; retried next rotation
+            except OSError:  # hslint: HS402 — retention is best-effort; an undeletable slot is retried next rotation
                 pass
         from .metrics import REGISTRY
 
@@ -521,7 +522,7 @@ class DriftDetector:
     regression is one event, not one per query."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("telemetry.workload.drift")
         self._series: dict[tuple, dict] = {}
 
     @staticmethod
@@ -729,7 +730,7 @@ def on_query_finished(stats, record: dict) -> None:
                                   record.get("total_ms", 0.0))
         JOURNAL.submit(jrec)
         _persist_ledger(throttled=True)
-    except Exception:  # noqa: BLE001 - the plane must never fail a query
+    except Exception:  # hslint: HS402 — the plane must never fail a query
         from .metrics import REGISTRY
 
         REGISTRY.counter("workload.journal.errors").inc()
@@ -842,7 +843,7 @@ def healthz_reasons() -> list[str]:
             f"workload_drift:{r['kind']}:{r['key']}"
             for r in DRIFT.regressions()
         ]
-    except Exception:  # noqa: BLE001 - the health endpoint must stay up
+    except Exception:  # hslint: HS402 — the health endpoint must stay up
         return []
 
 

@@ -35,7 +35,6 @@ the JAX package's by those.
 
 from __future__ import annotations
 
-import threading
 import weakref
 from collections import OrderedDict
 from typing import Callable, Sequence
@@ -46,6 +45,7 @@ import torch
 from ..columnar.table import Column, ColumnBatch
 from ..telemetry import trace
 from ..telemetry.metrics import REGISTRY
+from ..staticcheck.concurrency import TrackedLock
 from .rpc_meter import METER
 
 
@@ -69,7 +69,7 @@ class DeviceColumnCache:
         self.metric = metric  # the registry's cache.<metric>.* names
         self._d: OrderedDict = OrderedDict()
         self._bytes = 0
-        self._lock = threading.Lock()
+        self._lock = TrackedLock(f"device_cache.{metric}")
         self.uploaded_bytes = 0
         self.hits = 0
         self.misses = 0

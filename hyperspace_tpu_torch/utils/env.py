@@ -82,7 +82,19 @@ call time, as there, so one environment setting steers both packages:
   statically, comparing bits), ``HYPERSPACE_ADAPTIVE_ABORT_FACTOR`` (4.0:
   the prune under-delivery that aborts a streamed index scan) and
   ``HYPERSPACE_ADAPTIVE_WARMUP_CHUNKS`` (2: chunks or bucket pairs observed
-  before a switch).
+  before a switch);
+- the static checks (staticcheck/): ``HYPERSPACE_LOCK_AUDIT`` (the
+  acquisition-order audit of every TrackedLock), ``HYPERSPACE_LIFECYCLE_
+  AUDIT`` (live resource handles and ``check_quiescent()``),
+  ``HYPERSPACE_VERIFY_PLAN`` (the plan invariant verifier on every
+  optimized plan), ``HYPERSPACE_KERNEL_AUDIT`` (the hazard audit of every
+  built kernel's first call), all off by default, and
+  ``HYPERSPACE_RETRACE_WARN`` (8: the distinct fingerprints of one kernel
+  kind and dtype signature before the retrace watchdog warns);
+- ``HYPERSPACE_SKETCHES`` (the per-row-group sketch store, unset: off) and
+  ``HYPERSPACE_DEVICE_BUDGET_MB`` (the device ledger of the bucketed joins,
+  4096; 0 disables it); ``CUDA_HOME`` (the CUDA toolkit the kernels build
+  with) is read raw through ``read_raw``.
 
 A boolean knob is on only for the literal string ``1``, as in the JAX
 package.
@@ -144,6 +156,13 @@ DEFAULTS = {
     "HYPERSPACE_ADAPTIVE": "0",
     "HYPERSPACE_ADAPTIVE_ABORT_FACTOR": 4.0,
     "HYPERSPACE_ADAPTIVE_WARMUP_CHUNKS": 2,
+    "HYPERSPACE_LOCK_AUDIT": False,
+    "HYPERSPACE_LIFECYCLE_AUDIT": False,
+    "HYPERSPACE_VERIFY_PLAN": False,
+    "HYPERSPACE_KERNEL_AUDIT": False,
+    "HYPERSPACE_RETRACE_WARN": 8,
+    "HYPERSPACE_SKETCHES": None,
+    "HYPERSPACE_DEVICE_BUDGET_MB": 4096.0,
 }
 
 

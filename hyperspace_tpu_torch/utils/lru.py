@@ -1,23 +1,23 @@
 """A small bounded LRU map (counterpart of hyperspace_tpu/utils/lru.py, at
 the site where the JAX package uses it: the runtime tags of a log entry):
 recency moves on both get and set, so hot entries survive churn.
-Thread-safe. The JAX package's class also builds values single-flight
-(``get_or_put``), which no site of the port calls, and guards the map
-with an audited lock of its lock-order checker; the port's lock is a
-plain ``threading.Lock``.
+Thread-safe, under the ``TrackedLock`` ``lru.<name>``. The JAX package's
+class also builds values single-flight (``get_or_put``), which no site of
+the port calls.
 """
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
+
+from ..staticcheck.concurrency import TrackedLock
 
 
 class BoundedLRU:
-    def __init__(self, maxlen: int):
+    def __init__(self, maxlen: int, name: str = "lru"):
         self.maxlen = maxlen
         self._d: OrderedDict = OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = TrackedLock(f"lru.{name}")
 
     def get(self, key, default=None):
         with self._lock:

@@ -18,8 +18,8 @@ Thread-safe: one lock and a few integer adds per event.
 
 from __future__ import annotations
 
-import threading
 
+from ..staticcheck.concurrency import TrackedLock
 from . import faults
 
 
@@ -33,7 +33,7 @@ def _tree_nbytes(value) -> int:
 
 class RpcMeter:
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("rpc_meter")
         self.dispatches = 0  # device body or kernel calls
         self.fetches = 0  # blocking device-to-host copies
         self.uploads = 0  # host-to-device transfers

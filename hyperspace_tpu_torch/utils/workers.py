@@ -10,9 +10,9 @@ governs them all and every worker thread carries an ``hs-*`` name. pyarrow
 releases the GIL while it decodes, so a small pool scales near-linearly;
 a width of 1 or less means fully serial work.
 
-The JAX package guards its shared pool with an audited lock of its
-lock-order checker; the port has no such checker yet and uses a plain
-``threading.Lock``.
+It is the one sanctioned pool and thread creation site: ``tools/hslint.py``
+HS304 flags ``threading.Thread`` / ``ThreadPoolExecutor`` construction
+anywhere else.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from ..staticcheck.concurrency import TrackedLock
 from . import env
 
 
@@ -58,7 +59,7 @@ def io_pool(max_workers: int, thread_name_prefix: str = "hs-io") -> ThreadPoolEx
 
 
 _SHARED_POOL: "ThreadPoolExecutor | None" = None
-_shared_pool_lock = threading.Lock()
+_shared_pool_lock = TrackedLock("workers.shared_pool")
 
 
 def shared_io_pool() -> ThreadPoolExecutor:

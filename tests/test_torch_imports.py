@@ -1,6 +1,6 @@
 """The port stands alone: importing hyperspace_tpu_torch (every module, the
-telemetry, analysis, ingest, cache, fault-injection, serving, sampling
-and adaptive ones included) and
+telemetry, analysis, ingest, cache, fault-injection, serving, sampling,
+adaptive, static-check and camelCase ones included) and
 chip_smoke.py loads neither JAX nor the JAX package; and the device tier
 runs on CUDA unless the caller asks for the CPU."""
 
@@ -58,7 +58,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "serve", "serve.budget", "serve.context", "serve.tenant", "serve.qos",
                    "serve.scheduler", "telemetry.attribution", "telemetry.index_ledger",
                    "telemetry.workload", "telemetry.exporter", "models.sample_store",
-                   "plan.sampling", "plan.adaptive"):
+                   "plan.sampling", "plan.adaptive", "staticcheck",
+                   "staticcheck.concurrency", "staticcheck.lifecycle",
+                   "staticcheck.plan_verifier", "staticcheck.kernel_audit", "compat"):
         assert f"hyperspace_tpu_torch.{module}" in out["loaded"], module
 
 
