@@ -132,18 +132,23 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
        printed per mode;
    (b) q3_agg and q3 under 0 (the load-all barrier) and 1 (bucket-pair
        read-ahead): the same bits;
-   (c) a third warehouse over hard links to the lake's lineitem, with
-       hyperspace.tpu.build.maxBytesInMemory at 256 MiB and lineage on:
+   (c) a third warehouse over hard links to the first 40 of the lake's
+       120 lineitem files (20M rows: the lifecycle phase's cut, made to
+       keep the whole run well inside its time limit), with
+       hyperspace.tpu.build.maxBytesInMemory at a quarter of their bytes
+       (144.5 MB; at most 256 MiB) and lineage on:
        st_orderkey (li_orderkey's config) and st_shipdate_z
        (li_shipdate_z's) must build out of core, one run per file group in
-       every bucket or range, with the rows of the main phase's in-memory
-       indexes (sorted row hashes equal); q6_count, q6_span, lookup_count
-       and range_sum through them held to the host and launching their
-       kernels; then 2 source files deleted, an incremental refresh of
-       st_orderkey that must stream (each old file rewritten alone), a
-       quick optimize to one file per bucket, and the queries again (q6's
-       forms over the source, st_shipdate_z being stale). Each action's
-       seconds print beside the in-memory build's;
+       every bucket or range (5 groups; st_shipdate_z has one range over
+       20M rows, two over 60M), with the rows of their source files (sorted
+       row hashes equal); q6_count, q6_span, lookup_count and range_sum
+       through them held to the host and launching their kernels; then 2
+       source files deleted, an incremental refresh of st_orderkey that
+       must stream (each old file rewritten alone), a quick optimize to one
+       file per bucket, and the queries again (q6's forms over the source,
+       st_shipdate_z being stale). Each build's seconds print beside the
+       lifecycle phase's in-memory build of the same config over the same
+       files;
 8. join phase over the SF10 lake (its bucketed joins' routes):
    (a) at the default device grant, q3, q3_agg, q3_span (port-only: Q3's
        join and groups with count, min and max of l_quantity, which may
@@ -287,7 +292,32 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     (c) li_orderkey as Arrow IPC files over the lifecycle phase's 40-file
         cut: lookup_count and range_sum equal the parquet index's bits and
         launch the same kernel;
-15. ingest phase (the ingest plane, the result cache and view
+15. mesh phase (the multi-device tier, mesh_phase's docstring has each
+    check), in the approx phase's session over the SF10 index set, under
+    virtual_devices(4, the card): four mesh ordinals over the one card,
+    the counterpart of the JAX package's forced host device count, each
+    with its own device ledger (HYPERSPACE_DEVICE_BUDGET_MB=8192 each, 32
+    GiB of the card's 80):
+    (a) placement (HYPERSPACE_MESH=1): q3_agg, q3, q10 and q18 in the
+        warm session with their band waves spread over the ordinals (one
+        run each: the phase's cut in depth), and first runs of
+        q6_count, q1_count and q6_span on a fresh session (the partial
+        route's chunks placed; q1_count launches filter_grouped_multi_sum
+        on each chunk's ordinal), each bit for bit the mesh-off result,
+        every ledger back to 0;
+    (b) the mesh route (meshDevices=4): warm q6_count, q6_sum, q1_sums
+        and q1 sharded over the ordinals, counts exact and f32 sums within
+        relative 1e-4 of the one-device results;
+    (c) the mesh join: q10's plain join probed one bucket per ordinal,
+        bit for bit the one-device rows;
+    (d) a mesh-partitioned covering build over the lifecycle phase's
+        40-file cut of the lineitem, byte for byte the host-partitioned
+        build's files;
+    (e) a (2, 2) hierarchical mesh: (b)'s queries, and (d)'s build as
+        per-slice runs whose rows, per bucket, are the host build's;
+    (f) dryrun_multigpu(4);
+    every part's mesh:* and kernel:mesh_* spans are counted and printed;
+16. ingest phase (the ingest plane, the result cache and view
     maintenance) over the SF10 lake's lineitem and li_orderkey, with
     HYPERSPACE_RESULT_CACHE=1: lookup_count (a key in the base run and in
     every delta run), range_sum and range_stats (count, min, max and sum
@@ -307,7 +337,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     the three recomputed, and one pass under
     HYPERSPACE_RESULT_CACHE=verify. Append, fold, hit, recompute and
     compaction seconds are printed;
-16. order phase: the device top-k and sort against the host on one
+17. order phase: the device top-k and sort against the host on one
    2^22-row batch (cut from 2^25 in PR 10 and from 2^23 in PR 16 to keep
    the whole run well inside its time limit) of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
@@ -322,7 +352,7 @@ The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
 add up the end-to-end, lifecycle, skipping, pipeline, join, sources,
-analysis, serve, staticcheck, approx and ingest phases' counts, each read
+analysis, serve, staticcheck, approx, mesh and ingest phases' counts, each read
 on its own
 (``launches_by_phase``).
 """
@@ -767,12 +797,41 @@ def profile_warm_run(torch, run, label: str) -> dict:
             "device_busy_share": (device_us / 1e3) / wall_ms if device_us else None}
 
 
+def _align_groups(got: dict, want: dict, keys: tuple) -> tuple:
+    """``got`` and ``want`` with their rows in one order, matched on the
+    group keys. Where ``want``'s first key is a non-negative integer unique
+    to each row (q3_agg's l_orderkey: orders have one row per key), a dense
+    position table matches them in linear time, and ``got``'s first keys
+    must map one to one onto ``want``'s; otherwise both sort by the keys."""
+    import numpy as np
+
+    got = {k: np.asarray(v) for k, v in got.items()}
+    want = {k: np.asarray(v) for k, v in want.items()}
+    wk, gk = want[keys[0]], got[keys[0]]
+    n = len(wk)
+    if wk.dtype.kind in "iu" and gk.dtype.kind in "iu" and int(wk.min()) >= 0:
+        pos = np.full(int(wk.max()) + 1, -1, dtype=np.int64)
+        pos[wk] = np.arange(n)
+        if int(np.count_nonzero(pos >= 0)) == n:  # unique: one row per key
+            inside = (gk >= 0) & (gk < len(pos))
+            require(bool(inside.all()), f"{keys[0]}: keys the host has no group for")
+            idx = pos[gk]
+            require(bool((idx >= 0).all())
+                    and bool((np.bincount(idx, minlength=n) == 1).all()),
+                    f"{keys[0]}: the groups differ from the host's")
+            return got, {k: v[idx] for k, v in want.items()}
+    g_order = np.lexsort([got[k] for k in reversed(keys)])
+    w_order = np.lexsort([want[k] for k in reversed(keys)])
+    return ({k: v[g_order] for k, v in got.items()},
+            {k: v[w_order] for k, v in want.items()})
+
+
 def compare_join(q: str, got: dict, want: dict) -> None:
     """q3_agg: the same (l_orderkey, o_orderdate) groups, revenue within
     REL_TOL (row order differs between the bucketed and the host path, so
-    both sort by key). q3: the top revenues within REL_TOL in order, and the
-    keys equal except where the host's neighbouring revenues tie within
-    REL_TOL."""
+    _align_groups matches the rows by key first). q3: the top revenues
+    within REL_TOL in order, and the keys equal except where the host's
+    neighbouring revenues tie within REL_TOL."""
     import numpy as np
 
     require(list(got) == list(want), f"{q}: columns {list(got)} vs {list(want)}")
@@ -780,10 +839,7 @@ def compare_join(q: str, got: dict, want: dict) -> None:
     n = len(want["revenue"])
     require(len(got["revenue"]) == n and n > 0, f"{q}: {len(got['revenue'])} rows vs {n}")
     if q == "q3_agg":
-        g_order = np.lexsort([got[k] for k in reversed(keys)])
-        w_order = np.lexsort([want[k] for k in reversed(keys)])
-        got = {k: np.asarray(v)[g_order] for k, v in got.items()}
-        want = {k: np.asarray(v)[w_order] for k, v in want.items()}
+        got, want = _align_groups(got, want, keys)
     g_rev = np.asarray(got["revenue"], dtype=np.float64)
     w_rev = np.asarray(want["revenue"], dtype=np.float64)
     require(bool(np.isfinite(g_rev).all()), f"{q}: non-finite revenue")
@@ -1814,13 +1870,14 @@ def _runs_per_range(files: list) -> dict:
             "max": max(per.values())}
 
 
-def pipeline_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
+def pipeline_phase(torch, K, e2e: dict, lifecycle: dict, rows: int, card: str) -> dict:
     """The pipelined tier over the SF10 lake (the module docstring lists
     the parts): first runs under each HYPERSPACE_PIPELINE mode, split into
     decode and upload seconds and held bit for bit across the modes; the
     joins under 0 and 1; then out-of-core builds and a streamed refresh
-    in a third warehouse at a 256 MiB build limit, their rows held to the
-    main phase's in-memory indexes and their queries to the host."""
+    in a third warehouse at a quarter of the lifecycle lake's bytes as the
+    build limit, over that lake's files, their rows held to the source's
+    and their queries to the host."""
     from hyperspace_tpu_torch import (CoveringIndexConfig, Hyperspace, HyperspaceSession,
                                       ZOrderCoveringIndexConfig)
     from hyperspace_tpu_torch import constants as C
@@ -1892,22 +1949,27 @@ def pipeline_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
         else:
             os.environ["HYPERSPACE_PIPELINE"] = saved
 
-    # (c) out-of-core builds at a 256 MiB limit in a third warehouse
+    # (c) out-of-core builds in a third warehouse, over
+    # the lifecycle lake's cut (its first LIFECYCLE_FILES lineitem files),
+    # whose in-memory builds of the same configs the lifecycle phase timed
     st_lake = os.path.join(DATA_DIR, "lake3")
-    _hard_link_tree(os.path.join(lake, "lineitem"), os.path.join(st_lake, "lineitem"))
+    _hard_link_tree(os.path.join(lake, "lineitem"), os.path.join(st_lake, "lineitem"),
+                    LIFECYCLE_FILES)
     st_wh = os.path.join(DATA_DIR, "warehouse3")
     li = os.path.join(st_lake, "lineitem")
-    # 256 MiB at SF10; a quarter of the source at a smaller --rows, so the
-    # builds still stream there
-    limit = min(STREAM_BUILD_LIMIT, e2e["source_bytes"]["lineitem"] // 4)
+    src_files = sorted(os.path.join(li, f) for f in os.listdir(li))
+    # a quarter of the source (at most 256 MiB), so the builds stream in
+    # several groups and the refresh's old index bytes pass the limit
+    limit = min(STREAM_BUILD_LIMIT, sum(os.path.getsize(f) for f in src_files) // 4)
     session = HyperspaceSession(st_wh, conf={C.BUILD_MAX_BYTES_IN_MEMORY: limit,
                                              C.INDEX_LINEAGE_ENABLED: True})
     hs = Hyperspace(session)
-    main_hs = Hyperspace(HyperspaceSession(warehouse))
     source = session.read.parquet(li)
     groups = len(_file_groups(_scan_of(source.plan).files, limit))
-    out.update({"build_limit_bytes": limit, "groups": groups})
-    in_memory = e2e["index_build_s"]
+    out.update({"lineitem_files": len(src_files), "build_limit_bytes": limit,
+                "groups": groups})
+    in_memory = {tpch.LI_ORDERKEY[0]: lifecycle["actions_s"]["create lc_orderkey"],
+                 tpch.LI_SHIPDATE_Z[0]: lifecycle["actions_s"]["create lc_shipdate_z"]}
 
     def action(label: str, fn, in_memory_s=None) -> None:
         t0 = time.perf_counter()
@@ -1929,12 +1991,11 @@ def pipeline_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
                 f"{name}: not streamed in {groups} groups: {layout}")
         columns = spec[1] + spec[2]
         fingerprint = _row_fingerprint(files, columns)
-        require(fingerprint == _row_fingerprint(main_hs.get_index(spec[0]).content.files(),
-                                                columns),
-                f"{name}: its rows differ from {spec[0]}'s")
-        out[name] = {"layout": layout, "rows_equal": spec[0], "rows": fingerprint[0]}
+        require(fingerprint == _row_fingerprint(src_files, columns),
+                f"{name}: its rows differ from the source's")
+        out[name] = {"layout": layout, "rows_equal": "source", "rows": fingerprint[0]}
         log({"pipeline_build": name, "card": card, "groups": groups, **layout,
-             "rows_equal_to": spec[0]})
+             "rows_equal_to": "source"})
     session.enable_hyperspace()
     expected = {"q6_count": ["st_shipdate_z"], "q6_span": ["st_shipdate_z"],
                 "lookup_count": ["st_orderkey"], "range_sum": ["st_orderkey"]}
@@ -1961,7 +2022,11 @@ def pipeline_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
             out["stream_queries"].setdefault(label, {})[q] = rec
             log({"pipeline_query": q, "stage": label, "card": card, **rec})
 
-    stream_queries("built", want, expected)
+    host = HyperspaceSession(st_wh, conf={C.EXEC_TPU_ENABLED: False})
+    t0 = time.perf_counter()
+    want_built = {q: _floats(queries[q](host, st_lake).to_pydict()) for q in STREAM_QUERIES}
+    out["host_reference_s"] = [time.perf_counter() - t0]
+    stream_queries("built", want_built, expected)
     # two source files deleted, st_orderkey refreshed incrementally (each
     # old file rewritten alone, a run each), then quick optimize
     names = sorted(os.listdir(li))
@@ -1983,10 +2048,9 @@ def pipeline_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
     require(out["optimized_layout"]["max"] == 1, f"optimize: {out['optimized_layout']}")
     log({"pipeline_layout": "st_orderkey", "card": card, "refreshed": out["refreshed_layout"],
          "optimized": out["optimized_layout"]})
-    host = HyperspaceSession(st_wh, conf={C.EXEC_TPU_ENABLED: False})
     t0 = time.perf_counter()
     want_now = {q: _floats(queries[q](host, st_lake).to_pydict()) for q in STREAM_QUERIES}
-    out["host_reference_s"] = time.perf_counter() - t0
+    out["host_reference_s"].append(time.perf_counter() - t0)
     # st_shipdate_z is stale now (no hybrid scan): q6's forms read the source
     stream_queries("refreshed", want_now, {**expected, "q6_count": [], "q6_span": []})
     out["launches"] = dict(K.LAUNCHES)
@@ -3374,6 +3438,316 @@ def staticcheck_phase(K, e2e: dict, session, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# mesh phase
+# ---------------------------------------------------------------------------
+
+MESH_DEVICES = 4
+MESH_SLICES = 2  # (e): a (2, 2) hierarchical mesh
+MESH_DEVICE_BUDGET_MB = "8192"  # per ordinal: four ledgers, 32 GiB of the card
+MESH_PLACED = ("q3_agg", "q3", "q10", "q18")  # warm, HYPERSPACE_MESH=1
+MESH_STREAMED = ("q6_count", "q1_count", "q6_span")  # first runs, HYPERSPACE_MESH=1
+MESH_ROUTE = ("q6_count", "q6_sum", "q1_sums", "q1")  # meshDevices=4
+MESH_JOIN = "q10"
+MESH_BUILD_INDEX = ("mesh_orderkey", ["l_orderkey"], ["l_extendedprice"])
+MESH_KNOBS = ("HYPERSPACE_MESH", "HYPERSPACE_MESH_DEVICES", "HYPERSPACE_DEVICE_BUDGET_MB")
+MESH_SPANS = ("mesh:", "kernel:mesh_", "kernel:bucket_exchange", "kernel:dist_filter_agg")
+
+
+def q1_count(session, root: str):
+    """Q1's predicate and groups with count(1) only: the partial route's
+    grouped kernel shape (filter_grouped_multi_sum with no measure), so
+    each chunk placed on a mesh ordinal launches the kernel there."""
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.plan.expr import Count, col, lit
+
+    return (tpch._lineitem(session, root).filter(col("l_shipdate") <= 10470)
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(Count(lit(1)).alias("count_order"))
+            .sort("l_returnflag", "l_linestatus"))
+
+
+def _mesh_spans(cap) -> dict:
+    """Counts of the mesh tier's spans among a capture's spans."""
+    names: dict = {}
+    for sp in cap.sink.spans:
+        if sp.name.startswith(MESH_SPANS):
+            names[sp.name] = names.get(sp.name, 0) + 1
+    return names
+
+
+def _part_files(wh: str) -> dict:
+    """relative path -> absolute path of every index data file under ``wh``."""
+    out = {}
+    for dirpath, _dirs, names in os.walk(wh):
+        for fn in names:
+            if fn.startswith("part-"):
+                out[os.path.relpath(os.path.join(dirpath, fn), wh)] = os.path.join(dirpath, fn)
+    return out
+
+
+def mesh_phase(torch, K, e2e: dict, session, card: str) -> dict:
+    """The multi-device tier over the SF10 index set, in ``session`` (warm;
+    the approx phase's), under ``virtual_devices(MESH_DEVICES, card)``:
+    MESH_DEVICES mesh ordinals over the one card, each with its own device
+    ledger (HYPERSPACE_DEVICE_BUDGET_MB = MESH_DEVICE_BUDGET_MB each, so
+    the ledgers together fit the card).
+    (a) placement, HYPERSPACE_MESH=1: one run of each of MESH_PLACED in
+        the warm session (band waves placed on the ordinals:
+        ``device_stats.placed_waves`` spans at least two; the run uploads
+        under the ordinals' new cache keys; the phase's one cut in depth:
+        no repeat), and first runs of MESH_STREAMED on a fresh session (partial-route
+        chunks placed: ``placed_chunks`` spans at least two ordinals, and
+        q1_count launches filter_grouped_multi_sum once per placed chunk);
+        each bit for bit the mesh-off result (the end-to-end phase's device
+        result where it kept one); mesh.placement.* counted;
+        every ordinal's ledger back to 0 reserved;
+    (b) the mesh route, meshDevices = MESH_DEVICES: MESH_ROUTE's first
+        mesh run and a warm one (``mesh_fragments`` counts both), counts
+        and integers exact and f32 within REL_TOL of the one-device result;
+    (c) the mesh join: MESH_JOIN through ``_mesh_join_work`` (join path
+        "mesh"), bit for bit the one-device rows;
+    (d) MESH_BUILD_INDEX over the first LIFECYCLE_FILES of the SF10
+        lineitem files (hard links), built with the host partition and with
+        the mesh's: the same files, byte for byte, and no declined mesh
+        partition;
+    (e) a (MESH_SLICES, MESH_DEVICES / MESH_SLICES) hierarchical mesh:
+        MESH_ROUTE again (folds within each slice, then across), and (d)'s
+        build as one run per slice per bucket (``-0s<slice>``) whose rows,
+        stably sorted by key, are the host build's bucket;
+    (f) ``dryrun_multigpu(MESH_DEVICES)`` over virtual ordinals of the card.
+    Each part's seconds and its mesh:* / kernel:mesh_* span counts print.
+    The knobs, the session's mesh conf keys and the device ledgers are
+    restored afterwards."""
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import CoveringIndexConfig, Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.serve import budget as serve_budget
+    from hyperspace_tpu_torch.benchmark import tpch
+    from hyperspace_tpu_torch.parallel.dryrun import dryrun_multigpu
+    from hyperspace_tpu_torch.parallel.mesh import virtual_devices
+    from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
+    from hyperspace_tpu_torch.telemetry import trace
+    from hyperspace_tpu_torch.telemetry.metrics import REGISTRY
+
+    t_phase = time.perf_counter()
+    lake, wh = e2e["lake"], e2e["warehouse"]
+    fns = {**tpch.QUERIES, **tpch.SPAN_QUERIES, **tpch.JOIN_QUERIES, **tpch.TPCH_QUERIES,
+           "q1_count": q1_count}
+    card_dev = session.device
+    out: dict = {}
+    parts: dict = {}
+    launches0, plain0 = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    saved = {k: os.environ.get(k) for k in MESH_KNOBS}
+    saved_conf = {k: session.get_conf(k) for k in (C.EXEC_MESH_DEVICES, C.EXEC_MESH_SLICES)}
+    root = os.path.join(DATA_DIR, "mesh")
+
+    def ledgers_drained(what: str) -> None:
+        held = {o: a.held_bytes() for o, a in serve_budget.device_budgets().items()}
+        require(all(v == 0 for v in held.values()), f"mesh {what}: ledgers hold {held}")
+
+    def route_run(q: str, sess) -> dict:
+        return _floats(fns[q](sess, lake).collect().to_pydict())
+
+    try:
+        os.environ["HYPERSPACE_DEVICE_BUDGET_MB"] = MESH_DEVICE_BUDGET_MB
+        serve_budget.reset_device_budget()
+        os.environ["HYPERSPACE_MESH"] = "0"
+        # the one-device references: the end-to-end phase's device results
+        # where it kept them, else a run in this session
+        known = e2e.get("device_results", {})
+        off = {q: known[q] if q in known else _result_form(q, fns[q](session, lake).collect())
+               for q in MESH_PLACED + MESH_STREAMED}
+        single = {q: route_run(q, session) for q in MESH_ROUTE}
+        with virtual_devices(MESH_DEVICES, card_dev) as devices:
+            require(len(devices) == MESH_DEVICES, f"mesh: {devices}")
+            # (a) placement
+            t0 = time.perf_counter()
+            os.environ["HYPERSPACE_MESH"] = "1"
+            buckets0 = REGISTRY.counter("mesh.placement.buckets").value
+            session.device_stats = DeviceTierStats()
+            placed_ms: dict = {}
+            with trace.capture() as cap:
+                for q in MESH_PLACED:
+                    # warm host caches; the ordinals' cache keys are new, so
+                    # this run uploads each wave's columns to its ordinal
+                    t1 = time.perf_counter()
+                    got = _result_form(q, fns[q](session, lake).collect())
+                    placed_ms[q] = (time.perf_counter() - t1) * 1000
+                    require(_same_result(q, got, off[q]),
+                            f"mesh (a) {q}: the placed result differs from the mesh-off bits")
+            waves = dict(session.device_stats.placed_waves)
+            require(len(waves) >= 2, f"mesh (a): band waves placed on {waves}")
+            ledgers_drained("(a) joins")
+            fresh = HyperspaceSession(wh).enable_hyperspace()
+            first_ms: dict = {}
+            chunks_by_query: dict = {}
+            grouped: dict = {}
+            with trace.capture() as cap_s:
+                for q in MESH_STREAMED:
+                    c0 = sum(fresh.device_stats.placed_chunks.values())
+                    g0 = K.LAUNCHES["filter_grouped_multi_sum"]
+                    t1 = time.perf_counter()
+                    got = _result_form(q, fns[q](fresh, lake).collect())
+                    first_ms[q] = (time.perf_counter() - t1) * 1000
+                    chunks_by_query[q] = sum(fresh.device_stats.placed_chunks.values()) - c0
+                    grouped[q] = K.LAUNCHES["filter_grouped_multi_sum"] - g0
+                    require(_same_result(q, got, off[q]),
+                            f"mesh (a) {q}: the placed first run differs from the mesh-off bits")
+            chunks = dict(fresh.device_stats.placed_chunks)
+            # q1_count's partial route launches the grouped kernel once per
+            # chunk, each on the ordinal its chunk was placed on
+            require(len(chunks) >= 2 and chunks_by_query["q1_count"] > 1
+                    and grouped["q1_count"] == chunks_by_query["q1_count"],
+                    f"mesh (a): chunks placed {chunks_by_query} on {chunks}, grouped kernel "
+                    f"launches {grouped}")
+            ledgers_drained("(a)")
+            out["placement"] = {
+                "placed_ms": placed_ms, "first_run_ms": first_ms, "placed_waves": waves,
+                "placed_chunks": chunks, "placed_chunks_by_query": chunks_by_query,
+                "grouped_kernel_launches": grouped,
+                "placed_buckets": REGISTRY.counter("mesh.placement.buckets").value - buckets0,
+                "devices_used": REGISTRY.gauge("mesh.placement.devices_used").value,
+                "imbalance": REGISTRY.gauge("mesh.placement.bytes_imbalance_ratio").value,
+                "spans": {**_mesh_spans(cap), **{f"stream {k}": v
+                                                 for k, v in _mesh_spans(cap_s).items()}},
+            }
+            require(out["placement"]["placed_buckets"] > 0, "mesh (a): no bucket placed")
+            del fresh
+            parts["placement"] = time.perf_counter() - t0
+            log({"mesh": "placement", "card": card, **out["placement"]})
+            os.environ["HYPERSPACE_MESH"] = "0"
+
+            # (b) the mesh route, (c) the mesh join, (e) the same on a (2, 2) mesh
+            for slices in (1, MESH_SLICES):
+                t0 = time.perf_counter()
+                session.set_conf(C.EXEC_MESH_DEVICES, MESH_DEVICES)
+                session.set_conf(C.EXEC_MESH_SLICES, slices)
+                session.device_stats = DeviceTierStats()
+                route_ms: dict = {}
+                with trace.capture() as cap:
+                    for q in MESH_ROUTE:
+                        compare_batches(f"mesh route {q}", route_run(q, session), single[q])
+                        t1 = time.perf_counter()
+                        got = route_run(q, session)
+                        route_ms[q] = (time.perf_counter() - t1) * 1000
+                        compare_batches(f"mesh route {q} (warm)", got, single[q])
+                stats = session.device_stats
+                require(stats.mesh_fragments == 2 * len(MESH_ROUTE),
+                        f"mesh route ({slices} slices): {stats.mesh_fragments} mesh fragments, "
+                        f"declines {stats.declines}")
+                key = "route" if slices == 1 else "hierarchical_route"
+                out[key] = {"warm_ms": route_ms, "mesh_fragments": stats.mesh_fragments,
+                            "spans": _mesh_spans(cap)}
+                parts[key] = time.perf_counter() - t0
+                log({"mesh": key, "card": card, **out[key]})
+                if slices == 1:
+                    t0 = time.perf_counter()
+                    session.device_stats = DeviceTierStats()
+                    with trace.capture() as cap:
+                        fns[MESH_JOIN](session, lake).collect()
+                        t1 = time.perf_counter()
+                        got = _result_form(MESH_JOIN, fns[MESH_JOIN](session, lake).collect())
+                        join_ms = (time.perf_counter() - t1) * 1000
+                    require(_same_result(MESH_JOIN, got, off[MESH_JOIN]),
+                            f"mesh join {MESH_JOIN}: the rows differ from the one-device rows")
+                    stats = session.device_stats
+                    require(stats.mesh_joins == 2 and stats.join_paths.get("mesh") == 2,
+                            f"mesh join: {stats.mesh_joins} mesh joins, paths {stats.join_paths}")
+                    ledgers_drained("(c)")
+                    out["join"] = {"warm_ms": join_ms, "mesh_joins": stats.mesh_joins,
+                                   "spans": _mesh_spans(cap)}
+                    parts["join"] = time.perf_counter() - t0
+                    log({"mesh": "join", "card": card, **out["join"]})
+
+            # (d) the mesh-partitioned build, (e) per slice
+            t0 = time.perf_counter()
+            mlake = os.path.join(root, "lake")
+            _hard_link_tree(os.path.join(lake, "lineitem"), os.path.join(mlake, "lineitem"),
+                            LIFECYCLE_FILES)
+            builds: dict = {}
+            for name, devices_conf, slices in (("host", 0, 1), ("mesh", MESH_DEVICES, 1),
+                                               ("hierarchical", MESH_DEVICES, MESH_SLICES)):
+                bwh = os.path.join(root, f"wh_{name}")
+                bs = HyperspaceSession(bwh, conf={C.EXEC_MESH_DEVICES: devices_conf,
+                                                  C.EXEC_MESH_SLICES: slices})
+                t1 = time.perf_counter()
+                with trace.capture() as cap:
+                    Hyperspace(bs).create_index(
+                        bs.read.parquet(os.path.join(mlake, "lineitem")),
+                        CoveringIndexConfig(*MESH_BUILD_INDEX))
+                require(not bs.device_stats.declines.get("mesh_partition"),
+                        f"mesh build {name}: the mesh partition declined")
+                builds[name] = {"seconds": time.perf_counter() - t1,
+                                "files": _part_files(bwh), "spans": _mesh_spans(cap)}
+            host, mesh_b, hier = (builds[k]["files"] for k in ("host", "mesh", "hierarchical"))
+            require(sorted(host) == sorted(mesh_b) and host,
+                    f"mesh build: file names differ ({len(host)} vs {len(mesh_b)})")
+            import filecmp
+
+            for rel in host:
+                require(filecmp.cmp(host[rel], mesh_b[rel], shallow=False),
+                        f"mesh build: {rel} differs from the host-partitioned file")
+            runs = {}
+            for rel, path in hier.items():
+                stem = os.path.basename(rel).rsplit(".", 1)[0]  # part-0-b00003-0s1
+                bucket, run = stem.split("-")[2], stem.split("-")[3]
+                runs.setdefault(bucket, {})[run] = path
+            key = MESH_BUILD_INDEX[1][0]
+            for rel, path in host.items():
+                bucket = os.path.basename(rel).rsplit(".", 1)[0].split("-")[2]
+                tabs = [pq.read_table(runs[bucket][r]) for r in sorted(runs.get(bucket, {}))]
+                require(sorted(runs.get(bucket, {})) in (["0s0", "0s1"], ["0s0"], ["0s1"]),
+                        f"mesh build (e): bucket {bucket} runs {sorted(runs.get(bucket, {}))}")
+                cat = {c: np.concatenate([t.column(c).to_numpy() for t in tabs])
+                       for c in tabs[0].column_names}
+                order = np.argsort(cat[key], kind="stable")
+                want = pq.read_table(path)
+                for c in want.column_names:
+                    require(np.array_equal(cat[c][order], want.column(c).to_numpy()),
+                            f"mesh build (e): bucket {bucket} column {c} differs")
+            out["build"] = {k: {"seconds": v["seconds"], "files": len(v["files"]),
+                                "spans": v["spans"]} for k, v in builds.items()}
+            require(out["build"]["mesh"]["spans"].get("kernel:mesh_partition", 0) >= 1
+                    and out["build"]["hierarchical"]["spans"].get("kernel:mesh_partition", 0)
+                    >= MESH_SLICES, f"mesh build: spans {out['build']}")
+            parts["build"] = time.perf_counter() - t0
+            log({"mesh": "build", "card": card, **out["build"]})
+        # (f) the dry run, over virtual ordinals of the card
+        t0 = time.perf_counter()
+        out["dryrun"] = dryrun_multigpu(MESH_DEVICES, card_dev)
+        require(not out["dryrun"]["real"] and out["dryrun"]["mesh_joins"] >= 1,
+                f"mesh dry run: {out['dryrun']}")
+        parts["dryrun"] = time.perf_counter() - t0
+        log({"mesh": "dryrun", "card": card, **out["dryrun"]})
+        ledgers_drained("phase")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for k, v in saved_conf.items():
+            if v is None:
+                session.unset_conf(k)
+            else:
+                session.set_conf(k, v)
+        serve_budget.reset_device_budget()
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {k: K.LAUNCHES[k] - launches0[k] for k in launches0}
+    require(K.PLAIN_CALLS == plain0, f"plain versions ran in the mesh phase: "
+            f"{ {k: K.PLAIN_CALLS[k] - plain0[k] for k in plain0} }")
+    for k in ON_PATH:
+        require(out["launches"][k] > 0, f"the mesh phase launched {k} no time")
+    out["parts_s"] = parts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log({"phase": "mesh", "card": card, "seconds": out["phase_s"], "parts_s": parts,
+         "launches": out["launches"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # ingest phase
 # ---------------------------------------------------------------------------
 
@@ -4440,7 +4814,7 @@ def main() -> int:
     e2e = phase("end_to_end", end_to_end_phase, torch, K, args.rows, smi, args.profile)
     lifecycle = phase("lifecycle", lifecycle_phase, torch, K, e2e, args.rows, smi, args.profile)
     skipping = phase("skipping", skipping_phase, torch, K, e2e, args.rows, smi, args.profile)
-    pipeline = phase("pipeline", pipeline_phase, torch, K, e2e, args.rows, smi)
+    pipeline = phase("pipeline", pipeline_phase, torch, K, e2e, lifecycle, args.rows, smi)
     join = phase("join", join_phase, torch, K, e2e, args.rows, smi)
     sources = phase("sources", sources_phase, torch, K, e2e, args.rows, smi)
     ref_cache = phase("reference_cache", reference_cache_check, e2e, smi)
@@ -4451,6 +4825,7 @@ def main() -> int:
     # before the ingest phase, whose appends leave every lineitem index but
     # li_orderkey stale: the approx phase reads the end-to-end indexes
     approx = phase("approx", approx_phase, K, e2e, warm_session, smi)
+    mesh = phase("mesh", mesh_phase, torch, K, e2e, warm_session, smi)
     del warm_session
     ingest = phase("ingest", ingest_phase, torch, K, e2e, args.rows, smi)
     del e2e["want"], e2e["device_results"], e2e["warm_results"]
@@ -4478,6 +4853,7 @@ def main() -> int:
                     "serve": served["launches"][name],
                     "staticcheck": static["launches"][name],
                     "approx": approx["launches"][name],
+                    "mesh": mesh["launches"][name],
                     "ingest": ingest["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4497,7 +4873,7 @@ def main() -> int:
                    "skipping": skipping, "pipeline": pipeline, "join": join,
                    "sources": sources, "reference_cache": ref_cache,
                    "analysis": analysis, "serve": served, "staticcheck": static,
-                   "approx": approx,
+                   "approx": approx, "mesh": mesh,
                    "ingest": ingest, "order": order,
                    "cache_sizing_mb": sizing,
                    "phase_s": phase_s, "total_s": time.perf_counter() - t_start}, f, indent=1)

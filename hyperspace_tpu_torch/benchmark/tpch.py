@@ -58,39 +58,59 @@ from ..plan.expr import Avg, Count, Max, Min, Sum, col, lit
 
 
 def generate_tpch(root: str, rows_lineitem: int = 600_000, seed: int = 0) -> dict:
-    """Write lineitem/orders/part parquet dirs under `root`; returns sizes."""
+    """Write lineitem/orders/part parquet dirs under `root`; returns sizes.
+
+    The draws are the reference's, in its order, so the same seed writes
+    the same files. Two things differ in how, not what: a string column is
+    an arrow ``take`` of the draws' indexes (``rng.choice`` over a list
+    draws exactly ``rng.integers(0, len(values), n)``), not a numpy str
+    array converted row by row; and the lineitem files are written on a
+    thread pool while the next file's columns are drawn."""
     import pyarrow as pa
     import pyarrow.parquet as pq
+
+    from ..utils.workers import io_pool, io_worker_count
 
     rng = np.random.default_rng(seed)
     n_orders = max(1, rows_lineitem // 4)
     n_parts = max(1, rows_lineitem // 30)
+
+    def choice(values: list, n: int):
+        return pa.array(values).take(pa.array(rng.integers(0, len(values), n)))
 
     sizes = {}
     li_dir = os.path.join(root, "lineitem")
     os.makedirs(li_dir, exist_ok=True)
     n_files = max(1, rows_lineitem // 500_000)
     per = rows_lineitem // n_files
-    total = 0
-    for i in range(n_files):
-        t = pa.table(
-            {
-                "l_orderkey": rng.integers(0, n_orders, per),
-                "l_partkey": rng.integers(0, n_parts, per),
-                "l_suppkey": rng.integers(0, max(1, n_parts // 4), per),
-                "l_quantity": rng.integers(1, 51, per).astype(np.float64),
-                "l_extendedprice": rng.uniform(900, 105_000, per),
-                "l_discount": np.round(rng.uniform(0.0, 0.1, per), 2),
-                "l_tax": np.round(rng.uniform(0.0, 0.08, per), 2),
-                "l_returnflag": rng.choice(["A", "N", "R"], per),
-                "l_linestatus": rng.choice(["O", "F"], per),
-                "l_shipdate": rng.integers(8035, 10590, per).astype(np.int32),
-            }
-        )
-        f = os.path.join(li_dir, f"part-{i:04d}.parquet")
+    workers = io_worker_count(n_files)
+
+    def write(t, f: str) -> int:
         pq.write_table(t, f)
-        total += os.path.getsize(f)
-    sizes["lineitem"] = total
+        return os.path.getsize(f)
+
+    pending = []
+    with io_pool(workers, "hs-tpch-write") as pool:
+        for i in range(n_files):
+            t = pa.table(
+                {
+                    "l_orderkey": rng.integers(0, n_orders, per),
+                    "l_partkey": rng.integers(0, n_parts, per),
+                    "l_suppkey": rng.integers(0, max(1, n_parts // 4), per),
+                    "l_quantity": rng.integers(1, 51, per).astype(np.float64),
+                    "l_extendedprice": rng.uniform(900, 105_000, per),
+                    "l_discount": np.round(rng.uniform(0.0, 0.1, per), 2),
+                    "l_tax": np.round(rng.uniform(0.0, 0.08, per), 2),
+                    "l_returnflag": choice(["A", "N", "R"], per),
+                    "l_linestatus": choice(["O", "F"], per),
+                    "l_shipdate": rng.integers(8035, 10590, per).astype(np.int32),
+                }
+            )
+            f = os.path.join(li_dir, f"part-{i:04d}.parquet")
+            pending.append(pool.submit(write, t, f))
+            if len(pending) >= 2 * workers:  # bound the tables held in memory
+                pending[-2 * workers].result()
+        sizes["lineitem"] = sum(p.result() for p in pending)
 
     od_dir = os.path.join(root, "orders")
     os.makedirs(od_dir, exist_ok=True)
@@ -111,8 +131,8 @@ def generate_tpch(root: str, rows_lineitem: int = 600_000, seed: int = 0) -> dic
     t = pa.table(
         {
             "p_partkey": np.arange(n_parts),
-            "p_brand": rng.choice([f"Brand#{i}" for i in range(1, 6)], n_parts),
-            "p_container": rng.choice(["JUMBO PKG", "MED BOX", "SM CASE"], n_parts),
+            "p_brand": choice([f"Brand#{i}" for i in range(1, 6)], n_parts),
+            "p_container": choice(["JUMBO PKG", "MED BOX", "SM CASE"], n_parts),
         }
     )
     f = os.path.join(pt_dir, "part-0.parquet")

@@ -100,6 +100,22 @@ class HyperspaceConf:
         )
 
     @property
+    def exec_mesh_devices(self) -> int:
+        return int(self._conf.get(C.EXEC_MESH_DEVICES, C.EXEC_MESH_DEVICES_DEFAULT))
+
+    @property
+    def exec_mesh_slices(self) -> int:
+        v = int(self._conf.get(C.EXEC_MESH_SLICES, C.EXEC_MESH_SLICES_DEFAULT))
+        if v < 1:
+            raise HyperspaceError(f"{C.EXEC_MESH_SLICES} must be >= 1, got {v}")
+        n = self.exec_mesh_devices
+        if v > 1 and n % v:
+            raise HyperspaceError(
+                f"{C.EXEC_MESH_SLICES}={v} must divide {C.EXEC_MESH_DEVICES}={n}"
+            )
+        return v
+
+    @property
     def index_stats_columns(self) -> str:
         v = str(self._conf.get(C.INDEX_STATS_COLUMNS, C.INDEX_STATS_COLUMNS_DEFAULT)).lower()
         if v not in ("clustered", "all"):

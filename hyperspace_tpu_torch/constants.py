@@ -58,6 +58,15 @@ EXEC_TPU_ENABLED = "hyperspace.tpu.exec.enabled"
 EXEC_TPU_ENABLED_DEFAULT = True
 EXEC_EXACT_F64_AGG = "hyperspace.tpu.exec.exactF64Aggregates"
 EXEC_EXACT_F64_AGG_DEFAULT = False
+# devices a supported fragment runs over (0 = one device): rows shard across
+# the mesh and only per-group partial vectors cross between devices
+EXEC_MESH_DEVICES = "hyperspace.tpu.exec.meshDevices"
+EXEC_MESH_DEVICES_DEFAULT = 0
+# meshDevices arranged as (meshSlices, devices per slice) with ("dcn", "ici")
+# axes: aggregates fold within each slice first, then across slices; index
+# builds exchange rows within each slice only (one run per slice per bucket)
+EXEC_MESH_SLICES = "hyperspace.tpu.exec.meshSlices"
+EXEC_MESH_SLICES_DEFAULT = 1
 
 INDEX_STATS_COLUMNS = "hyperspace.tpu.index.statsColumns"
 INDEX_STATS_COLUMNS_DEFAULT = "clustered"

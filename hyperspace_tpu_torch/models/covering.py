@@ -404,13 +404,23 @@ def write_bucketed(
 ) -> list[str]:
     """Partition rows by hash(bucket_columns) % num_buckets, sort each
     bucket stably by the bucket columns, and write one file per non-empty
-    bucket with the bucket id in its name (and the run ``seq``, if any)."""
+    bucket with the bucket id in its name (and the run ``seq``, if any).
+
+    With an active device mesh (``session``'s ``meshDevices``) the
+    partition (hash, placement, exchange) runs on the mesh
+    (parallel/exchange.partition_batch_mesh) and gives the host path's
+    rows, so the files are the same bytes. On a hierarchical mesh the rows
+    split across the slices and each slice exchanges on its own submesh,
+    giving one sorted run per slice per bucket (seq ``<seq>s<slice>``, the
+    streamed build's multi-run layout in its own namespace). A declined
+    mesh partition (logged, and counted in the session's
+    ``device_stats.declines``) leaves the host partition to run."""
     keys = [sort_key_values(batch.column(c), True) for c in reversed(bucket_columns)]
     ext = _session_index_ext(session)
     write_opts = index_write_opts(session, bucket_columns)
 
     def write_bucket(item) -> str:
-        bucket, rows = item
+        bucket, rows, seq = item
         if len(keys) == 1:
             order = stable_argsort(keys[0][rows])
         else:
@@ -426,12 +436,58 @@ def write_bucketed(
         _write_sample_runs(part, full_path, rgs, bucket_columns)
         return fname
 
-    work = partition_batch(batch, bucket_columns, num_buckets)
+    work = _mesh_partition(batch, bucket_columns, num_buckets, session, seq)
+    if work is None:
+        work = [(b, rows, seq) for b, rows in partition_batch(batch, bucket_columns,
+                                                              num_buckets)]
     # pyarrow's encoder releases the GIL: buckets write concurrently, on at
     # most as many threads as cores (the numpy half holds the GIL)
     workers = io_worker_count(max(1, len(work)), cap=os.cpu_count() or 1)
     with io_pool(workers, "hs-build-write") as pool:
         return list(pool.map(write_bucket, work))
+
+
+def _mesh_partition(batch: ColumnBatch, bucket_columns: list[str], num_buckets: int,
+                    session, seq) -> Optional[list]:
+    """``(bucket, rows, seq)`` write work from the session's active mesh, or
+    None (no mesh, or a declined partition: the host partitions)."""
+    if session is None:
+        return None
+    from ..parallel.exchange import partition_batch_mesh
+    from ..parallel.mesh import _log, active_mesh, is_hierarchical, slice_submeshes
+
+    mesh = active_mesh(session)
+    if mesh is None:
+        return None
+    if not is_hierarchical(mesh):
+        p = partition_batch_mesh(batch, bucket_columns, num_buckets, mesh)
+        if p is None:
+            return _mesh_declined(session)
+        return [(b, rows, seq) for b, rows in p]
+    subs = slice_submeshes(mesh)
+    bounds = np.linspace(0, batch.num_rows, len(subs) + 1).astype(np.int64)
+    runs: list = []
+    for si, sub in enumerate(subs):
+        start, stop = int(bounds[si]), int(bounds[si + 1])
+        if start == stop:
+            continue
+        p = partition_batch_mesh(batch.slice(start, stop), bucket_columns, num_buckets, sub)
+        if p is None:
+            # one declining slice sends the whole batch to the host partition
+            _log.warning("hierarchical mesh exchange fell back to the host partitioner "
+                         "(a slice declined); %d slices affected", len(subs))
+            return _mesh_declined(session)
+        # each slice's runs in an "s<slice>" sub-namespace of the caller's
+        # seq: a host run of the same seq never collides with them
+        seq_val = f"{seq if seq is not None else 0}s{si}"
+        runs += [(b, rows + start, seq_val) for b, rows in p]
+    return runs
+
+
+def _mesh_declined(session) -> None:
+    declines = session.device_stats.declines
+    declines["mesh_partition"] = declines.get("mesh_partition", 0) + 1
+    return None
 
 
 def _file_groups(files: list[FileInfo], max_bytes: int) -> list[list[FileInfo]]:

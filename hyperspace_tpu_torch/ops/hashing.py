@@ -7,7 +7,11 @@ arithmetic is murmur3-style uint32 mixing over the keys' 32-bit words; an
 int64 or float64 key contributes its low then high word, a string its crc32.
 Index builds hash on the host: from 1024 rows up through the native
 library (native/hs_native.cpp, one pass), below that and in the tests
-through the numpy form ``hash32_plain``.
+through the numpy form ``hash32_plain``. A mesh build hashes on the devices
+(``hash32_torch``, ``bucket_ids_torch``; parallel/exchange.py), with the
+same bits: torch has no full uint32 arithmetic, so the words live in int64
+masked to 32 bits, and each 32-bit product is formed from two 16-bit
+halves so that no intermediate leaves int64.
 """
 
 from __future__ import annotations
@@ -104,3 +108,61 @@ def string_key_words(codes: np.ndarray, dictionary: list[str]) -> np.ndarray:
 
 def bucket_ids_np(columns: list[np.ndarray], num_buckets: int) -> np.ndarray:
     return (hash32_np(columns) % np.uint32(num_buckets)).astype(np.int32)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32_torch(a, c: int):
+    """(a * c) mod 2^32 for int64 words a in [0, 2^32) and a constant c:
+    a's low and high 16-bit halves times c stay below 2^48."""
+    lo = (a & 0xFFFF) * c
+    hi = ((a >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _rotl32_torch(x, r: int):
+    return ((x << r) & _M32) | (x >> (32 - r))
+
+
+def _words_torch(t) -> list:
+    """A device key tensor's 32-bit words as int64 in [0, 2^32), in
+    ``_words_np``'s order: an int64 or float64 key gives its low then high
+    word, a float32 its bits, a narrower int its sign-extended value."""
+    import torch
+
+    if t.dtype in (torch.int64, torch.float64):
+        bits = t.view(torch.int64) if t.dtype == torch.float64 else t
+        return [bits & _M32, (bits >> 32) & _M32]
+    if t.dtype == torch.float32:
+        return [t.view(torch.int32).to(torch.int64) & _M32]
+    return [t.to(torch.int64) & _M32]
+
+
+def hash32_torch(columns: list):
+    """Hash rows of device key columns (int32 word columns as the mesh
+    build ships them, or any key dtype ``_words_torch`` splits) to the
+    bits of ``hash32_np``, as int64 in [0, 2^32). Counterpart of
+    ``hash32_jnp``."""
+    import torch
+
+    h = torch.full(columns[0].shape, _SEED, dtype=torch.int64, device=columns[0].device)
+    for col in columns:
+        for k in _words_torch(col):
+            k = _rotl32_torch(_mul32_torch(k, _C1), 15)
+            k = _mul32_torch(k, _C2)
+            h = _rotl32_torch(h ^ k, 13)
+            h = (_mul32_torch(h, 5) + 0xE6546B64) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32_torch(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32_torch(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def bucket_ids_torch(columns: list, num_buckets: int):
+    """``bucket_ids_np`` on the device, int32. Counterpart of
+    ``bucket_ids_jnp``."""
+    import torch
+
+    return (hash32_torch(columns) % num_buckets).to(torch.int32)

@@ -49,8 +49,11 @@ caller's thread when asked for. A join whose index files exceed
 it can run memory-adaptively (streamed pairs and the device ledger on);
 else it takes the per-bucket flow.
 
-Not ported: the mesh paths (ROADMAP Queue 1 item 4) and adaptive
-re-planning (item 3).
+With ``hyperspace.tpu.exec.meshDevices`` set and that many devices
+visible, the plain join probes every bucket pair on the mesh, one bucket
+per shard (``_mesh_join_work``, path "mesh"); a hierarchical mesh declines
+it. Under ``HYPERSPACE_MESH`` the band waves of both device paths are
+placed across the devices instead (plan/device_join.py).
 """
 
 from __future__ import annotations
@@ -310,10 +313,10 @@ def try_bucketed_merge_join(
         strategy = plan_join_memory(left, right, session)
     preloaded = None
     if agg_plan is None and per_bucket is None:
-        dev_out, preloaded = _try_device_join_paths(left, right, lkeys, rkeys, residual,
-                                                    appended, session, strategy)
+        dev_out, preloaded, path = _try_device_join_paths(left, right, lkeys, rkeys, residual,
+                                                          appended, session, strategy)
         if dev_out is not None:
-            return done(dev_out, "batched")
+            return done(dev_out, path)
         if preloaded is not None:
             REGISTRY.counter("pipeline.join.aborted").inc()
     if agg_plan is not None and per_bucket is not None and device_on:
@@ -614,32 +617,47 @@ class _PlainJoinIneligible(Exception):
 
 def _try_device_join_paths(left, right, lkeys, rkeys, residual, appended, session,
                            strategy=None):
-    """The batched device plain join of a whole co-partitioned join:
-    ``(result, loaded)``. A None result hands ``loaded`` (the pairs by
-    bucket, or None when the plan screen declined before loading) to the
-    per-bucket flow, so nothing is read twice. Pairs stream into the
-    band-stacked probe under ``HYPERSPACE_PIPELINE`` 1 or serial (its waves
-    dispatch while later pairs load); under 0 every pair loads behind the
-    barrier and the probe runs one global wave."""
+    """The device plain join of a whole co-partitioned join: ``(result,
+    loaded, path)``. A None result hands ``loaded`` (the pairs by bucket,
+    or None when the plan screen declined before loading) to the
+    per-bucket flow, so nothing is read twice.
+
+    With a mesh active (``meshDevices``), every pair loads first and the
+    mesh probe runs in waves of one bucket per shard (``_mesh_join_work``,
+    path "mesh"); a hierarchical mesh declines it (the probe moves bucket
+    rows, which stay within one slice), and the one-device paths run.
+    Otherwise pairs stream into the band-stacked probe under
+    ``HYPERSPACE_PIPELINE`` 1 or serial (its waves dispatch while later
+    pairs load); under 0 every pair loads behind the barrier and the probe
+    runs one global wave (path "batched")."""
     from .device_join import try_batched_plain_join
     from .gpu_exec import _decline, _pipeline_enabled, _pipeline_overlap
+    from ..parallel.mesh import _log, active_mesh, is_hierarchical
 
     if session is None or not session.conf.exec_device_enabled:
-        return None, None
+        return None, None, None
     if not _plain_join_plan_screen(left, right, lkeys, rkeys):
-        return _decline(session, "plain_join_plan_screen"), None
-    if not _pipeline_enabled():
+        return _decline(session, "plain_join_plan_screen"), None, None
+    mesh = active_mesh(session)
+    if mesh is not None and is_hierarchical(mesh):
+        _log.info("the mesh join probe stays within one slice: a hierarchical mesh "
+                  "declines it")
+        _decline(session, "mesh_join_hierarchical")
+        mesh = None
+    if mesh is not None or not _pipeline_enabled():
         work, loaded = _collect_plain_join_work(left, right, lkeys, rkeys, appended, session)
         if not work:
-            return None, loaded  # ineligible keys, or no occupied pair
+            return None, loaded, None  # ineligible keys, or no occupied pair
+        if mesh is not None:
+            return _mesh_join_work(mesh, work, residual, session, left, right), loaded, "mesh"
         parts = try_batched_plain_join(work, residual, session, banded=False,
                                        strategy=strategy)
         if parts is None:
-            return None, loaded
+            return None, loaded, None
         ordered = [parts[b] for b in sorted(parts)]
         if not ordered:
-            return _empty_join_output(work[0][1], work[0][2]), loaded
-        return ColumnBatch.concat(ordered), loaded
+            return _empty_join_output(work[0][1], work[0][2]), loaded, "batched"
+        return ColumnBatch.concat(ordered), loaded, "batched"
 
     n = left.spec.num_buckets
     loaded: list = [None] * n
@@ -665,15 +683,75 @@ def _try_device_join_paths(left, right, lkeys, rkeys, residual, appended, sessio
     finally:
         gen.close()  # stops the read-ahead, whatever raised
     if parts is None:
-        return None, loaded
+        return None, loaded, None
     ordered = [parts[b] for b in sorted(parts)]
     if ordered:
-        return ColumnBatch.concat(ordered), loaded
+        return ColumnBatch.concat(ordered), loaded, "batched"
     occupied = next((t for t in loaded if t is not None and t[0] is not None
                      and t[1] is not None and t[0].num_rows and t[1].num_rows), None)
     if occupied is None:
-        return None, loaded  # nothing occupied: the per-bucket empty shape
-    return _empty_join_output(occupied[0], occupied[1]), loaded
+        return None, loaded, None  # nothing occupied: the per-bucket empty shape
+    return _empty_join_output(occupied[0], occupied[1]), loaded, "batched"
+
+
+def _mesh_join_work(mesh, work, residual, session=None, left=None,
+                    right=None) -> ColumnBatch:
+    """Join pre-collected bucket work across the device mesh: the probe
+    runs in waves of one bucket per shard (parallel/dist_join: shard-local,
+    no traffic between devices, since the sides are co-partitioned); run
+    expansion and column gathers stay on the host, so the rows equal the
+    per-bucket host merge join's, in bucket order. A shard whose probe
+    fails to launch raises."""
+    from ..ops.join import expand_runs
+    from ..parallel.dist_join import mesh_join_probe
+    from ..parallel.mesh import num_shards
+    from .device_join import _pow2
+
+    S = num_shards(mesh)
+    pad_l = _pow2(max(len(w[3]) for w in work))
+    pad_r = _pow2(max(len(w[4]) for w in work))
+    dt = work[0][3].dtype
+    pad_val = np.iinfo(dt).max if dt.kind == "i" else np.float32(np.inf)
+
+    parts: dict[int, ColumnBatch] = {}
+    for wave_start in range(0, len(work), S):
+        wave = work[wave_start: wave_start + S]
+        lk_stack = np.full((S, pad_l), pad_val, dtype=dt)
+        rk_stack = np.full((S, pad_r), pad_val, dtype=dt)
+        n_r = np.zeros(S, dtype=np.int64)
+        for i, (_b, _lb, _rb, lk32, rk32, _lo, _ro, _ls, _rs) in enumerate(wave):
+            lk_stack[i, : len(lk32)] = lk32
+            rk_stack[i, : len(rk32)] = rk32
+            n_r[i] = len(rk32)
+        starts_all, counts_all = mesh_join_probe(mesh, lk_stack, rk_stack, n_r)
+        for i, (b, lb, rb, lk32, _rk32, lorder, rorder, _ls, _rs) in enumerate(wave):
+            n_l = len(lk32)
+            counts = counts_all[i, :n_l]
+            li = np.repeat(np.arange(n_l, dtype=np.int64), counts)
+            ri = expand_runs(starts_all[i, :n_l], counts)
+            if lorder is not None:
+                li = lorder[li]
+            if rorder is not None:
+                ri = rorder[ri]
+            out = {nm: c.take(li) for nm, c in lb.columns.items()}
+            out.update({nm: c.take(ri) for nm, c in rb.columns.items()})
+            joined = ColumnBatch(out)
+            for r in residual:
+                joined = joined.filter(np.asarray(r.eval(joined).data, dtype=bool))
+            parts[b] = joined
+    if session is not None:
+        session.device_stats.mesh_joins += 1
+        names = sorted({s.scan.index_info.index_name for s in (left, right)
+                        if s is not None and s.scan.index_info is not None})
+        if names:
+            from ..rules.rule_utils import log_index_usage
+
+            log_index_usage(session, "MeshBucketedExec", names,
+                            f"Mesh bucketed join: {len(work)} buckets in waves of "
+                            f"{S} shards ({', '.join(names)})")
+    ordered = [parts[b] for b in sorted(parts)]
+    return ColumnBatch.concat(ordered) if ordered else _empty_join_output(work[0][1],
+                                                                         work[0][2])
 
 
 def _iter_bucket_pairs(left, right, appended, session, raw: bool = False,

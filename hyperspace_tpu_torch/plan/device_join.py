@@ -53,7 +53,12 @@ The host twin (``try_host_join_agg``) runs the numpy form of the fused
 body; its one-int64-key shape without a residual goes through the native
 fused probe (``_native_probe_agg``, native/hs_native.cpp).
 
-Not ported: the mesh paths and their placement (ROADMAP Queue 1 item 4).
+Under ``HYPERSPACE_MESH`` both all-bucket paths place their band items on
+the mesh (parallel/placement.plan_for_strategy, from the join memory
+plan's footer estimates): a wave runs on its placed device, with its
+uploads under that ordinal's cache key and its reservation on that
+ordinal's ledger, and the host fold is unchanged, so the results are the
+same bits as with the mesh off.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ import torch
 from . import expr as X
 from .expr import Expr
 from ..columnar.table import Column, ColumnBatch, STRING, numpy_dtype
+from ..parallel import placement as mesh_placement
 from ..telemetry import attribution as _attr
 from ..telemetry import plan_stats, trace
 from ..telemetry.metrics import REGISTRY
@@ -336,10 +342,13 @@ def _fetch_all(tensors: list) -> list[np.ndarray]:
     concatenated as bytes on the device, copied once (into pinned memory,
     several times faster than pageable) and split again, each in its own
     dtype and shape. The copy is one blocking fetch for the RpcMeter, in a
-    ``fetch`` span."""
+    ``fetch`` span. Tensors on other devices (placed mesh waves) are first
+    copied to the first tensor's device."""
     if not tensors:
         return []
-    flat = torch.cat([_as_bytes(t) for t in tensors])
+    # placed waves may live on several devices: gather on the first one
+    home = tensors[0].device
+    flat = torch.cat([_as_bytes(t.to(home)) for t in tensors])
     with trace.span("fetch"), _attr.phase("fetch"):
         if flat.device.type == "cuda":
             pinned = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
@@ -357,11 +366,17 @@ def _fetch_all(tensors: list) -> list[np.ndarray]:
     return out
 
 
-def _upload(session, device, srcs, tag, build) -> torch.Tensor:
+def _upload(session, device, srcs, tag, build, placed=None) -> torch.Tensor:
     """A device tensor derived from host buffers ``srcs``, from the
-    session's device cache (a warm query uploads nothing)."""
+    session's device cache (a warm query uploads nothing); ``placed`` (a
+    parallel/mesh.MeshDevice) uploads to that mesh ordinal's device under
+    its own key."""
+    from ..utils.device_cache import placed_tag
+
+    if placed is not None:
+        device = placed.device
     return session.device_cache.get_or_put(
-        srcs, tag + (str(device),),
+        srcs, placed_tag(tag + (str(device),), placed),
         lambda: torch.from_numpy(np.array(build())).to(device),
     )
 
@@ -447,9 +462,10 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
             return a if order is None else a[order]
         return build
 
-    def dispatch(pads, items):
-        """Upload what the wave's items need (from the device cache) and
-        launch the body per item: [(counts, aggregate tensors)]."""
+    def dispatch(pads, items, placed=None):
+        """Upload what the wave's items need (from the device cache, to the
+        placed mesh device if any) and launch the body per item:
+        [(counts, aggregate tensors)]."""
         _gc, _specs, left_names, _rg, right_names = st["elig"]
         METER.record_dispatch()  # one wave, as the JAX package's stacked kernel
         out = []
@@ -457,13 +473,15 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
             rtag = ("join_r",) if it.rorder is None else ("join_r_sorted",)
             rsrcs = () if it.rorder is None else (it.rb.column(rk_name).data,)
             lk_col = it.lb.column(lk_name)
-            lk_d = _upload(session, device, (lk_col.data,), ("join_l",), shipped(lk_col))
+            lk_d = _upload(session, device, (lk_col.data,), ("join_l",), shipped(lk_col),
+                           placed)
             rk_d = _upload(session, device, (it.rb.column(rk_name).data,) + rsrcs, rtag,
-                           shipped(it.rb.column(rk_name), it.rorder))
+                           shipped(it.rb.column(rk_name), it.rorder), placed)
             lcols = {c: _upload(session, device, (it.lb.column(c).data,), ("join_l",),
-                                shipped(it.lb.column(c))) for c in left_names}
+                                shipped(it.lb.column(c)), placed) for c in left_names}
             rcols = {c: _upload(session, device, (it.rb.column(c).data,) + rsrcs, rtag,
-                                shipped(it.rb.column(c), it.rorder)) for c in right_names}
+                                shipped(it.rb.column(c), it.rorder), placed)
+                     for c in right_names}
             if (it.lo, it.hi) != (0, it.lb.num_rows):  # a left chunk: views
                 lk_d = lk_d[it.lo:it.hi]
                 lcols = {c: t[it.lo:it.hi] for c, t in lcols.items()}
@@ -486,10 +504,13 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
             flat = _fetch_all([t for rec in wave.rec for t in rec])
         return _regroup(flat, wave.rec)
 
-    sched = _BandScheduler(dispatch, ledger, estimate, retire, banded=banded)
+    sched = _BandScheduler(dispatch, ledger, estimate, retire, banded=banded, stats=stats)
     split_default = join_split_rows() if banded else 0
     n_splits = n_buckets = 0
     splittable = False
+    # the skew-aware mesh placement (None with HYPERSPACE_MESH off or fewer
+    # than two devices); one global wave has nothing to place
+    place = mesh_placement.plan_for_strategy(strategy) if banded else None
     for b, lb, rb, l_sorted, r_sorted in pairs:
         if lb is None or rb is None or not lb.num_rows or not rb.num_rows:
             continue
@@ -558,11 +579,13 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
             else split_default
         if split and splittable and n_l > split:
             n_splits += -(-n_l // split) - 1
-            for c0 in range(0, n_l, split):
+            for ci, c0 in enumerate(range(0, n_l, split)):
                 c1 = min(c0 + split, n_l)
-                sched.add(_AggItem(b, lb, rb, rorder, probe_sorted, c0, c1), c1 - c0, n_r)
+                sched.add(_AggItem(b, lb, rb, rorder, probe_sorted, c0, c1), c1 - c0, n_r,
+                          place=place.slot_for(b, ci) if place else None)
         else:
-            sched.add(_AggItem(b, lb, rb, rorder, probe_sorted, 0, n_l), n_l, n_r)
+            sched.add(_AggItem(b, lb, rb, rorder, probe_sorted, 0, n_l), n_l, n_r,
+                      place=place.slot_for(b) if place else None)
 
     if st["elig"] is None:
         return None  # no occupied bucket pair: the caller emits the empty shape
@@ -578,7 +601,8 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
     # ONE fetch over every wave that did not spill
     pending = [w for w in records if w.done is None]
     if pending:
-        with trace.span("join:fold", waves=len(pending)), _attr.phase("fold"):
+        with _mesh_gather(place, pending), \
+                trace.span("join:fold", waves=len(pending)), _attr.phase("fold"):
             flat = _fetch_all([t for w in pending for rec in w.rec for t in rec])
         ofs = 0
         for w in pending:
@@ -587,6 +611,8 @@ def _stacked_join_agg_impl(pairs, lkeys, rkeys, residual, session, agg_plan, lfi
             w.rec = None
             ofs += n
     sched.release_reservations()
+    if place is not None:
+        _log_mesh_exec(session, strategy, place, records, "stacked_agg")
     stats.device_join_fragments += 1
     return _assemble_stacked(records, st["elig"], agg_plan.schema, rk_name, st["first_rb"])
 
@@ -1144,17 +1170,19 @@ class _JoinDeclined(Exception):
 
 class _Wave:
     """One dispatched band wave: its pads, items, device record (the probe
-    outputs), its ledger reservation, and once fetched or spilled its host
+    outputs), its ledger reservation, the mesh device ordinal it was
+    dispatched to (0 unplaced), and once fetched or spilled its host
     results in ``done``."""
 
-    __slots__ = ("pads", "items", "rec", "nbytes", "done")
+    __slots__ = ("pads", "items", "rec", "nbytes", "done", "ordinal")
 
-    def __init__(self, pads, items, rec, nbytes: int = 0):
+    def __init__(self, pads, items, rec, nbytes: int = 0, ordinal: int = 0):
         self.pads = pads
         self.items = items
         self.rec = rec
         self.nbytes = nbytes
         self.done = None
+        self.ordinal = ordinal
 
 
 class _BandScheduler:
@@ -1170,11 +1198,17 @@ class _BandScheduler:
     admission parks it and ``spill_one`` retires this join's oldest
     in-flight wave (``retire(wave)`` fetches its results, freeing its
     reservation). A ``_JoinDeclined`` from a spill's retire stops the
-    scheduler (``declined``); any other error propagates."""
+    scheduler (``declined``); any other error propagates.
+
+    Under the mesh placement (parallel/placement.py) each item carries its
+    ``(ordinal, MeshDevice)`` place: items band by ``(pads, place)``, so a
+    wave dispatches to exactly one device, in a ``mesh:dispatch`` span, and
+    reserves on that ordinal's ledger. With no placement (place None
+    everywhere) nothing changes."""
 
     def __init__(self, dispatch, ledger, estimate, retire, banded: bool = True,
-                 wave: int = _JOIN_WAVE):
-        self._dispatch = dispatch  # (pads, items) -> device record
+                 wave: int = _JOIN_WAVE, stats=None):
+        self._dispatch = dispatch  # (pads, items[, placed device]) -> device record
         self._ledger = ledger  # plan/join_memory.DeviceLedger
         self._estimate = estimate  # (pads, items) -> wave footprint bytes
         self._retire = retire  # (_Wave) -> host results (the spill fetch)
@@ -1187,20 +1221,24 @@ class _BandScheduler:
         self.spills = 0
         self._n_items = 0
         self._item_pads = 0  # the pad rows of every dispatched item
+        self._stats = stats  # the session's DeviceTierStats (placed waves)
 
-    def add(self, item, n_l: int, n_r: int) -> None:
+    def add(self, item, n_l: int, n_r: int, place=None) -> None:
+        """``place`` is the item's mesh placement, ``(ordinal, device)``
+        from parallel/placement, or None (the session's device)."""
         self._max_l = max(self._max_l, n_l)
         self._max_r = max(self._max_r, n_r)
         self._n_items += 1
         if not self.banded:
+            # ONE global wave: nothing to place
             self._groups.setdefault(None, []).append(item)
             return
-        pads = _band_pads(n_l, n_r)
-        group = self._groups.setdefault(pads, [])
+        band = (_band_pads(n_l, n_r), place)
+        group = self._groups.setdefault(band, [])
         group.append(item)
         if len(group) >= self.wave:
-            self._flush(pads, group)
-            self._groups[pads] = []
+            self._flush(band[0], group, place)
+            self._groups[band] = []
 
     def spill_one(self) -> bool:
         """Retire this join's oldest in-flight wave: fetch its results to
@@ -1216,7 +1254,7 @@ class _BandScheduler:
                 REGISTRY.counter("join.spill.spills").inc()
                 plan_stats.note_flag("spilled_waves")
                 if w.nbytes:
-                    self._ledger.release(w.nbytes)
+                    self._ledger.release(w.nbytes, device=w.ordinal)
                     w.nbytes = 0
                 return True
         return False
@@ -1225,30 +1263,39 @@ class _BandScheduler:
         """Return every outstanding reservation (after the final fetch)."""
         for w in self.records:
             if w.nbytes:
-                self._ledger.release(w.nbytes)
+                self._ledger.release(w.nbytes, device=w.ordinal)
                 w.nbytes = 0
 
-    def _flush(self, pads, items) -> None:
+    def _flush(self, pads, items, place=None) -> None:
         if self.declined is not None or not items:
             return
+        ordinal = place[0] if place is not None else 0
         need = int(self._estimate(pads, items)) if self._ledger.enabled else 0
         try:
             # parks (spilling in-flight waves) instead of declining when the
             # wave does not fit
-            self._ledger.admit(need, self.spill_one)
+            self._ledger.admit(need, self.spill_one, device=ordinal)
         except _JoinDeclined as e:
             self.declined = e
             return
         with trace.span("join:band", pad_l=pads[0], pad_r=pads[1], buckets=len(items)):
-            rec = self._dispatch(pads, items)
+            if place is None:
+                rec = self._dispatch(pads, items)
+            else:
+                with trace.span("mesh:dispatch", device=ordinal, pad_l=pads[0],
+                                pad_r=pads[1], buckets=len(items)):
+                    rec = self._dispatch(pads, items, place[1])
+        if place is not None and self._stats is not None:
+            self._stats.placed_waves[ordinal] = self._stats.placed_waves.get(ordinal, 0) + 1
         REGISTRY.counter("pipeline.join.bands").inc()
         self._item_pads += len(items) * (pads[0] + pads[1])
-        self.records.append(_Wave(pads, items, rec, need))
+        self.records.append(_Wave(pads, items, rec, need, ordinal))
 
     def finish(self) -> list:
         if self.banded:
-            for pads in sorted(self._groups):
-                self._flush(pads, self._groups[pads])
+            for key in sorted(self._groups,
+                              key=lambda k: (k[0], -1 if k[1] is None else k[1][0])):
+                self._flush(key[0], self._groups[key], key[1])
         elif self._groups.get(None):
             self._flush(_band_pads(self._max_l, self._max_r), self._groups[None])
         self._groups = {}
@@ -1258,6 +1305,33 @@ class _BandScheduler:
             if saved > 0:
                 REGISTRY.counter("pipeline.join.pad_rows_saved").inc(saved)
         return self.records
+
+
+def _mesh_gather(place, pending):
+    """The ``mesh:gather`` span of a placed join's fold fetch (a null
+    context when nothing was placed)."""
+    from contextlib import nullcontext
+
+    if place is None:
+        return nullcontext()
+    return trace.span("mesh:gather", waves=len(pending),
+                      devices=len({w.ordinal for w in pending}))
+
+
+def _log_mesh_exec(session, strategy, place, records, path: str) -> None:
+    """The MeshBucketedExec usage event of a placed join: the mesh twin of
+    ``BucketedJoinExec``, naming the devices its waves ran on."""
+    if session is None:
+        return
+    name = getattr(strategy, "index_name", "") if strategy is not None else ""
+    if not name:
+        return
+    from ..rules.rule_utils import log_index_usage
+
+    ordinals = sorted({w.ordinal for w in records})
+    log_index_usage(session, "MeshBucketedExec", [name],
+                    f"Mesh bucketed exec ({path}): {len(records)} waves placed on "
+                    f"devices {ordinals} of {len(place.devices)}")
 
 
 def _build_plain_probe_kernel():
@@ -1359,11 +1433,16 @@ def _split_probe_items(w, split: int):
 
 
 def _stack_band_keys(items, arr_attr: str, src_attr: str, pad: int, dt, pad_val,
-                     session, device):
-    """(keys [W, pad], lengths int32[W]) of one band wave on the device,
-    cached by the identities of the ORIGINAL key buffers and the per-item
-    derivation (chunk offset, length, sort flag): a repeat over the same
-    index buffers uploads nothing."""
+                     session, device, placed=None):
+    """(keys [W, pad], lengths int32[W]) of one band wave on the device (the
+    placed mesh device, if any, under its ordinal's key), cached by the
+    identities of the ORIGINAL key buffers and the per-item derivation
+    (chunk offset, length, sort flag): a repeat over the same index buffers
+    uploads nothing."""
+    from ..utils.device_cache import placed_tag
+
+    if placed is not None:
+        device = placed.device
     srcs = tuple(getattr(it, src_attr) for it in items)
     left = arr_attr == "lk32"
     tag = (
@@ -1375,6 +1454,7 @@ def _stack_band_keys(items, arr_attr: str, src_attr: str, pad: int, dt, pad_val,
         ),
         str(device),
     )
+    tag = placed_tag(tag, placed)
 
     def build():
         stack = np.full((len(items), pad), pad_val, dtype=dt)
@@ -1384,7 +1464,7 @@ def _stack_band_keys(items, arr_attr: str, src_attr: str, pad: int, dt, pad_val,
         lens = np.array([len(getattr(it, arr_attr)) for it in items], np.int32)
         return torch.from_numpy(stack).to(device), torch.from_numpy(lens).to(device)
 
-    return session.device_cache.get_or_put(srcs, tag, build)
+    return session.device_cache.get_or_put_multi(srcs, tag, build)
 
 
 def try_batched_plain_join(work, residual, session, banded=None,
@@ -1433,13 +1513,13 @@ def _batched_plain_join_impl(work, residual, session, banded, strategy,
     probe = cache.get_or_build(plain_join_fingerprint(route, "stacked_probe"),
                                _build_stacked_probe_kernel, "join_stacked_probe")
 
-    def dispatch_probe(pads, items):
+    def dispatch_probe(pads, items, placed=None):
         dt = st["dt"]
         pad_val = np.iinfo(dt).max if dt.kind == "i" else np.float32(np.inf)
         lk_d, n_l = _stack_band_keys(items, "lk32", "lk_src", pads[0], dt, pad_val,
-                                     session, device)
+                                     session, device, placed)
         rk_d, n_r = _stack_band_keys(items, "rk32", "rk_src", pads[1], dt, pad_val,
-                                     session, device)
+                                     session, device, placed)
         METER.record_dispatch()
         return probe(lk_d, rk_d, n_r, n_l)
 
@@ -1480,9 +1560,13 @@ def _batched_plain_join_impl(work, residual, session, banded, strategy,
         stats.plain_join_fetches += 1
         return totals, li, ri
 
-    sched = _BandScheduler(dispatch_probe, ledger, est_probe, retire_probe, banded=banded)
+    sched = _BandScheduler(dispatch_probe, ledger, est_probe, retire_probe, banded=banded,
+                           stats=stats)
     split_default = join_split_rows() if banded else 0
     total_left = n_splits = n_buckets = 0
+    # the skew-aware mesh placement (None with HYPERSPACE_MESH off or fewer
+    # than two devices); one global wave has nothing to place
+    place = mesh_placement.plan_for_strategy(strategy) if banded else None
     for w in work:
         if st["dt"] is None:
             st["dt"] = w[3].dtype
@@ -1494,10 +1578,11 @@ def _batched_plain_join_impl(work, residual, session, banded, strategy,
             strategy.observe_actual(w[0], len(w[3]), _batch_data_nbytes(w[1]))
         split = strategy.split_rows(w[0]) if strategy is not None and banded \
             else split_default
-        for item in _split_probe_items(w, split):
+        for ci, item in enumerate(_split_probe_items(w, split)):
             if item.lo_ofs == 0 and split and len(w[3]) > split:
                 n_splits += -(-len(w[3]) // split) - 1
-            sched.add(item, len(item.lk32), len(item.rk32))
+            sched.add(item, len(item.lk32), len(item.rk32),
+                      place=place.slot_for(w[0], ci) if place else None)
     records = sched.finish()
     stats.join_spills += sched.spills
     stats.join_waves += len(records)
@@ -1516,6 +1601,11 @@ def _batched_plain_join_impl(work, residual, session, banded, strategy,
     try:
         pending = [w for w in records if w.done is None]
         if pending:
+            if place is not None:
+                # a zero-width marker: the fetches below gather from every
+                # placed device
+                with _mesh_gather(place, pending):
+                    pass
             # fetch 1: every unspilled wave's totals and overflow flags
             with trace.span("join:probe", waves=len(pending)):
                 flat = _fetch_all([t for w in pending for t in (w.rec[2], w.rec[3])])
@@ -1539,6 +1629,8 @@ def _batched_plain_join_impl(work, residual, session, banded, strategy,
     except _JoinDeclined as e:
         return _decline(session, e.reason)
     sched.release_reservations()
+    if place is not None:
+        _log_mesh_exec(session, strategy, place, records, "batched_probe")
 
     # host: gather both sides' columns per bucket, in their original dtypes
     chunks_by_bucket: dict[int, list] = {}

@@ -47,9 +47,19 @@ stream, and the monolithic path runs, as in the reference.
 Unlike the reference, nothing here catches a device failure: a kernel that
 fails to build or launch raises, and the query fails. A fragment declines
 only by shape or data (string aggregates, nullable columns, out-of-range
-literals, a full-range int64 column that feeds an aggregate). Not ported:
-the mesh, the mesh chunk placer, and the adaptive scan monitor (which
-passes chunks through with ``HYPERSPACE_ADAPTIVE`` off, its default).
+literals, a full-range int64 column that feeds an aggregate).
+
+Over a mesh of devices (parallel/): with ``hyperspace.tpu.exec.meshDevices``
+set and that many devices visible, a monolithic fragment runs on the mesh
+(``_execute_on_mesh``): its rows shard across the devices, each shard runs
+the grouped body, and the per-group partials fold on the first device
+(parallel/dist_agg.py); the pipelined route steps aside while a mesh is
+active, as in the reference. Under ``HYPERSPACE_MESH`` the partial route's
+chunks are placed on the least-loaded device instead
+(parallel/placement.chunk_placer): each chunk uploads to its device, under
+its ordinal's cache key, and its fragment kernel (the CUDA kernel where the
+shape has one) launches there; the host fold is unchanged, so the result
+is bit for bit the one-device result.
 
 ORDER BY runs here too: ``try_device_topk`` (Limit over Sort, one exact
 32-bit key) and ``try_device_sort`` (any number of keys encoded into
@@ -77,6 +87,7 @@ from ..columnar.table import Column, ColumnBatch, STRING
 from ..exceptions import HyperspaceError
 from ..ops import cuda_kernels as K
 from ..ops.intsum import _INT_SUM_ROW_CAP, combine_int_chunks, int_chunk_sums
+from ..parallel import placement as mesh_placement
 from ..serve.context import check_cancelled
 from ..telemetry import attribution as _attr
 from ..telemetry import plan_stats, trace
@@ -150,6 +161,10 @@ class DeviceTierStats:
     ``pipeline.join.splits`` and ``join.spill.parks``); device top-k and
     sort runs; and how often each reason declined a fragment or a join
     that matched (``declines``) or a top-k or sort (``order_declines``).
+    The mesh tier counts the fragments that ran on a mesh
+    (``mesh_fragments``), the bucketed joins whose probe ran on one
+    (``mesh_joins``), and the streamed chunks and join band waves placed on
+    each device ordinal (``placed_chunks``, ``placed_waves``).
     The pipelined tier counts its queries and chunks, the streams it
     declined by route (``pipeline_declines``) and those a chunk's data
     aborted (``pipeline_aborts``), each by reason: the reference's
@@ -169,6 +184,10 @@ class DeviceTierStats:
     device_plain_probes: int = 0
     device_topk: int = 0
     device_sort: int = 0
+    mesh_fragments: int = 0
+    mesh_joins: int = 0
+    placed_chunks: dict = field(default_factory=dict)
+    placed_waves: dict = field(default_factory=dict)
     order_declines: dict = field(default_factory=dict)
     pipelined_queries: int = 0
     pipelined_chunks: int = 0
@@ -668,11 +687,18 @@ def _upload_wide(data: np.ndarray, padded: int, device, timer=None) -> tuple:
 
 
 def _upload_columns(batch: ColumnBatch, names, padded: int, session, device,
-                    wide_ok: frozenset = frozenset(), timer: Optional[UploadTimer] = None):
+                    wide_ok: frozenset = frozenset(), timer: Optional[UploadTimer] = None,
+                    placed=None):
     """Padded device columns by name, served from the session's device
     cache; None when a column is nullable or exceeds the 32-bit range. A
     column of ``wide_ok`` that exceeds it ships as a (hi, lo) word pair,
-    cached apart from a narrowed upload of the same buffer."""
+    cached apart from a narrowed upload of the same buffer. ``placed`` (a
+    parallel/mesh.MeshDevice) uploads to that mesh ordinal's device, under
+    its own cache key."""
+    from ..utils.device_cache import placed_tag
+
+    if placed is not None:
+        device = placed.device
     dev_cols = {}
     for name in sorted(names):
         col = batch.column(name)
@@ -682,12 +708,12 @@ def _upload_columns(batch: ColumnBatch, names, padded: int, session, device,
             if name not in wide_ok:
                 return None
             dev_cols[name] = session.device_cache.get_or_put(
-                (col.data,), ("wide", padded, str(device)),
+                (col.data,), placed_tag(("wide", padded, str(device)), placed),
                 lambda data=col.data: _upload_wide(data, padded, device, timer),
             )
             continue
         dev_cols[name] = session.device_cache.get_or_put(
-            (col.data,), ("pad", padded, str(device)),
+            (col.data,), placed_tag(("pad", padded, str(device)), placed),
             lambda data=col.data: pad_to_device(data, padded, device, timer),
         )
     return dev_cols
@@ -1050,9 +1076,11 @@ def _cached_factorization(session, key_cols: list[Column], bufs: tuple, tag: str
 
 
 def _group_ids_to_device(session, device, bufs, cacheable, group_ids, n, padded,
-                         seg_pad, tag, timer):
+                         seg_pad, tag, timer, placed=None):
     """Padded device group ids (dump slot ``seg_pad - 1`` past ``n``),
-    cached on the key buffers when the factorization is."""
+    cached on the key buffers when the factorization is (under the placed
+    mesh ordinal's key, when ``placed``)."""
+    from ..utils.device_cache import placed_tag
 
     def build():
         arr = np.full(padded, seg_pad - 1, dtype=np.int32)
@@ -1060,8 +1088,8 @@ def _group_ids_to_device(session, device, bufs, cacheable, group_ids, n, padded,
         return _to_device(arr, device, timer)
 
     if cacheable:
-        return session.device_cache.get_or_put(bufs, (tag, padded, seg_pad, str(device)),
-                                               build)
+        return session.device_cache.get_or_put(
+            bufs, placed_tag((tag, padded, seg_pad, str(device)), placed), build)
     gids = build()
     session.device_cache.record_upload(gids.numel() * 4)
     return gids
@@ -1353,6 +1381,19 @@ def _chunk_abort_reason(batch: ColumnBatch, refs, expect: dict) -> Optional[str]
     return None
 
 
+def _place_chunk(placer, stats, padded: int, device_refs, n: int):
+    """The mesh device (a parallel/mesh.MeshDevice) the next chunk runs on,
+    charged its padded bytes; None with no placer. A zero-width
+    ``mesh:dispatch`` span marks the placement."""
+    if placer is None:
+        return None
+    ordinal, placed = placer.next(padded * max(len(device_refs), 1) * 8)
+    stats.placed_chunks[ordinal] = stats.placed_chunks.get(ordinal, 0) + 1
+    with trace.span("mesh:dispatch", device=ordinal, rows=n):
+        pass
+    return placed
+
+
 def _stream_global_partial(frag, plan, chunks, overlap, session, device,
                            timer) -> Optional[ColumnBatch]:
     """The global body per chunk, its exact partials folded on the host:
@@ -1389,6 +1430,7 @@ def _stream_global_partial(frag, plan, chunks, overlap, session, device,
                 raise HyperspaceError(f"non-foldable {kind} on the partial route")
 
     expect: dict = {}
+    placer = mesh_placement.chunk_placer()
     for chunk in chunks:
         batch = chunk.batch
         n = batch.num_rows
@@ -1403,10 +1445,12 @@ def _stream_global_partial(frag, plan, chunks, overlap, session, device,
             if not ok:
                 return _count(stats.pipeline_aborts, "string_predicate")
             padded = _pad_pow2(n)
+            placed = _place_chunk(placer, stats, padded, device_refs, n)
+            dev = device if placed is None else placed.device
             dev_cols = _upload_columns(batch, device_refs & set(batch.columns), padded, session,
-                                       device, timer=timer)
-            mask = _padded_mask(padded, n, device)
-            key = fused_fingerprint(kernel_route(device), frag.scan, pred, proj_exprs, agg_list,
+                                       device, timer=timer, placed=placed)
+            mask = _padded_mask(padded, n, dev)
+            key = fused_fingerprint(kernel_route(dev), frag.scan, pred, proj_exprs, agg_list,
                                     dev_cols)
             kernel = session.kernel_cache.get_or_build(
                 key, lambda: _build_kernel(pred, proj_exprs, agg_list), "fused_agg"
@@ -1530,6 +1574,7 @@ def _stream_grouped_partial(frag, plan, chunks, overlap, session, device,
 
     expect: dict = {}
     row_offset = 0
+    placer = mesh_placement.chunk_placer()
     for chunk in chunks:
         batch = chunk.batch
         n = batch.num_rows
@@ -1562,12 +1607,14 @@ def _stream_grouped_partial(frag, plan, chunks, overlap, session, device,
             # each chunk's seg_pad is its own, and so is its kernel's key
             seg_pad = _seg_pad(num_l)
             padded = _pad_pow2(n)
+            placed = _place_chunk(placer, stats, padded, device_refs, n)
+            dev = device if placed is None else placed.device
             dev_cols = _upload_columns(batch, device_refs & set(batch.columns), padded, session,
-                                       device, timer=timer)
-            gids_d = _group_ids_to_device(session, device, bufs, cacheable, gids_l, n, padded,
-                                          seg_pad, "gids", timer)
-            mask = _padded_mask(padded, n, device)
-            key = grouped_fingerprint(kernel_route(device), frag.scan, seg_pad, pred, proj_exprs,
+                                       device, timer=timer, placed=placed)
+            gids_d = _group_ids_to_device(session, dev, bufs, cacheable, gids_l, n, padded,
+                                          seg_pad, "gids", timer, placed)
+            mask = _padded_mask(padded, n, dev)
+            key = grouped_fingerprint(kernel_route(dev), frag.scan, seg_pad, pred, proj_exprs,
                                       agg_list, dev_cols)
             kernel = session.kernel_cache.get_or_build(
                 key, lambda: _build_grouped_kernel(pred, proj_exprs, agg_list, seg_pad),
@@ -1678,8 +1725,9 @@ def _stream_concat(frag, plan, chunks, session, device, timer,
                 parts = parts + [torch.zeros(tail, dtype=parts[0].dtype, device=device)]
             return torch.cat(parts)
 
-        dev_cols[name] = cache.get_or_put(tuple(src_parts[name]), ("cat", padded, str(device)),
-                                          cat, meter=False, store=stable)
+        dev_cols[name] = cache.get_or_put_multi(tuple(src_parts[name]),
+                                                ("cat", padded, str(device)), cat,
+                                                meter=False, store=stable)
     mask = _padded_mask(padded, n_seen, device)
     if not key_names:
         with trace.span("kernel:fused_agg", rows=n_seen, padded=padded):
@@ -1706,6 +1754,147 @@ def _stream_concat(frag, plan, chunks, session, device, timer,
         return _run_grouped(frag, plan, session, device, dev_cols, gids_d, mask,
                             [reps.column(nm) for nm in key_names], np.arange(num_groups),
                             num_groups, seg_pad)
+
+
+# ---------------------------------------------------------------------------
+# the mesh route
+# ---------------------------------------------------------------------------
+
+def _mesh_for(session):
+    """The active execution mesh (parallel/mesh.active_mesh): None unless
+    ``meshDevices`` asks for one and that many devices exist."""
+    from ..parallel.mesh import active_mesh
+
+    return active_mesh(session)
+
+
+def _upload_shards(batch: ColumnBatch, names, padded: int, session, devices: list):
+    """Each named column's padded row blocks, one per shard on its mesh
+    device, from the session's device cache under the shard's ordinal;
+    None when a column is nullable or exceeds the 32-bit range (a mesh
+    never ships Wide64)."""
+    from ..utils.device_cache import placed_tag
+
+    per = padded // len(devices)
+    out: dict = {}
+    for name in sorted(names):
+        col = batch.column(name)
+        if col.validity is not None or not _int64_fits(col.data):
+            return None
+
+        def build(data=col.data, i=0, dev=None):
+            arr = np.zeros(per, dtype=_device_dtype(data.dtype))
+            part = data[i * per:(i + 1) * per]
+            arr[: len(part)] = part.astype(arr.dtype)
+            return torch.from_numpy(arr).to(dev.device)
+
+        out[name] = [
+            session.device_cache.get_or_put(
+                (col.data,), placed_tag(("shard", padded, i, str(dev.device)), dev),
+                lambda i=i, dev=dev: build(i=i, dev=dev))
+            for i, dev in enumerate(devices)
+        ]
+    return out
+
+
+def _execute_on_mesh(frag: _Fragment, batch: ColumnBatch, plan, session,
+                     mesh) -> Optional[ColumnBatch]:
+    """A global or grouped fragment over a device mesh: the rows shard
+    across the devices, each shard runs the predicate and the segment
+    reductions, and the per-group partials fold on the mesh's first device
+    (a global aggregate is the one-group case). Integer sums are exact
+    chunk sums: the caller's 2^23-row cap keeps every folded chunk within
+    int32, and global first-row indices too. None when the fragment cannot
+    shard (a literal outside 32 bits, a nullable or full-range int64
+    column): the one-device route takes it. Counterpart of
+    tpu_exec._execute_on_mesh."""
+    from .executor import factorize_group_keys
+    from .kernel_cache import mesh_fingerprint
+    from ..parallel.dist_agg import build_distributed_grouped_kernel
+    from ..parallel.mesh import shard_devices
+
+    n = batch.num_rows
+    if not _fragment_literals_fit(frag):  # a mesh never ships Wide64
+        return None
+    if frag.agg.group_exprs:
+        key_cols = [batch.column(e.name) for e in frag.agg.group_exprs]
+        key_bufs = tuple(kc.data for kc in key_cols)
+        (group_ids, num_groups, first_idx), cacheable = _cached_factorization(
+            session, key_cols, key_bufs, "factorize", lambda: factorize_group_keys(key_cols))
+    else:
+        key_cols, first_idx, group_ids, num_groups = [], None, None, 1
+    seg_pad = _seg_pad(num_groups)
+    devices = shard_devices(mesh)  # flat or hierarchical (dcn x ici)
+    d = len(devices)
+    padded = _pad_pow2(n)
+    if padded % d:
+        padded = -(-padded // d) * d
+    per = padded // d
+    dev_cols = _upload_shards(batch, _device_refs(frag) & set(batch.columns), padded,
+                              session, devices)
+    if dev_cols is None:
+        return None
+    # each shard's valid-row mask, filled on its device
+    mask_d = [torch.arange(i * per, (i + 1) * per, device=dev.device) < n
+              for i, dev in enumerate(devices)]
+    if group_ids is None:  # a global aggregate: group 0, filled on the device
+        gids_d = [torch.where(m, 0, seg_pad - 1).to(torch.int32) for m in mask_d]
+    else:
+        # each shard's slice of the group ids (dump slot past the rows),
+        # cached on the key buffers as the one-device route caches them
+        gids_d = []
+        for i, dev in enumerate(devices):
+            part = group_ids[i * per:(i + 1) * per]
+            gids_d.append(_group_ids_to_device(session, dev.device, key_bufs, cacheable, part,
+                                               len(part), per, seg_pad,
+                                               ("mesh_gids", padded, i), None, dev))
+
+    pred_expr = frag.pred
+    proj_exprs = tuple((X.expr_output_name(e), e) for e in _device_projections(frag))
+    agg_list_spec, names = _agg_list_names(frag)
+
+    def make_valfn(child):
+        def fn(cols):
+            proj_cols = dict(cols)
+            for nm, e in proj_exprs:
+                proj_cols[nm] = compile_expr(e, cols)
+            return compile_expr(child, proj_cols)
+
+        return fn
+
+    agg_list = [(kind, make_valfn(child) if child is not None else None)
+                for kind, child in agg_list_spec]
+    pred_fn = (lambda cols: compile_expr(pred_expr, cols)) if pred_expr is not None else None
+    key = mesh_fingerprint(
+        d, (tuple(zip(mesh.axis_names, mesh.devices.shape)), id(mesh)), seg_pad,
+        pred_expr, proj_exprs, agg_list_spec, {k: v[0] for k, v in dev_cols.items()},
+    )
+    kernel = session.kernel_cache.get_or_build(
+        key, lambda: build_distributed_grouped_kernel(mesh, pred_fn, agg_list, seg_pad),
+        "mesh_agg",
+    )
+    with trace.span("kernel:mesh_agg", rows=n, shards=d, groups=num_groups):
+        METER.record_dispatch()
+        t0 = time.perf_counter()
+        counts_full, first_masked, results = _fetch(kernel(dev_cols, gids_d, mask_d))
+        _observe_dispatch("mesh_agg", t0)
+    session.device_stats.mesh_fragments += 1
+    info = getattr(frag.scan, "index_info", None)
+    if info is not None:
+        from ..rules.rule_utils import log_index_usage
+
+        log_index_usage(session, "MeshBucketedExec", [info.index_name],
+                        f"Mesh grouped aggregate: rows sharded over {d} devices "
+                        f"({info.index_name})")
+    counts = counts_full[:num_groups]
+    results = [_combine_chunks_maybe_avg(v, kind, counts_full)
+               for v, (kind, _c) in zip(results, agg_list_spec)]
+    if frag.agg.group_exprs:
+        return _assemble_grouped_output(plan, frag, key_cols, first_idx, counts, results,
+                                        agg_list_spec, names, num_groups, first_masked)
+    matched = int(counts[0])
+    scalar_values = [np.asarray(v)[0] for v in results]
+    return _assemble_global_output(plan, matched, scalar_values, agg_list_spec, names)
 
 
 # ---------------------------------------------------------------------------
@@ -1746,7 +1935,9 @@ def try_execute_gpu(plan: LogicalPlan, session) -> Optional[ColumnBatch]:
     # the fragment applies the whole predicate: the scan reads without its
     # pushed filter, so a repeat gets the same cached buffers
     scan = frag.scan.copy(pushed_filter=None)
-    if _pipeline_enabled():
+    mesh = _mesh_for(session)
+    # an active mesh takes the whole batch: the pipelined route steps aside
+    if _pipeline_enabled() and mesh is None:
         from .executor import scan_streamable
 
         if scan_streamable(scan):
@@ -1771,13 +1962,17 @@ def try_execute_gpu(plan: LogicalPlan, session) -> Optional[ColumnBatch]:
             frag.pred = _encode_string_predicates(frag.pred, batch, scols)
             if frag.pred is None:
                 return _decline(session, "string_predicate")
-    wide_ok = _wide_predicate_cols(frag, batch)
-    if not _fragment_literals_fit(frag, wide_ok):
-        return _decline(session, "literal_out_of_range")
-    if frag.agg.group_exprs:
-        out = _execute_grouped(frag, batch, plan, session, device, wide_ok, timing.upload)
-    else:
-        out = _execute_global(frag, batch, plan, session, device, wide_ok, timing.upload)
+    out = None
+    if mesh is not None:
+        out = _execute_on_mesh(frag, batch, plan, session, mesh)
+    if out is None:
+        wide_ok = _wide_predicate_cols(frag, batch)
+        if not _fragment_literals_fit(frag, wide_ok):
+            return _decline(session, "literal_out_of_range")
+        if frag.agg.group_exprs:
+            out = _execute_grouped(frag, batch, plan, session, device, wide_ok, timing.upload)
+        else:
+            out = _execute_global(frag, batch, plan, session, device, wide_ok, timing.upload)
     if out is not None:
         session.device_stats.device_fragments += 1
         session.device_stats.last_scan = timing

@@ -43,8 +43,8 @@ marker.
 
 Under ``HYPERSPACE_ADAPTIVE`` a bucket's split row count is re-derived
 from the actuals of the pairs already loaded (``JoinMemoryPlan.split_rows``,
-plan/adaptive.py), with an ``adapt.join_bytes`` observation. Not ported
-yet: the per-device ledgers of the mesh placement.
+plan/adaptive.py), with an ``adapt.join_bytes`` observation. Each mesh
+device ordinal has its own ledger (``DeviceLedger.admit(..., device=)``).
 """
 
 from __future__ import annotations
@@ -338,32 +338,46 @@ def plan_join_memory(left, right, session) -> Optional[JoinMemoryPlan]:
 
 
 class DeviceLedger:
-    """One join execution's handle on the device-byte accountant, and the
-    park/spill/resume admission loop the band scheduler drives. ``parks``
-    counts the admissions that did not fit at once (the reference's
+    """One join execution's handle on the device-byte accountants, and the
+    park/spill/resume admission loop the band scheduler drives. Each mesh
+    device ordinal has its own accountant (serve/budget.device_budget); a
+    wave reserves through the ordinal it is placed on, so a full device
+    parks its own waves and never its neighbours'. ``parks`` counts the
+    admissions that did not fit at once (the reference's
     ``join.spill.parks``). ``close()`` (the caller's ``finally``) returns
-    every outstanding byte."""
+    every outstanding byte on every ordinal."""
 
-    __slots__ = ("_label", "_acct", "_stream", "enabled", "parks", "_waves")
+    __slots__ = ("_label", "_acct", "_stream", "_streams", "enabled", "parks", "_waves")
 
     def __init__(self, label: str = "join"):
         self._label = label
         self._acct = serve_budget.device_budget()
         self.enabled = self._acct.max_bytes > 0
         self._stream = self._acct.stream(label) if self.enabled else None
+        # mesh ordinals join as the placement first targets them
+        self._streams = {0: (self._acct, self._stream)}
         self.parks = 0
-        # lifecycle-audit handles of the granted waves, newest last
-        self._waves: list = []
+        # lifecycle-audit handles of the granted waves, newest last, by ordinal
+        self._waves: dict = {}
 
-    def admit(self, nbytes: int, spill_one: Callable[[], bool]) -> None:
-        """Reserve ``nbytes`` for one band wave before it dispatches. When
-        the ledger is full, ``spill_one()`` retires this join's oldest
-        in-flight wave until the wave fits or nothing of ours is left; then
-        a bounded wait for other joins' releases; then the zero-holder
-        grant admits it."""
+    def _for(self, device: int) -> tuple:
+        """(accountant, stream) of one mesh device ordinal."""
+        pair = self._streams.get(device)
+        if pair is None:
+            acct = serve_budget.device_budget(device)
+            pair = self._streams[device] = (
+                acct, acct.stream(self._label) if self.enabled else None)
+        return pair
+
+    def admit(self, nbytes: int, spill_one: Callable[[], bool], device: int = 0) -> None:
+        """Reserve ``nbytes`` on ordinal ``device`` for one band wave before
+        it dispatches. When that ledger is full, ``spill_one()`` retires
+        this join's oldest in-flight wave until the wave fits or nothing of
+        ours is left; then a bounded wait for other joins' releases; then
+        the zero-holder grant admits it."""
         if self._stream is None or nbytes <= 0:
             return
-        acct, stream = self._acct, self._stream
+        acct, stream = self._for(device)
         deadline = None
         parked_at = None
         park_span = None
@@ -373,7 +387,7 @@ class DeviceLedger:
                 if acct.held_bytes() + nbytes <= acct.max_bytes:
                     if stream.try_reserve(nbytes):
                         granted = True
-                        self._note_wave(nbytes)
+                        self._note_wave(device, nbytes)
                         return
                     continue  # lost a race with another reservation: re-check
                 if parked_at is None:
@@ -392,7 +406,7 @@ class DeviceLedger:
                     deadline = time.perf_counter() + park_wait_ms() / 1000.0
                 if time.perf_counter() >= deadline and stream.try_reserve(nbytes):
                     granted = True
-                    self._note_wave(nbytes)
+                    self._note_wave(device, nbytes)
                     return  # zero-holder grant past the limit
                 acct.wait_for_release(_PARK_POLL_S)
         finally:
@@ -410,21 +424,26 @@ class DeviceLedger:
                                     parked_ms=round(waited * 1000, 3)):
                         pass
 
-    def _note_wave(self, nbytes: int) -> None:
-        lc = tracked_resource("ledger.wave", f"{self._label}/d0:{nbytes}b")
+    def _note_wave(self, device: int, nbytes: int) -> None:
+        lc = tracked_resource("ledger.wave", f"{self._label}/d{device}:{nbytes}b")
         if lc:
-            self._waves.append(lc)
+            self._waves.setdefault(device, []).append(lc)
 
-    def release(self, nbytes: int) -> None:
-        if self._stream is not None and nbytes > 0:
-            self._stream.release(nbytes)
-            if self._waves:
-                release_resource(self._waves.pop())
+    def release(self, nbytes: int, device: int = 0) -> None:
+        if self._stream is None or nbytes <= 0:
+            return
+        _acct, stream = self._for(device)
+        stream.release(nbytes)
+        waves = self._waves.get(device)
+        if waves:
+            release_resource(waves.pop())
 
     def close(self) -> None:
         # waves still noted here were reclaimed wholesale by the stream
-        # close below (the cancellation unwind), not leaked
-        while self._waves:
-            release_resource(self._waves.pop())
-        if self._stream is not None:
-            self._stream.close()
+        # closes below (the cancellation unwind), not leaked
+        for waves in self._waves.values():
+            while waves:
+                release_resource(waves.pop())
+        for _acct, stream in self._streams.values():
+            if stream is not None:
+                stream.close()

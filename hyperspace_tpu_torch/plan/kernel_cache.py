@@ -153,6 +153,32 @@ def grouped_fingerprint(route: str, scan, seg_pad: int, pred_expr, proj_exprs, a
     )
 
 
+def mesh_fingerprint(d: int, topology: tuple, seg_pad: int, pred_expr,
+                     proj_exprs, agg_list, dev_cols: dict) -> tuple:
+    """The distributed grouped kernel of parallel/dist_agg.py: the whole
+    topology (axis names and per-axis sizes, and the mesh it folds on), so
+    a meshSlices change between factorizations of one device count builds
+    again instead of reusing the other slicing's folds."""
+    return (
+        "mesh",
+        d,
+        topology,
+        seg_pad,
+        repr(pred_expr),
+        tuple((nm, repr(e)) for nm, e in proj_exprs),
+        tuple((k, repr(c)) for k, c in agg_list),
+        dtype_signature(dev_cols),
+    )
+
+
+def mesh_probe_fingerprint(mesh_id: int, axis, l_shape: tuple, r_shape: tuple,
+                           key_dtype: str) -> tuple:
+    """The co-partitioned probe of parallel/dist_join.py: the wave shapes,
+    and the mesh's identity, so a closure over one mesh never serves
+    another."""
+    return ("mesh_probe", mesh_id, axis, l_shape, r_shape, (("key", key_dtype),))
+
+
 def join_fingerprint(route: str, key_dtype: str, agg_list, residual, lfilters, rfilters,
                      col_sig: tuple) -> tuple:
     """Fused join+aggregate body of plan/device_join.py."""
@@ -239,3 +265,8 @@ def plan_files_fingerprint(plan) -> tuple:
         tuple(sorted((f.name, f.size, f.modified_time) for f in n.files))
         for n in plan.preorder() if isinstance(n, FileScan)
     )
+
+
+# the mesh probe's closures (parallel/dist_join.py), process-wide under the
+# JAX package's name: they close over a mesh, not over a session
+MESH_CACHE = KernelCache("kernel_mesh", 32)

@@ -9,9 +9,12 @@ on it, reserve an estimate per chunk or pair before submitting its decode
 and release it on delivery. Its limit is ``HYPERSPACE_GLOBAL_BUDGET_MB``
 (default 1024), or ``HYPERSPACE_IO_BUDGET_MB`` when only that is set.
 
-The device ledger: the band schedulers of the co-bucketed joins (plan/
-device_join.py), plain and fused, reserve each wave's padded device
-footprint through this ledger before it dispatches, and releases it once the wave's results are on the host. The
+The device ledgers, one per mesh device ordinal (``device_budget(ordinal)``;
+ordinal 0 is the one-device ledger): the band schedulers of the
+co-bucketed joins (plan/device_join.py), plain and fused, reserve each
+wave's padded device footprint through the ledger of the ordinal the wave
+is placed on before it dispatches, and release it once the wave's results
+are on the host. Each ledger's
 limit is ``HYPERSPACE_DEVICE_BUDGET_MB`` (default 4096; 0 disables the
 ledger). A stream that holds nothing is always granted its reservation,
 even past the limit (the zero-holder progress rule), so joins that share
@@ -21,7 +24,7 @@ Each ledger counts in the metrics registry under its name, as the
 reference's do: ``<name>.reservations``, ``<name>.force_grants`` (a
 zero-holder grant past the limit), ``<name>.stalls`` and the occupancy
 gauge ``<name>_bytes``; the names are ``serve.budget`` and
-``serve.device_budget``.
+``serve.device_budget``, with ``.d<N>`` for mesh ordinal N above 0.
 
 Every stream opened under a serving query carries the query's id and
 tenant (serve/context.current_query). While bytes are held by more than
@@ -213,28 +216,49 @@ def configured_device_budget_bytes() -> int:
 
 
 _lock = TrackedLock("serve.budget_singleton")  # guards the swaps only
-# the process-wide accountant, made at first use
-_DEVICE: list = guarded_by([], _lock, name="serve.budget._DEVICE")
 
 
-def device_budget() -> BudgetAccountant:
-    """The device-byte accountant every join band scheduler reserves
-    through, sized by the knob when first used; the join strategy plan
-    reads its limit as the grant."""
+def _device_budget_name(ordinal: int) -> str:
+    # ordinal 0 keeps the one-device metric prefix, so mesh-off telemetry
+    # is unchanged; mesh ordinals add .d<N>
+    return "serve.device_budget" if ordinal == 0 else f"serve.device_budget.d{ordinal}"
+
+
+# the device ledgers by mesh device ordinal, made at first use
+_DEVICES: dict = guarded_by({}, _lock, name="serve.budget._DEVICES")
+
+
+def device_budget(ordinal: int = 0) -> BudgetAccountant:
+    """The device-byte accountant of one mesh device ordinal, which every
+    join band scheduler reserves a wave's footprint through (ordinal 0 is
+    the one-device ledger; under ``HYPERSPACE_MESH`` a wave placed on
+    ordinal d reserves through d's). Each is sized by
+    ``HYPERSPACE_DEVICE_BUDGET_MB`` when first used: the knob is per
+    device. The join strategy plan reads ordinal 0's limit as the grant."""
     with _lock:
-        if not _DEVICE:
-            _DEVICE.append(BudgetAccountant(configured_device_budget_bytes(),
-                                            "serve.device_budget"))
-        return _DEVICE[0]
+        acct = _DEVICES.get(ordinal)
+        if acct is None:
+            acct = _DEVICES[ordinal] = BudgetAccountant(
+                configured_device_budget_bytes(), _device_budget_name(ordinal))
+        return acct
+
+
+def device_budgets() -> dict:
+    """Every device ledger made so far, by ordinal (ordinals appear as the
+    placement first targets them)."""
+    with _lock:
+        return dict(_DEVICES)
 
 
 def reset_device_budget() -> BudgetAccountant:
-    """Re-read ``HYPERSPACE_DEVICE_BUDGET_MB`` and install a fresh device
-    ledger (never mid-query)."""
+    """Re-read ``HYPERSPACE_DEVICE_BUDGET_MB`` and install fresh device
+    ledgers (never mid-query): every mesh ordinal's is dropped, and the
+    fresh ordinal-0 ledger returned."""
     with _lock:
-        _DEVICE[:] = [BudgetAccountant(configured_device_budget_bytes(),
-                                       "serve.device_budget")]
-        return _DEVICE[0]
+        _DEVICES.clear()
+        acct = _DEVICES[0] = BudgetAccountant(configured_device_budget_bytes(),
+                                              _device_budget_name(0))
+        return acct
 
 
 def configured_budget_bytes() -> int:

@@ -49,9 +49,11 @@ class QueryContext:
     the owning tenant's name (the QoS dimension: per-tenant queues, budget
     partitions, and ledger rollups all key on it; "default" when the
     submitter never said otherwise) and ``deadline_s`` the optional SLO
-    the admission door checked against. ``device_home`` is the device
-    ordinal the scheduler placed the query on; the port has one card and
-    no mesh tier, so it stays None."""
+    the admission door checked against. ``device_home`` is the mesh
+    device ordinal the scheduler placed the query on (its least-occupied
+    ordinal at admission; None outside the scheduler or with the mesh off):
+    the skew-aware placer starts its packing and round robin there, so
+    concurrent queries spread across the mesh."""
 
     __slots__ = ("query_id", "label", "priority", "tenant", "deadline_s",
                  "device_home", "approx_fraction", "_cancelled")

@@ -28,11 +28,11 @@ the exact same plan/executor/kernel code a direct ``collect()`` runs, the
 shared caches serve one resident copy per key, and the budget only
 throttles *scheduling* of read-ahead, never results.
 
-Departures from the JAX package: ``_home_device_locked`` returns None (the
-port has one card and no mesh tier, as the JAX package returns with fewer
-than two mesh devices). A query whose
-kernel fails to build or launch raises inside its own run; the error is
-stored on its handle and the neighbouring queries go on.
+Under ``HYPERSPACE_MESH`` every admitted query gets a home device
+(``_home_device_locked``: the least-occupied mesh ordinal, weighted by
+tenant), from which the placement's packing and round robin start. A
+query whose kernel fails to build or launch raises inside its own run; the
+error is stored on its handle and the neighbouring queries go on.
 
 Per-query attribution rides the existing telemetry: the trace stack is
 thread-local, so each admitted query's spans root at its own
@@ -235,6 +235,12 @@ class QueryScheduler:
                            tenant=tenant_name, deadline_s=deadline_s)
         h = QueryHandle(ctx, fn, self)
         now = time.perf_counter()
+        # the mesh size is read OUTSIDE the scheduler lock (its device
+        # discovery never runs under self._lock); _home_device_locked reads
+        # it again under the lock
+        from ..parallel.placement import mesh_size
+
+        mesh_size()
         # the token bucket is checked lock-free at the very door: a
         # rate-limited submission never contends on the scheduler lock
         rate_ok = ten.try_acquire_token()
@@ -396,10 +402,23 @@ class QueryScheduler:
             self._pool.submit(self._run, h)
 
     def _home_device_locked(self) -> "Optional[int]":
-        """Whole-query device placement. The port has one card and no mesh
-        tier, so there is nothing to place: None, as the JAX package
-        answers with fewer than two mesh devices."""
-        return None
+        """Whole-query mesh placement: the device ordinal with the least
+        tenant-weighted occupancy among the ACTIVE queries (a weight-4
+        tenant's query counts 4x a weight-1 tenant's), ties to the lowest
+        ordinal. None with the mesh off: the placer then packs from ordinal
+        0. TENANTS is a leaf lock under self._lock."""
+        from ..parallel.placement import mesh_size
+        from .tenant import TENANTS
+
+        n = mesh_size()
+        if n < 2:
+            return None
+        occupancy = [0.0] * n
+        for active in self._active.values():
+            home = active.ctx.device_home
+            if home is not None and home < n:
+                occupancy[home] += TENANTS.get(active.ctx.tenant).weight
+        return min(range(n), key=lambda o: (occupancy[o], o))
 
     def _finish_locked(self, h: QueryHandle, status: str, result,
                        error) -> None:
@@ -664,12 +683,16 @@ def serve_state() -> dict:
 
 def _device_budget_state() -> dict:
     """Device-ledger occupancy + spill counters: the device-memory block
-    rendered by the profile and the exporter /snapshot (one card, so one
-    ledger and no per-device rollup)."""
+    rendered by the profile and the exporter /snapshot. Every mesh
+    ordinal's ledger made so far rolls up under ``devices`` (keyed
+    ``d<N>``); ordinal 0 stays the top-level state."""
     from ..telemetry.metrics import REGISTRY
-    from .budget import device_budget
+    from .budget import device_budget, device_budgets
 
     st = device_budget().state()
     for name in ("parks", "spills", "resumes"):
         st[name] = REGISTRY.counter(f"join.spill.{name}").value
+    mesh = {o: acct for o, acct in device_budgets().items() if o != 0}
+    if mesh:
+        st["devices"] = {f"d{o}": mesh[o].state() for o in sorted(mesh)}
     return st

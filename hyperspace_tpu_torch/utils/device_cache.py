@@ -22,6 +22,13 @@ second instance caches host-side derivations (group-key factorizations)
 the same way, within ``HYPERSPACE_HOST_DERIVED_CACHE_MB`` (512), under
 ``cache.host_derived.*``; its builds move nothing to the card.
 
+Placed uploads are device-keyed: under the mesh placement (parallel/
+placement.py) an upload made for one device ordinal carries the ordinal in
+its tag (``placed_tag``), so a column uploaded for one ordinal never serves
+another, even where several virtual ordinals share one card; a mesh-off
+upload's key is unchanged. ``get_or_put_multi`` is the JAX package's name
+for a lookup keyed on several source buffers, which ``get_or_put`` is too.
+
 Builds run outside the lock, so two queries that miss on one key at once
 both build it; the second to finish serves the copy the first stored,
 so every caller holds one object and its bytes count once
@@ -159,6 +166,12 @@ class DeviceColumnCache:
         REGISTRY.gauge(f"cache.{self.metric}.bytes").set(occupancy)
         return value
 
+    def get_or_put_multi(self, srcs: Sequence, tag, builder: Callable, meter: bool = True,
+                         store: bool = True):
+        """``get_or_put`` keyed on several source buffers: the entry hits
+        only while every one of them is the same object."""
+        return self.get_or_put(srcs, tag, builder, meter, store)
+
     @property
     def resident_bytes(self) -> int:
         return self._bytes
@@ -167,3 +180,10 @@ class DeviceColumnCache:
         """The occupancy equals the sum of the resident entries' sizes."""
         with self._lock:
             return self._bytes == sum(e[2] for e in self._d.values())
+
+
+def placed_tag(tag: tuple, device) -> tuple:
+    """``tag`` for an upload to a placed mesh device (a
+    parallel/mesh.MeshDevice): the ordinal joins the key. ``device`` None
+    (no placement) leaves the key as it was."""
+    return tag if device is None else tag + (device.tag,)

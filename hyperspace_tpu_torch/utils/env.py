@@ -91,6 +91,10 @@ call time, as there, so one environment setting steers both packages:
   built kernel's first call), all off by default, and
   ``HYPERSPACE_RETRACE_WARN`` (8: the distinct fingerprints of one kernel
   kind and dtype signature before the retrace watchdog warns);
+- the mesh tier (parallel/placement.py): ``HYPERSPACE_MESH`` (``1``
+  places bucketed-join band waves and streamed chunks across every
+  visible device; off by default) and ``HYPERSPACE_MESH_DEVICES`` (a cap
+  on the devices placement targets, 0: all);
 - ``HYPERSPACE_SKETCHES`` (the per-row-group sketch store, unset: off) and
   ``HYPERSPACE_DEVICE_BUDGET_MB`` (the device ledger of the bucketed joins,
   4096; 0 disables it); ``CUDA_HOME`` (the CUDA toolkit the kernels build
@@ -163,6 +167,8 @@ DEFAULTS = {
     "HYPERSPACE_RETRACE_WARN": 8,
     "HYPERSPACE_SKETCHES": None,
     "HYPERSPACE_DEVICE_BUDGET_MB": 4096.0,
+    "HYPERSPACE_MESH": False,
+    "HYPERSPACE_MESH_DEVICES": 0,
 }
 
 

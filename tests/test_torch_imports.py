@@ -1,6 +1,6 @@
 """The port stands alone: importing hyperspace_tpu_torch (every module, the
 telemetry, analysis, ingest, cache, fault-injection, serving, sampling,
-adaptive, static-check and camelCase ones included) and
+adaptive, static-check, camelCase and mesh ones included) and
 chip_smoke.py loads neither JAX nor the JAX package; and the device tier
 runs on CUDA unless the caller asks for the CPU."""
 
@@ -60,7 +60,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "telemetry.workload", "telemetry.exporter", "models.sample_store",
                    "plan.sampling", "plan.adaptive", "staticcheck",
                    "staticcheck.concurrency", "staticcheck.lifecycle",
-                   "staticcheck.plan_verifier", "staticcheck.kernel_audit", "compat"):
+                   "staticcheck.plan_verifier", "staticcheck.kernel_audit", "compat",
+                   "parallel", "parallel.mesh", "parallel.exchange", "parallel.dist_agg",
+                   "parallel.dist_join", "parallel.placement", "parallel.dryrun"):
         assert f"hyperspace_tpu_torch.{module}" in out["loaded"], module
 
 

@@ -275,7 +275,7 @@ def test_over_budget_ledger_parks_spills_and_matches(tmp_path, monkeypatch, seed
     monkeypatch.setattr(tdj, "_JOIN_SPLIT_ROWS", 1024)
     monkeypatch.setenv("HYPERSPACE_PARK_WAIT_MS", "1")
     acct = tbudget.BudgetAccountant(10_000)
-    monkeypatch.setattr(tbudget, "_DEVICE", [acct])
+    monkeypatch.setattr(tbudget, "_DEVICES", {0: acct})
     pairs = _bucket_pairs(seed, sizes)
     jout, tout, ts = _run_batched(pairs, tmp_path)
     _assert_parts_equal(jout, tout)

@@ -453,19 +453,19 @@ print(json.dumps(out))
 """
 
 # named in JAX-package modules the port has no counterpart of (the TPU
-# backend state and its breaker, the mesh tier's caches and budgets), and
-JAX_ONLY_LOCKS = {"backend.state", "kernel_cache.kernel_mesh",
+# backend state and its breaker), and
+JAX_ONLY_LOCKS = {"backend.state",
                   # its process-wide caches per kernel family: the port's one
                   # cache per session serves every kind
                   "kernel_cache.kernel_topk", "kernel_cache.kernel_sort",
                   "kernel_cache.kernel_join"}
-JAX_ONLY_GUARDED = {"utils.backend._state", "utils.backend._breaker", "serve.budget._DEVICES"}
+JAX_ONLY_GUARDED = {"utils.backend._state", "utils.backend._breaker"}
 # the port's own: the CUDA kernels' build and counts, the kernel audit's
-# hazard list, and the budget singletons the port keeps as two lists
+# hazard list, and the read-ahead budget singleton the port keeps as a list
 TORCH_ONLY_LOCKS = {"cuda_kernels.build", "cuda_kernels.counts", "kernel_audit.hazards"}
 TORCH_ONLY_GUARDED = {"ops.cuda_kernels.BUILD_LOG", "ops.cuda_kernels._libs",
                       "ops.cuda_kernels.LAUNCHES", "ops.cuda_kernels.PLAIN_CALLS",
-                      "native.CALLS", "native._lib", "serve.budget._DEVICE",
+                      "native.CALLS", "native._lib",
                       "serve.budget._GLOBAL", "staticcheck.kernel_audit.F64_ALLOW",
                       "staticcheck.kernel_audit._FOUND"}
 
