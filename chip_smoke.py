@@ -23,7 +23,11 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    bit-identical; then each kernel's time at the main path's padded size:
    per call with the wrapper included (CUDA events around one call, median
    of 25) and on the device (CUDA events around 50 back-to-back launches,
-   over 50), beside its bound and the plain version's per-call time. With
+   over 50), beside its bound and the plain version's per-call time, and
+   beside the fastest of two compositions of PyTorch calls that compute the
+   same function (device time as above; kernel_compositions names them;
+   no single library call computes any of the four), each held to the plain
+   version first. With
    --profile, a torch.profiler pass per kernel splits a call into its CUDA
    kernels (chiprun_out/profile_kernel_<name>.txt);
 4. end-to-end phase: TPC-H lineitem at SF10 (60M rows, seed 42), orders
@@ -65,7 +69,11 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
      executor; their warm upload bytes are printed (a filtered side of the
      plain join is a new buffer on every run, as in the reference).
    masked_min_max is on no path of the system (the JAX package calls it
-   from its tests only), so it launches no time in this phase;
+   from its tests only), so it launches no time in this phase. The card's
+   first-run results of q6, q1 and q3 are also held to the pandas answers
+   of benchmark/external.py (PANDAS_TPCH) over the same lake, an engine
+   the port does not share: keys and counts exact, sums within relative
+   1e-4, q3's top 10 as against the host;
 5. lifecycle phase: a second lake whose lineitem hard-links the first
    40 of the SF10 lake's 120 files (20M rows, a third: the phase's depth,
    cut to keep the whole run well inside its time limit) and whose orders
@@ -337,7 +345,20 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     the three recomputed, and one pass under
     HYPERSPACE_RESULT_CACHE=verify. Append, fold, hit, recompute and
     compaction seconds are printed;
-17. order phase: the device top-k and sort against the host on one
+17. tpcds phase (TPC-DS q1, the JAX package's plan-stability query):
+    generate_tpcds at 2,880,000 store_returns rows (TPC-DS SF10's
+    2,875,432, rounded to 8 equal files; seed 0) and tpcds_indexes
+    (sr_datekey, dd_datekey, sr_cust_bloom), then q1_customer_total_return
+    and q1_store_avg once cold and twice warm with Hyperspace on: each
+    plan reads sr_datekey and dd_datekey (printed), each run takes the
+    batched plain join on the card with the first run's bits, and the
+    result equals the host executor over the raw source (keys exact, sums
+    within relative 1e-4); each run's ms printed. Then the device forms of
+    ops/sketch.py and ops/zorder.py (segment_min_max_torch,
+    bloom_build_bits_torch, bloom_probe_bits_torch, interleave_bits_torch)
+    on the card over the store_returns columns, bit for bit their numpy
+    forms, each timed beside its numpy form;
+18. order phase: the device top-k and sort against the host on one
    2^22-row batch (cut from 2^25 in PR 10 and from 2^23 in PR 16 to keep
    the whole run well inside its time limit) of lineitem columns (the generator's distributions):
    l_shipdate (int32, heavy ties) ascending and l_extendedprice as f32
@@ -352,9 +373,8 @@ The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
 add up the end-to-end, lifecycle, skipping, pipeline, join, sources,
-analysis, serve, staticcheck, approx, mesh and ingest phases' counts, each read
-on its own
-(``launches_by_phase``).
+analysis, serve, staticcheck, approx, mesh, ingest and tpcds phases' counts,
+each read on its own (``launches_by_phase``).
 """
 
 from __future__ import annotations
@@ -373,6 +393,7 @@ SF10_ROWS = 60_000_000  # TPC-H SF10: 6M lineitem rows per scale factor
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published HBM3 rate
 F32_OPS_PER_S = 67e12  # H100 SXM, published f32 rate outside the tensor cores
 REL_TOL = 1e-4  # f32 sums, as tests/test_pallas_and_dist.py holds the reference
+COMPOSITION_TOL = 1e-3  # the timed PyTorch compositions' sums against the plain version
 SEED = 42  # bench.py's TPC-H seed
 WARM_RUNS = 2
 KERNEL_REPS = 25
@@ -714,6 +735,7 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str,
     cases["masked_min_max"] = (lambda: K.masked_min_max(mm_x, mm_valid),
                                lambda: R.masked_min_max(mm_x, mm_valid),
                                n * (4 + 1), 2 * n)
+    compositions = kernel_compositions(torch, pred, xs, gids, mm_x, mm_valid)
     for name, (kern, plain, nbytes, ops) in cases.items():
         r = results[name]
         r["ms"] = time_ms(torch, kern)  # per call, wrapper included
@@ -734,13 +756,94 @@ def kernel_phase(torch, K, R, sizes: list[int], timed_n: int, card: str,
         r["library_note"] = ("no single PyTorch call computes a masked min and max"
                              if name == "masked_min_max" else
                              "no single PyTorch call computes a masked sum and count")
+        # the fastest composition of PyTorch calls that computes the same
+        # function (device time, as device_ms), each held to the plain version
+        want = plain()
+        composed = {}
+        for label, fn in compositions[name].items():
+            check_composition(torch, name, label, fn(), want)
+            composed[label] = device_time_ms(torch, fn)
+        r["composition"] = min(composed, key=composed.get)
+        r["composition_ms"] = composed[r["composition"]]
         log({"kernel": name, "card": card, "n": n, "per_call_ms": r["ms"],
              "device_ms": r["device_ms"], "library_ms": None, "library_note": r["library_note"],
+             "composition_ms": r["composition_ms"], "composition": r["composition"],
+             "compositions_ms": composed,
              "plain_ms": r["plain_ms"], "plain": f"hyperspace_tpu_torch/ops/reference.py:{name}",
              "bytes": nbytes, "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "checks": r["checks"], "max_abs_err": r["max_abs_err"]})
     timed = {name: case[0] for name, case in cases.items()} if profile else {}
     return results, timed
+
+
+def kernel_compositions(torch, pred, xs, gids, mm_x, mm_valid) -> dict:
+    """For each kernel, compositions of PyTorch calls (not one library
+    call) that compute its function on the timed inputs, by label; each
+    returns the plain version's structure. The grouped ones take gids in
+    [0, 16), as the timed inputs hold."""
+    x, y = xs[0], xs[1]
+    groups = 16
+
+    def slots():  # rows that count nowhere go to slot 16
+        return torch.where(pred & (gids >= 0) & (gids < groups), gids, groups).long()
+
+    def grouped_index_add():
+        g = slots()
+        sums = torch.zeros(groups + 1, len(xs), device=pred.device).index_add_(
+            0, g, torch.stack(xs, 1))[:groups]
+        return tuple(sums.T), torch.bincount(g, minlength=groups + 1)[:groups]
+
+    def grouped_bincount():
+        g = slots()
+        return (tuple(torch.bincount(g, weights=m, minlength=groups + 1)[:groups] for m in xs),
+                torch.bincount(g, minlength=groups + 1)[:groups])
+
+    inf = float("inf")
+    return {
+        "filter_weighted_sum": {
+            "torch.where(pred, x*y, 0).sum(), pred.sum()":
+                lambda: (torch.where(pred, x * y, 0.0).sum(), pred.sum()),
+            "torch.dot(torch.where(pred, x, 0), y), pred.sum()":
+                lambda: (torch.dot(torch.where(pred, x, 0.0), y), pred.sum()),
+        },
+        "filter_sum": {
+            "torch.where(pred, x, 0).sum(), pred.sum()":
+                lambda: (torch.where(pred, x, 0.0).sum(), pred.sum()),
+            "torch.dot(pred.float(), x), pred.sum()":
+                lambda: (torch.dot(pred.float(), x), pred.sum()),
+        },
+        "filter_grouped_multi_sum": {
+            "index_add_ of the stacked measures by masked gid, bincount": grouped_index_add,
+            "bincount(masked gid, weights=x) per measure, bincount": grouped_bincount,
+        },
+        "masked_min_max": {
+            "torch.where(valid, x, inf).amin(), torch.where(valid, x, -inf).amax()":
+                lambda: (torch.where(mm_valid, mm_x, inf).amin(),
+                         torch.where(mm_valid, mm_x, -inf).amax()),
+            "x[valid].aminmax()": lambda: tuple(mm_x[mm_valid].aminmax()),
+        },
+    }
+
+
+def check_composition(torch, name: str, label: str, got, want) -> None:
+    """A composition's result against the plain version's: counts exact,
+    min and max exact, sums within COMPOSITION_TOL (the compositions'
+    atomic accumulations add about 1.3M f32 values per group in launch
+    order)."""
+    if name == "masked_min_max":
+        for g, w in zip(got, want):
+            require(float(g) == float(w), f"{name} composition {label!r}: {g} vs {w}")
+        return
+    if name == "filter_grouped_multi_sum":
+        (gs, gc), (ws, wc) = got, want
+    else:
+        (gs, gc), (ws, wc) = ((got[0],), got[1]), ((want[0],), want[1])
+    require(torch.equal(gc.cpu().long(), wc.cpu().long()),
+            f"{name} composition {label!r}: counts differ from plain")
+    for a, b in zip(gs, ws):
+        for u, v in zip(a.reshape(-1).tolist(), b.reshape(-1).tolist()):
+            require(rel_err(u, v) <= COMPOSITION_TOL,
+                    f"{name} composition {label!r}: {u} vs {v}")
 
 
 # ---------------------------------------------------------------------------
@@ -1007,6 +1110,32 @@ def arrow_reference(q: str, lake: str):
     return cio.table_to_batch(out)
 
 
+PANDAS_CHECKED = ("q6", "q1", "q3")  # held to benchmark/external.PANDAS_TPCH too
+
+
+def pandas_check(lake: str, results: dict, card: str) -> dict:
+    """The card's first-run results of PANDAS_CHECKED against the pandas
+    answers of benchmark/external.py over the same lake (an engine the port
+    does not share): q6's revenue and q1's sums within REL_TOL, q1's keys
+    and counts exact, q3's top 10 as compare_join holds it. Returns each
+    pandas answer's seconds (parquet read included)."""
+    from hyperspace_tpu_torch.benchmark.external import PANDAS_TPCH, answer_columns
+
+    seconds = {}
+    for q in PANDAS_CHECKED:
+        got = results[q]
+        t0 = time.perf_counter()
+        want = answer_columns(PANDAS_TPCH[q](lake), list(got))
+        seconds[q] = time.perf_counter() - t0
+        if q == "q3":
+            compare_join(q, got, want)
+        else:
+            compare_batches(q, got, _floats(want))
+    log({"pandas": "matches", "card": card, "queries": list(PANDAS_CHECKED),
+         "pandas_s": seconds})
+    return seconds
+
+
 def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> dict:
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
     from hyperspace_tpu_torch import constants as C
@@ -1070,6 +1199,7 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
                              for q in tpch.JOIN_QUERIES})
     expected_indexes.update({q: spec[0] for q, spec in PLAIN_QUERIES.items()})
     K.reset_counts()  # the main path's launches start here
+    pandas_got = {}
     for q, fn in all_queries.items():
         join = q in tpch.JOIN_QUERIES
         plain = q in PLAIN_QUERIES
@@ -1162,6 +1292,8 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
             out.setdefault("device_results", {})[q] = got
         if q in SERVE_QUERIES:  # the serve phase holds its served results to these
             out.setdefault("warm_results", {})[q] = again
+        if q in PANDAS_CHECKED:
+            pandas_got[q] = got
         queries[q] = {"first_run_s": cold_s, "first_run_route": route,
                       "warm_median_s": statistics.median(warm), "warm_s": warm,
                       "upload_bytes_first": up1 - up0, "upload_bytes_second": uploads_warm[0],
@@ -1183,6 +1315,7 @@ def end_to_end_phase(torch, K, rows: int, card: str, profile: bool = False) -> d
     require(not any(K.PLAIN_CALLS.values()),
             f"plain versions ran on the main path: {K.PLAIN_CALLS}")
     out["queries"] = queries
+    out["pandas_s"] = pandas_check(lake, pandas_got, card)
     if profile:
         for q, fn in all_queries.items():
             queries[q]["profile"] = profile_warm_run(
@@ -4600,6 +4733,195 @@ def approx_phase(K, e2e: dict, session, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# tpcds phase
+# ---------------------------------------------------------------------------
+
+# store_returns rows: TPC-DS SF10's 2,875,432, rounded up to 8 equal files
+TPCDS_ROWS = 2_880_000
+TPCDS_SEED = 0  # generate_tpcds's default seed
+TPCDS_WARM_RUNS = 2
+TPCDS_INDEXES = ["sr_datekey", "dd_datekey"]
+TPCDS_KEYS = {"q1_customer_total_return": ("sr_customer_sk", "sr_store_sk"),
+              "q1_store_avg": ("sr_store_sk",)}
+TPCDS_BLOOM = (50_000, 0.01)  # sr_cust_bloom's sizing
+# z-address of (date, store, customer): 1095 dates in 11 bits, 25 stores in
+# 5, the customer key scaled to 16
+TPCDS_ZORDER_BITS = (11, 5, 16)
+
+
+def compare_grouped(q: str, got: dict, want: dict, keys: tuple) -> None:
+    """Rows matched on the group keys (sorted by them): the same keys
+    exactly, every other column within REL_TOL."""
+    import numpy as np
+
+    require(list(got) == list(want), f"{q}: columns {list(got)} vs {list(want)}")
+    n = len(want[keys[0]])
+    require(n > 0 and len(got[keys[0]]) == n, f"{q}: {len(got[keys[0]])} rows vs {n}")
+    g_order = np.lexsort([got[k] for k in reversed(keys)])
+    w_order = np.lexsort([want[k] for k in reversed(keys)])
+    for name in want:
+        g, w = np.asarray(got[name])[g_order], np.asarray(want[name])[w_order]
+        if name in keys:
+            require(bool(np.array_equal(g, w)), f"{q}.{name}: keys differ from the host")
+        else:
+            g, w = g.astype(np.float64), w.astype(np.float64)
+            require(bool(np.isfinite(g).all()), f"{q}.{name}: non-finite values")
+            err = float((np.abs(g - w) / np.maximum(np.abs(w), 1e-30)).max())
+            require(err <= REL_TOL, f"{q}.{name}: off by relative {err}")
+
+
+def device_forms_check(torch, lake: str, dev, card: str) -> dict:
+    """The four device forms of ops/sketch.py and ops/zorder.py on ``dev``
+    over the store_returns columns, against their numpy forms, bit for
+    bit: segment min/max of sr_return_amt and sr_customer_sk per file, the
+    bloom filter of file 0's customer keys (sr_cust_bloom's sizing) and its
+    probe by every row's key, and the z-address of (date, store, scaled
+    customer). Each form's device ms (synchronized wall) beside the numpy
+    form's ms."""
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.ops import sketch, zorder
+
+    d = os.path.join(lake, "store_returns")
+    tables = [pq.read_table(os.path.join(d, f)) for f in sorted(os.listdir(d))]
+    cols = {c: np.concatenate([t[c].to_numpy() for t in tables])
+            for c in ("sr_returned_date_sk", "sr_store_sk", "sr_customer_sk", "sr_return_amt")}
+    files = len(tables)
+    seg = np.repeat(np.arange(files), [t.num_rows for t in tables])
+    out = {"rows": len(seg), "device_ms": {}, "numpy_ms": {}}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    def on_dev(*ts):
+        for t in ts:
+            require(t.device == dev, f"device forms: a result on {t.device}, not {dev}")
+
+    def same(name: str, got, want) -> None:
+        on_dev(got)
+        g = got.cpu().numpy()
+        require(g.shape == want.shape and bool(np.array_equal(g, want)),
+                f"device forms: {name} differs from its numpy form")
+
+    for c in ("sr_return_amt", "sr_customer_sk"):
+        (mn, mx), ms = timed(lambda: sketch.segment_min_max_torch(cols[c], seg, files, dev))
+        (wmn, wmx), np_ms = timed(lambda: sketch.segment_min_max_np(cols[c], seg, files))
+        same(f"segment_min_max({c}) min", mn, wmn)
+        same(f"segment_min_max({c}) max", mx, wmx)
+        out["device_ms"][f"segment_min_max_torch:{c}"] = ms
+        out["numpy_ms"][f"segment_min_max_np:{c}"] = np_ms
+
+    keys = cols["sr_customer_sk"]
+    first = [keys[seg == 0]]
+    bf = sketch.BloomFilter.create(*TPCDS_BLOOM)
+    _, np_ms = timed(lambda: bf.add_words(first))
+    bits, ms = timed(lambda: sketch.bloom_build_bits_torch(first, bf.num_bits, bf.num_hashes,
+                                                          dev))
+    same("bloom_build_bits (packed)", bits, np.unpackbits(bf.bits, bitorder="little"))
+    out["device_ms"]["bloom_build_bits_torch"], out["numpy_ms"]["BloomFilter.add_words"] = ms, np_ms
+    hits, ms = timed(lambda: sketch.bloom_probe_bits_torch(bits, [keys], bf.num_hashes, dev))
+    want, np_ms = timed(lambda: bf.might_contain_words([keys]))
+    same("bloom_probe_bits", hits, want)
+    require(bool(want[seg == 0].all()), "device forms: the bloom filter lost a key")
+    out["device_ms"]["bloom_probe_bits_torch"] = ms
+    out["numpy_ms"]["BloomFilter.might_contain_words"] = np_ms
+    out["bloom_hit_share"] = float(want.mean())
+
+    fields = [(cols["sr_returned_date_sk"].astype(np.uint64), TPCDS_ZORDER_BITS[0]),
+              (cols["sr_store_sk"].astype(np.uint64), TPCDS_ZORDER_BITS[1]),
+              (zorder.scale_min_max(keys, keys.min(), keys.max(), TPCDS_ZORDER_BITS[2]),
+               TPCDS_ZORDER_BITS[2])]
+    z, ms = timed(lambda: zorder.interleave_bits_torch(fields, dev))
+    wz, np_ms = timed(lambda: zorder.interleave_bits(fields))
+    same("interleave_bits", z, wz.astype(np.int64))
+    out["device_ms"]["interleave_bits_torch"], out["numpy_ms"]["interleave_bits"] = ms, np_ms
+    log({"tpcds": "device_forms", "card": card, **out})
+    return out
+
+
+def tpcds_phase(torch, K, card: str, rows: int = TPCDS_ROWS) -> dict:
+    """TPC-DS q1, the JAX package's plan-stability query, on the card:
+    generate_tpcds at ``rows`` store_returns rows (seed 0), tpcds_indexes
+    (sr_datekey, dd_datekey, sr_cust_bloom), then q1_customer_total_return
+    and q1_store_avg with Hyperspace on, once cold and twice warm: each
+    plan must read sr_datekey and dd_datekey, each run must take the
+    batched plain join on the device tier (two fetches, no decline) and
+    give the first run's bits, and the result must equal the host executor
+    over the raw source (keys exact, sums within REL_TOL). Then the four
+    device forms against their numpy forms (device_forms_check)."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.benchmark import tpcds
+    from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
+
+    t_phase = time.perf_counter()
+    root = os.path.join(DATA_DIR, "tpcds")
+    shutil.rmtree(root, ignore_errors=True)
+    lake, warehouse = os.path.join(root, "lake"), os.path.join(root, "warehouse")
+    out: dict = {"rows": rows, "seed": TPCDS_SEED, "queries": {}}
+    t0 = time.perf_counter()
+    out["source_bytes"] = tpcds.generate_tpcds(lake, rows_store_returns=rows, seed=TPCDS_SEED)
+    out["generate_s"] = time.perf_counter() - t0
+    session = HyperspaceSession(warehouse)  # device=None: the card
+    t0 = time.perf_counter()
+    tpcds.tpcds_indexes(session, Hyperspace(session), lake)
+    out["index_build_s"] = time.perf_counter() - t0
+    host = HyperspaceSession(warehouse, conf={C.EXEC_TPU_ENABLED: False})
+    t0 = time.perf_counter()
+    want = {q: _columns(fn(host, lake).collect()) for q, fn in tpcds.TPCDS_QUERIES.items()}
+    out["host_s"] = time.perf_counter() - t0
+    log({"tpcds": "data", "card": card, "rows": rows, "source_bytes": out["source_bytes"],
+         "generate_s": out["generate_s"], "index_build_s": out["index_build_s"],
+         "host_reference_s": out["host_s"]})
+    del host
+
+    session.enable_hyperspace()
+    launches0, plain0 = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    runs = 1 + TPCDS_WARM_RUNS
+    for q, fn in tpcds.TPCDS_QUERIES.items():
+        used = [n.index_info.index_name for n in fn(session, lake).optimized_plan().preorder()
+                if getattr(n, "index_info", None) is not None]
+        require(used == TPCDS_INDEXES, f"{q}: plan reads {used}, expected {TPCDS_INDEXES}")
+        session.device_stats = DeviceTierStats()
+        ms, first = [], None
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            got = _columns(fn(session, lake).collect())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = got
+            else:
+                require(same_bits(got, first), f"{q}: a warm run differs from the first run")
+        stats = session.device_stats
+        require(stats.join_paths == {"batched": runs} and stats.plain_join_fetches == 2 * runs
+                and not stats.declines,
+                f"{q}: join paths {stats.join_paths}, fetches {stats.plain_join_fetches}, "
+                f"declines {stats.declines}")
+        compare_grouped(q, first, want[q], TPCDS_KEYS[q])
+        out["queries"][q] = {"indexes": used, "first_run_ms": ms[0], "warm_ms": ms[1:],
+                             "rows_out": len(first[TPCDS_KEYS[q][0]]),
+                             "join_paths": stats.join_paths, "matches_host": True}
+        log({"query": q, "card": card, **out["queries"][q]})
+    out["launches"] = {k: K.LAUNCHES[k] - launches0[k] for k in launches0}
+    require(K.PLAIN_CALLS == plain0, f"plain versions ran in the tpcds phase: "
+            f"{ {k: K.PLAIN_CALLS[k] - plain0[k] for k in plain0} }")
+    out["device_forms"] = device_forms_check(torch, lake, session.device, card)
+    shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log({"phase": "tpcds", "card": card, "seconds": out["phase_s"], "launches": out["launches"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # order phase
 # ---------------------------------------------------------------------------
 
@@ -4828,6 +5150,7 @@ def main() -> int:
     mesh = phase("mesh", mesh_phase, torch, K, e2e, warm_session, smi)
     del warm_session
     ingest = phase("ingest", ingest_phase, torch, K, e2e, args.rows, smi)
+    tpcds = phase("tpcds", tpcds_phase, torch, K, smi)
     del e2e["want"], e2e["device_results"], e2e["warm_results"]
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     order = phase("order", order_phase, torch, min(ORDER_ROWS, _pad_pow2(args.rows)), smi)
@@ -4854,7 +5177,8 @@ def main() -> int:
                     "staticcheck": static["launches"][name],
                     "approx": approx["launches"][name],
                     "mesh": mesh["launches"][name],
-                    "ingest": ingest["launches"][name]}
+                    "ingest": ingest["launches"][name],
+                    "tpcds": tpcds["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
@@ -4864,6 +5188,7 @@ def main() -> int:
             "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "composition_ms": r["composition_ms"], "composition": r["composition"],
             "on_path": name in ON_PATH,
             "status": f"built, {r['checks']} checks against the plain version passed",
         })
@@ -4874,7 +5199,7 @@ def main() -> int:
                    "sources": sources, "reference_cache": ref_cache,
                    "analysis": analysis, "serve": served, "staticcheck": static,
                    "approx": approx, "mesh": mesh,
-                   "ingest": ingest, "order": order,
+                   "ingest": ingest, "tpcds": tpcds, "order": order,
                    "cache_sizing_mb": sizing,
                    "phase_s": phase_s, "total_s": time.perf_counter() - t_start}, f, indent=1)
     log({"phase": "done", "card": smi, "phase_s": phase_s,

@@ -139,6 +139,23 @@ def _words_torch(t) -> list:
     return [t.to(torch.int64) & _M32]
 
 
+def words_tensor(a, device):
+    """A host array (or a tensor) on ``device`` in a dtype torch holds, with
+    the 32-bit words ``_words_np`` takes from the array: an unsigned array
+    of 4 or 8 bytes as the signed int of its width (the same bits), a
+    uint16 one widened to int32; uint8 and the rest as they are."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.asarray(a)
+    if a.dtype.kind == "u" and a.itemsize >= 4:
+        a = a.view(f"i{a.itemsize}")
+    elif a.dtype == np.uint16:
+        a = a.astype(np.int32)
+    return torch.as_tensor(a, device=device)
+
+
 def hash32_torch(columns: list):
     """Hash rows of device key columns (int32 word columns as the mesh
     build ships them, or any key dtype ``_words_torch`` splits) to the
@@ -153,6 +170,11 @@ def hash32_torch(columns: list):
             k = _mul32_torch(k, _C2)
             h = _rotl32_torch(h ^ k, 13)
             h = (_mul32_torch(h, 5) + 0xE6546B64) & _M32
+    return _fmix32_torch(h)
+
+
+def _fmix32_torch(h):
+    """``_fmix32`` over int64 words in [0, 2^32)."""
     h = h ^ (h >> 16)
     h = _mul32_torch(h, 0x85EBCA6B)
     h = h ^ (h >> 13)

@@ -5,9 +5,13 @@ A data-skipping index summarizes each source file (a segment of rows) by
 its min and max or by a bloom filter of its values; the sidecar sketch
 store does the same per row group. Sketches are built on the host and
 stored on disk, so the bloom bit positions are part of the on-disk
-contract: they equal the JAX package's for every dtype. The device forms
-of the reference (``segment_min_max_jnp``, ``bloom_build_bits_jnp``,
-``bloom_probe_bits_jnp``) are called by its tests only and are not ported.
+contract: they equal the JAX package's for every dtype.
+
+The device forms (``segment_min_max_torch``, ``bloom_build_bits_torch``,
+``bloom_probe_bits_torch``; the reference's ``*_jnp``) are torch code that
+runs on the device it is given and gives the numpy forms' results bit for
+bit. No index path calls them, in either package: builds sketch on the
+host. The tests and the on-card smoke hold them to the numpy forms.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import math
 
 import numpy as np
 
-from .hashing import _fmix32, hash32_np
+from .hashing import _M32, _fmix32, _fmix32_torch, hash32_np, hash32_torch, words_tensor
 from ..exceptions import HyperspaceError
 
 
@@ -37,6 +41,33 @@ def segment_min_max_np(values: np.ndarray, segment_ids: np.ndarray, num_segments
     maxs = np.full(num_segments, init_max, dtype=values.dtype)
     np.minimum.at(mins, segment_ids, vmin)
     np.maximum.at(maxs, segment_ids, vmax)
+    return mins, maxs
+
+
+def segment_min_max_torch(values, segment_ids, num_segments: int, device):
+    """``segment_min_max_np`` on ``device``: (mins, maxs) tensors of
+    ``values``' dtype, NaN rows masked out, an empty or all-NaN segment
+    keeping the dtype's extremes. ``values`` and ``segment_ids`` are host
+    arrays or tensors. Counterpart of ``segment_min_max_jnp``."""
+    import torch
+
+    v = torch.as_tensor(values, device=device)
+    if v.dtype not in (torch.float16, torch.float32, torch.float64, torch.uint8, torch.int8,
+                       torch.int16, torch.int32, torch.int64):
+        raise HyperspaceError(f"segment_min_max_torch: no device form for {v.dtype}")
+    ids = torch.as_tensor(segment_ids, device=device).to(torch.int64)
+    if v.is_floating_point():
+        lo, hi = float("inf"), float("-inf")
+        vmin = torch.where(torch.isnan(v), lo, v)
+        vmax = torch.where(torch.isnan(v), hi, v)
+    else:
+        info = torch.iinfo(v.dtype)
+        lo, hi = info.max, info.min
+        vmin = vmax = v
+    mins = torch.full((num_segments,), lo, dtype=v.dtype, device=device)
+    maxs = torch.full((num_segments,), hi, dtype=v.dtype, device=device)
+    mins.scatter_reduce_(0, ids, vmin, "amin")
+    maxs.scatter_reduce_(0, ids, vmax, "amax")
     return mins, maxs
 
 
@@ -111,6 +142,41 @@ class BloomFilter:
             and self.num_hashes == other.num_hashes
             and np.array_equal(self.bits, other.bits)
         )
+
+
+def _bloom_positions_torch(words: list, num_bits: int, num_hashes: int, device):
+    """``_bloom_positions_np`` on ``device``, int64 [N, k]: the 32-bit sums
+    are masked to 32 bits before the modulus, as uint32 arithmetic wraps."""
+    import torch
+
+    h1 = hash32_torch([words_tensor(w, device) for w in words])
+    h2 = _fmix32_torch(h1 ^ 0x9E3779B9) | 1
+    i = torch.arange(num_hashes, dtype=torch.int64, device=device)[None, :]
+    return ((h1[:, None] + i * h2[:, None]) & _M32) % num_bits
+
+
+def bloom_build_bits_torch(words: list, num_bits: int, num_hashes: int, device):
+    """A bloom build on ``device``: uint8 [num_bits], 1 where a row of
+    ``words`` sets the bit; ``pack_bits`` of it is ``BloomFilter.add_words``'
+    bit array. Merging partial builds is an elementwise max (a bitwise or of
+    0/1). Counterpart of ``bloom_build_bits_jnp``."""
+    import torch
+
+    pos = _bloom_positions_torch(words, num_bits, num_hashes, device)
+    bits = torch.zeros(num_bits, dtype=torch.uint8, device=device)
+    bits[pos.reshape(-1)] = 1
+    return bits
+
+
+def bloom_probe_bits_torch(bits, words: list, num_hashes: int, device):
+    """Probe an unpacked bit array (``bloom_build_bits_torch``'s) on
+    ``device``: bool [N], ``BloomFilter.might_contain_words`` of the same
+    filter. Counterpart of ``bloom_probe_bits_jnp``."""
+    import torch
+
+    bits = torch.as_tensor(bits, device=device)
+    pos = _bloom_positions_torch(words, bits.shape[0], num_hashes, device)
+    return bits[pos].bool().all(dim=1)
 
 
 def pack_bits(unpacked: np.ndarray) -> np.ndarray:
