@@ -129,8 +129,20 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    (d) the predicate routes: flag_sum (l_returnflag = 'R') over
        li_flagstatus through the dictionary-code rewrite, and wide64_sum
        (w > 2^40 over a full-range int64 column, 2^22 rows) through Wide64
-       word pairs. No plain version may run. With --profile, each
-       kernel-shaped query is profiled once more after its counts are read
+       word pairs;
+   (e) the z-order conf keys: a seeded 2^22-row table (four 8-byte
+       columns, 8 files, seed 29) z-ordered on (za, zb) into two
+       warehouses, once with min-max fields and once with
+       hyperspace.index.zorder.quantile.enabled=true, each with
+       hyperspace.index.zorder.targetSourceBytesPerPartition at an eighth of
+       the index data's bytes, so that each build writes several files (its
+       seconds and file count printed); a count and a weighted sum over a
+       box on (za, zb) through each index launches filter_weighted_sum once
+       per run and equals the host executor over the raw files. The
+       sidecar legs of (c) must count cache.sketch hits or misses (the
+       counters printed), and the knob registry's size is printed. No
+       plain version may run. With --profile, each kernel-shaped query is
+       profiled once more after its counts are read
        (chiprun_out/profile_skipping_<q>.txt);
 7. pipeline phase over the SF10 lake:
    (a) the first runs of q6_count, q6_sum, q1_sums and q6_tax_sum, each on
@@ -516,6 +528,15 @@ EV_FILES = 16
 EV_SEED = 23
 WIDE_ROWS = 1 << 22
 WIDE_SEED = 6
+# the skipping phase's z-order leg: a seeded table of four 8-byte columns in
+# ZORDER_FILES files, z-ordered on (za, zb) twice, with min-max and with
+# percentile fields, each build cut into about ZORDER_PARTS files by
+# hyperspace.index.zorder.targetSourceBytesPerPartition
+ZORDER_ROWS = 1 << 22
+ZORDER_FILES = 8
+ZORDER_PARTS = 8
+ZORDER_SEED = 29
+ZORDER_BUILDS = {"zo_minmax": False, "zo_quantile": True}
 SKIP_WARM_RUNS = 1
 MINMAX_CASES = ("random", "all_invalid", "all_valid", "nan_valid", "nan_invalid", "nan_tail",
                 "int")
@@ -1668,6 +1689,97 @@ def _kept(scan) -> dict:
     return out
 
 
+def zorder_leg(K, card: str, rows: int = ZORDER_ROWS) -> dict:
+    """The skipping phase's (e): ``rows`` seeded rows z-ordered twice through
+    the conf keys (module docstring), each build's files counted, and a
+    kernel-shaped box query per index held to the host executor, launching
+    filter_weighted_sum once per run with no decline."""
+    import numpy as np
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, ZOrderCoveringIndexConfig
+    from hyperspace_tpu_torch import constants as C
+    from hyperspace_tpu_torch.plan.expr import Count, Sum, col, lit
+    from hyperspace_tpu_torch.plan.gpu_exec import DeviceTierStats
+    from hyperspace_tpu_torch.utils import env as hs_env
+
+    t_leg = time.perf_counter()
+    root = os.path.join(DATA_DIR, "zorder_lake")
+    src = os.path.join(root, "zsrc")
+    os.makedirs(src)
+    rng = np.random.default_rng(ZORDER_SEED)
+    t0 = time.perf_counter()
+    za = rng.integers(0, 1_000_000, rows)
+    zb = rng.lognormal(0.0, 2.0, rows)  # skewed: percentile fields split it evenly
+    zp = rng.uniform(1.0, 100.0, rows)
+    zd = rng.uniform(0.0, 0.1, rows)
+    for i, part in enumerate(np.array_split(np.arange(rows), ZORDER_FILES)):
+        _write_columns(os.path.join(src, f"part-{i:02d}.parquet"),
+                       {"za": za[part], "zb": zb[part], "zp": zp[part], "zd": zd[part]})
+    target = rows * 4 * 8 // ZORDER_PARTS  # the index data's bytes over ZORDER_PARTS
+    out: dict = {"rows": rows, "files": ZORDER_FILES, "target_bytes": target,
+                 "generate_s": time.perf_counter() - t0, "builds": {}, "queries": {},
+                 "knobs": len(hs_env.all_knobs())}
+    lo, hi, zb_max = 250_000, 750_000, float(np.quantile(zb, 0.3))
+
+    def make(s):
+        return s.read.parquet(src).filter(
+            (col("za") >= lo) & (col("za") < hi) & (col("zb") < zb_max)).agg(
+            Sum(col("zp") * col("zd")).alias("revenue"), Count(lit(1)).alias("n"))
+
+    host = HyperspaceSession(os.path.join(root, "host_wh"), conf={C.EXEC_TPU_ENABLED: False})
+    t0 = time.perf_counter()
+    want = _floats(make(host).to_pydict())
+    out["host_reference_s"] = time.perf_counter() - t0
+    require(want["n"][0] > 0, f"zorder: the box holds no row: {want}")
+    for name, quantile in ZORDER_BUILDS.items():
+        session = HyperspaceSession(os.path.join(root, f"wh_{name}"), conf={
+            C.ZORDER_QUANTILE_ENABLED: quantile,
+            C.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION: target})
+        hs = Hyperspace(session)
+        t0 = time.perf_counter()
+        hs.create_index(session.read.parquet(src),
+                        ZOrderCoveringIndexConfig(name, ["za", "zb"], ["zp", "zd"]))
+        build_s = time.perf_counter() - t0
+        entry = hs.get_index(name)
+        fields = {f.to_dict()["kind"] for f in entry.derived_dataset.fields}
+        n_files = len(entry.content.files())
+        require(fields == {"percentile" if quantile else "minmax"},
+                f"zorder {name}: fields {fields}, quantile.enabled={quantile}")
+        require(n_files > 1, f"zorder {name}: {n_files} file(s); the target asks for several")
+        out["builds"][name] = {"quantile": quantile, "seconds": build_s, "files": n_files}
+        log({"zorder_build": name, "card": card, **out["builds"][name]})
+
+        session.enable_hyperspace()
+        scan = _scan_of(make(session).optimized_plan())
+        read = None if scan.index_info is None else scan.index_info.index_name
+        require(read == name, f"zorder_{name}: plan reads {read}, expected {name}")
+        rec = {"index": read, **_kept(scan)}
+        session.device_stats = DeviceTierStats()
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        compare_batches(f"zorder_{name}", _floats(make(session).to_pydict()), want)
+        rec["first_run_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compare_batches(f"zorder_{name}", _floats(make(session).to_pydict()), want)
+        rec["warm_s"] = [time.perf_counter() - t0]
+        launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        stats = session.device_stats
+        require(stats.device_fragments == 2 and not stats.declines,
+                f"zorder_{name}: device fragments {stats.device_fragments}, "
+                f"declines {stats.declines}")
+        require(launched == {k: (2 if k == "filter_weighted_sum" else 0) for k in K.LAUNCHES},
+                f"zorder_{name}: launches {launched}")
+        rec.update({"launches": launched, "rows_out": want["n"][0], "matches_host": True})
+        out["queries"][f"zorder_{name}"] = rec
+        log({"skipping": f"zorder_{name}", "card": card, **rec})
+        del session, hs
+    shutil.rmtree(root)
+    out["seconds"] = time.perf_counter() - t_leg
+    log({"zorder": "leg", "card": card, "seconds": out["seconds"], "knobs": out["knobs"],
+         "builds": out["builds"]})
+    return out
+
+
 def skipping_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = False) -> dict:
     """Data skipping, the sidecar sketch stage and the string and Wide64
     predicate routes (the module docstring lists the parts). Every query
@@ -1858,6 +1970,7 @@ def skipping_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = Fa
     hs = Hyperspace(session)
     prev = os.environ.get("HYPERSPACE_SKETCHES")
     os.environ["HYPERSPACE_SKETCHES"] = "1"
+    sketch_before = _counters("cache.sketch.")
     try:
         action("create ev_sk_idx (sketches on)", lambda: hs.create_index(
             session.read.parquet(ev),
@@ -1913,6 +2026,12 @@ def skipping_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = Fa
                   index="ev_sk_idx")
         require(rec["row_groups_kept"] < rec["row_groups_footer_stage"],
                 f"ev_point_sum: the sketch stage skipped nothing: {rec}")
+        # the sidecar cache's counters (cache.sketch.*), as the JAX package's
+        sketch_cache = _delta(sketch_before, "cache.sketch.")
+        out["sidecar"]["cache_sketch"] = sketch_cache
+        log({"sidecar": "cache.sketch", "card": card, **sketch_cache})
+        require(sketch_cache.get("hits", 0) + sketch_cache.get("misses", 0) > 0,
+                f"sidecar legs: no cache.sketch hit or miss counted: {sketch_cache}")
     finally:
         if prev is None:
             os.environ.pop("HYPERSPACE_SKETCHES", None)
@@ -1937,6 +2056,10 @@ def skipping_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = Fa
     run("wide64_sum", HyperspaceSession(wide_wh), make,
         host_result("wide64_sum", wide_wh, make), index=None, files_in_plan=4)
     shutil.rmtree(wide_root)
+
+    # (e) the z-order conf keys
+    out["zorder"] = zorder_leg(K, card)
+    out["queries"].update(out["zorder"].pop("queries"))
 
     out["launches"] = {k: K.LAUNCHES[k] - profiled[k] for k in K.LAUNCHES}
     require(out["launches"]["filter_sum"] > 0, "skipping: filter_sum never launched")

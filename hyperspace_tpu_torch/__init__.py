@@ -30,6 +30,10 @@ from .session import HyperspaceSession
 from .sources.delta import SnapshotTable
 from .sources.iceberg import IcebergStyleTable
 
+# the reference's alias (its python/hyperspace/indexconfig.py IndexConfig)
+IndexConfig = CoveringIndexConfig
+
 __all__ = ["BloomFilterSketch", "CoveringIndexConfig", "DataSkippingIndexConfig",
-           "Hyperspace", "HyperspaceSession", "IcebergStyleTable", "MinMaxSketch",
-           "SnapshotTable", "ValueListSketch", "ZOrderCoveringIndexConfig", "ZRegionSketch"]
+           "Hyperspace", "HyperspaceSession", "IcebergStyleTable", "IndexConfig",
+           "MinMaxSketch", "SnapshotTable", "ValueListSketch", "ZOrderCoveringIndexConfig",
+           "ZRegionSketch"]

@@ -182,13 +182,17 @@ class Action:
     def begin(self) -> None:
         latest = self.log_manager.get_latest_id()
         self.base_id = latest if latest is not None else -1
-        entry = LogEntry(state=self.transient_state)
+        entry = self.transient_entry()
         entry.stamp()
         log_id = self.base_id + C.LOG_ID_TRANSIENT_OFFSET
         if not self.log_manager.write_log(log_id, entry):
             raise ConcurrentWriteError(
                 f"Another operation is in progress (log id {log_id} already exists)"
             )
+
+    def transient_entry(self) -> LogEntry:
+        """The entry ``begin`` writes at base_id + 1."""
+        return LogEntry(state=self.transient_state)
 
     def end(self) -> None:
         entry = self.log_entry()

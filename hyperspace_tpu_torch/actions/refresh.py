@@ -104,17 +104,23 @@ class RefreshActionBase(IndexMutationAction):
                 "use refresh mode 'full' instead"
             )
 
-    def _refreshed_entry(self, derived_dataset, content: Content) -> IndexLogEntry:
+    def refreshed_relation_metadata(self):
+        """(the source relation over the current files, its metadata as the
+        refreshed entry records it)."""
         from ..sources.manager import SourceProviderManager
 
         relation = SourceProviderManager(self.session).get_relation(_single_file_scan(self.df))
+        return relation, relation.create_relation_metadata(self.tracker)
+
+    def _refreshed_entry(self, derived_dataset, content: Content) -> IndexLogEntry:
+        relation, metadata = self.refreshed_relation_metadata()
         properties = dict(self.entry.properties)
         relation.record_version_history(properties, self.base_id + C.LOG_ID_FINAL_OFFSET)
         return IndexLogEntry(
             name=self.entry.name,
             derived_dataset=derived_dataset,
             content=content,
-            source=Source(SourcePlan([relation.create_relation_metadata(self.tracker)],
+            source=Source(SourcePlan([metadata],
                                      self.df.plan.pretty(),
                                      compute_fingerprint(self.df.plan))),
             properties=properties,

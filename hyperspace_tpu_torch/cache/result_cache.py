@@ -49,6 +49,7 @@ import hashlib
 import threading
 import weakref
 from collections import OrderedDict
+from typing import Optional
 
 from ..exceptions import HyperspaceError
 from ..staticcheck.concurrency import TrackedLock
@@ -181,6 +182,15 @@ class ResultCache:
         if evicted:
             self._count("evictions", evicted)
         self._publish_bytes()
+
+    def get(self, key) -> Optional[CachedResult]:
+        """The entry under ``key`` (now the most recent), or None; counts
+        nothing (``get_or_compute`` is the query path's lookup)."""
+        with self._lock:
+            entry = self._d.get(key)
+            if entry is not None:
+                self._d.move_to_end(key)
+        return entry
 
     def get_or_compute(self, key, build):
         """(entry, hit). The first caller that misses runs ``build()``

@@ -314,6 +314,13 @@ class BytesBoundedLRU:
             return (self._bytes == sum(nb for _v, nb in self._d.values())
                     and self._bytes <= max(self.max_bytes, 0))
 
+    def clear(self) -> None:
+        with self._lock:
+            self._d.clear()
+            self._bytes = 0
+        if self.metric_name:
+            REGISTRY.gauge(f"cache.{self.metric_name}.bytes").set(0)
+
 
 class IndexChunkCache(BytesBoundedLRU):
     """Decoded index-file reads, keyed by the files' (path, mtime_ns,

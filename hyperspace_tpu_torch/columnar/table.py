@@ -49,6 +49,10 @@ class Field:
     def to_dict(self) -> dict:
         return {"name": self.name, "type": self.dtype}
 
+    @staticmethod
+    def from_dict(d: dict) -> "Field":
+        return Field(d["name"], d["type"])
+
 
 class Schema:
     def __init__(self, fields: Sequence[Field]):
@@ -312,6 +316,9 @@ class ColumnBatch:
 
     def select(self, names: Sequence[str]) -> "ColumnBatch":
         return ColumnBatch({n: self.column(n) for n in names})
+
+    def rename(self, mapping: Mapping[str, str]) -> "ColumnBatch":
+        return ColumnBatch({mapping.get(n, n): c for n, c in self.columns.items()})
 
     def with_column(self, name: str, col: Column) -> "ColumnBatch":
         cols = dict(self.columns)

@@ -1,5 +1,6 @@
 """Typed view over the session's conf dict (counterpart of
-hyperspace_tpu/config.py, reduced to the keys the port reads)."""
+hyperspace_tpu/config.py: the same accessors, names, defaults and
+validation; ``exec_tpu_enabled`` is ``exec_device_enabled`` here)."""
 
 from __future__ import annotations
 
@@ -88,6 +89,34 @@ class HyperspaceConf:
                 C.INDEX_CACHE_EXPIRY_SECONDS, C.INDEX_CACHE_EXPIRY_SECONDS_DEFAULT
             )
         )
+
+    @property
+    def zorder_target_source_bytes_per_partition(self) -> int:
+        return int(self._conf.get(C.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION,
+                                  C.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION_DEFAULT))
+
+    @property
+    def zorder_quantile_enabled(self) -> bool:
+        return _as_bool(self._conf.get(C.ZORDER_QUANTILE_ENABLED,
+                                       C.ZORDER_QUANTILE_ENABLED_DEFAULT))
+
+    @property
+    def zorder_quantile_relative_error(self) -> float:
+        v = float(self._conf.get(C.ZORDER_QUANTILE_RELATIVE_ERROR,
+                                 C.ZORDER_QUANTILE_RELATIVE_ERROR_DEFAULT))
+        if not 0.0 < v < 1.0:
+            raise HyperspaceError(f"{C.ZORDER_QUANTILE_RELATIVE_ERROR} must be in (0,1): {v}")
+        return v
+
+    @property
+    def dataskipping_target_index_data_file_size(self) -> int:
+        return int(self._conf.get(C.DATASKIPPING_TARGET_INDEX_DATA_FILE_SIZE,
+                                  C.DATASKIPPING_TARGET_INDEX_DATA_FILE_SIZE_DEFAULT))
+
+    @property
+    def dataskipping_max_index_data_file_count(self) -> int:
+        return int(self._conf.get(C.DATASKIPPING_MAX_INDEX_DATA_FILE_COUNT,
+                                  C.DATASKIPPING_MAX_INDEX_DATA_FILE_COUNT_DEFAULT))
 
     @property
     def exec_device_enabled(self) -> bool:

@@ -1,8 +1,8 @@
 """Conf keys and defaults the port's query path reads.
 
 Counterpart of hyperspace_tpu/constants.py: the same key strings, so a conf
-dict written for the JAX package means the same thing here. Only the keys
-the port reads are carried over. One default differs on purpose: the
+dict written for the JAX package means the same thing here. Every key of
+the JAX package's is carried over. One default differs on purpose: the
 device tier (``hyperspace.tpu.exec.enabled``) is ON, because the port's
 device tier runs on the card by default.
 """
@@ -82,8 +82,22 @@ INDEX_FORMAT_DEFAULT = "parquet"
 BUILD_MAX_BYTES_IN_MEMORY = "hyperspace.tpu.build.maxBytesInMemory"
 BUILD_MAX_BYTES_IN_MEMORY_DEFAULT = 2 * 1024 * 1024 * 1024  # 2 GB
 
-# data skipping: a PartitionSketch per partition column of a partitioned
-# source, added to a data-skipping index's sketches
+# z-order covering: the source bytes per data file, and percentile fields
+# (else min-max) with the quantiles' relative error
+ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION = "hyperspace.index.zorder.targetSourceBytesPerPartition"
+ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION_DEFAULT = 1024 * 1024 * 1024  # 1 GB
+ZORDER_QUANTILE_ENABLED = "hyperspace.index.zorder.quantile.enabled"
+ZORDER_QUANTILE_ENABLED_DEFAULT = False
+ZORDER_QUANTILE_RELATIVE_ERROR = "hyperspace.index.zorder.quantile.relativeError"
+ZORDER_QUANTILE_RELATIVE_ERROR_DEFAULT = 0.01
+
+# data skipping: the reference's index-data file size and count keys (read
+# by neither package's build), and a PartitionSketch per partition column
+# of a partitioned source, added to a data-skipping index's sketches
+DATASKIPPING_TARGET_INDEX_DATA_FILE_SIZE = "hyperspace.index.dataskipping.targetIndexDataFileSize"
+DATASKIPPING_TARGET_INDEX_DATA_FILE_SIZE_DEFAULT = 256 * 1024 * 1024
+DATASKIPPING_MAX_INDEX_DATA_FILE_COUNT = "hyperspace.index.dataskipping.maxIndexDataFileCount"
+DATASKIPPING_MAX_INDEX_DATA_FILE_COUNT_DEFAULT = 10000
 DATASKIPPING_AUTO_PARTITION_SKETCH = "hyperspace.index.dataskipping.autoPartitionSketch"
 DATASKIPPING_AUTO_PARTITION_SKETCH_DEFAULT = True
 

@@ -73,6 +73,8 @@ class SnapshotRegistry:
         self._refs: dict = {}  # (index_path, version) -> pin refcount
         self._protected: dict = {}  # (index_path, version) -> nesting depth
         self._superseded_at: dict = {}  # (index_path, version) -> monotonic s
+        self._pins_total = 0
+        self._releases_total = 0
         # lifecycle-audit handles: id(Snapshot) -> handle for pins (each
         # pin() returns a distinct Snapshot), (path, version) -> LIFO handle
         # stack for nested protection
@@ -95,6 +97,7 @@ class SnapshotRegistry:
             for v in snap.versions:
                 key = (index_path, v)
                 self._refs[key] = self._refs.get(key, 0) + 1
+            self._pins_total += 1
             if lc:
                 self._pin_handles[id(snap)] = lc
         from ..telemetry.metrics import REGISTRY
@@ -111,6 +114,7 @@ class SnapshotRegistry:
                     self._refs.pop(key, None)
                 else:
                     self._refs[key] = n
+            self._releases_total += 1
             lc = self._pin_handles.pop(id(snap), 0)
         release_resource(lc)
         from ..telemetry.metrics import REGISTRY
@@ -121,6 +125,11 @@ class SnapshotRegistry:
         key = (os.path.abspath(index_path), version)
         with self._lock:
             return self._refs.get(key, 0) > 0
+
+    def pinned_versions(self, index_path: str) -> set:
+        index_path = os.path.abspath(index_path)
+        with self._lock:
+            return {v for (p, v), n in self._refs.items() if p == index_path and n > 0}
 
     def active_pins(self) -> int:
         with self._lock:
@@ -177,6 +186,14 @@ class SnapshotRegistry:
         key = (os.path.abspath(index_path), version)
         with self._lock:
             self._superseded_at.pop(key, None)
+
+    def state(self) -> dict:
+        with self._lock:
+            return {"active_pins": sum(self._refs.values()),
+                    "pinned_versions": len(self._refs),
+                    "protected_versions": len(self._protected),
+                    "pins_total": self._pins_total,
+                    "releases_total": self._releases_total}
 
 
 REGISTRY = SnapshotRegistry()

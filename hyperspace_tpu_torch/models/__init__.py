@@ -3,6 +3,7 @@ deserialization and hooks the kinds' rewrite rules into the score-based
 optimizer, in the JAX package's order: ApplyDataSkippingIndex, then
 ZOrderFilterIndexRule (ties go to the later rule)."""
 
+from .base import Index, IndexConfig, IndexerContext, UpdateMode
 from .covering import CoveringIndex, CoveringIndexConfig
 from .dataskipping import (
     BloomFilterSketch,
@@ -15,6 +16,10 @@ from .dataskipping import (
 from .zorder import ZOrderCoveringIndex, ZOrderCoveringIndexConfig
 
 __all__ = [
+    "Index",
+    "IndexConfig",
+    "IndexerContext",
+    "UpdateMode",
     "CoveringIndex",
     "CoveringIndexConfig",
     "DataSkippingIndex",

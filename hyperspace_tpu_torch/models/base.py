@@ -75,6 +75,11 @@ class Index:
     def to_dict(self) -> dict:
         raise NotImplementedError
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "Index":
+        """A kind's loader (registered with ``register_index_kind``)."""
+        raise NotImplementedError
+
     def __eq__(self, other):
         return type(self) is type(other) and self.to_dict() == other.to_dict()
 

@@ -21,23 +21,26 @@ longer matches the file) or an unreadable one keeps every group.
 
 Everything is off unless ``HYPERSPACE_SKETCHES`` enables it ("1"/"all",
 or a comma list of bloom, valuelist, zregion), read at every call, as the
-JAX package reads it (a benchmark toggles it between runs). Decoded
+JAX package reads it (a benchmark toggles it between runs), as are
+``HYPERSPACE_SKETCH_BLOOM_FPP`` and ``HYPERSPACE_SKETCH_BLOOM_NDV``, which
+size the bloom filters (``bloom_fpp``, ``bloom_ndv_cap``). Decoded
 sidecars are kept in a byte-bounded cache keyed by the sidecar file's
-identity, as the footer statistics are.
+identity, as the footer statistics are: ``columnar/io.BytesBoundedLRU``
+under the ``cache.sketch.*`` counters, within ``HYPERSPACE_SKETCH_CACHE_MB``
+(read at import; 0 parses every read).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from collections import OrderedDict
 from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
 
 from ... import constants as C
+from ...columnar import io as cio
 from ...columnar.table import Column, ColumnBatch, STRING, numpy_dtype
-from ...staticcheck.concurrency import TrackedLock
 from ...utils import env
 from .sketches import (
     BloomFilterSketch,
@@ -57,11 +60,6 @@ SIDECAR_VERSION = 1
 # per-file NDV at or below which the exact value list replaces the bloom
 # filter (ValueListSketch.MAX_VALUES is the per-group bound it degrades at)
 VALUELIST_NDV_MAX = 256
-# the JAX package's defaults of HYPERSPACE_SKETCH_BLOOM_FPP,
-# HYPERSPACE_SKETCH_BLOOM_NDV and HYPERSPACE_SKETCH_CACHE_MB
-BLOOM_FPP = 0.01
-BLOOM_NDV_CAP = 8192
-CACHE_BYTES = 64 << 20
 # files probed for NDV statistics before an estimate gives up
 _NDV_PROBE_FILES = 8
 
@@ -82,6 +80,18 @@ def enabled_kinds() -> frozenset:
 
 def sketches_enabled() -> bool:
     return bool(enabled_kinds())
+
+
+def bloom_fpp() -> float:
+    """``HYPERSPACE_SKETCH_BLOOM_FPP``: a sidecar bloom filter's target
+    false-positive rate (0.01)."""
+    return env.env_float("HYPERSPACE_SKETCH_BLOOM_FPP")
+
+
+def bloom_ndv_cap() -> int:
+    """``HYPERSPACE_SKETCH_BLOOM_NDV``: the cap on the distinct count a
+    sidecar bloom filter is sized for (8192)."""
+    return env.env_int("HYPERSPACE_SKETCH_BLOOM_NDV")
 
 
 def sidecar_path(data_path: str) -> str:
@@ -205,8 +215,8 @@ def plan_sketches(batch: ColumnBatch, key_columns: Sequence[str],
         if "valuelist" in kinds and 0 < ndv <= VALUELIST_NDV_MAX:
             out.append(ValueListSketch(c))
         elif "bloom" in kinds and ndv > 0:
-            expected = max(16, min(ndv, row_group_size, BLOOM_NDV_CAP))
-            out.append(BloomFilterSketch(c, expected, BLOOM_FPP))
+            expected = max(16, min(ndv, row_group_size, bloom_ndv_cap()))
+            out.append(BloomFilterSketch(c, expected, bloom_fpp()))
         if "zregion" in kinds and col.dtype != STRING:
             zregion_cols.append(c)
     if zregion_cols:
@@ -320,36 +330,10 @@ class Sidecar:
         return mask
 
 
-class _SidecarCache:
-    """Byte-bounded LRU of decoded sidecars by the sidecar file's
-    (path, mtime_ns, inode, size), so a rewrite is never served stale."""
-
-    def __init__(self, max_bytes: int):
-        self.max_bytes = max_bytes
-        self._d: OrderedDict = OrderedDict()
-        self._bytes = 0
-        self._lock = TrackedLock("io.cache.sketch")
-
-    def get(self, key) -> Optional[Sidecar]:
-        with self._lock:
-            sc = self._d.get(key)
-            if sc is not None:
-                self._d.move_to_end(key)
-            return sc
-
-    def put(self, key, sc: Sidecar) -> None:
-        if sc.nbytes > self.max_bytes:
-            return
-        with self._lock:
-            if key not in self._d:
-                self._d[key] = sc
-                self._bytes += sc.nbytes
-            while self._bytes > self.max_bytes:
-                _, old = self._d.popitem(last=False)
-                self._bytes -= old.nbytes
-
-
-_SIDECAR_CACHE = _SidecarCache(CACHE_BYTES)
+# decoded sidecars by the sidecar file's (path, mtime_ns, inode, size), so a
+# rewrite is never served stale; the lock is ``io.cache.sketch``
+_SIDECAR_CACHE = cio.BytesBoundedLRU(
+    env.env_int("HYPERSPACE_SKETCH_CACHE_MB") * 1024 * 1024, metric_name="sketch")
 
 
 def _decode_sidecar(raw: dict, nbytes: int) -> Optional[Sidecar]:
@@ -372,28 +356,44 @@ def _decode_sidecar(raw: dict, nbytes: int) -> Optional[Sidecar]:
 def load_sidecar(data_path: str) -> Optional[Sidecar]:
     """The decoded sidecar of an index data file; None when it is absent,
     unreadable, malformed or stale (its recorded data size differs from
-    the file's)."""
+    the file's: ``pruning.sketch.stale``). A budget of 0 bypasses the
+    cache, as the JAX package's does."""
     spath = sidecar_path(data_path)
     try:
         st = os.stat(spath)
-        data_size = os.path.getsize(data_path)
     except OSError:
         return None
     key = (spath, st.st_mtime_ns, st.st_ino, st.st_size)
-    sc = _SIDECAR_CACHE.get(key)
-    if sc is None:
-        try:
-            with open(spath, encoding="utf-8") as f:
-                text = f.read()
-            sc = _decode_sidecar(json.loads(text), len(text))
-        except (OSError, ValueError):
-            return None
+
+    def parse() -> tuple:
+        with open(spath, encoding="utf-8") as f:
+            text = f.read()
+        sc = _decode_sidecar(json.loads(text), len(text))
         if sc is None:
-            return None
-        _SIDECAR_CACHE.put(key, sc)
+            raise _BadSidecar  # never cached as good
+        return sc, len(text)
+
+    try:
+        if _SIDECAR_CACHE.max_bytes > 0:
+            sc = _SIDECAR_CACHE.get_or_put(key, parse)
+        else:
+            sc = parse()[0]
+    except (_BadSidecar, OSError, ValueError):
+        return None
+    try:
+        data_size = os.path.getsize(data_path)
+    except OSError:
+        return None
     if sc.data_size >= 0 and sc.data_size != data_size:
+        from ...telemetry.metrics import REGISTRY
+
+        REGISTRY.counter("pruning.sketch.stale").inc()
         return None  # the data was rewritten without its sketches
     return sc
+
+
+class _BadSidecar(Exception):
+    """A sidecar that parsed but failed validation."""
 
 
 # ---------------------------------------------------------------------------

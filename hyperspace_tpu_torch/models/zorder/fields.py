@@ -3,7 +3,7 @@
 
 A min-max field scales linearly between the column's extremes; a
 percentile field buckets by quantile boundaries, for skewed columns
-(``index._QUANTILE``). Strings scale by their rank
+(``hyperspace.index.zorder.quantile.enabled``). Strings scale by their rank
 in the sorted vocabulary. Fields serialize into the index log entry, in
 the JSON the JAX package writes.
 """

@@ -5,8 +5,12 @@ core, and maintenance).
 A covering index laid out along a z-order curve instead of hash buckets:
 rows are sorted by the z-address of the indexed columns (by the column
 itself when there is one) and cut into roughly equal parts, one data file
-each, the part count being the slice's bytes over
-``_TARGET_BYTES_PER_PARTITION``. Row-group
+each, the part count being the slice's bytes over the session's
+``hyperspace.index.zorder.targetSourceBytesPerPartition``; the fields are
+percentile ones under ``hyperspace.index.zorder.quantile.enabled``, else
+min-max. Both keys are read from the session's conf wherever the JAX
+package reads them: the in-memory and streamed builds, full refresh, and
+every write (incremental refresh and optimize). Row-group
 statistics cover every indexed column, so a range on any of them skips
 groups. A create whose source exceeds ``hyperspace.tpu.build.maxBytesInMemory``
 streams in two passes over file groups of at most that size
@@ -60,14 +64,6 @@ from .fields import ZOrderField, build_field
 if TYPE_CHECKING:
     from ...plan.dataframe import DataFrame
 
-# Source bytes per data file, and whether fields are percentile ones (else
-# min-max): the defaults of the JAX package's
-# ``hyperspace.index.zorder.targetSourceBytesPerPartition`` and
-# ``hyperspace.index.zorder.quantile.enabled``. Module constants, which tests
-# monkeypatch to match a JAX build made with other settings.
-_TARGET_BYTES_PER_PARTITION = 1 << 30
-_QUANTILE = False
-
 
 class ZOrderCoveringIndex(Index):
     kind = "ZCI"
@@ -110,7 +106,8 @@ class ZOrderCoveringIndex(Index):
     def write(self, ctx: IndexerContext, index_data: ColumnBatch) -> None:
         write_zordered(
             index_data, ctx.index_data_path, self._indexed, self.fields,
-            _TARGET_BYTES_PER_PARTITION, ext=cio.index_file_ext(ctx.session.conf.index_format),
+            ctx.session.conf.zorder_target_source_bytes_per_partition,
+            ext=cio.index_file_ext(ctx.session.conf.index_format),
             session=ctx.session,
         )
 
@@ -143,7 +140,8 @@ class ZOrderCoveringIndex(Index):
                      ) -> tuple["ZOrderCoveringIndex", ColumnBatch]:
         data = CoveringIndex.create_index_data(ctx, df, self._indexed, self._included,
                                                self.has_lineage())
-        fields = [build_field(c, data.column(c), _QUANTILE) for c in self._indexed]
+        quantile = ctx.session.conf.zorder_quantile_enabled
+        fields = [build_field(c, data.column(c), quantile) for c in self._indexed]
         return (ZOrderCoveringIndex(self._indexed, self._included, self._schema, fields,
                                     self._properties), data)
 
@@ -366,16 +364,19 @@ class ZOrderCoveringIndexConfig(IndexConfig):
         included = resolve_columns(df.schema, self._included)
         scan = _single_file_scan(df)
         lineage = properties.get("lineage", "false") == "true"
-        limit = ctx.session.conf.build_max_bytes_in_memory
+        conf = ctx.session.conf
+        limit = conf.build_max_bytes_in_memory
         if sum(f.size for f in scan.files) > limit and len(scan.files) > 1:
-            out = streaming_zorder_build(ctx, df, scan, indexed, included, lineage, _QUANTILE,
-                                         _TARGET_BYTES_PER_PARTITION, limit)
+            out = streaming_zorder_build(
+                ctx, df, scan, indexed, included, lineage, conf.zorder_quantile_enabled,
+                conf.zorder_target_source_bytes_per_partition, limit)
             if out is not None:
                 fields, schema_list = out
                 return ZOrderCoveringIndex(indexed, included, schema_list, fields,
                                            properties), None
         data = CoveringIndex.create_index_data(ctx, df, indexed, included, lineage)
-        fields = [build_field(c, data.column(c), _QUANTILE) for c in indexed]
+        fields = [build_field(c, data.column(c), conf.zorder_quantile_enabled)
+                  for c in indexed]
         index = ZOrderCoveringIndex(indexed, included, data.schema.to_list(), fields,
                                     properties)
         return index, data

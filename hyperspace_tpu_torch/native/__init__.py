@@ -19,6 +19,8 @@ library (test workers) never load a half-written one. A failed build or
 load raises NativeError: unlike the JAX package, which falls back to numpy
 there, the port does not fail open. The callers keep the reference's size
 gates and their numpy forms, which the tests hold the kernels against.
+``available()`` and ``build_facts()`` describe the library as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -105,6 +107,30 @@ def _load() -> ctypes.CDLL:
             _declare(lib)
             _lib.append(lib)
     return _lib[0]
+
+
+def available() -> bool:
+    """True when the library builds and loads (False where it cannot: the
+    entry points then raise NativeError)."""
+    try:
+        _load()
+    except NativeError:
+        return False
+    return True
+
+
+def build_facts() -> dict:
+    """The compiler, its flags and version, the ABI, and whether the
+    library is loaded now (read without building it)."""
+    facts = {"compiler": COMPILER, "flags": list(BUILD_FLAGS), "abi": ABI_VERSION}
+    try:
+        out = subprocess.run([COMPILER, "--version"], capture_output=True, text=True,
+                             timeout=10)
+        facts["compiler_version"] = out.stdout.splitlines()[0] if out.stdout else None
+    except (OSError, subprocess.TimeoutExpired):
+        facts["compiler_version"] = None
+    facts["loaded"] = bool(_lib)
+    return facts
 
 
 def _declare(lib: ctypes.CDLL) -> None:

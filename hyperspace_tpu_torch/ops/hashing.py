@@ -106,6 +106,24 @@ def string_key_words(codes: np.ndarray, dictionary: list[str]) -> np.ndarray:
     return vocab_hash[codes]
 
 
+def split64_np(arr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """An int64 or float64 array as its (lo, hi) 32-bit words, each viewed
+    as int32."""
+    bits = arr.view(np.uint64) if arr.dtype == np.float64 else arr.astype(np.int64).view(np.uint64)
+    lo = (bits & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    hi = (bits >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    return lo, hi
+
+
+def merge64_np(lo: np.ndarray, hi: np.ndarray, dtype) -> np.ndarray:
+    """The inverse of ``split64_np``: the words joined into ``dtype``."""
+    bits = lo.view(np.uint32).astype(np.uint64) | (hi.view(np.uint32).astype(np.uint64)
+                                                  << np.uint64(32))
+    if np.dtype(dtype) == np.float64:
+        return bits.view(np.float64)
+    return bits.view(np.int64).astype(dtype)
+
+
 def bucket_ids_np(columns: list[np.ndarray], num_buckets: int) -> np.ndarray:
     return (hash32_np(columns) % np.uint32(num_buckets)).astype(np.int32)
 

@@ -80,14 +80,14 @@ def abort_factor() -> float:
     try:
         return env.env_float("HYPERSPACE_ADAPTIVE_ABORT_FACTOR")
     except ValueError:
-        return float(env.DEFAULTS["HYPERSPACE_ADAPTIVE_ABORT_FACTOR"])
+        return float(env.knob("HYPERSPACE_ADAPTIVE_ABORT_FACTOR").default)
 
 
 def warmup_chunks() -> int:
     try:
         return max(1, env.env_int("HYPERSPACE_ADAPTIVE_WARMUP_CHUNKS"))
     except ValueError:
-        return int(env.DEFAULTS["HYPERSPACE_ADAPTIVE_WARMUP_CHUNKS"])
+        return int(env.knob("HYPERSPACE_ADAPTIVE_WARMUP_CHUNKS").default)
 
 
 class force_mode:

@@ -84,7 +84,7 @@ def park_wait_ms() -> float:
     try:
         return env.env_float("HYPERSPACE_PARK_WAIT_MS")
     except ValueError:
-        return env.DEFAULTS["HYPERSPACE_PARK_WAIT_MS"]
+        return env.knob("HYPERSPACE_PARK_WAIT_MS").default
 
 
 def grant_bytes() -> int:

@@ -49,7 +49,8 @@ def fingerprint_dtype_signature(key) -> tuple:
 
 class KernelCache:
     """Bounded LRU of built kernels, one per session, named as the JAX
-    package's process-wide kernel cache is."""
+    package's process-wide kernel cache is, and counted as it is:
+    ``cache.<name>.hits``, ``misses`` (a build) and ``evictions``."""
 
     def __init__(self, name: str = "kernel", maxlen: int = 256):
         self.name = name
@@ -57,16 +58,52 @@ class KernelCache:
         self._d: OrderedDict = OrderedDict()
         self._lock = TrackedLock(f"kernel_cache.{name}")
 
+    def _count(self, event: str, n: int = 1) -> None:
+        from ..telemetry.metrics import REGISTRY
+
+        REGISTRY.counter(f"cache.{self.name}.{event}").inc(n)
+
+    def get(self, key, default=None):
+        """The kernel under ``key`` (``cache.<name>.hits``), else
+        ``default`` (``cache.<name>.misses``)."""
+        with self._lock:
+            try:
+                value = self._d[key]
+            except KeyError:
+                value = None
+            else:
+                self._d.move_to_end(key)
+        if value is None:
+            self._count("misses")
+            return default
+        self._count("hits")
+        return value
+
+    def set(self, key, value) -> None:
+        evicted = 0
+        with self._lock:
+            self._d[key] = value
+            self._d.move_to_end(key)
+            while len(self._d) > self.maxlen:
+                self._d.popitem(last=False)
+                evicted += 1
+        if evicted:
+            self._count("evictions", evicted)
+
     def get_or_build(self, key, builder: Callable, kind: str = "kernel"):
         with self._lock:
-            if key in self._d:
+            kernel = self._d.get(key)
+            if kernel is not None:
                 self._d.move_to_end(key)
-                return self._d[key]
+        if kernel is not None:
+            self._count("hits")
+            return kernel
         from ..staticcheck.kernel_audit import observe_compile
         from ..telemetry import trace
         from ..telemetry.metrics import REGISTRY
         from ..utils import faults
 
+        self._count("misses")
         with trace.span(f"compile:{kind}"):
             # the kernel.compile fault point fires on a real build only: a
             # warm cache never builds, so never faults. Its context key is
@@ -77,11 +114,16 @@ class KernelCache:
         REGISTRY.counter("kernel.retrace").inc()
         kernel = observe_compile(self.name, kind, key, kernel,
                                  fingerprint_dtype_signature(key))
-        with self._lock:
-            self._d[key] = kernel
-            while len(self._d) > self.maxlen:
-                self._d.popitem(last=False)
+        self.set(key, kernel)
         return kernel
+
+    def check_consistency(self) -> bool:
+        """Within its bound (call at quiescence)."""
+        with self._lock:
+            return len(self._d) <= self.maxlen
+
+    def __len__(self) -> int:
+        return len(self._d)
 
     def clear(self) -> None:
         """Drop every built kernel (the next query of each template builds

@@ -32,6 +32,15 @@ class BucketSpec:
     bucket_columns: tuple[str, ...]
     sort_columns: tuple[str, ...] = ()
 
+    def to_dict(self) -> dict:
+        return {"numBuckets": self.num_buckets, "bucketColumns": list(self.bucket_columns),
+                "sortColumns": list(self.sort_columns)}
+
+    @staticmethod
+    def from_dict(d: dict) -> "BucketSpec":
+        return BucketSpec(d["numBuckets"], tuple(d["bucketColumns"]),
+                          tuple(d.get("sortColumns", ())))
+
 
 @dataclass
 class IndexScanInfo:

@@ -458,10 +458,10 @@ def _ndv_sketch_fraction(conjuncts: Sequence[Expr], stats, index_name: str) -> f
         frac = min(frac, min(1.0, k * group_rows / max(int(n), 1)))
     if frac >= 1.0:
         return 1.0
-    from ..models.dataskipping.sketch_store import BLOOM_FPP
+    from ..models.dataskipping.sketch_store import bloom_fpp
     from ..telemetry import plan_stats
 
-    frac = max(frac, BLOOM_FPP)
+    frac = max(frac, bloom_fpp())
     if plan_stats.feedback_enabled():
         corr = plan_stats.ACCURACY.correction(
             "sketch_rowgroups", index_name, _sketch_shape(conjuncts))

@@ -79,6 +79,7 @@ NO_FIRST_INDEXED_COL_COND = "NO_FIRST_INDEXED_COL_COND"
 NOT_ELIGIBLE_JOIN = "NOT_ELIGIBLE_JOIN"
 NO_AVAIL_JOIN_INDEX_PAIR = "NO_AVAIL_JOIN_INDEX_PAIR"
 NOT_ALL_JOIN_COL_INDEXED = "NOT_ALL_JOIN_COL_INDEXED"
+ANOTHER_INDEX_APPLIED = "ANOTHER_INDEX_APPLIED"
 NO_CONVERTIBLE_PREDICATE = "NO_CONVERTIBLE_PREDICATE"
 
 

@@ -211,7 +211,7 @@ def configured_device_budget_bytes() -> int:
     try:
         mb = env.env_float("HYPERSPACE_DEVICE_BUDGET_MB")
     except ValueError:
-        mb = env.DEFAULTS["HYPERSPACE_DEVICE_BUDGET_MB"]
+        mb = env.knob("HYPERSPACE_DEVICE_BUDGET_MB").default
     return int(mb * 2**20)
 
 
@@ -272,7 +272,7 @@ def configured_budget_bytes() -> int:
             return int(float(raw) * 2**20)
     except ValueError:
         pass
-    return int(env.DEFAULTS["HYPERSPACE_GLOBAL_BUDGET_MB"] * 2**20)
+    return int(env.knob("HYPERSPACE_GLOBAL_BUDGET_MB").default * 2**20)
 
 
 # the process-wide read-ahead accountant, made at first use

@@ -280,6 +280,7 @@ class CostModel:
     def __init__(self):
         self._lock = threading.Lock()
         self._ewma: dict[str, float] = {}
+        self._n: dict[str, int] = {}
         self._global: Optional[float] = None
 
     def update(self, label: str, run_s: float) -> None:
@@ -293,6 +294,7 @@ class CostModel:
                 run_s if self._global is None
                 else (1 - self._ALPHA) * self._global + self._ALPHA * run_s
             )
+            self._n[label] = self._n.get(label, 0) + 1
 
     def predict(self, label: str) -> Optional[float]:
         """Corrected run-cost prediction for a label; None = no history
@@ -309,9 +311,15 @@ class CostModel:
         with self._lock:
             return self._global
 
+    def observations(self, label: str) -> int:
+        """The runs of ``label`` the model has seen."""
+        with self._lock:
+            return self._n.get(label, 0)
+
     def reset_for_testing(self) -> None:
         with self._lock:
             self._ewma.clear()
+            self._n.clear()
             self._global = None
 
 

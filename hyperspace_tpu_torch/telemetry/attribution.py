@@ -398,6 +398,13 @@ class QueryStatsLedger:
 
     # --- reads ------------------------------------------------------------
 
+    def last_seq(self) -> int:
+        """The highest sequence number of an active or recent query (0:
+        none yet)."""
+        with self._lock:
+            seqs = [s.seq for s in self._active.values()] + [s.seq for s in self._recent]
+        return max(seqs + [0])
+
     def active_records(self) -> list[dict]:
         with self._lock:
             stats = list(self._active.values())

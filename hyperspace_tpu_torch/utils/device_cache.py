@@ -172,6 +172,11 @@ class DeviceColumnCache:
         only while every one of them is the same object."""
         return self.get_or_put(srcs, tag, builder, meter, store)
 
+    def get_or_put_keyed(self, key, builder: Callable):
+        """An entry under an explicit hashable ``key``, with no source
+        buffer to validate (a value that depends on the key alone)."""
+        return self.get_or_put((), ("keyed", key), builder)
+
     @property
     def resident_bytes(self) -> int:
         return self._bytes
@@ -180,6 +185,12 @@ class DeviceColumnCache:
         """The occupancy equals the sum of the resident entries' sizes."""
         with self._lock:
             return self._bytes == sum(e[2] for e in self._d.values())
+
+    def clear(self) -> None:
+        with self._lock:
+            self._d.clear()
+            self._bytes = 0
+        REGISTRY.gauge(f"cache.{self.metric}.bytes").set(0)
 
 
 def placed_tag(tag: tuple, device) -> tuple:

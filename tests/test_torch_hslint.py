@@ -22,7 +22,7 @@ STATICCHECK_KNOBS = ("HYPERSPACE_LOCK_AUDIT", "HYPERSPACE_LIFECYCLE_AUDIT",
 
 def test_env_registry_carries_the_staticcheck_knobs_with_the_reference_defaults():
     for name in STATICCHECK_KNOBS + ("HYPERSPACE_SKETCHES", "HYPERSPACE_DEVICE_BUDGET_MB"):
-        assert tenv.DEFAULTS[name] == jenv.knob(name).default, name
+        assert tenv.knob(name).default == jenv.knob(name).default, name
 
 
 def test_routed_reads_follow_the_knobs(monkeypatch):
@@ -60,7 +60,7 @@ def _state() -> list:
 def test_knobs_steer_the_audits_at_import(monkeypatch):
     for k in STATICCHECK_KNOBS:
         if k not in os.environ:  # this process imported the modules without it
-            assert _state()[STATICCHECK_KNOBS.index(k)] == tenv.DEFAULTS[k]
+            assert _state()[STATICCHECK_KNOBS.index(k)] == tenv.knob(k).default
     code = ("import json; from hyperspace_tpu_torch.staticcheck import concurrency, "
             "lifecycle, kernel_audit, plan_verifier; from hyperspace_tpu_torch.utils import env;"
             "print(json.dumps([concurrency.audit_enabled(), lifecycle.audit_enabled(), "

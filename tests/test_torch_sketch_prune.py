@@ -271,6 +271,93 @@ def test_a_tampered_sidecar_raises_under_verify(lake, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the bloom sizing knobs and the sidecar cache's counters
+# ---------------------------------------------------------------------------
+
+def test_the_bloom_knobs_size_the_sidecars_as_in_jax(tmp_path, sketches_on, monkeypatch):
+    """``HYPERSPACE_SKETCH_BLOOM_FPP=0.001`` and ``_NDV=64``, read where
+    the blooms are sized: both packages write the same sidecar bytes, with
+    the knobs' parameters, and keep the same row groups for a point
+    predicate (its estimate floored at the knob's rate alike)."""
+    monkeypatch.setenv("HYPERSPACE_SKETCH_BLOOM_FPP", "0.001")
+    monkeypatch.setenv("HYPERSPACE_SKETCH_BLOOM_NDV", "64")
+    src = str(tmp_path / "events")
+    _write_events(src)
+    for pkg in PKGS:
+        _build(pkg, str(tmp_path / f"wh_{pkg}"), src)
+    jside = _sidecars(str(tmp_path / "wh_jax"))
+    tside = _sidecars(str(tmp_path / "wh_torch"))
+    assert sorted(tside) == sorted(jside) and len(tside) == BUCKETS
+    for rel in jside:
+        with open(jside[rel], "rb") as a, open(tside[rel], "rb") as b:
+            want, got = a.read(), b.read()
+        assert got == want
+        blooms = [d for d in json.loads(got)["sketches"] if d["kind"] == "BloomFilterSketch"]
+        assert blooms and all(d["fpp"] == 0.001 and d["expectedDistinctCountPerFile"] == 64
+                              for d in blooms)
+    out = {}
+    for pkg, (mod, C, X) in PKGS.items():
+        wh = str(tmp_path / f"wh_{pkg}")
+        df = _query(X, _session(pkg, wh).enable_hyperspace(), src, QUERIES["bloom_eq"])
+        scan = [n for n in df.optimized_plan().preorder() if n.kind == "FileScan"][0]
+        row_groups, kept = (jpr if pkg == "jax" else tpr).rowgroup_selection(scan)
+        out[pkg] = ({os.path.relpath(p, wh): list(g) for p, g in (row_groups or {}).items()},
+                    sorted(os.path.relpath(f.name, wh) for f in kept),
+                    scan.prune_spec.sketch_fraction, df.collect().to_pydict()["ev_id"])
+    assert out["torch"] == out["jax"]
+    assert out["torch"][0] and out["torch"][3] == [KEY]
+    # the estimate's floor is the knob's rate: one key of a billion
+    stats = ({"ev_id": 10**9}, RGS)
+    floors = [pr._ndv_sketch_fraction([QUERIES["bloom_eq"](X)], stats, INDEX)
+              for pr, X in ((jpr, JX), (tpr, TX))]
+    assert floors == [0.001, 0.001]
+
+
+SKETCH_COUNTERS = ("hits", "misses", "evictions", "evicted_bytes")
+
+
+def _sketch_counters(registry) -> dict:
+    snap = {n: v for n, _kind, v in registry.export()}
+    return {c: snap.get(f"cache.sketch.{c}", 0) for c in SKETCH_COUNTERS}
+
+
+@pytest.mark.parametrize("budget_mb", [None, "0"])
+def test_sketch_cache_counters_equal_the_jax_packages(budget_mb, lake, monkeypatch):
+    """The same sequence of sketch-pruned queries (each run twice, so the
+    second reads the cache) in each package: the ``cache.sketch.*`` deltas
+    of every query are equal, at the default budget and at
+    ``HYPERSPACE_SKETCH_CACHE_MB=0`` (the cache bypassed: no counts). Each
+    package sizes its cache at import, so the test sets the knob and the
+    two caches' budgets together."""
+    from hyperspace_tpu.telemetry.metrics import REGISTRY as JREG
+    from hyperspace_tpu_torch.telemetry.metrics import REGISTRY as TREG
+
+    root, src = lake
+    caches = {"jax": jss._SIDECAR_CACHE, "torch": tss._SIDECAR_CACHE}
+    if budget_mb is not None:
+        monkeypatch.setenv("HYPERSPACE_SKETCH_CACHE_MB", budget_mb)
+        for cache in caches.values():
+            monkeypatch.setattr(cache, "max_bytes", int(budget_mb) << 20)
+    registries = {"jax": JREG, "torch": TREG}
+    deltas: dict = {"jax": [], "torch": []}
+    for pkg, (mod, C, X) in PKGS.items():
+        caches[pkg].clear()
+        s = _session(pkg, os.path.join(root, f"wh_{pkg}")).enable_hyperspace()
+        for q in ("bloom_eq", "valuelist_in", "bloom_eq", "zregion_range", "valuelist_in"):
+            before = _sketch_counters(registries[pkg])
+            _query(X, s, src, QUERIES[q]).collect()
+            after = _sketch_counters(registries[pkg])
+            deltas[pkg].append((q, {c: after[c] - before[c] for c in SKETCH_COUNTERS}))
+    assert deltas["torch"] == deltas["jax"]
+    total = {c: sum(d[c] for _q, d in deltas["torch"]) for c in SKETCH_COUNTERS}
+    if budget_mb is None:
+        assert total["misses"] == BUCKETS and total["hits"] > 0
+        assert tss._SIDECAR_CACHE.check_consistency()
+    else:
+        assert not any(total.values())
+
+
+# ---------------------------------------------------------------------------
 # ranking and vacuum
 # ---------------------------------------------------------------------------
 

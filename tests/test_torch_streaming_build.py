@@ -29,7 +29,6 @@ from hyperspace_tpu import constants as JC
 from hyperspace_tpu.plan import expr as JX
 import hyperspace_tpu_torch as T
 from hyperspace_tpu_torch import constants as TC
-from hyperspace_tpu_torch.models.zorder import index as tzindex
 from hyperspace_tpu_torch.plan import expr as TX
 
 PKGS = {"jax": (J, JC, JX), "torch": (T, TC, TX)}
@@ -73,12 +72,14 @@ def _limit(lake: str) -> int:
     return 3 * os.path.getsize(os.path.join(lake, "f000.parquet")) + 100
 
 
-def _session(pkg: str, warehouse: str, limit: int, lineage: bool = True):
+def _session(pkg: str, warehouse: str, limit: int, lineage: bool = True,
+             quantile: bool = False):
     mod, C, _X = PKGS[pkg]
-    conf = {C.INDEX_LINEAGE_ENABLED: lineage, C.BUILD_MAX_BYTES_IN_MEMORY: limit}
+    conf = {C.INDEX_LINEAGE_ENABLED: lineage, C.BUILD_MAX_BYTES_IN_MEMORY: limit,
+            C.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION: ZTARGET,
+            C.ZORDER_QUANTILE_ENABLED: quantile}
     if pkg == "torch":
         return mod.HyperspaceSession(warehouse, conf=conf, device="cpu")
-    conf[C.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION] = ZTARGET
     return mod.HyperspaceSession(warehouse, conf=conf)
 
 
@@ -90,9 +91,9 @@ KINDS = {
 }
 
 
-def _create(pkg, warehouse, lake, kind, limit, lineage=True):
+def _create(pkg, warehouse, lake, kind, limit, lineage=True, quantile=False):
     cls, indexed, included = KINDS[kind]
-    s = _session(pkg, warehouse, limit, lineage)
+    s = _session(pkg, warehouse, limit, lineage, quantile)
     PKGS[pkg][0].Hyperspace(s).create_index(
         s.read.parquet(lake), getattr(PKGS[pkg][0], cls)(NAME, indexed, included))
 
@@ -172,13 +173,8 @@ def _both(warehouse: str, snapshot: str | None, step) -> dict:
     return captured
 
 
-@pytest.fixture
-def zsmall(monkeypatch):
-    monkeypatch.setattr(tzindex, "_TARGET_BYTES_PER_PARTITION", ZTARGET)
-
-
 @pytest.mark.parametrize("kind", sorted(KINDS))
-def test_streamed_create_writes_the_jax_packages_files(tmp_path, zsmall, kind):
+def test_streamed_create_writes_the_jax_packages_files(tmp_path, kind):
     lake = _lake(tmp_path)
     limit = _limit(lake)
     warehouse = str(tmp_path / "wh")
@@ -191,7 +187,7 @@ def test_streamed_create_writes_the_jax_packages_files(tmp_path, zsmall, kind):
     _check_queries(warehouse, lake, limit)
 
 
-def test_in_memory_under_the_limit(tmp_path, zsmall):
+def test_in_memory_under_the_limit(tmp_path):
     """At the default limit the same lake builds in memory: one file per
     bucket, no run suffix, as before."""
     lake = _lake(tmp_path)
@@ -243,7 +239,51 @@ def test_streamed_refresh_writes_the_jax_packages_files(tmp_path, refresh):
     _check_queries(warehouse, lake, limit)
 
 
-def test_each_package_reads_the_others_streamed_zorder_index(tmp_path, zsmall):
+# a quantile z-order index: (build limit: streamed or in memory, the refresh
+# run after a create of JAX's and a lake change, or None)
+QUANTILE_STEPS = {
+    "in_memory": (False, None),
+    "streamed": (True, None),
+    "refreshed_incremental": (False, "incremental"),
+    "refreshed_full": (False, "full"),
+}
+
+
+@pytest.mark.parametrize("step", sorted(QUANTILE_STEPS))
+def test_quantile_zorder_builds_write_the_jax_packages_files(tmp_path, step):
+    """``hyperspace.index.zorder.quantile.enabled`` and a small
+    ``targetSourceBytesPerPartition`` steer both packages' z-order builds
+    alike: percentile fields and several parts, in memory, streamed, and
+    through an incremental (deleted and appended files) and a full
+    refresh, whose writes read both keys again."""
+    lake = _lake(tmp_path)
+    streamed, mode = QUANTILE_STEPS[step]
+    limit = _limit(lake) if streamed else TC.BUILD_MAX_BYTES_IN_MEMORY_DEFAULT
+    warehouse = str(tmp_path / "wh")
+    if mode is None:
+        captured = _both(warehouse, None, lambda pkg: _create(
+            pkg, warehouse, lake, "zci2", limit, quantile=True))
+        version = "v__=0"
+    else:
+        _create("jax", warehouse, lake, "zci2", limit, quantile=True)
+        _delete_and_append(lake, deletes=True)
+        snapshot = str(tmp_path / "snapshot")
+        shutil.copytree(warehouse, snapshot)
+        captured = _both(warehouse, snapshot, lambda pkg: PKGS[pkg][0].Hyperspace(
+            _session(pkg, warehouse, limit, quantile=True)).refresh_index(NAME, mode))
+        version = "v__=1"
+    files = [k for k in _data_files(captured["torch"])
+             if any(version in p and p.endswith(k) for p in captured["torch"])]
+    assert len(files) > 1
+    entries = [v for k, v in captured["torch"].items() if "_hyperspace_log" in k
+               and k.rsplit(os.sep, 1)[1].isdigit() and v.get("derivedDataset")]
+    kinds = {f["kind"] for e in entries
+             for f in e["derivedDataset"]["properties"]["zOrderFields"]}
+    assert kinds == {"percentile"}
+    _check_queries(warehouse, lake, limit)
+
+
+def test_each_package_reads_the_others_streamed_zorder_index(tmp_path):
     lake = _lake(tmp_path)
     limit = _limit(lake)
     for builder in ("jax", "torch"):

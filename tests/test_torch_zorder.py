@@ -135,35 +135,36 @@ _ZINDEXES = {
 
 @pytest.fixture(scope="module")
 def built(lake):
-    """Each z-order index, built by each package into its own warehouse: the
-    JAX package takes the part size and field kind from its session conf,
-    the port from its module constants."""
+    """Each z-order index, built by each package into its own warehouse;
+    both take the part size and field kind from their session conf."""
     out = {}
-    for pkg in (J, T):
+    for pkg, C in ((J, JC), (T, TC)):
         wh = os.path.join(lake, f"wh_{pkg.__name__}")
         for name, (table, indexed, included, target, quantile) in _ZINDEXES.items():
-            with pytest.MonkeyPatch.context() as mp:
-                if pkg is T:
-                    if target is not None:
-                        mp.setattr(tzindex, "_TARGET_BYTES_PER_PARTITION", target)
-                    mp.setattr(tzindex, "_QUANTILE", quantile)
-                    s = T.HyperspaceSession(wh, device="cpu")
-                else:
-                    conf = {JC.ZORDER_QUANTILE_ENABLED: quantile}
-                    if target is not None:
-                        conf[JC.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION] = target
-                    s = J.HyperspaceSession(wh, conf=conf)
-                config = (T.ZOrderCoveringIndexConfig if pkg is T
-                          else jz.ZOrderCoveringIndexConfig)
-                pkg.Hyperspace(s).create_index(s.read.parquet(os.path.join(lake, table)),
-                                               config(name, indexed, included))
+            conf = {C.ZORDER_QUANTILE_ENABLED: quantile}
+            if target is not None:
+                conf[C.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION] = target
+            if pkg is T:
+                s = T.HyperspaceSession(wh, conf=conf, device="cpu")
+            else:
+                s = J.HyperspaceSession(wh, conf=conf)
+            config = (T.ZOrderCoveringIndexConfig if pkg is T
+                      else jz.ZOrderCoveringIndexConfig)
+            pkg.Hyperspace(s).create_index(s.read.parquet(os.path.join(lake, table)),
+                                           config(name, indexed, included))
         out["jax" if pkg is J else "torch"] = wh
     return out
 
 
-def test_build_settings_default_to_the_jax_packages():
-    assert tzindex._TARGET_BYTES_PER_PARTITION == JC.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION_DEFAULT
-    assert tzindex._QUANTILE is JC.ZORDER_QUANTILE_ENABLED_DEFAULT
+def test_build_settings_default_to_the_jax_packages(tmp_path):
+    conf = T.HyperspaceSession(str(tmp_path), device="cpu").conf
+    jconf = J.HyperspaceSession(str(tmp_path)).conf
+    assert (conf.zorder_target_source_bytes_per_partition
+            == jconf.zorder_target_source_bytes_per_partition
+            == JC.ZORDER_TARGET_SOURCE_BYTES_PER_PARTITION_DEFAULT)
+    assert conf.zorder_quantile_enabled is jconf.zorder_quantile_enabled is False
+    assert not hasattr(tzindex, "_TARGET_BYTES_PER_PARTITION")
+    assert not hasattr(tzindex, "_QUANTILE")
 
 
 @pytest.mark.parametrize("name", sorted(_ZINDEXES))
