@@ -125,7 +125,11 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
        HYPERSPACE_SKETCHES=1; its eq and in queries in three legs (raw,
        sketches off, on) must agree, and the sketch stage must keep fewer
        row groups than the index scan's footer stage; ev_point_sum (the eq
-       with sum(ev_v) and count) runs on the card over the kept groups;
+       with sum(ev_v) and count) runs on the card over the kept groups.
+       The build's pruning.sketch.sidecars_written and sketches_built
+       must count the sidecar files it wrote and the sketches in them, and
+       ev_point_sum run once more under HYPERSPACE_PRUNE=verify must equal
+       the host and count pruning.verified once, as the JAX package does;
    (d) the predicate routes: flag_sum (l_returnflag = 'R') over
        li_flagstatus through the dictionary-code rewrite, and wide64_sum
        (w > 2^40 over a full-range int64 column, 2^22 rows) through Wide64
@@ -1972,9 +1976,13 @@ def skipping_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = Fa
     os.environ["HYPERSPACE_SKETCHES"] = "1"
     sketch_before = _counters("cache.sketch.")
     try:
+        build_before = _counters("pruning.sketch.")
         action("create ev_sk_idx (sketches on)", lambda: hs.create_index(
             session.read.parquet(ev),
             CoveringIndexConfig("ev_sk_idx", ["ev_k"], ["ev_id", "ev_cat", "ev_v"])))
+        out["sidecar"]["writer"] = sidecar_writer_check(
+            _delta(build_before, "pruning.sketch."), os.path.join(ev_wh, "indexes", "ev_sk_idx"),
+            card)
         ev_key = int(10_000_000 + n_ev * 5 // 8 + 17)
         cats = [3, int((n_ev - 1) // cat_div) - 1]
         sidecar_queries = {
@@ -2022,10 +2030,12 @@ def skipping_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = Fa
         session.enable_hyperspace()
         make = lambda s: s.read.parquet(ev).filter(col("ev_id") == ev_key).agg(
             Sum(col("ev_v")).alias("s"), Count(lit(1)).alias("n"))
-        rec = run("ev_point_sum", session, make, host_result("ev_point_sum", ev_wh, make),
-                  index="ev_sk_idx")
+        want_point = host_result("ev_point_sum", ev_wh, make)
+        rec = run("ev_point_sum", session, make, want_point, index="ev_sk_idx")
         require(rec["row_groups_kept"] < rec["row_groups_footer_stage"],
                 f"ev_point_sum: the sketch stage skipped nothing: {rec}")
+        out["sidecar"]["verify"] = prune_verify_check(
+            "ev_point_sum", lambda: _floats(make(session).to_pydict()), want_point, card)
         # the sidecar cache's counters (cache.sketch.*), as the JAX package's
         sketch_cache = _delta(sketch_before, "cache.sketch.")
         out["sidecar"]["cache_sketch"] = sketch_cache
@@ -3504,6 +3514,51 @@ def _delta(before: dict, prefix: str) -> dict:
     after = _counters(prefix)
     return {k[len(prefix):]: after[k] - before.get(k, 0) for k in sorted(after)
             if after[k] != before.get(k, 0)}
+
+
+def sidecar_writer_check(counted: dict, index_dir: str, card: str) -> dict:
+    """The sidecar writer's counters of a build (``counted``: its
+    ``pruning.sketch.`` deltas) against what it left in ``index_dir``:
+    ``sidecars_written`` is the number of sidecar files and
+    ``sketches_built`` the sketches in them, as the JAX package counts."""
+    import glob
+
+    t0 = time.perf_counter()
+    paths = glob.glob(os.path.join(index_dir, "**", "_sketch.*.json"), recursive=True)
+    sketches = 0
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            sketches += len(json.load(f)["sketches"])
+    rec = {"sidecars_written": counted.get("sidecars_written", 0),
+           "sketches_built": counted.get("sketches_built", 0),
+           "sidecar_files": len(paths), "sketches_in_files": sketches}
+    require(rec["sidecars_written"] == len(paths) > 0 and rec["sketches_built"] == sketches,
+            f"sidecar writer: counters {counted}, files {len(paths)}, sketches {sketches}")
+    rec["seconds"] = time.perf_counter() - t0
+    log({"sidecar": "writer counters", "card": card, **rec})
+    return rec
+
+
+def prune_verify_check(label: str, collect, want: dict, card: str) -> dict:
+    """A pruned query run once more under ``HYPERSPACE_PRUNE=verify``: the
+    pruned read is held to the full one, the result to ``want``, and
+    ``pruning.verified`` must count 1, as in the JAX package."""
+    prev = os.environ.get("HYPERSPACE_PRUNE")
+    before = _counters("pruning.")
+    os.environ["HYPERSPACE_PRUNE"] = "verify"
+    t0 = time.perf_counter()
+    try:
+        got = collect()
+    finally:
+        if prev is None:
+            os.environ.pop("HYPERSPACE_PRUNE", None)
+        else:
+            os.environ["HYPERSPACE_PRUNE"] = prev
+    rec = {"seconds": time.perf_counter() - t0, **_delta(before, "pruning.")}
+    compare_batches(f"{label} (prune verify)", got, want)
+    require(rec.get("verified") == 1, f"{label}: pruning.verified counted {rec}")
+    log({"prune_verify": label, "card": card, **rec})
+    return rec
 
 
 def staticcheck_phase(K, e2e: dict, session, card: str) -> dict:

@@ -18,8 +18,9 @@ Telemetry, as in the JAX package: the whole run is an ``action:<Name>``
 span, a lost race counts ``action.retry.attempts`` (and
 ``action.retry.gave_up`` when the budget is spent), and an action with an
 ``event_class`` logs its CRUD event ("started", then "succeeded", "noop:
-..." or "failed: ...") to its ``event_logger``, which the index manager
-sets from the session (``telemetry/logger.event_logger_for``).
+..." or "failed: ...") to its ``event_logger``, the last argument of every
+action's constructor, which the index manager passes from the session
+(``telemetry/logger.event_logger_for``).
 """
 
 from __future__ import annotations
@@ -83,10 +84,10 @@ class Action:
     final_state: str = "?"
     event_class: "type[HyperspaceEvent] | None" = None  # its CRUD event
 
-    def __init__(self, log_manager: IndexLogManager):
+    def __init__(self, log_manager: IndexLogManager, event_logger=None):
         self.log_manager = log_manager
         self.base_id: int = 0
-        self.event_logger = None
+        self.event_logger = event_logger
 
     def validate(self) -> None:
         """Raise HyperspaceError if the action cannot run from this state;
@@ -212,8 +213,8 @@ class IndexMutationAction(Action):
 
     allowed_prior_states: frozenset[str] = frozenset()
 
-    def __init__(self, log_manager: IndexLogManager):
-        super().__init__(log_manager)
+    def __init__(self, log_manager: IndexLogManager, event_logger=None):
+        super().__init__(log_manager, event_logger)
         self._prev = log_manager.get_latest_log()
 
     @property

@@ -71,8 +71,8 @@ class CreateAction(Action):
 
     def __init__(self, session: "HyperspaceSession", df: "DataFrame", config: "IndexConfig",
                  index_path: str, log_manager: IndexLogManager,
-                 data_manager: IndexDataManager):
-        super().__init__(log_manager)
+                 data_manager: IndexDataManager, event_logger=None):
+        super().__init__(log_manager, event_logger)
         self.session = session
         self.df = df
         self.config = config

@@ -87,8 +87,8 @@ class VacuumAction(IndexMutationAction):
     event_class = VacuumActionEvent
     allowed_prior_states = frozenset({S.DELETED})
 
-    def __init__(self, index_path: str, log_manager: IndexLogManager):
-        super().__init__(log_manager)
+    def __init__(self, index_path: str, log_manager: IndexLogManager, event_logger=None):
+        super().__init__(log_manager, event_logger)
         self.index_path = index_path
 
     def op(self) -> None:
@@ -112,8 +112,8 @@ class VacuumOutdatedAction(IndexMutationAction):
     allowed_prior_states = frozenset({S.ACTIVE})
 
     def __init__(self, index_path: str, log_manager: IndexLogManager,
-                 data_manager: IndexDataManager):
-        super().__init__(log_manager)
+                 data_manager: IndexDataManager, event_logger=None):
+        super().__init__(log_manager, event_logger)
         self.index_path = index_path
         self.data_manager = data_manager
         self.entry: IndexLogEntry = self.previous_entry
@@ -177,8 +177,8 @@ class CancelAction(Action):
 
     transient_state = S.CANCELLING
 
-    def __init__(self, log_manager: IndexLogManager):
-        super().__init__(log_manager)
+    def __init__(self, log_manager: IndexLogManager, event_logger=None):
+        super().__init__(log_manager, event_logger)
         self._stable = None
 
     def validate(self) -> None:

@@ -37,8 +37,8 @@ class OptimizeAction(IndexMutationAction):
 
     def __init__(self, session: "HyperspaceSession", index_path: str,
                  log_manager: IndexLogManager, data_manager: IndexDataManager,
-                 mode: str = C.OPTIMIZE_MODE_QUICK):
-        super().__init__(log_manager)
+                 mode: str = C.OPTIMIZE_MODE_QUICK, event_logger=None):
+        super().__init__(log_manager, event_logger)
         if mode not in C.OPTIMIZE_MODES:
             raise HyperspaceError(f"Invalid optimize mode {mode!r}; valid: {C.OPTIMIZE_MODES}")
         self.session = session

@@ -58,8 +58,9 @@ class RefreshActionBase(IndexMutationAction):
     allowed_prior_states = frozenset({S.ACTIVE})
 
     def __init__(self, session: "HyperspaceSession", index_path: str,
-                 log_manager: IndexLogManager, data_manager: IndexDataManager):
-        super().__init__(log_manager)
+                 log_manager: IndexLogManager, data_manager: IndexDataManager,
+                 event_logger=None):
+        super().__init__(log_manager, event_logger)
         self.session = session
         self.index_path = index_path
         self.data_manager = data_manager
@@ -131,8 +132,8 @@ class RefreshAction(RefreshActionBase):
     """Full rebuild into a new data version."""
     event_class = RefreshActionEvent
 
-    def __init__(self, *args):
-        super().__init__(*args)
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
         self._new_index = None
         self._version = None
 
@@ -162,8 +163,8 @@ class RefreshIncrementalAction(RefreshActionBase):
     """Index the appended files; drop the deleted files' rows by lineage."""
     event_class = RefreshIncrementalActionEvent
 
-    def __init__(self, *args):
-        super().__init__(*args)
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
         self._new_index = None
         self._mode = None
         self._version = None
@@ -204,8 +205,8 @@ class RefreshQuickAction(RefreshActionBase):
     """Record the source delta in the entry; the index data stays."""
     event_class = RefreshQuickActionEvent
 
-    def __init__(self, *args):
-        super().__init__(*args)
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
         self._appended: list[FileInfo] = []
         self._deleted: list[FileInfo] = []
 

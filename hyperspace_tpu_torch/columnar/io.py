@@ -45,7 +45,7 @@ import pyarrow.json as pajson
 import pyarrow.parquet as pq
 
 from .table import Column, ColumnBatch, DATE32, Field, STRING, Schema
-from ..constants import NESTED_FIELD_PREFIX
+from ..constants import INDEX_COMPRESSION_DEFAULT, NESTED_FIELD_PREFIX
 from ..exceptions import HyperspaceError
 from ..serve import budget as serve_budget
 from ..serve.context import check_cancelled, current_query
@@ -506,20 +506,34 @@ def _source_cached_read(paths, cols: list[str], arrow_filter=None,
 def read_parquet(
     paths: Sequence[str],
     columns: Sequence[str] | None = None,
-    cache: IndexChunkCache | None = None,
-    row_groups: dict[str, Sequence[int]] | None = None,
     arrow_filter=None,
-    parallel: bool = True,
+    cache: "IndexChunkCache | bool" = False,
+    row_groups: dict[str, Sequence[int]] | None = None,
 ) -> ColumnBatch:
-    """Read ``paths`` in order into one ColumnBatch. ``row_groups`` maps a
-    path to the only row groups to read from it (other paths are read
-    whole); ``arrow_filter`` is the reader's row filter. With ``cache``,
-    repeats return the cached batch's Column objects; the selection and the
-    filter are part of the key, so a pruned or filtered read and a full
-    read of the same files never share an entry. ``parallel=False``
-    decodes the files one after another on the calling thread (a chunk
-    streamer's pool worker, whose pool already bounds the decode width);
-    the result is the same either way."""
+    """Read ``paths`` in order into one ColumnBatch. ``arrow_filter`` is the
+    reader's row filter; ``row_groups`` maps a path to the only row groups
+    to read from it (other paths are read whole). ``cache`` is a session's
+    decoded-chunk cache (``session.index_chunk_cache``), or False for none:
+    the port keeps no process-wide chunk cache, so the JAX package's
+    ``cache=True`` raises TypeError here. With a cache, repeats return the
+    cached batch's Column objects; the selection and the filter are part of
+    the key, so a pruned or filtered read and a full read of the same files
+    never share an entry."""
+    return _read_parquet(paths, columns, arrow_filter, _chunk_cache(cache), row_groups)
+
+
+def _chunk_cache(cache) -> "IndexChunkCache | None":
+    if cache is True:
+        raise TypeError("cache=True names no cache in the port: pass the session's "
+                        "index_chunk_cache")
+    return None if cache is False else cache
+
+
+def _read_parquet(paths, columns, arrow_filter, cache: "IndexChunkCache | None",
+                  row_groups, parallel: bool = True) -> ColumnBatch:
+    """``read_parquet``; ``parallel=False`` decodes the files one after
+    another on the calling thread (a chunk streamer's pool worker, whose
+    pool already bounds the decode width). The result is the same."""
     cols = list(columns) if columns else None
     row_groups = row_groups or {}
     if (_MAINTENANCE_DEPTH > 0 and cols and cache is None
@@ -665,14 +679,14 @@ class ChunkReadError(HyperspaceError):
 def iter_chunks(
     paths: Sequence[str],
     columns: Sequence[str] | None = None,
-    cache: IndexChunkCache | None = None,
+    cache: "IndexChunkCache | bool" = False,
     target_bytes: int | None = None,
     overlap: bool = True,
     row_groups: dict[str, Sequence[int]] | None = None,
 ) -> Iterator[StreamChunk]:
     """The chunks of a multi-file scan, in file order. Each chunk is one
-    ``read_parquet`` call over its group, with ``cache`` and the group's
-    part of the ``row_groups`` selection, so the concatenated chunks equal
+    ``read_parquet`` call over its group, with ``cache`` (as there) and the
+    group's part of the ``row_groups`` selection, so the concatenated chunks equal
     the monolithic read column for column (a dtype that differs between
     files is promoted there; the consumer aborts on it).
 
@@ -688,12 +702,12 @@ def iter_chunks(
     the query (its ``io`` phase and counters), and a cancelled query
     unwinds at the next group, returning its reservations."""
     groups = plan_chunk_groups(paths, target_bytes)
+    cache = _chunk_cache(cache)
 
     def decode(group: list[str], parallel: bool):
         t0 = time.perf_counter()
         try:
-            batch = read_parquet(group, columns, cache=cache, row_groups=row_groups,
-                                 parallel=parallel)
+            batch = _read_parquet(group, columns, None, cache, row_groups, parallel)
         except Exception as e:  # noqa: BLE001 - one type for every read failure
             raise ChunkReadError(f"chunk decode failed for {group}: {e}") from e
         dt = time.perf_counter() - t0
@@ -1041,20 +1055,21 @@ def write_index_file(
     path: str,
     row_group_size: int | None = None,
     stats_columns: Sequence[str] | None = None,
-    compression: str = "lz4",
+    compression: str | None = None,
 ) -> None:
     """One index data file in the format of ``path``'s extension (callers
     pick it with ``index_file_ext``). Parquet keeps dictionary-typed
     strings, limits row-group statistics to ``stats_columns`` (the
     clustered columns, the only ones whose min/max prune) and takes
-    ``compression`` from the session conf; an Arrow IPC file takes none of
-    these."""
+    ``compression`` from the session conf (None: the index codec,
+    ``INDEX_COMPRESSION_DEFAULT``); an Arrow IPC file takes none of these."""
     if path.endswith(ARROW_EXT):
         write_arrow(batch, path)
         return
     write_parquet(
-        batch, path, row_group_size=row_group_size, compression=compression,
-        keep_dictionary=True, stats_columns=stats_columns,
+        batch, path, row_group_size=row_group_size,
+        compression=compression or INDEX_COMPRESSION_DEFAULT, keep_dictionary=True,
+        stats_columns=stats_columns,
     )
 
 

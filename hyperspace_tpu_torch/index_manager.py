@@ -60,6 +60,7 @@ from .meta.data_manager import IndexDataManager
 from .meta.entry import IndexLogEntry
 from .meta.log_manager import IndexLogManager
 from .meta.path_resolver import PathResolver
+from .telemetry import logger as event_logs
 from .telemetry.metrics import REGISTRY
 from .utils import env
 
@@ -90,26 +91,27 @@ class IndexCollectionManager:
     # --- actions ---
     def create(self, df: "DataFrame", config: "IndexConfig") -> None:
         path, lm, dm = self._managers(config.index_name)
-        self._run(CreateAction(self.session, df, config, path, lm, dm))
+        CreateAction(self.session, df, config, path, lm, dm,
+                     event_logs.event_logger_for(self.session)).run()
 
     def delete(self, name: str) -> None:
         _, lm, _ = self._existing_log_manager(name)
-        self._run(DeleteAction(lm))
+        DeleteAction(lm, event_logs.event_logger_for(self.session)).run()
 
     def restore(self, name: str) -> None:
         _, lm, _ = self._existing_log_manager(name)
-        self._run(RestoreAction(lm))
+        RestoreAction(lm, event_logs.event_logger_for(self.session)).run()
 
     def vacuum(self, name: str) -> None:
         path, lm, _ = self._existing_log_manager(name)
-        self._run(VacuumAction(path, lm))
+        VacuumAction(path, lm, event_logs.event_logger_for(self.session)).run()
 
     def vacuum_outdated(self, name: str) -> None:
         from .ingest.compaction import writer_lock
 
         path, lm, dm = self._existing_log_manager(name)
         with writer_lock(path):
-            self._run(VacuumOutdatedAction(path, lm, dm))
+            VacuumOutdatedAction(path, lm, dm, event_logs.event_logger_for(self.session)).run()
 
     def refresh(self, name: str, mode: str = C.REFRESH_MODE_FULL) -> None:
         path, lm, dm = self._existing_log_manager(name)
@@ -120,11 +122,12 @@ class IndexCollectionManager:
         }.get(mode)
         if cls is None:
             raise HyperspaceError(f"Invalid refresh mode {mode!r}; valid: {C.REFRESH_MODES}")
-        self._run(cls(self.session, path, lm, dm))
+        cls(self.session, path, lm, dm, event_logs.event_logger_for(self.session)).run()
 
     def optimize(self, name: str, mode: str = C.OPTIMIZE_MODE_QUICK) -> None:
         path, lm, dm = self._existing_log_manager(name)
-        self._run(OptimizeAction(self.session, path, lm, dm, mode))
+        OptimizeAction(self.session, path, lm, dm, mode,
+                       event_logs.event_logger_for(self.session)).run()
 
     def append(self, name: str, df: "DataFrame") -> None:
         """Index ``df``'s new source files as append-only delta runs in a
@@ -137,7 +140,8 @@ class IndexCollectionManager:
 
         path, lm, dm = self._existing_log_manager(name)
         with writer_lock(path):
-            self._run(IngestAppendAction(self.session, path, lm, dm, df))
+            IngestAppendAction(self.session, path, lm, dm, df,
+                               event_logs.event_logger_for(self.session)).run()
         maybe_schedule(self.session, name)
         maybe_refresh(self.session, name)
 
@@ -150,18 +154,12 @@ class IndexCollectionManager:
 
         path, lm, dm = self._existing_log_manager(name)
         with writer_lock(path):
-            self._run(IngestCompactAction(self.session, path, lm, dm, min_runs))
+            IngestCompactAction(self.session, path, lm, dm, min_runs,
+                                event_logs.event_logger_for(self.session)).run()
 
     def cancel(self, name: str) -> None:
         _, lm, _ = self._existing_log_manager(name)
-        self._run(CancelAction(lm))
-
-    def _run(self, action) -> None:
-        """Run a user-requested action with the session's event logger."""
-        from .telemetry.logger import event_logger_for
-
-        action.event_logger = event_logger_for(self.session)
-        action.run()
+        CancelAction(lm, event_logs.event_logger_for(self.session)).run()
 
     # --- reads ---
     def get_indexes(self, states: list[str] | None = None) -> list[IndexLogEntry]:
@@ -259,7 +257,7 @@ class IndexCollectionManager:
                     # entry and its staging and spool files alone
                     r["skipped"] = f"fresh-transient:{latest.state}"
                     return r
-                self._run(CancelAction(lm))
+                CancelAction(lm, event_logs.event_logger_for(self.session)).run()
                 r["rolled_back"] = latest.state
                 latest_id = lm.get_latest_id()
                 latest = lm.get_log(latest_id) if latest_id is not None else None

@@ -94,8 +94,9 @@ class _IngestActionBase(IndexMutationAction):
     allowed_prior_states = frozenset({S.ACTIVE})
 
     def __init__(self, session: "HyperspaceSession", index_path: str,
-                 log_manager: IndexLogManager, data_manager: IndexDataManager):
-        super().__init__(log_manager)
+                 log_manager: IndexLogManager, data_manager: IndexDataManager,
+                 event_logger=None):
+        super().__init__(log_manager, event_logger)
         self.session = session
         self.index_path = index_path
         self.data_manager = data_manager
@@ -155,8 +156,9 @@ class IngestAppendAction(_IngestActionBase):
     event_class = IngestAppendActionEvent
 
     def __init__(self, session: "HyperspaceSession", index_path: str,
-                 log_manager: IndexLogManager, data_manager: IndexDataManager, df):
-        super().__init__(session, index_path, log_manager, data_manager)
+                 log_manager: IndexLogManager, data_manager: IndexDataManager, df,
+                 event_logger=None):
+        super().__init__(session, index_path, log_manager, data_manager, event_logger)
         self._df = df
         self._new_files: list[FileInfo] = []
         self._version: Optional[int] = None
@@ -250,8 +252,8 @@ class IngestCompactAction(_IngestActionBase):
 
     def __init__(self, session: "HyperspaceSession", index_path: str,
                  log_manager: IndexLogManager, data_manager: IndexDataManager,
-                 min_runs: Optional[int] = None):
-        super().__init__(session, index_path, log_manager, data_manager)
+                 min_runs: Optional[int] = None, event_logger=None):
+        super().__init__(session, index_path, log_manager, data_manager, event_logger)
         self.min_runs = max(
             2, min_runs if min_runs is not None else env.env_int("HYPERSPACE_COMPACT_RUNS"))
         self._to_compact: list[FileInfo] = []

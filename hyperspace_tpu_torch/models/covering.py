@@ -94,14 +94,14 @@ def _session_index_ext(session) -> str:
     return cio.index_file_ext(session.conf.index_format if session is not None else "parquet")
 
 
-def index_write_opts(session, clustered_columns) -> dict:
+def index_write_opts(session, clustered_cols) -> dict:
     """Index file write options from the session conf: row-group statistics
     on the clustered (sort or z-order) columns only, the only ones whose
     min/max prune, and the index codec."""
     if session is None:
         return {}
     conf = session.conf
-    stats = list(clustered_columns) if conf.index_stats_columns == "clustered" else None
+    stats = list(clustered_cols) if conf.index_stats_columns == "clustered" else None
     return {"stats_columns": stats, "compression": conf.index_compression}
 
 
@@ -399,8 +399,8 @@ def write_bucketed(
     bucket_columns: list[str],
     num_buckets: int,
     version: int = 0,
-    session=None,
     seq: int | None = None,
+    session=None,
 ) -> list[str]:
     """Partition rows by hash(bucket_columns) % num_buckets, sort each
     bucket stably by the bucket columns, and write one file per non-empty

@@ -267,16 +267,25 @@ def maybe_write_sidecar(batch: ColumnBatch, data_path: str, row_group_size: int,
     """Write the sidecar of a just-written parquet index data file; nothing
     when sketches are off or nothing is eligible. The data file's size is
     stamped in it, so a rewrite without its sidecar is never read through
-    stale sketches. True when a sidecar was written."""
+    stale sketches (a file whose size cannot be read gets no sidecar). Counts
+    ``pruning.sketch.sidecars_written`` and ``pruning.sketch.sketches_built``.
+    True when a sidecar was written."""
     if not sketches_enabled() or not data_path.endswith(".parquet"):
         return False
     side = build_sidecar(batch, row_group_size, key_columns)
     if side is None:
         return False
-    side["data_size"] = os.path.getsize(data_path)
+    try:
+        side["data_size"] = os.path.getsize(data_path)
+    except OSError:
+        return False
     with open(sidecar_path(data_path), "w", encoding="utf-8") as f:
         json.dump(side, f)
     from ...telemetry import workload
+    from ...telemetry.metrics import REGISTRY
+
+    REGISTRY.counter("pruning.sketch.sidecars_written").inc()
+    REGISTRY.counter("pruning.sketch.sketches_built").inc(len(side["sketches"]))
 
     # a maintenance charge against the index under maintenance (a no-op
     # with the workload plane off)

@@ -94,8 +94,8 @@ class BucketedSide:
 
     scan: FileScan  # the bucketed index scan
     spec: BucketSpec
+    appended: Optional[LogicalPlan]  # subplan under RepartitionByExpr, if any
     ops: list[LogicalPlan]  # Filter/Project nodes, bottom-up
-    appended: Optional[LogicalPlan] = None  # subplan under RepartitionByExpr
 
     @property
     def filters(self) -> list[Expr]:
@@ -166,7 +166,7 @@ def _decompose_side(plan: LogicalPlan) -> Optional[BucketedSide]:
         return None
     if any(bucket_id_from_filename(f.name) is None for f in node.files):
         return None
-    return BucketedSide(node, node.bucket_spec, list(reversed(ops_topdown)), appended)
+    return BucketedSide(node, node.bucket_spec, appended, list(reversed(ops_topdown)))
 
 
 def try_bucketed_scan_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
@@ -208,7 +208,7 @@ def try_bucketed_scan_aggregate(agg_plan, session) -> Optional[ColumnBatch]:
         spec = side.scan.prune_spec
         if spec is not None:
             spec = replace(spec, verify_files=())
-        empty = BucketedSide(side.scan.copy(files=[], prune_spec=spec), side.spec, side.ops)
+        empty = BucketedSide(side.scan.copy(files=[], prune_spec=spec), side.spec, None, side.ops)
         return aggregate(_load_side_bucket(empty, 0, None, session))
     return ColumnBatch.concat(parts)
 

@@ -186,7 +186,7 @@ def scan_streamable(scan: FileScan) -> bool:
     return bool(scan.required_columns or scan.full_schema.names)
 
 
-def iter_scan_chunks(scan: FileScan, session=None, overlap: bool = True, selection=None):
+def iter_scan_chunks(scan: FileScan, overlap: bool = True, selection=None, session=None):
     """The chunk stream of a ``scan_streamable`` scan (columnar/io.
     iter_chunks): the columns, files and row groups ``_exec_file_scan``
     reads, per file group. An index scan's groups go through the session's
@@ -287,7 +287,7 @@ def _exec_file_scan(scan: FileScan, session=None) -> ColumnBatch:
         if not read_cols and arrow_filter is None:
             n = sum(cio.file_num_rows(p) for p in paths)
             return ColumnBatch({"__rows__": Column(np.zeros(n, np.int8), "int8")})
-        return cio.read_parquet(paths, read_cols, cache, row_groups, arrow_filter)
+        return cio.read_parquet(paths, read_cols, arrow_filter, cache, row_groups)
 
     if not part_names:
         out = read([f.name for f in files])

@@ -1304,7 +1304,7 @@ def _execute_streaming(frag: _Fragment, scan: FileScan, plan, session,
         return None
     overlap = _pipeline_overlap()
     timing = ScanTiming("pipelined", route, 0, 0.0, UploadTimer(device))
-    chunks = _observed(iter_scan_chunks(scan, session, overlap, selection), timing)
+    chunks = _observed(iter_scan_chunks(scan, overlap, selection, session), timing)
     # the abort-and-replan monitor: the stream unchanged unless
     # HYPERSPACE_ADAPTIVE is on and the scan's pruning kept far more than it
     # predicted. Its ScanAbortAndReplan propagates to the collect loop: no

@@ -349,7 +349,7 @@ class DeviceLedger:
 
     __slots__ = ("_label", "_acct", "_stream", "_streams", "enabled", "parks", "_waves")
 
-    def __init__(self, label: str = "join"):
+    def __init__(self, label: str):
         self._label = label
         self._acct = serve_budget.device_budget()
         self.enabled = self._acct.max_bytes > 0

@@ -52,7 +52,7 @@ class KernelCache:
     package's process-wide kernel cache is, and counted as it is:
     ``cache.<name>.hits``, ``misses`` (a build) and ``evictions``."""
 
-    def __init__(self, name: str = "kernel", maxlen: int = 256):
+    def __init__(self, name: str, maxlen: int):
         self.name = name
         self.maxlen = maxlen
         self._d: OrderedDict = OrderedDict()
@@ -90,7 +90,7 @@ class KernelCache:
         if evicted:
             self._count("evictions", evicted)
 
-    def get_or_build(self, key, builder: Callable, kind: str = "kernel"):
+    def get_or_build(self, key, builder: Callable, kind: str):
         with self._lock:
             kernel = self._d.get(key)
             if kernel is not None:

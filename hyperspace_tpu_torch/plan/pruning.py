@@ -699,8 +699,8 @@ def _comparable(batch: ColumnBatch) -> list:
 def verify_against_full(scan: FileScan, pruned_batch: ColumnBatch, session=None) -> None:
     """Verify mode: read the file list from before pruning, apply the prune
     predicate to both reads, and raise unless they hold the same values
-    (floats compared bit for bit). A difference means the hash or the
-    statistics contract broke."""
+    (floats compared bit for bit), counting ``pruning.verified``. A
+    difference means the hash or the statistics contract broke."""
     from .executor import _exec_file_scan
 
     spec = scan.prune_spec
@@ -722,6 +722,7 @@ def verify_against_full(scan: FileScan, pruned_batch: ColumnBatch, session=None)
             f"prune verify mismatch on index {spec.index_name!r}: the pruned scan "
             f"differs from the full read under predicate {spec.pred!r}"
         )
+    REGISTRY.counter("pruning.verified").inc()
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,7 @@ class BudgetStream:
 
     __slots__ = ("_acct", "label", "query_id", "tenant", "held", "_closed", "_lc")
 
-    def __init__(self, acct: "BudgetAccountant", label: str = "", query_id=None,
+    def __init__(self, acct: "BudgetAccountant", label: str, query_id,
                  tenant: "str | None" = None):
         self._acct = acct
         self.label = label
@@ -95,7 +95,7 @@ class BudgetAccountant:
         # locks do)
         self._released = threading.Condition(threading.Lock())
 
-    def stream(self, label: str = "", query=None, tenant=None) -> BudgetStream:
+    def stream(self, label: str, query=None, tenant=None) -> BudgetStream:
         """Open a consumer handle; ``query`` and ``tenant`` default to the
         thread's current serving query (None outside the scheduler)."""
         if query is None:

@@ -54,7 +54,7 @@ class HyperspaceSession:
         self.host_derived_cache = DeviceColumnCache(
             env.cache_bytes("HYPERSPACE_HOST_DERIVED_CACHE_MB"), "host_derived")
         configure_caches()
-        self.kernel_cache = KernelCache()
+        self.kernel_cache = KernelCache("kernel", 256)
         self.device_stats = DeviceTierStats()
         self.dataskipping_stats = DataSkippingStats()
 

@@ -70,12 +70,13 @@ def retry_call(
     fn: Callable,
     what: str,
     attempts: "int | None" = None,
+    classify: Callable[[BaseException], bool] = is_transient,
     clock: "Callable[[float], None] | None" = None,
 ):
     """``fn()`` with up to ``attempts`` tries (``HYPERSPACE_IO_RETRIES`` by
-    default); only transient errors (``is_transient``) are re-attempted,
-    after ``backoff_delay`` on ``clock`` (``time.sleep`` by default). The
-    last failure propagates unchanged."""
+    default); only errors ``classify`` deems transient (``is_transient`` by
+    default) are re-attempted, after ``backoff_delay`` on ``clock``
+    (``time.sleep`` by default). The last failure propagates unchanged."""
     total = retry_attempts() if attempts is None else max(1, attempts)
     sleep = time.sleep if clock is None else clock
     attempt = 0
@@ -84,7 +85,7 @@ def retry_call(
             return fn()
         except Exception as e:
             attempt += 1
-            if attempt >= total or not is_transient(e):
+            if attempt >= total or not classify(e):
                 if attempt > 1:
                     from ..telemetry.metrics import REGISTRY
 

@@ -571,9 +571,9 @@ def test_park_wait_knob_sets_the_parked_grant_wait(monkeypatch, wait_ms):
     monkeypatch.setenv("HYPERSPACE_DEVICE_BUDGET_MB", str(150 / MB))
     acct = tbudget.reset_device_budget()
     try:
-        other = acct.stream()
+        other = acct.stream("other-query")
         assert other.try_reserve(100)
-        ledger = tjm.DeviceLedger()
+        ledger = tjm.DeviceLedger("join")
         t0 = time.perf_counter()
         ledger.admit(100, lambda: False)
         waited = time.perf_counter() - t0

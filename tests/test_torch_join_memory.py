@@ -188,7 +188,7 @@ def test_derive_split_rows_shape_matches_jax():
 def test_second_wave_parks_and_spills_the_first(monkeypatch):
     acct = _set_grant(monkeypatch, str(150 / 2**20))  # a 150-byte grant
     events = []
-    ledger = tjm.DeviceLedger()
+    ledger = tjm.DeviceLedger("join")
     try:
         sched = tdj._BandScheduler(
             lambda pads, items: events.append(("dispatch", tuple(items))) or f"rec-{items[0]}",
@@ -210,7 +210,7 @@ def test_second_wave_parks_and_spills_the_first(monkeypatch):
 
 def test_fitting_waves_never_park_and_one_wave_when_unbanded(monkeypatch):
     _set_grant(monkeypatch, "64")
-    ledger = tjm.DeviceLedger()
+    ledger = tjm.DeviceLedger("join")
     try:
         sched = tdj._BandScheduler(lambda pads, items: "rec", ledger, lambda p, i: 100,
                                    lambda w: pytest.fail("must not spill under budget"),

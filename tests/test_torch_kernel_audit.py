@@ -79,7 +79,7 @@ PLANTED = {
 
 
 def _build(kind: str, fn, key_tail=("sig",)):
-    cache = tkc.KernelCache(name="sc_test")
+    cache = tkc.KernelCache("sc_test", 256)
     return cache.get_or_build(("planted", kind) + key_tail, lambda: fn, kind)
 
 
@@ -212,7 +212,7 @@ def test_fingerprint_signatures_group_the_misses(monkeypatch):
     monkeypatch.setenv("HYPERSPACE_RETRACE_WARN", "2")
     tka.reset_watchdog()
     s0 = _val("staticcheck.kernel.retrace_storm")
-    cache = tkc.KernelCache(name="sc_storm")
+    cache = tkc.KernelCache("sc_storm", 256)
     try:
         for pad in (64, 128, 256):
             cache.get_or_build(tkc.plain_join_fingerprint("cuda", "expand", pad),

@@ -371,9 +371,9 @@ def test_a_pruned_read_never_serves_a_full_one(lake):
     d = os.path.join(built["torch"], "indexes", "li_orderkey", "v__=0")
     paths = [os.path.join(d, f) for f in sorted(os.listdir(d))]
     cache = tio.IndexChunkCache(1 << 30)
-    part = tio.read_parquet(paths, ["l_orderkey"], cache, {paths[0]: (1,)})
-    full = tio.read_parquet(paths, ["l_orderkey"], cache)
-    again = tio.read_parquet(paths, ["l_orderkey"], cache, {paths[0]: (1,)})
+    part = tio.read_parquet(paths, ["l_orderkey"], cache=cache, row_groups={paths[0]: (1,)})
+    full = tio.read_parquet(paths, ["l_orderkey"], cache=cache)
+    again = tio.read_parquet(paths, ["l_orderkey"], cache=cache, row_groups={paths[0]: (1,)})
     n0 = pq.ParquetFile(paths[0]).metadata
     assert part.num_rows == n0.row_group(1).num_rows + pq.ParquetFile(paths[1]).metadata.num_rows
     assert full.num_rows == ROWS

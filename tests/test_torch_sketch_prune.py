@@ -15,7 +15,11 @@ the row-group floor patched to 512 rows in both packages):
 - a stale or a malformed sidecar keeps every group in both;
 - a tampered sidecar (every bloom bit cleared) raises under verify;
 - the filter ranker's estimated scan fraction with sketches on;
-- vacuum keeps the sidecars of referenced files and removes the others.
+- vacuum keeps the sidecars of referenced files and removes the others;
+- a build and an incremental refresh count
+  ``pruning.sketch.sidecars_written`` and ``sketches_built`` as the JAX
+  package does, and a data file whose size cannot be read gets no
+  sidecar and no count.
 
 Tolerances: counts and keys exact; f32 sums within relative 1e-4.
 """
@@ -39,6 +43,8 @@ from hyperspace_tpu.plan import expr as JX
 from hyperspace_tpu.plan import pruning as jpr
 import hyperspace_tpu_torch as T
 from hyperspace_tpu_torch import constants as TC
+from hyperspace_tpu_torch.columnar import io as tio
+from hyperspace_tpu_torch.columnar.table import ColumnBatch as TBatch
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index_manager import index_manager_for
 from hyperspace_tpu_torch.models import covering as tcov
@@ -403,3 +409,82 @@ def test_vacuum_keeps_the_sidecars_of_referenced_files(lake):
     for p in data:
         d, f = os.path.split(p)
         assert os.path.join(d, f"_sketch.{f}.json") in left["torch"]
+
+
+# ---------------------------------------------------------------------------
+# the writer's counters
+# ---------------------------------------------------------------------------
+
+BUILD_COUNTERS = ("pruning.sketch.sidecars_written", "pruning.sketch.sketches_built")
+
+
+def _build_counters(registry) -> dict:
+    snap = {n: v for n, _kind, v in registry.export()}
+    return {c: snap.get(c, 0) for c in BUILD_COUNTERS}
+
+
+def test_the_sidecar_counters_equal_the_jax_packages(tmp_path, sketches_on):
+    """A sketch-enabled build, then an incremental refresh over an appended
+    file: each step moves ``pruning.sketch.sidecars_written`` and
+    ``sketches_built`` by the JAX package's amounts, which are the sidecar
+    files and the sketches in them that the step wrote."""
+    from hyperspace_tpu.telemetry.metrics import REGISTRY as JREG
+    from hyperspace_tpu_torch.telemetry.metrics import REGISTRY as TREG
+
+    registries = {"jax": JREG, "torch": TREG}
+    src = str(tmp_path / "events")
+    _write_events(src)
+    steps: dict = {pkg: [] for pkg in PKGS}
+
+    def step(pkg, run):
+        before = _build_counters(registries[pkg])
+        run(str(tmp_path / f"wh_{pkg}"))
+        after = _build_counters(registries[pkg])
+        steps[pkg].append({c: after[c] - before[c] for c in BUILD_COUNTERS})
+
+    for pkg in PKGS:
+        step(pkg, lambda wh: _build(pkg, wh, src))
+    jio.write_parquet(JBatch.from_pydict(_events(9, 700, N)),
+                      os.path.join(src, "part-09.parquet"))
+    for pkg, (mod, _C, _X) in PKGS.items():
+        step(pkg, lambda wh: mod.Hyperspace(_session(pkg, wh)).refresh_index(
+            INDEX, "incremental"))
+    for pkg in PKGS:
+        sidecars = sorted(_sidecars(str(tmp_path / f"wh_{pkg}")).values())
+        sketches = 0
+        for p in sidecars:
+            with open(p, encoding="utf-8") as f:
+                sketches += len(json.load(f)["sketches"])
+        steps[pkg] = steps[pkg], len(sidecars), sketches
+    assert steps["torch"] == steps["jax"]
+    written, n_sidecars, n_sketches = steps["torch"]
+    assert all(w["pruning.sketch.sidecars_written"] > 0 for w in written)
+    assert sum(w["pruning.sketch.sidecars_written"] for w in written) == n_sidecars
+    assert sum(w["pruning.sketch.sketches_built"] for w in written) == n_sketches
+
+
+@pytest.mark.parametrize("pkg", sorted(PKGS))
+def test_a_file_whose_size_cannot_be_read_gets_no_sidecar(pkg, tmp_path, sketches_on,
+                                                           monkeypatch):
+    """``os.path.getsize`` raising OSError: ``maybe_write_sidecar`` returns
+    False, writes no sidecar and counts nothing, as in the JAX package."""
+    from hyperspace_tpu.telemetry.metrics import REGISTRY as JREG
+    from hyperspace_tpu_torch.telemetry.metrics import REGISTRY as TREG
+
+    store, io, batch_cls, registry = {
+        "jax": (jss, jio, JBatch, JREG), "torch": (tss, tio, TBatch, TREG)}[pkg]
+    batch = batch_cls.from_pydict(_events(0, 2048, 0))
+    path = str(tmp_path / "part-0-b00000.parquet")
+    io.write_index_file(batch, path, RGS, ["ev_k"])
+    assert store.maybe_write_sidecar(batch, path, RGS, ["ev_k"]) is True
+    os.unlink(store.sidecar_path(path))
+
+    def unreadable(p):
+        raise OSError(f"cannot stat {p}")
+
+    before = _build_counters(registry)
+    monkeypatch.setattr(os.path, "getsize", unreadable)
+    assert store.maybe_write_sidecar(batch, path, RGS, ["ev_k"]) is False
+    monkeypatch.undo()
+    assert not os.path.exists(store.sidecar_path(path))
+    assert _build_counters(registry) == before

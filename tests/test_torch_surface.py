@@ -18,12 +18,25 @@ this file green.
   and default in the port's constants, and each JAX ``HyperspaceConf``
   accessor that reads it exists in the port's, with the same value on an
   empty conf and on one that sets every key.
+- The metric names: the first argument of every ``REGISTRY.counter``,
+  ``gauge``, ``histogram`` and ``trace.span`` call of each package, read
+  from the AST with f-string placeholders as ``{}``, are the same set less
+  ``METRIC_DEPARTURES``.
+- The call signatures: every public function, class and public method
+  both modules define takes the same parameters, in the same order, of
+  the same kinds, with the same defaults (``inspect.signature``), so that
+  every call the JAX package accepts binds the same way in the port. A
+  difference the port keeps on purpose is a row of
+  ``SIGNATURE_DEPARTURES``, with its reason. Both tables are checked for
+  stale rows too.
 - The names this gate found missing, each against the JAX package's
   result on the same input.
 """
 
 import ast
+import functools
 import importlib
+import inspect
 import os
 import types
 
@@ -119,6 +132,73 @@ for _name in ("CLOSED", "OPEN", "HALF_OPEN", "LATCHED", "safe_backend",
               "breaker_state", "breaker_snapshot", "device_healthy", "device_strict",
               "record_device_success", "record_device_failure"):
     DEPARTURES[("utils.backend", _name)] = UNPORTED_MODULES["utils.backend"]
+
+# the JAX package's metric and span names the port does not emit
+METRIC_DEPARTURES = {
+    name: UNPORTED_MODULES["utils.backend"]
+    for name in ("breaker.state", "breaker.{}", "breaker.probes", "breaker.recovered",
+                 "breaker.latched", "breaker.opened", "breaker.reopened",
+                 "device.degrades")
+}
+
+_SESSION_CACHES = ("the port's caches belong to the session (DEPARTURES: KERNEL_CACHE, "
+                   "DEVICE_CACHE), so the port's read takes the session; last, so every "
+                   "JAX call binds as in the JAX package")
+_TORCH_FORMS = ("the torch forms (RENAMES) take the device their tensors go to, where a "
+                "jnp array goes to JAX's default device")
+_FINGERPRINTS = ("cache keys of the port's own kernel set: a route string ('cuda' or "
+                 "'plain') where the JAX key has pallas_route, and the scan's structure; "
+                 "no caller outside plan/ builds one")
+_LEFT_SORTED = ("l_sorted: over sorted left keys the port's join body lays its matches "
+                "out by two prefix sums instead of a stable sort (the same permutation); "
+                "False, last, binds every JAX call as in the JAX package")
+_SEEDED_IDS = ("rng draws the snapshot ids, which both packages take from uuid4 by "
+               "default; the smoke and the cross-package tests pass one to make the "
+               "ids reproducible")
+_SESSION_DEVICE = ("device: the torch device the session's device tier runs on (None: "
+                   "the card); a JAX session runs on JAX's default backend")
+_MESH_PLACEMENT = ("the JAX helpers return a NamedSharding for jax.device_put; torch has "
+                   "no sharding object, so the port's place the array (arr) on the "
+                   "mesh's devices themselves")
+_DEVICE_CACHE = ("DeviceColumnCache (RENAMES) belongs to the session: it is sized when "
+                 "the session is made and keys every entry on a tuple of host buffers")
+# (JAX module, qualified name) -> why the port's signature differs
+SIGNATURE_DEPARTURES = {
+    ("", "HyperspaceSession"): _SESSION_DEVICE,
+    ("session", "HyperspaceSession"): _SESSION_DEVICE,
+    ("", "IcebergStyleTable"): _SEEDED_IDS,
+    ("sources.iceberg", "IcebergStyleTable"): _SEEDED_IDS,
+    ("ops.sketch", "bloom_build_bits_jnp"): _TORCH_FORMS,
+    ("ops.sketch", "bloom_probe_bits_jnp"): _TORCH_FORMS,
+    ("ops.sketch", "segment_min_max_jnp"): _TORCH_FORMS,
+    ("ops.zorder", "interleave_bits_jnp"): _TORCH_FORMS,
+    ("parallel.mesh", "replicated"): _MESH_PLACEMENT,
+    ("parallel.mesh", "shard_rows"): _MESH_PLACEMENT + ", padded with fill to whole shards",
+    ("plan.device_join", "prepare_device_join_agg"): _LEFT_SORTED,
+    ("plan.device_join", "try_device_join_agg"): _LEFT_SORTED,
+    ("plan.executor", "iter_scan_chunks"): _SESSION_CACHES,
+    ("plan.pruning", "verify_against_full"): _SESSION_CACHES,
+    ("plan.kernel_cache", "fused_fingerprint"): _FINGERPRINTS,
+    ("plan.kernel_cache", "grouped_fingerprint"): _FINGERPRINTS,
+    ("plan.kernel_cache", "join_fingerprint"): _FINGERPRINTS + "; the join keys carry "
+                                                "no kind or pads (kernel_cache."
+                                                "bucket_join_fingerprint holds those)",
+    ("plan.tpu_exec", "Wide64"):
+        "lo: the port's low word is sign-flipped into an int32 (torch compares no "
+        "uint32), not the JAX package's unsigned lo_u",
+    ("staticcheck.kernel_audit", "observe_compile"):
+        "sig: the port's fingerprints do not end in the dtype signature the watchdog "
+        "groups by, so its kernel cache passes it (by default the key's last item, as "
+        "in the JAX package)",
+    ("utils.device_cache", "DeviceArrayCache"):
+        _DEVICE_CACHE + " (budget_bytes; metric names its cache.<metric>.* counters), "
+        "where the JAX cache reads its knob",
+    ("utils.device_cache", "DeviceArrayCache.get_or_put"):
+        _DEVICE_CACHE + ": get_or_put takes the tuple (srcs), tag is the JAX key_extra, "
+        "and store=False builds an entry without keeping it",
+    ("utils.device_cache", "DeviceArrayCache.get_or_put_multi"):
+        _DEVICE_CACHE + ": as get_or_put",
+}
 
 # the JAX registry's knobs the port does not register
 BREAKER_KNOBS = {"HYPERSPACE_BACKEND_TIMEOUT", "HYPERSPACE_BREAKER_COOLDOWN",
@@ -270,9 +350,273 @@ def test_the_tables_have_no_stale_rows():
             raise AssertionError(f"{module}:{dotted} resolves in the port as it is")
     for target in RENAMES.values():
         _resolve(*target)
+    # a metric departure is a JAX name the port does not emit
+    jax_names, port_names = metric_names(JAX_ROOT), metric_names(PORT_ROOT)
+    for name in METRIC_DEPARTURES:
+        assert name in jax_names and name not in port_names, name
+    # a signature departure is a difference that is still there
+    for module, qualname in SIGNATURE_DEPARTURES:
+        pairs = {q: (j, t) for q, j, t in callable_pairs(module)}
+        assert qualname in pairs, (module, qualname)
+        j, t = pairs[qualname]
+        assert signature_form(j) != signature_form(t), (module, qualname)
     for reason in [*DEPARTURES.values(), *UNPORTED_MODULES.values(),
-                   *CONF_DEFAULT_DEPARTURES.values()]:
+                   *CONF_DEFAULT_DEPARTURES.values(), *METRIC_DEPARTURES.values(),
+                   *SIGNATURE_DEPARTURES.values()]:
         assert isinstance(reason, str) and len(reason.split()) >= 3
+
+
+# ---------------------------------------------------------------------------
+# metric names
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _parsed(path: str) -> ast.Module:
+    with open(path, encoding="utf-8") as f:
+        return ast.parse(f.read())
+
+
+def _sources(root: str):
+    """(path relative to ``root``, AST) of each Python file under it."""
+    for dirpath, _dirs, files in os.walk(root):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                yield os.path.relpath(path, root), _parsed(path)
+
+
+_METRIC_KINDS = {"counter", "gauge", "histogram"}
+
+
+def _metric_arg(call: ast.Call, registries: set):
+    """The name argument of a metric or span call, else None."""
+    f = call.func
+    if not (isinstance(f, ast.Attribute) and isinstance(f.value, ast.Name) and call.args):
+        return None
+    if (f.value.id in registries and f.attr in _METRIC_KINDS) or (
+            f.value.id == "trace" and f.attr == "span"):
+        return call.args[0]
+    return None
+
+
+def _name_parts(arg, params=()) -> "list | None":
+    """A name as parts: literal text, ``(param,)`` for a placeholder that is
+    one of ``params``, None for any other placeholder; None when the
+    argument is no string literal or f-string."""
+    if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+        return [arg.value]
+    if not isinstance(arg, ast.JoinedStr):
+        return None
+    parts = []
+    for v in arg.values:
+        if isinstance(v, ast.Constant):
+            parts.append(v.value)
+        elif isinstance(v.value, ast.Name) and v.value.id in params:
+            parts.append((v.value.id,))
+        else:
+            parts.append(None)
+    return parts
+
+
+def _render(parts: list, bound: "dict | None" = None) -> set:
+    out = [""]
+    for p in parts:
+        if isinstance(p, str):
+            choices = [p]
+        elif p is None or bound is None:
+            choices = ["{}"]
+        else:
+            choices = bound.get(p[0], ["{}"])
+        out = [o + c for o in out for c in choices]
+    return set(out)
+
+
+def _strings(node) -> list:
+    """The strings an argument can take: a literal, either branch of a
+    conditional of literals, else a placeholder."""
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return [node.value]
+    if isinstance(node, ast.IfExp):
+        return _strings(node.body) + _strings(node.orelse)
+    return ["{}"]
+
+
+class _MetricWalk(ast.NodeVisitor):
+    """One pass over a file, in source order: its metric names, its helpers
+    (function name -> (parameters, name parts)) and the other calls, which
+    may reach a helper. ``REGISTRY`` counts under every name it is
+    imported as."""
+
+    def __init__(self):
+        self.registries = {"REGISTRY"}
+        self.names: set = set()
+        self.helpers: dict = {}
+        self.calls: list = []
+        self._scope: list = [(None, ())]
+
+    def visit_ImportFrom(self, node):
+        self.registries.update(a.asname for a in node.names
+                               if a.name == "REGISTRY" and a.asname)
+
+    def visit_FunctionDef(self, node):
+        self._scope.append((node.name, [a.arg for a in node.args.posonlyargs + node.args.args]))
+        self.generic_visit(node)
+        self._scope.pop()
+
+    visit_AsyncFunctionDef = visit_FunctionDef
+
+    def visit_Call(self, node):
+        arg = _metric_arg(node, self.registries)
+        if arg is None:
+            self.calls.append(node)
+        else:
+            fn, params = self._scope[-1]
+            parts = _name_parts(arg, params)
+            if parts and any(isinstance(p, tuple) for p in parts):
+                self.helpers[fn] = (params, parts)
+            if parts:
+                self.names |= _render(parts)
+        self.generic_visit(node)
+
+
+@functools.lru_cache(maxsize=None)
+def metric_names(root: str) -> dict:
+    """name -> files of ``root``: the first argument of every
+    ``REGISTRY.counter/gauge/histogram`` and ``trace.span`` call, with
+    f-string placeholders as ``{}``. A function whose metric name takes
+    one of its parameters (the JAX breaker's ``_count(event)``) is a
+    helper: each call of it in the same file adds the names its literal
+    arguments make."""
+    out: dict = {}
+    for rel, tree in _sources(root):
+        walk = _MetricWalk()
+        walk.visit(tree)
+        names = set(walk.names)
+        for call in walk.calls:
+            f = call.func
+            callee = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", None)
+            if callee not in walk.helpers:
+                continue
+            params, parts = walk.helpers[callee]
+            if isinstance(f, ast.Attribute) and params[:1] in (["self"], ["cls"]):
+                params = params[1:]
+            bound = {p: _strings(a) for p, a in zip(params, call.args)}
+            bound.update({k.arg: _strings(k.value) for k in call.keywords if k.arg})
+            names |= _render(parts, bound)
+        for name in names:
+            out.setdefault(name, set()).add(rel)
+    return out
+
+
+def test_the_metric_names_equal_the_jax_packages():
+    jax_names, port_names = metric_names(JAX_ROOT), metric_names(PORT_ROOT)
+    assert sorted(set(port_names) - set(jax_names)) == []
+    assert sorted(set(jax_names) - set(port_names) - set(METRIC_DEPARTURES)) == []
+    # the walk sees f-strings, aliases and helpers alike in both packages
+    for name in ("cache.{}.{}", "ingest.vacuum.deferred", "pruning.verified",
+                 "pruning.sketch.sidecars_written", "pruning.sketch.sketches_built"):
+        assert name in jax_names and name in port_names, name
+    assert "breaker.latched" in jax_names
+
+
+def test_the_metric_walk_expands_helpers_and_normalises_f_strings(tmp_path):
+    (tmp_path / "m.py").write_text(
+        "from x import REGISTRY as R\n"
+        "def _count(event):\n"
+        "    R.counter(f'b.{event}').inc()\n"
+        "def go(self, ok):\n"
+        "    _count('probes')\n"
+        "    _count('a' if ok else 'b')\n"
+        "    trace.span(f'q:{self.name}:{ok}')\n"
+        "    REGISTRY.gauge('g').set(1)\n")
+    assert metric_names(str(tmp_path)) == {
+        name: {"m.py"} for name in ("b.{}", "b.probes", "b.a", "b.b", "q:{}:{}", "g")}
+
+
+# ---------------------------------------------------------------------------
+# call signatures
+# ---------------------------------------------------------------------------
+
+_REQUIRED = "<required>"
+
+
+def _default_form(value):
+    if value is inspect.Parameter.empty:
+        return _REQUIRED
+    if value is None or isinstance(value, (bool, int, float, str, bytes, tuple, frozenset)):
+        return value
+    if callable(value):
+        return ("callable", getattr(value, "__qualname__", type(value).__qualname__))
+    return ("object", type(value).__qualname__)
+
+
+def signature_form(obj) -> "list | None":
+    """(name, kind, default) of each parameter; None for an object with no
+    signature."""
+    try:
+        sig = inspect.signature(obj)
+    except (TypeError, ValueError):
+        return None
+    return [(p.name, p.kind.name, _default_form(p.default)) for p in sig.parameters.values()]
+
+
+def callable_pairs(module: str) -> list:
+    """(qualified name, JAX object, port object) of each public function and
+    class the JAX module defines (a name it imports from elsewhere of the
+    JAX package counts too) and each public method of such a class, the
+    port's object found as ``missing_names`` finds it."""
+    if module in UNPORTED_MODULES:
+        return []
+    jmod = importlib.import_module("hyperspace_tpu" + (f".{module}" if module else ""))
+    port = _port_module(module)
+    out = []
+    for name, methods in sorted(public_surface(module).items()):
+        key = (module, name)
+        jobj = getattr(jmod, name, None)
+        if key in DEPARTURES or not (inspect.isfunction(jobj) or inspect.isclass(jobj)):
+            continue
+        if jobj.__module__.split(".")[0] != "hyperspace_tpu":
+            continue
+        tobj = _resolve(*RENAMES[key]) if key in RENAMES else getattr(port, name)
+        out.append((name, jobj, tobj))
+        for m in (methods or ()) if inspect.isclass(jobj) else ():
+            mkey = (module, f"{name}.{m}")
+            static = inspect.getattr_static(jobj, m, None)
+            if mkey in DEPARTURES or static is None or isinstance(static, property):
+                continue
+            tm = _resolve(*RENAMES[mkey]) if mkey in RENAMES else getattr(tobj, m)
+            out.append((f"{name}.{m}", getattr(jobj, m), tm))
+    return out
+
+
+def signature_faults(module: str) -> list:
+    """The public callables of the JAX module whose port counterpart binds
+    a call otherwise: (name, the JAX form, the port's)."""
+    faults = []
+    for qualname, jobj, tobj in callable_pairs(module):
+        if (module, qualname) in SIGNATURE_DEPARTURES:
+            continue
+        j, t = signature_form(jobj), signature_form(tobj)
+        if j != t:
+            faults.append((qualname, j, t))
+    return faults
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_public_callable_binds_as_the_jax_packages(module):
+    assert signature_faults(module) == []
+
+
+def test_the_signature_form_sees_names_order_kinds_and_defaults():
+    def ref(a, b=None, *, c=1): ...
+    same = [("a", "POSITIONAL_OR_KEYWORD", _REQUIRED),
+            ("b", "POSITIONAL_OR_KEYWORD", None), ("c", "KEYWORD_ONLY", 1)]
+    assert signature_form(ref) == same
+    for other in (lambda a, c=None, *, b=1: 0, lambda a, b, *, c=1: 0,
+                  lambda a, b=None, c=1: 0, lambda a, b=None, *, c=2: 0,
+                  lambda a, b=None, *, c=1, d=0: 0, lambda a=0, b=None, *, c=1: 0):
+        assert signature_form(other) != same
+    assert signature_form(lambda a, b=None, *, c=1: 0) == same
 
 
 # ---------------------------------------------------------------------------
@@ -296,12 +640,7 @@ _READERS = {"env_str", "env_int", "env_float", "env_bool", "read_raw", "knob", "
 
 
 def _port_sources():
-    for dirpath, _dirs, files in os.walk(PORT_ROOT):
-        for f in sorted(files):
-            if f.endswith(".py"):
-                path = os.path.join(dirpath, f)
-                with open(path, encoding="utf-8") as fh:
-                    yield os.path.relpath(path, PORT_ROOT), ast.parse(fh.read())
+    return _sources(PORT_ROOT)
 
 
 def _literal(node):

@@ -14,6 +14,9 @@ the action events) held against the JAX package, and the
   counts the device entries it holds, and it holds no padded-mask entry
   (it fills those masks on the device), so its counts differ from the JAX
   package's by the mask lookups (utils/device_cache.py).
+- The ``pruning.`` deltas of a point lookup, an absent key and a key
+  range over ``li_orderkey`` equal the JAX package's under
+  ``HYPERSPACE_PRUNE`` 1 and verify (``pruning.verified`` included).
 - With tracing off every span is one shared no-op object and the hooks
   allocate nothing; ``HYPERSPACE_TRACE=1`` turns tracing on at import in a
   fresh interpreter, with ``HYPERSPACE_TRACE_FILE`` as its JSONL sink; a
@@ -43,6 +46,7 @@ import pytest
 import hyperspace_tpu as J
 from hyperspace_tpu import constants as JC
 from hyperspace_tpu.benchmark import tpch as jtpch
+from hyperspace_tpu.plan import expr as JX
 from hyperspace_tpu.telemetry import trace as jtrace
 from hyperspace_tpu.telemetry.metrics import REGISTRY as JREG
 from hyperspace_tpu.utils.rpc_meter import METER as JMETER
@@ -142,6 +146,47 @@ def test_spans_counters_and_meter_equal_the_jax_packages(golden, q):
     # warm, the uploads are the JAX package's too (a warm q10 re-stacks its
     # probe keys in both)
     assert tm["uploads"] == jm["uploads"]
+
+
+def _lookups(X, root: str, key: int) -> dict:
+    """tests/test_pruning.py's verify-mode shape over the golden lineitem:
+    a filter the li_orderkey index prunes, then a projection."""
+    c = X.col
+
+    def read(s, cond):
+        return s.read.parquet(os.path.join(root, "lineitem")).filter(cond).select(
+            "l_orderkey", "l_quantity")
+
+    return {
+        "point": lambda s: read(s, c("l_orderkey") == key),
+        "absent": lambda s: read(s, c("l_orderkey") == -1000),
+        "range": lambda s: read(s, (c("l_orderkey") >= key) & (c("l_orderkey") < key + 600)),
+    }
+
+
+@pytest.mark.parametrize("mode", ["1", "verify"])
+@pytest.mark.parametrize("q", ["point", "absent", "range"])
+def test_pruning_counters_equal_the_jax_packages_in_each_prune_mode(golden, q, mode,
+                                                                    monkeypatch):
+    """The ``pruning.`` deltas of a pruned lookup are the JAX package's under
+    ``HYPERSPACE_PRUNE`` 1 and verify; a verify-mode point lookup counts
+    ``pruning.verified`` once in both."""
+    root, js, ts = golden
+    monkeypatch.setenv("HYPERSPACE_PRUNE", mode)
+    key = ttpch.first_orderkey(root)
+    moved = {}
+    for label, X, s, reg in (("jax", JX, js, JREG), ("torch", TX, ts, TREG)):
+        before = _counters(reg)
+        rows = _lookups(X, root, key)[q](s).to_pydict()
+        after = _counters(reg)
+        moved[label] = ({k: v - before.get(k, 0) for k, v in after.items()
+                         if k.startswith("pruning.") and v != before.get(k, 0)}, rows)
+    assert moved["torch"] == moved["jax"]
+    counts, rows = moved["torch"]
+    assert counts["pruning.files_kept"] < counts["pruning.files_total"] or q == "range"
+    if q == "point":
+        assert rows["l_orderkey"] and set(rows["l_orderkey"]) == {key}
+        assert counts.get("pruning.verified", 0) == (1 if mode == "verify" else 0)
 
 
 def test_traced_runs_give_the_plain_runs_bits_and_kernel_calls(golden):
