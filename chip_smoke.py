@@ -75,7 +75,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    the port does not share: keys and counts exact, sums within relative
    1e-4, q3's top 10 as against the host;
 5. lifecycle phase: a second lake whose lineitem hard-links the first
-   40 of the SF10 lake's 120 files (20M rows, a third: the phase's depth,
+   20 of the SF10 lake's 120 files (10M rows, a sixth: the phase's depth,
    cut to keep the whole run well inside its time limit) and whose orders
    hard-links the SF10 orders, with its own warehouse, lineage on, and
    three indexes over it: lc_shipdate_z (li_shipdate_z's config), lc_orderkey (li_orderkey's)
@@ -83,14 +83,14 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    range_sum and q3_agg through the normal API (first run and warm runs,
    each compared with the host executor over the lake's current files):
    1. build;
-   2. 2 of the 40 lineitem files deleted (5%), hybrid scan off: no lc_ index
+   2. 1 of the 20 lineitem files deleted, hybrid scan off: no lc_ index
       may serve lineitem;
    3. hybrid scan on: the lineitem scans drop the deleted files' rows by
       lineage, filter_weighted_sum and filter_sum launch on them and the
       join runs on the card; then refresh_index(mode="incremental") of
       both indexes takes the deletes in (each bucket rewritten);
-   4. 4 files appended (generate_tpch's lineitem at a tenth of the
-      lake's rows, 2M, seed 43, renamed): the filter queries read a Union on the host, as in the
+   4. files appended (generate_tpch's lineitem at a tenth of the
+      lake's rows, 1M, seed 43, renamed): the filter queries read a Union on the host, as in the
       reference, and q3_agg a BucketUnion through the fused join on the
       card;
    5. refresh_index(mode="incremental") of both: the appended rows become
@@ -156,15 +156,15 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
        printed per mode;
    (b) q3_agg and q3 under 0 (the load-all barrier) and 1 (bucket-pair
        read-ahead): the same bits;
-   (c) a third warehouse over hard links to the first 40 of the lake's
-       120 lineitem files (20M rows: the lifecycle phase's cut, made to
+   (c) a third warehouse over hard links to the first 20 of the lake's
+       120 lineitem files (10M rows: the lifecycle phase's cut, made to
        keep the whole run well inside its time limit), with
        hyperspace.tpu.build.maxBytesInMemory at a quarter of their bytes
-       (144.5 MB; at most 256 MiB) and lineage on:
+       (at most 256 MiB) and lineage on:
        st_orderkey (li_orderkey's config) and st_shipdate_z
        (li_shipdate_z's) must build out of core, one run per file group in
-       every bucket or range (5 groups; st_shipdate_z has one range over
-       20M rows, two over 60M), with the rows of their source files (sorted
+       every bucket or range (st_shipdate_z has one range over 20M rows,
+       two over 60M), with the rows of their source files (sorted
        row hashes equal); q6_count, q6_span, lookup_count and range_sum
        through them held to the host and launching their kernels; then 2
        source files deleted, an incremental refresh of st_orderkey that
@@ -193,19 +193,21 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
        warm seconds beside the stacked route's;
    (d) q3 and q10 under HYPERSPACE_PIPELINE 1 (pairs streamed) and 0
        (the barrier), a first run each on a fresh session, then warm runs
-       in turns (1, 0, 0, 1): the same bits; wall and pair-load (decode)
-       seconds;
+       in turns (1, 0; 1, 0, 0, 1 before the gates phase): the same bits;
+       wall and pair-load (decode) seconds;
    (e) the native host kernels (hyperspace_tpu_torch/native) over the
-       lake's first 2^24 l_orderkey values (and 2^22 o_orderkey values;
-       all 60M and 15M before PR 16, cut to keep the whole run inside its
-       time limit) against their numpy forms, outputs
+       lake's first 2^23 l_orderkey values (and 2^21 o_orderkey values;
+       all 60M and 15M at first, 2^24 and 2^22 before the gates phase,
+       cut to keep the whole run inside its time limit) against their
+       numpy forms, outputs
        equal, both timed: hash32, bucket_partition into 8 buckets,
        radix_argsort, and join_i64 of l_orderkey against o_orderkey; the
        main phase's index build seconds are printed with them;
 9. sources phase (the source providers and the readers), each query held
     to the host executor over its raw source, its indexes, route and
     kernel launches checked, then its lakes removed:
-    (a) the first 40 lineitem files (20M rows) written hive-partitioned by
+    (a) the first 12 lineitem files (6M rows, cut to keep the whole run
+        inside its time limit) written hive-partitioned by
         l_returnflag/l_linestatus (the two columns only in the paths; the
         generator draws them independently, so six directories): raw q1 on
         the card (the scan attaches each partition's values), a partition
@@ -221,8 +223,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
         held to the main phase's host result and device result, and a key
         range's count and date span over the CSV index; then the index is
         deleted and vacuumed;
-    (c) a snapshot (Delta-style) lineitem of the same 20M rows committed in
-        four versions of 5M: a lineage-enabled z-order index at v1, v2 and
+    (c) a snapshot (Delta-style) lineitem of the same 6M rows committed in
+        four versions of 1.5M: a lineage-enabled z-order index at v1, v2 and
         v3 committed and an incremental refresh; q6_count and q6_sum at v3,
         q6_count at v1 by time travel (the log version recorded for v1);
         v0's file deleted (v4), q6_count by hybrid scan (lineage ids), an
@@ -313,9 +315,9 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
         tools/adapt_smoke.py's three planted mis-estimates on seeded tables
         (the phase's one cut: 2M rows, and the join's fixed 150k-row
         geometry), each switch with the static bits;
-    (c) li_orderkey as Arrow IPC files over the lifecycle phase's 40-file
-        cut: lookup_count and range_sum equal the parquet index's bits and
-        launch the same kernel;
+    (c) li_orderkey as Arrow IPC files over the SF10 lake's first 40
+        lineitem files: lookup_count and range_sum equal the parquet
+        index's bits and launch the same kernel;
 15. mesh phase (the multi-device tier, mesh_phase's docstring has each
     check), in the approx phase's session over the SF10 index set, under
     virtual_devices(4, the card): four mesh ordinals over the one card,
@@ -335,7 +337,7 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     (c) the mesh join: q10's plain join probed one bucket per ordinal,
         bit for bit the one-device rows;
     (d) a mesh-partitioned covering build over the lifecycle phase's
-        40-file cut of the lineitem, byte for byte the host-partitioned
+        20-file cut of the lineitem, byte for byte the host-partitioned
         build's files;
     (e) a (2, 2) hierarchical mesh: (b)'s queries, and (d)'s build as
         per-slice runs whose rows, per bucket, are the host build's;
@@ -385,11 +387,35 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    beside the host's, and the device bodies alone (CUDA events), with the
    plain join's probe and expansion at Q17's wave shape.
 
+19. gates phase (the port's correctness gates, hyperspace_tpu_torch/
+    tools/ and examples/), after the order phase:
+    (a) the differential soak's world and loop (tools/differential_soak)
+        over seeds 0-599: random filter, join, aggregate, top-k, sort and
+        union plans over covering, z-order and data-skipping indexes, each
+        seed on the host, the device tier or the mesh route over
+        virtual_devices(8, the card) (2 slices on odd mesh seeds), hybrid
+        scan on every fifth; each seed's rows with Hyperspace on equal its
+        rows with it off within 1e-6 relative, and no seed raises;
+    (b) the kernel-shaped leg: the world's fact schema (and a float y) at
+        2^22 rows in 16 files with ci_k and z_d built on the card, and 16
+        seeds of each of three shapes over the reference's random
+        predicates (ungrouped sum(x) + count, sum(x*y) + count, and sums
+        and a count grouped by the 3-valued cat): counts exact and sums
+        within relative 1e-4 of the host executor, and filter_sum,
+        filter_weighted_sum and filter_grouped_multi_sum each launched;
+    (c) tools/chaos_stress's query sweep (11 fault specs over the TPC-H
+        queries at 30,000 lineitem rows): every run bit for bit the clean
+        run or a typed error, each device and compile spec fired;
+    (d) tools/race_stress at its defaults (8 threads x 2 repeats at 60,000
+        rows, the lock-order audit on): bit for bit serial, no lock-order
+        violation, every cache consistent;
+    (e) the five examples (examples/), called in-process on the card.
+
 The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
 build/chip_smoke/ and is removed at the end. The kernels line's launches
 add up the end-to-end, lifecycle, skipping, pipeline, join, sources,
-analysis, serve, staticcheck, approx, mesh, ingest and tpcds phases' counts,
+analysis, serve, staticcheck, approx, mesh, ingest, tpcds and gates phases' counts,
 each read on its own (``launches_by_phase``).
 """
 
@@ -411,7 +437,7 @@ F32_OPS_PER_S = 67e12  # H100 SXM, published f32 rate outside the tensor cores
 REL_TOL = 1e-4  # f32 sums, as tests/test_pallas_and_dist.py holds the reference
 COMPOSITION_TOL = 1e-3  # the timed PyTorch compositions' sums against the plain version
 SEED = 42  # bench.py's TPC-H seed
-WARM_RUNS = 2
+WARM_RUNS = 1  # the end-to-end phase's warm runs
 KERNEL_REPS = 25
 DEVICE_LAUNCHES = 50  # back-to-back launches per device-time reading
 GROUP_COUNTS = (1, 6, 16)
@@ -491,12 +517,12 @@ JOIN_PHASE_QUERIES = ("q3", "q3_agg", "q3_span", "q10", "q17", "q18")
 JOIN_SMALL_GRANT_MB = "256"
 JOIN_SPLIT_OVERRIDE = "65536"
 JOIN_PER_BUCKET_WARM_RUNS = 2
-JOIN_MODE_TURNS = ("1", "0", "0", "1")  # (d)'s warm runs, in turns
+JOIN_MODE_TURNS = ("1", "0")  # (d)'s warm runs, in turns
 ORDER_ROWS = 1 << 22
 # the join phase's native host kernels: the first keys of the lake's
 # l_orderkey and o_orderkey (the whole columns cost 53 s of the run)
-NATIVE_LEFT_KEYS = 1 << 24
-NATIVE_RIGHT_KEYS = 1 << 22
+NATIVE_LEFT_KEYS = 1 << 23
+NATIVE_RIGHT_KEYS = 1 << 21
 TOPK_KS = (10, 100, 4096)
 KERNEL_ROWS = {
     "filter_weighted_sum": ("hyperspace_tpu_torch/ops/csrc/filter_reduce.cu",
@@ -517,8 +543,9 @@ LIFECYCLE_QUERIES = {"q6_count": "filter_weighted_sum", "q6_sum": "filter_sum",
                      "q3_agg": None}
 LC_FILTER_QUERIES = ("q6_count", "q6_sum", "lookup_count", "range_sum")
 LIFECYCLE_WARM_RUNS = 1
-# lineitem files of the lifecycle lake: the first 40 of SF10's 120
-LIFECYCLE_FILES = 40
+# lineitem files of the lifecycle lake: the first 20 of SF10's 120 (also
+# the pipeline and mesh phases' cut)
+LIFECYCLE_FILES = 20
 APPEND_SEED = 43
 # the skipping phase: bench.py's store_sales lake (BASELINE config 5) at
 # SF10's row count, capped as bench.py caps it; its events_sk lake; the
@@ -548,11 +575,11 @@ MINMAX_CASES = ("random", "all_invalid", "all_valid", "nan_valid", "nan_invalid"
 # tiles at once), checked beside the sizes every kernel runs
 MINMAX_TILE_SIZES = (511, 512, 513, 1024 + 3, 2 * 512 * 4 + 1)
 # the sources phase: the lineitem files its partitioned and snapshot lakes
-# take (the first 40 of SF10's 120, as the lifecycle phase's), the CSV
+# take (the first 12 of SF10's 120), the CSV
 # orders' file count, the snapshot versions and Iceberg snapshots, the
 # deleted share hybrid scan must accept (one of four versions' files), and
 # the key range of its range queries
-SOURCES_FILES = 40
+SOURCES_FILES = 12
 SOURCES_CSV_FILES = 16
 SNAPSHOT_VERSIONS = 4
 ICEBERG_SNAPSHOTS = 3
@@ -1410,7 +1437,7 @@ def lifecycle_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = F
     n_files = len(os.listdir(os.path.join(lake, "lineitem")))
     whole = n_files == len(os.listdir(os.path.join(e2e["lake"], "lineitem")))
     lc_rows = rows * n_files // len(os.listdir(os.path.join(e2e["lake"], "lineitem")))
-    n_deleted = n_files // 20  # 5% of the files (6 of 120 at SF10)
+    n_deleted = n_files // 20  # one file in 20 (6 of 120 at SF10)
     require(n_deleted >= 1, f"lifecycle: {n_files} lineitem files, too few to delete 5%")
     deleted = [f"part-{10 + 20 * i:04d}.parquet" for i in range(n_deleted)]
     indexes = {"lc_shipdate_z": ("lineitem", ZOrderCoveringIndexConfig,
@@ -1561,7 +1588,7 @@ def lifecycle_phase(torch, K, e2e: dict, rows: int, card: str, profile: bool = F
     for name in ("lc_shipdate_z", "lc_orderkey"):
         action(f"refresh incremental (deletes) {name}",
                lambda: hs.refresh_index(name, C.REFRESH_MODE_INCREMENTAL))
-    # 4. append a tenth of the lake's rows (4 files, 2M rows at SF10) of
+    # 4. append a tenth of the lake's rows (1M rows at SF10's 20-file cut) of
     # another seed, renamed
     extra = os.path.join(DATA_DIR, "extra")
     t0 = time.perf_counter()
@@ -2520,7 +2547,7 @@ def join_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
         # (d) on fresh sessions, streamed pairs against the barrier: q3 (raw
         # pairs, side filters in the body) and q10 (the plain join, filtered
         # on the host as its pairs load); a first run per mode, then warm
-        # runs in turns (1, 0, 0, 1), each mode on its own session
+        # runs in turns (JOIN_MODE_TURNS), each mode on its own session
         for q in ("q3", "q10"):
             runs, sessions = {}, {}
             for mode in ("1", "0"):
@@ -4412,6 +4439,7 @@ def ingest_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
 APPROX_FRACTIONS = (0.01, 0.1)
 APPROX_QUERY = "q3_revenue"
 APPROX_WARM_RUNS = 1
+APPROX_ARROW_FILES = 40  # (c)'s lineitem files of the SF10 lake
 APPROX_DEADLINE_SHARE = 0.5  # the degraded submit's deadline, as a share of the exact wall
 ADAPT_MIX = ("q6_count", "q6_sum", "q1_sums", "lookup_count", "range_sum", "q3_agg")
 # the planted mis-estimates' seeded tables: the phase's one cut (a few
@@ -4793,15 +4821,18 @@ def _approx_adaptive(K, e2e: dict, session, card: str) -> dict:
 
 
 def _approx_arrow(K, lake: str, card: str) -> dict:
-    """(c): li_orderkey as Arrow IPC files over the 40-file cut, held to
-    the same index as parquet."""
+    """(c): li_orderkey as Arrow IPC files over the first
+    APPROX_ARROW_FILES lineitem files, held to the same index as parquet.
+    The parquet scan skips row groups and the Arrow scan masks every row,
+    so the kernel sums arrays of other lengths in another order: the bits
+    agree at this cut, not at every one (at 20 files range_sum's did not)."""
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
     from hyperspace_tpu_torch import constants as C
     from hyperspace_tpu_torch.benchmark import tpch
 
     cut = os.path.join(DATA_DIR, "approx_cut")
     _hard_link_tree(os.path.join(lake, "lineitem"), os.path.join(cut, "lineitem"),
-                    LIFECYCLE_FILES)
+                    APPROX_ARROW_FILES)
     os.environ["HYPERSPACE_ADAPTIVE"] = "0"
     out: dict = {}
     for fmt in ("parquet", "arrow"):
@@ -4870,9 +4901,9 @@ def approx_phase(K, e2e: dict, session, card: str) -> dict:
         ADAPT_ROWS rows ([adapted: …] in EXPLAIN ANALYZE) and sketch NDVs
         10^9 high over ADAPT_ROWS rows (the index scan aborts, is vetoed,
         and the result is the raw scan's), each with the static bits;
-    (c) li_orderkey as Arrow IPC files over the lifecycle phase's 40-file
-        cut: lookup_count and range_sum equal the parquet index's bits and
-        launch the same kernel once per run."""
+    (c) li_orderkey as Arrow IPC files over the SF10 lake's first
+        APPROX_ARROW_FILES lineitem files: lookup_count and range_sum equal
+        the parquet index's bits and launch the same kernel once per run."""
     t_phase = time.perf_counter()
     saved = {k: os.environ.get(k) for k in APPROX_KNOBS}
     launches0, plain0 = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
@@ -5254,6 +5285,134 @@ def order_phase(torch, n: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# gates phase
+# ---------------------------------------------------------------------------
+
+GATES_SEEDS = 600  # differential seeds, 0-599
+GATES_KERNEL_ROWS = 1 << 22
+GATES_KERNEL_FILES = 16
+GATES_KERNEL_SEED = 31
+GATES_KERNEL_SEEDS = 16  # per kernel shape
+
+
+def gates_phase(K, card: str, device="cuda", seeds: int = GATES_SEEDS,
+                kernel_rows: int = GATES_KERNEL_ROWS, chaos_rows: int | None = None,
+                race: dict | None = None) -> dict:
+    """The port's correctness gates on ``device`` (tools/ and examples/):
+    (a) the differential soak over ``seeds`` seeds, (b) the kernel-shaped
+    leg at ``kernel_rows`` rows, (c) the chaos query sweep (at
+    ``chaos_rows`` lineitem rows, default the tool's), (d) race_stress
+    (``race``: its run() keywords, default its defaults), (e) the five
+    examples. Every failure raises. Kernels 1-3 launch in (b) and no plain
+    version runs."""
+    import importlib
+
+    import numpy as np
+
+    from hyperspace_tpu_torch import examples
+    from hyperspace_tpu_torch.tools import chaos_stress, race_stress
+    from hyperspace_tpu_torch.tools import differential as D
+    from hyperspace_tpu_torch.tools.differential_soak import soak
+
+    t_phase = time.perf_counter()
+    root = os.path.join(DATA_DIR, "gates")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out: dict = {}
+    parts: dict = {}
+    launches0, plain0 = dict(K.LAUNCHES), dict(K.PLAIN_CALLS)
+    t_part = time.perf_counter()
+
+    def part_done(name: str) -> None:
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    # (a) the differential soak's world and loop
+    world = os.path.join(root, "differential")
+    session = D.build_world(world, device, soak=True)
+    r = soak(session, world, range(seeds), device)
+    log({"gates": "differential", "card": card, "seeds": r["seeds"],
+         "hybrid_seeds": r["hybrid_seeds"], "by_tier": r["by_tier"],
+         "seconds": r["seconds"], "failures": r["failures"]})
+    require(r["seeds"] == seeds and not r["failures"],
+            f"differential: {r['mismatches']} mismatches, {r['errors']} errors: {r['failures']}")
+    out["differential"] = r
+    del session
+    part_done("differential")
+
+    # (b) the kernel-shaped leg
+    kroot = os.path.join(root, "kernel_world")
+    session = D.build_kernel_world(kroot, kernel_rows, GATES_KERNEL_FILES, GATES_KERNEL_SEED,
+                                   device)
+    part_done("kernel_world")
+    shapes = {}
+    for shape in D.KERNEL_SHAPES:
+        before = dict(K.LAUNCHES)
+        worst = 0.0
+        for seed in range(GATES_KERNEL_SEEDS):
+            q = D.kernel_query(session, kroot, np.random.default_rng(seed), shape)
+            got, want = D.kernel_differential(session, q)
+            require(D.rows_close(got, want, D.KERNEL_REL),
+                    f"kernel leg {shape} seed {seed}: {got} vs the host's {want}")
+            for g, w in zip(got, want):
+                for a, b in zip(g, w):
+                    if isinstance(b, float) and b:
+                        worst = max(worst, rel_err(a, b))
+        require(worst <= D.KERNEL_REL, f"kernel leg {shape}: relative error {worst}")
+        launched = {k: K.LAUNCHES[k] - before[k] for k in before}
+        require(launched[shape] > 0, f"kernel leg {shape}: its kernel never launched "
+                                     f"({launched})")
+        shapes[shape] = {"seeds": GATES_KERNEL_SEEDS, "launches": launched,
+                         "max_rel_err": worst}
+        log({"gates": "kernel_leg", "card": card, "shape": shape, **shapes[shape]})
+    out["kernel_leg"] = {"rows": kernel_rows, "files": GATES_KERNEL_FILES, "shapes": shapes}
+    del session
+    part_done("kernel_leg")
+
+    # (c) the chaos query sweep
+    r = chaos_stress.run(device, **({} if chaos_rows is None else {"rows": chaos_rows}),
+                         crash=False, workdir=root)
+    log({"gates": "chaos", "card": card, "query_sweep": r["query_sweep"],
+         "point_fired": r["point_fired"], "injected_total": r["injected_total"],
+         "failures": r["failures"], "cache_consistency": r["cache_consistency"],
+         "lifecycle_leaks": r["lifecycle_leaks"]})
+    require(r["ok"], f"chaos sweep: {r['failures']} {r['cache_consistency']} "
+                     f"{r['lifecycle_leaks']}")
+    out["chaos"] = {k: r[k] for k in ("rows", "query_runs", "query_sweep", "injected_total")}
+    part_done("chaos")
+
+    # (d) race_stress
+    r = race_stress.run(device, workdir=root, **(race or {}))
+    log({"gates": "race", "card": card, **{k: r[k] for k in (
+        "rows", "threads", "repeats", "runs", "bit_identical", "mismatches", "errors",
+        "lock_acquisitions", "lock_violations", "cache_consistency", "lifecycle_leaks")}})
+    require(r["ok"], f"race_stress: {r}")
+    out["race"] = {k: r[k] for k in ("rows", "threads", "repeats", "runs", "lock_acquisitions",
+                                     "lock_violations")}
+    part_done("race")
+
+    # (e) the five examples, in-process
+    for name in examples.EXAMPLES:
+        t0 = time.perf_counter()
+        importlib.import_module(f"hyperspace_tpu_torch.examples.{name}").main(
+            device=device, workdir=root)
+        log({"gates": "example", "card": card, "example": name,
+             "seconds": time.perf_counter() - t0})
+    part_done("examples")
+
+    out["launches"] = {k: K.LAUNCHES[k] - launches0[k] for k in launches0}
+    require(K.PLAIN_CALLS == plain0, f"plain versions ran in the gates phase: "
+            f"{ {k: K.PLAIN_CALLS[k] - plain0[k] for k in plain0} }")
+    shutil.rmtree(root, ignore_errors=True)
+    out["parts_s"] = parts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log({"phase": "gates", "card": card, "seconds": out["phase_s"], "parts_s": parts,
+         "launches": out["launches"]})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=SF10_ROWS,
@@ -5332,6 +5491,7 @@ def main() -> int:
     del e2e["want"], e2e["device_results"], e2e["warm_results"]
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     order = phase("order", order_phase, torch, min(ORDER_ROWS, _pad_pow2(args.rows)), smi)
+    gates = phase("gates", gates_phase, K, smi)
     # after the queries' profiles: a profiler session before them lost
     # their short runs' device events
     for name, call in timed.items():
@@ -5356,7 +5516,8 @@ def main() -> int:
                     "approx": approx["launches"][name],
                     "mesh": mesh["launches"][name],
                     "ingest": ingest["launches"][name],
-                    "tpcds": tpcds["launches"][name]}
+                    "tpcds": tpcds["launches"][name],
+                    "gates": gates["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
@@ -5377,7 +5538,7 @@ def main() -> int:
                    "sources": sources, "reference_cache": ref_cache,
                    "analysis": analysis, "serve": served, "staticcheck": static,
                    "approx": approx, "mesh": mesh,
-                   "ingest": ingest, "tpcds": tpcds, "order": order,
+                   "ingest": ingest, "tpcds": tpcds, "order": order, "gates": gates,
                    "cache_sizing_mb": sizing,
                    "phase_s": phase_s, "total_s": time.perf_counter() - t_start}, f, indent=1)
     log({"phase": "done", "card": smi, "phase_s": phase_s,

@@ -1,8 +1,9 @@
 """The port stands alone: importing hyperspace_tpu_torch (every module, the
 telemetry, analysis, ingest, cache, fault-injection, serving, sampling,
-adaptive, static-check, camelCase, mesh and benchmark ones included) and
-chip_smoke.py loads neither JAX nor the JAX package; and the device tier
-runs on CUDA unless the caller asks for the CPU."""
+adaptive, static-check, camelCase, mesh, benchmark, gate and example ones
+included) and chip_smoke.py, or running a gate or an example as a
+module, loads neither JAX nor the JAX package; and the device tier runs
+on CUDA unless the caller asks for the CPU."""
 
 import json
 import os
@@ -63,8 +64,47 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "staticcheck.plan_verifier", "staticcheck.kernel_audit", "compat",
                    "parallel", "parallel.mesh", "parallel.exchange", "parallel.dist_agg",
                    "parallel.dist_join", "parallel.placement", "parallel.dryrun",
-                   "benchmark.tpch", "benchmark.tpcds", "benchmark.external"):
+                   "benchmark.tpch", "benchmark.tpcds", "benchmark.external",
+                   *ENTRY_POINTS, "tools", "tools._common", "tools.differential",
+                   "examples"):
         assert f"hyperspace_tpu_torch.{module}" in out["loaded"], module
+
+
+# the gates' and walkthroughs' command-line entry points
+ENTRY_POINTS = ("tools.differential_soak", "tools.chaos_stress", "tools.race_stress",
+                "tools.trace_report", "examples.quickstart", "examples.tour",
+                "examples.layout_analysis", "examples.nested_and_iceberg",
+                "examples.snapshots_and_hybrid_scan")
+
+_ENTRY_PROBE = r"""
+import contextlib, io, json, runpy, sys
+sys.path.insert(0, {repo!r})
+usage = {{}}
+for module in {modules!r}:
+    sys.argv = [module, "--help"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            runpy.run_module(module, run_name="__main__")
+        except SystemExit:
+            pass
+    usage[module] = out.getvalue().startswith("usage:")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m.split(".")[0] == "hyperspace_tpu")
+print(json.dumps({{"bad": bad, "usage": usage}}))
+"""
+
+
+def test_entry_points_run_without_jax_or_the_reference_package():
+    """Each gate and example run as ``python -m`` (its --help) loads
+    neither JAX nor the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    modules = [f"hyperspace_tpu_torch.{m}" for m in ENTRY_POINTS]
+    proc = subprocess.run([sys.executable, "-c", _ENTRY_PROBE.format(repo=REPO, modules=modules)],
+                          capture_output=True, text=True, timeout=120, cwd=REPO, env=env,
+                          check=True)
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"bad": [], "usage": dict.fromkeys(modules, True)}
 
 
 def test_session_without_device_raises_instead_of_running_on_cpu(tmp_path, monkeypatch):
