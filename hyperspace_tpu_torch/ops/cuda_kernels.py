@@ -41,6 +41,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Sequence
@@ -78,9 +79,25 @@ PLAIN_CALLS = guarded_by(dict.fromkeys(LAUNCHES, 0), _count_lock,
                          name="ops.cuda_kernels.PLAIN_CALLS")
 
 
+# the same counts, per calling thread: a serving gate reads, inside the
+# query a scheduler worker runs, which kernels that worker launched
+_per_thread = threading.local()
+
+
 def _count(counts: dict, name: str) -> None:
     with _count_lock:
         counts[name] += 1
+    mine = getattr(_per_thread, "counts", None)
+    if mine is None:
+        mine = _per_thread.counts = {id(LAUNCHES): dict.fromkeys(LAUNCHES, 0),
+                                     id(PLAIN_CALLS): dict.fromkeys(LAUNCHES, 0)}
+    mine[id(counts)][name] += 1
+
+
+def thread_counts(counts: dict) -> dict:
+    """This thread's share of ``counts`` (LAUNCHES or PLAIN_CALLS)."""
+    mine = getattr(_per_thread, "counts", None)
+    return dict.fromkeys(LAUNCHES, 0) if mine is None else dict(mine[id(counts)])
 
 # nvcc's output per source from the last build (ptxas register/spill report)
 _build_lock = TrackedLock("cuda_kernels.build")

@@ -72,7 +72,9 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 # the gates' and walkthroughs' command-line entry points
 ENTRY_POINTS = ("tools.differential_soak", "tools.chaos_stress", "tools.race_stress",
-                "tools.trace_report", "examples.quickstart", "examples.tour",
+                "tools.trace_report", "tools.serve_smoke", "tools.qos_smoke",
+                "tools.plan_stats_smoke", "tools.workload_smoke", "tools.result_cache_smoke",
+                "tools.ingest_smoke", "examples.quickstart", "examples.tour",
                 "examples.layout_analysis", "examples.nested_and_iceberg",
                 "examples.snapshots_and_hybrid_scan")
 
